@@ -18,7 +18,25 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    the classic two-sweep schedule with f32 storage; each run must reach
    the known model and must have gone through the kernel;
 4. a small f64 problem solved on the card and on the CPU, which must
-   agree.
+   agree;
+5. the tap-stencil kernel against its plain version on the card, for
+   every tap set the derivative operators emit (forward and reversed),
+   plain, with ``out_pad`` and as a three-piece slab, in f32, f64 and
+   bf16 (and f16) at a ragged small shape and in f32 and bf16 at the
+   full shape (65536 + 2w, 1024), with kernel, plain, library and bound
+   times for the centered-3 set;
+6. the derivative operators (first derivative centered-3 with edge,
+   centered-5, forward; second derivative centered with edge; gradient)
+   applied forward and adjoint on the (65536, 1024) f32 field, each held
+   against its local formulation and passing dottest, with one kernel
+   launch per axis-0 apply;
+7. the second main path as a user drives it: Gradient-regularized
+   post-stack CGLS on the (65536, 1024) layered impedance model (50
+   iterations, f32), through the tap kernel, and the Laplacian-regularized
+   ``poststack_inversion`` beside it; each with iterations per second,
+   residual, model error and a profile;
+8. a small f64 regularized post-stack solve on the card and on the CPU,
+   which must agree.
 
 It prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or run from a
@@ -45,6 +63,35 @@ REPLACES = {"float32": "pylops_mpi_tpu/ops/pallas_kernels.py:222",
 # kernel vs plain version, max |err| over max |plain|: both accumulate at
 # f32 (f64 for f64 blocks), in different orders, over n terms
 TOL = {"float32": 1e-4, "bfloat16": 1e-4, "float16": 1e-4, "float64": 1e-10}
+
+# the tap-stencil slice: the (nx, nt0) field of the derivative and
+# post-stack phases (65,536 traces of 1,024 samples, a 256x256 survey)
+NX, NT0 = 65536, 1024
+STENCIL_SRC = "pylops_mpi_tpu_torch/csrc/stencil_taps.cu"
+STENCIL_REPLACES = "pylops_mpi_tpu/ops/pallas_kernels.py:74"
+# tap kernel vs plain version, max |err| over max |plain|. Both sum at f32
+# (f64 for f64) and round once; f32/f64 differ only by fused vs separate
+# multiply-adds. For bf16/f16 the two f32 sums can round to neighbouring
+# values: one bf16 ulp of the largest entry is 2^-7 = 7.8e-3, one f16
+# ulp 2^-10 = 9.8e-4.
+STENCIL_TOL = {"float32": 1e-6, "float64": 1e-12, "bfloat16": 1e-2,
+               "float16": 1e-3}
+# every tap set _stencil_spec emits (sampling 1), as offset -> coefficient
+TAP_SETS = {
+    "first_forward": ({1: 1.0, 0: -1.0}, 1),
+    "first_backward": ({0: 1.0, -1: -1.0}, 1),
+    "first_centered3": ({1: 0.5, -1: -0.5}, 1),
+    "first_centered5": ({-2: 1 / 12, -1: -8 / 12, 1: 8 / 12, 2: -1 / 12}, 2),
+    "second_forward": ({0: 1.0, 1: -2.0, 2: 1.0}, 2),
+    "second_backward": ({0: 1.0, -1: -2.0, -2: 1.0}, 2),
+    "second_centered": ({-1: 1.0, 0: -2.0, 1: 1.0}, 1),
+}
+EPS_R, DAMP = 0.1, 1e-4
+# relative stacked residual ||[d; 0] - [Op; eps G] x|| / ||d|| after 50
+# iterations must be below this: a reduced-size run of this phase's
+# code, (1024, 1024) f32 on the CPU with seeds 4 and 5, reached 0.1153
+# and 0.1149
+RESID_LIMIT = 0.15
 
 
 def log(*a):
@@ -126,6 +173,132 @@ def make_problem(torch, device, seed=0):
     xtrue = torch.randn((NBLK, NBLOCK), generator=g, device=device)
     y = torch.bmm(A, xtrue.unsqueeze(-1)).reshape(-1)
     return A, xtrue.reshape(-1), y
+
+
+def max_rel_err(got, want):
+    """max |got - want| over max |want|, in f64."""
+    got, want = got.double(), want.double()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def stencil_taps_check(torch, sk, dev, g, shape_rows, cols, dtypes):
+    """Kernel vs plain version for every tap set, forward and reversed,
+    as a plain slab, with out_pad, and as a three-piece slab (ghost
+    tensor on top, zero rows below); returns the worst relative and
+    absolute errors per dtype."""
+    worst, worst_abs = {}, {}
+    for dt in dtypes:
+        name = str(dt).split(".")[1]
+        for tp, w in TAP_SETS.values():
+            for rev in (False, True):
+                taps = sorted(((-d if rev else d), c) for d, c in tp.items())
+                slab = torch.randn((shape_rows + 2 * w, cols), generator=g,
+                                   device=dev).to(dt)
+                ghost = torch.randn((w, cols), generator=g, device=dev).to(dt)
+                for sl, kw in ((slab, {}), (slab, dict(out_pad=(2, 1))),
+                               (slab[w:-w], dict(top=ghost, bottom=w,
+                                                 out_pad=(1, 0)))):
+                    y = sk.stencil_taps(sl, taps, w, **kw)
+                    torch.cuda.synchronize()
+                    y0 = sk.stencil_taps_plain(sl, taps, w, **kw)
+                    if y.shape != y0.shape or not bool(torch.isfinite(y).all()):
+                        raise RuntimeError(f"stencil_taps[{name}] shape "
+                                           f"{tuple(y.shape)} or non-finite")
+                    worst[name] = max(worst.get(name, 0.0), max_rel_err(y, y0))
+                    worst_abs[name] = max(worst_abs.get(name, 0.0), float(
+                        (y.double() - y0.double()).abs().max()))
+                del slab, ghost
+        ok = worst[name] <= STENCIL_TOL[name]
+        print(f"stencil kernel vs plain {name} ({shape_rows}+2w, {cols}), "
+              f"{2 * len(TAP_SETS)} tap sets x 3 slab forms: max rel err "
+              f"{worst[name]:.3e} (tol {STENCIL_TOL[name]:.0e}) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise RuntimeError(f"stencil_taps[{name}] disagrees with its plain "
+                               f"version: {worst[name]:.3e}")
+    return worst, worst_abs
+
+
+def rand_like(torch, pmtt, y, g):
+    """A random vector on the card with the structure of ``y``."""
+    if isinstance(y, pmtt.StackedDistributedArray):
+        return pmtt.StackedDistributedArray([rand_like(torch, pmtt, d, g)
+                                             for d in y.distarrays])
+    return pmtt.DistributedArray.to_dist(
+        torch.randn(y.global_shape, generator=g, device=y.device,
+                    dtype=y.dtype))
+
+
+def stencil_times(torch, sk, dev, g, dt):
+    """Kernel, plain, library (one conv2d) and bound times of the
+    centered-3 tap set on the full (NX + 2, NT0) slab."""
+    import torch.nn.functional as F
+    tp, w = TAP_SETS["first_centered3"]
+    taps = sorted(tp.items())
+    slab = torch.randn((NX + 2 * w, NT0), generator=g, device=dev).to(dt)
+    weight = torch.zeros((1, 1, 2 * w + 1, 1), dtype=dt, device=dev)
+    for d, c in taps:
+        weight[0, 0, w + d, 0] = c
+    lib = F.conv2d(slab.view(1, 1, NX + 2 * w, NT0), weight)
+    y = sk.stencil_taps(slab, taps, w)
+    lib_err = max_rel_err(y, lib.view(NX, NT0))
+    kms = cuda_ms(lambda: sk.stencil_taps(slab, taps, w))
+    pms = cuda_ms(lambda: sk.stencil_taps_plain(slab, taps, w))
+    lms = cuda_ms(lambda: F.conv2d(slab.view(1, 1, NX + 2 * w, NT0), weight))
+    kms2 = cuda_ms(lambda: sk.stencil_taps(slab, taps, w))
+    item = slab.element_size()
+    t_bytes = (slab.numel() + NX * NT0) * item / HBM_BYTES_PER_S * 1e3
+    ops = 2.0 * len(taps) * NX * NT0
+    t_ops = ops / (F32_OPS_PER_S / (2 if item == 8 else 1)) * 1e3
+    bms, bby = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return dict(kernel_ms=min(kms, kms2), kernel_ms_runs=[kms, kms2],
+                plain_ms=pms, library_ms=lms, bound_ms=bms, bound_by=bby,
+                library_max_err=lib_err, shape=[NX + 2 * w, NT0],
+                taps="first_centered3")
+
+
+def layered_model(torch, nx, nt0, dev, seed):
+    """examples/poststack.py's layered impedance model at (nx, nt0), from
+    a seeded generator on ``dev``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    steps = torch.randn((nx, nt0), generator=g, device=dev,
+                        dtype=torch.float64) * 0.03
+    return torch.cumsum(steps, dim=1) + 2.0
+
+
+def gradient_poststack(torch, pmtt, m, wav, niter, dtype):
+    """The Gradient-regularized post-stack system on the model ``m``:
+    ``(StackOp, data, Op)`` with data ``[Op m; 0]``."""
+    nx, nt0 = m.shape
+    dev = m.device
+    Op = pmtt.models.MPIPoststackLinearModelling(wav, nt0, nx, dtype=dtype,
+                                                 device=dev)
+    G = pmtt.MPIGradient((nx, nt0), dtype=dtype)
+    StackOp = pmtt.MPIStackedVStack([Op, EPS_R * G])
+    d = Op.matvec(pmtt.DistributedArray.to_dist(m.to(dtype).reshape(-1)))
+    zero = pmtt.StackedDistributedArray([
+        pmtt.DistributedArray(global_shape=nx * nt0, dtype=dtype, device=dev)
+        for _ in range(2)])
+    return StackOp, pmtt.StackedDistributedArray([d, zero]), Op
+
+
+def solve_stats(torch, pmtt, Op, m, d, x, cost):
+    """Relative data residual, model error and the stacked residual
+    ``||[d; 0] - [Op; eps G] x||``, each over ``||d||`` or ``||m||``.
+    The model error stays near 1: the layered model's energy is in its
+    background and lowest frequencies, which W·D does not see."""
+    xv = x.array if hasattr(x, "array") else torch.as_tensor(x).reshape(-1)
+    xv = xv.to(m.device)
+    if xv.shape != (m.numel(),) or not bool(torch.isfinite(xv).all()):
+        raise RuntimeError("non-finite or misshapen solution")
+    pred = Op.matvec(pmtt.DistributedArray.to_dist(xv)).array
+    dn = torch.linalg.vector_norm(d.double())
+    return dict(
+        data_residual=float(torch.linalg.vector_norm((pred - d).double()) / dn),
+        model_error=float(torch.linalg.vector_norm(xv.double() - m.reshape(-1))
+                          / torch.linalg.vector_norm(m)),
+        stacked_residual=(None if cost is None
+                          else float(cost[-1]) / float(dn)))
 
 
 def main() -> int:
@@ -277,6 +450,189 @@ def main() -> int:
     if not small <= 1e-9:
         raise RuntimeError(f"card and CPU disagree: {small:.3e}")
 
+    import numpy as np
+    from pylops_mpi_tpu_torch.ops import stencil_kernels as sk
+
+    # 5. the tap-stencil kernel against its plain version
+    t5 = time.perf_counter()
+    sworst, sabs = stencil_taps_check(
+        torch, sk, dev, g, 1003, 777,
+        (torch.float32, torch.float64, torch.bfloat16, torch.float16))
+    fworst, fabs = stencil_taps_check(torch, sk, dev, g, NX, NT0,
+                                      (torch.float32, torch.bfloat16))
+    sstats = {}
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[1]
+        st = stencil_times(torch, sk, dev, g, dt)
+        st.update(max_err=max(sworst[name], fworst[name]),
+                  max_abs_err=max(sabs[name], fabs[name]),
+                  tol=STENCIL_TOL[name])
+        sstats[name] = st
+        print(f"  stencil_taps {name} {st['shape']}: kernel "
+              f"{st['kernel_ms_runs'][0]:.4f}/{st['kernel_ms_runs'][1]:.4f} ms, "
+              f"plain {st['plain_ms']:.4f} ms, library (conv2d) "
+              f"{st['library_ms']:.4f} ms (agrees to {st['library_max_err']:.1e}), "
+              f"bound {st['bound_ms']:.4f} ms ({st['bound_by']})", flush=True)
+        torch.cuda.empty_cache()
+    print(f"phase 5 in {time.perf_counter() - t5:.1f} s", flush=True)
+
+    # 6. the derivative operators on the full field
+    t6 = time.perf_counter()
+    f32 = torch.float32
+    gx = torch.Generator(device=dev).manual_seed(3)
+    xf = pmtt.DistributedArray.to_dist(
+        torch.randn(NX * NT0, generator=gx, device=dev))
+    deriv = {}
+    for label, op in [
+            ("MPIFirstDerivative centered-3 edge",
+             pmtt.MPIFirstDerivative((NX, NT0), edge=True, dtype=f32)),
+            ("MPIFirstDerivative centered-5",
+             pmtt.MPIFirstDerivative((NX, NT0), order=5, dtype=f32)),
+            ("MPIFirstDerivative forward",
+             pmtt.MPIFirstDerivative((NX, NT0), kind="forward", dtype=f32)),
+            ("MPISecondDerivative centered edge",
+             pmtt.MPISecondDerivative((NX, NT0), edge=True, dtype=f32)),
+            ("MPIGradient", pmtt.MPIGradient((NX, NT0), dtype=f32))]:
+        sk.reset_launches()
+        y = op.matvec(xf)
+        torch.cuda.synchronize()
+        after_fwd = sk.launches
+        xa = op.rmatvec(y)
+        torch.cuda.synchronize()
+        after_adj = sk.launches
+        if (after_fwd, after_adj) != (1, 2):
+            raise RuntimeError(f"{label}: {after_fwd} stencil launches for the "
+                               f"forward and {after_adj} after the adjoint; "
+                               "expected one per axis-0 apply")
+        if isinstance(op, pmtt.MPIGradient):
+            locs = [c._local_op() for c in op.Op.ops]
+            pairs = [(d.array, lo._matvec(xf.array))
+                     for d, lo in zip(y.distarrays, locs)]
+            ref = sum(lo._rmatvec(d.array) for lo, d in zip(locs, y.distarrays))
+        else:
+            lo = op._local_op()
+            pairs = [(y.array, lo._matvec(xf.array))]
+            ref = lo._rmatvec(y.array)
+        err = max([max_rel_err(a, b) for a, b in pairs]
+                  + [max_rel_err(xa.array, ref)])
+        u = rand_like(torch, pmtt, xf, gx)
+        passed = pmtt.dottest(op, u=u, v=rand_like(torch, pmtt, op.matvec(u), gx),
+                              rtol=1e-4)
+        deriv[label] = dict(max_rel_err_vs_local=err, dottest=passed,
+                            launches=[after_fwd, after_adj - after_fwd])
+        print(f"{label} on ({NX}, {NT0}) f32: forward/adjoint vs local "
+              f"operator max rel err {err:.2e} (tol 1e-5), dottest "
+              f"{'passed' if passed else 'FAILED'}, stencil launches "
+              f"{after_fwd} + {after_adj - after_fwd}", flush=True)
+        if err > 1e-5 or not passed:
+            raise RuntimeError(f"{label} disagrees with its local operator or "
+                               "fails the dot test")
+        del op, y, xa, pairs, ref, u
+        torch.cuda.empty_cache()
+    del xf
+    print(f"phase 6 in {time.perf_counter() - t6:.1f} s", flush=True)
+
+    # 7. the Gradient-regularized post-stack inversion (the main path of
+    # the tap kernel) and the Laplacian-regularized pipeline beside it
+    t7 = time.perf_counter()
+    wav = pmtt.models.ricker(np.arange(31) * 0.004, f0=15)[0]
+    m = layered_model(torch, NX, NT0, dev, seed=4)
+    StackOp, ystack, Op = gradient_poststack(torch, pmtt, m, wav, NITER, f32)
+    d = ystack[0].array
+    pmtt.cgls(StackOp, ystack, niter=2, damp=DAMP, tol=0.0)  # warm-up
+    torch.cuda.synchronize()
+    post = {}
+    walls = []
+    for _ in range(3):  # host-clock noise: keep the fastest of three
+        sk.reset_launches()
+        nk.reset_launches()
+        t0 = time.perf_counter()
+        x, istop, iiter, r1, r2, cost = pmtt.cgls(StackOp, ystack,
+                                                  niter=NITER, damp=DAMP,
+                                                  tol=0.0)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        slaunch = sk.launches
+    if slaunch < 2 * iiter:
+        raise RuntimeError(f"gradient solve: {slaunch} stencil launches for "
+                           f"{iiter} iterations: the path missed the kernel")
+    c = cost.double().cpu().numpy()
+    if np.any(np.diff(c) > 1e-5 * c[:-1]):
+        raise RuntimeError(f"gradient solve: cost history increases: {c}")
+    st = solve_stats(torch, pmtt, Op, m, d, x, c)
+    wall = min(walls)
+    post["gradient_cgls"] = dict(iters_per_s=iiter / wall, wall_s=walls,
+                                 iiter=iiter, stencil_launches=slaunch,
+                                 launches_per_iter=slaunch / iiter,
+                                 normal_launches=nk.launches, **st)
+    print(f"gradient-regularized CGLS ({NX}, {NT0}) f32, eps {EPS_R}: "
+          f"{iiter} iters in {wall:.4f} s (best of {walls}) = "
+          f"{iiter / wall:.1f} iters/s; stencil launches {slaunch} "
+          f"({slaunch / iiter:.2f}/iter); data residual "
+          f"{st['data_residual']:.3e}, model error {st['model_error']:.3e}, "
+          f"stacked residual {st['stacked_residual']:.4f} (limit "
+          f"{RESID_LIMIT})", flush=True)
+    if not st["stacked_residual"] <= RESID_LIMIT:
+        raise RuntimeError(f"gradient solve: residual {st['stacked_residual']:.4f}"
+                           f" above {RESID_LIMIT}")
+    wall_ms, busy_ms, top = profile_run(
+        torch, lambda: pmtt.cgls(StackOp, ystack, niter=10, damp=DAMP, tol=0.0))
+    post["gradient_cgls"].update(profile_wall_ms=wall_ms,
+                                 profile_device_ms=busy_ms, profile_top=top)
+    print(f"  profile, 10 iterations: device busy {busy_ms:.3f} ms of "
+          f"{wall_ms:.3f} ms wall; top kernels (ms, name, count): {top}",
+          flush=True)
+    del x, StackOp, ystack
+    torch.cuda.empty_cache()
+
+    dimg = d.view(NX, NT0)
+    walls = []
+    for _ in range(3):
+        sk.reset_launches()
+        t0 = time.perf_counter()
+        xi, _ = pmtt.models.poststack_inversion(dimg, wav, niter=NITER,
+                                                epsR=EPS_R, damp=DAMP,
+                                                dtype=f32)
+        walls.append(time.perf_counter() - t0)
+    if sk.launches != 0:
+        raise RuntimeError("the Laplacian pipeline launched the stencil kernel")
+    st = solve_stats(torch, pmtt, Op, m, d, xi, None)
+    wall = min(walls)
+    post["laplacian_poststack_inversion"] = dict(
+        iters_per_s=NITER / wall, wall_s=walls, stencil_launches=0, **st)
+    print(f"poststack_inversion (Laplacian, eps {EPS_R}) ({NX}, {NT0}) f32: "
+          f"{NITER} iters, operator build and host copy included, in "
+          f"{wall:.4f} s (best of {walls}) = {NITER / wall:.1f} iters/s; data "
+          f"residual {st['data_residual']:.3e}, model error "
+          f"{st['model_error']:.3e}; stencil launches 0", flush=True)
+    wall_ms, busy_ms, top = profile_run(
+        torch, lambda: pmtt.models.poststack_inversion(
+            dimg, wav, niter=10, epsR=EPS_R, damp=DAMP, dtype=f32))
+    post["laplacian_poststack_inversion"].update(
+        profile_wall_ms=wall_ms, profile_device_ms=busy_ms, profile_top=top)
+    print(f"  profile, 10 iterations: device busy {busy_ms:.3f} ms of "
+          f"{wall_ms:.3f} ms wall; top kernels (ms, name, count): {top}",
+          flush=True)
+    del xi, dimg, d, m, Op
+    torch.cuda.empty_cache()
+    print(f"phase 7 in {time.perf_counter() - t7:.1f} s", flush=True)
+
+    # 8. a small f64 regularized post-stack solve on the card and the CPU
+    msmall = layered_model(torch, 64, 128, "cpu", seed=5)
+    sols = []
+    for dname in ("cuda", "cpu"):
+        S, ys, _ = gradient_poststack(torch, pmtt, msmall.to(dname), wav, 30,
+                                      torch.float64)
+        x, _, _, _, _, cost = pmtt.cgls(S, ys, niter=30, damp=DAMP, tol=0.0)
+        sols.append((torch.from_numpy(x.asarray()), cost.cpu()))
+    small_post = max(max_rel_err(sols[0][0], sols[1][0]),
+                     max_rel_err(sols[0][1], sols[1][1]))
+    print(f"small f64 gradient-regularized post-stack (64, 128), card vs "
+          f"CPU: max rel diff of x and cost {small_post:.3e} (tol 1e-9)",
+          flush=True)
+    if not small_post <= 1e-9:
+        raise RuntimeError(f"card and CPU disagree: {small_post:.3e}")
+
     kernels = []
     for name, run in (("float32", "normal_f32"), ("bfloat16", "normal_bf16")):
         s = stats[name]
@@ -290,8 +646,24 @@ def main() -> int:
             plain_ms=s["plain_ms"], bound_ms=s["bound_ms"],
             bound_by=s["bound_by"], library_ms=s["library_ms"],
             shape=s["shape"], dtype=name))
+    gr = post["gradient_cgls"]
+    for name in ("float32", "bfloat16"):
+        st = sstats[name]
+        kernels.append(dict(
+            name=f"stencil_taps[{name}]", route="cuda", source=STENCIL_SRC,
+            replaces=STENCIL_REPLACES, launches=gr["stencil_launches"],
+            launches_per_iter=gr["launches_per_iter"],
+            main_path_dtype="float32", max_abs_err=st["max_abs_err"],
+            max_err=st["max_err"], tol=st["tol"], ms=st["kernel_ms"],
+            kernel_ms=st["kernel_ms"], kernel_ms_runs=st["kernel_ms_runs"],
+            plain_ms=st["plain_ms"], bound_ms=st["bound_ms"],
+            bound_by=st["bound_by"], library_ms=st["library_ms"],
+            shape=st["shape"], dtype=name))
     print(json.dumps({"card": card, "runs": runs,
-                      "float16_kernel": stats["float16"]}), flush=True)
+                      "float16_kernel": stats["float16"],
+                      "stencil_small_max_err": sworst, "derivatives": deriv,
+                      "poststack": post, "small_f64_poststack": small_post}),
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,11 @@
 """pylops_mpi_tpu_torch — the PyTorch/CUDA port of pylops_mpi_tpu.
 
-Distributed arrays, the lazy linear-operator algebra, the block-diagonal
-operator and the CG/CGLS solvers, in PyTorch on one NVIDIA Hopper GPU.
-The CGLS normal product runs in a hand-written CUDA kernel
-(``csrc/normal_matvec.cu``). Module layout and public names follow the
+Distributed and stacked arrays, the lazy linear-operator algebra, the
+block-diagonal and stacked operators, the derivative family, the
+post-stack modelling pipeline and the CG/CGLS solvers, in PyTorch on one
+NVIDIA Hopper GPU. Two hand-written CUDA kernels carry the hot loops:
+the CGLS normal product (``csrc/normal_matvec.cu``) and the axis-0 tap
+stencil of the derivative operators (``csrc/stencil_taps.cu``). Module layout and public names follow the
 JAX package ``pylops_mpi_tpu``, which is the reference the port is
 tested against. Entry points run on ``"cuda"`` unless given
 ``device="cpu"``.
@@ -18,11 +20,16 @@ _apply_environment()
 from .parallel.partition import Partition, local_split
 from .parallel.mesh import default_device, set_default_device
 from .distributedarray import DistributedArray
+from .stacked import StackedDistributedArray
 from .linearoperator import (MPILinearOperator, LinearOperator,
                              aslinearoperator, asmpilinearoperator)
+from .stackedlinearoperator import MPIStackedLinearOperator
 from .ops.blockdiag import MPIBlockDiag
+from .ops.stack import MPIStackedVStack
+from .ops.derivatives import (MPIFirstDerivative, MPISecondDerivative,
+                              MPILaplacian, MPIGradient)
 from .solvers.basic import cg, cgls
 from .utils.dottest import dottest
-from . import convert, ops, parallel, solvers, utils
+from . import convert, models, ops, parallel, solvers, utils
 
 __version__ = "0.1.0"

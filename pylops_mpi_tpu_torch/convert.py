@@ -3,6 +3,8 @@
 The tests build an operator with the JAX package, take its blocks as
 numpy arrays (``[np.asarray(op.A) for op in jax_op.ops]``) and rebuild
 the same operator here; a user with blocks on the host does the same.
+Stacked vectors come over as (nested) lists of their components'
+arrays.
 """
 
 from __future__ import annotations
@@ -13,13 +15,14 @@ import numpy as np
 import torch
 
 from .distributedarray import DistributedArray
+from .stacked import StackedDistributedArray
 from .ops._precision import as_torch_dtype
 from .ops.blockdiag import MPIBlockDiag
 from .ops.local import MatrixMult
 from .parallel.mesh import DeviceLike, resolve_device
 from .parallel.partition import Partition
 
-__all__ = ["blockdiag_from_numpy", "array_from_numpy"]
+__all__ = ["blockdiag_from_numpy", "array_from_numpy", "stacked_from_numpy"]
 
 
 def blockdiag_from_numpy(blocks: Sequence[np.ndarray], dtype=None,
@@ -48,3 +51,15 @@ def array_from_numpy(x: np.ndarray, dtype=None,
     return DistributedArray.to_dist(
         t.to(device=resolve_device(device), dtype=dt or t.dtype),
         partition=partition, axis=axis)
+
+
+def stacked_from_numpy(components: Sequence, dtype=None,
+                       device: DeviceLike = None) -> StackedDistributedArray:
+    """A (nested) :class:`StackedDistributedArray` from a list whose
+    items are arrays (one SCATTER component each) or lists (a nested
+    stack), cast to ``dtype`` on ``device`` (default ``"cuda"``)."""
+    return StackedDistributedArray([
+        stacked_from_numpy(c, dtype=dtype, device=device)
+        if isinstance(c, (list, tuple))
+        else array_from_numpy(c, dtype=dtype, device=device)
+        for c in components])

@@ -7,7 +7,9 @@ mirror ref ``LinearOperator.py:408-580``: ``_AdjointLinearOperator``
 (swap mat/rmat), ``_TransposedLinearOperator`` (conj∘rmat∘conj),
 ``_ProductLinearOperator``, ``_ScaledLinearOperator``,
 ``_SumLinearOperator``, ``_PowerLinearOperator``,
-``_ConjLinearOperator``.
+``_ConjLinearOperator``. Stacked operators (``MPIStackedVStack``,
+``MPIGradient``) take or return :class:`StackedDistributedArray`, which
+the algebra passes through unchanged.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from .distributedarray import DistributedArray
+from .stacked import StackedDistributedArray
 from .ops._precision import as_torch_dtype
 
 __all__ = ["MPILinearOperator", "LinearOperator", "aslinearoperator",
@@ -76,6 +79,11 @@ class MPILinearOperator:
 
     # ------------------------------------------------------------- apply
     def _check(self, x, n: int) -> bool:
+        if isinstance(x, StackedDistributedArray):
+            if x.size != n:
+                raise ValueError(f"dimension mismatch: operator {self.shape}, "
+                                 f"stacked x of size {x.size}")
+            return False
         block = (isinstance(x, DistributedArray) and x.ndim == 2
                  and x.global_shape[0] == n)
         if isinstance(x, DistributedArray) and not block \
@@ -145,11 +153,12 @@ class MPILinearOperator:
             return _ProductLinearOperator(self, x)
         if _scalar_like(x):
             return _ScaledLinearOperator(self, x)
-        if x.ndim == 1:
+        if isinstance(x, StackedDistributedArray) or x.ndim == 1:
             return self.matvec(x)
         if x.ndim == 2 and x.global_shape[0] == self.shape[1]:
             return self.matvec(x)
-        raise ValueError(f"expected 1-d DistributedArray, got {x.global_shape!r}")
+        raise ValueError(f"expected 1-d DistributedArray or "
+                         f"StackedDistributedArray, got {x.global_shape!r}")
 
     def adjoint(self):
         return self._adjoint()

@@ -1,2 +1,3 @@
-"""Operators of the port: local blocks, the block-diagonal operator and
-the normal-product kernel."""
+"""Operators of the port: local operators, the block-diagonal and
+stacked operators, the derivative family, and the wrappers of the
+hand-written kernels (normal product, tap stencil)."""

@@ -91,7 +91,7 @@ class MPIBlockDiag(MPILinearOperator):
         if self._batched is not None:
             return self._batched.device
         A = getattr(self.ops[0], "A", None)
-        return None if A is None else A.device
+        return A.device if isinstance(A, torch.Tensor) else None
 
     accepts_block = True
 

@@ -1,10 +1,14 @@
 """Local (single logical block) linear operators on tensors.
 
-PyTorch counterpart of the operator protocol and ``MatrixMult`` of
-``pylops_mpi_tpu/ops/local.py:30-204``: the local operator algebra the
+PyTorch counterpart of the operator protocol, ``MatrixMult``, the
+derivative stencils, ``Laplacian`` and ``Conv1D`` of
+``pylops_mpi_tpu/ops/local.py``: the local operator algebra the
 distributed operators compose over (the reference delegates this to
 serial pylops, e.g. ``MPIBlockDiag([pylops.MatrixMult(...)])``).
-``matvec``/``rmatvec`` take and return flat 1-D tensors.
+``matvec``/``rmatvec`` take and return flat 1-D tensors. As in the JAX
+package, the stencils here are plain tensor code; the distributed
+derivative operators run their axis-0 stencils through the tap kernel
+instead (``ops/derivatives.py``).
 """
 
 from __future__ import annotations
@@ -13,11 +17,13 @@ from typing import Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ._precision import as_torch_dtype
 from ..parallel.mesh import DeviceLike, resolve_device
 
-__all__ = ["LocalOperator", "MatrixMult"]
+__all__ = ["LocalOperator", "MatrixMult", "FirstDerivative",
+           "SecondDerivative", "Laplacian", "Conv1D"]
 
 
 class LocalOperator:
@@ -199,3 +205,219 @@ class MatrixMult(LocalOperator):
         if self.otherdims:
             return (self.A.mH @ x.reshape(self.A.shape[0], -1)).reshape(-1)
         return self.A.mH @ x
+
+
+# ------------------------------------------------------- stencil operators
+def _sl(v: torch.Tensor, axis: int, start=None, stop=None) -> torch.Tensor:
+    """``v[..., start:stop, ...]`` along ``axis`` (a view)."""
+    idx = [slice(None)] * v.ndim
+    idx[axis] = slice(start, stop)
+    return v[tuple(idx)]
+
+
+def _pad(v: torch.Tensor, axis: int, before: int, after: int) -> torch.Tensor:
+    """``v`` with ``before``/``after`` zero rows along ``axis``."""
+    return F.pad(v, [0, 0] * (v.ndim - 1 - axis) + [before, after])
+
+
+class FirstDerivative(LocalOperator):
+    """Local first derivative along ``axis`` (pylops' stencils; JAX
+    package ``ops/local.py:330-414``). ``kind``: forward | backward |
+    centered (3- or 5-point; zero rows at the boundary unless ``edge``).
+    The stencil works on the axis in place (no transposed copy); the
+    ``edge`` rows are added to the fresh output in place."""
+
+    def __init__(self, dims, axis: int = 0, sampling: float = 1.0,
+                 kind: str = "centered", edge: bool = False, order: int = 3,
+                 dtype=None):
+        self.dims_nd = tuple(int(d) for d in np.atleast_1d(dims))
+        self.axis = axis % len(self.dims_nd)
+        self.sampling = sampling
+        self.kind, self.edge, self.order = kind, edge, order
+        if kind == "centered" and order not in (3, 5):
+            raise NotImplementedError("'order' must be 3 or 5")
+        super().__init__(self.dims_nd, self.dims_nd, dtype=dtype)
+
+    def _matvec(self, x):
+        v = x.reshape(self.dims_nd)
+        ax, s = self.axis, self.sampling
+        n = v.shape[ax]
+
+        def S(a=None, b=None):
+            return _sl(v, ax, a, b)
+
+        if self.kind == "forward":
+            y = _pad((S(1) - S(None, -1)) / s, ax, 0, 1)
+        elif self.kind == "backward":
+            y = _pad((S(1) - S(None, -1)) / s, ax, 1, 0)
+        elif self.order == 3:
+            y = _pad((S(2) - S(None, -2)) / (2 * s), ax, 1, 1)
+            if self.edge:
+                _sl(y, ax, 0, 1).add_((S(1, 2) - S(0, 1)) / s)
+                _sl(y, ax, n - 1).add_((S(-1) - S(-2, -1)) / s)
+        else:  # centered, 5-point: (x[i-2] - 8x[i-1] + 8x[i+1] - x[i+2])/12Δ
+            y = _pad((S(None, -4) - 8 * S(1, -3) + 8 * S(3, -1) - S(4))
+                     / (12 * s), ax, 2, 2)
+            if self.edge:
+                _sl(y, ax, 0, 1).add_((S(1, 2) - S(0, 1)) / s)
+                _sl(y, ax, 1, 2).add_((S(2, 3) - S(0, 1)) / (2 * s))
+                _sl(y, ax, n - 2, n - 1).add_((S(-1) - S(-3, -2)) / (2 * s))
+                _sl(y, ax, n - 1).add_((S(-1) - S(-2, -1)) / s)
+        return y.reshape(-1)
+
+    def _rmatvec(self, x):
+        v = x.reshape(self.dims_nd)
+        ax, s = self.axis, self.sampling
+        n = v.shape[ax]
+
+        def S(a=None, b=None):
+            return _sl(v, ax, a, b)
+
+        def P(t, a, b):
+            return _pad(t, ax, a, b)
+
+        if self.kind in ("forward", "backward"):
+            c = (S(None, -1) if self.kind == "forward" else S(1)) / s
+            y = P(c, 1, 0) - P(c, 0, 1)
+        elif self.order == 3:
+            c = S(1, -1) / (2 * s)
+            y = P(c, 2, 0) - P(c, 0, 2)
+            if self.edge:
+                v0, vl = S(0, 1), S(-1)
+                _sl(y, ax, 0, 1).add_(-v0 / s)
+                _sl(y, ax, 1, 2).add_(v0 / s)
+                _sl(y, ax, n - 2, n - 1).add_(-vl / s)
+                _sl(y, ax, n - 1).add_(vl / s)
+        else:
+            c = S(2, -2) / (12 * s)
+            y = P(c, 0, 4) - 8 * P(c, 1, 3) + 8 * P(c, 3, 1) - P(c, 4, 0)
+            if self.edge:
+                v0, v1 = S(0, 1), S(1, 2)
+                v2l, vl = S(-2, -1), S(-1)
+                _sl(y, ax, 0, 1).add_(-v0 / s)
+                _sl(y, ax, 1, 2).add_(v0 / s)
+                _sl(y, ax, 0, 1).add_(-v1 / (2 * s))
+                _sl(y, ax, 2, 3).add_(v1 / (2 * s))
+                _sl(y, ax, n - 3, n - 2).add_(-v2l / (2 * s))
+                _sl(y, ax, n - 1).add_(v2l / (2 * s))
+                _sl(y, ax, n - 2, n - 1).add_(-vl / s)
+                _sl(y, ax, n - 1).add_(vl / s)
+        return y.reshape(-1)
+
+
+class SecondDerivative(LocalOperator):
+    """3-point second derivative along ``axis``, all three pylops kinds
+    (JAX package ``ops/local.py:417-471``; ``edge`` affects centered
+    only). Core ``d[i] = x[i] - 2 x[i+1] + x[i+2]`` placed at row ``i``
+    (forward), ``i+1`` (centered) or ``i+2`` (backward)."""
+
+    # row offset of the stencil core within the output, per kind
+    _CORE_OFFSET = {"forward": (0, 2), "centered": (1, 1), "backward": (2, 0)}
+
+    def __init__(self, dims, axis: int = 0, sampling: float = 1.0,
+                 kind: str = "centered", edge: bool = False, dtype=None):
+        self.dims_nd = tuple(int(d) for d in np.atleast_1d(dims))
+        self.axis = axis % len(self.dims_nd)
+        self.sampling = sampling
+        if kind not in ("forward", "backward", "centered"):
+            raise NotImplementedError(
+                "'kind' must be 'forward', 'centered' or 'backward'")
+        self.kind, self.edge = kind, edge
+        super().__init__(self.dims_nd, self.dims_nd, dtype=dtype)
+
+    def _matvec(self, x):
+        v = x.reshape(self.dims_nd)
+        ax, s2 = self.axis, self.sampling ** 2
+        n = v.shape[ax]
+
+        def S(a=None, b=None):
+            return _sl(v, ax, a, b)
+
+        before, after = self._CORE_OFFSET[self.kind]
+        y = _pad((S(None, -2) - 2 * S(1, -1) + S(2)) / s2, ax, before, after)
+        if self.kind == "centered" and self.edge:
+            _sl(y, ax, 0, 1).add_((S(0, 1) - 2 * S(1, 2) + S(2, 3)) / s2)
+            _sl(y, ax, n - 1).add_((S(-3, -2) - 2 * S(-2, -1) + S(-1)) / s2)
+        return y.reshape(-1)
+
+    def _rmatvec(self, x):
+        v = x.reshape(self.dims_nd)
+        ax, s2 = self.axis, self.sampling ** 2
+        n = v.shape[ax]
+        before, after = self._CORE_OFFSET[self.kind]
+        # the adjoint spreads each output row back over its 3 input rows
+        c = _sl(v, ax, before, n - after) / s2
+        y = _pad(c, ax, 0, 2) - 2 * _pad(c, ax, 1, 1) + _pad(c, ax, 2, 0)
+        if self.kind == "centered" and self.edge:
+            v0, vl = _sl(v, ax, 0, 1), _sl(v, ax, n - 1)
+            for i, k in ((0, 1), (1, -2), (2, 1)):
+                _sl(y, ax, i, i + 1).add_(k * v0 / s2)
+                _sl(y, ax, n - 3 + i, n - 2 + i).add_(k * vl / s2)
+        return y.reshape(-1)
+
+
+class Laplacian(LocalOperator):
+    """Weighted sum of centered second derivatives along ``axes``
+    (JAX package ``ops/local.py:474-490``)."""
+
+    def __init__(self, dims, axes=(-2, -1), weights=(1, 1),
+                 sampling=(1, 1), dtype=None):
+        dims = tuple(int(d) for d in np.atleast_1d(dims))
+        self.ops = [SecondDerivative(dims, axis=ax, sampling=s, dtype=dtype)
+                    for ax, s in zip(axes, sampling)]
+        self.weights = tuple(weights)
+        super().__init__(dims, dims, dtype=dtype)
+
+    def _matvec(self, x):
+        return sum(w * op._matvec(x) for w, op in zip(self.weights, self.ops))
+
+    def _rmatvec(self, x):
+        return sum(np.conj(w) * op._rmatvec(x)
+                   for w, op in zip(self.weights, self.ops))
+
+
+class Conv1D(LocalOperator):
+    """Stationary 1-D convolution with the filter ``h`` along ``axis``
+    (zero-phase placement via ``offset``; JAX package
+    ``ops/local.py:655-688``): ``y[i] = Σ_k h[k] x[i + offset - k]``.
+    The adjoint is the correlation, i.e. the convolution with the
+    reversed conjugate filter at the mirrored offset ``nh - 1 - offset``.
+
+    Runs as one ``torch.nn.functional.conv1d`` over the traces (the
+    JAX package builds a ``(batch, n, nh)`` patch tensor instead, ``nh``
+    times the field). ``h`` is a tensor (kept on its device) or a numpy
+    array (placed on ``device``, default ``"cuda"``)."""
+
+    def __init__(self, dims, h, axis: int = 0, offset: int = 0, dtype=None,
+                 device: DeviceLike = None):
+        dims = tuple(int(d) for d in np.atleast_1d(dims))
+        self.dims_nd = dims
+        self.axis = axis % len(dims)
+        if isinstance(h, torch.Tensor):
+            if device is not None:
+                h = h.to(resolve_device(device))
+        else:
+            h = torch.tensor(np.asarray(h)).to(resolve_device(device))
+        self.h = h
+        self.offset = int(offset)
+        super().__init__(dims, dims, dtype=dtype or h.dtype)
+
+    def _conv(self, x, weight, lo):
+        """Cross-correlation of each trace, zero-padded by ``lo`` samples
+        before and ``nh - 1 - lo`` after, with ``weight``."""
+        n = self.dims_nd[self.axis]
+        v = torch.movedim(x.reshape(self.dims_nd), self.axis, -1)
+        shp = v.shape
+        nh = weight.shape[0]
+        p = max(lo, nh - 1 - lo)  # conv1d pads symmetrically
+        y = F.conv1d(v.reshape(-1, 1, n),
+                     weight.to(v.dtype).reshape(1, 1, nh), padding=p)
+        y = y[:, 0, p - lo: p - lo + n]
+        return torch.movedim(y.reshape(shp), -1, self.axis).reshape(-1)
+
+    def _matvec(self, x):
+        nh = self.h.shape[0]
+        return self._conv(x, torch.flip(self.h, (0,)), nh - 1 - self.offset)
+
+    def _rmatvec(self, x):
+        return self._conv(x, self.h.conj(), self.offset)

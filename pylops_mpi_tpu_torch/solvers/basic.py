@@ -20,24 +20,31 @@ the carry dtype (``_step_scalar``), the machine-precision freeze
 (``_mp_floor``), the ``(niter+1)`` cost buffers, and the reference's
 setup quirk — CGLS damps the first normal residual by ``damp`` while the
 iterations use ``damp**2`` (ref ``cls_basic.py:345-350`` vs ``392-393``).
+
+Data may be a :class:`StackedDistributedArray` (the regularized systems
+of ``MPIStackedVStack``); without ``x0`` the model starts at zero in the
+operator's model space (:func:`_zero_like_model`).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
-from ..distributedarray import DistributedArray
+from ..distributedarray import DistributedArray, Partition
 from ..ops._precision import reduction_dtype
+from ..stacked import StackedDistributedArray
 
 __all__ = ["cg", "cgls"]
+
+Vector = Union[DistributedArray, StackedDistributedArray]
 
 # Iterations between the host's reads of the device-side ``active`` flag.
 _CHECK_EVERY = 8
 
 
-def _rdot(u: DistributedArray, v: DistributedArray) -> torch.Tensor:
+def _rdot(u: Vector, v: Vector) -> torch.Tensor:
     """Recurrence dot ``|u·conj(v)|`` at the policy reduction dtype."""
     return torch.abs(u.dot(v.conj())).to(reduction_dtype(u.dtype))
 
@@ -58,9 +65,17 @@ def _mp_floor(k0: torch.Tensor) -> torch.Tensor:
     return k0 * (100 * torch.finfo(k0.dtype).eps) ** 2
 
 
-def _zero_like_model(Op, y: DistributedArray) -> DistributedArray:
-    return DistributedArray(global_shape=Op.shape[1], partition=y.partition,
-                            dtype=y.dtype, device=y.device)
+def _zero_like_model(Op, y: Vector) -> DistributedArray:
+    """Zero model of ``Op``'s model shape, at the operator's dtype (made
+    complex for complex data) on the operator's device, or the data's
+    where the operator holds no tensors."""
+    dtype = y.dtype if Op.dtype is None else torch.promote_types(Op.dtype,
+                                                                 y.dtype)
+    device = getattr(Op, "device", None) or y.device
+    partition = (y.partition if isinstance(y, DistributedArray)
+                 else Partition.SCATTER)
+    return DistributedArray(global_shape=Op.shape[1], partition=partition,
+                            dtype=dtype, device=device)
 
 
 def _record(buf: torch.Tensor, i: int, value, active) -> None:
@@ -68,7 +83,7 @@ def _record(buf: torch.Tensor, i: int, value, active) -> None:
     buf[i] = torch.where(active, value, buf[i])
 
 
-def cg(Op, y: DistributedArray, x0: Optional[DistributedArray] = None,
+def cg(Op, y: Vector, x0: Optional[Vector] = None,
        niter: int = 10, tol: float = 1e-4):
     """Conjugate gradient for a square operator
     (ref ``optimization/basic.py:13-70``).
@@ -103,7 +118,7 @@ def cg(Op, y: DistributedArray, x0: Optional[DistributedArray] = None,
     return x, iiter, cost[:iiter + 1]
 
 
-def cgls(Op, y: DistributedArray, x0: Optional[DistributedArray] = None,
+def cgls(Op, y: Vector, x0: Optional[Vector] = None,
          niter: int = 10, damp: float = 0.0, tol: float = 1e-4,
          normal: bool = False):
     """Damped least-squares CGLS (ref ``optimization/basic.py:73-148``).

@@ -6,7 +6,8 @@ checks ``(Op u)ᴴ v == uᴴ (Opᴴ v)`` on gathered global arrays.
 ``seed``, with ``complexflag`` selecting which side is complex (0: both
 real, 1: model complex, 2: data complex, 3: both complex). They go to
 ``device`` (default: the operator's ``device`` if it has one, else the
-default device).
+default device). The data side may be stacked (``MPIGradient``,
+``MPIStackedVStack``): ``v`` then takes the structure of ``Op u``.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from ..distributedarray import DistributedArray
+from ..stacked import StackedDistributedArray
 
 __all__ = ["dottest"]
 
@@ -31,6 +33,21 @@ def _rand(shape, cmplx, rng, dtype):
     if cmplx:
         x = x + 1j * rng.standard_normal(shape)
     return torch.from_numpy(x).to(dtype)
+
+
+def _wide(a: np.ndarray) -> np.ndarray:
+    return a.astype(np.promote_types(a.dtype, np.float64), copy=False)
+
+
+def _rand_like(d, cmplx, rng, dtype):
+    """A random vector with the structure and layout of ``d`` (plain or
+    stacked): the data side takes its layout from a probe ``matvec``."""
+    if isinstance(d, StackedDistributedArray):
+        return StackedDistributedArray(
+            [_rand_like(a, cmplx, rng, dtype) for a in d.distarrays])
+    return DistributedArray.to_dist(
+        _rand(d.global_shape, cmplx, rng, dtype), partition=d.partition,
+        axis=d.axis, local_shapes=d.local_shapes, device=d.device)
 
 
 def dottest(Op, u=None, v=None, nr: Optional[int] = None,
@@ -57,15 +74,14 @@ def dottest(Op, u=None, v=None, nr: Optional[int] = None,
             local_shapes=getattr(Op, "local_shapes_m", None), device=device)
     y = Op.matvec(u)
     if v is None:
-        v = DistributedArray.to_dist(
-            _rand(y.global_shape, complexflag in (2, 3), rng,
-                  _dtype_for(Op, complexflag in (2, 3))),
-            partition=y.partition, axis=y.axis, local_shapes=y.local_shapes,
-            device=y.device)
+        v = _rand_like(y, complexflag in (2, 3), rng,
+                       _dtype_for(Op, complexflag in (2, 3)))
     x = Op.rmatvec(v)
 
-    yy = np.vdot(y.asarray(), v.asarray())
-    xx = np.vdot(u.asarray(), x.asarray())
+    # the inner products in double precision: an f32 sum over a large
+    # field would carry more rounding than the operator being tested
+    yy = np.vdot(_wide(y.asarray()), _wide(v.asarray()))
+    xx = np.vdot(_wide(u.asarray()), _wide(x.asarray()))
 
     passed = bool(np.isclose(xx, yy, rtol, atol))
     if (not passed and raiseerror) or verb:
