@@ -8,15 +8,22 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 1. the card's name and power limit (nvidia-smi), and the build of every
    kernel in ``pylops_mpi_tpu_torch/csrc`` (one nvcc per source, run at
    once);
-2. each kernel against its plain PyTorch version on the card, at a small
-   ragged shape and at the main path's full shape, with times for the
-   kernel, the plain version and a PyTorch library yardstick;
+2. the normal-product kernel against its plain PyTorch version on the
+   card, in f32, bf16, f16 and f64, at small shapes that stress its plan
+   (ragged and unaligned widths 777, 33 and 1, one tall block, 300 small
+   blocks, A one element past an aligned base) and at the main path's
+   full shape; each with the plan printed first (stages, rows per stage,
+   CTAs, shared memory, registers and local bytes), two calls required
+   to be bitwise equal, and at the full shape times for the kernel, the
+   plain version and a PyTorch library yardstick;
 3. the main path as a user drives it: CGLS on MPIBlockDiag of 32
    4096×4096 MatrixMult blocks (``bench.py:make_problem`` style data made
    on the card from a seeded generator), 50 iterations of the one-sweep
    ``normal=True`` schedule with f32 storage and with bf16 storage, and
    the classic two-sweep schedule with f32 storage; each run must reach
-   the known model and must have gone through the kernel;
+   the known model and must have gone through the kernel; a profile of
+   10 iterations gives the kernel's share of device time and the
+   device's idle share;
 4. a small f64 problem solved on the card and on the CPU, which must
    agree;
 5. the tap-stencil kernel against its plain version on the card, for
@@ -56,6 +63,10 @@ REPS = 20
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
 SRC = "pylops_mpi_tpu_torch/csrc/normal_matvec.cu"
+# phase 2's small shapes: ragged (777), narrow and unaligned widths (33, 1),
+# one tall block, 300 small blocks, and A one element past an aligned base
+NORMAL_SHAPES = [(3, 1000, 777), (4, 50, 33), (5, 33, 1), (1, 8191, 4096),
+                 (300, 64, 48), (3, 1000, 777, 1)]
 REPLACES = {"float32": "pylops_mpi_tpu/ops/pallas_kernels.py:222",
             "bfloat16": "pylops_mpi_tpu/ops/pallas_kernels.py:240",
             "float16": "pylops_mpi_tpu/ops/pallas_kernels.py:240",
@@ -115,10 +126,15 @@ def cuda_ms(fn, reps=REPS):
 
 
 def compare(nk, A, X):
-    """Kernel vs plain version on the card: (max abs err, max rel err)."""
+    """Kernel vs plain version on the card: (max abs err, max rel err).
+    Raises unless two kernel calls give bitwise-equal u and q."""
     import torch
     u, q = nk.normal_matvec(A, X)
+    u1, q1 = nk.normal_matvec(A, X)
     torch.cuda.synchronize()
+    if not (torch.equal(u, u1) and torch.equal(q, q1)):
+        raise RuntimeError(f"normal_matvec {tuple(A.shape)} {A.dtype}: two "
+                           "calls differ")
     u0, q0 = nk.normal_matvec_plain(A, X)
     abs_err = max(float((u - u0).abs().max()), float((q - q0).abs().max()))
     rel = max(float((u - u0).abs().max() / u0.abs().max()),
@@ -139,11 +155,12 @@ def bound_ms(nblk, m, n, itemsize):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def profile_run(torch, fn):
+def profile_run(torch, fn, match=("normal_kernel<", "normal_reduce_kernel<")):
     """Device time by kernel over one call of ``fn`` under
-    ``torch.profiler``: (wall ms, device-busy ms, top kernels). Only
-    device (kernel) events count; wall time includes the profiler's own
-    overhead, so the idle share it implies is an upper bound."""
+    ``torch.profiler``: (wall ms, device-busy ms, top kernels, ms of the
+    kernels whose name holds one of ``match``). Only device (kernel) events
+    count; wall time includes the profiler's own overhead, so the idle
+    share it implies is an upper bound."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -158,7 +175,8 @@ def profile_run(torch, fn):
         if e.device_type == DeviceType.CUDA and us > 0:
             rows.append((us / 1e3, e.key[:60], e.count))
     rows.sort(reverse=True)
-    return wall * 1e3, sum(r[0] for r in rows), rows[:6]
+    matched = sum(r[0] for r in rows if any(k in r[1] for k in match))
+    return wall * 1e3, sum(r[0] for r in rows), rows[:6], matched
 
 
 def make_problem(torch, device, seed=0):
@@ -340,19 +358,37 @@ def main() -> int:
     # 2. kernels against their plain versions
     g = torch.Generator(device=dev).manual_seed(1)
     stats = {}
-    for shape in [(3, 1000, 777), (NBLK, NBLOCK, NBLOCK)]:
+    plans = {}
+    for spec in NORMAL_SHAPES + [(NBLK, NBLOCK, NBLOCK)]:
         for dt in (torch.float32, torch.bfloat16, torch.float16, torch.float64):
-            if dt == torch.float64 and shape[1] == NBLOCK:
+            nblk, m, n, off = spec if len(spec) == 4 else spec + (0,)
+            shape = (nblk, m, n)
+            if dt == torch.float64 and m == NBLOCK:
                 continue  # f64 is a correctness path only
             name = str(dt).split(".")[1]
             xdt = torch.float64 if dt == torch.float64 else torch.float32
-            A = torch.randn(shape, generator=g, device=dev).to(dt)
-            X = torch.randn((shape[0], shape[2]), generator=g, device=dev,
-                            dtype=xdt)
+            # off > 0: A is a view that many elements past an aligned base
+            A = torch.randn(nblk * m * n + off, generator=g, device=dev) \
+                .to(dt)[off:].view(shape)
+            X = torch.randn((nblk, n), generator=g, device=dev, dtype=xdt)
+            p = nk.device_plan(nblk, m, n, dt, torch.cuda.current_device())
+            info = nk.kernel_info(dt, p.kc, p.smem_bytes)
+            plans[f"{name} {spec}"] = dict(
+                kc=p.kc, stages=p.stages, rows_per_stage=p.rows_per_stage,
+                stage_bytes=p.stage_bytes, ctas=p.ctas,
+                ctas_per_sm=p.ctas_per_sm, smem_bytes=p.smem_bytes,
+                registers=info["registers"], local_bytes=info["local_bytes"],
+                resident_ctas_per_sm=info["ctas_per_sm"])
+            print(f"plan {name} {shape}: {p.stages} stages of "
+                  f"{p.rows_per_stage} rows ({p.stage_bytes} B), {p.ctas} CTAs "
+                  f"({p.ctas_per_sm}/SM), {p.smem_bytes} B shared, kc {p.kc}, "
+                  f"{info['registers']} registers, {info['local_bytes']} B "
+                  f"local", flush=True)
             abs_err, rel = compare(nk, A, X)
             ok = rel <= TOL[name]
-            print(f"kernel vs plain {name} {shape}: max rel err {rel:.3e} "
-                  f"(tol {TOL[name]:.0e}) {'ok' if ok else 'FAIL'}", flush=True)
+            print(f"kernel vs plain {name} {shape}{' +%d' % off if off else ''}"
+                  f": max rel err {rel:.3e} (tol {TOL[name]:.0e}), two calls "
+                  f"bitwise equal, {'ok' if ok else 'FAIL'}", flush=True)
             if not ok:
                 raise RuntimeError(f"normal_matvec[{name}] {shape} disagrees "
                                    f"with its plain version: {rel:.3e}")
@@ -421,12 +457,16 @@ def main() -> int:
             raise RuntimeError(f"{label}: rel_err {rel_err:.3e} > {limit:.0e}")
         if not normal and launches != 0:
             raise RuntimeError(f"{label}: classic path launched the kernel")
-        wall_ms, busy_ms, top = profile_run(
+        wall_ms, busy_ms, top, kern_ms = profile_run(
             torch, lambda: pmtt.cgls(Op, y, niter=10, tol=0.0, normal=normal))
         runs[label].update(profile_wall_ms=wall_ms, profile_device_ms=busy_ms,
-                           profile_top=top)
+                           profile_top=top, profile_kernel_ms=kern_ms,
+                           kernel_share=kern_ms / busy_ms,
+                           idle_share=1.0 - busy_ms / wall_ms)
         print(f"  profile, 10 iterations: device busy {busy_ms:.3f} ms of "
-              f"{wall_ms:.3f} ms wall; top kernels (ms, name, count): {top}",
+              f"{wall_ms:.3f} ms wall (idle {1 - busy_ms / wall_ms:.1%}); "
+              f"normal kernel {kern_ms:.3f} ms = {kern_ms / busy_ms:.1%} of "
+              f"device time; top kernels (ms, name, count): {top}",
               flush=True)
         del Op, x
         torch.cuda.empty_cache()
@@ -575,7 +615,7 @@ def main() -> int:
     if not st["stacked_residual"] <= RESID_LIMIT:
         raise RuntimeError(f"gradient solve: residual {st['stacked_residual']:.4f}"
                            f" above {RESID_LIMIT}")
-    wall_ms, busy_ms, top = profile_run(
+    wall_ms, busy_ms, top, _ = profile_run(
         torch, lambda: pmtt.cgls(StackOp, ystack, niter=10, damp=DAMP, tol=0.0))
     post["gradient_cgls"].update(profile_wall_ms=wall_ms,
                                  profile_device_ms=busy_ms, profile_top=top)
@@ -605,7 +645,7 @@ def main() -> int:
           f"{wall:.4f} s (best of {walls}) = {NITER / wall:.1f} iters/s; data "
           f"residual {st['data_residual']:.3e}, model error "
           f"{st['model_error']:.3e}; stencil launches 0", flush=True)
-    wall_ms, busy_ms, top = profile_run(
+    wall_ms, busy_ms, top, _ = profile_run(
         torch, lambda: pmtt.models.poststack_inversion(
             dimg, wav, niter=10, epsR=EPS_R, damp=DAMP, dtype=f32))
     post["laplacian_poststack_inversion"].update(
@@ -661,6 +701,7 @@ def main() -> int:
             shape=st["shape"], dtype=name))
     print(json.dumps({"card": card, "runs": runs,
                       "float16_kernel": stats["float16"],
+                      "normal_plans": plans,
                       "stencil_small_max_err": sworst, "derivatives": deriv,
                       "poststack": post, "small_f64_poststack": small_post}),
           flush=True)

@@ -12,20 +12,29 @@ Dtype rules (both versions): A ``(nblk, m, n)`` is float32, or
 bfloat16/float16 storage, with an f32 ``X (nblk, n)``, accumulating in
 f32; or float64 with an f64 ``X``, accumulating in f64. ``u (nblk, n)``
 and ``q (nblk, m)`` come back at X's dtype.
+
+The kernel is persistent: :func:`plan` splits the ``nblk·m`` rows of the
+whole stack evenly over one or two CTAs per SM, each CTA streaming its
+contiguous row range (which may cross block boundaries) through a ring
+of shared-memory stages. A CTA keeps one partial u per block segment it
+touches; a second, small kernel sums each block's segments in a fixed
+order, so the result is bitwise the same from call to call.
 """
 
 from __future__ import annotations
 
 import ctypes
-import math
+import functools
+from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
 import torch
 
 from . import _build
 
-__all__ = ["normal_matvec", "normal_matvec_plain", "supported",
-           "launches", "reset_launches"]
+__all__ = ["normal_matvec", "normal_matvec_plain", "supported", "plan",
+           "NormalPlan", "device_plan", "kernel_info", "launches",
+           "reset_launches"]
 
 # Kernel launches since the last reset_launches(); a run reads it to show
 # that its solver went through the kernel.
@@ -35,16 +44,26 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
                 torch.float64: 3}
 _X_DTYPE = {torch.float32: torch.float32, torch.bfloat16: torch.float32,
             torch.float16: torch.float32, torch.float64: torch.float64}
-# Hopper: 227 KB of shared memory per CTA at most; the tile is sized so
-# that two CTAs fit on one SM's 228 KB (less 1 KB reserved per CTA).
-_SMEM_MAX = 232448
-_SMEM_TWO_CTAS = (233472 - 2 * 1024) // 2
-_MAX_TM = 32
-# CTAs per SM the row splits aim at: enough to keep bytes in flight while
-# the per-split partial-u scratch stays small against A.
-_CTAS_PER_SM = 4
 
-_SM_COUNT: Dict[int, int] = {}
+# Hopper: 228 KB of shared memory per SM, 227 KB of it to one CTA at
+# most, 1 KB of each CTA's reserved by the system.
+_SMEM_SM = 233472
+_SMEM_CTA_MAX = 232448
+_SMEM_RESERVED = 1024
+# Must match csrc/normal_matvec.cu: the consumer threads, the bytes
+# before the ring (barriers, row-dot slots), the stage cap, and the
+# register buckets of 16-byte column chunks per consumer thread.
+_CONSUMERS = 256
+_HEADER = 2304
+_MAX_STAGES = 16
+_KC_BUCKETS = (1, 2, 4, 8, 24)
+# Bytes of A one stage carries: with the ring's other stages in flight,
+# an SM keeps well over the ~32 KB that Little's law asks for at
+# 3.35 TB/s over 132 SMs.
+_STAGE_BYTES = 32 * 1024
+_MAX_ROWS_PER_STAGE = 64
+
+_DEVICE_PLANS: Dict[tuple, Optional["NormalPlan"]] = {}
 _FN = None
 
 
@@ -53,36 +72,108 @@ def reset_launches() -> None:
     launches = 0
 
 
-def _tile_rows(n: int, a_dtype: torch.dtype) -> Optional[Tuple[int, int, int]]:
-    """``(tm, tile_offset, smem_bytes)`` for blocks of width ``n``: the
-    most rows (≤ 32) whose tile, with x and the partial u staged beside
-    it, fits two CTAs per SM, else one row if that fits one CTA; ``None``
-    when even one row does not fit (the caller takes the two-sweep
-    path)."""
-    acc = _X_DTYPE[a_dtype].itemsize
+@dataclass(frozen=True)
+class NormalPlan:
+    """How the kernel runs one ``(nblk, m, n)`` stack.
+
+    ``kc``: 16-byte column chunks a consumer thread holds in registers;
+    ``rows_per_stage`` rows of A per ring stage (fewer where a block
+    segment ends), ``stages`` ring stages of ``stage_bytes`` each,
+    ``smem_bytes`` of dynamic shared memory per CTA, ``ctas`` CTAs
+    (``ctas_per_sm`` on each of ``sm_count`` SMs at most).
+    ``cta_rows[i]`` is CTA i's half-open range of flattened rows;
+    ``segments[b]`` lists block b's segments in order as
+    ``(slot, cta, row_start, row_end)``, where ``slot = cta + b`` keys
+    the segment's partial u in the scratch of ``scratch_slots`` rows."""
+    nblk: int
+    m: int
+    n: int
+    kc: int
+    rows_per_stage: int
+    stages: int
+    stage_bytes: int
+    smem_bytes: int
+    ctas: int
+    ctas_per_sm: int
+    sm_count: int
+    cta_rows: Tuple[Tuple[int, int], ...]
+    segments: Tuple[Tuple[Tuple[int, int, int, int], ...], ...]
+
+    @property
+    def scratch_slots(self) -> int:
+        return self.ctas + self.nblk - 1
+
+
+def _round_up(v: int, k: int) -> int:
+    return (v + k - 1) // k * k
+
+
+def _stage_config(n: int, a_dtype: torch.dtype, ctas_per_sm: int):
+    """``(kc, rows_per_stage, stages, stage_bytes, smem_bytes)`` for
+    blocks of width ``n``, or ``None`` when the kernel cannot take it
+    (a consumer thread would need more than 24 chunks, or one row does
+    not fit the shared memory of one CTA)."""
     item = a_dtype.itemsize
+    per_chunk = 16 // item
+    kc = next((k for k in _KC_BUCKETS if k * _CONSUMERS * per_chunk >= n),
+              None)
+    if kc is None:
+        return None
+    row_bytes = n * item
+    budget = min(_SMEM_CTA_MAX,
+                 _SMEM_SM // ctas_per_sm - _SMEM_RESERVED) - _HEADER
 
-    def layout(tm):
-        off = (2 * n * acc + tm * acc + 15) // 16 * 16
-        return off, off + tm * n * item
+    def stage_bytes(rows):
+        # + 16: a stage's first byte sits at its address modulo 16
+        return _round_up(rows * row_bytes + 16, 128)
 
-    best = None
-    for tm in range(1, _MAX_TM + 1):
-        off, total = layout(tm)
-        if total <= _SMEM_TWO_CTAS:
-            best = (tm, off, total)
-    if best is None:
-        off, total = layout(1)
-        if total <= _SMEM_MAX:
-            best = (1, off, total)
-    return best
+    rows = max(1, min(_MAX_ROWS_PER_STAGE, _STAGE_BYTES // row_bytes))
+    while rows > 1 and budget // stage_bytes(rows) < 2:
+        rows -= 1
+    stages = min(_MAX_STAGES, budget // stage_bytes(rows))
+    if stages < 1:
+        return None
+    sb = stage_bytes(rows)
+    return kc, rows, stages, sb, _HEADER + stages * sb
+
+
+def _owner(r: int, rows: int, ctas: int) -> int:
+    """The CTA whose range holds flattened row ``r`` (the kernel's
+    formula)."""
+    return ((r + 1) * ctas - 1) // rows
+
+
+@functools.lru_cache(maxsize=64)
+def plan(nblk: int, m: int, n: int, a_dtype: torch.dtype, sm_count: int,
+         ctas_per_sm: int = 2) -> Optional[NormalPlan]:
+    """The kernel's plan for A ``(nblk, m, n)`` of ``a_dtype`` on a card
+    with ``sm_count`` SMs running ``ctas_per_sm`` CTAs each; ``None``
+    when the kernel cannot take blocks of width ``n``. Pure: no device
+    is touched."""
+    cfg = _stage_config(n, a_dtype, ctas_per_sm)
+    if cfg is None or nblk < 1 or m < 1:
+        return None
+    kc, rows, stages, sb, smem = cfg
+    total = nblk * m
+    ctas = min(sm_count * ctas_per_sm, total)
+    starts = [i * total // ctas for i in range(ctas + 1)]
+    cta_rows = tuple(zip(starts[:-1], starts[1:]))
+    segments = []
+    for b in range(nblk):
+        lo, hi = b * m, (b + 1) * m
+        segments.append(tuple(
+            (i + b, i, max(starts[i], lo), min(starts[i + 1], hi))
+            for i in range(_owner(lo, total, ctas),
+                           _owner(hi - 1, total, ctas) + 1)))
+    return NormalPlan(nblk, m, n, kc, rows, stages, sb, smem, ctas,
+                      ctas_per_sm, sm_count, cta_rows, tuple(segments))
 
 
 def supported(a_dtype: torch.dtype, x_dtype: torch.dtype, n: int) -> bool:
     """Whether the normal product takes blocks of ``a_dtype`` and width
     ``n`` with vectors of ``x_dtype`` (see the module's dtype rules)."""
     return (a_dtype in _X_DTYPE and _X_DTYPE[a_dtype] == x_dtype
-            and _tile_rows(int(n), a_dtype) is not None)
+            and _stage_config(int(n), a_dtype, 1) is not None)
 
 
 def _check(A: torch.Tensor, X: torch.Tensor) -> None:
@@ -115,13 +206,49 @@ def _kernel_fn():
     if _FN is None:
         lib = _build.load("normal_matvec")
         fn = lib.normal_matvec_launch
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
+        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
                        + [ctypes.c_int] * 8 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        info = lib.normal_matvec_kernel_info
+        info.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
+        info.restype = ctypes.c_int
         lib.normal_matvec_error_string.argtypes = [ctypes.c_int]
         lib.normal_matvec_error_string.restype = ctypes.c_char_p
-        _FN = (fn, lib.normal_matvec_error_string)
+        _FN = (fn, info, lib.normal_matvec_error_string)
     return _FN
+
+
+def kernel_info(a_dtype: torch.dtype, kc: int, smem_bytes: int) -> dict:
+    """The compiled instantiation's registers per thread, local (spill)
+    bytes per thread and resident CTAs per SM at ``smem_bytes`` of
+    dynamic shared memory, as the CUDA runtime reports them."""
+    _, info, errstr = _kernel_fn()
+    out = [ctypes.c_int(0) for _ in range(3)]
+    err = info(_DTYPE_CODES[a_dtype], kc, smem_bytes,
+               *(ctypes.addressof(o) for o in out))
+    if err != 0:
+        raise RuntimeError(f"normal_matvec kernel query failed: error {err} "
+                           f"({errstr(err).decode()})")
+    return dict(registers=out[0].value, local_bytes=out[1].value,
+                ctas_per_sm=out[2].value)
+
+
+def device_plan(nblk: int, m: int, n: int, a_dtype: torch.dtype,
+                dev: int) -> Optional[NormalPlan]:
+    """:func:`plan` for CUDA device ``dev``: two CTAs per SM where the
+    runtime says two of the chosen instantiation fit, else one."""
+    key = (dev, nblk, m, n, a_dtype)
+    if key in _DEVICE_PLANS:
+        return _DEVICE_PLANS[key]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    two = _stage_config(n, a_dtype, 2)
+    cps = 1
+    if two is not None and two[2] >= 2:
+        with torch.cuda.device(dev):
+            if kernel_info(a_dtype, two[0], two[4])["ctas_per_sm"] >= 2:
+                cps = 2
+    _DEVICE_PLANS[key] = p = plan(nblk, m, n, a_dtype, sms, cps)
+    return p
 
 
 def normal_matvec(A: torch.Tensor, X: torch.Tensor):
@@ -138,33 +265,26 @@ def normal_matvec(A: torch.Tensor, X: torch.Tensor):
     if not (A.is_contiguous() and X.is_contiguous()):
         raise ValueError("normal_matvec needs contiguous A and X")
     nblk, m, n = A.shape
-    plan = _tile_rows(n, A.dtype)
-    if plan is None:
-        raise ValueError(f"blocks of width n={n} at {A.dtype} do not fit "
-                         "the kernel's shared memory; use the two-sweep "
-                         "product (gate on supported())")
-    tm, tile_offset, smem = plan
     U = torch.empty((nblk, n), dtype=X.dtype, device=A.device)
     Q = torch.empty((nblk, m), dtype=X.dtype, device=A.device)
     if U.numel() == 0 or Q.numel() == 0:
         return U.zero_(), Q.zero_()
     dev = A.device.index if A.device.index is not None \
         else torch.cuda.current_device()
-    if dev not in _SM_COUNT:
-        _SM_COUNT[dev] = torch.cuda.get_device_properties(dev) \
-            .multi_processor_count
-    ntiles = math.ceil(m / tm)
-    splits = min(ntiles, max(1, math.ceil(_CTAS_PER_SM * _SM_COUNT[dev]
-                                          / nblk)))
-    per_split = math.ceil(ntiles / splits)
-    splits = math.ceil(ntiles / per_split)
-    scratch = torch.empty((splits, nblk, n), dtype=X.dtype, device=A.device)
-    fn, errstr = _kernel_fn()
+    p = device_plan(nblk, m, n, A.dtype, dev)
+    if p is None:
+        raise ValueError(f"blocks of width n={n} at {A.dtype} are beyond "
+                         "the kernel's registers or shared memory; use the "
+                         "two-sweep product (gate on supported())")
+    scratch = torch.empty((p.scratch_slots, n), dtype=X.dtype,
+                          device=A.device)
+    fn, _, errstr = _kernel_fn()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(_DTYPE_CODES[A.dtype], A.data_ptr(), X.data_ptr(),
+        err = fn(_DTYPE_CODES[A.dtype], p.kc, A.data_ptr(), X.data_ptr(),
                  U.data_ptr(), Q.data_ptr(), scratch.data_ptr(), nblk, m, n,
-                 tm, splits, per_split, tile_offset, smem, stream)
+                 p.ctas, p.rows_per_stage,
+                 p.stages, p.stage_bytes, p.smem_bytes, stream)
     if err != 0:
         raise RuntimeError(f"normal_matvec kernel launch failed: error {err} "
                            f"({errstr(err).decode()})")

@@ -1,0 +1,97 @@
+#!/usr/bin/env python3
+"""The port's CGLS main path in two checkouts, in turns, on one GPU.
+
+    python3 scripts/cgls_ab.py OTHER_CHECKOUT [--rounds 2]
+
+Each turn is a fresh interpreter that imports ``pylops_mpi_tpu_torch``
+and ``chip_smoke.py`` from one checkout (OTHER_CHECKOUT, or the one
+holding this script), builds its kernels there, makes chip_smoke's
+32 x 4096x4096 problem from the same seed and times 50 iterations of
+``cgls(normal=True)`` with f32 and with bf16 storage, best of three, as
+chip_smoke's phase 3 does, plus the normal kernel alone (mean of 20
+calls, CUDA events). Turns run other, this, this, other per round, so
+both checkouts meet the same card and host. It prints the card (name
+and power limit), one JSON line per turn, and a summary JSON line.
+"""
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent.parent
+
+CHILD = r"""
+import json, sys, time
+root = sys.argv[1]
+sys.path.insert(0, root)
+import torch
+import chip_smoke as cs
+import pylops_mpi_tpu_torch as pmtt
+from pylops_mpi_tpu_torch.ops import _build
+from pylops_mpi_tpu_torch.ops import normal_kernels as nk
+from pylops_mpi_tpu_torch.ops.local import MatrixMult
+assert pmtt.__file__.startswith(root), pmtt.__file__
+_build.build_all()
+dev = torch.device("cuda")
+A, xtrue, y_t = cs.make_problem(torch, dev)
+y = pmtt.DistributedArray.to_dist(y_t)
+out = {"root": root}
+for label, cdt in (("normal_f32", None), ("normal_bf16", torch.bfloat16)):
+    Op = pmtt.MPIBlockDiag([MatrixMult(A[i]) for i in range(cs.NBLK)],
+                           compute_dtype=cdt)
+    pmtt.cgls(Op, y, niter=2, tol=0.0, normal=True)
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        x = pmtt.cgls(Op, y, niter=cs.NITER, tol=0.0, normal=True)[0]
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    err = float(torch.linalg.vector_norm(x.array - xtrue)
+                / torch.linalg.vector_norm(xtrue))
+    Ab = Op._batched
+    X = torch.randn(Ab.shape[0], Ab.shape[2], device=dev)
+    out[label] = dict(iters_per_s=cs.NITER / min(walls), wall_s=walls,
+                      rel_err=err,
+                      kernel_ms=cs.cuda_ms(lambda: nk.normal_matvec(Ab, X)))
+    del Op, x
+    torch.cuda.empty_cache()
+print(json.dumps(out), flush=True)
+"""
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("other", type=Path)
+    ap.add_argument("--rounds", type=int, default=2)
+    args = ap.parse_args()
+    other = args.other.resolve()
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60, check=True).stdout.strip()
+    print(card, flush=True)
+    turns = {str(other): [], str(HERE): []}
+    for _ in range(args.rounds):
+        for root in (other, HERE, HERE, other):
+            run = subprocess.run([sys.executable, "-c", CHILD, str(root)],
+                                 capture_output=True, text=True, timeout=900)
+            if run.returncode != 0:
+                print(run.stdout + run.stderr, file=sys.stderr)
+                return run.returncode
+            line = run.stdout.strip().splitlines()[-1]
+            print(line, flush=True)
+            turns[str(root)].append(json.loads(line))
+    summary = {"card": card}
+    for root, rows in turns.items():
+        summary[root] = {
+            label: {key: sorted(r[label][key] for r in rows)
+                    for key in ("iters_per_s", "kernel_ms")}
+            for label in ("normal_f32", "normal_bf16")}
+    print(json.dumps(summary), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
