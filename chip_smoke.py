@@ -42,8 +42,28 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    iterations, f32), through the tap kernel, and the Laplacian-regularized
    ``poststack_inversion`` beside it; each with iterations per second,
    residual, model error and a profile;
-8. a small f64 regularized post-stack solve on the card and on the CPU,
-   which must agree.
+8. multi-dimensional deconvolution at full width: CGLS (50 iterations,
+   f32) through the twosided ``MPIMDC`` of nt 1001, 301 frequencies,
+   1024 sources and receivers and 64 virtual sources (complex64 G with
+   G^H kept), on data from a known model in the operator's row space;
+   iterations per second, model error, residual history, one forward and
+   one adjoint apply with their FFT and GEMM parts; ``models.mdd``
+   beside it;
+9. ``examples/reflectivity.py`` at (64, 1024, 1024): FISTA, then ISTA
+   (100 iterations, eps 1e-3) for the spiky reflectivity through
+   ``MPIBlockDiag`` of local ``Conv1D``, with the step size's
+   ``power_iteration`` timed apart from its host draws; iterations per
+   second, error, and the spike depths of three traces;
+10. small f64 problems on the card and on the CPU, which must agree:
+   ISTA/FISTA (soft, hard and half thresholds, complex, with a
+   sparsifying transform), ``power_iteration``, ``MPIFredholm1``,
+   ``FFT``'s adjoint on half-spectra with imaginary DC and Nyquist bins,
+   ``examples/mdd.py``'s ``mdd``, and slice 2's regularized post-stack
+   solve.
+
+Phases 8 and 9 reach none of the hand-written kernels: the JAX package
+runs their FFTs, products, thresholds and convolutions outside Pallas,
+and so does the port (cuFFT, cuBLAS, cuDNN and elementwise PyTorch).
 
 It prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or run from a
@@ -57,6 +77,8 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+
+import numpy as np
 
 NBLK, NBLOCK, NITER = 32, 4096, 50
 REPS = 20
@@ -98,6 +120,23 @@ TAP_SETS = {
     "second_centered": ({-1: 1.0, 0: -2.0, 1: 1.0}, 1),
 }
 EPS_R, DAMP = 0.1, 1e-4
+# phase 8: MDD at full width. A twosided MDC of nt = 1001 samples (odd),
+# 301 of its 501 one-sided frequencies, 1024 sources and 1024 receivers,
+# 64 virtual sources: G is 301 x 1024 x 1024 complex64 (2.5 GB, 5.0 GB with
+# G^H kept), the model 1001 x 1024 x 64 f32 (262 MB)
+NT_MDD, NFMAX, NS_MDD, NR_MDD, NV_MDD = 1001, 301, 1024, 1024, 64
+DT_MDD, DR_MDD = 0.004, 20.0
+MDD_ERR_LIMIT = 1e-2
+# phase 9: examples/reflectivity.py at post-stack width, a (64, 1024, 1024)
+# impedance cube (64 Mi samples, 256 MiB a f32 vector) in 8 blocks of
+# 8 x 1024 traces, time last; the example's three interfaces at the same
+# relative depths, each moved per trace by up to 16 samples
+NY_R, NX_R, NZ_R, NBLK_R = 64, 1024, 1024, 8
+INTERFACES = ((20 / 64, 7.0), (35 / 64, 4.5), (50 / 64, 6.0))
+JITTER = 16
+NITER_SPARSE, EPS_SPARSE = 100, 1e-3
+# phase 10: card against CPU in f64, every gap relative to the largest entry
+F64_GAP = 1e-9
 # relative stacked residual ||[d; 0] - [Op; eps G] x|| / ||d|| after 50
 # iterations must be below this: a reduced-size run of this phase's
 # code, (1024, 1024) f32 on the CPU with seeds 4 and 5, reached 0.1153
@@ -155,12 +194,11 @@ def bound_ms(nblk, m, n, itemsize):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def profile_run(torch, fn, match=("normal_kernel<", "normal_reduce_kernel<")):
+def device_rows(torch, fn):
     """Device time by kernel over one call of ``fn`` under
-    ``torch.profiler``: (wall ms, device-busy ms, top kernels, ms of the
-    kernels whose name holds one of ``match``). Only device (kernel) events
-    count; wall time includes the profiler's own overhead, so the idle
-    share it implies is an upper bound."""
+    ``torch.profiler``: (wall ms, [(ms, name, count)] sorted by time).
+    Only device (kernel) events count; wall time includes the profiler's
+    own overhead, so the idle share it implies is an upper bound."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -173,10 +211,18 @@ def profile_run(torch, fn, match=("normal_kernel<", "normal_reduce_kernel<")):
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", 0) or 0
         if e.device_type == DeviceType.CUDA and us > 0:
-            rows.append((us / 1e3, e.key[:60], e.count))
+            rows.append((us / 1e3, e.key, e.count))
     rows.sort(reverse=True)
+    return wall * 1e3, rows
+
+
+def profile_run(torch, fn, match=("normal_kernel<", "normal_reduce_kernel<")):
+    """:func:`device_rows` summed: (wall ms, device-busy ms, top kernels,
+    ms of the kernels whose name holds one of ``match``)."""
+    wall, rows = device_rows(torch, fn)
     matched = sum(r[0] for r in rows if any(k in r[1] for k in match))
-    return wall * 1e3, sum(r[0] for r in rows), rows[:6], matched
+    top = [(ms, name[:60], n) for ms, name, n in rows[:6]]
+    return wall, sum(r[0] for r in rows), top, matched
 
 
 def make_problem(torch, device, seed=0):
@@ -194,8 +240,12 @@ def make_problem(torch, device, seed=0):
 
 
 def max_rel_err(got, want):
-    """max |got - want| over max |want|, in f64."""
-    got, want = got.double(), want.double()
+    """max |got - want| over max |want|, in f64 (complex128 where either
+    side is complex)."""
+    import torch
+    dt = (torch.complex128 if got.is_complex() or want.is_complex()
+          else torch.float64)
+    got, want = got.to(dt), want.to(dt)
     return float((got - want).abs().max() / want.abs().max())
 
 
@@ -317,6 +367,348 @@ def solve_stats(torch, pmtt, Op, m, d, x, cost):
                           / torch.linalg.vector_norm(m)),
         stacked_residual=(None if cost is None
                           else float(cost[-1]) / float(dn)))
+
+
+def kernel_groups(rows):
+    """Device ms of an apply's FFT (cuFFT), GEMM (cuBLAS) and other
+    kernels, from :func:`device_rows`."""
+    fft = sum(ms for ms, name, _ in rows if "fft" in name.lower())
+    gemm = sum(ms for ms, name, _ in rows if "gemm" in name.lower())
+    return dict(fft_ms=fft, gemm_ms=gemm,
+                other_ms=sum(r[0] for r in rows) - fft - gemm)
+
+
+def rel_norm(a, b):
+    """||a - b|| / ||b|| in f64."""
+    import torch
+    a, b = a.double(), b.double()
+    return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+
+def solve_walls(torch, kernels, fn, runs):
+    """``fn()`` ``runs`` times with the kernel counters set to 0 before
+    each: (last result, host seconds of each run, launches of the last
+    run per kernel module)."""
+    walls = []
+    for _ in range(runs):
+        for k in kernels:
+            k.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return out, walls, [k.launches for k in kernels]
+
+
+def mdd_phase(torch, pmtt, kernels, dev):
+    """Phase 8: CGLS through the full-width twosided MDC, with data made
+    from a known model, and the user's ``mdd`` beside it."""
+    from pylops_mpi_tpu_torch import Partition
+    torch.cuda.reset_peak_memory_stats()
+    g = torch.Generator(device=dev).manual_seed(6)
+    t0 = time.perf_counter()
+    # per frequency 4 I + a complex Gaussian of unit-variance entries over
+    # sqrt(nr): singular values ~2..6, so every kept frequency is well posed
+    G = torch.randn((NFMAX, NS_MDD, NR_MDD), generator=g, device=dev,
+                    dtype=torch.complex64) / math.sqrt(NR_MDD)
+    G.diagonal(dim1=1, dim2=2).add_(4.0)
+    Op = pmtt.MPIMDC(G, nt=NT_MDD, nv=NV_MDD, dt=DT_MDD, dr=DR_MDD,
+                     twosided=True, saveGt=True)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if Op.dtype != torch.float32:
+        raise RuntimeError(f"MDC operator dtype {Op.dtype}, expected float32")
+    # the operator sees 301 of 501 frequencies: the model is made in its
+    # row space (Op^H of seeded noise), where CGLS from zero can reach it
+    w = pmtt.DistributedArray.to_dist(
+        torch.randn(Op.shape[0], generator=g, device=dev),
+        partition=Partition.BROADCAST)
+    xt = Op.rmatvec(w)
+    xt = xt * (math.sqrt(Op.shape[1]) / xt.norm())
+    d = Op.matvec(xt)
+    if d.dtype != torch.float32 or not bool(torch.isfinite(d.array).all()):
+        raise RuntimeError("MDC data not finite f32")
+    fwd_ms = cuda_ms(lambda: Op.matvec(xt))
+    adj_ms = cuda_ms(lambda: Op.rmatvec(d))
+    parts = {}
+    for name, fn in (("forward", lambda: Op.matvec(xt)),
+                     ("adjoint", lambda: Op.rmatvec(d))):
+        wall, rows = device_rows(torch, fn)
+        parts[name] = dict(kernel_groups(rows), profile_wall_ms=wall,
+                           top=[(ms, n[:60], c) for ms, n, c in rows[:5]])
+    print(f"MDC ({NT_MDD}, {NS_MDD}/{NR_MDD}, {NV_MDD}), {NFMAX} frequencies, "
+          f"complex64 G with G^H kept, built in {build_s:.2f} s: forward "
+          f"{fwd_ms:.3f} ms (FFT {parts['forward']['fft_ms']:.3f}, GEMM "
+          f"{parts['forward']['gemm_ms']:.3f}, other "
+          f"{parts['forward']['other_ms']:.3f}), adjoint {adj_ms:.3f} ms (FFT "
+          f"{parts['adjoint']['fft_ms']:.3f}, GEMM "
+          f"{parts['adjoint']['gemm_ms']:.3f}, other "
+          f"{parts['adjoint']['other_ms']:.3f}); kernels by time: forward "
+          f"{parts['forward']['top']}, adjoint {parts['adjoint']['top']}",
+          flush=True)
+    x0 = pmtt.DistributedArray(global_shape=Op.shape[1],
+                               partition=Partition.BROADCAST,
+                               dtype=torch.float32, device=dev)
+    pmtt.cgls(Op, d, x0, niter=2, tol=0.0)  # warm-up
+    (x, istop, iiter, r1, r2, cost), walls, launches = solve_walls(
+        torch, kernels, lambda: pmtt.cgls(Op, d, x0, niter=NITER, tol=0.0), 3)
+    c = cost.double().cpu().numpy()
+    err = rel_norm(x.array, xt.array)
+    wall = min(walls)
+    res = dict(iters_per_s=iiter / wall, wall_s=walls, iiter=iiter,
+               rel_err=err, residual_history=c.tolist(), forward_ms=fwd_ms,
+               adjoint_ms=adj_ms, parts=parts, build_s=build_s,
+               kernel_launches=launches)
+    print(f"MDD cgls f32: {iiter} iters in {wall:.4f} s (best of {walls}) = "
+          f"{iiter / wall:.1f} iters/s; rel err to the true model {err:.3e} "
+          f"(limit {MDD_ERR_LIMIT:.0e}); kernel launches (normal, stencil) "
+          f"{launches}; residual history {[float('%.4g' % v) for v in c]}",
+          flush=True)
+    if not err <= MDD_ERR_LIMIT:
+        raise RuntimeError(f"MDD: rel err {err:.3e} above {MDD_ERR_LIMIT}")
+    # non-increasing, up to f32 rounding once the residual reaches its floor
+    if np.any(np.diff(c) > 1e-5 * c[0]):
+        raise RuntimeError(f"MDD: residual history increases: {c}")
+    wall_ms, busy_ms, top, _ = profile_run(
+        torch, lambda: pmtt.cgls(Op, d, x0, niter=10, tol=0.0))
+    res.update(profile_wall_ms=wall_ms, profile_device_ms=busy_ms,
+               profile_top=top, idle_share=1.0 - busy_ms / wall_ms)
+    print(f"  profile, 10 iterations: device busy {busy_ms:.3f} ms of "
+          f"{wall_ms:.3f} ms wall; top kernels (ms, name, count): {top}",
+          flush=True)
+    del Op, x, w
+    torch.cuda.empty_cache()
+    # the user's entry point: operator build, CGLS and the copy to the host
+    (minv, _), mwalls, _ = solve_walls(
+        torch, kernels, lambda: pmtt.models.mdd(
+            G, d.array.view(NT_MDD, NS_MDD, NV_MDD), nt=NT_MDD, nv=NV_MDD,
+            dt=DT_MDD, dr=DR_MDD, niter=NITER, tol=0.0), 1)
+    merr = rel_norm(torch.from_numpy(minv).reshape(-1), xt.array.cpu())
+    res.update(mdd_wall_s=mwalls[0], mdd_rel_err=merr,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(f"models.mdd: {NITER} iters, operator build and host copy "
+          f"included, in {mwalls[0]:.3f} s; rel err {merr:.3e}; peak device "
+          f"memory {res['peak_gb']:.2f} GB", flush=True)
+    if not merr <= MDD_ERR_LIMIT:
+        raise RuntimeError(f"models.mdd: rel err {merr:.3e}")
+    del G, d, xt
+    torch.cuda.empty_cache()
+    return res
+
+
+def reflectivity_model(torch, dev, seed):
+    """The layered impedance cube: examples/reflectivity.py's trace with
+    each interface moved per trace by a seeded integer in [-JITTER,
+    JITTER]; returns (model, interface depths (n_if, NY_R, NX_R))."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    z = torch.arange(NZ_R, device=dev)
+    m = torch.full((NY_R, NX_R, NZ_R), 5.0, device=dev)
+    depths = []
+    prev = 5.0
+    for frac, val in INTERFACES:
+        dep = int(frac * NZ_R) + torch.randint(
+            -JITTER, JITTER + 1, (NY_R, NX_R), generator=g, device=dev)
+        m += (val - prev) * (z >= dep[..., None])
+        prev = val
+        depths.append(dep)
+    return m, torch.stack(depths)
+
+
+def spikes_found(trace, depths):
+    """Each interface at depth k of a step model gives the centered
+    derivative's two spikes at k-1 and k: is the strongest recovered
+    sample within 8 samples of each interface one of its two?"""
+    ok = []
+    for k in depths:
+        win = trace[k - 8:k + 9].abs()
+        ok.append(k - 8 + int(win.argmax()) in (k - 1, k))
+    return all(ok)
+
+
+def reflectivity_phase(torch, pmtt, kernels, dev):
+    """Phase 9: FISTA, then ISTA, for the spiky reflectivity of the
+    full-width impedance cube through MPIBlockDiag of local Conv1D."""
+    from pylops_mpi_tpu_torch.ops.local import Conv1D, FirstDerivative
+    f32 = torch.float32
+    dims = (NY_R // NBLK_R, NX_R, NZ_R)
+    wav = pmtt.models.ricker(np.arange(21) * 0.004, f0=15)[0]
+    wavc = len(wav) // 2
+    Dop = pmtt.MPIBlockDiag([FirstDerivative(dims, axis=-1, dtype=f32)]
+                            * NBLK_R)
+    Cop = pmtt.MPIBlockDiag([Conv1D(dims, wav, axis=-1, offset=wavc,
+                                    dtype=f32, device=dev)] * NBLK_R)
+    m, depths = reflectivity_model(torch, dev, seed=7)
+    r = Dop @ pmtt.DistributedArray.to_dist(m.reshape(-1))
+    d = Cop @ r
+    x0 = r.zeros_like()
+    # the step size: power_iteration as fista runs it, its numpy draws of
+    # the start vector timed alone
+    t0 = time.perf_counter()
+    np.random.default_rng(42).random(NY_R * NX_R * NZ_R)
+    draw_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    maxeig, _, piter = pmtt.power_iteration(Cop.H @ Cop, x0, dtype=f32)
+    power_s = time.perf_counter() - t0
+    res = dict(power_s=power_s, power_draw_s=draw_s, power_iters=piter,
+               maxeig=float(maxeig))
+    print(f"reflectivity ({NY_R}, {NX_R}, {NZ_R}) f32: power_iteration "
+          f"{piter} iterations, lambda_max {maxeig:.6g}, {power_s:.3f} s of "
+          f"which the host draws alone take {draw_s:.3f} s", flush=True)
+    rt = r.array.view(NY_R, NX_R, NZ_R)
+    checked = [(0, 0), (NY_R // 2, NX_R // 2), (NY_R - 1, NX_R - 1)]
+    for name, solver in (("fista", pmtt.fista), ("ista", pmtt.ista)):
+        # the first call estimates the step size (cached on Cop after it)
+        solver(Cop, d, x0=x0, niter=2, eps=EPS_SPARSE, tol=0.0)
+        (x, iiter, cost), walls, launches = solve_walls(
+            torch, kernels, lambda: solver(Cop, d, x0=x0, niter=NITER_SPARSE,
+                                           eps=EPS_SPARSE, tol=0.0), 2)
+        wall = min(walls)
+        err = rel_norm(x.array, r.array)
+        xr = x.array.view(NY_R, NX_R, NZ_R)
+        found = all(spikes_found(xr[i, j], depths[:, i, j].tolist())
+                    for i, j in checked)
+        tr0 = xr[0, 0]
+        top3 = sorted(torch.argsort(tr0.abs())[-3:].tolist())
+        true_sp = sorted(torch.nonzero(rt[0, 0]).reshape(-1).tolist())
+        c = cost.double().cpu().numpy()
+        res[name] = dict(iters_per_s=iiter / wall, wall_s=walls, iiter=iiter,
+                         rel_err=err, spikes_found=found, top3_trace0=top3,
+                         true_spikes_trace0=true_sp, cost_first_last=[
+                             float(c[0]), float(c[-1])],
+                         kernel_launches=launches)
+        print(f"{name} f32, eps {EPS_SPARSE}: {iiter} iters in {wall:.4f} s "
+              f"(best of {walls}) = {iiter / wall:.1f} iters/s; rel err to the "
+              f"true reflectivity {err:.3e}; trace (0, 0): three strongest "
+              f"recovered depths {top3}, true spikes {true_sp}; every "
+              f"interface of {len(checked)} traces found: {found}; cost "
+              f"{c[0]:.4g} -> {c[-1]:.4g}; kernel launches (normal, stencil) "
+              f"{launches}", flush=True)
+        if not found or not math.isfinite(err) or c[-1] > c[0]:
+            raise RuntimeError(f"{name}: spikes not recovered or cost grew")
+        wall_ms, busy_ms, top, _ = profile_run(
+            torch, lambda: solver(Cop, d, x0=x0, niter=10, eps=EPS_SPARSE,
+                                  tol=0.0))
+        res[name].update(profile_wall_ms=wall_ms, profile_device_ms=busy_ms,
+                         profile_top=top, idle_share=1.0 - busy_ms / wall_ms)
+        print(f"  profile, 10 iterations: device busy {busy_ms:.3f} ms of "
+              f"{wall_ms:.3f} ms wall; top kernels (ms, name, count): {top}",
+              flush=True)
+        del x
+    del Cop, Dop, m, r, d, x0
+    torch.cuda.empty_cache()
+    return res
+
+
+def max_gap(pairs):
+    """Largest :func:`max_rel_err` of (card, CPU) pairs of tensors or
+    arrays."""
+    import torch
+    return max(max_rel_err(torch.as_tensor(a).cpu(), torch.as_tensor(b).cpu())
+               for a, b in pairs)
+
+
+def card_vs_cpu_phase(torch, pmtt):
+    """Phase 10: small f64 problems of every path of this slice, and the
+    regularized post-stack solve of slice 2, on the card and on the CPU
+    from the same numpy inputs."""
+    from pylops_mpi_tpu_torch.ops.local import FFT, MatrixMult
+    gaps = {}
+    rng = np.random.default_rng(11)
+
+    def cplx(shape):
+        return rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+
+    def vec(x, dev, partition=pmtt.Partition.SCATTER):
+        return pmtt.DistributedArray.to_dist(x, partition=partition,
+                                             device=dev)
+
+    # ISTA / FISTA: soft, hard and half thresholds, a complex case and a
+    # sparsifying transform
+    blocks = [rng.standard_normal((12, 8)) / math.sqrt(12) for _ in range(8)]
+    cblocks = [cplx((12, 8)) / math.sqrt(12) for _ in range(8)]
+    qs = [np.linalg.qr(rng.standard_normal((8, 8)))[0] for _ in range(8)]
+    xs = np.zeros(64)
+    xs[rng.choice(64, 8, replace=False)] = 3 * rng.standard_normal(8)
+
+    def bd(bl, dev):
+        return pmtt.MPIBlockDiag([MatrixMult(b, device=dev) for b in bl])
+
+    for name, kind, bl, sop in (
+            ("ista", "soft", blocks, None), ("fista", "soft", blocks, None),
+            ("ista", "hard", blocks, None), ("fista", "hard", blocks, None),
+            ("ista", "half", blocks, None), ("fista", "half", blocks, None),
+            ("fista", "soft", cblocks, None), ("fista", "soft", blocks, qs)):
+        outs = []
+        for dev in ("cuda", "cpu"):
+            Op = bd(bl, dev)
+            y = Op @ vec(xs.astype(bl[0].dtype), dev)
+            x, iiter, cost = getattr(pmtt, name)(
+                Op, y, x0=vec(np.zeros(64, dtype=bl[0].dtype), dev),
+                niter=40, eps=0.05, tol=0.0, threshkind=kind,
+                SOp=None if sop is None else bd(sop, dev))
+            outs.append((x.array, cost, iiter))
+        if outs[0][2] != outs[1][2]:
+            raise RuntimeError(f"{name}/{kind}: iterations differ")
+        label = (f"{name}_{kind}" + ("_complex" if bl is cblocks else "")
+                 + ("_sop" if sop is not None else ""))
+        gaps[label] = max_gap([(outs[0][0], outs[1][0]),
+                               (outs[0][1], outs[1][1])])
+    # power_iteration on the normal operator
+    eig = [pmtt.power_iteration(bd(blocks, dev).H @ bd(blocks, dev),
+                                vec(np.zeros(64), dev), niter=50, tol=0.0)[0]
+           for dev in ("cuda", "cpu")]
+    gaps["power_iteration"] = abs(eig[0] - eig[1]) / abs(eig[1])
+    # MPIFredholm1: forward, adjoint and conj, with and without G^H kept
+    G = cplx((16, 12, 10))
+    m, dd = cplx(16 * 10 * 3), cplx(16 * 12 * 3)
+    for save in (False, True):
+        outs = []
+        for dev in ("cuda", "cpu"):
+            F = pmtt.MPIFredholm1(G, nz=3, saveGt=save,
+                                  dtype=torch.complex128, device=dev)
+            bm, bd_ = (vec(v, dev, pmtt.Partition.BROADCAST) for v in (m, dd))
+            outs.append([F.matvec(bm).array, F.rmatvec(bd_).array,
+                         F.conj().matvec(bm).array,
+                         F.conj().rmatvec(bd_).array])
+        gaps[f"fredholm_saveGt_{save}"] = max_gap(list(zip(*outs)))
+    # FFT.H on half-spectra with imaginary DC and Nyquist parts
+    for nfft in (32, 33):
+        op = FFT((nfft, 5), axis=0, real=True, dtype=torch.float64)
+        v = cplx(op.shape[0])
+        outs = [op.rmatvec(torch.from_numpy(v).to(dev)) for dev in ("cuda",
+                                                                     "cpu")]
+        gaps[f"fft_adjoint_nfft{nfft}"] = max_gap([outs])
+    # examples/mdd.py's problem through models.mdd
+    g3 = np.random.default_rng(3)
+    ns, nr, nt, nv = 6, 4, 33, 1
+    Gt = g3.standard_normal((ns, nr, nt)) * np.exp(
+        -0.2 * np.arange(nt))[None, None, :]
+    Gf = pmtt.models.kernel_to_frequency(Gt)
+    xtrue = g3.standard_normal(nt * nr * nv)
+    Op = pmtt.MPIMDC(Gf, nt=nt, nv=nv, device="cpu")
+    dmdd = Op.matvec(vec(xtrue, "cpu", pmtt.Partition.BROADCAST)).asarray()
+    sols = [pmtt.models.mdd(Gf, dmdd.reshape(nt, ns, nv), nt=nt, nv=nv,
+                            niter=200, device=dev)[0] for dev in ("cuda",
+                                                                  "cpu")]
+    gaps["mdd_example"] = max_gap([sols])
+    # slice 2: the Gradient-regularized post-stack solve
+    wav = pmtt.models.ricker(np.arange(31) * 0.004, f0=15)[0]
+    msmall = layered_model(torch, 64, 128, "cpu", seed=5)
+    sols = []
+    for dname in ("cuda", "cpu"):
+        S, ys, _ = gradient_poststack(torch, pmtt, msmall.to(dname), wav, 30,
+                                      torch.float64)
+        x, _, _, _, _, cost = pmtt.cgls(S, ys, niter=30, damp=DAMP, tol=0.0)
+        sols.append((torch.from_numpy(x.asarray()), cost.cpu()))
+    gaps["gradient_poststack"] = max_gap([(sols[0][0], sols[1][0]),
+                                          (sols[0][1], sols[1][1])])
+    worst = max(gaps, key=gaps.get)
+    print(f"card vs CPU in f64 (max rel gap, tol {F64_GAP:.0e}): "
+          + ", ".join(f"{k} {v:.2e}" for k, v in gaps.items())
+          + f"; largest {worst} {gaps[worst]:.3e}", flush=True)
+    if not gaps[worst] <= F64_GAP:
+        raise RuntimeError(f"card and CPU disagree: {worst} {gaps[worst]:.3e}")
+    return gaps
 
 
 def main() -> int:
@@ -490,7 +882,6 @@ def main() -> int:
     if not small <= 1e-9:
         raise RuntimeError(f"card and CPU disagree: {small:.3e}")
 
-    import numpy as np
     from pylops_mpi_tpu_torch.ops import stencil_kernels as sk
 
     # 5. the tap-stencil kernel against its plain version
@@ -657,21 +1048,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"phase 7 in {time.perf_counter() - t7:.1f} s", flush=True)
 
-    # 8. a small f64 regularized post-stack solve on the card and the CPU
-    msmall = layered_model(torch, 64, 128, "cpu", seed=5)
-    sols = []
-    for dname in ("cuda", "cpu"):
-        S, ys, _ = gradient_poststack(torch, pmtt, msmall.to(dname), wav, 30,
-                                      torch.float64)
-        x, _, _, _, _, cost = pmtt.cgls(S, ys, niter=30, damp=DAMP, tol=0.0)
-        sols.append((torch.from_numpy(x.asarray()), cost.cpu()))
-    small_post = max(max_rel_err(sols[0][0], sols[1][0]),
-                     max_rel_err(sols[0][1], sols[1][1]))
-    print(f"small f64 gradient-regularized post-stack (64, 128), card vs "
-          f"CPU: max rel diff of x and cost {small_post:.3e} (tol 1e-9)",
-          flush=True)
-    if not small_post <= 1e-9:
-        raise RuntimeError(f"card and CPU disagree: {small_post:.3e}")
+    # 8-10. this slice's paths: MDD at full width, the sparse-spike
+    # reflectivity inversion, and small f64 problems on the card and the CPU
+    kernel_mods = (nk, sk)
+    t8 = time.perf_counter()
+    mdd_res = mdd_phase(torch, pmtt, kernel_mods, dev)
+    print(f"phase 8 in {time.perf_counter() - t8:.1f} s", flush=True)
+    t9 = time.perf_counter()
+    refl = reflectivity_phase(torch, pmtt, kernel_mods, dev)
+    print(f"phase 9 in {time.perf_counter() - t9:.1f} s", flush=True)
+    t10 = time.perf_counter()
+    gaps = card_vs_cpu_phase(torch, pmtt)
+    print(f"phase 10 in {time.perf_counter() - t10:.1f} s", flush=True)
 
     kernels = []
     for name, run in (("float32", "normal_f32"), ("bfloat16", "normal_bf16")):
@@ -703,7 +1091,8 @@ def main() -> int:
                       "float16_kernel": stats["float16"],
                       "normal_plans": plans,
                       "stencil_small_max_err": sworst, "derivatives": deriv,
-                      "poststack": post, "small_f64_poststack": small_post}),
+                      "poststack": post, "mdd": mdd_res,
+                      "reflectivity": refl, "card_vs_cpu_f64": gaps}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,8 +2,9 @@
 
 Distributed and stacked arrays, the lazy linear-operator algebra, the
 block-diagonal and stacked operators, the derivative family, the
-post-stack modelling pipeline and the CG/CGLS solvers, in PyTorch on one
-NVIDIA Hopper GPU. Two hand-written CUDA kernels carry the hot loops:
+Fredholm and MDC operators, the post-stack and MDD pipelines, the
+CG/CGLS solvers (functions and classes), ISTA/FISTA and the power
+iteration, in PyTorch on one NVIDIA Hopper GPU. Two hand-written CUDA kernels carry the hot loops:
 the CGLS normal product (``csrc/normal_matvec.cu``) and the axis-0 tap
 stencil of the derivative operators (``csrc/stencil_taps.cu``). Module layout and public names follow the
 JAX package ``pylops_mpi_tpu``, which is the reference the port is
@@ -28,8 +29,12 @@ from .ops.blockdiag import MPIBlockDiag
 from .ops.stack import MPIStackedVStack
 from .ops.derivatives import (MPIFirstDerivative, MPISecondDerivative,
                               MPILaplacian, MPIGradient)
-from .solvers.basic import cg, cgls
+from .ops.fredholm import MPIFredholm1
+from .ops.mdc import MPIMDC
+from .solvers.basic import CG, CGLS, cg, cgls
+from .solvers.sparsity import ISTA, FISTA, ista, fista
+from .solvers.eigs import power_iteration
 from .utils.dottest import dottest
-from . import convert, models, ops, parallel, solvers, utils
+from . import convert, models, ops, optimization, parallel, solvers, utils
 
 __version__ = "0.1.0"

@@ -4,7 +4,9 @@ The tests build an operator with the JAX package, take its blocks as
 numpy arrays (``[np.asarray(op.A) for op in jax_op.ops]``) and rebuild
 the same operator here; a user with blocks on the host does the same.
 Stacked vectors come over as (nested) lists of their components'
-arrays.
+arrays. A frequency kernel ``(nfmax, ns, nr)`` comes over as one numpy
+array (``np.asarray(jax_op.G)`` for ``MPIFredholm1``, or the array given
+to the JAX package's ``MPIMDC``).
 """
 
 from __future__ import annotations
@@ -18,11 +20,14 @@ from .distributedarray import DistributedArray
 from .stacked import StackedDistributedArray
 from .ops._precision import as_torch_dtype
 from .ops.blockdiag import MPIBlockDiag
+from .ops.fredholm import MPIFredholm1
+from .ops.mdc import MPIMDC
 from .ops.local import MatrixMult
 from .parallel.mesh import DeviceLike, resolve_device
 from .parallel.partition import Partition
 
-__all__ = ["blockdiag_from_numpy", "array_from_numpy", "stacked_from_numpy"]
+__all__ = ["blockdiag_from_numpy", "array_from_numpy", "stacked_from_numpy",
+           "fredholm_from_numpy", "mdc_from_numpy"]
 
 
 def blockdiag_from_numpy(blocks: Sequence[np.ndarray], dtype=None,
@@ -63,3 +68,30 @@ def stacked_from_numpy(components: Sequence, dtype=None,
         if isinstance(c, (list, tuple))
         else array_from_numpy(c, dtype=dtype, device=device)
         for c in components])
+
+
+def _kernel(G: np.ndarray, dtype, device: DeviceLike) -> torch.Tensor:
+    t = torch.tensor(np.asarray(G))
+    dt = as_torch_dtype(dtype)
+    return t.to(device=resolve_device(device), dtype=dt or t.dtype)
+
+
+def fredholm_from_numpy(G: np.ndarray, nz: int = 1, dtype=None,
+                        device: DeviceLike = None,
+                        **kwargs) -> MPIFredholm1:
+    """``MPIFredholm1`` of the kernel ``G (nsl, nx, ny)`` cast to
+    ``dtype`` (default: its own, which is also the operator dtype) on
+    ``device`` (default ``"cuda"``); ``kwargs`` as for
+    :class:`~.ops.fredholm.MPIFredholm1` (``saveGt``,
+    ``compute_dtype``)."""
+    K = _kernel(G, dtype, device)
+    kwargs.setdefault("dtype", K.dtype)
+    return MPIFredholm1(K, nz=nz, **kwargs)
+
+
+def mdc_from_numpy(G: np.ndarray, nt: int, nv: int, dtype=None,
+                   device: DeviceLike = None, **kwargs):
+    """``MPIMDC`` of the frequency kernel ``G (nfmax, ns, nr)`` cast to
+    ``dtype`` (a complex dtype; default its own) on ``device`` (default
+    ``"cuda"``); ``kwargs`` as for :func:`~.ops.mdc.MPIMDC`."""
+    return MPIMDC(_kernel(G, dtype, device), nt=nt, nv=nv, **kwargs)

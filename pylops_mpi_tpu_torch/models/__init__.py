@@ -1,6 +1,7 @@
 """Application pipelines — analogs of the reference's tutorials."""
 from .poststack import (PoststackLinearModelling, MPIPoststackLinearModelling,
                         poststack_inversion, ricker)
+from .mdd import mdd, kernel_to_frequency
 
 __all__ = ["PoststackLinearModelling", "MPIPoststackLinearModelling",
-           "poststack_inversion", "ricker"]
+           "poststack_inversion", "ricker", "mdd", "kernel_to_frequency"]

@@ -1,9 +1,9 @@
 """Local (single logical block) linear operators on tensors.
 
-PyTorch counterpart of the operator protocol, ``MatrixMult``, the
-derivative stencils, ``Laplacian`` and ``Conv1D`` of
-``pylops_mpi_tpu/ops/local.py``: the local operator algebra the
-distributed operators compose over (the reference delegates this to
+PyTorch counterpart of the operator protocol, ``MatrixMult``,
+``Identity``, ``FunctionOperator``, the derivative stencils,
+``Laplacian``, ``FFT`` and ``Conv1D`` of ``pylops_mpi_tpu/ops/local.py``:
+the local operator algebra the distributed operators compose over (the reference delegates this to
 serial pylops, e.g. ``MPIBlockDiag([pylops.MatrixMult(...)])``).
 ``matvec``/``rmatvec`` take and return flat 1-D tensors. As in the JAX
 package, the stencils here are plain tensor code; the distributed
@@ -13,7 +13,8 @@ instead (``ops/derivatives.py``).
 
 from __future__ import annotations
 
-from typing import Tuple
+import math
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -22,8 +23,9 @@ import torch.nn.functional as F
 from ._precision import as_torch_dtype
 from ..parallel.mesh import DeviceLike, resolve_device
 
-__all__ = ["LocalOperator", "MatrixMult", "FirstDerivative",
-           "SecondDerivative", "Laplacian", "Conv1D"]
+__all__ = ["LocalOperator", "MatrixMult", "Identity", "FunctionOperator",
+           "FirstDerivative", "SecondDerivative", "Laplacian", "FFT",
+           "Conv1D"]
 
 
 class LocalOperator:
@@ -207,6 +209,46 @@ class MatrixMult(LocalOperator):
         return self.A.mH @ x
 
 
+class Identity(LocalOperator):
+    """``N×M`` identity (JAX package ``ops/local.py:206-226``): for
+    ``N < M`` the forward keeps the first ``N`` entries and the adjoint
+    zero-pads back; for ``N > M`` the other way round."""
+
+    def __init__(self, N: int, M: Optional[int] = None, dtype=None):
+        M = N if M is None else M
+        super().__init__((M,), (N,), dtype=dtype)
+
+    @staticmethod
+    def _fit(x, n):
+        """``x`` cut or zero-padded to ``n`` entries (a view when cut)."""
+        if x.shape[0] >= n:
+            return x[:n]
+        return F.pad(x, (0, n - x.shape[0]))
+
+    def _matvec(self, x):
+        return self._fit(x, self.shape[0])
+
+    def _rmatvec(self, x):
+        return self._fit(x, self.shape[1])
+
+
+class FunctionOperator(LocalOperator):
+    """An ``N×M`` operator from a forward and an adjoint function on flat
+    tensors (JAX package ``ops/local.py:309-322``)."""
+
+    def __init__(self, f: Callable, fH: Callable, N: int,
+                 M: Optional[int] = None, dtype=None):
+        M = N if M is None else M
+        self.f, self.fH = f, fH
+        super().__init__((M,), (N,), dtype=dtype)
+
+    def _matvec(self, x):
+        return self.f(x)
+
+    def _rmatvec(self, x):
+        return self.fH(x)
+
+
 # ------------------------------------------------------- stencil operators
 def _sl(v: torch.Tensor, axis: int, start=None, stop=None) -> torch.Tensor:
     """``v[..., start:stop, ...]`` along ``axis`` (a view)."""
@@ -374,6 +416,91 @@ class Laplacian(LocalOperator):
     def _rmatvec(self, x):
         return sum(np.conj(w) * op._rmatvec(x)
                    for w, op in zip(self.weights, self.ops))
+
+
+class FFT(LocalOperator):
+    """1-D FFT along ``axis`` of an N-D layout (JAX package
+    ``ops/local.py:560-652``), with pylops' conventions:
+    ``norm="ortho"`` and, for ``real=True``, the √2 scaling of the
+    bins ``1 .. _double_hi-1`` (every bin but DC and an even ``nfft``'s
+    Nyquist bin) that makes the half-spectrum operator an isometry.
+    ``nfft`` pads (or cuts) the transformed axis, whose adjoint crops
+    back to ``dims[axis]``; ``ifftshift_before`` shifts the input before
+    the transform (and the adjoint's output after it). The operator
+    dtype is the complex dtype of the width of ``dtype``.
+
+    The adjoint of the real transform zeroes the imaginary parts of the
+    DC bin and of an even ``nfft``'s Nyquist bin before ``irfft``: the
+    CPU's FFT ignores them, while cuFFT does not define its result for
+    them, and the half-spectra the adjoint receives (from
+    ``MPIFredholm1.H`` in MDC) carry them.
+
+    ``planes=True`` (the JAX package's plane-pair layout for TPUs with
+    no complex support, ``ops/dft.py``) is not ported."""
+
+    def __init__(self, dims, axis: int = 0, nfft: Optional[int] = None,
+                 real: bool = True, ifftshift_before: bool = False,
+                 dtype=None, planes: bool = False):
+        if planes:
+            raise NotImplementedError(
+                "FFT(planes=True) is not ported: the port keeps complex "
+                "half-spectra")
+        dims = tuple(int(d) for d in np.atleast_1d(dims))
+        self.dims_nd = dims
+        self.axis = axis % len(dims)
+        self.nfft = int(nfft or dims[self.axis])
+        self.real = real
+        self.ifftshift_before = bool(ifftshift_before)
+        nf = self.nfft // 2 + 1 if real else self.nfft
+        dimsd = list(dims)
+        dimsd[self.axis] = nf
+        self.dimsd_nd = tuple(dimsd)
+        # bins 1..nf-1 except the Nyquist bin of an even nfft
+        self._double_hi = nf - 1 if self.nfft % 2 == 0 else nf
+        wide = (as_torch_dtype(dtype) or torch.float32).itemsize >= 8
+        super().__init__(dims, self.dimsd_nd,
+                         dtype=torch.complex128 if wide else torch.complex64)
+
+    def _scale_pos(self, y, factor):
+        """``y`` with the bins ``1 .. _double_hi-1`` times ``factor`` (a
+        new tensor)."""
+        nf = self.dimsd_nd[self.axis]
+        fac = torch.ones(nf, dtype=y.real.dtype, device=y.device)
+        fac[1:self._double_hi] = factor
+        shape = [1] * len(self.dimsd_nd)
+        shape[self.axis] = nf
+        return y * fac.reshape(shape)
+
+    def _matvec(self, x):
+        v = x.reshape(self.dims_nd)
+        if self.ifftshift_before:
+            v = torch.fft.ifftshift(v, dim=self.axis)
+        if self.real:
+            y = torch.fft.rfft(v.real, n=self.nfft, dim=self.axis,
+                               norm="ortho")
+            y = self._scale_pos(y, math.sqrt(2.0))
+        else:
+            y = torch.fft.fft(v, n=self.nfft, dim=self.axis, norm="ortho")
+        return y.reshape(-1)
+
+    def _rmatvec(self, x):
+        v = x.reshape(self.dimsd_nd)
+        if self.real:
+            # adjoint of the (√2-scaled) rfft: halve the doubled bins and
+            # let irfft's Hermitian extension supply the other half
+            v = self._scale_pos(v, 1.0 / math.sqrt(2.0))
+            if v.is_complex():
+                im = torch.view_as_real(v).select(-1, 1)
+                _sl(im, self.axis, 0, 1).zero_()
+                if self.nfft % 2 == 0:
+                    _sl(im, self.axis, -1).zero_()
+            y = torch.fft.irfft(v, n=self.nfft, dim=self.axis, norm="ortho")
+        else:
+            y = torch.fft.ifft(v, n=self.nfft, dim=self.axis, norm="ortho")
+        y = _sl(y, self.axis, 0, self.dims_nd[self.axis])
+        if self.ifftshift_before:
+            y = torch.fft.fftshift(y, dim=self.axis)
+        return y.reshape(-1)
 
 
 class Conv1D(LocalOperator):

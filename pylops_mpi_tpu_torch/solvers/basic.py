@@ -1,10 +1,16 @@
 """CG / CGLS solvers.
 
-PyTorch counterpart of the fused engines of
-``pylops_mpi_tpu/solvers/basic.py`` (``_cgls_setup``,
-``_make_cgls_body`` in both schedules and ``_make_cg_body``, lines
-416-703), themselves rebuilds of the reference's
-``pylops_mpi/optimization/cls_basic.py``.
+PyTorch counterpart of ``pylops_mpi_tpu/solvers/basic.py``: the class
+API (``CG``, ``CGLS``, lines 152-356) and the fused engines
+(``_cgls_setup``, ``_make_cgls_body`` in both schedules and
+``_make_cg_body``, lines 416-703), themselves rebuilds of the
+reference's ``pylops_mpi/optimization/cls_basic.py``.
+
+The classes keep the reference's ``setup``/``step``/``run``/
+``finalize``/``solve`` with a per-iteration ``callback`` and ``show``;
+their ``run`` reads ``kold`` on the host every iteration, as the
+reference's loop test demands. The functional ``cg``/``cgls`` below are
+the fast path.
 
 The JAX package runs a solve as one ``lax.while_loop`` that leaves when
 ``iiter == niter`` or ``max(kold) <= tol``. Here the loop is a Python
@@ -28,6 +34,7 @@ operator's model space (:func:`_zero_like_model`).
 
 from __future__ import annotations
 
+import time
 from typing import Optional, Union
 
 import torch
@@ -36,7 +43,7 @@ from ..distributedarray import DistributedArray, Partition
 from ..ops._precision import reduction_dtype
 from ..stacked import StackedDistributedArray
 
-__all__ = ["cg", "cgls"]
+__all__ = ["CG", "CGLS", "cg", "cgls"]
 
 Vector = Union[DistributedArray, StackedDistributedArray]
 
@@ -81,6 +88,154 @@ def _zero_like_model(Op, y: Vector) -> DistributedArray:
 def _record(buf: torch.Tensor, i: int, value, active) -> None:
     """``buf[i] = value`` on the device where ``active`` (no host sync)."""
     buf[i] = torch.where(active, value, buf[i])
+
+
+class _BaseSolver:
+    def __init__(self, Op):
+        self.Op = Op
+        self.callback = lambda x: None
+        self.tstart = time.time()
+
+    def memory_usage(self) -> None:
+        """No-op hook, reference Solver-ABC parity
+        (ref ``cls_basic.py:54-55``)."""
+
+    def run(self, x: Vector, niter: Optional[int] = None,
+            show: bool = False, itershow=(10, 10, 10)) -> Vector:
+        niter = self.niter if niter is None else niter
+        if niter is None:
+            raise ValueError("niter must not be None")
+        while self.iiter < niter and float(self.kold) > self.tol:
+            showstep = show and (self.iiter < itershow[0]
+                                 or niter - self.iiter < itershow[1]
+                                 or self.iiter % itershow[2] == 0)
+            x = self.step(x, showstep)
+            self.callback(x)
+        return x
+
+    def _print_setup(self):
+        print(f"{type(self).__name__}\ntol = {self.tol:10e}\t"
+              f"niter = {self.niter}")
+
+    def _print_step(self, x):
+        print(f"{self.iiter:6g}        {float(self.cost[self.iiter]):11.4e}")
+
+
+class CG(_BaseSolver):
+    """Conjugate gradient for square operators
+    (ref ``cls_basic.py:12-249``); the scalars of a step stay on the
+    device, ``run`` reads ``kold`` once an iteration."""
+
+    def setup(self, y: Vector, x0: Vector, niter: Optional[int] = None,
+              tol: float = 1e-4, show: bool = False) -> Vector:
+        self.y = y
+        self.tol = tol
+        self.niter = niter
+        x = x0.copy()
+        self.r = self.y - self.Op.matvec(x)
+        self.c = self.r.copy()
+        self.kold = _rdot(self.r, self.r)
+        self.cost = [torch.sqrt(self.kold)]
+        self.iiter = 0
+        if show:
+            self._print_setup()
+        return x
+
+    def step(self, x: Vector, show: bool = False) -> Vector:
+        """One CG step (ref ``cls_basic.py:112-141``)."""
+        xdt = x.dtype
+        Opc = self.Op.matvec(self.c)
+        a = _step_scalar(self.kold / _rdot(self.c, Opc), xdt)
+        x = x + self.c * a
+        self.r = self.r - Opc * a
+        k = _rdot(self.r, self.r)
+        self.c = self.r + self.c * _step_scalar(k / self.kold, xdt)
+        self.kold = k
+        self.iiter += 1
+        self.cost.append(torch.sqrt(self.kold))
+        if show:
+            self._print_step(x)
+        return x
+
+    def finalize(self, show: bool = False) -> None:
+        self.tend = time.time()
+        self.telapsed = self.tend - self.tstart
+        self.cost = torch.stack(self.cost).cpu().numpy()
+
+    def solve(self, y: Vector, x0: Vector, niter: int = 10, tol: float = 1e-4,
+              show: bool = False, itershow=(10, 10, 10)):
+        """Returns ``(x, iiter, cost)``, ``cost`` a numpy array."""
+        x = self.setup(y=y, x0=x0, niter=niter, tol=tol, show=show)
+        x = self.run(x, niter, show=show, itershow=itershow)
+        self.finalize(show)
+        return x, self.iiter, self.cost
+
+
+class CGLS(_BaseSolver):
+    """Damped least-squares CGLS (ref ``cls_basic.py:252-531``), the
+    classic two-sweep schedule; like :class:`CG`, ``run`` reads ``kold``
+    once an iteration."""
+
+    def setup(self, y: Vector, x0: Vector, niter: Optional[int] = None,
+              damp: float = 0.0, tol: float = 1e-4,
+              show: bool = False) -> Vector:
+        self.y = y
+        self.damp = damp ** 2
+        self.tol = tol
+        self.niter = niter
+        x = x0.copy()
+        self.s = self.y - self.Op.matvec(x)
+        # the reference's un-squared setup damp (see the module doc)
+        r = self.Op.rmatvec(self.s) - x * damp
+        self.c = r.copy()
+        self.q = self.Op.matvec(self.c)
+        self.kold = _rdot(r, r)
+        self.cost = [self.s.norm()]
+        self.cost1 = [torch.sqrt(self.cost[0] ** 2
+                                 + self.damp * _rdot(x, x))]
+        self.iiter = 0
+        if show:
+            self._print_setup()
+        return x
+
+    def step(self, x: Vector, show: bool = False) -> Vector:
+        """One CGLS step (ref ``cls_basic.py:373-404``)."""
+        xdt = x.dtype
+        a = torch.abs(self.kold / (_rdot(self.q, self.q)
+                                   + self.damp * _rdot(self.c, self.c)))
+        a = _step_scalar(a, xdt)
+        x = x + self.c * a
+        self.s = self.s - self.q * a
+        r = self.Op.rmatvec(self.s) - x * self.damp
+        k = _rdot(r, r)
+        self.c = r + self.c * _step_scalar(k / self.kold, xdt)
+        self.q = self.Op.matvec(self.c)
+        self.kold = k
+        self.iiter += 1
+        self.cost.append(self.s.norm())
+        self.cost1.append(torch.sqrt(self.cost[self.iiter] ** 2
+                                     + self.damp * _rdot(x, x)))
+        if show:
+            self._print_step(x)
+        return x
+
+    def finalize(self, show: bool = False) -> None:
+        self.tend = time.time()
+        self.telapsed = self.tend - self.tstart
+        self.istop = 1 if float(self.kold) < self.tol else 2
+        self.r1norm = self.kold
+        self.r2norm = self.cost1[self.iiter]
+        self.cost = torch.stack(self.cost).cpu().numpy()
+        self.cost1 = torch.stack(self.cost1).cpu().numpy()
+
+    def solve(self, y: Vector, x0: Vector, niter: int = 10, damp: float = 0.0,
+              tol: float = 1e-4, show: bool = False, itershow=(10, 10, 10)):
+        """Returns ``(x, istop, iiter, r1norm, r2norm, cost)``, ``cost``
+        a numpy array."""
+        x = self.setup(y=y, x0=x0, niter=niter, damp=damp, tol=tol, show=show)
+        x = self.run(x, niter, show=show, itershow=itershow)
+        self.finalize(show)
+        return x, self.istop, self.iiter, self.r1norm, self.r2norm, self.cost
 
 
 def cg(Op, y: Vector, x0: Optional[Vector] = None,

@@ -1,0 +1,378 @@
+"""ISTA / FISTA sparse solvers.
+
+PyTorch counterpart of ``pylops_mpi_tpu/solvers/sparsity.py`` (the
+reference's ``pylops_mpi/optimization/cls_sparsity.py``, ISTA
+``49-485`` and FISTA ``486-715``, and the functional ``sparsity.py``).
+The thresholds apply elementwise to the model's tensor; the step size
+defaults to ``1/λmax(OpᴴOp)`` from :func:`power_iteration`, cached per
+operator object; the cost is ``½‖r‖² + ε‖x‖₁``.
+
+Two execution paths, as in the JAX package:
+
+- the class API (:class:`ISTA`, :class:`FISTA`): ``setup``/``step``/
+  ``run``/``finalize``/``solve`` with ``callback``, ``show`` and
+  ``monitorres``, which read their scalars on the host every
+  iteration;
+- the fused path (the functional :func:`ista`/:func:`fista` without
+  hooks): every scalar stays on the device. A device ``active`` mask
+  freezes ``x``, ``z``, ``t``, the count and the cost buffer at the
+  iteration where ``xupdate ≤ tol`` stopped the loop, and the host
+  reads the mask every ``_CHECK_EVERY`` iterations to leave early, so
+  the result equals the JAX package's ``lax.while_loop`` exactly.
+
+The guarded variants (``ista_guarded``/``fista_guarded``), telemetry
+and fault injection of the JAX package are not ported.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+import weakref
+from typing import Any, Callable, Dict, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from ..distributedarray import DistributedArray
+from ..ops._precision import reduction_dtype
+from ..stacked import StackedDistributedArray
+from .basic import _CHECK_EVERY, _record, _step_scalar
+from .eigs import _where, power_iteration
+
+__all__ = ["ISTA", "FISTA", "ista", "fista"]
+
+Vector = Union[DistributedArray, StackedDistributedArray]
+
+
+def _sqrt(v):
+    return torch.sqrt(v) if isinstance(v, torch.Tensor) else math.sqrt(v)
+
+
+def _softthreshold(x: torch.Tensor, thresh) -> torch.Tensor:
+    r = torch.clamp(torch.abs(x) - thresh, min=0.0)
+    if x.is_complex():
+        # the phase through exp(1j·angle): no division by |x|
+        return r * torch.exp(1j * torch.angle(x))
+    return r * torch.sign(x)
+
+
+def _hardthreshold(x: torch.Tensor, thresh) -> torch.Tensor:
+    return x.masked_fill(torch.abs(x) <= _sqrt(2 * thresh), 0)
+
+
+def _halfthreshold(x: torch.Tensor, thresh) -> torch.Tensor:
+    # (|x|/3)^-1.5 is inf at x = 0; the clamp takes it to 1, arccos to 0,
+    # and the cut below zeroes that entry, so no NaN reaches the result
+    arg = torch.clamp((thresh / 8.0) * (torch.abs(x) / 3.0) ** (-1.5),
+                      -1.0, 1.0)
+    # Xu et al.: h(x) = 2/3 x (1 + cos(2π/3 − 2/3 φ)),
+    # φ = arccos((λ/8)(|x|/3)^(−3/2))
+    phi = 2.0 / 3.0 * torch.arccos(arg)
+    x1 = 2.0 / 3.0 * x * (1 + torch.cos(2.0 * math.pi / 3.0 - phi))
+    cut = (54 ** (1.0 / 3.0) / 4.0) * thresh ** (2.0 / 3.0)
+    return x1.masked_fill(torch.abs(x) <= cut, 0)
+
+
+_THRESHF = {"soft": _softthreshold, "hard": _hardthreshold,
+            "half": _halfthreshold}
+
+
+def _apply_thresh(x: Vector, threshf: Callable, thresh) -> Vector:
+    """ref ``cls_sparsity.py:21-46``"""
+    if isinstance(x, DistributedArray):
+        return DistributedArray._wrap(threshf(x.array, thresh), x)
+    return StackedDistributedArray([_apply_thresh(d, threshf, thresh)
+                                    for d in x.distarrays])
+
+
+# λmax-based step sizes per operator object and eigsdict: weak keys, so
+# an entry goes with its operator and a reused id() cannot hit it
+_ALPHA_CACHE: "weakref.WeakKeyDictionary[Any, Dict[tuple, float]]" = \
+    weakref.WeakKeyDictionary()
+
+
+def _step_size(Op, x0: Vector, eigsdict: Optional[Dict[str, Any]]) -> float:
+    """``1/λmax(OpᴴOp)`` from :func:`power_iteration` (ref
+    ``cls_sparsity.py:239-255``)."""
+    Op1 = Op.H @ Op
+    b_k = x0.zeros_like() if isinstance(x0, DistributedArray) else x0.copy()
+    maxeig = np.abs(power_iteration(Op1, b_k=b_k, dtype=Op1.dtype,
+                                    **(eigsdict or {}))[0])
+    return float(1.0 / maxeig)
+
+
+def _cached_step_size(Op, x0: Vector, eigsdict) -> float:
+    """:func:`_step_size` computed once per operator object and
+    ``eigsdict``."""
+    key = tuple(sorted((eigsdict or {}).items()))
+    per_op = _ALPHA_CACHE.setdefault(Op, {})
+    if key not in per_op:
+        per_op[key] = _step_size(Op, x0, eigsdict)
+    return per_op[key]
+
+
+class ISTA:
+    """Iterative Shrinkage-Thresholding Algorithm
+    (ref ``cls_sparsity.py:49-485``). The class API reads three or four
+    scalars on the host every iteration (``xupdate``, the two cost
+    terms, and the residual norm under ``monitorres``); the functional
+    :func:`ista` without hooks runs the fused path instead."""
+
+    def __init__(self, Op):
+        self.Op = Op
+        self.callback = lambda x: None
+        self.tstart = time.time()
+
+    def setup(self, y: Vector, x0: Vector, niter: Optional[int] = None,
+              SOp=None, eps: float = 0.1, alpha: Optional[float] = None,
+              eigsdict: Optional[Dict[str, Any]] = None, tol: float = 1e-10,
+              threshkind: str = "soft", perc: Optional[float] = None,
+              decay: Optional[np.ndarray] = None, monitorres: bool = False,
+              show: bool = False) -> Vector:
+        if threshkind not in _THRESHF:
+            raise NotImplementedError(
+                "threshkind should be hard, soft or half")
+        if perc is not None:
+            raise NotImplementedError(
+                "percentile thresholding is not implemented")
+        self.y = y
+        self.SOp = SOp
+        self.niter = niter
+        self.eps = eps
+        self.tol = tol
+        self.monitorres = monitorres
+        self.threshf = _THRESHF[threshkind]
+        self.eigsdict = {} if eigsdict is None else eigsdict
+        self.decay = decay if decay is not None else np.ones(niter or 1)
+        self.alpha = (alpha if alpha is not None
+                      else _step_size(self.Op, x0, self.eigsdict))
+        self.thresh = eps * self.alpha * 0.5
+        x = x0.copy()
+        if monitorres:
+            self.normresold = np.inf
+        self.t = 1.0
+        self.cost = []
+        self.iiter = 0
+        if show:
+            self._print_setup()
+        return x
+
+    def _check_residual(self, res: Vector) -> None:
+        """``monitorres``: stop when the residual norm grows
+        (ref ``cls_sparsity.py:298-307``)."""
+        if not self.monitorres:
+            return
+        normres = float(res.norm())
+        if normres > self.normresold:
+            raise ValueError(
+                f"{type(self).__name__} stopped at iteration {self.iiter} "
+                "due to residual increasing, consider modifying eps "
+                "and/or alpha...")
+        self.normresold = normres
+
+    def _threshold(self, x_unthresh: Vector) -> Vector:
+        """``SOp``-transformed threshold at this iteration's decay."""
+        if self.SOp is not None:
+            x_unthresh = self.SOp.rmatvec(x_unthresh)
+        x = _apply_thresh(x_unthresh, self.threshf,
+                          self.decay[min(self.iiter, len(self.decay) - 1)]
+                          * self.thresh)
+        if self.SOp is not None:
+            x = self.SOp.matvec(x)
+        return x
+
+    def _finish_step(self, x, xold, res, show):
+        xupdate = float((x - xold).norm())
+        costdata = 0.5 * float(res.norm()) ** 2
+        costreg = self.eps * float(x.norm(1))
+        self.cost.append(costdata + costreg)
+        self.iiter += 1
+        if show:
+            self._print_step(x, costdata, costreg, xupdate)
+        return x, xupdate
+
+    def step(self, x: Vector, show: bool = False) -> Tuple[Vector, float]:
+        """ref ``cls_sparsity.py:309-343``"""
+        xold = x.copy()
+        res = self.y - self.Op.matvec(x)
+        self._check_residual(res)
+        x = self._threshold(x + self.Op.rmatvec(res) * self.alpha)
+        return self._finish_step(x, xold, res, show)
+
+    def run(self, x: Vector, niter: Optional[int] = None, show: bool = False,
+            itershow=(10, 10, 10)) -> Vector:
+        xupdate = np.inf
+        niter = self.niter if niter is None else niter
+        if niter is None:
+            raise ValueError("niter must not be None")
+        while self.iiter < niter and xupdate > self.tol:
+            showstep = show and (self.iiter < itershow[0]
+                                 or niter - self.iiter < itershow[1]
+                                 or self.iiter % itershow[2] == 0)
+            x, xupdate = self.step(x, showstep)
+            self.callback(x)
+        return x
+
+    def finalize(self, show: bool = False) -> None:
+        self.tend = time.time()
+        self.telapsed = self.tend - self.tstart
+        self.cost = np.asarray(self.cost)
+
+    def solve(self, y: Vector, x0: Vector, niter: Optional[int] = None,
+              SOp=None, eps: float = 0.1, alpha: Optional[float] = None,
+              eigsdict=None, tol: float = 1e-10, threshkind: str = "soft",
+              perc=None, decay=None, monitorres: bool = False,
+              show: bool = False, itershow=(10, 10, 10)
+              ) -> Tuple[Vector, int, np.ndarray]:
+        x = self.setup(y=y, x0=x0, niter=niter, SOp=SOp, eps=eps, alpha=alpha,
+                       eigsdict=eigsdict, tol=tol, threshkind=threshkind,
+                       perc=perc, decay=decay, monitorres=monitorres,
+                       show=show)
+        x = self.run(x, niter, show=show, itershow=itershow)
+        self.finalize(show)
+        return x, self.iiter, self.cost
+
+    def _print_setup(self):
+        print(f"{type(self).__name__}\neps = {self.eps:.2e}\t"
+              f"alpha = {self.alpha:.2e}\tniter = {self.niter}")
+
+    def _print_step(self, x, costdata, costreg, xupdate):
+        print(f"{self.iiter:6g}  {costdata + costreg:11.4e}  "
+              f"{xupdate:11.4e}")
+
+
+class FISTA(ISTA):
+    """Fast ISTA with Nesterov momentum
+    (ref ``cls_sparsity.py:486-715``; momentum ``645-649``). The cost
+    takes a third apply, ``y − Op x_new``."""
+
+    def setup(self, *args, **kwargs) -> Vector:
+        x = super().setup(*args, **kwargs)
+        self.z = x.copy()
+        return x
+
+    def step(self, x: Vector, show: bool = False) -> Tuple[Vector, float]:
+        xold = x.copy()
+        res = self.y - self.Op.matvec(self.z)
+        self._check_residual(res)
+        x = self._threshold(self.z + self.Op.rmatvec(res) * self.alpha)
+        told = self.t
+        self.t = (1.0 + math.sqrt(1.0 + 4.0 * self.t ** 2)) / 2.0
+        self.z = x + (x - xold) * ((told - 1.0) / self.t)
+        return self._finish_step(x, xold, self.y - self.Op.matvec(x), show)
+
+
+# --------------------------------------------------------- fused (on-device)
+def _sparse_fused(Op, y: Vector, x0: Vector, alpha: float, eps: float,
+                  tol: float, decay: np.ndarray, *, niter: int,
+                  threshf: Callable, SOp=None, momentum: bool = False):
+    """The JAX package's ``_ista_fused`` loop with device scalars. The
+    step, decay and momentum scalars live at the model's reduction
+    dtype (so a Python float never promotes an f32 model), as do
+    ``xupdate`` and the cost; the step re-enters the update at the
+    model's dtype."""
+    xdt = x0.dtype
+    rdt = reduction_dtype(xdt)
+    dev = x0.device
+    thresh = eps * alpha * 0.5
+    decay_t = torch.as_tensor(np.asarray(decay), dtype=rdt, device=dev)
+    nd = decay_t.shape[0]
+    step = _step_scalar(torch.tensor(alpha, dtype=rdt, device=dev), xdt)
+    x, z = x0, x0.copy()
+    t = torch.tensor(1.0, dtype=rdt, device=dev)
+    cost = torch.zeros(niter, dtype=rdt, device=dev)
+    iiter = torch.zeros((), dtype=torch.int64, device=dev)
+    active = torch.ones((), dtype=torch.bool, device=dev)
+    for it in range(niter):
+        if it and it % _CHECK_EVERY == 0 and not bool(active):
+            break
+        xin = z if momentum else x
+        res = y - Op.matvec(xin)
+        x_unthresh = xin + Op.rmatvec(res) * step
+        if SOp is not None:
+            x_unthresh = SOp.rmatvec(x_unthresh)
+        xnew = _apply_thresh(x_unthresh, threshf,
+                             decay_t[min(it, nd - 1)] * thresh)
+        if SOp is not None:
+            xnew = SOp.matvec(xnew)
+        if momentum:
+            tnew = (1.0 + torch.sqrt(1.0 + 4.0 * t * t)) / 2.0
+            znew = xnew + (xnew - x) * _step_scalar((t - 1.0) / tnew, xdt)
+            costdata = 0.5 * (y - Op.matvec(xnew)).norm() ** 2
+        else:
+            costdata = 0.5 * res.norm() ** 2
+        costreg = eps * xnew.norm(1)
+        xupdate = (xnew - x).norm().to(rdt)
+        _record(cost, it, (costdata + costreg).to(rdt), active)
+        if momentum:
+            z = _where(active, znew, z)
+            t = torch.where(active, tnew, t)
+        x = _where(active, xnew, x)
+        iiter = iiter + active.to(iiter.dtype)
+        active = active & (xupdate > tol)
+    iiter = int(iiter)
+    return x, iiter, cost[:iiter]
+
+
+def _sparse_solve(name, Op, y, x0, niter, SOp, eps, alpha, eigsdict, tol,
+                  threshkind, perc, decay, monitorres, show, itershow,
+                  callback, fused):
+    """Shared body of :func:`ista` and :func:`fista`."""
+    momentum = name == "fista"
+    use_fused = fused if fused is not None else \
+        (callback is None and not show and not monitorres and perc is None)
+    if not use_fused:
+        solver = (FISTA if momentum else ISTA)(Op)
+        if callback is not None:
+            solver.callback = callback
+        return solver.solve(y, x0, niter=niter, SOp=SOp, eps=eps,
+                            alpha=alpha, eigsdict=eigsdict, tol=tol,
+                            threshkind=threshkind, perc=perc, decay=decay,
+                            monitorres=monitorres, show=show,
+                            itershow=itershow)
+    if callback is not None or show or monitorres:
+        raise ValueError("fused=True cannot honor callback/show/"
+                         "monitorres; use fused=False for hooks")
+    if perc is not None:
+        raise NotImplementedError("percentile thresholding is not "
+                                  "implemented")
+    if threshkind not in _THRESHF:
+        raise NotImplementedError("threshkind should be hard, soft or half")
+    if x0 is None:
+        raise ValueError("x0 required")
+    if alpha is None:
+        alpha = _cached_step_size(Op, x0, eigsdict)
+    decay = np.ones(niter) if decay is None else np.asarray(decay)
+    return _sparse_fused(Op, y, x0, alpha, eps, tol, decay, niter=niter,
+                         threshf=_THRESHF[threshkind], SOp=SOp,
+                         momentum=momentum)
+
+
+def ista(Op, y: Vector, x0: Optional[Vector] = None,
+         niter: int = 10, SOp=None, eps: float = 0.1,
+         alpha: Optional[float] = None, eigsdict=None, tol: float = 1e-10,
+         threshkind: str = "soft", perc=None, decay=None,
+         monitorres: bool = False, show: bool = False, itershow=(10, 10, 10),
+         callback: Optional[Callable] = None, fused: Optional[bool] = None):
+    """Functional ISTA (ref ``optimization/sparsity.py:11-133``).
+    Returns ``(x, iiter, cost)``. Without ``callback``, ``show`` or
+    ``monitorres`` it runs the fused path (``cost`` a device tensor);
+    with them, or ``fused=False``, the class API (``cost`` a numpy
+    array)."""
+    return _sparse_solve("ista", Op, y, x0, niter, SOp, eps, alpha,
+                         eigsdict, tol, threshkind, perc, decay, monitorres,
+                         show, itershow, callback, fused)
+
+
+def fista(Op, y: Vector, x0: Optional[Vector] = None,
+          niter: int = 10, SOp=None, eps: float = 0.1,
+          alpha: Optional[float] = None, eigsdict=None, tol: float = 1e-10,
+          threshkind: str = "soft", perc=None, decay=None,
+          monitorres: bool = False, show: bool = False, itershow=(10, 10, 10),
+          callback: Optional[Callable] = None, fused: Optional[bool] = None):
+    """Functional FISTA (ref ``optimization/sparsity.py:136-257``); see
+    :func:`ista`."""
+    return _sparse_solve("fista", Op, y, x0, niter, SOp, eps, alpha,
+                         eigsdict, tol, threshkind, perc, decay, monitorres,
+                         show, itershow, callback, fused)
