@@ -59,11 +59,34 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    sparsifying transform), ``power_iteration``, ``MPIFredholm1``,
    ``FFT``'s adjoint on half-spectra with imaginary DC and Nyquist bins,
    ``examples/mdd.py``'s ``mdd``, and slice 2's regularized post-stack
-   solve.
+   solve; and of slice 5, ``MPIVStack`` and ``MPIHStack`` (batched and
+   heterogeneous rows), ``MPIHalo`` with tuple halos,
+   ``MPINonStationaryConvolve1D``, and ``examples/lsm.py``'s ``lsm`` (five
+   iterations) with its travel-time tables required equal;
+11. the stacking operators on slice 1's 32 blocks of 4096x4096:
+   ``MPIVStack`` with f32 and bf16 storage, one forward and one adjoint
+   apply against the byte bound and the plain product, CGLS (50
+   iterations) on the overdetermined (131072 x 4096) system from a known
+   model, and ``MPIHStack`` of the same blocks against
+   ``MPIVStack(...).H`` and the plain sum;
+12. non-stationary deconvolution: CGLS (50 iterations) through
+   ``MPINonStationaryConvolve1D`` on a (2048, 16384) field with 32 41-tap
+   Ricker filters whose frequency falls with depth, on data from a
+   seeded sparse reflectivity; apply times against the byte bound and
+   the JAX package's shifted-pass formulation, a profile and the idle
+   share;
+13. least-squares Kirchhoff migration at full width (``examples/lsm.py``
+   widened to a (201, 401) image, 64 x 256 traces of 1800 samples): the
+   table build, forward and adjoint applies split into spray, gather,
+   Conv1D and other device time, CGLS (50 iterations) that must recover
+   both interfaces with a non-increasing cost, peak device memory, and
+   ``models.lsm`` end to end.
 
-Phases 8 and 9 reach none of the hand-written kernels: the JAX package
-runs their FFTs, products, thresholds and convolutions outside Pallas,
-and so does the port (cuFFT, cuBLAS, cuDNN and elementwise PyTorch).
+Phases 8, 9 and 11-13 reach none of the hand-written kernels: the JAX
+package runs their FFTs, products, thresholds, convolutions, sprays and
+gathers outside Pallas, and so does the port (cuFFT, cuBLAS, cuDNN,
+``index_add_``/``index_select`` and elementwise PyTorch); their kernel
+launch counts are read all the same.
 
 It prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or run from a
@@ -137,6 +160,25 @@ JITTER = 16
 NITER_SPARSE, EPS_SPARSE = 100, 1e-3
 # phase 10: card against CPU in f64, every gap relative to the largest entry
 F64_GAP = 1e-9
+# phase 11: MPIVStack of slice 1's 32 blocks, (131072 x 4096); stack against
+# its plain product (f32 sums in other orders over 4096 terms)
+STACK_TOL = 1e-5
+# phase 12: non-stationary deconvolution of a (2048, 16384) field (2048
+# samples at 2 ms, a 128 x 128 patch of traces, 128 MiB a f32 vector) with
+# 32 41-tap Ricker filters at ih = 32 + 64 k, f0 falling from 40 to 10 Hz
+NT_NS, NTR_NS, NFILT_NS = 2048, 16384, 32
+SPIKE_FRACTION = 0.02
+NS_RESID_LIMIT = 0.1
+# phase 13: examples/lsm.py widened: a (201, 401) image at 4 m, v0 1000 m/s,
+# 64 sources at 10 m and 256 receivers at 20 m depth, 1800 samples at 2 ms,
+# interfaces at rows 100 and 167 (the example's relative depths)
+NZ_L, NX_L, DX_L, V0_L = 201, 401, 4.0, 1000.0
+NS_L, NR_L, NT_L, DT_L = 64, 256, 1800, 0.002
+ROWS_L = (100, 167)
+# the LSM example at its own size on the card and the CPU: CGLS on it
+# amplifies summation order from its sixth iteration on (see
+# tests/test_torch_lsm.py), so the f64 comparison runs five
+NITER_LSM_F64 = 5
 # relative stacked residual ||[d; 0] - [Op; eps G] x|| / ||d|| after 50
 # iterations must be below this: a reduced-size run of this phase's
 # code, (1024, 1024) f32 on the CPU with seeds 4 and 5, reached 0.1153
@@ -599,12 +641,413 @@ def reflectivity_phase(torch, pmtt, kernels, dev):
     return res
 
 
+def bytes_bound_ms(nbytes):
+    """Least time to move ``nbytes`` at the card's memory rate."""
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def stacking_phase(torch, pmtt, kernels, dev):
+    """Phase 11: MPIVStack of slice 1's 32 blocks of 4096x4096 (f32 and
+    bf16 storage): one forward and one adjoint apply timed against the
+    byte bound and held against the plain product, CGLS on the
+    overdetermined (131072 x 4096) system from a known model, and
+    MPIHStack of the same blocks held against MPIVStack(...).H and the
+    plain sum."""
+    from pylops_mpi_tpu_torch import Partition
+    from pylops_mpi_tpu_torch.ops.local import MatrixMult
+    A, _, _ = make_problem(torch, dev)
+    g = torch.Generator(device=dev).manual_seed(9)
+    xt = torch.randn(NBLOCK, generator=g, device=dev)
+    rows = [MatrixMult(A[i]) for i in range(NBLK)]
+    Af = A.view(NBLK * NBLOCK, NBLOCK)
+    xm = pmtt.DistributedArray.to_dist(xt, partition=Partition.BROADCAST)
+    x0 = pmtt.DistributedArray(global_shape=NBLOCK,
+                               partition=Partition.BROADCAST, device=dev)
+    res = {}
+    for label, cdt, limit in (("f32", None, 1e-4),
+                              ("bf16", torch.bfloat16, 1e-3)):
+        V = pmtt.MPIVStack(rows, compute_dtype=cdt)
+        y = V.matvec(xm)
+        z = V.rmatvec(y)
+        # the blocks lie on the bf16 grid: both storages hold the same values
+        err = max(max_rel_err(y.array, Af @ xt),
+                  max_rel_err(z.array, Af.mT @ y.array))
+        fwd = cuda_ms(lambda: V.matvec(xm))
+        adj = cuda_ms(lambda: V.rmatvec(y))
+        bound = bytes_bound_ms(V._batched.numel() * V._batched.element_size()
+                               + (NBLOCK + NBLK * NBLOCK) * 4)
+        pmtt.cgls(V, y, x0=x0, niter=2, tol=0.0)  # warm-up
+        (x, istop, iiter, r1, r2, cost), walls, launches = solve_walls(
+            torch, kernels, lambda: pmtt.cgls(V, y, x0=x0, niter=NITER,
+                                              tol=0.0), 3)
+        rel = rel_norm(x.array, xt)
+        wall = min(walls)
+        wall_ms, busy_ms, top, _ = profile_run(
+            torch, lambda: pmtt.cgls(V, y, x0=x0, niter=10, tol=0.0))
+        res[label] = dict(forward_ms=fwd, adjoint_ms=adj, bound_ms=bound,
+                          max_err_vs_plain=err, iters_per_s=iiter / wall,
+                          wall_s=walls, iiter=iiter, rel_err=rel,
+                          kernel_launches=launches, profile_wall_ms=wall_ms,
+                          profile_device_ms=busy_ms, profile_top=top,
+                          idle_share=1.0 - busy_ms / wall_ms)
+        print(f"MPIVStack {NBLK}x{NBLOCK}^2 {label} storage: forward "
+              f"{fwd:.3f} ms, adjoint {adj:.3f} ms (byte bound "
+              f"{bound:.3f} ms), vs plain product max rel err {err:.2e} "
+              f"(tol {STACK_TOL:.0e}); cgls {iiter} iters in {wall:.4f} s "
+              f"(best of {walls}) = {iiter / wall:.1f} iters/s, rel_err "
+              f"{rel:.3e} (limit {limit:.0e}); kernel launches (normal, "
+              f"stencil) {launches}; profile, 10 iterations: device busy "
+              f"{busy_ms:.3f} ms of {wall_ms:.3f} ms wall; top kernels "
+              f"(ms, name, count): {top}", flush=True)
+        if not (err <= STACK_TOL and rel <= limit):
+            raise RuntimeError(f"MPIVStack {label}: err {err:.3e}, rel_err "
+                               f"{rel:.3e}")
+        del V, y, z, x
+        torch.cuda.empty_cache()
+    w = pmtt.DistributedArray.to_dist(
+        torch.randn(NBLK * NBLOCK, generator=g, device=dev))
+    V = pmtt.MPIVStack(rows)
+    H = pmtt.MPIHStack([r.H for r in rows])
+    err_h = max_rel_err(H.matvec(w).array, V.H.matvec(w).array)
+    del V, H
+    torch.cuda.empty_cache()
+    # the blocks themselves: the batched adjoint-rows path (one batched
+    # product and a sum over the blocks)
+    H = pmtt.MPIHStack(rows)
+    plain = sum(A[i] @ w.array[i * NBLOCK:(i + 1) * NBLOCK]
+                for i in range(NBLK))
+    err_p = max_rel_err(H.matvec(w).array, plain)
+    hms = cuda_ms(lambda: H.matvec(w))
+    res["hstack"] = dict(max_err_vs_vstack_adjoint=err_h,
+                         max_err_vs_plain=err_p, forward_ms=hms)
+    print(f"MPIHStack of the blocks' adjoints vs MPIVStack(blocks).H: max rel "
+          f"err {err_h:.2e}; MPIHStack of the blocks vs the plain sum: "
+          f"{err_p:.2e} (tol {STACK_TOL:.0e}), forward {hms:.3f} ms",
+          flush=True)
+    if not max(err_h, err_p) <= STACK_TOL:
+        raise RuntimeError(f"MPIHStack disagrees: {err_h:.3e}, {err_p:.3e}")
+    del H, A, Af, rows, w, plain
+    torch.cuda.empty_cache()
+    return res
+
+
+def nonstat_filters(pmtt):
+    """32 Ricker filters of 41 taps, f0 falling linearly from 40 to 10 Hz
+    with depth, at ih = 32 + 64 k."""
+    t = np.arange(21) * 0.004
+    hs = np.stack([pmtt.models.ricker(t, f)[0]
+                   for f in np.linspace(40.0, 10.0, NFILT_NS)])
+    return hs, 32 + 64 * np.arange(NFILT_NS)
+
+
+def nonstat_plain(torch, H, v):
+    """The JAX package's formulation of the local forward
+    (ops/local.py:736-745) along axis 0: one shifted, weighted pass over
+    the (n, traces) field per tap."""
+    n, nh = H.shape
+    y = torch.zeros((n + nh - 1, v.shape[1]), dtype=v.dtype, device=v.device)
+    for j in range(nh):
+        y[j:j + n] += H[:, j:j + 1] * v
+    return y[nh // 2:nh // 2 + n]
+
+
+def nonstat_phase(torch, pmtt, kernels, dev):
+    """Phase 12: CGLS deconvolution through MPINonStationaryConvolve1D
+    on the (2048, 16384) field, data from a seeded sparse reflectivity."""
+    from pylops_mpi_tpu_torch.ops.local import NonStationaryConvolve1D
+    f32 = torch.float32
+    torch.cuda.reset_peak_memory_stats()
+    hs, ih = nonstat_filters(pmtt)
+    dims = (NT_NS, NTR_NS)
+    t0 = time.perf_counter()
+    Op = pmtt.MPINonStationaryConvolve1D(dims, hs, ih, axis=0, dtype=f32,
+                                         device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    g = torch.Generator(device=dev).manual_seed(10)
+    keep = torch.rand(dims, generator=g, device=dev) < SPIKE_FRACTION
+    sign = torch.randint(0, 2, dims, generator=g, device=dev) * 2 - 1
+    m = torch.where(keep, sign, 0).to(f32)
+    mv = pmtt.DistributedArray.to_dist(m.reshape(-1))
+    d = Op.matvec(mv)
+    bank = NonStationaryConvolve1D(dims, hs, ih, axis=0, dtype=f32,
+                                   device=dev).Hbank
+    err = max_rel_err(d.array.view(dims), nonstat_plain(torch, bank, m))
+    fwd = cuda_ms(lambda: Op.matvec(mv))
+    adj = cuda_ms(lambda: Op.rmatvec(d))
+    plain_ms = cuda_ms(lambda: nonstat_plain(torch, bank, m), reps=5)
+    nh = hs.shape[1]
+    t_bytes = bytes_bound_ms(2 * NT_NS * NTR_NS * 4)
+    t_ops = 2.0 * nh * NT_NS * NTR_NS / F32_OPS_PER_S * 1e3
+    bound, bound_by = max((t_bytes, "bytes"), (t_ops, "operations"))
+    parts = {}
+    for name, fn in (("forward", lambda: Op.matvec(mv)),
+                     ("adjoint", lambda: Op.rmatvec(d))):
+        wall, rows = device_rows(torch, fn)
+        parts[name] = dict(profile_wall_ms=wall,
+                           device_ms=sum(r[0] for r in rows),
+                           top=[(ms, n[:60], c) for ms, n, c in rows[:5]])
+    print(f"MPINonStationaryConvolve1D {dims} f32, {NFILT_NS} filters of {nh} "
+          f"taps, built in {build_s:.2f} s: forward {fwd:.4f} ms, adjoint "
+          f"{adj:.4f} ms (bound {bound:.4f} ms, {bound_by}); the JAX "
+          f"package's {nh}-pass formulation {plain_ms:.3f} ms, agrees to "
+          f"{err:.2e} (tol {STACK_TOL:.0e}); kernels by time: forward "
+          f"{parts['forward']['top']}, adjoint {parts['adjoint']['top']}",
+          flush=True)
+    if not err <= STACK_TOL:
+        raise RuntimeError(f"non-stationary convolution: {err:.3e} from the "
+                           "shifted-pass formulation")
+    x0 = mv.zeros_like()
+    pmtt.cgls(Op, d, x0=x0, niter=2, tol=0.0)  # warm-up
+    (x, istop, iiter, r1, r2, cost), walls, launches = solve_walls(
+        torch, kernels, lambda: pmtt.cgls(Op, d, x0=x0, niter=NITER, tol=0.0),
+        3)
+    c = cost.double().cpu().numpy()
+    resid = float(c[-1] / c[0])
+    wall = min(walls)
+    merr = rel_norm(x.array, mv.array)
+    wall_ms, busy_ms, top, _ = profile_run(
+        torch, lambda: pmtt.cgls(Op, d, x0=x0, niter=10, tol=0.0))
+    res = dict(build_s=build_s, forward_ms=fwd, adjoint_ms=adj,
+               bound_ms=bound, bound_by=bound_by, plain_ms=plain_ms,
+               max_err_vs_plain=err, parts=parts, iters_per_s=iiter / wall,
+               wall_s=walls, iiter=iiter, rel_residual=resid, model_error=merr,
+               residual_history=c.tolist(), kernel_launches=launches,
+               profile_wall_ms=wall_ms, profile_device_ms=busy_ms,
+               profile_top=top, idle_share=1.0 - busy_ms / wall_ms,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(f"non-stationary deconvolution cgls f32: {iiter} iters in "
+          f"{wall:.4f} s (best of {walls}) = {iiter / wall:.1f} iters/s; "
+          f"relative residual {resid:.4f} (limit {NS_RESID_LIMIT}), model "
+          f"error {merr:.3f}; kernel launches (normal, stencil) {launches}; "
+          f"profile, 10 iterations: device busy {busy_ms:.3f} ms of "
+          f"{wall_ms:.3f} ms wall (idle {1 - busy_ms / wall_ms:.1%}); top "
+          f"kernels (ms, name, count): {top}; peak device memory "
+          f"{res['peak_gb']:.2f} GB", flush=True)
+    if not resid < NS_RESID_LIMIT or np.any(np.diff(c) > 1e-5 * c[0]):
+        raise RuntimeError(f"non-stationary deconvolution: residual {resid} "
+                           f"or an increasing history {c}")
+    del Op, x, d, mv, m, keep, sign, bank
+    torch.cuda.empty_cache()
+    return res
+
+
+def lsm_geometry(pmtt, nz, nx, dx, ns, nr, nt, dt):
+    """examples/lsm.py's sampling: sources at 10 m and receivers at 20 m
+    depth over linspace(10 dx, (nx - 10) dx), a 21-sample-half Ricker of
+    20 Hz centred on its peak."""
+    x, z = np.arange(nx) * dx, np.arange(nz) * dx
+    srcs = np.vstack((np.linspace(10 * dx, (nx - 10) * dx, ns),
+                      10 * np.ones(ns)))
+    recs = np.vstack((np.linspace(10 * dx, (nx - 10) * dx, nr),
+                      20 * np.ones(nr)))
+    t = np.arange(nt) * dt
+    wav = pmtt.models.ricker(t[:21], f0=20)[0]
+    return dict(z=z, x=x, t=t, sources=srcs, recs=recs, vel=V0_L, wav=wav,
+                wavcenter=len(wav) // 2)
+
+
+def image_peaks(minv):
+    """examples/lsm.py's check: rows that are local maxima of the row
+    energy above 0.3 of its largest."""
+    e = np.abs(np.asarray(minv)).sum(axis=1)
+    return [i for i in range(1, len(e) - 1)
+            if e[i] > e[i - 1] and e[i] > e[i + 1] and e[i] > 0.3 * e.max()]
+
+
+def lsm_groups(rows):
+    """Device ms of an LSM apply's spray (``index_add_``: indexFunc),
+    gather (``index_select``: the scatter/gather kernel), Conv1D (cuDNN)
+    and other kernels."""
+    out = dict(spray_ms=0.0, gather_ms=0.0, conv_ms=0.0, other_ms=0.0)
+    for ms, name, _ in rows:
+        low = name.lower()
+        key = ("spray_ms" if "indexfunc" in low or "index_add" in low
+               else "gather_ms" if "indexselect" in low
+               or "scatter_gather" in low
+               else "conv_ms" if any(k in low for k in (
+                   "conv", "cudnn", "xmma", "implicit", "winograd"))
+               else "other_ms")
+        out[key] += ms
+    return out
+
+
+def lsm_phase(torch, pmtt, kernels, dev):
+    """Phase 13: least-squares Kirchhoff migration at full width, by
+    CGLS through MPILSM, and models.lsm end to end beside it."""
+    from pylops_mpi_tpu_torch import Partition
+    f32 = torch.float32
+    torch.cuda.reset_peak_memory_stats()
+    geo = lsm_geometry(pmtt, NZ_L, NX_L, DX_L, NS_L, NR_L, NT_L, DT_L)
+    refl = np.zeros((NZ_L, NX_L))
+    refl[ROWS_L[0]] = -1.0
+    refl[ROWS_L[1]] = 0.5
+    t0 = time.perf_counter()
+    Op = pmtt.models.MPILSM(**geo, dtype=f32, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    spray = Op.ops[0].B
+    entries = spray.index.numel()
+    # entries past the trace carry amp 0; counted a slice of rows at a
+    # time (a count over the whole table casts it to int64, 10.6 GB)
+    dropped = sum(int(torch.count_nonzero(a == 0))
+                  for a in spray.amp.split(NR_L))
+    table_gb = entries * (spray.index.element_size()
+                          + spray.amp.element_size()) / 1e9
+    m = pmtt.DistributedArray.to_dist(
+        torch.from_numpy(refl.ravel()).to(dev, f32),
+        partition=Partition.BROADCAST)
+    d = Op.matvec(m)
+    repeat_equal = bool(torch.equal(d.array, Op.matvec(m).array))
+    fwd = cuda_ms(lambda: Op.matvec(m), reps=5)
+    adj = cuda_ms(lambda: Op.rmatvec(d), reps=5)
+    # an apply reads the tables once and its input, and writes its output
+    npix, nd = Op.shape[1], Op.shape[0]
+    bound = bytes_bound_ms(entries * 8 + (npix + nd) * 4)
+    parts = {}
+    for name, fn in (("forward", lambda: Op.matvec(m)),
+                     ("adjoint", lambda: Op.rmatvec(d))):
+        wall, rows = device_rows(torch, fn)
+        parts[name] = dict(lsm_groups(rows), profile_wall_ms=wall,
+                           top=[(ms, n[:60], c) for ms, n, c in rows[:5]])
+    print(f"MPILSM ({NZ_L}, {NX_L}) image, {NS_L} x {NR_L} traces of {NT_L} "
+          f"samples f32: tables of {entries} entries ({table_gb:.2f} GB, "
+          f"{dropped} dropped past the trace) built in {build_s:.2f} s; "
+          f"forward {fwd:.3f} ms (spray {parts['forward']['spray_ms']:.3f}, "
+          f"Conv1D {parts['forward']['conv_ms']:.3f}, other "
+          f"{parts['forward']['other_ms']:.3f}), adjoint {adj:.3f} ms (gather "
+          f"{parts['adjoint']['gather_ms']:.3f}, Conv1D "
+          f"{parts['adjoint']['conv_ms']:.3f}, other "
+          f"{parts['adjoint']['other_ms']:.3f}); byte bound {bound:.3f} ms; "
+          f"two forward applies bitwise equal: {repeat_equal}; kernels by "
+          f"time: forward {parts['forward']['top']}, adjoint "
+          f"{parts['adjoint']['top']}", flush=True)
+    x0 = pmtt.DistributedArray(global_shape=npix,
+                               partition=Partition.BROADCAST, device=dev)
+    pmtt.cgls(Op, d, x0=x0, niter=2, tol=0.0)  # warm-up
+    (x, istop, iiter, r1, r2, cost), walls, launches = solve_walls(
+        torch, kernels, lambda: pmtt.cgls(Op, d, x0=x0, niter=NITER, tol=0.0),
+        2)
+    c = cost.double().cpu().numpy()
+    wall = min(walls)
+    peaks = image_peaks(x.asarray().reshape(NZ_L, NX_L))
+    wall_ms, busy_ms, top, _ = profile_run(
+        torch, lambda: pmtt.cgls(Op, d, x0=x0, niter=10, tol=0.0))
+    res = dict(build_s=build_s, entries=entries, dropped=dropped,
+               table_gb=table_gb, forward_ms=fwd, adjoint_ms=adj,
+               bound_ms=bound, bound_by="bytes", parts=parts,
+               forward_repeat_bitwise_equal=repeat_equal,
+               iters_per_s=iiter / wall, wall_s=walls, iiter=iiter,
+               rel_residual=float(c[-1] / c[0]), residual_history=c.tolist(),
+               peaks=peaks, kernel_launches=launches,
+               profile_wall_ms=wall_ms, profile_device_ms=busy_ms,
+               profile_top=top, idle_share=1.0 - busy_ms / wall_ms,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(f"LSM cgls f32: {iiter} iters in {wall:.4f} s (best of {walls}) = "
+          f"{iiter / wall:.2f} iters/s; relative residual "
+          f"{res['rel_residual']:.4f}; image row-energy peaks {peaks} (need "
+          f"{list(ROWS_L)}); kernel launches (normal, stencil) {launches}; "
+          f"profile, 10 iterations: device busy {busy_ms:.3f} ms of "
+          f"{wall_ms:.3f} ms wall (idle {1 - busy_ms / wall_ms:.1%}); top "
+          f"kernels (ms, name, count): {top}; peak device memory "
+          f"{res['peak_gb']:.2f} GB", flush=True)
+    if not set(ROWS_L) <= set(peaks) or np.any(np.diff(c) > 1e-5 * c[0]):
+        raise RuntimeError(f"LSM: interfaces {ROWS_L} not among the peaks "
+                           f"{peaks}, or the cost increases: {c}")
+    del Op, spray, x, d, m, x0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # the user's entry point: tables, data, CGLS and the copy to the host
+    (minv, _, lcost), lwalls, _ = solve_walls(
+        torch, kernels, lambda: pmtt.models.lsm(**geo, refl=refl, niter=NITER,
+                                                dtype=f32, device=dev), 1)
+    lpeaks = image_peaks(minv)
+    res.update(lsm_wall_s=lwalls[0], lsm_peaks=lpeaks,
+               lsm_rel_residual=float(lcost[-1] / lcost[0]),
+               lsm_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(f"models.lsm: tables, data and {NITER} iters with the host copy in "
+          f"{lwalls[0]:.3f} s; relative residual {res['lsm_rel_residual']:.4f}"
+          f"; peaks {lpeaks}; peak device memory {res['lsm_peak_gb']:.2f} GB",
+          flush=True)
+    if not set(ROWS_L) <= set(lpeaks):
+        raise RuntimeError(f"models.lsm: interfaces not recovered: {lpeaks}")
+    torch.cuda.empty_cache()
+    return res
+
+
 def max_gap(pairs):
     """Largest :func:`max_rel_err` of (card, CPU) pairs of tensors or
     arrays."""
     import torch
     return max(max_rel_err(torch.as_tensor(a).cpu(), torch.as_tensor(b).cpu())
                for a, b in pairs)
+
+
+def slice5_card_vs_cpu(torch, pmtt, rng, gaps):
+    """Phase 10's problems of slice 5, into ``gaps``: MPIVStack and
+    MPIHStack (batched and heterogeneous rows), MPIHalo with tuple halos,
+    MPINonStationaryConvolve1D, and examples/lsm.py's lsm with its
+    travel-time tables, which must be equal."""
+    from pylops_mpi_tpu_torch.ops.local import Diagonal, MatrixMult
+    blocks = [rng.standard_normal((10, 7)) for _ in range(8)]
+    diag = rng.standard_normal(7)
+
+    def vec(x, dev, partition=pmtt.Partition.SCATTER):
+        return pmtt.DistributedArray.to_dist(x, partition=partition,
+                                             device=dev)
+
+    for kind in ("batched", "heterogeneous"):
+        for name in ("vstack", "hstack"):
+            outs, u = [], None
+            for dev in ("cuda", "cpu"):
+                rows = [MatrixMult(b, device=dev) for b in blocks]
+                if kind == "heterogeneous":
+                    rows[-1] = Diagonal(diag, device=dev)
+                op = (pmtt.MPIVStack(rows) if name == "vstack"
+                      else pmtt.MPIHStack([r.H for r in rows]))
+                if u is None:
+                    u = rng.standard_normal(op.shape[1])
+                    v = rng.standard_normal(op.shape[0])
+                bc = pmtt.Partition.BROADCAST
+                pin, pout = ((bc, pmtt.Partition.SCATTER) if name == "vstack"
+                             else (pmtt.Partition.SCATTER, bc))
+                outs.append([op.matvec(vec(u, dev, pin)).array,
+                             op.rmatvec(vec(v, dev, pout)).array])
+            gaps[f"{name}_{kind}"] = max_gap(list(zip(*outs)))
+    dims, halo = (6, 7), (1, 2, 0, 3)
+    xh = rng.standard_normal(42)
+    outs = []
+    for dev in ("cuda", "cpu"):
+        H = pmtt.MPIHalo(dims, halo)
+        y = H.matvec(vec(xh, dev))
+        outs.append([y.array, H.rmatvec(y).array])
+    gaps["halo_tuple"] = max_gap(list(zip(*outs)))
+    hs, ih = rng.standard_normal((8, 5)), np.arange(4, 64, 8)
+    xn, yn = rng.standard_normal(320), rng.standard_normal(320)
+    outs = []
+    for dev in ("cuda", "cpu"):
+        op = pmtt.MPINonStationaryConvolve1D((64, 5), hs, ih, axis=0,
+                                             dtype=torch.float64, device=dev)
+        outs.append([op.matvec(vec(xn, dev)).array,
+                     op.rmatvec(vec(yn, dev)).array])
+    gaps["nonstatconv"] = max_gap(list(zip(*outs)))
+    # examples/lsm.py at its own size
+    geo = lsm_geometry(pmtt, 60, 81, 4, 16, 11, 400, 0.002)
+    tabs = [pmtt.models.KirchhoffDemigration(**geo, dtype=torch.float64,
+                                             device=dev).B
+            for dev in ("cuda", "cpu")]
+    for name in ("itrav", "amp"):
+        if not torch.equal(getattr(tabs[0], name).cpu(),
+                           getattr(tabs[1], name)):
+            raise RuntimeError(f"LSM {name} table differs between the card "
+                               "and the CPU")
+    refl = np.zeros((60, 81))
+    refl[30], refl[50] = -1.0, 0.5
+    sols = [pmtt.models.lsm(**geo, refl=refl, niter=NITER_LSM_F64,
+                            dtype=torch.float64, device=dev)
+            for dev in ("cuda", "cpu")]
+    gaps["lsm_example"] = max_gap(list(zip(*sols)))
+    gaps["lsm_tables"] = 0.0
 
 
 def card_vs_cpu_phase(torch, pmtt):
@@ -702,6 +1145,7 @@ def card_vs_cpu_phase(torch, pmtt):
         sols.append((torch.from_numpy(x.asarray()), cost.cpu()))
     gaps["gradient_poststack"] = max_gap([(sols[0][0], sols[1][0]),
                                           (sols[0][1], sols[1][1])])
+    slice5_card_vs_cpu(torch, pmtt, rng, gaps)
     worst = max(gaps, key=gaps.get)
     print(f"card vs CPU in f64 (max rel gap, tol {F64_GAP:.0e}): "
           + ", ".join(f"{k} {v:.2e}" for k, v in gaps.items())
@@ -1061,6 +1505,18 @@ def main() -> int:
     gaps = card_vs_cpu_phase(torch, pmtt)
     print(f"phase 10 in {time.perf_counter() - t10:.1f} s", flush=True)
 
+    # 11-13. slice 5's paths: the stacking operators on slice 1's blocks,
+    # non-stationary deconvolution, least-squares migration at full width
+    t11 = time.perf_counter()
+    stack_res = stacking_phase(torch, pmtt, kernel_mods, dev)
+    print(f"phase 11 in {time.perf_counter() - t11:.1f} s", flush=True)
+    t12 = time.perf_counter()
+    ns_res = nonstat_phase(torch, pmtt, kernel_mods, dev)
+    print(f"phase 12 in {time.perf_counter() - t12:.1f} s", flush=True)
+    t13 = time.perf_counter()
+    lsm_res = lsm_phase(torch, pmtt, kernel_mods, dev)
+    print(f"phase 13 in {time.perf_counter() - t13:.1f} s", flush=True)
+
     kernels = []
     for name, run in (("float32", "normal_f32"), ("bfloat16", "normal_bf16")):
         s = stats[name]
@@ -1092,7 +1548,9 @@ def main() -> int:
                       "normal_plans": plans,
                       "stencil_small_max_err": sworst, "derivatives": deriv,
                       "poststack": post, "mdd": mdd_res,
-                      "reflectivity": refl, "card_vs_cpu_f64": gaps}),
+                      "reflectivity": refl, "card_vs_cpu_f64": gaps,
+                      "stacking": stack_res, "nonstationary": ns_res,
+                      "lsm": lsm_res}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

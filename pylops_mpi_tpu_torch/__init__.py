@@ -1,10 +1,11 @@
 """pylops_mpi_tpu_torch — the PyTorch/CUDA port of pylops_mpi_tpu.
 
 Distributed and stacked arrays, the lazy linear-operator algebra, the
-block-diagonal and stacked operators, the derivative family, the
-Fredholm and MDC operators, the post-stack and MDD pipelines, the
-CG/CGLS solvers (functions and classes), ISTA/FISTA and the power
-iteration, in PyTorch on one NVIDIA Hopper GPU. Two hand-written CUDA kernels carry the hot loops:
+block-diagonal, stacking and halo operators, the derivative family, the
+non-stationary convolution, the Fredholm and MDC operators, the
+post-stack, MDD and least-squares migration pipelines, the CG/CGLS
+solvers (functions and classes), ISTA/FISTA and the power iteration,
+in PyTorch on one NVIDIA Hopper GPU. Two hand-written CUDA kernels carry the hot loops:
 the CGLS normal product (``csrc/normal_matvec.cu``) and the axis-0 tap
 stencil of the derivative operators (``csrc/stencil_taps.cu``). Module layout and public names follow the
 JAX package ``pylops_mpi_tpu``, which is the reference the port is
@@ -26,9 +27,11 @@ from .linearoperator import (MPILinearOperator, LinearOperator,
                              aslinearoperator, asmpilinearoperator)
 from .stackedlinearoperator import MPIStackedLinearOperator
 from .ops.blockdiag import MPIBlockDiag
-from .ops.stack import MPIStackedVStack
+from .ops.stack import MPIVStack, MPIStackedVStack, MPIHStack
 from .ops.derivatives import (MPIFirstDerivative, MPISecondDerivative,
                               MPILaplacian, MPIGradient)
+from .ops.halo import MPIHalo, halo_block_split
+from .ops.nonstatconv import MPINonStationaryConvolve1D
 from .ops.fredholm import MPIFredholm1
 from .ops.mdc import MPIMDC
 from .solvers.basic import CG, CGLS, cg, cgls

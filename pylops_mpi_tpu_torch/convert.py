@@ -2,7 +2,8 @@
 
 The tests build an operator with the JAX package, take its blocks as
 numpy arrays (``[np.asarray(op.A) for op in jax_op.ops]``) and rebuild
-the same operator here; a user with blocks on the host does the same.
+the same operator here (``MPIBlockDiag``, ``MPIVStack``,
+``MPIHStack``); a user with blocks on the host does the same.
 Stacked vectors come over as (nested) lists of their components'
 arrays. A frequency kernel ``(nfmax, ns, nr)`` comes over as one numpy
 array (``np.asarray(jax_op.G)`` for ``MPIFredholm1``, or the array given
@@ -22,12 +23,27 @@ from .ops._precision import as_torch_dtype
 from .ops.blockdiag import MPIBlockDiag
 from .ops.fredholm import MPIFredholm1
 from .ops.mdc import MPIMDC
+from .ops.stack import MPIHStack, MPIVStack
 from .ops.local import MatrixMult
 from .parallel.mesh import DeviceLike, resolve_device
 from .parallel.partition import Partition
 
-__all__ = ["blockdiag_from_numpy", "array_from_numpy", "stacked_from_numpy",
-           "fredholm_from_numpy", "mdc_from_numpy"]
+__all__ = ["blockdiag_from_numpy", "vstack_from_numpy", "hstack_from_numpy",
+           "array_from_numpy", "stacked_from_numpy", "fredholm_from_numpy",
+           "mdc_from_numpy"]
+
+
+def _matrices(blocks: Sequence[np.ndarray], dtype,
+              device: DeviceLike) -> list:
+    """``MatrixMult`` of each block cast to ``dtype`` (default: its own)
+    on ``device`` (default ``"cuda"``)."""
+    dev = resolve_device(device)
+    dt = as_torch_dtype(dtype)
+    mats = []
+    for b in blocks:
+        t = torch.tensor(np.asarray(b))
+        mats.append(MatrixMult(t.to(device=dev, dtype=dt or t.dtype)))
+    return mats
 
 
 def blockdiag_from_numpy(blocks: Sequence[np.ndarray], dtype=None,
@@ -37,13 +53,27 @@ def blockdiag_from_numpy(blocks: Sequence[np.ndarray], dtype=None,
     cast to ``dtype`` (default: its own) and placed on ``device``
     (default ``"cuda"``); ``compute_dtype`` as for
     :class:`~.ops.blockdiag.MPIBlockDiag`."""
-    dev = resolve_device(device)
-    dt = as_torch_dtype(dtype)
-    mats = []
-    for b in blocks:
-        t = torch.tensor(np.asarray(b))
-        mats.append(MatrixMult(t.to(device=dev, dtype=dt or t.dtype)))
-    return MPIBlockDiag(mats, compute_dtype=compute_dtype)
+    return MPIBlockDiag(_matrices(blocks, dtype, device),
+                        compute_dtype=compute_dtype)
+
+
+def vstack_from_numpy(blocks: Sequence[np.ndarray], dtype=None,
+                      compute_dtype=None, adjoint: bool = False,
+                      device: DeviceLike = None) -> MPIVStack:
+    """``MPIVStack`` of ``MatrixMult(b)`` rows (``MatrixMult(b).H`` rows
+    with ``adjoint``), blocks as for :func:`blockdiag_from_numpy`."""
+    mats = _matrices(blocks, dtype, device)
+    return MPIVStack([m.H for m in mats] if adjoint else mats,
+                     compute_dtype=compute_dtype)
+
+
+def hstack_from_numpy(blocks: Sequence[np.ndarray], dtype=None,
+                      compute_dtype=None,
+                      device: DeviceLike = None) -> MPIHStack:
+    """``MPIHStack([MatrixMult(b) for b in blocks])``, blocks as for
+    :func:`blockdiag_from_numpy`."""
+    return MPIHStack(_matrices(blocks, dtype, device),
+                     compute_dtype=compute_dtype)
 
 
 def array_from_numpy(x: np.ndarray, dtype=None,

@@ -21,7 +21,7 @@ import torch
 
 from .distributedarray import DistributedArray
 from .stacked import StackedDistributedArray
-from .ops._precision import as_torch_dtype
+from .ops._precision import as_torch_dtype, result_dtype
 
 __all__ = ["MPILinearOperator", "LinearOperator", "aslinearoperator",
            "asmpilinearoperator"]
@@ -33,16 +33,6 @@ def _scalar_like(x) -> bool:
         return True
     return isinstance(x, (torch.Tensor, np.ndarray, np.generic)) \
         and np.ndim(x) == 0
-
-
-def _result_dtype(*dtypes) -> Optional[torch.dtype]:
-    """Promotion of the operands' dtypes (``None`` entries skipped)."""
-    out = None
-    for dt in dtypes:
-        if dt is not None:
-            dt = as_torch_dtype(dt)
-            out = dt if out is None else torch.promote_types(out, dt)
-    return out
 
 
 class MPILinearOperator:
@@ -263,7 +253,7 @@ class _ProductLinearOperator(MPILinearOperator):
         self.args = (A, B)
         self.dims, self.dimsd = B.dims, A.dimsd
         super().__init__(shape=(A.shape[0], B.shape[1]),
-                         dtype=_result_dtype(A.dtype, B.dtype))
+                         dtype=result_dtype(A.dtype, B.dtype))
 
     def _matvec(self, x):
         return self.args[0].matvec(self.args[1].matvec(x))
@@ -324,7 +314,7 @@ class _SumLinearOperator(MPILinearOperator):
             raise ValueError(f"cannot add {A} and {B}: shape mismatch")
         self.args = (A, B)
         self.dims, self.dimsd = A.dims, A.dimsd
-        super().__init__(shape=A.shape, dtype=_result_dtype(A.dtype, B.dtype))
+        super().__init__(shape=A.shape, dtype=result_dtype(A.dtype, B.dtype))
 
     def _matvec(self, x):
         return self.args[0].matvec(x) + self.args[1].matvec(x)

@@ -2,6 +2,8 @@
 from .poststack import (PoststackLinearModelling, MPIPoststackLinearModelling,
                         poststack_inversion, ricker)
 from .mdd import mdd, kernel_to_frequency
+from .lsm import TravelTimeSpray, KirchhoffDemigration, MPILSM, lsm
 
 __all__ = ["PoststackLinearModelling", "MPIPoststackLinearModelling",
-           "poststack_inversion", "ricker", "mdd", "kernel_to_frequency"]
+           "poststack_inversion", "ricker", "mdd", "kernel_to_frequency",
+           "TravelTimeSpray", "KirchhoffDemigration", "MPILSM", "lsm"]

@@ -28,8 +28,9 @@ import numpy as np
 import torch
 
 __all__ = ["PrecisionPolicy", "get_policy", "set_precision",
-           "as_torch_dtype", "default_compute_dtype", "reduction_dtype",
-           "accum_dtype", "check_compute_dtype", "matmul_narrow"]
+           "as_torch_dtype", "result_dtype", "default_compute_dtype",
+           "reduction_dtype", "accum_dtype", "check_compute_dtype",
+           "matmul_narrow"]
 
 
 class PrecisionPolicy(NamedTuple):
@@ -88,6 +89,16 @@ def as_torch_dtype(dtype) -> Optional[torch.dtype]:
     if isinstance(dtype, str) and hasattr(torch, dtype):
         return getattr(torch, dtype)
     return torch.from_numpy(np.empty(0, dtype=np.dtype(dtype))).dtype
+
+
+def result_dtype(*dtypes) -> Optional[torch.dtype]:
+    """Promotion of the operands' dtypes (``None`` entries skipped)."""
+    out = None
+    for dt in dtypes:
+        if dt is not None:
+            dt = as_torch_dtype(dt)
+            out = dt if out is None else torch.promote_types(out, dt)
+    return out
 
 
 def default_compute_dtype(op_dtype) -> Optional[torch.dtype]:

@@ -25,7 +25,7 @@ from ..distributedarray import DistributedArray
 from ..linearoperator import MPILinearOperator
 from . import normal_kernels
 from ._precision import (as_torch_dtype, check_compute_dtype,
-                         default_compute_dtype, matmul_narrow)
+                         default_compute_dtype, matmul_narrow, result_dtype)
 from .local import LocalOperator, MatrixMult
 
 __all__ = ["MPIBlockDiag"]
@@ -56,11 +56,8 @@ class MPIBlockDiag(MPILinearOperator):
         self.local_shapes_n = ((int(nops.sum()),),)
         self.local_shapes_m = ((int(mops.sum()),),)
         shape = (int(nops.sum()), int(mops.sum()))
-        if dtype is None:
-            dtype = self.ops[0].dtype
-            for op in self.ops[1:]:
-                dtype = torch.promote_types(dtype, op.dtype)
-        super().__init__(shape=shape, dtype=dtype)
+        super().__init__(shape=shape, dtype=dtype or result_dtype(
+            *[op.dtype for op in self.ops]))
         self.compute_dtype = as_torch_dtype(compute_dtype)
         if self.compute_dtype is None:
             self.compute_dtype = default_compute_dtype(self.dtype)
@@ -113,10 +110,10 @@ class MPIBlockDiag(MPILinearOperator):
         else:
             sizes_in = self.mops if forward else self.nops
             offs = np.concatenate([[0], np.cumsum(sizes_in)])
-            arr = torch.cat([
-                op.matvec(x.array[int(lo):int(hi)]) if forward
-                else op.rmatvec(x.array[int(lo):int(hi)])
-                for op, lo, hi in zip(self.ops, offs[:-1], offs[1:])])
+            parts = [op.matvec(x.array[int(lo):int(hi)]) if forward
+                     else op.rmatvec(x.array[int(lo):int(hi)])
+                     for op, lo, hi in zip(self.ops, offs[:-1], offs[1:])]
+            arr = parts[0] if len(parts) == 1 else torch.cat(parts)
         y_shape = (y_len,) if ncol is None else (y_len, ncol)
         if ncol is not None:
             locals_out = tuple(tuple(s) + (ncol,) for s in locals_out)

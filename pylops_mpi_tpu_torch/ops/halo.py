@@ -1,0 +1,219 @@
+"""N-D Cartesian halo operator.
+
+PyTorch counterpart of ``pylops_mpi_tpu/ops/halo.py`` (the reference's
+``pylops_mpi/basicoperators/Halo.py:12-423``). The reference arranges
+the ranks in a Cartesian grid, zero-pads each rank's block and fills the
+halo zones from the neighbours' blocks; the adjoint crops the halo. It
+is built to sandwich local operators: ``HOp.H @ MPIBlockDiag(ops) @ HOp``.
+
+The per-rank geometry (block slices, trimmed halos, extents) is kept
+as the JAX package keeps it. With the one worker of this port the grid
+is all ones, so a rank's haloed block is the global array's window
+around its block, zero outside the domain: what the neighbour exchange
+would deliver. A later multi-worker slice adds only the exchange.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..distributedarray import DistributedArray
+from ..linearoperator import MPILinearOperator
+from ..parallel.mesh import world_size
+from ..parallel.partition import Partition
+
+__all__ = ["MPIHalo", "halo_block_split"]
+
+
+def _cart_coords(rank: int, grid: Tuple[int, ...]) -> Tuple[int, ...]:
+    return tuple(int(c) for c in np.unravel_index(rank, grid))
+
+
+def halo_block_split(global_shape: Tuple[int, ...], rank: int,
+                     grid_shape: Optional[Tuple[int, ...]] = None,
+                     n_shards: Optional[int] = None) -> Tuple[slice, ...]:
+    """Local slice owned by ``rank`` under the Cartesian ceil-block split
+    (ref ``halo_block_split``, ``Halo.py:12-66``; JAX package
+    ``ops/halo.py:50-70``)."""
+    ndim = len(global_shape)
+    if grid_shape is None:
+        if n_shards is None:
+            raise ValueError("grid_shape or n_shards required")
+        grid_shape = (1,) * (ndim - 1) + (n_shards,)
+    if int(np.prod(grid_shape)) <= rank or rank < 0:
+        raise ValueError(f"rank {rank} outside grid {grid_shape}")
+    coords = _cart_coords(rank, grid_shape)
+    slices = []
+    for gdim, procs, coord in zip(global_shape, grid_shape, coords):
+        bs = math.ceil(gdim / procs)
+        start = coord * bs
+        end = min(start + bs, gdim)
+        slices.append(slice(start, end))
+    return tuple(slices)
+
+
+class MPIHalo(MPILinearOperator):
+    """Halo (ghost-zone) operator over a Cartesian block decomposition
+    (ref ``Halo.py:69-423``; JAX package ``ops/halo.py:73-416``).
+
+    ``halo`` is a scalar (symmetric everywhere, trimmed to zero at the
+    grid's edges as the reference does for scalars, so with one worker
+    the identity), a length-``ndim`` tuple (symmetric per axis, kept at
+    the edges with zero fill), or a length-``2*ndim`` tuple of
+    (minus, plus) pairs. The forward takes a SCATTER array of the
+    blocks and returns the haloed blocks, SCATTER; the adjoint crops
+    each haloed block back to its block (the sandwich's left inverse,
+    as in the reference, not the strict adjoint).
+
+    ``proc_grid_shape`` must multiply to the number of workers (one
+    here). ``overlap`` and ``hierarchical`` select, in the JAX package,
+    how the neighbour exchange overlaps the repack and which mesh axes
+    it runs over; with one worker there is no exchange, so they are
+    accepted and have no effect.
+    """
+
+    def __init__(self, dims, halo, proc_grid_shape=None, dtype=np.float64,
+                 overlap=None, hierarchical=None):
+        self.global_dims = tuple(int(d) for d in np.atleast_1d(dims))
+        self.ndim = len(self.global_dims)
+        P_ = world_size()
+        if proc_grid_shape is None:
+            proc_grid_shape = (1,) * (self.ndim - 1) + (P_,)
+        self.proc_grid_shape = tuple(int(g) for g in proc_grid_shape)
+        if int(np.prod(self.proc_grid_shape)) != P_:
+            raise ValueError(
+                f"grid_shape {self.proc_grid_shape} does not match mesh "
+                f"size {P_}")
+        scalar_halo = isinstance(halo, (int, np.integer))
+        base = self._parse_halo(halo)
+        # per-rank geometry
+        self.block_slices: List[Tuple[slice, ...]] = []
+        self.halos: List[Tuple[int, ...]] = []
+        self.local_dims_all: List[Tuple[int, ...]] = []
+        self.extents: List[Tuple[int, ...]] = []
+        for r in range(P_):
+            coords = _cart_coords(r, self.proc_grid_shape)
+            sl = halo_block_split(self.global_dims, r, self.proc_grid_shape)
+            h = list(base)
+            if scalar_halo:
+                # ref trims scalar halos at grid boundaries (Halo.py:204-210)
+                for ax in range(self.ndim):
+                    if coords[ax] == 0:
+                        h[2 * ax] = 0
+                    if coords[ax] == self.proc_grid_shape[ax] - 1:
+                        h[2 * ax + 1] = 0
+            ld = tuple(s.stop - s.start for s in sl)
+            ext = tuple(ld[ax] + h[2 * ax] + h[2 * ax + 1]
+                        for ax in range(self.ndim))
+            self.block_slices.append(sl)
+            self.halos.append(tuple(h))
+            self.local_dims_all.append(ld)
+            self.extents.append(ext)
+        self._validate_widths()
+        self.local_dim_sizes = tuple((int(np.prod(ld)),)
+                                     for ld in self.local_dims_all)
+        self.local_extent_sizes = tuple((int(np.prod(e)),)
+                                        for e in self.extents)
+        n = int(np.prod(self.global_dims))
+        m = int(sum(np.prod(e) for e in self.extents))
+        self.dims = self.global_dims
+        self.dimsd = (m,)
+        super().__init__(shape=(m, n), dtype=dtype)
+
+    def _parse_halo(self, h) -> Tuple[int, ...]:
+        """ref ``Halo.py:197-227``"""
+        if isinstance(h, (int, np.integer)):
+            halo = (int(h),) * (2 * self.ndim)
+        else:
+            h = tuple(int(v) for v in h)
+            if len(h) == 1:
+                halo = h * (2 * self.ndim)
+            elif len(h) == self.ndim:
+                halo = sum(((d, d) for d in h), ())
+            elif len(h) == 2 * self.ndim:
+                halo = h
+            else:
+                raise ValueError(
+                    f"Invalid halo length {len(h)} for ndim={self.ndim}")
+        if any(v < 0 for v in halo):
+            raise ValueError("Halo widths must be non-negative")
+        return halo
+
+    def _validate_widths(self) -> None:
+        """One-hop exchange feasibility (ref ``Halo.py:280-318``): a halo
+        may not be wider than the neighbouring block it is read from."""
+        stride = [int(np.prod(self.proc_grid_shape[ax + 1:]))
+                  for ax in range(self.ndim)]
+        for r, h in enumerate(self.halos):
+            coords = _cart_coords(r, self.proc_grid_shape)
+            for ax in range(self.ndim):
+                if coords[ax] > 0 and \
+                        h[2 * ax] > self.local_dims_all[r - stride[ax]][ax]:
+                    raise ValueError(
+                        "MPIHalo halo widths are not supported by the "
+                        "one-hop exchange: halo width exceeds the minus-"
+                        "neighbour block size")
+                if coords[ax] < self.proc_grid_shape[ax] - 1 and \
+                        h[2 * ax + 1] > self.local_dims_all[r + stride[ax]][ax]:
+                    raise ValueError(
+                        "MPIHalo halo widths are not supported by the "
+                        "one-hop exchange: halo width exceeds the plus-"
+                        "neighbour block size")
+
+    # ------------------------------------------------------------- apply
+    @staticmethod
+    def _check_layout(x: DistributedArray, sizes, what: str) -> None:
+        if x.partition != Partition.SCATTER:
+            raise ValueError(
+                f"x should have partition={Partition.SCATTER} "
+                f"Got {x.partition} instead...")
+        if tuple(s[0] for s in x.local_shapes) != tuple(s[0] for s in sizes):
+            raise ValueError(f"MPIHalo {what} local shapes do not match "
+                             "the Cartesian block decomposition")
+
+    def _window(self, g: torch.Tensor, r: int) -> torch.Tensor:
+        """Rank ``r``'s haloed block from the global field ``g``: the
+        window ``[start - minus, stop + plus)`` per axis, zero outside
+        the domain (a view where no zero is needed)."""
+        sl, pads = [], []
+        for ax in range(self.ndim):
+            s, hm, hp = (self.block_slices[r][ax], self.halos[r][2 * ax],
+                         self.halos[r][2 * ax + 1])
+            lo, hi = s.start - hm, s.stop + hp
+            sl.append(slice(max(lo, 0), min(hi, self.global_dims[ax])))
+            pads.append((max(-lo, 0), max(hi - self.global_dims[ax], 0)))
+        w = g[tuple(sl)]
+        if any(p for pair in pads for p in pair):
+            # F.pad lists the last axis first
+            w = F.pad(w, [p for pair in reversed(pads) for p in pair])
+        return w
+
+    def _matvec(self, x: DistributedArray) -> DistributedArray:
+        self._check_layout(x, self.local_dim_sizes, "input")
+        # one worker: its block is the whole field
+        g = x.array.reshape(self.global_dims)
+        parts = [self._window(g, r).reshape(-1)
+                 for r in range(len(self.halos))]
+        arr = parts[0] if len(parts) == 1 else torch.cat(parts)
+        return DistributedArray.to_dist(arr, partition=Partition.SCATTER,
+                                        local_shapes=self.local_extent_sizes)
+
+    def _rmatvec(self, x: DistributedArray) -> DistributedArray:
+        """Crop the halo zones (ref ``Halo.py:400-423``): ghost
+        contributions are discarded, not added back."""
+        self._check_layout(x, self.local_extent_sizes, "adjoint input")
+        parts = []
+        for blk, ext, ld, h in zip(
+                torch.split(x.array, [s[0] for s in self.local_extent_sizes]),
+                self.extents, self.local_dims_all, self.halos):
+            sl = tuple(slice(h[2 * ax], h[2 * ax] + ld[ax])
+                       for ax in range(self.ndim))
+            parts.append(blk.reshape(ext)[sl].reshape(-1))
+        arr = parts[0] if len(parts) == 1 else torch.cat(parts)
+        return DistributedArray.to_dist(arr, partition=Partition.SCATTER,
+                                        local_shapes=self.local_dim_sizes)

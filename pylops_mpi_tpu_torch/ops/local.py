@@ -1,8 +1,11 @@
 """Local (single logical block) linear operators on tensors.
 
-PyTorch counterpart of the operator protocol, ``MatrixMult``,
-``Identity``, ``FunctionOperator``, the derivative stencils,
-``Laplacian``, ``FFT`` and ``Conv1D`` of ``pylops_mpi_tpu/ops/local.py``:
+PyTorch counterpart of the operator protocol and every operator of
+``pylops_mpi_tpu/ops/local.py`` (``MatrixMult``, ``Identity``,
+``Diagonal``, ``Zero``, ``Transpose``, ``Roll``, ``Flip``, ``Pad``,
+``FunctionOperator``, the derivative stencils, ``Laplacian``, the local
+``VStack``/``HStack``/``BlockDiag``, ``FFT``, ``Conv1D`` and
+``NonStationaryConvolve1D``):
 the local operator algebra the distributed operators compose over (the reference delegates this to
 serial pylops, e.g. ``MPIBlockDiag([pylops.MatrixMult(...)])``).
 ``matvec``/``rmatvec`` take and return flat 1-D tensors. As in the JAX
@@ -20,12 +23,22 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ._precision import as_torch_dtype
+from ._precision import as_torch_dtype, result_dtype
 from ..parallel.mesh import DeviceLike, resolve_device
 
-__all__ = ["LocalOperator", "MatrixMult", "Identity", "FunctionOperator",
-           "FirstDerivative", "SecondDerivative", "Laplacian", "FFT",
-           "Conv1D"]
+__all__ = ["LocalOperator", "MatrixMult", "Identity", "Diagonal", "Zero",
+           "Transpose", "FirstDerivative", "SecondDerivative", "Laplacian",
+           "Roll", "Pad", "Flip", "FunctionOperator", "VStack", "HStack",
+           "BlockDiag", "FFT", "Conv1D", "NonStationaryConvolve1D"]
+
+
+def _tensor(a, device: DeviceLike) -> torch.Tensor:
+    """``a`` as a tensor: a tensor stays on its device unless ``device``
+    is given; anything else is placed on ``device`` (default
+    ``"cuda"``)."""
+    if isinstance(a, torch.Tensor):
+        return a if device is None else a.to(resolve_device(device))
+    return torch.tensor(np.asarray(a)).to(resolve_device(device))
 
 
 class LocalOperator:
@@ -186,13 +199,7 @@ class MatrixMult(LocalOperator):
 
     def __init__(self, A, otherdims: Tuple[int, ...] = (), dtype=None,
                  device: DeviceLike = None):
-        if isinstance(A, torch.Tensor):
-            if device is not None:
-                A = A.to(resolve_device(device))
-        else:
-            A = torch.tensor(np.asarray(A)).to(
-                resolve_device(device))
-        self.A = A
+        self.A = A = _tensor(A, device)
         self.otherdims = tuple(otherdims)
         nother = int(np.prod(self.otherdims)) if self.otherdims else 1
         super().__init__((A.shape[1] * nother,), (A.shape[0] * nother,),
@@ -230,6 +237,104 @@ class Identity(LocalOperator):
 
     def _rmatvec(self, x):
         return self._fit(x, self.shape[1])
+
+
+class Diagonal(LocalOperator):
+    """Elementwise product with ``diag`` (JAX package
+    ``ops/local.py:228-238``); ``diag`` is a tensor (kept on its device)
+    or an array (placed on ``device``, default ``"cuda"``)."""
+
+    def __init__(self, diag, dtype=None, device: DeviceLike = None):
+        self.diag = _tensor(diag, device).reshape(-1)
+        n = self.diag.shape[0]
+        super().__init__((n,), (n,), dtype=dtype or self.diag.dtype)
+
+    def _matvec(self, x):
+        return self.diag * x
+
+    def _rmatvec(self, x):
+        return self.diag.conj() * x
+
+
+class Zero(LocalOperator):
+    """``N×M`` zero operator (JAX package ``ops/local.py:241-250``)."""
+
+    def __init__(self, N: int, M: Optional[int] = None, dtype=None):
+        M = N if M is None else M
+        super().__init__((M,), (N,), dtype=dtype)
+
+    def _matvec(self, x):
+        return x.new_zeros(self.shape[0])
+
+    def _rmatvec(self, x):
+        return x.new_zeros(self.shape[1])
+
+
+class Transpose(LocalOperator):
+    """N-D axes permutation as a flat operator (JAX package
+    ``ops/local.py:253-267``)."""
+
+    def __init__(self, dims, axes, dtype=None):
+        self.axes = tuple(int(a) for a in axes)
+        self.dims_nd = tuple(int(d) for d in dims)
+        self.axes_inv = tuple(int(a) for a in np.argsort(self.axes))
+        dimsd = tuple(self.dims_nd[a] for a in self.axes)
+        super().__init__(self.dims_nd, dimsd, dtype=dtype)
+
+    def _matvec(self, x):
+        return x.reshape(self.dims_nd).permute(self.axes).reshape(-1)
+
+    def _rmatvec(self, x):
+        return x.reshape(self.dimsd).permute(self.axes_inv).reshape(-1)
+
+
+class Roll(LocalOperator):
+    """Circular shift by ``shift`` (JAX package ``ops/local.py:270-279``)."""
+
+    def __init__(self, N: int, shift: int = 1, dtype=None):
+        self.shift = int(shift)
+        super().__init__((N,), (N,), dtype=dtype)
+
+    def _matvec(self, x):
+        return torch.roll(x, self.shift)
+
+    def _rmatvec(self, x):
+        return torch.roll(x, -self.shift)
+
+
+class Flip(LocalOperator):
+    """Reversal (JAX package ``ops/local.py:282-289``)."""
+
+    def __init__(self, N: int, dtype=None):
+        super().__init__((N,), (N,), dtype=dtype)
+
+    def _matvec(self, x):
+        return torch.flip(x, (0,))
+
+    _rmatvec = _matvec
+
+
+class Pad(LocalOperator):
+    """Zero padding of an N-D layout by ``pad`` = ``((before, after), ...)``
+    per axis (JAX package ``ops/local.py:292-306``); the adjoint crops."""
+
+    def __init__(self, dims, pad, dtype=None):
+        self.dims_nd = tuple(int(d) for d in np.atleast_1d(dims))
+        self.pad_nd = tuple(tuple(int(v) for v in p)
+                            for p in np.atleast_2d(pad))
+        self.dimsd_nd = tuple(d + p[0] + p[1]
+                              for d, p in zip(self.dims_nd, self.pad_nd))
+        super().__init__(self.dims_nd, self.dimsd_nd, dtype=dtype)
+
+    def _matvec(self, x):
+        # F.pad lists the last axis first
+        flat = [v for p in reversed(self.pad_nd) for v in p]
+        return F.pad(x.reshape(self.dims_nd), flat).reshape(-1)
+
+    def _rmatvec(self, x):
+        sl = tuple(slice(p[0], p[0] + d)
+                   for d, p in zip(self.dims_nd, self.pad_nd))
+        return x.reshape(self.dimsd_nd)[sl].reshape(-1)
 
 
 class FunctionOperator(LocalOperator):
@@ -418,6 +523,68 @@ class Laplacian(LocalOperator):
                    for w, op in zip(self.weights, self.ops))
 
 
+class VStack(LocalOperator):
+    """Vertical stack ``[A0; A1; ...]`` of operators sharing one model
+    (JAX package ``ops/local.py:494-512``)."""
+
+    def __init__(self, ops, dtype=None):
+        self.ops = list(ops)
+        if len({op.shape[1] for op in self.ops}) != 1:
+            raise ValueError("column size mismatch in VStack")
+        self.nrows = [op.shape[0] for op in self.ops]
+        super().__init__((self.ops[0].shape[1],), (sum(self.nrows),),
+                         dtype=dtype or result_dtype(
+                             *[o.dtype for o in self.ops]))
+
+    def _matvec(self, x):
+        return torch.cat([op.matvec(x) for op in self.ops])
+
+    def _rmatvec(self, x):
+        parts = torch.split(x, self.nrows)
+        return sum(op.rmatvec(p) for op, p in zip(self.ops, parts))
+
+
+class HStack(LocalOperator):
+    """Horizontal stack ``[A0, A1, ...]`` of operators sharing one data
+    space (JAX package ``ops/local.py:515-533``)."""
+
+    def __init__(self, ops, dtype=None):
+        self.ops = list(ops)
+        if len({op.shape[0] for op in self.ops}) != 1:
+            raise ValueError("row size mismatch in HStack")
+        self.ncols = [op.shape[1] for op in self.ops]
+        super().__init__((sum(self.ncols),), (self.ops[0].shape[0],),
+                         dtype=dtype or result_dtype(
+                             *[o.dtype for o in self.ops]))
+
+    def _matvec(self, x):
+        parts = torch.split(x, self.ncols)
+        return sum(op.matvec(p) for op, p in zip(self.ops, parts))
+
+    def _rmatvec(self, x):
+        return torch.cat([op.rmatvec(x) for op in self.ops])
+
+
+class BlockDiag(LocalOperator):
+    """Block-diagonal operator (JAX package ``ops/local.py:536-557``)."""
+
+    def __init__(self, ops, dtype=None):
+        self.ops = list(ops)
+        self.nrows = [op.shape[0] for op in self.ops]
+        self.ncols = [op.shape[1] for op in self.ops]
+        super().__init__((sum(self.ncols),), (sum(self.nrows),),
+                         dtype=dtype or result_dtype(
+                             *[o.dtype for o in self.ops]))
+
+    def _matvec(self, x):
+        return torch.cat([op.matvec(p) for op, p in
+                          zip(self.ops, torch.split(x, self.ncols))])
+
+    def _rmatvec(self, x):
+        return torch.cat([op.rmatvec(p) for op, p in
+                          zip(self.ops, torch.split(x, self.nrows))])
+
+
 class FFT(LocalOperator):
     """1-D FFT along ``axis`` of an N-D layout (JAX package
     ``ops/local.py:560-652``), with pylops' conventions:
@@ -520,12 +687,7 @@ class Conv1D(LocalOperator):
         dims = tuple(int(d) for d in np.atleast_1d(dims))
         self.dims_nd = dims
         self.axis = axis % len(dims)
-        if isinstance(h, torch.Tensor):
-            if device is not None:
-                h = h.to(resolve_device(device))
-        else:
-            h = torch.tensor(np.asarray(h)).to(resolve_device(device))
-        self.h = h
+        self.h = h = _tensor(h, device)
         self.offset = int(offset)
         super().__init__(dims, dims, dtype=dtype or h.dtype)
 
@@ -548,3 +710,103 @@ class Conv1D(LocalOperator):
 
     def _rmatvec(self, x):
         return self._conv(x, self.h.conj(), self.offset)
+
+
+class NonStationaryConvolve1D(LocalOperator):
+    """1-D non-stationary convolution along ``axis`` with a bank of
+    compact odd-length filters ``hs`` (``(nfilt, nh)``) defined at the
+    regularly spaced samples ``ih`` and linearly interpolated per sample
+    (JAX package ``ops/local.py:691-754``; the rank-local block of
+    ``ops/nonstatconv.py``). The per-sample bank ``Hbank`` (``(n, nh)``)
+    is built as the JAX package builds it: ``i0`` clipped, the weight
+    clipped to [0, 1], so the nearest filter holds outside
+    ``[ih[0], ih[-1]]``.
+
+    The forward spreads each input sample through its own filter,
+    ``y[i - nh//2 + j] += Hbank[i, j] · x[i]``; the adjoint gathers,
+    ``x[i] = Σ_j conj(Hbank[i, j]) · y[i - nh//2 + j]``. Both are a
+    per-row stencil ``y[k] = Σ_d W[k, d] · x[k + d - nh//2]`` (the
+    forward's ``W[k, d] = Hbank[k + d - nh//2, nh-1-d]``), applied as
+    one batched product: the rows are cut into tiles of ``T``, and tile
+    ``b`` is a banded ``(T, T + nh - 1)`` matrix times the overlapping
+    window of ``T + nh - 1`` input rows (a strided view of the
+    zero-padded input), so an apply reads the field about
+    ``(T + nh - 1) / T`` times and never forms an ``(n, traces, nh)``
+    tensor (the JAX package sums ``nh`` shifted passes instead).
+    ``hs`` is a tensor (kept on its device) or an array (placed on
+    ``device``, default ``"cuda"``)."""
+
+    _TILE = 64
+
+    def __init__(self, dims, hs, ih, axis: int = -1, dtype=None,
+                 device: DeviceLike = None):
+        dims = tuple(int(d) for d in np.atleast_1d(dims))
+        self.dims_nd = dims
+        self.axis = axis % len(dims)
+        hs = _tensor(hs, device)
+        ih = np.asarray(ih)
+        if hs.shape[1] % 2 == 0:
+            raise ValueError("filters hs must have odd length")
+        if len(np.unique(np.diff(ih))) > 1:
+            raise ValueError(
+                "the indices of filters 'ih' are must be regularly sampled")
+        self.hs, self.ih = hs, ih
+        self.nh = nh = int(hs.shape[1])
+        super().__init__(dims, dims, dtype=dtype or hs.dtype)
+        n = dims[self.axis]
+        # per-sample interpolated bank (n, nh), in f64 arithmetic as the
+        # JAX package's numpy weights make it
+        pos = np.arange(n, dtype=float)
+        dh = float(ih[1] - ih[0]) if len(ih) > 1 else 1.0
+        q = (pos - ih[0]) / dh
+        i0 = np.clip(np.floor(q).astype(int), 0,
+                     len(ih) - 2 if len(ih) > 1 else 0)
+        if len(ih) > 1:
+            w = torch.from_numpy(np.clip(q - i0, 0.0, 1.0)[:, None]).to(
+                hs.device)
+            i0 = torch.from_numpy(i0).to(hs.device)
+            bank = hs[i0] * (1 - w) + hs[i0 + 1] * w
+        else:
+            bank = hs[0].expand(n, nh)
+        self.Hbank = bank.to(self.dtype)
+        half = nh // 2
+        k = torch.arange(n, device=hs.device)[:, None]
+        d = torch.arange(nh, device=hs.device)[None, :]
+        padded = F.pad(self.Hbank, (0, 0, half, half))
+        self._tiles_fwd = self._tiles(padded[k + d, nh - 1 - d])
+        self._tiles_adj = self._tiles(self.Hbank.conj())
+
+    def _tiles(self, weights: torch.Tensor) -> torch.Tensor:
+        """The ``(nb, T, T + nh - 1)`` banded tiles of the stencil
+        ``weights`` (``(n, nh)``): tile ``b``'s row ``r`` holds
+        ``weights[b·T + r]`` from column ``r`` on; rows past ``n`` are
+        zero."""
+        n, nh = weights.shape
+        T = min(self._TILE, n)
+        nb = -(-n // T)
+        M = weights.new_zeros((nb, T, T + nh - 1))
+        r = torch.arange(T, device=weights.device)[:, None]
+        cols = r + torch.arange(nh, device=weights.device)[None, :]
+        M[:, r, cols] = F.pad(weights, (0, 0, 0, nb * T - n)).view(nb, T, nh)
+        return M
+
+    def _apply(self, x, tiles):
+        n, nh = self.dims_nd[self.axis], self.nh
+        half = nh // 2
+        nb, T, _ = tiles.shape
+        v = torch.movedim(x.reshape(self.dims_nd), self.axis, 0)
+        shp = v.shape
+        dt = torch.promote_types(tiles.dtype, v.dtype)
+        # the input with nh//2 zero rows before it and enough after it
+        # for the last tile's window
+        vp = F.pad(v.reshape(n, -1).to(dt), (0, 0, half, nb * T - n + half))
+        ntr = vp.shape[1]
+        windows = vp.as_strided((nb, T + nh - 1, ntr), (T * ntr, ntr, 1))
+        y = torch.bmm(tiles.to(dt), windows).view(nb * T, ntr)[:n]
+        return torch.movedim(y.reshape(shp), 0, self.axis).reshape(-1)
+
+    def _matvec(self, x):
+        return self._apply(x, self._tiles_fwd)
+
+    def _rmatvec(self, x):
+        return self._apply(x, self._tiles_adj)
