@@ -82,6 +82,21 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    both interfaces with a non-increasing cost, peak device memory, and
    ``models.lsm`` end to end.
 
+14. the process group on the card: the main path (f32 and bf16 storage
+   with ``normal=True``, classic f32) and the Gradient-regularized
+   post-stack CGLS through a group of one rank over NCCL, each x held
+   to the no-group run's (bitwise, or 1e-6 relative), with iterations
+   per second beside the same runs without the group right after,
+   collective calls and kernel launches per iteration;
+15. two and three ranks sharing the card over gloo (spawned processes,
+   exchanges staged through the host), for correctness only: the main
+   path at full width (each rank its chunk of the 32 blocks) and the
+   post-stack CGLS against phase 14 within 1e-5, a ragged f64 case
+   against one CPU process within 1e-10, and every rank's launches of
+   the normal kernel and of the tap kernel on received ghost rows;
+16. where the machine has more than one card (skipped with one), the
+   same cases with one rank a card over NCCL.
+
 Phases 8, 9 and 11-13 reach none of the hand-written kernels: the JAX
 package runs their FFTs, products, thresholds, convolutions, sprays and
 gathers outside Pallas, and so does the port (cuFFT, cuBLAS, cuDNN,
@@ -385,9 +400,12 @@ def gradient_poststack(torch, pmtt, m, wav, niter, dtype):
                                                  device=dev)
     G = pmtt.MPIGradient((nx, nt0), dtype=dtype)
     StackOp = pmtt.MPIStackedVStack([Op, EPS_R * G])
-    d = Op.matvec(pmtt.DistributedArray.to_dist(m.to(dtype).reshape(-1)))
+    d = Op.matvec(pmtt.DistributedArray.to_dist(
+        m.to(dtype).reshape(-1), local_shapes=Op.local_shapes_m))
     zero = pmtt.StackedDistributedArray([
-        pmtt.DistributedArray(global_shape=nx * nt0, dtype=dtype, device=dev)
+        pmtt.DistributedArray(global_shape=nx * nt0,
+                              local_shapes=G.local_shapes_m, dtype=dtype,
+                              device=dev)
         for _ in range(2)])
     return StackOp, pmtt.StackedDistributedArray([d, zero]), Op
 
@@ -1155,6 +1173,381 @@ def card_vs_cpu_phase(torch, pmtt):
     return gaps
 
 
+def group_of_one_phase(torch, pmtt, kernels, dev, ref_x):
+    """Phase 14: the main path (32x4096^2, normal=True f32 and bf16
+    storage, classic f32) and the Gradient-regularized post-stack CGLS
+    through a process group of one rank over NCCL, then the same runs
+    again without the group, in this process. Each x must equal the
+    no-group run's (phases 3 and 7): bitwise, or within 1e-6 relative.
+    Returns the summary and the group's 10-iteration solutions of the
+    two paths, which phase 15's ranks are held against."""
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    from pylops_mpi_tpu_torch.ops.local import MatrixMult
+    from pylops_mpi_tpu_torch.parallel import collectives as co
+    A, _, y_t = make_problem(torch, dev)
+    y = pmtt.DistributedArray.to_dist(y_t)
+    cases = {"normal_f32": (None, True), "normal_bf16": (torch.bfloat16, True),
+             "classic_f32": (None, False)}
+    ops = {label: pmtt.MPIBlockDiag([MatrixMult(A[i]) for i in range(NBLK)],
+                                    compute_dtype=cdt)
+           for label, (cdt, _) in cases.items()}
+    del A
+    wav = pmtt.models.ricker(np.arange(31) * 0.004, f0=15)[0]
+    m = layered_model(torch, NX, NT0, dev, seed=4)
+    StackOp, ystack, _ = gradient_poststack(torch, pmtt, m, wav, NITER,
+                                            torch.float32)
+    del m
+
+    def solve(label, niter):
+        if label == "gradient":
+            return pmtt.cgls(StackOp, ystack, niter=niter, damp=DAMP, tol=0.0)
+        return pmtt.cgls(ops[label], y, niter=niter, tol=0.0,
+                         normal=cases[label][1])
+
+    def measure():
+        res = {}
+        for label in list(cases) + ["gradient"]:
+            solve(label, 2)  # warm-up
+            torch.cuda.synchronize()
+            walls = []
+            for _ in range(5):  # host-clock noise: keep the fastest of five
+                co.reset_counts()
+                for k in kernels:
+                    k.reset_launches()
+                t0 = time.perf_counter()
+                out = solve(label, NITER)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            iiter = out[2]
+            res[label] = dict(
+                x=out[0].array.clone(), iiter=iiter,
+                iters_per_s=iiter / min(walls), wall_s=walls,
+                collectives_per_iter={k: v / iiter
+                                      for k, v in co.counts.items()},
+                launches_per_iter={k.__name__.rsplit(".", 1)[-1]:
+                                   k.launches / iiter for k in kernels})
+        return res
+
+    def call_us(fn, reps=200):
+        """Host microseconds a call of ``fn`` takes, back to back, the
+        device drained at the end."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e6
+
+    scalar = torch.ones((), device=dev)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_group_")
+    mesh = pmtt.parallel.init(backend="nccl",
+                              store=dist.FileStore(f"{tmp}/store", 1),
+                              rank=0, world_size=1, device=dev)
+    try:
+        grouped = measure()
+        x10 = {label: solve(label, 10)[0].array.clone()
+               for label in ("normal_f32", "gradient")}
+        # one reduction of a 0-d tensor, as a CGLS iteration issues 3 to 5
+        allreduce_us = call_us(lambda: co.all_reduce(scalar))
+        prof = {label: profile_run(torch, lambda: solve(label, 10),
+                                   match=("nccl",))
+                for label in ("normal_f32", "normal_bf16")}
+    finally:
+        pmtt.parallel.destroy()
+        shutil.rmtree(tmp, ignore_errors=True)
+    after = measure()  # the same runs right after, with no group
+    prof_after = {label: profile_run(torch, lambda: solve(label, 10))
+                  for label in prof}
+    # without a group the same call returns at once; a small kernel on a
+    # 0-d tensor for scale
+    nogroup_us = call_us(lambda: co.all_reduce(scalar))
+    kernel_us = call_us(lambda: scalar.mul_(1.0))
+    summary = dict(backend=mesh.backend, world_size=mesh.size,
+                   all_reduce_us=allreduce_us, nogroup_call_us=nogroup_us,
+                   small_kernel_us=kernel_us)
+    print(f"group of one (nccl): an all_reduce of a 0-d tensor takes "
+          f"{allreduce_us:.1f} us of host time back to back (no group: "
+          f"{nogroup_us:.2f} us; a one-element kernel {kernel_us:.1f} us)",
+          flush=True)
+    for label, (wall, busy, top, nccl) in prof.items():
+        wall0, busy0, _, _ = prof_after[label]
+        summary[f"profile_{label}"] = dict(
+            wall_ms=wall, device_ms=busy, nccl_ms=nccl, top=top,
+            nogroup_wall_ms=wall0, nogroup_device_ms=busy0)
+        print(f"  profile {label}, 10 iterations: with the group device busy "
+              f"{busy:.3f} of {wall:.3f} ms wall, NCCL kernels {nccl:.3f} ms;"
+              f" without it {busy0:.3f} of {wall0:.3f} ms; top kernels "
+              f"(ms, name, count): {top}", flush=True)
+    for label, g in grouped.items():
+        want = ref_x[label]
+        bitwise = bool(torch.equal(g["x"], want))
+        rel = max_rel_err(g["x"], want)
+        a = after[label]
+        summary[label] = dict(
+            bitwise=bitwise, max_rel_diff=rel, iters_per_s=g["iters_per_s"],
+            wall_s=g["wall_s"], nogroup_iters_per_s=a["iters_per_s"],
+            nogroup_wall_s=a["wall_s"],
+            nogroup_bitwise=bool(torch.equal(a["x"], want)),
+            ms_per_iter_added=1e3 * (1 / g["iters_per_s"]
+                                     - 1 / a["iters_per_s"]),
+            collectives_per_iter=g["collectives_per_iter"],
+            launches_per_iter=g["launches_per_iter"])
+        print(f"group of one (nccl) {label}: x {'bitwise equal to' if bitwise else 'differs from'}"
+              f" the no-group run (max rel diff {rel:.3e}, limit 1e-6); "
+              f"{g['iters_per_s']:.1f} iters/s with the group (best of "
+              f"{g['wall_s']}), {a['iters_per_s']:.1f} without it right "
+              f"after; collectives per iteration "
+              f"{g['collectives_per_iter']}; kernel launches per iteration "
+              f"{g['launches_per_iter']}", flush=True)
+        if not (bitwise or rel <= 1e-6):
+            raise RuntimeError(f"group of one: {label} x differs from the "
+                               f"no-group run by {rel:.3e}")
+        if not summary[label]["nogroup_bitwise"]:
+            raise RuntimeError(f"{label}: the no-group rerun differs from "
+                               "phase 3/7")
+    return summary, x10
+
+
+def ragged_f64_case(torch, pmtt, dev):
+    """Phase 15's ragged f64 case, run alike by a world of ranks and by
+    one process without a group: CGLS (normal=True, 20 iterations) on 10
+    blocks of 64x64, the Gradient of a (101, 64) field forward and
+    adjoint, and the Gradient-regularized post-stack CGLS on it (20
+    iterations). Returns the gathered results."""
+    f64 = torch.float64
+    D = pmtt.DistributedArray
+    rng = np.random.default_rng(5)
+    blocks = [rng.standard_normal((64, 64)) / 8 + 4 * np.eye(64)
+              for _ in range(10)]
+    yb = rng.standard_normal(640)
+    Op = pmtt.convert.blockdiag_from_numpy(blocks, device=dev)
+    xb = pmtt.cgls(Op, D.to_dist(yb, local_shapes=Op.local_shapes_n,
+                                 device=dev), niter=20, tol=0.0,
+                   normal=True)[0]
+    nx, nt0 = 101, 64
+    f = rng.standard_normal(nx * nt0)
+    G = pmtt.MPIGradient((nx, nt0), dtype=f64)
+    gf = G.matvec(D.to_dist(f, local_shapes=G.local_shapes_m, device=dev))
+    ga = G.rmatvec(gf)
+    wav = pmtt.models.ricker(np.arange(15) * 0.004, f0=15)[0]
+    mm = np.cumsum(rng.standard_normal((nx, nt0)) * 0.03, axis=1) + 2.0
+    P = pmtt.models.MPIPoststackLinearModelling(wav, nt0, nx, dtype=f64,
+                                                device=dev)
+    d = P.matvec(D.to_dist(mm.ravel(), local_shapes=P.local_shapes_m,
+                           device=dev))
+    zero = pmtt.StackedDistributedArray([
+        D(global_shape=nx * nt0, local_shapes=G.local_shapes_m, dtype=f64,
+          device=dev) for _ in range(2)])
+    xs = pmtt.cgls(pmtt.MPIStackedVStack([P, EPS_R * G]),
+                   pmtt.StackedDistributedArray([d, zero]), niter=20,
+                   damp=DAMP, tol=0.0)[0]
+    return dict(blockdiag_cgls=xb.asarray(), gradient=gf.asarray(),
+                gradient_adjoint=ga.asarray(), gradient_cgls=xs.asarray())
+
+
+def _shared_card_cases(torch, pmtt, dev):
+    """What each rank of phase 15 runs; returns this rank's record."""
+    from pylops_mpi_tpu_torch.ops import derivatives
+    from pylops_mpi_tpu_torch.ops import normal_kernels as nk
+    from pylops_mpi_tpu_torch.ops import stencil_kernels as sk
+    from pylops_mpi_tpu_torch.ops.local import MatrixMult
+    from pylops_mpi_tpu_torch.parallel import collectives as co
+    r = pmtt.parallel.rank()
+    out = dict(rank=r)
+    # the main path at full width: each rank keeps its chunk of the blocks
+    A, _, y_t = make_problem(torch, dev)
+    Op = pmtt.MPIBlockDiag([MatrixMult(A[i]) for i in range(NBLK)])
+    del A
+    y = pmtt.DistributedArray.to_dist(y_t, local_shapes=Op.local_shapes_n)
+    nk.reset_launches()
+    co.reset_counts()
+    x = pmtt.cgls(Op, y, niter=10, tol=0.0, normal=True)[0]
+    torch.cuda.synchronize()
+    out["main"] = dict(blocks=len(Op.ops), stack=tuple(Op._batched.shape),
+                       launches=nk.launches, collectives=dict(co.counts))
+    xg = x.asarray()
+    out["main"]["x"] = xg if r == 0 else None
+    del Op, x, y
+    torch.cuda.empty_cache()
+    # the post-stack CGLS: the tap kernel on each rank's rows, fed the
+    # ghost rows received from its neighbours
+    received = [0, 0]
+    real = sk.stencil_taps
+
+    def counting(slab, taps, w, out_pad=(0, 0), *, top=0, bottom=0):
+        received[0] += 1
+        received[1] += isinstance(top, torch.Tensor) or \
+            isinstance(bottom, torch.Tensor)
+        return real(slab, taps, w, out_pad, top=top, bottom=bottom)
+
+    wav = pmtt.models.ricker(np.arange(31) * 0.004, f0=15)[0]
+    m = layered_model(torch, NX, NT0, dev, seed=4)
+    StackOp, ystack, _ = gradient_poststack(torch, pmtt, m, wav, 10,
+                                            torch.float32)
+    del m
+    sk.stencil_taps = counting
+    sk.reset_launches()
+    derivatives.paths.clear()
+    co.reset_counts()
+    try:
+        x = pmtt.cgls(StackOp, ystack, niter=10, damp=DAMP, tol=0.0)[0]
+        torch.cuda.synchronize()
+    finally:
+        sk.stencil_taps = real
+    out["post"] = dict(launches=sk.launches, calls=received[0],
+                       with_received_ghosts=received[1],
+                       paths=dict(derivatives.paths),
+                       collectives=dict(co.counts),
+                       rows=StackOp.ops[1].args[0].local_shapes_m[r][0] // NT0)
+    xg = x.asarray()
+    out["post"]["x"] = xg if r == 0 else None
+    del StackOp, ystack, x
+    torch.cuda.empty_cache()
+    f64 = ragged_f64_case(torch, pmtt, dev)
+    out["f64"] = f64 if r == 0 else None
+    return out
+
+
+def _shared_card_rank(r, n, store_path, out_dir, here, backend):
+    """A spawned rank of phase 15 (gloo, every rank on card 0) or 16
+    (NCCL, rank r on card r)."""
+    import pickle
+    sys.path.insert(0, here)
+    import torch
+    import torch.distributed as dist
+    import pylops_mpi_tpu_torch as pmtt
+    dev = torch.device("cuda", r if backend == "nccl" else 0)
+    pmtt.parallel.init(backend=backend, store=dist.FileStore(store_path, n),
+                       rank=r, world_size=n, device=dev)
+    try:
+        res = _shared_card_cases(torch, pmtt, dev)
+    finally:
+        pmtt.parallel.destroy()
+    with open(f"{out_dir}/rank{r}.pkl", "wb") as f:
+        pickle.dump(res, f)
+
+
+def shared_card_phase(torch, pmtt, here, x10, worlds=(2, 3), timeout=600,
+                      backend="gloo"):
+    """Phase 15: worlds of two and three ranks sharing the one card over
+    gloo (spawned processes; their exchanges staged through the host);
+    with ``backend="nccl"`` (phase 16) one rank a card over NCCL.
+    Correctness only: the main path at full width and the post-stack
+    CGLS (10 iterations each) against phase 14's group of one within
+    1e-5 relative, and the ragged f64 case against one CPU process
+    within 1e-10; the normal kernel and the tap kernel must run on every
+    rank, the tap kernel with received ghost rows."""
+    import pickle
+    import shutil
+    import tempfile
+    import torch.multiprocessing as mp
+    cpu = ragged_f64_case(torch, pmtt, torch.device("cpu"))
+    want = {"main": x10["normal_f32"].cpu().numpy(),
+            "post": x10["gradient"].cpu().numpy()}
+    summary = {}
+    for n in worlds:
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_gloo_")
+        try:
+            t0 = time.perf_counter()
+            ctx = mp.spawn(_shared_card_rank,
+                           args=(n, f"{tmp}/store", tmp, str(here), backend),
+                           nprocs=n, join=False)
+            deadline = time.monotonic() + timeout
+            while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
+                if time.monotonic() > deadline:
+                    for proc in ctx.processes:
+                        proc.kill()
+                    raise RuntimeError(f"{n} {backend} ranks did not finish "
+                                       f"in {timeout} s")
+            ranks = []
+            for r in range(n):
+                with open(f"{tmp}/rank{r}.pkl", "rb") as f:
+                    ranks.append(pickle.load(f))
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        errs = {}
+        for key in ("main", "post"):
+            got = ranks[0][key]["x"]
+            errs[key] = float(np.abs(got - want[key]).max()
+                              / np.abs(want[key]).max())
+        got = ranks[0]["f64"]
+        errs["f64"] = max(float(np.abs(got[k] - cpu[k]).max()
+                                / np.abs(cpu[k]).max()) for k in cpu)
+        per_rank = [dict(rank=o["rank"], blocks=o["main"]["blocks"],
+                         normal_launches=o["main"]["launches"],
+                         rows=o["post"]["rows"],
+                         stencil_launches=o["post"]["launches"],
+                         stencil_calls_with_received_ghosts=
+                         o["post"]["with_received_ghosts"],
+                         paths=o["post"]["paths"],
+                         main_collectives=o["main"]["collectives"],
+                         post_collectives=o["post"]["collectives"])
+                    for o in ranks]
+        summary[n] = dict(max_rel_err=errs, ranks=per_rank,
+                          seconds=time.perf_counter() - t0)
+        where = "one card (gloo)" if backend == "gloo" else f"{n} cards (nccl)"
+        print(f"{n} ranks on {where}: main path x vs the group of "
+              f"one {errs['main']:.3e} (limit 1e-5), post-stack x "
+              f"{errs['post']:.3e} (limit 1e-5), ragged f64 vs CPU "
+              f"{errs['f64']:.3e} (limit 1e-10); per rank {per_rank}; "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        if errs["main"] > 1e-5 or errs["post"] > 1e-5 or errs["f64"] > 1e-10:
+            raise RuntimeError(f"{n} {backend} ranks: results disagree: "
+                               f"{errs}")
+        for o in per_rank:
+            if o["normal_launches"] != 10:
+                raise RuntimeError(f"{backend}: rank {o['rank']} launched the "
+                                   f"normal kernel {o['normal_launches']} "
+                                   "times in 10 iterations")
+            if (o["stencil_launches"] < 20
+                    or o["stencil_calls_with_received_ghosts"]
+                    != o["stencil_launches"] or o["paths"].get("gather")):
+                raise RuntimeError(f"{backend}: rank {o['rank']} did not run "
+                                   f"the tap kernel on received ghost rows: "
+                                   f"{o}")
+    return summary
+
+
+def multi_card_main() -> int:
+    """Phase 16 alone, for a machine with several cards (``python3 -c
+    "import chip_smoke; chip_smoke.multi_card_main()"``): one rank a
+    card over NCCL, held against the same 10-iteration solves without a
+    group (phase 14 shows a group of one gives them bitwise)."""
+    here = Path(__file__).resolve().parent
+    sys.path.insert(0, str(here))
+    import torch
+    import pylops_mpi_tpu_torch as pmtt
+    from pylops_mpi_tpu_torch.ops import _build
+    from pylops_mpi_tpu_torch.ops.local import MatrixMult
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    print(smi.stdout.strip(), flush=True)
+    _build.build_all()
+    dev = torch.device("cuda")
+    A, _, y_t = make_problem(torch, dev)
+    Op = pmtt.MPIBlockDiag([MatrixMult(A[i]) for i in range(NBLK)])
+    x10 = {"normal_f32": pmtt.cgls(Op, pmtt.DistributedArray.to_dist(y_t),
+                                   niter=10, tol=0.0, normal=True)[0].array}
+    del A, Op
+    wav = pmtt.models.ricker(np.arange(31) * 0.004, f0=15)[0]
+    m = layered_model(torch, NX, NT0, dev, seed=4)
+    StackOp, ystack, _ = gradient_poststack(torch, pmtt, m, wav, 10,
+                                            torch.float32)
+    x10["gradient"] = pmtt.cgls(StackOp, ystack, niter=10, damp=DAMP,
+                                tol=0.0)[0].array
+    del m, StackOp, ystack
+    torch.cuda.empty_cache()
+    n = torch.cuda.device_count()
+    res = shared_card_phase(torch, pmtt, here, x10, worlds=(n,),
+                            backend="nccl")
+    print(json.dumps({"multi_card": res}), flush=True)
+    return 0
+
+
 def main() -> int:
     here = Path(__file__).resolve().parent
     if not (here / "pylops_mpi_tpu_torch" / "__init__.py").is_file():
@@ -1255,6 +1648,7 @@ def main() -> int:
     A, xtrue, y_t = make_problem(torch, dev)
     y = pmtt.DistributedArray.to_dist(y_t)
     runs = {}
+    ref_x = {}  # each path's x, for phase 14
     for label, cdt, normal, limit in [
             ("normal_f32", None, True, 1e-4),
             ("normal_bf16", torch.bfloat16, True, 1e-3),
@@ -1282,6 +1676,7 @@ def main() -> int:
             raise RuntimeError(f"{label}: non-finite or misshapen solution")
         rel_err = float(torch.linalg.vector_norm(xv - xtrue)
                         / torch.linalg.vector_norm(xtrue))
+        ref_x[label] = xv.clone()
         runs[label] = dict(rel_err=rel_err, iiter=iiter, istop=istop,
                            iters_per_s=iiter / wall, wall_s=walls,
                            launches=launches)
@@ -1435,6 +1830,7 @@ def main() -> int:
     if np.any(np.diff(c) > 1e-5 * c[:-1]):
         raise RuntimeError(f"gradient solve: cost history increases: {c}")
     st = solve_stats(torch, pmtt, Op, m, d, x, c)
+    ref_x["gradient"] = x.array.clone()
     wall = min(walls)
     post["gradient_cgls"] = dict(iters_per_s=iiter / wall, wall_s=walls,
                                  iiter=iiter, stencil_launches=slaunch,
@@ -1517,6 +1913,30 @@ def main() -> int:
     lsm_res = lsm_phase(torch, pmtt, kernel_mods, dev)
     print(f"phase 13 in {time.perf_counter() - t13:.1f} s", flush=True)
 
+    # 14-15. this slice's process group: a group of one rank over NCCL on
+    # the card, then two and three ranks sharing the card over gloo
+    torch.cuda.empty_cache()
+    t14 = time.perf_counter()
+    group1, x10 = group_of_one_phase(torch, pmtt, kernel_mods, dev, ref_x)
+    del ref_x
+    torch.cuda.empty_cache()
+    print(f"phase 14 in {time.perf_counter() - t14:.1f} s", flush=True)
+    t15 = time.perf_counter()
+    shared = shared_card_phase(torch, pmtt, here, x10)
+    print(f"phase 15 in {time.perf_counter() - t15:.1f} s", flush=True)
+    # 16. one rank a card over NCCL, where the machine has more than one
+    ncards = torch.cuda.device_count()
+    if ncards > 1:
+        t16 = time.perf_counter()
+        multi = shared_card_phase(torch, pmtt, here, x10, worlds=(ncards,),
+                                  backend="nccl")
+        print(f"phase 16 in {time.perf_counter() - t16:.1f} s", flush=True)
+    else:
+        multi = None
+        print("phase 16 skipped: one card (it runs one rank a card over "
+              "NCCL where there are more)", flush=True)
+    del x10
+
     kernels = []
     for name, run in (("float32", "normal_f32"), ("bfloat16", "normal_bf16")):
         s = stats[name]
@@ -1525,6 +1945,9 @@ def main() -> int:
             name=f"normal_matvec[{name}]", route="cuda", source=SRC,
             replaces=REPLACES[name], launches=r["launches"],
             launches_per_iter=r["launches"] / r["iiter"],
+            shared_card_launches_per_rank={
+                n: [o["normal_launches"] for o in v["ranks"]]
+                for n, v in shared.items()},
             max_abs_err=s["max_abs_err"], max_err=s["max_err"], tol=s["tol"],
             ms=s["ms"], kernel_ms=s["ms"], kernel_ms_runs=s["kernel_ms_runs"],
             plain_ms=s["plain_ms"], bound_ms=s["bound_ms"],
@@ -1537,6 +1960,9 @@ def main() -> int:
             name=f"stencil_taps[{name}]", route="cuda", source=STENCIL_SRC,
             replaces=STENCIL_REPLACES, launches=gr["stencil_launches"],
             launches_per_iter=gr["launches_per_iter"],
+            shared_card_launches_per_rank={
+                n: [o["stencil_launches"] for o in v["ranks"]]
+                for n, v in shared.items()},
             main_path_dtype="float32", max_abs_err=st["max_abs_err"],
             max_err=st["max_err"], tol=st["tol"], ms=st["kernel_ms"],
             kernel_ms=st["kernel_ms"], kernel_ms_runs=st["kernel_ms_runs"],
@@ -1550,7 +1976,8 @@ def main() -> int:
                       "poststack": post, "mdd": mdd_res,
                       "reflectivity": refl, "card_vs_cpu_f64": gaps,
                       "stacking": stack_res, "nonstationary": ns_res,
-                      "lsm": lsm_res}),
+                      "lsm": lsm_res, "group_of_one": group1,
+                      "shared_card": shared, "multi_card": multi}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,8 @@ numpy arrays (``[np.asarray(op.A) for op in jax_op.ops]``) and rebuild
 the same operator here (``MPIBlockDiag``, ``MPIVStack``,
 ``MPIHStack``); a user with blocks on the host does the same.
 Stacked vectors come over as (nested) lists of their components'
-arrays. A frequency kernel ``(nfmax, ns, nr)`` comes over as one numpy
+arrays. Under a process group every rank passes the same global arrays
+and keeps its own shard or chunk of blocks. A frequency kernel ``(nfmax, ns, nr)`` comes over as one numpy
 array (``np.asarray(jax_op.G)`` for ``MPIFredholm1``, or the array given
 to the JAX package's ``MPIMDC``).
 """
@@ -20,12 +21,12 @@ import torch
 from .distributedarray import DistributedArray
 from .stacked import StackedDistributedArray
 from .ops._precision import as_torch_dtype
-from .ops.blockdiag import MPIBlockDiag
+from .ops.blockdiag import MPIBlockDiag, _chunk_ops
 from .ops.fredholm import MPIFredholm1
 from .ops.mdc import MPIMDC
 from .ops.stack import MPIHStack, MPIVStack
 from .ops.local import MatrixMult
-from .parallel.mesh import DeviceLike, resolve_device
+from .parallel.mesh import DeviceLike, rank, resolve_device, world_size
 from .parallel.partition import Partition
 
 __all__ = ["blockdiag_from_numpy", "vstack_from_numpy", "hstack_from_numpy",
@@ -47,14 +48,22 @@ def _matrices(blocks: Sequence[np.ndarray], dtype,
 
 
 def blockdiag_from_numpy(blocks: Sequence[np.ndarray], dtype=None,
-                         compute_dtype=None,
-                         device: DeviceLike = None) -> MPIBlockDiag:
-    """``MPIBlockDiag([MatrixMult(b) for b in blocks])`` with each block
-    cast to ``dtype`` (default: its own) and placed on ``device``
-    (default ``"cuda"``); ``compute_dtype`` as for
-    :class:`~.ops.blockdiag.MPIBlockDiag`."""
-    return MPIBlockDiag(_matrices(blocks, dtype, device),
-                        compute_dtype=compute_dtype)
+                         compute_dtype=None, device: DeviceLike = None,
+                         mask=None) -> MPIBlockDiag:
+    """``MPIBlockDiag([MatrixMult(b) for b in blocks], mask)`` with each
+    block cast to ``dtype`` (default: its own); ``compute_dtype`` as for
+    :class:`~.ops.blockdiag.MPIBlockDiag`. Every rank passes all the
+    blocks; only the rank's own chunk is placed on ``device`` (default
+    ``"cuda"``), the others stay host copies that the operator drops."""
+    dev = resolve_device(device)
+    dt = as_torch_dtype(dtype)
+    mine = set(_chunk_ops(list(range(len(blocks))), world_size())[rank()])
+    mats = []
+    for i, b in enumerate(blocks):
+        t = torch.tensor(np.asarray(b))
+        t = t.to(dtype=dt or t.dtype)
+        mats.append(MatrixMult(t.to(dev) if i in mine else t))
+    return MPIBlockDiag(mats, mask=mask, compute_dtype=compute_dtype)
 
 
 def vstack_from_numpy(blocks: Sequence[np.ndarray], dtype=None,
@@ -78,14 +87,18 @@ def hstack_from_numpy(blocks: Sequence[np.ndarray], dtype=None,
 
 def array_from_numpy(x: np.ndarray, dtype=None,
                      partition: Partition = Partition.SCATTER, axis: int = 0,
-                     device: DeviceLike = None) -> DistributedArray:
-    """A :class:`DistributedArray` of ``x`` cast to ``dtype`` on
-    ``device`` (default ``"cuda"``)."""
-    t = torch.tensor(np.asarray(x))
+                     device: DeviceLike = None, local_shapes=None,
+                     mask=None) -> DistributedArray:
+    """A :class:`DistributedArray` of the global ``x`` cast to ``dtype``
+    on ``device`` (default ``"cuda"``): every rank passes the whole
+    array and keeps its shard."""
+    out = DistributedArray.to_dist(np.asarray(x), partition=partition,
+                                   axis=axis, local_shapes=local_shapes,
+                                   mask=mask, device=device)
     dt = as_torch_dtype(dtype)
-    return DistributedArray.to_dist(
-        t.to(device=resolve_device(device), dtype=dt or t.dtype),
-        partition=partition, axis=axis)
+    if dt is not None:
+        out._arr = out._arr.to(dt)
+    return out
 
 
 def stacked_from_numpy(components: Sequence, dtype=None,

@@ -19,9 +19,10 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from .distributedarray import DistributedArray
+from .distributedarray import DistributedArray, Partition
 from .stacked import StackedDistributedArray
 from .ops._precision import as_torch_dtype, result_dtype
+from .parallel.mesh import DeviceLike, require_world_of_one, resolve_device
 
 __all__ = ["MPILinearOperator", "LinearOperator", "aslinearoperator",
            "asmpilinearoperator"]
@@ -41,7 +42,8 @@ class MPILinearOperator:
 
     Subclasses implement ``_matvec``/``_rmatvec`` on
     :class:`DistributedArray`. ``Op`` wraps a local operator
-    (:mod:`ops.local`) applied to the array's global tensor.
+    (:mod:`ops.local`) applied to the whole vector: a BROADCAST one, or
+    any with one rank.
     """
 
     def __init__(self, Op=None, shape: Optional[Tuple[int, int]] = None,
@@ -60,6 +62,10 @@ class MPILinearOperator:
 
     dims: Optional[Tuple[int, ...]] = None
     dimsd: Optional[Tuple[int, ...]] = None
+    # per-rank shapes of the model (m) and data (n) vectors, where the
+    # operator fixes them; None lets the vector keep its own split
+    local_shapes_m = None
+    local_shapes_n = None
 
     # Block (column-batched) applies: a ``(N, K)`` DistributedArray is K
     # model vectors sharing one apply. Operators whose ``_matvec`` and
@@ -112,17 +118,25 @@ class MPILinearOperator:
             global_shape=like.global_shape + (K,),
             local_shapes=tuple(tuple(s) + (K,) for s in like.local_shapes))
 
+    def _local_apply(self, x: DistributedArray, forward: bool):
+        """The wrapped local operator on the whole vector: a BROADCAST
+        vector, which every rank holds whole, or any vector with one
+        rank."""
+        if self.Op is None:
+            raise NotImplementedError
+        if x.partition == Partition.SCATTER:
+            require_world_of_one("A local operator applied to a sharded "
+                                 "vector outside MPIBlockDiag", "A.3")
+        v = x.array.reshape(-1)
+        return DistributedArray.to_dist(
+            self.Op.matvec(v) if forward else self.Op.rmatvec(v),
+            partition=x.partition)
+
     def _matvec(self, x: DistributedArray) -> DistributedArray:
-        if self.Op is not None:
-            return DistributedArray.to_dist(
-                self.Op.matvec(x.array.reshape(-1)), partition=x.partition)
-        raise NotImplementedError
+        return self._local_apply(x, True)
 
     def _rmatvec(self, x: DistributedArray) -> DistributedArray:
-        if self.Op is not None:
-            return DistributedArray.to_dist(
-                self.Op.rmatvec(x.array.reshape(-1)), partition=x.partition)
-        raise NotImplementedError
+        return self._local_apply(x, False)
 
     # ------------------------------------------------- normal-equations
     # ``(u, q) = (Opᴴ Op x, Op x)`` — the CGLS hot pair. The default is
@@ -199,6 +213,28 @@ class MPILinearOperator:
     def __sub__(self, x):
         return self.__add__(-x)
 
+    def todense(self, device: DeviceLike = None) -> np.ndarray:
+        """Dense matrix of the operator on the host, by applying it to
+        each identity column (JAX ``linearoperator.py:265``): O(n)
+        applies, for tests and small operators. Under a group the model
+        columns follow ``local_shapes_m`` and every output is gathered,
+        so every rank returns the same matrix. ``device`` (default: the
+        operator's, else ``"cuda"``) holds the columns."""
+        m, n = self.shape
+        dev = resolve_device(device if device is not None
+                             else getattr(self, "device", None))
+        dt = torch.zeros((), dtype=self.dtype or torch.float64)
+        if dt.dtype in (torch.bfloat16, torch.float16):
+            dt = dt.float()
+        out = np.zeros((m, n), dtype=dt.numpy().dtype)
+        for j in range(n):
+            e = torch.zeros(n, dtype=dt.dtype, device=dev)
+            e[j] = 1
+            col = self.matvec(DistributedArray.to_dist(
+                e, local_shapes=self.local_shapes_m))
+            out[:, j] = col.asarray().reshape(-1)
+        return out
+
     def __repr__(self):
         M, N = self.shape
         dt = "unspecified dtype" if self.dtype is None else f"dtype={self.dtype}"
@@ -215,6 +251,8 @@ class _AdjointLinearOperator(MPILinearOperator):
 
     def __init__(self, A: MPILinearOperator):
         self.dims, self.dimsd = A.dimsd, A.dims
+        self.local_shapes_m, self.local_shapes_n = (A.local_shapes_n,
+                                                    A.local_shapes_m)
         super().__init__(shape=(A.shape[1], A.shape[0]), dtype=A.dtype)
         self.A = A
 
@@ -232,6 +270,8 @@ class _TransposedLinearOperator(MPILinearOperator):
 
     def __init__(self, A: MPILinearOperator):
         self.dims, self.dimsd = A.dimsd, A.dims
+        self.local_shapes_m, self.local_shapes_n = (A.local_shapes_n,
+                                                    A.local_shapes_m)
         super().__init__(shape=(A.shape[1], A.shape[0]), dtype=A.dtype)
         self.A = A
 
@@ -252,6 +292,8 @@ class _ProductLinearOperator(MPILinearOperator):
             raise ValueError(f"cannot multiply {A} and {B}: shape mismatch")
         self.args = (A, B)
         self.dims, self.dimsd = B.dims, A.dimsd
+        self.local_shapes_m, self.local_shapes_n = (B.local_shapes_m,
+                                                    A.local_shapes_n)
         super().__init__(shape=(A.shape[0], B.shape[1]),
                          dtype=result_dtype(A.dtype, B.dtype))
 
@@ -282,6 +324,8 @@ class _ScaledLinearOperator(MPILinearOperator):
             raise ValueError("scalar expected as alpha")
         self.args = (A, alpha)
         self.dims, self.dimsd = A.dims, A.dimsd
+        self.local_shapes_m, self.local_shapes_n = (A.local_shapes_m,
+                                                    A.local_shapes_n)
         # a Python scalar promotes like a weak scalar in torch: a real
         # one keeps the operator's dtype, a complex one makes it complex
         dtype = A.dtype
@@ -314,6 +358,8 @@ class _SumLinearOperator(MPILinearOperator):
             raise ValueError(f"cannot add {A} and {B}: shape mismatch")
         self.args = (A, B)
         self.dims, self.dimsd = A.dims, A.dimsd
+        self.local_shapes_m, self.local_shapes_n = (A.local_shapes_m,
+                                                    A.local_shapes_n)
         super().__init__(shape=A.shape, dtype=result_dtype(A.dtype, B.dtype))
 
     def _matvec(self, x):
@@ -339,6 +385,8 @@ class _PowerLinearOperator(MPILinearOperator):
             raise ValueError("non-negative integer expected as p")
         self.args = (A, int(p))
         self.dims, self.dimsd = A.dims, A.dimsd
+        self.local_shapes_m, self.local_shapes_n = (A.local_shapes_m,
+                                                    A.local_shapes_n)
         super().__init__(shape=A.shape, dtype=A.dtype)
 
     def _power(self, fun, x):
@@ -361,6 +409,8 @@ class _ConjLinearOperator(MPILinearOperator):
 
     def __init__(self, A: MPILinearOperator):
         self.dims, self.dimsd = A.dims, A.dimsd
+        self.local_shapes_m, self.local_shapes_n = (A.local_shapes_m,
+                                                    A.local_shapes_n)
         super().__init__(shape=A.shape, dtype=A.dtype)
         self.A = A
 

@@ -26,7 +26,8 @@ from ..distributedarray import DistributedArray, Partition
 from ..ops._precision import as_torch_dtype
 from ..ops.local import Conv1D, LocalOperator, _tensor
 from ..ops.stack import MPIVStack
-from ..parallel.mesh import DeviceLike, resolve_device, world_size
+from ..parallel.mesh import (DeviceLike, require_world_of_one,
+                             resolve_device, world_size)
 from ..solvers.basic import cgls
 
 __all__ = ["TravelTimeSpray", "KirchhoffDemigration", "MPILSM", "lsm"]
@@ -196,6 +197,7 @@ def MPILSM(z, x, t, sources, recs, vel: float, wav, wavcenter: int,
     """Distributed LSM operator (JAX package ``models/lsm.py:110-124``):
     the sources split over the workers (one batch with one worker), one
     Kirchhoff demigration per batch, stacked with :class:`MPIVStack`."""
+    require_world_of_one("models.MPILSM", "A.3")
     sources = np.asarray(sources, dtype=float)
     chunks = np.array_split(np.arange(sources.shape[1]), world_size())
     return MPIVStack([KirchhoffDemigration(z, x, t, sources[:, c], recs, vel,
@@ -211,6 +213,7 @@ def lsm(z, x, t, sources, recs, vel: float, wav, wavcenter: int,
     """Model data from ``refl`` and invert it with CGLS (JAX package
     ``models/lsm.py:127-140``). Returns ``(minv, d, cost)`` as numpy
     arrays, ``minv`` on the ``(nz, nx)`` grid."""
+    require_world_of_one("models.lsm", "A.3")
     dev = resolve_device(device)
     dtype = as_torch_dtype(dtype)
     Op = MPILSM(z, x, t, sources, recs, vel, wav, wavcenter, dtype=dtype,

@@ -14,7 +14,7 @@ import torch
 
 from ..distributedarray import DistributedArray, Partition
 from ..ops.mdc import MPIMDC
-from ..parallel.mesh import DeviceLike, resolve_device
+from ..parallel.mesh import DeviceLike, require_world_of_one, resolve_device
 from ..solvers.basic import cgls
 
 __all__ = ["mdd", "kernel_to_frequency"]
@@ -50,6 +50,7 @@ def mdd(G, d, nt: int, nv: int = 1, dt: float = 1.0, dr: float = 1.0,
 
     Returns the model as a numpy ``(nt, nr, nv)`` array and the
     operator."""
+    require_world_of_one("models.mdd", "A.3")
     if device is None and isinstance(G, torch.Tensor):
         dev = G.device
     else:

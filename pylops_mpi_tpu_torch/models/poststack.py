@@ -63,8 +63,9 @@ def PoststackLinearModelling(wav: np.ndarray, nt0: int,
 def MPIPoststackLinearModelling(wav: np.ndarray, nt0: int, nx: int,
                                 dtype=torch.float64,
                                 device: DeviceLike = None) -> MPIBlockDiag:
-    """The ``nx`` traces split over the workers, one local modelling
-    block per worker (the reference tutorial's MPIBlockDiag layout)."""
+    """The ``nx`` traces split over the ranks, one local modelling block
+    per rank (the reference tutorial's MPIBlockDiag layout): each rank
+    keeps its own block of traces."""
     chunks = [len(c) for c in np.array_split(np.arange(nx), world_size())]
     return MPIBlockDiag([PoststackLinearModelling(wav, nt0, (c,), dtype=dtype,
                                                   device=device)
@@ -79,8 +80,10 @@ def poststack_inversion(d, wav: np.ndarray, niter: int = 100,
     ``d`` is a numpy array (placed on ``device``, default ``"cuda"``)
     or a tensor (kept on its device unless ``device`` is given).
     ``epsR=None``: damped CGLS. With ``epsR``: the Laplacian-regularized
-    stacked system ``[Op; εR·∇²] m = [d; 0]``. Returns the model as a
-    numpy ``(nx, nt0)`` array and the modelling operator."""
+    stacked system ``[Op; εR·∇²] m = [d; 0]``. Under a process group
+    every rank passes the whole ``d`` and keeps its traces; the model
+    comes back gathered on every rank. Returns the model as a numpy
+    ``(nx, nt0)`` array and the modelling operator."""
     nx, nt0 = d.shape
     if isinstance(d, torch.Tensor):
         dev = d.device if device is None else resolve_device(device)
@@ -103,8 +106,9 @@ def poststack_inversion(d, wav: np.ndarray, niter: int = 100,
         LapOp = MPILaplacian(dims=(nx, nt0), axes=(0, 1), weights=(1, 1),
                              sampling=(1, 1), dtype=dtype)
         StackOp = MPIStackedVStack([Op, epsR * LapOp])
-        zero = DistributedArray(global_shape=LapOp.shape[0], dtype=dtype,
-                                device=dev)
+        zero = DistributedArray(global_shape=LapOp.shape[0],
+                                local_shapes=LapOp.local_shapes_n,
+                                dtype=dtype, device=dev)
         dstack = StackedDistributedArray([dy, zero])
         x, *_ = cgls(StackOp, dstack, x0, niter=niter, damp=damp, tol=1e-10)
     return x.asarray().reshape(nx, nt0), Op

@@ -1,34 +1,58 @@
-"""Block-diagonal distributed operator.
+"""Block-diagonal distributed operators.
 
-PyTorch counterpart of ``pylops_mpi_tpu/ops/blockdiag.py:48-315`` (the
-reference's ``pylops_mpi/basicoperators/BlockDiag.py``). Homogeneous
-``MatrixMult`` blocks (same shape, same ``otherdims``) are stacked into
-one ``(nblk, m, n)`` tensor, optionally stored narrow (``compute_dtype``),
-and applied as one batched product; any other list of blocks is applied
-block by block.
+PyTorch counterpart of ``pylops_mpi_tpu/ops/blockdiag.py`` (the
+reference's ``pylops_mpi/basicoperators/BlockDiag.py``). Every rank is
+given the full list of blocks; the JAX package's balanced rule
+(``_chunk_ops``) assigns each rank a contiguous chunk of them, and the
+operator keeps references to its own chunk only. The apply is local to
+the rank's shard: no communication. Homogeneous ``MatrixMult`` blocks
+(same shape, same ``otherdims``) of the chunk are stacked into one
+``(nblk, m, n)`` tensor, optionally stored narrow (``compute_dtype``),
+and applied as one batched product; any other chunk is applied block by
+block.
 
 ``normal_matvec`` gives ``(OpᴴOp x, Op x)`` from one read of the stack
 through :mod:`.normal_kernels` (the Hopper kernel on CUDA, its plain
 version on the CPU) for real floating blocks and real vectors of the
 kernel's dtype rules; complex blocks or vectors, block (2-D) vectors and
-other dtype pairs take the two-sweep ``matvec`` + ``rmatvec``.
+other dtype pairs, or ``normal_path="two_sweep"``, take the two-sweep
+``matvec`` + ``rmatvec``.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from ..distributedarray import DistributedArray
+from ..distributedarray import DistributedArray, Partition
 from ..linearoperator import MPILinearOperator
+from ..parallel import collectives
+from ..parallel.mesh import default_mesh
+from ..parallel.partition import shard_offsets
+from ..stacked import StackedDistributedArray
+from ..stackedlinearoperator import MPIStackedLinearOperator
 from . import normal_kernels
 from ._precision import (as_torch_dtype, check_compute_dtype,
                          default_compute_dtype, matmul_narrow, result_dtype)
 from .local import LocalOperator, MatrixMult
 
-__all__ = ["MPIBlockDiag"]
+__all__ = ["MPIBlockDiag", "MPIStackedBlockDiag"]
+
+
+def _chunk_ops(ops: Sequence, n_shards: int) -> List[List]:
+    """Assign operators to ranks: contiguous balanced chunks (the first
+    ``len(ops) % P`` ranks get one extra), the JAX package's rule
+    (``ops/blockdiag.py:34-46``) and the reference's one list per rank."""
+    n = len(ops)
+    base, rem = divmod(n, n_shards)
+    chunks, off = [], 0
+    for i in range(n_shards):
+        c = base + (1 if i < rem else 0)
+        chunks.append(list(ops[off:off + c]))
+        off += c
+    return chunks
 
 
 class MPIBlockDiag(MPILinearOperator):
@@ -38,36 +62,64 @@ class MPIBlockDiag(MPILinearOperator):
     Parameters
     ----------
     ops : list of LocalOperator
-        All diagonal blocks.
+        All diagonal blocks (the concatenation of every rank's list in
+        the reference API); each rank keeps its chunk.
+    mask : list, optional
+        Group color per rank, carried onto the outputs so that their
+        reductions group as the reference's sub-communicators do.
+    mesh : Mesh, optional
+        The process group (:func:`~..parallel.mesh.default_mesh`).
     dtype : dtype, optional
         Operator dtype (default: promotion of the blocks' dtypes).
     compute_dtype : dtype, optional
         Narrow storage for the batched block stack (e.g.
         ``torch.bfloat16``). ``None`` lets the precision policy
         (``PYLOPS_MPI_TPU_TORCH_PRECISION``) decide.
+    normal_path : str, optional
+        ``"fused"`` or ``None``/``"auto"``: the one-sweep normal kernel
+        where it applies; ``"two_sweep"``: always ``matvec`` +
+        ``rmatvec``.
     """
 
-    def __init__(self, ops: Sequence[LocalOperator], dtype=None,
-                 compute_dtype=None):
-        self.ops = list(ops)
-        nops = np.asarray([op.shape[0] for op in self.ops])
-        mops = np.asarray([op.shape[1] for op in self.ops])
-        self.nops, self.mops = nops, mops
-        self.local_shapes_n = ((int(nops.sum()),),)
-        self.local_shapes_m = ((int(mops.sum()),),)
-        shape = (int(nops.sum()), int(mops.sum()))
+    def __init__(self, ops: Sequence[LocalOperator],
+                 mask: Optional[Sequence] = None, mesh=None, dtype=None,
+                 compute_dtype=None, normal_path: Optional[str] = None):
+        if normal_path not in (None, "auto", "fused", "two_sweep"):
+            raise ValueError(
+                f"normal_path={normal_path!r}: expected None, 'auto', "
+                "'fused' or 'two_sweep'")
+        ops = list(ops)
+        self.mesh = default_mesh() if mesh is None else mesh
+        chunks = _chunk_ops(ops, self.mesh.size)
+        if mask is not None and len(mask) != self.mesh.size:
+            raise ValueError(f"mask must have {self.mesh.size} entries")
+        self.mask = None if mask is None else tuple(mask)
+        self.nops = np.asarray([op.shape[0] for op in ops])
+        self.mops = np.asarray([op.shape[1] for op in ops])
+        # per-rank shapes (what the reference gathers at construction,
+        # ref BlockDiag.py:106-120)
+        self.local_shapes_n = tuple(
+            (int(sum(op.shape[0] for op in c)),) for c in chunks)
+        self.local_shapes_m = tuple(
+            (int(sum(op.shape[1] for op in c)),) for c in chunks)
+        shape = (int(self.nops.sum()), int(self.mops.sum()))
         super().__init__(shape=shape, dtype=dtype or result_dtype(
-            *[op.dtype for op in self.ops]))
+            *[op.dtype for op in ops]))
+        # this rank's blocks only: the others can be freed by the caller
+        self.ops = chunks[self.mesh.rank]
+        del chunks
         self.compute_dtype = as_torch_dtype(compute_dtype)
         if self.compute_dtype is None:
             self.compute_dtype = default_compute_dtype(self.dtype)
+        self._normal_path = None if normal_path == "auto" else normal_path
         self._batched = self._try_batch()
 
     def _try_batch(self):
         """Homogeneous MatrixMult blocks → one ``(nblk, m, n)`` stack,
         for plain and uniform-``otherdims`` blocks alike."""
         self._batched_k = 1
-        if not all(isinstance(op, MatrixMult) for op in self.ops):
+        if not self.ops or not all(isinstance(op, MatrixMult)
+                                   for op in self.ops):
             return None
         odims = {op.otherdims for op in self.ops}
         shapes = {tuple(op.A.shape) for op in self.ops}
@@ -87,38 +139,70 @@ class MPIBlockDiag(MPILinearOperator):
         ``None`` for blocks without one."""
         if self._batched is not None:
             return self._batched.device
-        A = getattr(self.ops[0], "A", None)
+        A = getattr(self.ops[0], "A", None) if self.ops else None
         return A.device if isinstance(A, torch.Tensor) else None
 
     accepts_block = True
 
-    def _apply(self, x: DistributedArray, forward: bool) -> DistributedArray:
+    def _local_input(self, x: DistributedArray, forward: bool):
+        """``x``'s rows of this rank's blocks: its shard when it is split
+        as the operator's model (forward) or data (adjoint) space, else
+        regathered into that split; a BROADCAST vector's own slice."""
+        want = self.local_shapes_m if forward else self.local_shapes_n
+        rows = [s[0] for s in want]
+        if x.partition != Partition.SCATTER:
+            if self.mesh.size == 1:
+                return x.array
+            off = shard_offsets(rows)[self.mesh.rank]
+            return x.array[off:off + rows[self.mesh.rank]]
+        if [s[0] for s in x.local_shapes] != rows:
+            x = x._relayout(tuple((r,) + tuple(x.global_shape[1:])
+                                  for r in rows))
+        return x.array
+
+    def _output(self, arr: torch.Tensor, x: DistributedArray,
+                forward: bool) -> DistributedArray:
+        """This rank's output rows as a vector of the operator's data
+        (forward) or model space, in ``x``'s partition, with the
+        operator's mask; a BROADCAST output is gathered whole."""
         y_len = self.shape[0] if forward else self.shape[1]
         locals_out = self.local_shapes_n if forward else self.local_shapes_m
+        tail = tuple(x.global_shape[1:])
+        if x.partition != Partition.SCATTER:
+            if self.mesh.size > 1:
+                arr = collectives.all_gather(arr, [s[0] for s in locals_out])
+            locals_out = ((y_len,),) * self.mesh.size
+        return DistributedArray._wrap(
+            arr, x, global_shape=(y_len,) + tail,
+            local_shapes=tuple(tuple(s) + tail for s in locals_out),
+            mask=self.mask)
+
+    def _apply(self, x: DistributedArray, forward: bool) -> DistributedArray:
         ncol = x.global_shape[1] if x.ndim == 2 else None
+        if self._batched is None and ncol is not None:
+            return self._apply_columns(x, forward)
+        xl = self._local_input(x, forward)
         if self._batched is not None:
             A = self._batched
             nblk, m, n = A.shape
             k = self._batched_k
             nin = n if forward else m
-            X = x.array.reshape(nblk, nin, k * (ncol or 1))
+            X = xl.reshape(nblk, nin, k * (ncol or 1))
             Y = matmul_narrow(A if forward else A.mH, X,
                               self.compute_dtype, self.dtype)
-            arr = Y.reshape(-1) if ncol is None else Y.reshape(y_len, ncol)
-        elif ncol is not None:
-            return self._apply_columns(x, forward)
+            arr = Y.reshape(-1) if ncol is None else Y.reshape(-1, ncol)
+        elif not self.ops:  # a rank with no blocks
+            arr = xl.new_zeros(0, dtype=torch.promote_types(self.dtype,
+                                                            xl.dtype))
         else:
-            sizes_in = self.mops if forward else self.nops
+            sizes_in = [op.shape[1] if forward else op.shape[0]
+                        for op in self.ops]
             offs = np.concatenate([[0], np.cumsum(sizes_in)])
-            parts = [op.matvec(x.array[int(lo):int(hi)]) if forward
-                     else op.rmatvec(x.array[int(lo):int(hi)])
+            parts = [op.matvec(xl[int(lo):int(hi)]) if forward
+                     else op.rmatvec(xl[int(lo):int(hi)])
                      for op, lo, hi in zip(self.ops, offs[:-1], offs[1:])]
             arr = parts[0] if len(parts) == 1 else torch.cat(parts)
-        y_shape = (y_len,) if ncol is None else (y_len, ncol)
-        if ncol is not None:
-            locals_out = tuple(tuple(s) + (ncol,) for s in locals_out)
-        return DistributedArray._wrap(arr, x, global_shape=y_shape,
-                                      local_shapes=locals_out)
+        return self._output(arr, x, forward)
 
     def _matvec(self, x: DistributedArray) -> DistributedArray:
         return self._apply(x, forward=True)
@@ -130,7 +214,8 @@ class MPIBlockDiag(MPILinearOperator):
     def has_fused_normal(self) -> bool:
         """One-sweep normal product available: a batched stack of plain
         (vector-form) real blocks the kernel takes."""
-        if self._batched is None or self._batched_k != 1:
+        if (self._batched is None or self._batched_k != 1
+                or self._normal_path == "two_sweep"):
             return False
         A = self._batched
         return normal_kernels.supported(
@@ -145,12 +230,48 @@ class MPIBlockDiag(MPILinearOperator):
                                                 self._batched.shape[2])):
             return super().normal_matvec(x)
         nblk, m, n = self._batched.shape
-        U, Q = normal_kernels.normal_matvec(self._batched,
-                                            x.array.reshape(nblk, n))
-        u = DistributedArray._wrap(U.reshape(-1), x,
-                                   global_shape=(self.shape[1],),
-                                   local_shapes=self.local_shapes_m)
-        q = DistributedArray._wrap(Q.reshape(-1), x,
-                                   global_shape=(self.shape[0],),
-                                   local_shapes=self.local_shapes_n)
-        return u, q
+        U, Q = normal_kernels.normal_matvec(
+            self._batched, self._local_input(x, True).reshape(nblk, n))
+        return (self._output(U.reshape(-1), x, False),
+                self._output(Q.reshape(-1), x, True))
+
+    def diagonal(self) -> torch.Tensor:
+        """Main diagonals of this rank's blocks, concatenated, at the
+        operator's dtype (JAX ``ops/blockdiag.py:216``, which returns every
+        block's): the Jacobi preconditioner's fast path. Batched blocks
+        read the stacked tensor; others each block's matrix."""
+        if self._batched is not None and self._batched_k == 1:
+            d = torch.diagonal(self._batched, dim1=1, dim2=2)
+            return d.reshape(-1).to(self.dtype)
+        parts = []
+        for op in self.ops:
+            A = getattr(op, "A", None)
+            if A is None:
+                raise AttributeError(
+                    "diagonal() needs matrix blocks (op.A); got "
+                    f"{type(op).__name__}")
+            parts.append(torch.diagonal(A))
+        if not parts:
+            return torch.zeros(0, dtype=self.dtype)
+        return torch.cat(parts).to(self.dtype)
+
+
+class MPIStackedBlockDiag(MPIStackedLinearOperator):
+    """Diagonal stack of distributed operators acting on a
+    :class:`StackedDistributedArray`, one component each (JAX
+    ``ops/blockdiag.py:318-335``, ref ``BlockDiag.py:147-188``)."""
+
+    def __init__(self, ops: Sequence[MPILinearOperator]):
+        self.ops = list(ops)
+        shape = (int(sum(op.shape[0] for op in self.ops)),
+                 int(sum(op.shape[1] for op in self.ops)))
+        super().__init__(shape=shape,
+                         dtype=result_dtype(*[op.dtype for op in self.ops]))
+
+    def _matvec(self, x: StackedDistributedArray) -> StackedDistributedArray:
+        return StackedDistributedArray(
+            [op.matvec(d) for op, d in zip(self.ops, x.distarrays)])
+
+    def _rmatvec(self, x: StackedDistributedArray) -> StackedDistributedArray:
+        return StackedDistributedArray(
+            [op.rmatvec(d) for op, d in zip(self.ops, x.distarrays)])

@@ -2,26 +2,38 @@
 
 PyTorch counterpart of ``pylops_mpi_tpu/ops/derivatives.py`` (the
 reference's ``FirstDerivative.py``, ``SecondDerivative.py``,
-``Laplacian.py`` and ``Gradient.py``). Distribution is along axis 0 of
-the N-D layout, as in the reference.
+``Laplacian.py`` and ``Gradient.py``). The N-D field is sharded along
+axis 0 over the ranks (the balanced row split, flattened), as in the
+reference.
 
-The axis-0 stencils of ``MPIFirstDerivative``, ``MPISecondDerivative``
-and ``MPIGradient``'s axis-0 component take the explicit path of the
-JAX package (``_apply_explicit``): the ``y = Z·S x + E x`` decomposition
-of :func:`_stencil_spec`, with the interior stencil ``S`` in one pass of
-the tap kernel (:func:`.stencil_kernels.stencil_taps`). With a world of
-one the halo rows beyond the field are zeros, which the kernel reads as
-absent pieces of its slab, so the field is never copied into a padded
-slab; the ``Z`` rows are the kernel's ``out_pad`` (forward) or absent
-input rows (adjoint), and the sparse ``edge=True`` matrix ``E`` is added
-in place on its O(1) rows. Non-axis-0 stencils, non-floating dtypes and
-fields shorter than the stencil's span take the local operator
-(``ops/local.py``), as in the JAX package. ``MPILaplacian`` keeps the
-JAX package's local formulation and does not run the kernel.
+The axis-0 stencils of ``MPIFirstDerivative``, ``MPISecondDerivative``,
+``MPIGradient``'s axis-0 component and, across ranks, ``MPILaplacian``'s
+axis-0 term take the explicit path of the JAX package
+(``_apply_explicit``): the ``y = Z·S x + E x`` decomposition of
+:func:`_stencil_spec`, with the interior stencil ``S`` in one pass of
+the tap kernel (:func:`.stencil_kernels.stencil_taps`). Each rank's
+ghost rows come from :func:`~..parallel.collectives.halo_exchange` and
+go into the kernel as the ``top``/``bottom`` pieces of its slab as they
+were received; beyond the field (the first rank's top, the last rank's
+bottom, and both sides with one rank) they are counts of zero rows, so
+no padded copy of the field is ever made. The ``Z`` rows are the
+kernel's ``out_pad`` (forward) or absent input rows (adjoint) on the
+first and last ranks, and the sparse ``edge=True`` matrix ``E`` is added
+in place on its O(1) rows there.
+
+A rank whose shard is shorter than the span the stencil reads (``w``
+rows, or 3 with ``edge``), or a non-floating field, takes the gather
+path: the field is gathered, the stencil applied whole, and the rank
+keeps its rows (where the JAX package hands the apply to its
+partitioner). Stencils along other axes apply the local operator
+(``ops/local.py``) to the rank's shard. ``paths`` counts which path
+ran. With one rank, ``MPILaplacian`` keeps the JAX package's local
+formulation and does not run the kernel.
 """
 
 from __future__ import annotations
 
+from collections import Counter
 from typing import Optional, Tuple
 
 import numpy as np
@@ -29,6 +41,9 @@ import torch
 
 from ..distributedarray import DistributedArray, Partition
 from ..linearoperator import MPILinearOperator
+from ..parallel import collectives
+from ..parallel.mesh import rank, world_size
+from ..parallel.partition import local_split, shard_offsets
 from ..stacked import StackedDistributedArray
 from . import stencil_kernels
 from ._precision import as_torch_dtype
@@ -37,7 +52,13 @@ from .local import SecondDerivative as _LocalSecond
 from .stack import MPIStackedVStack
 
 __all__ = ["MPIFirstDerivative", "MPISecondDerivative", "MPILaplacian",
-           "MPIGradient"]
+           "MPIGradient", "paths"]
+
+# applies by path since the last paths.clear(): "explicit" (the tap
+# kernel, ghost rows exchanged), "gather" (a short shard or a
+# non-floating field), "local" (the local operator on the rank's shard
+# or, with one rank, on the whole field)
+paths: Counter = Counter()
 
 
 def _tuplize(dims) -> Tuple[int, ...]:
@@ -110,79 +131,165 @@ def _stencil_spec(op) -> Optional[dict]:
     return None
 
 
-def _scatter(x: DistributedArray) -> DistributedArray:
-    """The reference's BROADCAST → SCATTER input conversion
-    (ref ``FirstDerivative.py:128-132``): with one worker both hold the
-    same global tensor."""
+def _rows_layout(dims) -> Tuple[Tuple[int, ...], ...]:
+    """Flat per-rank sizes of the balanced row split of ``dims``."""
+    inner = int(np.prod(dims[1:])) if len(dims) > 1 else 1
+    return tuple((int(s[0]) * inner,) for s in
+                 local_split(tuple(dims), world_size(), Partition.SCATTER, 0))
+
+
+def _model_layout(x: DistributedArray, layout) -> DistributedArray:
+    """``x`` split as the operators' row layout: the reference's
+    BROADCAST → SCATTER input conversion (ref ``FirstDerivative.py:128-132``)
+    slices each rank's rows, and a SCATTER vector split otherwise is
+    regathered into it."""
     if x.partition in (Partition.BROADCAST, Partition.UNSAFE_BROADCAST):
-        return DistributedArray.to_dist(x.array)
-    return x
+        return DistributedArray.to_dist(x.array, local_shapes=layout,
+                                        mask=x.mask)
+    return x._relayout(layout)
 
 
 class _StencilOperator(MPILinearOperator):
     """Flat vector in → N-D stencil → flat vector out, SCATTER along
-    axis 0, with the explicit kernel path for axis-0 stencils."""
+    axis 0 by rows, with the explicit kernel path for axis-0 stencils."""
 
     def __init__(self, dims, dtype=None):
         self.dims_nd = _tuplize(dims)
         n = int(np.prod(self.dims_nd))
         self.dims = self.dimsd = self.dims_nd
+        self.local_shapes_m = self.local_shapes_n = _rows_layout(self.dims_nd)
+        self._rows = [int(s[0]) for s in local_split(
+            self.dims_nd, world_size(), Partition.SCATTER, 0)]
+        self._shard_ops = {}
         super().__init__(shape=(n, n),
                          dtype=as_torch_dtype(dtype) or torch.float64)
 
     def _local_op(self):
         raise NotImplementedError
 
+    def _shard_op(self, rows: int):
+        """The local operator on a ``(rows, *dims[1:])`` shard."""
+        if rows == self.dims_nd[0]:
+            return self._local_op()
+        if rows not in self._shard_ops:
+            op = self._local_op()
+            kw = dict(axis=op.axis, sampling=op.sampling, kind=op.kind,
+                      edge=op.edge, dtype=op.dtype)
+            if isinstance(op, _LocalFirst):
+                kw["order"] = op.order
+            self._shard_ops[rows] = type(op)((rows,) + self.dims_nd[1:], **kw)
+        return self._shard_ops[rows]
+
     def _apply(self, x: DistributedArray, forward: bool) -> DistributedArray:
         # x is a 1-D vector here: matvec/rmatvec apply block (2-D)
         # vectors column by column
-        x = _scatter(x)
-        arr = self._apply_explicit(x, forward)
-        if arr is None:
-            op = self._local_op()
-            g = x.array.reshape(-1)
-            arr = op._matvec(g) if forward else op._rmatvec(g)
-        return DistributedArray.to_dist(arr.reshape(-1))
+        x = _model_layout(x, self.local_shapes_m)
+        arr = self._apply_shard(x.array, forward)
+        return DistributedArray._wrap(arr.reshape(-1), x,
+                                      local_shapes=self.local_shapes_n)
 
-    def _apply_explicit(self, x: DistributedArray,
-                        forward: bool) -> Optional[torch.Tensor]:
-        """The axis-0 stencil as one tap-kernel pass plus the O(1)
-        ``edge`` rows (JAX package ``ops/derivatives.py:202-380``, with
-        one worker); ``None`` (local operator) for non-axis-0 stencils,
-        non-floating dtypes, or a field shorter than the stencil's
-        span."""
+    def _apply_shard(self, v: torch.Tensor, forward: bool) -> torch.Tensor:
+        """The stencil on this rank's flat shard ``v`` of the row layout;
+        returns this rank's output rows (flat)."""
+        op = self._local_op()
+        P = world_size()
+        if P == 1:
+            arr = self._apply_explicit(v, forward, 0, self.dims_nd[0], True)
+            if arr is None:
+                paths["local"] += 1
+                arr = op._matvec(v) if forward else op._rmatvec(v)
+            else:
+                paths["explicit"] += 1
+            return arr.reshape(-1)
+        rows, r = self._rows, rank()
+        if op.axis != 0:
+            paths["local"] += 1
+            if rows[r] == 0:
+                return v
+            sop = self._shard_op(rows[r])
+            return (sop._matvec(v) if forward else sop._rmatvec(v)).reshape(-1)
+        spec = _stencil_spec(op)
+        # every rank must hold the halo rows its neighbours read, and with
+        # edge corrections the end ranks the 3-row span they read
+        min_rows = max(spec["w"], 3) if spec["edge"] else spec["w"]
+        if min(rows) >= min_rows and v.dtype.is_floating_point:
+            base = shard_offsets(rows)[r]
+            paths["explicit"] += 1
+            return self._apply_explicit(v, forward, base, rows[r],
+                                        True).reshape(-1)
+        paths["gather"] += 1
+        g = collectives.all_gather(v, [s[0] for s in self.local_shapes_m])
+        y = self._apply_explicit(g, forward, 0, self.dims_nd[0], False)
+        if y is None:
+            y = op._matvec(g) if forward else op._rmatvec(g)
+        off = shard_offsets([s[0] for s in self.local_shapes_n])[r]
+        return y.reshape(-1)[off:off + self.local_shapes_n[r][0]]
+
+    def _apply_explicit(self, v: torch.Tensor, forward: bool, base: int,
+                        nrows: int, exchange: bool) -> Optional[torch.Tensor]:
+        """The axis-0 stencil on the ``nrows`` rows from global row
+        ``base`` held in ``v``, as one tap-kernel pass with the ghost
+        rows (exchanged with the neighbouring ranks when ``exchange``,
+        zeros otherwise) plus the O(1) ``edge`` rows (JAX package
+        ``ops/derivatives.py:202-381``); ``None`` (local operator) for
+        non-axis-0 stencils, or a whole field that is non-floating or
+        shorter than the stencil's span."""
         op = self._local_op()
         if op.axis != 0:
             return None
         spec = _stencil_spec(op)
         n0 = self.dims_nd[0]
         w = spec["w"]
-        # the boundary rows of the edge corrections read a 3-row span
         min_rows = max(w, 3) if spec["edge"] else w
-        if n0 < min_rows or not x.dtype.is_floating_point:
+        if nrows == n0 and (n0 < min_rows or not v.dtype.is_floating_point):
             return None
-        b = x.array.reshape(self.dims_nd)
-        # Z's zero rows, clipped to the field: [0, lo) and [n0 - hi, n0)
-        lo = min(spec["lo_z"], n0)
-        hi = min(spec["hi_z"], n0 - lo)
+        b = v.reshape((nrows,) + self.dims_nd[1:])
+        top, bottom = (collectives.halo_exchange(b, w, w) if exchange
+                       else (w, w))
+        lo_z, hi_z = spec["lo_z"], spec["hi_z"]
+        # Z's zero rows on this shard: global rows [0, lo_z) and
+        # [n0 - hi_z, n0), clipped to the shard (the end ranks only)
+        lo = min(max(lo_z - base, 0), nrows)
+        hi = min(max(base + nrows - (n0 - hi_z), 0), nrows - lo)
         if forward:
             taps = sorted(spec["taps"].items())
-            # output rows [lo, n0 - hi) read input rows [lo - w, n0 - hi + w),
-            # zeros beyond the field
+            # output rows [lo, nrows - hi) read rows [lo - w, nrows - hi + w)
+            # of [top; b; bottom]
+            start, end = lo - w, nrows - hi + w
+            tp = 0 if start >= 0 else (
+                -start if not isinstance(top, torch.Tensor) else top[w + start:])
+            bp = 0 if end <= nrows else (
+                end - nrows if not isinstance(bottom, torch.Tensor)
+                else bottom[:end - nrows])
             y = stencil_kernels.stencil_taps(
-                b[max(0, lo - w): min(n0, n0 - hi + w)], taps, w,
-                out_pad=(lo, hi), top=max(0, w - lo), bottom=max(0, w - hi))
+                b[max(start, 0):min(end, nrows)], taps, w, out_pad=(lo, hi),
+                top=tp, bottom=bp)
             triples = spec["edge"]
         else:
-            # (Z·S)ᴴ = Sᵀ·Z: the masked input rows are absent (zero) pieces
+            # (Z·S)ᴴ = Sᵀ·Z: the masked input rows are absent (zero) pieces,
+            # or zeroed in the received ghost rows
             taps = sorted((-d, c) for d, c in spec["taps"].items())
-            y = stencil_kernels.stencil_taps(b[lo:n0 - hi], taps, w,
-                                             top=w + lo, bottom=hi + w)
+            if isinstance(top, torch.Tensor):
+                top[:max(0, min(w, lo_z - (base - w)))] = 0
+                tp = top
+            else:
+                tp = w + lo
+            if isinstance(bottom, torch.Tensor):
+                first = (n0 - hi_z) - (base + nrows)  # first masked ghost row
+                bottom[max(0, first):] = 0
+                bp = bottom
+            else:
+                bp = hi + w
+            y = stencil_kernels.stencil_taps(b[lo:nrows - hi], taps, w,
+                                             top=tp, bottom=bp)
             triples = [(i, o, c) for (o, i, c) in spec["edge"]]
-        for (oside, oi), (iside, ii), coef in triples:
-            orow = oi if oside == "lo" else n0 - 1 - oi
-            irow = ii if iside == "lo" else n0 - 1 - ii
-            y[orow] += coef * b[irow]
+        for (oside, oi), (_, ii), coef in triples:
+            # every triple pairs rows of one side: the first rank's first
+            # rows or the last rank's last rows
+            if oside == "lo" and base == 0:
+                y[oi] += coef * b[ii]
+            elif oside == "hi" and base + nrows == n0:
+                y[nrows - 1 - oi] += coef * b[nrows - 1 - ii]
         return y
 
     def _matvec(self, x: DistributedArray) -> DistributedArray:
@@ -236,9 +343,11 @@ class MPISecondDerivative(_StencilOperator):
 
 class MPILaplacian(_StencilOperator):
     """Laplacian: weighted sum of second derivatives along ``axes``
-    (ref ``basicoperators/Laplacian.py:15-126``). As in the JAX package
-    it applies the local second derivatives to the whole field and does
-    not run the tap kernel."""
+    (ref ``basicoperators/Laplacian.py:15-126``). With one rank it
+    applies the local second derivatives to the whole field and does not
+    run the tap kernel, as the JAX package does; across ranks the axis-0
+    term goes through the ghost exchange and the tap kernel, and the
+    other axes apply to each rank's shard."""
 
     def __init__(self, dims, axes=(-2, -1), weights=(1, 1), sampling=(1, 1),
                  kind: str = "centered", edge: bool = False,
@@ -253,29 +362,46 @@ class MPILaplacian(_StencilOperator):
         self._ops = [_LocalSecond(self.dims_nd, axis=ax, sampling=s,
                                   kind=kind, edge=edge, dtype=dtype)
                      for ax, s in zip(axes, sampling)]
+        self._terms = [_AxisStencil(self.dims_nd, op) for op in self._ops]
 
     def _apply(self, x: DistributedArray, forward: bool) -> DistributedArray:
-        g = _scatter(x).array.reshape(-1)
-        if forward:
-            arr = sum(w * op._matvec(g) for w, op in zip(self.weights, self._ops))
+        x = _model_layout(x, self.local_shapes_m)
+        if world_size() == 1:
+            paths["local"] += 1
+            g = x.array.reshape(-1)
+            if forward:
+                arr = sum(w * op._matvec(g)
+                          for w, op in zip(self.weights, self._ops))
+            else:
+                arr = sum(np.conj(w) * op._rmatvec(g)
+                          for w, op in zip(self.weights, self._ops))
         else:
-            arr = sum(np.conj(w) * op._rmatvec(g)
-                      for w, op in zip(self.weights, self._ops))
-        return DistributedArray.to_dist(arr)
+            arr = sum((w if forward else np.conj(w))
+                      * t._apply_shard(x.array, forward)
+                      for w, t in zip(self.weights, self._terms))
+        return DistributedArray._wrap(arr, x, local_shapes=self.local_shapes_n)
 
 
-class _AxisFirstDerivative(_StencilOperator):
-    """First derivative along any axis of the axis-0-sharded layout
-    (the reference runs non-0 axes as rank-local pylops operators inside
-    MPIBlockDiag, ref ``Gradient.py:88-97``)."""
+class _AxisStencil(_StencilOperator):
+    """A local derivative operator along any axis of the axis-0-sharded
+    layout (the reference runs non-0 axes as rank-local pylops operators
+    inside MPIBlockDiag, ref ``Gradient.py:88-97``)."""
 
-    def __init__(self, dims, axis, sampling, kind, edge, dtype=torch.float64):
-        super().__init__(dims, dtype=dtype)
-        self._op = _LocalFirst(self.dims_nd, axis=axis, sampling=sampling,
-                               kind=kind, edge=edge, dtype=dtype)
+    def __init__(self, dims, op):
+        super().__init__(dims, dtype=op.dtype)
+        self._op = op
 
     def _local_op(self):
         return self._op
+
+
+class _AxisFirstDerivative(_AxisStencil):
+    """First derivative along any axis of the axis-0-sharded layout."""
+
+    def __init__(self, dims, axis, sampling, kind, edge, dtype=torch.float64):
+        super().__init__(dims, _LocalFirst(_tuplize(dims), axis=axis,
+                                           sampling=sampling, kind=kind,
+                                           edge=edge, dtype=dtype))
 
 
 class MPIGradient(MPILinearOperator):
@@ -303,6 +429,7 @@ class MPIGradient(MPILinearOperator):
             for ax in range(ndims)])
         super().__init__(shape=stack.shape, dtype=dtype)
         self.Op = stack  # after super().__init__, which resets self.Op
+        self.local_shapes_m = stack.ops[0].local_shapes_m
         self.dims = self.dimsd = self.dims_nd
 
     def _matvec(self, x: DistributedArray) -> StackedDistributedArray:

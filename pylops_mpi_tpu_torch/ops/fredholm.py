@@ -19,7 +19,7 @@ import torch
 
 from ..distributedarray import DistributedArray
 from ..linearoperator import MPILinearOperator
-from ..parallel.mesh import DeviceLike, resolve_device
+from ..parallel.mesh import DeviceLike, require_world_of_one, resolve_device
 from ._precision import (as_torch_dtype, check_compute_dtype,
                          default_compute_dtype, matmul_narrow)
 
@@ -59,6 +59,7 @@ class MPIFredholm1(MPILinearOperator):
     def __init__(self, G, nz: int = 1, saveGt: bool = False,
                  usematmul: bool = True, dtype="float64", compute_dtype=None,
                  device: DeviceLike = None):
+        require_world_of_one("MPIFredholm1", "A.3")
         if isinstance(G, torch.Tensor):
             if device is not None:
                 G = G.to(resolve_device(device))

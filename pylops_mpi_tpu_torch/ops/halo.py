@@ -24,7 +24,7 @@ import torch.nn.functional as F
 
 from ..distributedarray import DistributedArray
 from ..linearoperator import MPILinearOperator
-from ..parallel.mesh import world_size
+from ..parallel.mesh import require_world_of_one, world_size
 from ..parallel.partition import Partition
 
 __all__ = ["MPIHalo", "halo_block_split"]
@@ -79,6 +79,7 @@ class MPIHalo(MPILinearOperator):
 
     def __init__(self, dims, halo, proc_grid_shape=None, dtype=np.float64,
                  overlap=None, hierarchical=None):
+        require_world_of_one("MPIHalo", "A.3")
         self.global_dims = tuple(int(d) for d in np.atleast_1d(dims))
         self.ndim = len(self.global_dims)
         P_ = world_size()

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from ..linearoperator import MPILinearOperator, aslinearoperator
-from ..parallel.mesh import DeviceLike, resolve_device
+from ..parallel.mesh import DeviceLike, require_world_of_one, resolve_device
 from .fredholm import MPIFredholm1
 from .local import FFT as _LocalFFT, Identity as _LocalIdentity
 
@@ -42,6 +42,7 @@ def MPIMDC(G, nt: int, nv: int, nfreq: Optional[int] = None, dt: float = 1.0,
     the stored kernel (``MPIFredholm1(compute_dtype=...)``); with
     ``saveGt`` the operator keeps ``Gᴴ`` beside ``G``, twice the
     kernel's memory. ``engine``: ``"complex"`` or ``None`` (the same)."""
+    require_world_of_one("MPIMDC", "A.3")
     if engine is None:
         engine = "complex"
     if engine == "planar":

@@ -14,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..linearoperator import MPILinearOperator
-from ..parallel.mesh import DeviceLike, world_size
+from ..parallel.mesh import DeviceLike, require_world_of_one, world_size
 from .blockdiag import MPIBlockDiag
 from .halo import MPIHalo
 from .local import NonStationaryConvolve1D, _tensor
@@ -30,6 +30,7 @@ def MPINonStationaryConvolve1D(dims, hs, ih, axis: int = -1,
     filters, a tensor (kept on its device) or an array (placed on
     ``device``, default ``"cuda"``); ``ih``: their regularly spaced
     positions along ``axis``, which must be 0 for N-D ``dims``."""
+    require_world_of_one("MPINonStationaryConvolve1D", "A.3")
     size = world_size()
     dims = tuple(int(d) for d in np.atleast_1d(dims))
     hs = _tensor(hs, device)

@@ -9,8 +9,11 @@ PyTorch counterpart of ``pylops_mpi_tpu/ops/stack.py`` (the reference's
 - :class:`MPIStackedVStack` — one shared model, stacked data.
 - :class:`MPIHStack` — the adjoint of a :class:`MPIVStack` of adjoints.
 
-The world has one worker in this port, so the reference's adjoint
-allreduce is the local sum of the partials.
+:class:`MPIVStack` and :class:`MPIHStack` run with one rank, where the
+reference's adjoint allreduce is the local sum of the partials; under a
+group of more ranks they raise (ROADMAP.md §A.3).
+:class:`MPIStackedVStack` runs across ranks: its components share the
+model's split, so it needs no collective of its own.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch
 
 from ..distributedarray import DistributedArray
 from ..linearoperator import MPILinearOperator
+from ..parallel.mesh import require_world_of_one
 from ..parallel.partition import Partition
 from ..stacked import StackedDistributedArray
 from ..stackedlinearoperator import MPIStackedLinearOperator
@@ -59,6 +63,7 @@ class MPIVStack(MPILinearOperator):
     def __init__(self, ops: Sequence[LocalOperator],
                  mask: Optional[Sequence[int]] = None, dtype=None,
                  compute_dtype=None, overlap=None, hierarchical=None):
+        require_world_of_one("MPIVStack (and MPIHStack)", "A.3")
         if mask is not None:
             raise NotImplementedError(
                 "mask= (sub-communicator stacks) is not ported: the port "
@@ -165,6 +170,9 @@ class MPIStackedVStack(MPIStackedLinearOperator):
         self.ops = list(ops)
         if len({op.shape[1] for op in self.ops}) != 1:
             raise ValueError("column size mismatch in MPIStackedVStack")
+        # the shared model's split, from the first operator that fixes one
+        self.local_shapes_m = next((op.local_shapes_m for op in self.ops
+                                    if op.local_shapes_m is not None), None)
         shape = (int(sum(op.shape[0] for op in self.ops)),
                  self.ops[0].shape[1])
         super().__init__(shape=shape,

@@ -1,5 +1,12 @@
-from .partition import Partition, local_split
-from .mesh import default_device, set_default_device, resolve_device, world_size
+from .partition import (Partition, local_split, shard_offsets,
+                        padded_shard_size, pad_index_map, unpad_index_map)
+from .mesh import (Mesh, make_mesh, default_mesh, init, destroy,
+                   default_device, set_default_device, resolve_device,
+                   world_size, rank)
+from . import collectives
 
-__all__ = ["Partition", "local_split", "default_device",
-           "set_default_device", "resolve_device", "world_size"]
+__all__ = ["Partition", "local_split", "shard_offsets", "padded_shard_size",
+           "pad_index_map", "unpad_index_map", "Mesh", "make_mesh",
+           "default_mesh", "init", "destroy", "default_device",
+           "set_default_device", "resolve_device", "world_size", "rank",
+           "collectives"]

@@ -1,11 +1,16 @@
-"""Device and world resolution.
+"""Device, world and process group.
 
-PyTorch counterpart of ``pylops_mpi_tpu/parallel/mesh.py``, reduced to
-what a one-process, one-device port needs: which device an entry point
-runs on, and how many workers share a ``SCATTER`` split. There is no
-process group yet; multi-GPU sharding over ``torch.distributed`` (NCCL)
-is a later step, and until then the world is one worker and every
-array is global on its device.
+PyTorch counterpart of ``pylops_mpi_tpu/parallel/mesh.py``. The JAX
+package lays one controller's arrays over a device mesh; the port runs
+SPMD, as the reference does under ``mpiexec -n P``: every rank runs the
+same script and holds its own shard, and ``torch.distributed`` is the
+mesh. NCCL carries the collectives between cards and gloo between CPU
+processes.
+
+With no process group initialized the world is one rank (rank 0 of 1)
+and nothing communicates, which matches the reference run without
+``mpiexec``. :func:`init` starts a group; :func:`default_mesh` describes
+it as a :class:`Mesh` (group, rank, size, the rank's device).
 
 Entry points run on the card unless the caller asks for the CPU: the
 default device is ``"cuda"``, and asking for it on a machine without a
@@ -14,16 +19,141 @@ GPU raises instead of quietly running on the CPU.
 
 from __future__ import annotations
 
+import os
+from dataclasses import dataclass
 from typing import Optional, Union
 
 import torch
+import torch.distributed as dist
 
-__all__ = ["default_device", "set_default_device", "resolve_device",
-           "world_size"]
+__all__ = ["Mesh", "make_mesh", "default_mesh", "init", "destroy",
+           "default_device", "set_default_device", "resolve_device",
+           "world_size", "rank", "require_world_of_one"]
 
 DeviceLike = Union[str, torch.device, None]
 
 _DEFAULT_DEVICE = torch.device("cuda")
+
+
+@dataclass(frozen=True)
+class Mesh:
+    """The process group as an operator sees it: the group handle
+    (``None`` without a group), this process's rank, the number of
+    ranks, the device that holds this rank's shards, and the backend
+    (``"nccl"``, ``"gloo"``, or ``None`` without a group)."""
+
+    group: Optional[object]
+    rank: int
+    size: int
+    device: torch.device
+    backend: Optional[str] = None
+
+
+_MESH: Optional[Mesh] = None
+
+
+def initialized() -> bool:
+    """A default process group exists."""
+    return dist.is_available() and dist.is_initialized()
+
+
+def world_size() -> int:
+    """Ranks of the default group; 1 without a group."""
+    return dist.get_world_size() if initialized() else 1
+
+
+def rank() -> int:
+    """This process's rank in the default group; 0 without a group."""
+    return dist.get_rank() if initialized() else 0
+
+
+def _group_device(backend: str, device: DeviceLike) -> torch.device:
+    """The rank's device: explicit when given, else ``cuda:{local_rank %
+    device_count}`` for NCCL and ``cpu`` for gloo. Never a CPU stand-in
+    for a CUDA device."""
+    if device is not None:
+        dev = resolve_device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", _local_card())
+        return dev
+    if backend == "nccl":
+        return resolve_device(f"cuda:{_local_card()}")
+    return torch.device("cpu")
+
+
+def _local_card() -> int:
+    """``LOCAL_RANK`` (``torchrun``'s), else the rank, modulo the cards."""
+    local = int(os.environ.get("LOCAL_RANK", rank()))
+    return local % max(torch.cuda.device_count(), 1)
+
+
+def init(backend: Optional[str] = None, store=None, rank: Optional[int] = None,
+         world_size: Optional[int] = None, device: DeviceLike = None,
+         init_method: Optional[str] = None) -> Mesh:
+    """Start the default process group and return its :class:`Mesh`.
+
+    ``backend`` defaults to NCCL when ``device`` is a CUDA device (or
+    none is given and a GPU exists) and gloo otherwise. ``store`` (e.g.
+    a :class:`torch.distributed.FileStore`) or ``init_method``
+    (``tcp://localhost:<port>``) rendezvous the ranks; with neither, the
+    ``torchrun`` environment does. A CUDA device becomes the current
+    device, so ``"cuda"`` names the rank's card."""
+    if backend is None:
+        dev = None if device is None else torch.device(device)
+        cuda = (dev.type == "cuda") if dev is not None \
+            else torch.cuda.is_available()
+        backend = "nccl" if cuda else "gloo"
+    kwargs = {}
+    if store is not None:
+        kwargs["store"] = store
+    elif init_method is not None:
+        kwargs["init_method"] = init_method
+    if rank is not None:
+        kwargs["rank"] = rank
+    if world_size is not None:
+        kwargs["world_size"] = world_size
+    if backend == "nccl":
+        dev = resolve_device("cuda" if device is None else device)
+        if dev.index is None:
+            local = int(os.environ.get("LOCAL_RANK", rank or 0))
+            dev = torch.device("cuda", local % torch.cuda.device_count())
+        kwargs["device_id"] = device = dev
+    dist.init_process_group(backend, **kwargs)
+    mesh = make_mesh(device=device)
+    if mesh.device.type == "cuda":
+        torch.cuda.set_device(mesh.device)
+    global _MESH
+    _MESH = mesh
+    return mesh
+
+
+def destroy() -> None:
+    """End the default process group (and forget its sub-groups)."""
+    global _MESH
+    from . import collectives
+    collectives.forget_groups()
+    _MESH = None
+    if initialized():
+        dist.destroy_process_group()
+
+
+def make_mesh(device: DeviceLike = None) -> Mesh:
+    """The :class:`Mesh` of the default group: a world of one on
+    :func:`default_device` without a group."""
+    if not initialized():
+        return Mesh(None, 0, 1, default_device() if device is None
+                    else torch.device(device))
+    backend = dist.get_backend()
+    return Mesh(dist.group.WORLD, rank(), world_size(),
+                _group_device(backend, device), backend)
+
+
+def default_mesh() -> Mesh:
+    """The mesh :func:`init` made, or :func:`make_mesh` of the current
+    state."""
+    if _MESH is not None and initialized():
+        return _MESH
+    return make_mesh()
 
 
 def default_device() -> torch.device:
@@ -51,7 +181,13 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
-def world_size() -> int:
-    """Number of workers sharing a SCATTER split: one process, one
-    device in this port."""
-    return 1
+def require_world_of_one(what: str, item: str) -> None:
+    """Raise ``NotImplementedError`` naming ``item`` of ROADMAP.md when
+    ``what`` runs under a group of more than one rank: ``what`` would
+    otherwise take a shard for the whole field."""
+    n = world_size()
+    if n > 1:
+        raise NotImplementedError(
+            f"{what} does not run across ranks yet (world size {n}): it is "
+            f"ROADMAP.md §{item}; run it without a process group or with "
+            "one rank")

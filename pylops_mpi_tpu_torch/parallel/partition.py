@@ -9,14 +9,21 @@ reference's placement policies, ``pylops_mpi/DistributedArray.py:26-71``):
 - ``Partition.SCATTER`` — split along one axis with the balanced
   remainder rule: the first ``dim % P`` shards get ``ceil(dim/P)`` rows,
   the rest ``floor(dim/P)``.
+
+Ragged splits travel between ranks padded to the largest shard (NCCL
+moves equal sizes only): :func:`padded_shard_size`, :func:`pad_index_map`
+and :func:`unpad_index_map` describe that padded layout.
 """
 
 from __future__ import annotations
 
 from enum import Enum
-from typing import Tuple
+from typing import Optional, Sequence, Tuple
 
-__all__ = ["Partition", "local_split"]
+import numpy as np
+
+__all__ = ["Partition", "local_split", "shard_offsets", "padded_shard_size",
+           "pad_index_map", "unpad_index_map"]
 
 
 class Partition(Enum):
@@ -45,3 +52,42 @@ def local_split(global_shape: Tuple[int, ...], n_shards: int,
         shp[axis] = s
         shapes.append(tuple(shp))
     return tuple(shapes)
+
+
+def shard_offsets(local_sizes: Sequence[int]) -> Tuple[int, ...]:
+    """Exclusive prefix sum of per-shard sizes along the partition axis."""
+    return tuple(int(x) for x in
+                 np.concatenate([[0], np.cumsum(local_sizes)[:-1]]))
+
+
+def padded_shard_size(local_sizes: Sequence[int]) -> int:
+    """Physical (equal) per-shard size: pad-to-max."""
+    return int(max(local_sizes)) if len(local_sizes) else 0
+
+
+def pad_index_map(local_sizes: Sequence[int],
+                  s_phys: Optional[int] = None
+                  ) -> Tuple[np.ndarray, np.ndarray]:
+    """Gather map for logical → padded-physical along the partition
+    axis: ``(src, valid)`` of length ``P*s_phys``, where physical row
+    ``r = p*s_phys + j`` reads logical row ``src[r]`` when ``valid[r]``
+    and is padding otherwise."""
+    sizes = np.asarray(local_sizes, dtype=np.int64)
+    sp = padded_shard_size(sizes) if s_phys is None else int(s_phys)
+    offs = np.concatenate([[0], np.cumsum(sizes)])
+    r = np.arange(len(sizes) * sp)
+    p, j = r // sp, r % sp
+    valid = j < sizes[p]
+    src = offs[p] + np.minimum(j, np.maximum(sizes[p] - 1, 0))
+    return src, valid
+
+
+def unpad_index_map(local_sizes: Sequence[int],
+                    s_phys: Optional[int] = None) -> np.ndarray:
+    """Gather map for padded-physical → logical: index ``i`` of the
+    logical axis reads physical row ``idx[i]``."""
+    sizes = np.asarray(local_sizes, dtype=np.int64)
+    sp = padded_shard_size(sizes) if s_phys is None else int(s_phys)
+    return np.concatenate(
+        [np.arange(n, dtype=np.int64) + p * sp
+         for p, n in enumerate(sizes)]) if len(sizes) else np.empty(0, np.int64)

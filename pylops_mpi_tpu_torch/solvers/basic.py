@@ -35,12 +35,13 @@ operator's model space (:func:`_zero_like_model`).
 from __future__ import annotations
 
 import time
-from typing import Optional, Union
+from typing import Callable, Optional, Union
 
 import torch
 
 from ..distributedarray import DistributedArray, Partition
 from ..ops._precision import reduction_dtype
+from ..parallel.mesh import rank
 from ..stacked import StackedDistributedArray
 
 __all__ = ["CG", "CGLS", "cg", "cgls"]
@@ -73,16 +74,31 @@ def _mp_floor(k0: torch.Tensor) -> torch.Tensor:
 
 
 def _zero_like_model(Op, y: Vector) -> DistributedArray:
-    """Zero model of ``Op``'s model shape, at the operator's dtype (made
-    complex for complex data) on the operator's device, or the data's
-    where the operator holds no tensors."""
+    """Zero model of ``Op``'s model shape and split (``local_shapes_m``
+    where the operator fixes one) with the data's mask, at the
+    operator's dtype (made complex
+    for complex data) on the operator's device, or the data's where the
+    operator holds no tensors."""
     dtype = y.dtype if Op.dtype is None else torch.promote_types(Op.dtype,
                                                                  y.dtype)
     device = getattr(Op, "device", None) or y.device
     partition = (y.partition if isinstance(y, DistributedArray)
                  else Partition.SCATTER)
+    local_shapes = (Op.local_shapes_m if partition == Partition.SCATTER
+                    else None)
     return DistributedArray(global_shape=Op.shape[1], partition=partition,
-                            dtype=dtype, device=device)
+                            local_shapes=local_shapes,
+                            mask=getattr(y, "mask", None), dtype=dtype,
+                            device=device)
+
+
+def _damped_norm(sn: torch.Tensor, damp2: float, x: Vector) -> torch.Tensor:
+    """``sqrt(sn² + damp²·x·x)``; without damping the ``x·x`` reduction
+    (one collective under a group) is skipped: adding ``0·x·x`` changes
+    no bit of a finite result."""
+    if not damp2:
+        return torch.sqrt(sn ** 2)
+    return torch.sqrt(sn ** 2 + damp2 * _rdot(x, x))
 
 
 def _record(buf: torch.Tensor, i: int, value, active) -> None:
@@ -114,11 +130,14 @@ class _BaseSolver:
         return x
 
     def _print_setup(self):
-        print(f"{type(self).__name__}\ntol = {self.tol:10e}\t"
-              f"niter = {self.niter}")
+        if rank() == 0:
+            print(f"{type(self).__name__}\ntol = {self.tol:10e}\t"
+                  f"niter = {self.niter}")
 
     def _print_step(self, x):
-        print(f"{self.iiter:6g}        {float(self.cost[self.iiter]):11.4e}")
+        cost = float(self.cost[self.iiter])  # every rank reads it
+        if rank() == 0:
+            print(f"{self.iiter:6g}        {cost:11.4e}")
 
 
 class CG(_BaseSolver):
@@ -238,13 +257,49 @@ class CGLS(_BaseSolver):
         return x, self.istop, self.iiter, self.r1norm, self.r2norm, self.cost
 
 
+def _use_fused(name: str, callback, show: bool, fused: Optional[bool],
+           guards, M, normal: bool = False) -> bool:
+    """Whether a functional solve runs the fused loop (no per-iteration
+    hooks) or the class API, with the JAX package's checks."""
+    if guards is not None:
+        raise NotImplementedError(
+            f"{name}(guards=...) is not ported: the guarded solvers are "
+            "ROADMAP.md §A.7")
+    if M is not None:
+        raise NotImplementedError(
+            f"{name}(M=...) is not ported: preconditioning is ROADMAP.md "
+            "§A.6")
+    use_fused = fused if fused is not None else (callback is None
+                                                 and not show)
+    if use_fused and (callback is not None or show):
+        raise ValueError("fused=True cannot honor callback/show; use "
+                         "fused=False for per-iteration hooks")
+    if normal and not use_fused:
+        raise ValueError("normal=True requires the fused path; drop "
+                         "callback/show or pass fused=True")
+    return use_fused
+
+
 def cg(Op, y: Vector, x0: Optional[Vector] = None,
-       niter: int = 10, tol: float = 1e-4):
+       niter: int = 10, tol: float = 1e-4, show: bool = False,
+       itershow=(10, 10, 10), callback: Optional[Callable] = None,
+       fused: Optional[bool] = None, guards: Optional[bool] = None, M=None):
     """Conjugate gradient for a square operator
-    (ref ``optimization/basic.py:13-70``).
+    (ref ``optimization/basic.py:13-70``), in the JAX package's argument
+    order. Without ``callback`` or ``show`` it runs the fused loop;
+    with them (or ``fused=False``) the :class:`CG` class, printing on
+    rank 0. ``guards`` and ``M`` are not ported and raise.
 
     Returns ``(x, iiter, cost)``: the solution, the iterations run and
-    the residual-norm history ``cost[:iiter+1]`` (a device tensor)."""
+    the residual-norm history ``cost[:iiter+1]`` (a device tensor; a
+    numpy array from the class)."""
+    if not _use_fused("cg", callback, show, fused, guards, M):
+        solver = CG(Op)
+        if callback is not None:
+            solver.callback = callback
+        x0 = _zero_like_model(Op, y) if x0 is None else x0
+        return solver.solve(y, x0, niter=niter, tol=tol, show=show,
+                            itershow=itershow)
     x = _zero_like_model(Op, y) if x0 is None else x0
     xdt = x.dtype
     r = y - Op.matvec(x)
@@ -275,20 +330,36 @@ def cg(Op, y: Vector, x0: Optional[Vector] = None,
 
 def cgls(Op, y: Vector, x0: Optional[Vector] = None,
          niter: int = 10, damp: float = 0.0, tol: float = 1e-4,
-         normal: bool = False):
-    """Damped least-squares CGLS (ref ``optimization/basic.py:73-148``).
+         show: bool = False, itershow=(10, 10, 10),
+         callback: Optional[Callable] = None, fused: Optional[bool] = None,
+         normal: Optional[bool] = None, guards: Optional[bool] = None,
+         M=None):
+    """Damped least-squares CGLS (ref ``optimization/basic.py:73-148``),
+    in the JAX package's argument order. Without ``callback`` or
+    ``show`` it runs the fused loop; with them (or ``fused=False``) the
+    :class:`CGLS` class, printing on rank 0. ``guards`` and ``M`` are
+    not ported and raise.
 
-    ``normal=True`` runs the one-sweep schedule: each iteration takes
-    ``(u, q) = Op.normal_matvec(c)`` (one read of the blocks for
-    ``MPIBlockDiag``) and updates the gradient by the recurrence
-    ``r ← r − a (u + damp² c)``. ``normal=False`` is the classic
-    schedule with one ``rmatvec`` and one ``matvec`` per iteration.
+    ``normal=True`` runs the one-sweep schedule (fused loop only): each
+    iteration takes ``(u, q) = Op.normal_matvec(c)`` (one read of the
+    blocks for ``MPIBlockDiag``) and updates the gradient by the
+    recurrence ``r ← r − a (u + damp² c)``. ``normal=False`` is the
+    classic schedule with one ``rmatvec`` and one ``matvec`` per
+    iteration.
 
     Returns ``(x, istop, iiter, r1norm, r2norm, cost)`` as the JAX
     package does: ``istop`` 1 when ``kold < tol`` else 2, ``r1norm`` the
     final ``kold``, ``r2norm`` the final damped residual norm and
     ``cost`` the residual-norm history ``cost[:iiter+1]`` (device
-    tensors)."""
+    tensors; ``cost`` a numpy array from the class)."""
+    if not _use_fused("cgls", callback, show, fused, guards, M, bool(normal)):
+        solver = CGLS(Op)
+        if callback is not None:
+            solver.callback = callback
+        x0 = _zero_like_model(Op, y) if x0 is None else x0
+        return solver.solve(y, x0, niter=niter, damp=damp, tol=tol,
+                            show=show, itershow=itershow)
+    normal = bool(normal)
     damp2 = damp ** 2
     x = _zero_like_model(Op, y) if x0 is None else x0
     xdt = x.dtype
@@ -306,14 +377,15 @@ def cgls(Op, y: Vector, x0: Optional[Vector] = None,
     cost = torch.zeros(niter + 1, dtype=sn.dtype, device=sn.device)
     cost1 = torch.zeros_like(cost)
     cost[0] = sn
-    cost1[0] = torch.sqrt(sn ** 2 + damp2 * _rdot(x, x))
+    cost1[0] = _damped_norm(sn, damp2, x)
     iiter = torch.zeros((), dtype=torch.int64, device=kold.device)
     for it in range(niter):
         active = kold > tol
         frozen = (kold <= floors) | ~active
         if normal:
             u, q = Op.normal_matvec(c)
-        a = torch.abs(kold / (_rdot(q, q) + damp2 * _rdot(c, c)))
+        qq = _rdot(q, q)
+        a = torch.abs(kold / (qq + damp2 * _rdot(c, c) if damp2 else qq))
         a = torch.where(frozen, torch.zeros_like(a), a)
         x = x + c * _step_scalar(a, xdt)
         s = s - q * _step_scalar(a, xdt)
@@ -330,8 +402,7 @@ def cgls(Op, y: Vector, x0: Optional[Vector] = None,
         iiter = iiter + active.to(iiter.dtype)
         sn = s.norm()
         _record(cost, it + 1, sn, active)
-        _record(cost1, it + 1, torch.sqrt(sn ** 2 + damp2 * _rdot(x, x)),
-                active)
+        _record(cost1, it + 1, _damped_norm(sn, damp2, x), active)
         if (it + 1) % _CHECK_EVERY == 0 and not bool(kold > tol):
             break
     iiter = int(iiter)

@@ -35,7 +35,7 @@ def _random_start(b_k: Vector, dtype, seed: int) -> Vector:
     """The JAX package's start vector: per component, ``rng.random`` of
     its global shape plus ``1j·`` a second draw for a complex ``dtype``,
     cast to ``dtype`` and then to the component's dtype, moved to its
-    device in one copy. For a real ``dtype`` the JAX package still draws
+    device in one copy; each rank keeps its shard of the draw. For a real ``dtype`` the JAX package still draws
     the second array (and multiplies it by 0); the generator is advanced
     past it instead, so later components see the same stream."""
     rng = np.random.default_rng(seed)
@@ -47,7 +47,8 @@ def _random_start(b_k: Vector, dtype, seed: int) -> Vector:
             vals = vals + 1j * rng.random(d.global_shape)
         else:
             rng.bit_generator.advance(vals.size)
-        t = torch.from_numpy(vals).to(dt)
+        # every rank draws the whole array and keeps its shard
+        t = torch.from_numpy(np.ascontiguousarray(d._shard_of(vals))).to(dt)
         return DistributedArray._wrap(t.to(device=d.device, dtype=d.dtype), d)
 
     if isinstance(b_k, StackedDistributedArray):

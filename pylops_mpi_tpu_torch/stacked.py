@@ -4,8 +4,11 @@ PyTorch counterpart of ``pylops_mpi_tpu/stacked.py`` (the reference's
 ``pylops_mpi/DistributedArray.py:963-1242``): the solver-facing
 arithmetic, ``dot`` and ``norm`` of a stack of distributed arrays, so
 that stacked operators (``MPIStackedVStack``, ``MPIGradient``'s output)
-plug into CG/CGLS unchanged. Components may themselves be stacks.
-Reductions return 0-d tensors on the components' device.
+plug into CG/CGLS unchanged. Components may themselves be stacks, and
+each is sharded over the ranks as a :class:`DistributedArray` is.
+``dot`` and ``norm`` stack the components' local partials into one
+``all_reduce`` per call, not one per component, and return 0-d tensors
+on the components' device.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import numpy as np
 import torch
 
 from .distributedarray import DistributedArray
+from .parallel import collectives
 
 __all__ = ["StackedDistributedArray"]
 
@@ -69,7 +73,8 @@ class StackedDistributedArray:
         return self.distarrays[0].device
 
     def asarray(self) -> np.ndarray:
-        """The flattened components, concatenated, on the host
+        """The flattened components, each gathered from every rank
+        (collective), concatenated on the host
         (ref ``DistributedArray.py:1196-1214``)."""
         return np.concatenate([d.asarray().ravel() for d in self.distarrays])
 
@@ -131,29 +136,91 @@ class StackedDistributedArray:
     def __rmul__(self, x):
         return self.multiply(x)
 
-    def dot(self, y: "StackedDistributedArray", vdot: bool = False) -> torch.Tensor:
-        """Sum of the component dots (ref ``DistributedArray.py:1144-1159``)."""
+    def _pairs(self, y: "StackedDistributedArray"):
+        """The (self, y) leaf pairs in order, nested stacks flattened."""
         self._check_stacked_size(y)
-        parts = [a.dot(b, vdot=vdot) for a, b in zip(self.distarrays, y.distarrays)]
-        return sum(parts[1:], parts[0])
+        for a, b in zip(self.distarrays, y.distarrays):
+            if isinstance(a, StackedDistributedArray):
+                yield from a._pairs(b)
+            else:
+                yield a, b
+
+    def _fold(self, values, combine):
+        """``combine`` of the per-leaf ``values`` (an iterator, in leaf
+        order) with this stack's nesting: each nested stack combines its
+        own leaves first."""
+        parts = [d._fold(values, combine)
+                 if isinstance(d, StackedDistributedArray) else next(values)
+                 for d in self.distarrays]
+        return combine(parts)
+
+    @staticmethod
+    def _reduce_partials(leaves, partials, op: str):
+        """The leaves' partials reduced over their groups with one
+        ``all_reduce`` per group (one for the usual unmasked stack),
+        the partials stacked into one tensor at their promoted dtype;
+        BROADCAST leaves keep theirs. Each comes back at its own dtype."""
+        out = list(partials)
+        groups = {}
+        for i, d in enumerate(leaves):
+            if d._reduces():
+                groups.setdefault(d.mask, []).append(i)
+        for idx in groups.values():
+            dt = partials[idx[0]].dtype
+            for i in idx[1:]:
+                dt = torch.promote_types(dt, partials[i].dtype)
+            red = collectives.all_reduce(
+                torch.stack([partials[i].to(dt) for i in idx]), op,
+                leaves[idx[0]]._group())
+            for k, i in enumerate(idx):
+                v = red[k]
+                if v.is_complex() and not partials[i].is_complex():
+                    v = v.real
+                out[i] = v.to(partials[i].dtype)
+        return out
+
+    def dot(self, y: "StackedDistributedArray", vdot: bool = False) -> torch.Tensor:
+        """Sum of the component dots (ref ``DistributedArray.py:1144-1159``),
+        the components' partials reduced in one ``all_reduce``."""
+        pairs = list(self._pairs(y))
+        leaves = [a for a, _ in pairs]
+        partials = [a._dot_local(b, vdot) for a, b in pairs]
+        vals = self._reduce_partials(leaves, partials, "sum")
+        return self._fold(iter(vals), lambda p: sum(p[1:], p[0]))
+
+    def _leaves(self):
+        for d in self.distarrays:
+            if isinstance(d, StackedDistributedArray):
+                yield from d._leaves()
+            else:
+                yield d
 
     def norm(self, ord=None) -> torch.Tensor:
         """Norm of the stacked vector: the component norms combined with
         the cross-component rule of each order
-        (ref ``DistributedArray.py:1161-1194``)."""
+        (ref ``DistributedArray.py:1161-1194``); the components'
+        partials are reduced in one ``all_reduce``."""
         ord = 2 if ord is None else ord
-        parts = [d.norm(ord) for d in self.distarrays]
-        dt = parts[0].dtype
-        for p in parts[1:]:
-            dt = torch.promote_types(dt, p.dtype)
-        norms = torch.stack([p.to(dt) for p in parts])
-        if ord == 0:
-            return torch.sum(norms, dim=0)
-        if ord == np.inf:
-            return torch.max(norms, dim=0).values
-        if ord == -np.inf:
-            return torch.min(norms, dim=0).values
-        return torch.sum(norms ** ord, dim=0) ** (1.0 / ord)
+        leaves = list(self._leaves())
+        partials = [d._norm_local(ord) for d in leaves]
+        vals = self._reduce_partials(leaves, partials,
+                                     DistributedArray._norm_op(ord))
+        vals = [DistributedArray._norm_finish(v, ord) for v in vals]
+
+        def combine(parts):
+            dt = parts[0].dtype
+            for p in parts[1:]:
+                dt = torch.promote_types(dt, p.dtype)
+            norms = torch.stack([p.to(dt) for p in parts])
+            if ord == 0:
+                return torch.sum(norms, dim=0)
+            if ord == np.inf:
+                return torch.max(norms, dim=0).values
+            if ord == -np.inf:
+                return torch.min(norms, dim=0).values
+            return torch.sum(norms ** ord, dim=0) ** (1.0 / ord)
+
+        return self._fold(iter(vals), combine)
 
     def __repr__(self):
         return f"<StackedDistributedArray with {self.narrays} arrays>"
