@@ -85,17 +85,17 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 14. the process group on the card: the main path (f32 and bf16 storage
    with ``normal=True``, classic f32) and the Gradient-regularized
    post-stack CGLS through a group of one rank over NCCL, each x held
-   to the no-group run's (bitwise, or 1e-6 relative), with iterations
-   per second beside the same runs without the group right after,
-   collective calls and kernel launches per iteration;
+   to the no-group run's (bitwise, or 1e-6 relative), timed in pairs
+   of alternating order against the same solves with the collectives
+   stubbed out (what they do without a group) while the group stays
+   up: iterations per second of both, the median and spread of the
+   pairs' ratio, collective calls and kernel launches per iteration;
 15. two and three ranks sharing the card over gloo (spawned processes,
    exchanges staged through the host), for correctness only: the main
    path at full width (each rank its chunk of the 32 blocks) and the
    post-stack CGLS against phase 14 within 1e-5, a ragged f64 case
    against one CPU process within 1e-10, and every rank's launches of
-   the normal kernel and of the tap kernel on received ghost rows;
-16. where the machine has more than one card (skipped with one), the
-   same cases with one rank a card over NCCL.
+   the normal kernel and of the tap kernel on received ghost rows.
 
 Phases 8, 9 and 11-13 reach none of the hand-written kernels: the JAX
 package runs their FFTs, products, thresholds, convolutions, sprays and
@@ -120,6 +120,7 @@ import numpy as np
 
 NBLK, NBLOCK, NITER = 32, 4096, 50
 REPS = 20
+PAIRS = 6  # phase 14: solves with the group and stubbed, in turns
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
 SRC = "pylops_mpi_tpu_torch/csrc/normal_matvec.cu"
@@ -1176,9 +1177,13 @@ def card_vs_cpu_phase(torch, pmtt):
 def group_of_one_phase(torch, pmtt, kernels, dev, ref_x):
     """Phase 14: the main path (32x4096^2, normal=True f32 and bf16
     storage, classic f32) and the Gradient-regularized post-stack CGLS
-    through a process group of one rank over NCCL, then the same runs
-    again without the group, in this process. Each x must equal the
+    through a process group of one rank over NCCL. Each x must equal the
     no-group run's (phases 3 and 7): bitwise, or within 1e-6 relative.
+
+    The group's cost is read in pairs: each pair times one solve with
+    the group's collectives and one with them stubbed out (they return
+    at once, as without a group; the device work is the same), in
+    alternating order, so that host drift falls on both sides alike.
     Returns the summary and the group's 10-iteration solutions of the
     two paths, which phase 15's ranks are held against."""
     import shutil
@@ -1199,36 +1204,67 @@ def group_of_one_phase(torch, pmtt, kernels, dev, ref_x):
     StackOp, ystack, _ = gradient_poststack(torch, pmtt, m, wav, NITER,
                                             torch.float32)
     del m
+    grouped = co.initialized
 
-    def solve(label, niter):
-        if label == "gradient":
-            return pmtt.cgls(StackOp, ystack, niter=niter, damp=DAMP, tol=0.0)
-        return pmtt.cgls(ops[label], y, niter=niter, tol=0.0,
-                         normal=cases[label][1])
+    def solve(label, niter, stub=False):
+        co.initialized = (lambda: False) if stub else grouped
+        try:
+            if label == "gradient":
+                return pmtt.cgls(StackOp, ystack, niter=niter, damp=DAMP,
+                                 tol=0.0)
+            return pmtt.cgls(ops[label], y, niter=niter, tol=0.0,
+                             normal=cases[label][1])
+        finally:
+            co.initialized = grouped
+
+    def timed(label, stub):
+        co.reset_counts()
+        for k in kernels:
+            k.reset_launches()
+        t0 = time.perf_counter()
+        out = solve(label, NITER, stub)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return wall, out, dict(co.counts), {
+            k.__name__.rsplit(".", 1)[-1]: k.launches for k in kernels}
 
     def measure():
         res = {}
         for label in list(cases) + ["gradient"]:
-            solve(label, 2)  # warm-up
+            solve(label, 2)  # warm-up, both ways
+            solve(label, 2, stub=True)
             torch.cuda.synchronize()
-            walls = []
-            for _ in range(5):  # host-clock noise: keep the fastest of five
-                co.reset_counts()
-                for k in kernels:
-                    k.reset_launches()
-                t0 = time.perf_counter()
-                out = solve(label, NITER)
-                torch.cuda.synchronize()
-                walls.append(time.perf_counter() - t0)
-            iiter = out[2]
+            walls = {False: [], True: []}
+            for i in range(PAIRS):
+                for stub in ((False, True) if i % 2 == 0 else (True, False)):
+                    wall, out, calls, launches = timed(label, stub)
+                    walls[stub].append(wall)
+                    if stub:
+                        x_stub = out[0].array.clone()
+                    else:
+                        x, iiter, counts = out[0].array.clone(), out[2], calls
+                        per_iter = {k: v / iiter for k, v in launches.items()}
+            ratios = [g / s for g, s in zip(walls[False], walls[True])]
             res[label] = dict(
-                x=out[0].array.clone(), iiter=iiter,
-                iters_per_s=iiter / min(walls), wall_s=walls,
-                collectives_per_iter={k: v / iiter
-                                      for k, v in co.counts.items()},
-                launches_per_iter={k.__name__.rsplit(".", 1)[-1]:
-                                   k.launches / iiter for k in kernels})
+                x=x, x_stub=x_stub, iiter=iiter, wall_s=walls[False],
+                stub_wall_s=walls[True], pair_ratios=ratios,
+                iters_per_s=iiter / float(np.median(walls[False])),
+                stub_iters_per_s=iiter / float(np.median(walls[True])),
+                collectives_per_iter={k: v / iiter for k, v in counts.items()},
+                launches_per_iter=per_iter)
         return res
+
+    def host_ms(fn):
+        """The host side of the collectives over one call of ``fn``:
+        ``torch.profiler``'s CPU events whose name holds ``allreduce``
+        or ``nccl``, as (ms in all, name, count)."""
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU]) as p:
+            fn()
+            torch.cuda.synchronize()
+        return [(e.cpu_time_total / 1e3, e.key[:60], e.count)
+                for e in p.key_averages()
+                if "allreduce" in e.key.lower() or "nccl" in e.key.lower()]
 
     def call_us(fn, reps=200):
         """Host microseconds a call of ``fn`` takes, back to back, the
@@ -1247,66 +1283,72 @@ def group_of_one_phase(torch, pmtt, kernels, dev, ref_x):
                               store=dist.FileStore(f"{tmp}/store", 1),
                               rank=0, world_size=1, device=dev)
     try:
-        grouped = measure()
+        res = measure()
         x10 = {label: solve(label, 10)[0].array.clone()
                for label in ("normal_f32", "gradient")}
         # one reduction of a 0-d tensor, as a CGLS iteration issues 3 to 5
         allreduce_us = call_us(lambda: co.all_reduce(scalar))
-        prof = {label: profile_run(torch, lambda: solve(label, 10),
-                                   match=("nccl",))
+        prof = {(label, stub): profile_run(
+                    torch, lambda: solve(label, 10, stub), match=("nccl",))
+                for label in ("normal_f32", "normal_bf16")
+                for stub in (False, True)}
+        host = {label: host_ms(lambda: solve(label, 10))
                 for label in ("normal_f32", "normal_bf16")}
     finally:
         pmtt.parallel.destroy()
         shutil.rmtree(tmp, ignore_errors=True)
-    after = measure()  # the same runs right after, with no group
-    prof_after = {label: profile_run(torch, lambda: solve(label, 10))
-                  for label in prof}
     # without a group the same call returns at once; a small kernel on a
     # 0-d tensor for scale
     nogroup_us = call_us(lambda: co.all_reduce(scalar))
     kernel_us = call_us(lambda: scalar.mul_(1.0))
-    summary = dict(backend=mesh.backend, world_size=mesh.size,
+    summary = dict(backend=mesh.backend, world_size=mesh.size, pairs=PAIRS,
                    all_reduce_us=allreduce_us, nogroup_call_us=nogroup_us,
                    small_kernel_us=kernel_us)
     print(f"group of one (nccl): an all_reduce of a 0-d tensor takes "
           f"{allreduce_us:.1f} us of host time back to back (no group: "
           f"{nogroup_us:.2f} us; a one-element kernel {kernel_us:.1f} us)",
           flush=True)
-    for label, (wall, busy, top, nccl) in prof.items():
-        wall0, busy0, _, _ = prof_after[label]
+    for label in ("normal_f32", "normal_bf16"):
+        wall, busy, top, nccl = prof[label, False]
+        wall0, busy0, _, _ = prof[label, True]
         summary[f"profile_{label}"] = dict(
             wall_ms=wall, device_ms=busy, nccl_ms=nccl, top=top,
-            nogroup_wall_ms=wall0, nogroup_device_ms=busy0)
+            stub_wall_ms=wall0, stub_device_ms=busy0,
+            collective_host_ms=host[label])
         print(f"  profile {label}, 10 iterations: with the group device busy "
               f"{busy:.3f} of {wall:.3f} ms wall, NCCL kernels {nccl:.3f} ms;"
-              f" without it {busy0:.3f} of {wall0:.3f} ms; top kernels "
-              f"(ms, name, count): {top}", flush=True)
-    for label, g in grouped.items():
+              f" collectives stubbed {busy0:.3f} of {wall0:.3f} ms; host "
+              f"side of the collectives (ms, name, count): {host[label]}; "
+              f"top kernels (ms, name, count): {top}", flush=True)
+    for label, g in res.items():
         want = ref_x[label]
         bitwise = bool(torch.equal(g["x"], want))
         rel = max_rel_err(g["x"], want)
-        a = after[label]
+        ratios = g["pair_ratios"]
         summary[label] = dict(
-            bitwise=bitwise, max_rel_diff=rel, iters_per_s=g["iters_per_s"],
-            wall_s=g["wall_s"], nogroup_iters_per_s=a["iters_per_s"],
-            nogroup_wall_s=a["wall_s"],
-            nogroup_bitwise=bool(torch.equal(a["x"], want)),
-            ms_per_iter_added=1e3 * (1 / g["iters_per_s"]
-                                     - 1 / a["iters_per_s"]),
+            bitwise=bitwise, max_rel_diff=rel,
+            stub_bitwise=bool(torch.equal(g["x_stub"], want)),
+            iters_per_s=g["iters_per_s"], wall_s=g["wall_s"],
+            stub_iters_per_s=g["stub_iters_per_s"],
+            stub_wall_s=g["stub_wall_s"], pair_ratios=ratios,
+            ratio_median=float(np.median(ratios)),
+            ratio_min=min(ratios), ratio_max=max(ratios),
             collectives_per_iter=g["collectives_per_iter"],
             launches_per_iter=g["launches_per_iter"])
         print(f"group of one (nccl) {label}: x {'bitwise equal to' if bitwise else 'differs from'}"
               f" the no-group run (max rel diff {rel:.3e}, limit 1e-6); "
-              f"{g['iters_per_s']:.1f} iters/s with the group (best of "
-              f"{g['wall_s']}), {a['iters_per_s']:.1f} without it right "
-              f"after; collectives per iteration "
+              f"median of {PAIRS} alternating pairs {g['iters_per_s']:.1f} "
+              f"iters/s with the group, {g['stub_iters_per_s']:.1f} with "
+              f"its collectives stubbed; wall ratio group/stubbed median "
+              f"{np.median(ratios):.4f}, range [{min(ratios):.4f}, "
+              f"{max(ratios):.4f}]; collectives per iteration "
               f"{g['collectives_per_iter']}; kernel launches per iteration "
               f"{g['launches_per_iter']}", flush=True)
         if not (bitwise or rel <= 1e-6):
             raise RuntimeError(f"group of one: {label} x differs from the "
                                f"no-group run by {rel:.3e}")
-        if not summary[label]["nogroup_bitwise"]:
-            raise RuntimeError(f"{label}: the no-group rerun differs from "
+        if not summary[label]["stub_bitwise"]:
+            raise RuntimeError(f"{label}: the stubbed run differs from "
                                "phase 3/7")
     return summary, x10
 
@@ -1411,16 +1453,15 @@ def _shared_card_cases(torch, pmtt, dev):
     return out
 
 
-def _shared_card_rank(r, n, store_path, out_dir, here, backend):
-    """A spawned rank of phase 15 (gloo, every rank on card 0) or 16
-    (NCCL, rank r on card r)."""
+def _shared_card_rank(r, n, store_path, out_dir, here):
+    """A spawned rank of phase 15: gloo, every rank on card 0."""
     import pickle
     sys.path.insert(0, here)
     import torch
     import torch.distributed as dist
     import pylops_mpi_tpu_torch as pmtt
-    dev = torch.device("cuda", r if backend == "nccl" else 0)
-    pmtt.parallel.init(backend=backend, store=dist.FileStore(store_path, n),
+    dev = torch.device("cuda", 0)
+    pmtt.parallel.init(backend="gloo", store=dist.FileStore(store_path, n),
                        rank=r, world_size=n, device=dev)
     try:
         res = _shared_card_cases(torch, pmtt, dev)
@@ -1430,11 +1471,9 @@ def _shared_card_rank(r, n, store_path, out_dir, here, backend):
         pickle.dump(res, f)
 
 
-def shared_card_phase(torch, pmtt, here, x10, worlds=(2, 3), timeout=600,
-                      backend="gloo"):
+def shared_card_phase(torch, pmtt, here, x10, worlds=(2, 3), timeout=600):
     """Phase 15: worlds of two and three ranks sharing the one card over
-    gloo (spawned processes; their exchanges staged through the host);
-    with ``backend="nccl"`` (phase 16) one rank a card over NCCL.
+    gloo (spawned processes; their exchanges staged through the host).
     Correctness only: the main path at full width and the post-stack
     CGLS (10 iterations each) against phase 14's group of one within
     1e-5 relative, and the ragged f64 case against one CPU process
@@ -1453,14 +1492,14 @@ def shared_card_phase(torch, pmtt, here, x10, worlds=(2, 3), timeout=600,
         try:
             t0 = time.perf_counter()
             ctx = mp.spawn(_shared_card_rank,
-                           args=(n, f"{tmp}/store", tmp, str(here), backend),
+                           args=(n, f"{tmp}/store", tmp, str(here)),
                            nprocs=n, join=False)
             deadline = time.monotonic() + timeout
             while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
                 if time.monotonic() > deadline:
                     for proc in ctx.processes:
                         proc.kill()
-                    raise RuntimeError(f"{n} {backend} ranks did not finish "
+                    raise RuntimeError(f"{n} gloo ranks did not finish "
                                        f"in {timeout} s")
             ranks = []
             for r in range(n):
@@ -1488,64 +1527,26 @@ def shared_card_phase(torch, pmtt, here, x10, worlds=(2, 3), timeout=600,
                     for o in ranks]
         summary[n] = dict(max_rel_err=errs, ranks=per_rank,
                           seconds=time.perf_counter() - t0)
-        where = "one card (gloo)" if backend == "gloo" else f"{n} cards (nccl)"
-        print(f"{n} ranks on {where}: main path x vs the group of "
+        print(f"{n} ranks on one card (gloo): main path x vs the group of "
               f"one {errs['main']:.3e} (limit 1e-5), post-stack x "
               f"{errs['post']:.3e} (limit 1e-5), ragged f64 vs CPU "
               f"{errs['f64']:.3e} (limit 1e-10); per rank {per_rank}; "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         if errs["main"] > 1e-5 or errs["post"] > 1e-5 or errs["f64"] > 1e-10:
-            raise RuntimeError(f"{n} {backend} ranks: results disagree: "
+            raise RuntimeError(f"{n} gloo ranks: results disagree: "
                                f"{errs}")
         for o in per_rank:
             if o["normal_launches"] != 10:
-                raise RuntimeError(f"{backend}: rank {o['rank']} launched the "
+                raise RuntimeError(f"gloo: rank {o['rank']} launched the "
                                    f"normal kernel {o['normal_launches']} "
                                    "times in 10 iterations")
             if (o["stencil_launches"] < 20
                     or o["stencil_calls_with_received_ghosts"]
                     != o["stencil_launches"] or o["paths"].get("gather")):
-                raise RuntimeError(f"{backend}: rank {o['rank']} did not run "
+                raise RuntimeError(f"gloo: rank {o['rank']} did not run "
                                    f"the tap kernel on received ghost rows: "
                                    f"{o}")
     return summary
-
-
-def multi_card_main() -> int:
-    """Phase 16 alone, for a machine with several cards (``python3 -c
-    "import chip_smoke; chip_smoke.multi_card_main()"``): one rank a
-    card over NCCL, held against the same 10-iteration solves without a
-    group (phase 14 shows a group of one gives them bitwise)."""
-    here = Path(__file__).resolve().parent
-    sys.path.insert(0, str(here))
-    import torch
-    import pylops_mpi_tpu_torch as pmtt
-    from pylops_mpi_tpu_torch.ops import _build
-    from pylops_mpi_tpu_torch.ops.local import MatrixMult
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True)
-    print(smi.stdout.strip(), flush=True)
-    _build.build_all()
-    dev = torch.device("cuda")
-    A, _, y_t = make_problem(torch, dev)
-    Op = pmtt.MPIBlockDiag([MatrixMult(A[i]) for i in range(NBLK)])
-    x10 = {"normal_f32": pmtt.cgls(Op, pmtt.DistributedArray.to_dist(y_t),
-                                   niter=10, tol=0.0, normal=True)[0].array}
-    del A, Op
-    wav = pmtt.models.ricker(np.arange(31) * 0.004, f0=15)[0]
-    m = layered_model(torch, NX, NT0, dev, seed=4)
-    StackOp, ystack, _ = gradient_poststack(torch, pmtt, m, wav, 10,
-                                            torch.float32)
-    x10["gradient"] = pmtt.cgls(StackOp, ystack, niter=10, damp=DAMP,
-                                tol=0.0)[0].array
-    del m, StackOp, ystack
-    torch.cuda.empty_cache()
-    n = torch.cuda.device_count()
-    res = shared_card_phase(torch, pmtt, here, x10, worlds=(n,),
-                            backend="nccl")
-    print(json.dumps({"multi_card": res}), flush=True)
-    return 0
 
 
 def main() -> int:
@@ -1924,17 +1925,6 @@ def main() -> int:
     t15 = time.perf_counter()
     shared = shared_card_phase(torch, pmtt, here, x10)
     print(f"phase 15 in {time.perf_counter() - t15:.1f} s", flush=True)
-    # 16. one rank a card over NCCL, where the machine has more than one
-    ncards = torch.cuda.device_count()
-    if ncards > 1:
-        t16 = time.perf_counter()
-        multi = shared_card_phase(torch, pmtt, here, x10, worlds=(ncards,),
-                                  backend="nccl")
-        print(f"phase 16 in {time.perf_counter() - t16:.1f} s", flush=True)
-    else:
-        multi = None
-        print("phase 16 skipped: one card (it runs one rank a card over "
-              "NCCL where there are more)", flush=True)
     del x10
 
     kernels = []
@@ -1945,9 +1935,10 @@ def main() -> int:
             name=f"normal_matvec[{name}]", route="cuda", source=SRC,
             replaces=REPLACES[name], launches=r["launches"],
             launches_per_iter=r["launches"] / r["iiter"],
+            # phase 15 runs the f32 main path only
             shared_card_launches_per_rank={
                 n: [o["normal_launches"] for o in v["ranks"]]
-                for n, v in shared.items()},
+                for n, v in shared.items()} if name == "float32" else None,
             max_abs_err=s["max_abs_err"], max_err=s["max_err"], tol=s["tol"],
             ms=s["ms"], kernel_ms=s["ms"], kernel_ms_runs=s["kernel_ms_runs"],
             plain_ms=s["plain_ms"], bound_ms=s["bound_ms"],
@@ -1962,7 +1953,7 @@ def main() -> int:
             launches_per_iter=gr["launches_per_iter"],
             shared_card_launches_per_rank={
                 n: [o["stencil_launches"] for o in v["ranks"]]
-                for n, v in shared.items()},
+                for n, v in shared.items()} if name == "float32" else None,
             main_path_dtype="float32", max_abs_err=st["max_abs_err"],
             max_err=st["max_err"], tol=st["tol"], ms=st["kernel_ms"],
             kernel_ms=st["kernel_ms"], kernel_ms_runs=st["kernel_ms_runs"],
@@ -1977,7 +1968,7 @@ def main() -> int:
                       "reflectivity": refl, "card_vs_cpu_f64": gaps,
                       "stacking": stack_res, "nonstationary": ns_res,
                       "lsm": lsm_res, "group_of_one": group1,
-                      "shared_card": shared, "multi_card": multi}),
+                      "shared_card": shared}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

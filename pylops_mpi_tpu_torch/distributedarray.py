@@ -208,11 +208,13 @@ class DistributedArray:
         return g[tuple(sl)]
 
     def _global(self) -> torch.Tensor:
-        """The whole array on every rank (an all-gather for SCATTER)."""
+        """The whole array on every rank (an all-gather for SCATTER). The
+        shards span the world whatever the mask, so the gather does too:
+        a mask groups only the reductions."""
         if self._partition != Partition.SCATTER:
             return self._arr
         return collectives.all_gather(self._arr, self._axis_sizes(),
-                                      self._axis, self._group())
+                                      self._axis)
 
     def _group(self):
         return collectives.mask_group(self._mask)

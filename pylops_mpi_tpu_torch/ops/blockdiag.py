@@ -29,7 +29,7 @@ import torch
 from ..distributedarray import DistributedArray, Partition
 from ..linearoperator import MPILinearOperator
 from ..parallel import collectives
-from ..parallel.mesh import default_mesh
+from ..parallel.mesh import rank, world_size
 from ..parallel.partition import shard_offsets
 from ..stacked import StackedDistributedArray
 from ..stackedlinearoperator import MPIStackedLinearOperator
@@ -68,7 +68,9 @@ class MPIBlockDiag(MPILinearOperator):
         Group color per rank, carried onto the outputs so that their
         reductions group as the reference's sub-communicators do.
     mesh : Mesh, optional
-        The process group (:func:`~..parallel.mesh.default_mesh`).
+        Kept for the JAX package's argument order. The blocks are split
+        over the default process group (:func:`~..parallel.mesh.world_size`
+        ranks); a ``mesh`` of another size or rank is refused.
     dtype : dtype, optional
         Operator dtype (default: promotion of the blocks' dtypes).
     compute_dtype : dtype, optional
@@ -89,10 +91,15 @@ class MPIBlockDiag(MPILinearOperator):
                 f"normal_path={normal_path!r}: expected None, 'auto', "
                 "'fused' or 'two_sweep'")
         ops = list(ops)
-        self.mesh = default_mesh() if mesh is None else mesh
-        chunks = _chunk_ops(ops, self.mesh.size)
-        if mask is not None and len(mask) != self.mesh.size:
-            raise ValueError(f"mask must have {self.mesh.size} entries")
+        self._P, self._rank = world_size(), rank()
+        if mesh is not None and (mesh.size, mesh.rank) != (self._P,
+                                                          self._rank):
+            raise ValueError(
+                f"mesh of rank {mesh.rank} of {mesh.size} does not match the "
+                f"process group (rank {self._rank} of {self._P})")
+        chunks = _chunk_ops(ops, self._P)
+        if mask is not None and len(mask) != self._P:
+            raise ValueError(f"mask must have {self._P} entries")
         self.mask = None if mask is None else tuple(mask)
         self.nops = np.asarray([op.shape[0] for op in ops])
         self.mops = np.asarray([op.shape[1] for op in ops])
@@ -106,7 +113,7 @@ class MPIBlockDiag(MPILinearOperator):
         super().__init__(shape=shape, dtype=dtype or result_dtype(
             *[op.dtype for op in ops]))
         # this rank's blocks only: the others can be freed by the caller
-        self.ops = chunks[self.mesh.rank]
+        self.ops = chunks[self._rank]
         del chunks
         self.compute_dtype = as_torch_dtype(compute_dtype)
         if self.compute_dtype is None:
@@ -151,10 +158,10 @@ class MPIBlockDiag(MPILinearOperator):
         want = self.local_shapes_m if forward else self.local_shapes_n
         rows = [s[0] for s in want]
         if x.partition != Partition.SCATTER:
-            if self.mesh.size == 1:
+            if self._P == 1:
                 return x.array
-            off = shard_offsets(rows)[self.mesh.rank]
-            return x.array[off:off + rows[self.mesh.rank]]
+            off = shard_offsets(rows)[self._rank]
+            return x.array[off:off + rows[self._rank]]
         if [s[0] for s in x.local_shapes] != rows:
             x = x._relayout(tuple((r,) + tuple(x.global_shape[1:])
                                   for r in rows))
@@ -169,9 +176,9 @@ class MPIBlockDiag(MPILinearOperator):
         locals_out = self.local_shapes_n if forward else self.local_shapes_m
         tail = tuple(x.global_shape[1:])
         if x.partition != Partition.SCATTER:
-            if self.mesh.size > 1:
+            if self._P > 1:
                 arr = collectives.all_gather(arr, [s[0] for s in locals_out])
-            locals_out = ((y_len,),) * self.mesh.size
+            locals_out = ((y_len,),) * self._P
         return DistributedArray._wrap(
             arr, x, global_shape=(y_len,) + tail,
             local_shapes=tuple(tuple(s) + tail for s in locals_out),

@@ -447,6 +447,11 @@ def test_blockdiag_positional_order(rng):
     assert y.mask == (7,)
     with pytest.raises(ValueError, match="normal_path"):
         pmtt.MPIBlockDiag(mats, normal_path="sometimes")
+    # the blocks split over the process group; a mesh must describe it
+    here = pmtt.parallel.make_mesh("cpu")
+    assert len(pmtt.MPIBlockDiag(mats, None, here).ops) == 3
+    with pytest.raises(ValueError, match="does not match the process group"):
+        pmtt.MPIBlockDiag(mats, None, pmtt.parallel.Mesh(None, 0, 2, here.device))
 
 
 def test_stacked_blockdiag_todense_diagonal(rng):
