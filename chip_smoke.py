@@ -95,9 +95,23 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    path at full width (each rank its chunk of the 32 blocks) and the
    post-stack CGLS against phase 14 within 1e-5, a ragged f64 case
    against one CPU process within 1e-10, and every rank's launches of
-   the normal kernel and of the tap kernel on received ghost rows.
+   the normal kernel and of the tap kernel on received ghost rows;
+16. this slice's operators across two to four ranks sharing the card
+   over gloo, each configuration first solved with no group here: CGLS
+   (10 iterations) through ``MPIVStack`` of the 32 blocks (f32 and bf16
+   storage) and ``models.mdd`` at phase 8's width at 2 and 3 ranks, the
+   non-stationary deconvolution of phase 12 at 2 and 4, LSM at phase
+   13's width at 2 and 3 (forward, adjoint, x after one iteration, and
+   five iterations in f64: in f32 they scatter with summation order),
+   each rank building only its share of the MDD kernel
+   and of the LSM tables (held to about 1/P of one rank's), and a
+   ragged f64 case (a 2-D halo grid, ``MPIHStack``, a masked
+   ``MPIVStack``, a local operator on a SCATTER vector) against one CPU
+   process; per rank collective calls per iteration, bytes received per
+   apply and walls per iteration (gloo ranks sharing one card, staged
+   through the host: not a multi-card number).
 
-Phases 8, 9 and 11-13 reach none of the hand-written kernels: the JAX
+Phases 8, 9, 11-13 and 16 reach none of the hand-written kernels: the JAX
 package runs their FFTs, products, thresholds, convolutions, sprays and
 gathers outside Pallas, and so does the port (cuFFT, cuBLAS, cuDNN,
 ``index_add_``/``index_select`` and elementwise PyTorch); their kernel
@@ -200,6 +214,25 @@ NITER_LSM_F64 = 5
 # code, (1024, 1024) f32 on the CPU with seeds 4 and 5, reached 0.1153
 # and 0.1149
 RESID_LIMIT = 0.15
+# phase 16: this slice's operators across ranks sharing the card over gloo,
+# at phases 8, 11, 12 and 13's widths, against the same configurations
+# solved with no group in this process; each world runs the cases named
+NITER_16, NITER_16_LSM = 10, 5
+WORLDS_16 = {2: ("vstack", "mdd", "nonstat", "lsm", "f64"),
+             3: ("vstack", "mdd", "lsm", "f64"),
+             4: ("nonstat", "f64")}  # 2048 samples do not split over 3
+TOL_16 = dict(vstack_f32=1e-5, vstack_bf16=1e-4, mdd=1e-5, nonstat=1e-5,
+              lsm_forward=1e-5, lsm_adjoint=1e-5, lsm_x1=1e-5,
+              # examples/lsm.py's CGLS amplifies summation order (amp up to
+              # 1e5 at receivers on grid points; PERF.md §6): at full
+              # width in f32 the no-group solve's x after 5 iterations,
+              # and its residual norms, differ from a second no-group
+              # solve by up to several percent on an H100 (the spray's
+              # atomics; PERF.md §6). So the f32 solve's x is printed
+              # beside that spread, and the 5 iterations are held in f64,
+              # where the same amplification of f64 rounding stays far
+              # below this bound
+              lsm_x_f64=1e-6, f64=1e-10)
 
 
 def log(*a):
@@ -1453,8 +1486,9 @@ def _shared_card_cases(torch, pmtt, dev):
     return out
 
 
-def _shared_card_rank(r, n, store_path, out_dir, here):
-    """A spawned rank of phase 15: gloo, every rank on card 0."""
+def _shared_card_rank(r, n, store_path, out_dir, here, cases, args):
+    """A spawned rank of phases 15 and 16: gloo, every rank on card 0,
+    running ``cases(torch, pmtt, dev, *args)``."""
     import pickle
     sys.path.insert(0, here)
     import torch
@@ -1464,11 +1498,40 @@ def _shared_card_rank(r, n, store_path, out_dir, here):
     pmtt.parallel.init(backend="gloo", store=dist.FileStore(store_path, n),
                        rank=r, world_size=n, device=dev)
     try:
-        res = _shared_card_cases(torch, pmtt, dev)
+        res = cases(torch, pmtt, dev, *args)
     finally:
         pmtt.parallel.destroy()
     with open(f"{out_dir}/rank{r}.pkl", "wb") as f:
         pickle.dump(res, f)
+
+
+def spawn_shared_card(n, here, cases, args=(), timeout=600):
+    """``n`` gloo ranks sharing the card, each running ``cases``; returns
+    their records in rank order. A rank that raises, or a world that
+    outlives ``timeout`` seconds (its processes are killed), raises."""
+    import pickle
+    import shutil
+    import tempfile
+    import torch.multiprocessing as mp
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_gloo_")
+    try:
+        ctx = mp.spawn(_shared_card_rank,
+                       args=(n, f"{tmp}/store", tmp, str(here), cases, args),
+                       nprocs=n, join=False)
+        deadline = time.monotonic() + timeout
+        while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
+            if time.monotonic() > deadline:
+                for proc in ctx.processes:
+                    proc.kill()
+                raise RuntimeError(f"{n} gloo ranks did not finish in "
+                                   f"{timeout} s")
+        ranks = []
+        for r in range(n):
+            with open(f"{tmp}/rank{r}.pkl", "rb") as f:
+                ranks.append(pickle.load(f))
+        return ranks
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def shared_card_phase(torch, pmtt, here, x10, worlds=(2, 3), timeout=600):
@@ -1479,34 +1542,14 @@ def shared_card_phase(torch, pmtt, here, x10, worlds=(2, 3), timeout=600):
     1e-5 relative, and the ragged f64 case against one CPU process
     within 1e-10; the normal kernel and the tap kernel must run on every
     rank, the tap kernel with received ghost rows."""
-    import pickle
-    import shutil
-    import tempfile
-    import torch.multiprocessing as mp
     cpu = ragged_f64_case(torch, pmtt, torch.device("cpu"))
     want = {"main": x10["normal_f32"].cpu().numpy(),
             "post": x10["gradient"].cpu().numpy()}
     summary = {}
     for n in worlds:
-        tmp = tempfile.mkdtemp(prefix="chip_smoke_gloo_")
-        try:
-            t0 = time.perf_counter()
-            ctx = mp.spawn(_shared_card_rank,
-                           args=(n, f"{tmp}/store", tmp, str(here)),
-                           nprocs=n, join=False)
-            deadline = time.monotonic() + timeout
-            while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
-                if time.monotonic() > deadline:
-                    for proc in ctx.processes:
-                        proc.kill()
-                    raise RuntimeError(f"{n} gloo ranks did not finish "
-                                       f"in {timeout} s")
-            ranks = []
-            for r in range(n):
-                with open(f"{tmp}/rank{r}.pkl", "rb") as f:
-                    ranks.append(pickle.load(f))
-        finally:
-            shutil.rmtree(tmp, ignore_errors=True)
+        t0 = time.perf_counter()
+        ranks = spawn_shared_card(n, here, _shared_card_cases,
+                                  timeout=timeout)
         errs = {}
         for key in ("main", "post"):
             got = ranks[0][key]["x"]
@@ -1547,6 +1590,471 @@ def shared_card_phase(torch, pmtt, here, x10, worlds=(2, 3), timeout=600):
                                    f"the tap kernel on received ghost rows: "
                                    f"{o}")
     return summary
+
+
+def mdd_kernel_host(torch):
+    """Phase 16's MDD kernel, phase 8's law on the host from a seeded CPU
+    generator, so that every rank passes the same whole kernel and moves
+    only its chunk of the frequencies to the card."""
+    g = torch.Generator().manual_seed(16)
+    G = torch.randn((NFMAX, NS_MDD, NR_MDD), generator=g,
+                    dtype=torch.complex64) / math.sqrt(NR_MDD)
+    G.diagonal(dim1=1, dim2=2).add_(4.0)
+    return G
+
+
+def lsm_model():
+    refl = np.zeros((NZ_L, NX_L))
+    refl[ROWS_L[0]] = -1.0
+    refl[ROWS_L[1]] = 0.5
+    return refl
+
+
+def halo_windows(f, dims, halo, grid):
+    """What ``MPIHalo(dims, halo, grid)`` gives with a per-axis tuple
+    ``halo``, in numpy. ``f`` holds the ranks' blocks (the ceil split,
+    ranks in row-major grid order) one after the other, each in C order;
+    each rank's output is its block widened by the halo on both sides
+    (kept at the grid's edges), zeros outside the field."""
+    g = np.zeros(dims)
+    cuts = []
+    off = 0
+    for r in range(int(np.prod(grid))):
+        coords = np.unravel_index(r, grid)
+        blk = []
+        for n_, p_, c in zip(dims, grid, coords):
+            bs = -(-n_ // p_)
+            blk.append(slice(c * bs, min(c * bs + bs, n_)))
+        shape = tuple(b.stop - b.start for b in blk)
+        g[tuple(blk)] = np.asarray(f)[off:off + int(np.prod(shape))] \
+            .reshape(shape)
+        off += int(np.prod(shape))
+        cuts.append(blk)
+    out = []
+    for blk in cuts:
+        win, pads = [], []
+        for n_, b, h in zip(dims, blk, halo):
+            lo, hi = b.start - h, b.stop + h
+            win.append(slice(max(lo, 0), min(hi, n_)))
+            pads.append((max(-lo, 0), max(hi - n_, 0)))
+        out.append(np.pad(g[tuple(win)], pads).ravel())
+    return np.concatenate(out)
+
+
+def slice7_f64_case(torch, pmtt, dev):
+    """Phase 16's ragged f64 case, run alike by a world of ranks and by
+    one process without a group: MPIHalo on a 2-D grid with a tuple
+    halo over an (11, 9) field (ragged blocks), MPIHStack of 7 blocks,
+    a masked MPIVStack of the same blocks (mask r % 2) and a local
+    operator on a SCATTER vector. Returns the gathered results and this
+    rank's group norm of the masked data."""
+    from pylops_mpi_tpu_torch.ops.local import FirstDerivative
+    D = pmtt.DistributedArray
+    bc = pmtt.Partition.BROADCAST
+    n = pmtt.parallel.world_size()
+    rng = np.random.default_rng(17)
+    grid = (2, 2) if n == 4 else (n, 1)
+    H = pmtt.MPIHalo((11, 9), (1, 2), grid, None, np.float64)
+    f = rng.standard_normal(99)
+    y = H.matvec(D.to_dist(f, local_shapes=H.local_dim_sizes, device=dev))
+    blocks = [rng.standard_normal((7, 5)) for _ in range(7)]
+    Hs = pmtt.convert.hstack_from_numpy(blocks, device=dev)
+    hy = Hs.matvec(D.to_dist(rng.standard_normal(35), device=dev))
+    hx = Hs.rmatvec(D.to_dist(rng.standard_normal(7), partition=bc,
+                              device=dev))
+    V = pmtt.convert.vstack_from_numpy(blocks, device=dev,
+                                       mask=[r % 2 for r in range(n)])
+    vy = V.matvec(D.to_dist(rng.standard_normal(5), partition=bc,
+                            device=dev))
+    vx = V.rmatvec(vy)
+    L = pmtt.asmpilinearoperator(FirstDerivative((10, 9), dtype=torch.float64))
+    ly = L.matvec(D.to_dist(rng.standard_normal(90), device=dev))
+    lx = L.rmatvec(ly)
+    return dict(f=f, halo=y.asarray(), halo_back=H.rmatvec(y).asarray(),
+                hstack=hy.asarray(), hstack_adjoint=hx.asarray(),
+                masked=vy.asarray(), masked_adjoint=vx.asarray(),
+                local=ly.asarray(), local_adjoint=lx.asarray(),
+                group_norm=float(vy.norm()), grid=grid)
+
+
+def _slice7_cases(torch, pmtt, dev, cases, refdir):
+    """What each rank of phase 16 runs (``cases`` of "vstack", "mdd",
+    "nonstat", "lsm", "f64"); returns this rank's record. Every solve's
+    x is held to the no-group solve's, saved by the main process under
+    ``refdir``; every rank computes the gap (the gathers are
+    collective)."""
+    from pylops_mpi_tpu_torch.ops import normal_kernels as nk
+    from pylops_mpi_tpu_torch.ops import stencil_kernels as sk
+    from pylops_mpi_tpu_torch.ops.blockdiag import _chunk_ops
+    from pylops_mpi_tpu_torch.ops.local import MatrixMult, ShapeOnly
+    from pylops_mpi_tpu_torch.parallel import collectives as co
+    D = pmtt.DistributedArray
+    bc = pmtt.Partition.BROADCAST
+    r, n = pmtt.parallel.rank(), pmtt.parallel.world_size()
+    out = dict(rank=r)
+
+    def gap(got, name):
+        want = np.load(f"{refdir}/{name}.npy").ravel()
+        got = np.asarray(got, dtype=np.float64).ravel()
+        return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+    def solve(fn, niter):
+        """``fn()``'s result, collective calls per iteration, the wall
+        per iteration (gloo ranks sharing one card) and the hand
+        kernels' launches (none on this slice's paths)."""
+        co.reset_counts()
+        for k in (nk, sk):
+            k.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, dict(calls_per_iter={k: v / niter for k, v in
+                                         co.counts.items()},
+                         wall_per_iter_s=(time.perf_counter() - t0) / niter,
+                         kernel_launches=[nk.launches, sk.launches])
+
+    def received(fn):
+        co.reset_counts()
+        fn()
+        return dict(co.received)
+
+    if "vstack" in cases:
+        A, _, _ = make_problem(torch, dev)
+        mine = set(_chunk_ops(list(range(NBLK)), n)[r])
+        rows = [MatrixMult(A[i].clone()) if i in mine
+                else ShapeOnly(NBLOCK, NBLOCK, dtype=torch.float32)
+                for i in range(NBLK)]
+        del A
+        torch.cuda.empty_cache()
+        xt = torch.randn(NBLOCK, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(9))
+        out["vstack"] = {}
+        for label, cdt in (("f32", None), ("bf16", torch.bfloat16)):
+            V = pmtt.MPIVStack(rows, compute_dtype=cdt)
+            y = V.matvec(D.to_dist(xt, partition=bc))
+            x0 = D(global_shape=NBLOCK, partition=bc, device=dev)
+            x, st = solve(lambda: pmtt.cgls(V, y, x0=x0, niter=NITER_16,
+                                            tol=0.0)[0], NITER_16)
+            out["vstack"][label] = dict(
+                blocks=len(V.ops), stack=tuple(V._batched.shape),
+                x_gap=gap(x.asarray(), f"vstack_{label}"),
+                bytes_per_adjoint=received(lambda: V.rmatvec(y)), **st)
+            del V, y, x
+        del rows
+        torch.cuda.empty_cache()
+    if "mdd" in cases:
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        G = mdd_kernel_host(torch)
+        d = np.load(f"{refdir}/mdd_d.npy")
+        (minv, Op), st = solve(lambda: pmtt.models.mdd(
+            G, d, NT_MDD, NV_MDD, DT_MDD, DR_MDD, True, NITER_16, tol=0.0,
+            device=dev), NITER_16)
+        del G
+        Fr = Op.args[0].args[0].args[1]
+        x0 = D(global_shape=Op.shape[1], partition=bc, device=dev)
+        out["mdd"] = dict(
+            slices=Fr.G.shape[0],
+            G_gb=(Fr.G.numel() + Fr.GT.numel()) * Fr.G.element_size() / 1e9,
+            x_gap=gap(minv, "mdd_x"),
+            bytes_per_forward=received(lambda: Op.matvec(x0)),
+            peak_gb=peak_gb(torch, base), **st)
+        del Op, Fr, x0, minv
+        torch.cuda.empty_cache()
+    if "nonstat" in cases:
+        hs, ih = nonstat_filters(pmtt)
+        Op = pmtt.MPINonStationaryConvolve1D((NT_NS, NTR_NS), hs, ih, 0,
+                                             None, torch.float32, device=dev)
+        d = D.to_dist(torch.from_numpy(np.load(f"{refdir}/nonstat_d.npy"))
+                      .to(dev))
+        x, st = solve(lambda: pmtt.cgls(Op, d, x0=d.zeros_like(),
+                                        niter=NITER_16, tol=0.0)[0], NITER_16)
+        out["nonstat"] = dict(
+            halo=Op.args[1]._base_halo[0], rows=d.local_shape[0] // NTR_NS,
+            x_gap=gap(x.asarray(), "nonstat_x"),
+            bytes_per_forward=received(lambda: Op.matvec(x)), **st)
+        del Op, d, x
+        torch.cuda.empty_cache()
+    if "lsm" in cases:
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        geo = lsm_geometry(pmtt, NZ_L, NX_L, DX_L, NS_L, NR_L, NT_L, DT_L)
+        Op = pmtt.models.MPILSM(**geo, dtype=torch.float32, device=dev)
+        spray = Op.ops[0].B
+        m = D.to_dist(torch.from_numpy(lsm_model().ravel()).to(dev,
+                                                               torch.float32),
+                      partition=bc)
+        d = Op.matvec(m)
+        x0 = D(global_shape=Op.shape[1], partition=bc, device=dev)
+        x, st = solve(lambda: pmtt.cgls(Op, d, x0=x0, niter=NITER_16_LSM,
+                                        tol=0.0)[0], NITER_16_LSM)
+        x1 = pmtt.cgls(Op, d, x0=x0, niter=1, tol=0.0)[0]
+        dref = D.to_dist(torch.from_numpy(np.load(f"{refdir}/lsm_d.npy"))
+                         .to(dev), local_shapes=Op.local_shapes_n)
+        out["lsm"] = dict(
+            sources=spray.index.shape[0] // NR_L,
+            table_gb=spray.index.numel() * (spray.index.element_size()
+                                            + spray.amp.element_size()) / 1e9,
+            forward_gap=gap(d.asarray(), "lsm_d"),
+            adjoint_gap=gap(Op.rmatvec(dref).asarray(), "lsm_xa"),
+            x1_gap=gap(x1.asarray(), "lsm_x1"),
+            x_gap=gap(x.asarray(), "lsm_x"),
+            bytes_per_adjoint=received(lambda: Op.rmatvec(d)),
+            peak_gb=peak_gb(torch, base), **st)
+        del Op, spray, m, d, x, x1, x0, dref
+        torch.cuda.empty_cache()
+        out["lsm"]["x_f64_gap"] = gap(lsm_f64_solve(torch, pmtt, dev),
+                                      "lsm_x_f64")
+        torch.cuda.empty_cache()
+    if "f64" in cases:
+        out["f64"] = slice7_f64_case(torch, pmtt, dev)
+    return out
+
+
+def slice7_references(torch, pmtt, dev, refdir):
+    """Phase 16's configurations solved here with no group, saved under
+    ``refdir``; returns one rank's MDD kernel share and LSM table size
+    and peak memory, against which the ranks' are held."""
+    from pylops_mpi_tpu_torch.ops.local import MatrixMult
+    D = pmtt.DistributedArray
+    bc = pmtt.Partition.BROADCAST
+    one = {}
+    A, _, _ = make_problem(torch, dev)
+    rows = [MatrixMult(A[i]) for i in range(NBLK)]
+    xt = torch.randn(NBLOCK, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(9))
+    for label, cdt in (("f32", None), ("bf16", torch.bfloat16)):
+        V = pmtt.MPIVStack(rows, compute_dtype=cdt)
+        y = V.matvec(D.to_dist(xt, partition=bc))
+        x = pmtt.cgls(V, y, x0=D(global_shape=NBLOCK, partition=bc,
+                                 device=dev), niter=NITER_16, tol=0.0)[0]
+        np.save(f"{refdir}/vstack_{label}.npy", x.asarray())
+        del V, y, x
+    del A, rows
+    torch.cuda.empty_cache()
+    # MDD: data from a known model in the operator's row space (phase 8)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    G = mdd_kernel_host(torch)
+    Op = pmtt.MPIMDC(G, nt=NT_MDD, nv=NV_MDD, dt=DT_MDD, dr=DR_MDD,
+                     twosided=True, saveGt=True, device=dev)
+    Fr = Op.args[0].args[0].args[1]
+    one["mdd_G_gb"] = ((Fr.G.numel() + Fr.GT.numel())
+                       * Fr.G.element_size() / 1e9)
+    g = torch.Generator(device=dev).manual_seed(6)
+    w = D.to_dist(torch.randn(Op.shape[0], generator=g, device=dev),
+                  partition=bc)
+    xm = Op.rmatvec(w)
+    xm = xm * (math.sqrt(Op.shape[1]) / xm.norm())
+    d = Op.matvec(xm).array.view(NT_MDD, NS_MDD, NV_MDD)
+    np.save(f"{refdir}/mdd_d.npy", d.cpu().numpy())
+    del Op, Fr, w, xm
+    torch.cuda.empty_cache()
+    minv = pmtt.models.mdd(G, d, NT_MDD, NV_MDD, DT_MDD, DR_MDD, True,
+                           NITER_16, tol=0.0, device=dev)[0]
+    np.save(f"{refdir}/mdd_x.npy", minv)
+    one["mdd_peak_gb"] = peak_gb(torch, base)
+    del G, d, minv
+    torch.cuda.empty_cache()
+    # non-stationary deconvolution of phase 12's sparse reflectivity
+    hs, ih = nonstat_filters(pmtt)
+    Op = pmtt.MPINonStationaryConvolve1D((NT_NS, NTR_NS), hs, ih, 0, None,
+                                         torch.float32, device=dev)
+    gn = torch.Generator(device=dev).manual_seed(10)
+    dims = (NT_NS, NTR_NS)
+    keep = torch.rand(dims, generator=gn, device=dev) < SPIKE_FRACTION
+    sign = torch.randint(0, 2, dims, generator=gn, device=dev) * 2 - 1
+    mv = D.to_dist(torch.where(keep, sign, 0).to(torch.float32).reshape(-1))
+    d = Op.matvec(mv)
+    np.save(f"{refdir}/nonstat_d.npy", d.array.cpu().numpy())
+    x = pmtt.cgls(Op, d, x0=d.zeros_like(), niter=NITER_16, tol=0.0)[0]
+    np.save(f"{refdir}/nonstat_x.npy", x.asarray())
+    del Op, keep, sign, mv, d, x
+    torch.cuda.empty_cache()
+    # LSM at phase 13's width
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    geo = lsm_geometry(pmtt, NZ_L, NX_L, DX_L, NS_L, NR_L, NT_L, DT_L)
+    Op = pmtt.models.MPILSM(**geo, dtype=torch.float32, device=dev)
+    spray = Op.ops[0].B
+    one["lsm_table_gb"] = spray.index.numel() * (
+        spray.index.element_size() + spray.amp.element_size()) / 1e9
+    m = D.to_dist(torch.from_numpy(lsm_model().ravel()).to(dev, torch.float32),
+                  partition=bc)
+    d = Op.matvec(m)
+    np.save(f"{refdir}/lsm_d.npy", d.asarray())
+    np.save(f"{refdir}/lsm_xa.npy", Op.rmatvec(d).asarray())
+    # the spray's atomics add in no fixed order: a second solve gives the
+    # spread of x from one no-group run to the next
+    xs = [pmtt.cgls(Op, d, x0=D(global_shape=Op.shape[1], partition=bc,
+                                device=dev), niter=NITER_16_LSM,
+                    tol=0.0)[0].asarray() for _ in range(2)]
+    np.save(f"{refdir}/lsm_x.npy", xs[0])
+    np.save(f"{refdir}/lsm_x1.npy", pmtt.cgls(
+        Op, d, x0=D(global_shape=Op.shape[1], partition=bc, device=dev),
+        niter=1, tol=0.0)[0].asarray())
+    one["lsm_x_repeat_gap"] = float(np.linalg.norm(xs[1] - xs[0])
+                                    / np.linalg.norm(xs[0]))
+    one["lsm_peak_gb"] = peak_gb(torch, base)
+    del Op, spray, m, d
+    torch.cuda.empty_cache()
+    np.save(f"{refdir}/lsm_x_f64.npy", lsm_f64_solve(torch, pmtt, dev))
+    torch.cuda.empty_cache()
+    return one
+
+
+def lsm_f64_solve(torch, pmtt, dev):
+    """Phase 16's LSM in f64 at the same width: x after the same CGLS
+    iterations, gathered (each rank builds its own batch's tables)."""
+    f64 = torch.float64
+    geo = lsm_geometry(pmtt, NZ_L, NX_L, DX_L, NS_L, NR_L, NT_L, DT_L)
+    Op = pmtt.models.MPILSM(**geo, dtype=f64, device=dev)
+    bc = pmtt.Partition.BROADCAST
+    m = pmtt.DistributedArray.to_dist(
+        torch.from_numpy(lsm_model().ravel()).to(dev, f64), partition=bc)
+    x0 = pmtt.DistributedArray(global_shape=Op.shape[1], partition=bc,
+                               dtype=f64, device=dev)
+    return pmtt.cgls(Op, Op.matvec(m), x0=x0, niter=NITER_16_LSM,
+                     tol=0.0)[0].asarray()
+
+
+def f64_gaps(got, cpu):
+    """Phase 16's ragged f64 case of a world of ``n`` ranks against one
+    CPU process: the halo against :func:`halo_windows` (the world of one
+    has one block), the crop against the field, the rest against the
+    no-group run."""
+
+    def rel(a, b):
+        return float(np.abs(np.asarray(a) - b).max() / np.abs(b).max())
+
+    gaps = dict(halo=rel(got["halo"], halo_windows(
+        got["f"], (11, 9), (1, 2), got["grid"])),
+        halo_back=rel(got["halo_back"], got["f"]))
+    for k in ("hstack", "hstack_adjoint", "masked", "masked_adjoint",
+              "local", "local_adjoint"):
+        gaps[k] = rel(got[k], cpu[k])
+    return gaps
+
+
+def share(total, parts):
+    """The largest rank's share of ``total`` items split over ``parts``
+    ranks (the balanced split)."""
+    return -(-total // parts) / total
+
+
+def peak_gb(torch, base):
+    """Device memory allocated at its peak since the last reset, above
+    ``base`` bytes, in GB."""
+    return (torch.cuda.max_memory_allocated() - base) / 1e9
+
+
+def slice7_phase(torch, pmtt, here, dev, timeout=600):
+    """Phase 16: this slice's operators across ranks sharing the card over
+    gloo, at full width, against the same configurations solved with no
+    group in this process (:func:`slice7_references`): MPIVStack CGLS on
+    phase 11's stack (f32 and bf16 storage), MDD at phase 8's width,
+    the non-stationary deconvolution of phase 12 and LSM at phase 13's
+    width (five iterations, held in f64), and a ragged f64 case against
+    one CPU process; each rank's share of the MDD kernel and of the LSM
+    tables and its peak memory against one rank's; collective calls per
+    iteration, bytes received per apply and walls per iteration, the
+    walls those of gloo ranks sharing one card through the host."""
+    import shutil
+    import tempfile
+    from pylops_mpi_tpu_torch.ops.blockdiag import _chunk_ops
+    refdir = tempfile.mkdtemp(prefix="chip_smoke_slice7_")
+    try:
+        t0 = time.perf_counter()
+        one = slice7_references(torch, pmtt, dev, refdir)
+        torch.cuda.empty_cache()
+        cpu = slice7_f64_case(torch, pmtt, torch.device("cpu"))
+        print(f"16. no-group references in {time.perf_counter() - t0:.1f} "
+              f"s: one rank holds {one['mdd_G_gb']:.3f} GB of MDD kernel "
+              f"(G and G^H; MDD peak {one['mdd_peak_gb']:.3f} GB), "
+              f"{one['lsm_table_gb']:.3f} GB of LSM tables, LSM "
+              f"peak {one['lsm_peak_gb']:.3f} GB; LSM x after "
+              f"{NITER_16_LSM} iterations differs from a second no-group "
+              f"solve by {one['lsm_x_repeat_gap']:.3e}", flush=True)
+        summary = dict(one_rank=one)
+        for n, cases in WORLDS_16.items():
+            t0 = time.perf_counter()
+            ranks = spawn_shared_card(n, here, _slice7_cases,
+                                      (cases, refdir), timeout)
+            o0 = ranks[0]
+            gaps = {}
+            for case in ("vstack", "mdd", "nonstat", "lsm"):
+                if case not in cases:
+                    continue
+                if case == "vstack":
+                    for label in ("f32", "bf16"):
+                        gaps[f"vstack_{label}"] = o0["vstack"][label]["x_gap"]
+                elif case != "lsm":
+                    gaps[case] = o0[case]["x_gap"]
+            spread = {}
+            if "lsm" in cases:
+                for k in ("forward", "adjoint", "x1", "x_f64"):
+                    gaps[f"lsm_{k}"] = o0["lsm"][f"{k}_gap"]
+                spread = dict(lsm_x_gap=o0["lsm"]["x_gap"],
+                              no_group_repeat_gap=one["lsm_x_repeat_gap"])
+            f64 = {}
+            if "f64" in cases:
+                f64 = f64_gaps(o0["f64"], cpu)
+                gaps["f64"] = max(f64.values())
+                mask = [q % 2 for q in range(n)]
+                for o in ranks:
+                    rows = [b for q in range(n) if mask[q] == mask[o["rank"]]
+                            for b in _chunk_ops(list(range(7)), n)[q]]
+                    want = np.linalg.norm(np.concatenate(
+                        [cpu["masked"][7 * b:7 * b + 7] for b in rows]))
+                    g = abs(o["f64"]["group_norm"] - want) / want
+                    gaps["f64"] = max(gaps["f64"], g)
+            per_rank = []
+            for o in ranks:
+                rec = dict(rank=o["rank"])
+                for case in ("vstack", "mdd", "nonstat", "lsm"):
+                    if case in o:
+                        v = o[case]
+                        rec[case] = ({k: {kk: vv for kk, vv in v[k].items()
+                                          if kk != "x_gap"}
+                                      for k in v} if case == "vstack"
+                                     else {k: vv for k, vv in v.items()
+                                           if not k.endswith("_gap")})
+                per_rank.append(rec)
+            secs = time.perf_counter() - t0
+            summary[n] = dict(cases=list(cases), gaps=gaps, f64=f64,
+                              lsm_x_spread=spread, ranks=per_rank,
+                              seconds=secs)
+            print(f"16. {n} ranks on one card (gloo, staged through the "
+                  f"host): gaps to the no-group solves {gaps} (limits "
+                  f"{ {k: TOL_16[k] for k in gaps} }); LSM x after "
+                  f"{NITER_16_LSM} iterations, not held (see TOL_16): "
+                  f"{spread}; per rank (calls per "
+                  f"iteration, bytes received per apply, and walls per "
+                  f"iteration of gloo ranks sharing one card through the "
+                  f"host, not a multi-card number) {per_rank}; "
+                  f"{secs:.1f} s", flush=True)
+            bad = {k: v for k, v in gaps.items() if not v <= TOL_16[k]}
+            if bad:
+                raise RuntimeError(f"phase 16, {n} ranks: results disagree: "
+                                   f"{bad}")
+            for rec in per_rank:
+                if "mdd" in rec and rec["mdd"]["G_gb"] > \
+                        1.01 * one["mdd_G_gb"] * share(NFMAX, n):
+                    raise RuntimeError(f"phase 16: rank {rec['rank']} holds "
+                                       f"{rec['mdd']['G_gb']:.3f} GB of MDD "
+                                       "kernel, more than its share")
+                if "lsm" in rec and (
+                        rec["lsm"]["table_gb"] > 1.01 * one["lsm_table_gb"]
+                        * share(NS_L, n)
+                        or rec["lsm"]["peak_gb"] > one["lsm_peak_gb"]
+                        * (share(NS_L, n) + 0.1)):
+                    raise RuntimeError(f"phase 16: rank {rec['rank']}'s LSM "
+                                       f"tables or peak memory exceed its "
+                                       f"share: {rec['lsm']}")
+        return summary
+    finally:
+        shutil.rmtree(refdir, ignore_errors=True)
 
 
 def main() -> int:
@@ -1927,6 +2435,13 @@ def main() -> int:
     print(f"phase 15 in {time.perf_counter() - t15:.1f} s", flush=True)
     del x10
 
+    # 16. this slice: the stacks, MDD, non-stationary deconvolution and
+    # LSM across two to four ranks sharing the card over gloo
+    torch.cuda.empty_cache()
+    t16 = time.perf_counter()
+    slice7 = slice7_phase(torch, pmtt, here, dev)
+    print(f"phase 16 in {time.perf_counter() - t16:.1f} s", flush=True)
+
     kernels = []
     for name, run in (("float32", "normal_f32"), ("bfloat16", "normal_bf16")):
         s = stats[name]
@@ -1968,7 +2483,7 @@ def main() -> int:
                       "reflectivity": refl, "card_vs_cpu_f64": gaps,
                       "stacking": stack_res, "nonstationary": ns_res,
                       "lsm": lsm_res, "group_of_one": group1,
-                      "shared_card": shared}),
+                      "shared_card": shared, "slice7_ranks": slice7}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

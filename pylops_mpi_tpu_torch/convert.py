@@ -5,10 +5,15 @@ numpy arrays (``[np.asarray(op.A) for op in jax_op.ops]``) and rebuild
 the same operator here (``MPIBlockDiag``, ``MPIVStack``,
 ``MPIHStack``); a user with blocks on the host does the same.
 Stacked vectors come over as (nested) lists of their components'
-arrays. Under a process group every rank passes the same global arrays
-and keeps its own shard or chunk of blocks. A frequency kernel ``(nfmax, ns, nr)`` comes over as one numpy
+arrays. A frequency kernel ``(nfmax, ns, nr)`` comes over as one numpy
 array (``np.asarray(jax_op.G)`` for ``MPIFredholm1``, or the array given
 to the JAX package's ``MPIMDC``).
+
+Under a process group every rank passes the same global arrays, as the
+JAX package's controller does, and keeps its own shard, its chunk of the
+blocks or rows (the others stand in as :class:`~.ops.local.ShapeOnly`),
+or its chunk of a kernel's slices; only what the rank keeps goes to the
+device.
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ from .ops.blockdiag import MPIBlockDiag, _chunk_ops
 from .ops.fredholm import MPIFredholm1
 from .ops.mdc import MPIMDC
 from .ops.stack import MPIHStack, MPIVStack
-from .ops.local import MatrixMult
+from .ops.local import MatrixMult, ShapeOnly
 from .parallel.mesh import DeviceLike, rank, resolve_device, world_size
 from .parallel.partition import Partition
 
@@ -36,14 +41,21 @@ __all__ = ["blockdiag_from_numpy", "vstack_from_numpy", "hstack_from_numpy",
 
 def _matrices(blocks: Sequence[np.ndarray], dtype,
               device: DeviceLike) -> list:
-    """``MatrixMult`` of each block cast to ``dtype`` (default: its own)
-    on ``device`` (default ``"cuda"``)."""
+    """``MatrixMult`` of each block of this rank's chunk cast to ``dtype``
+    (default: its own) on ``device`` (default ``"cuda"``), and a
+    ``ShapeOnly`` of the same shape and dtype for every other block."""
     dev = resolve_device(device)
     dt = as_torch_dtype(dtype)
+    mine = set(_chunk_ops(list(range(len(blocks))), world_size())[rank()])
     mats = []
-    for b in blocks:
-        t = torch.tensor(np.asarray(b))
-        mats.append(MatrixMult(t.to(device=dev, dtype=dt or t.dtype)))
+    for i, b in enumerate(blocks):
+        b = np.asarray(b)
+        if i in mine:
+            t = torch.tensor(b)
+            mats.append(MatrixMult(t.to(device=dev, dtype=dt or t.dtype)))
+        else:
+            mats.append(ShapeOnly(b.shape[1], b.shape[0],
+                                  dtype=dt or as_torch_dtype(b.dtype)))
     return mats
 
 
@@ -54,34 +66,27 @@ def blockdiag_from_numpy(blocks: Sequence[np.ndarray], dtype=None,
     block cast to ``dtype`` (default: its own); ``compute_dtype`` as for
     :class:`~.ops.blockdiag.MPIBlockDiag`. Every rank passes all the
     blocks; only the rank's own chunk is placed on ``device`` (default
-    ``"cuda"``), the others stay host copies that the operator drops."""
-    dev = resolve_device(device)
-    dt = as_torch_dtype(dtype)
-    mine = set(_chunk_ops(list(range(len(blocks))), world_size())[rank()])
-    mats = []
-    for i, b in enumerate(blocks):
-        t = torch.tensor(np.asarray(b))
-        t = t.to(dtype=dt or t.dtype)
-        mats.append(MatrixMult(t.to(dev) if i in mine else t))
-    return MPIBlockDiag(mats, mask=mask, compute_dtype=compute_dtype)
+    ``"cuda"``)."""
+    return MPIBlockDiag(_matrices(blocks, dtype, device), mask=mask,
+                        compute_dtype=compute_dtype)
 
 
 def vstack_from_numpy(blocks: Sequence[np.ndarray], dtype=None,
                       compute_dtype=None, adjoint: bool = False,
-                      device: DeviceLike = None) -> MPIVStack:
+                      device: DeviceLike = None, mask=None) -> MPIVStack:
     """``MPIVStack`` of ``MatrixMult(b)`` rows (``MatrixMult(b).H`` rows
     with ``adjoint``), blocks as for :func:`blockdiag_from_numpy`."""
     mats = _matrices(blocks, dtype, device)
-    return MPIVStack([m.H for m in mats] if adjoint else mats,
+    return MPIVStack([m.H for m in mats] if adjoint else mats, mask=mask,
                      compute_dtype=compute_dtype)
 
 
 def hstack_from_numpy(blocks: Sequence[np.ndarray], dtype=None,
-                      compute_dtype=None,
-                      device: DeviceLike = None) -> MPIHStack:
+                      compute_dtype=None, device: DeviceLike = None,
+                      mask=None) -> MPIHStack:
     """``MPIHStack([MatrixMult(b) for b in blocks])``, blocks as for
     :func:`blockdiag_from_numpy`."""
-    return MPIHStack(_matrices(blocks, dtype, device),
+    return MPIHStack(_matrices(blocks, dtype, device), mask=mask,
                      compute_dtype=compute_dtype)
 
 
@@ -113,28 +118,34 @@ def stacked_from_numpy(components: Sequence, dtype=None,
         for c in components])
 
 
-def _kernel(G: np.ndarray, dtype, device: DeviceLike) -> torch.Tensor:
-    t = torch.tensor(np.asarray(G))
+def _kernel(G: np.ndarray, dtype) -> np.ndarray:
+    """The whole kernel on the host, cast to ``dtype`` (a copy only when
+    the dtype differs); the operator moves its chunk to the device."""
+    G = np.asarray(G)
     dt = as_torch_dtype(dtype)
-    return t.to(device=resolve_device(device), dtype=dt or t.dtype)
+    if dt is None:
+        return G
+    return G.astype(torch.empty(0, dtype=dt).numpy().dtype, copy=False)
 
 
 def fredholm_from_numpy(G: np.ndarray, nz: int = 1, dtype=None,
                         device: DeviceLike = None,
                         **kwargs) -> MPIFredholm1:
     """``MPIFredholm1`` of the kernel ``G (nsl, nx, ny)`` cast to
-    ``dtype`` (default: its own, which is also the operator dtype) on
-    ``device`` (default ``"cuda"``); ``kwargs`` as for
-    :class:`~.ops.fredholm.MPIFredholm1` (``saveGt``,
+    ``dtype`` (default: its own, which is also the operator dtype), this
+    rank's chunk of the slices on ``device`` (default ``"cuda"``);
+    ``kwargs`` as for :class:`~.ops.fredholm.MPIFredholm1` (``saveGt``,
     ``compute_dtype``)."""
-    K = _kernel(G, dtype, device)
-    kwargs.setdefault("dtype", K.dtype)
-    return MPIFredholm1(K, nz=nz, **kwargs)
+    K = _kernel(G, dtype)
+    kwargs.setdefault("dtype", as_torch_dtype(K.dtype))
+    return MPIFredholm1(K, nz=nz, device=resolve_device(device), **kwargs)
 
 
 def mdc_from_numpy(G: np.ndarray, nt: int, nv: int, dtype=None,
                    device: DeviceLike = None, **kwargs):
     """``MPIMDC`` of the frequency kernel ``G (nfmax, ns, nr)`` cast to
-    ``dtype`` (a complex dtype; default its own) on ``device`` (default
-    ``"cuda"``); ``kwargs`` as for :func:`~.ops.mdc.MPIMDC`."""
-    return MPIMDC(_kernel(G, dtype, device), nt=nt, nv=nv, **kwargs)
+    ``dtype`` (a complex dtype; default its own), this rank's chunk of
+    the frequencies on ``device`` (default ``"cuda"``); ``kwargs`` as for
+    :func:`~.ops.mdc.MPIMDC`."""
+    return MPIMDC(_kernel(G, dtype), nt=nt, nv=nv,
+                  device=resolve_device(device), **kwargs)

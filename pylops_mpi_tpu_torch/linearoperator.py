@@ -19,10 +19,10 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from .distributedarray import DistributedArray, Partition
+from .distributedarray import DistributedArray
 from .stacked import StackedDistributedArray
 from .ops._precision import as_torch_dtype, result_dtype
-from .parallel.mesh import DeviceLike, require_world_of_one, resolve_device
+from .parallel.mesh import DeviceLike, resolve_device
 
 __all__ = ["MPILinearOperator", "LinearOperator", "aslinearoperator",
            "asmpilinearoperator"]
@@ -42,8 +42,8 @@ class MPILinearOperator:
 
     Subclasses implement ``_matvec``/``_rmatvec`` on
     :class:`DistributedArray`. ``Op`` wraps a local operator
-    (:mod:`ops.local`) applied to the whole vector: a BROADCAST one, or
-    any with one rank.
+    (:mod:`ops.local`) applied to the whole vector, gathered first when
+    it is SCATTER.
     """
 
     def __init__(self, Op=None, shape: Optional[Tuple[int, int]] = None,
@@ -119,18 +119,17 @@ class MPILinearOperator:
             local_shapes=tuple(tuple(s) + (K,) for s in like.local_shapes))
 
     def _local_apply(self, x: DistributedArray, forward: bool):
-        """The wrapped local operator on the whole vector: a BROADCAST
-        vector, which every rank holds whole, or any vector with one
-        rank."""
+        """The wrapped local operator on the whole vector, as the JAX
+        package applies it (``linearoperator.py:149-166``): a SCATTER
+        vector is gathered first. The output keeps ``x``'s partition and
+        mask, with the default split of its size; every rank computes the
+        whole output and keeps its shard."""
         if self.Op is None:
             raise NotImplementedError
-        if x.partition == Partition.SCATTER:
-            require_world_of_one("A local operator applied to a sharded "
-                                 "vector outside MPIBlockDiag", "A.3")
-        v = x.array.reshape(-1)
+        v = x._global().reshape(-1)
         return DistributedArray.to_dist(
             self.Op.matvec(v) if forward else self.Op.rmatvec(v),
-            partition=x.partition)
+            partition=x.partition, mask=x.mask)
 
     def _matvec(self, x: DistributedArray) -> DistributedArray:
         return self._local_apply(x, True)

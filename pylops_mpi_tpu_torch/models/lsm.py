@@ -1,11 +1,12 @@
 """Least-squares (Kirchhoff) migration.
 
 PyTorch counterpart of ``pylops_mpi_tpu/models/lsm.py``, the analog of
-the reference's ``tutorials/lsm.py``: each worker builds a Kirchhoff
+the reference's ``tutorials/lsm.py``: each rank builds a Kirchhoff
 demigration for its batch of sources, and the batches are stacked with
 ``MPIVStack`` (model BROADCAST, data SCATTER over sources, adjoint
-summed). Travel times are straight rays in a constant-velocity medium,
-amplitudes the geometrical spreading ``1/sqrt(d_s d_r)``.
+summed over the ranks). Travel times are straight rays in a
+constant-velocity medium, amplitudes the geometrical spreading
+``1/sqrt(d_s d_r)``.
 
 The JAX package sprays with a one-hot contraction per trace, which is
 O(pairs · pixels · nt); here the forward is a scatter-add
@@ -24,10 +25,11 @@ import torch
 
 from ..distributedarray import DistributedArray, Partition
 from ..ops._precision import as_torch_dtype
-from ..ops.local import Conv1D, LocalOperator, _tensor
+from ..ops.blockdiag import _chunk_ops
+from ..ops.local import Conv1D, LocalOperator, ShapeOnly, _tensor
 from ..ops.stack import MPIVStack
-from ..parallel.mesh import (DeviceLike, require_world_of_one,
-                             resolve_device, world_size)
+from ..parallel.mesh import (DeviceLike, check_mesh, rank, resolve_device,
+                             world_size)
 from ..solvers.basic import cgls
 
 __all__ = ["TravelTimeSpray", "KirchhoffDemigration", "MPILSM", "lsm"]
@@ -193,30 +195,41 @@ def KirchhoffDemigration(z, x, t, sources, recs, vel: float, wav,
 
 
 def MPILSM(z, x, t, sources, recs, vel: float, wav, wavcenter: int,
-           dtype=torch.float32, device: DeviceLike = None) -> MPIVStack:
+           mesh=None, dtype=torch.float32, *,
+           device: DeviceLike = None) -> MPIVStack:
     """Distributed LSM operator (JAX package ``models/lsm.py:110-124``):
-    the sources split over the workers (one batch with one worker), one
-    Kirchhoff demigration per batch, stacked with :class:`MPIVStack`."""
-    require_world_of_one("models.MPILSM", "A.3")
+    the sources split over the ranks (``np.array_split``), one Kirchhoff
+    demigration per batch, stacked with :class:`MPIVStack`. Each rank
+    builds the travel-time tables of its own batch only; the other
+    batches enter the stack by their shapes. ``mesh`` keeps the JAX
+    package's argument order and must describe the process group."""
+    check_mesh(mesh)
+    dtype = as_torch_dtype(dtype)
     sources = np.asarray(sources, dtype=float)
-    chunks = np.array_split(np.arange(sources.shape[1]), world_size())
+    nr, nt, npix = np.shape(recs)[1], len(t), len(z) * len(x)
+    chunks = [c for c in np.array_split(np.arange(sources.shape[1]),
+                                        world_size()) if len(c)]
+    # batch i is rank i's (MPIVStack's chunks of one row each)
+    mine = _chunk_ops(list(range(len(chunks))), world_size())[rank()]
     return MPIVStack([KirchhoffDemigration(z, x, t, sources[:, c], recs, vel,
                                            wav, wavcenter, dtype=dtype,
                                            device=device)
-                      for c in chunks if len(c)])
+                      if i in mine else
+                      ShapeOnly(npix, (len(c) * nr, nt), dtype=dtype)
+                      for i, c in enumerate(chunks)])
 
 
 def lsm(z, x, t, sources, recs, vel: float, wav, wavcenter: int,
-        refl: np.ndarray, niter: int = 20, dtype=torch.float32,
-        device: DeviceLike = None
+        refl: np.ndarray, niter: int = 20, mesh=None, dtype=torch.float32,
+        *, device: DeviceLike = None
         ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Model data from ``refl`` and invert it with CGLS (JAX package
     ``models/lsm.py:127-140``). Returns ``(minv, d, cost)`` as numpy
-    arrays, ``minv`` on the ``(nz, nx)`` grid."""
-    require_world_of_one("models.lsm", "A.3")
+    arrays on every rank, ``minv`` on the ``(nz, nx)`` grid and ``d``
+    gathered."""
     dev = resolve_device(device)
     dtype = as_torch_dtype(dtype)
-    Op = MPILSM(z, x, t, sources, recs, vel, wav, wavcenter, dtype=dtype,
+    Op = MPILSM(z, x, t, sources, recs, vel, wav, wavcenter, mesh, dtype,
                 device=dev)
     m = DistributedArray.to_dist(
         torch.from_numpy(np.asarray(refl).ravel()).to(dev, dtype),

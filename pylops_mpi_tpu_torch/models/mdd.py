@@ -14,7 +14,7 @@ import torch
 
 from ..distributedarray import DistributedArray, Partition
 from ..ops.mdc import MPIMDC
-from ..parallel.mesh import DeviceLike, require_world_of_one, resolve_device
+from ..parallel.mesh import DeviceLike, resolve_device
 from ..solvers.basic import cgls
 
 __all__ = ["mdd", "kernel_to_frequency"]
@@ -34,14 +34,21 @@ def kernel_to_frequency(Gt: np.ndarray, nfmax: Optional[int] = None
 
 
 def mdd(G, d, nt: int, nv: int = 1, dt: float = 1.0, dr: float = 1.0,
-        twosided: bool = True, niter: int = 50, tol: float = 1e-12,
-        device: DeviceLike = None) -> Tuple[np.ndarray, object]:
-    """Solve ``d = MDC(G) m`` for ``m`` with CGLS from a zero model.
+        twosided: bool = True, niter: int = 50, mesh=None, *,
+        tol: float = 1e-12, device: DeviceLike = None
+        ) -> Tuple[np.ndarray, object]:
+    """Solve ``d = MDC(G) m`` for ``m`` with CGLS from a zero model, with
+    BROADCAST data and model (JAX package ``models/mdd.py:33-52``).
 
     Parameters
     ----------
-    G : (nfmax, ns, nr) complex frequency kernel, numpy array or tensor
+    G : (nfmax, ns, nr) complex frequency kernel, numpy array or tensor;
+        every rank passes the whole kernel and keeps its chunk of the
+        frequencies
     d : (nt, ns, nv) data, numpy array or tensor
+    mesh : kept for the JAX package's argument order; must describe the
+        process group
+    tol : CGLS tolerance (keyword-only; the JAX package fixes 1e-12)
     device : where the operator and vectors live; default a tensor
         ``G``'s device, else ``"cuda"``
 
@@ -50,12 +57,12 @@ def mdd(G, d, nt: int, nv: int = 1, dt: float = 1.0, dr: float = 1.0,
 
     Returns the model as a numpy ``(nt, nr, nv)`` array and the
     operator."""
-    require_world_of_one("models.mdd", "A.3")
     if device is None and isinstance(G, torch.Tensor):
         dev = G.device
     else:
         dev = resolve_device(device)
-    Op = MPIMDC(G, nt=nt, nv=nv, dt=dt, dr=dr, twosided=twosided, device=dev)
+    Op = MPIMDC(G, nt=nt, nv=nv, dt=dt, dr=dr, twosided=twosided, mesh=mesh,
+                device=dev)
     if not isinstance(d, torch.Tensor):
         d = torch.tensor(np.asarray(d))
     dy = DistributedArray.to_dist(d.reshape(-1).to(device=dev,

@@ -29,7 +29,7 @@ import torch
 from ..distributedarray import DistributedArray, Partition
 from ..linearoperator import MPILinearOperator
 from ..parallel import collectives
-from ..parallel.mesh import rank, world_size
+from ..parallel.mesh import check_mesh, rank, world_size
 from ..parallel.partition import shard_offsets
 from ..stacked import StackedDistributedArray
 from ..stackedlinearoperator import MPIStackedLinearOperator
@@ -53,6 +53,22 @@ def _chunk_ops(ops: Sequence, n_shards: int) -> List[List]:
         chunks.append(list(ops[off:off + c]))
         off += c
     return chunks
+
+
+def _chunk_rows(x: DistributedArray, rows: Sequence[int]) -> torch.Tensor:
+    """``x``'s rows of this rank's chunk when the ranks hold ``rows``
+    rows each along axis 0: its shard when it is split so, else
+    regathered into that split; a BROADCAST vector's own slice."""
+    P, r = world_size(), rank()
+    if x.partition != Partition.SCATTER:
+        if P == 1:
+            return x.array
+        off = shard_offsets(rows)[r]
+        return x.array[off:off + rows[r]]
+    if [s[0] for s in x.local_shapes] != list(rows):
+        x = x._relayout(tuple((n,) + tuple(x.global_shape[1:])
+                              for n in rows))
+    return x.array
 
 
 class MPIBlockDiag(MPILinearOperator):
@@ -91,12 +107,8 @@ class MPIBlockDiag(MPILinearOperator):
                 f"normal_path={normal_path!r}: expected None, 'auto', "
                 "'fused' or 'two_sweep'")
         ops = list(ops)
+        check_mesh(mesh)
         self._P, self._rank = world_size(), rank()
-        if mesh is not None and (mesh.size, mesh.rank) != (self._P,
-                                                          self._rank):
-            raise ValueError(
-                f"mesh of rank {mesh.rank} of {mesh.size} does not match the "
-                f"process group (rank {self._rank} of {self._P})")
         chunks = _chunk_ops(ops, self._P)
         if mask is not None and len(mask) != self._P:
             raise ValueError(f"mask must have {self._P} entries")
@@ -152,20 +164,10 @@ class MPIBlockDiag(MPILinearOperator):
     accepts_block = True
 
     def _local_input(self, x: DistributedArray, forward: bool):
-        """``x``'s rows of this rank's blocks: its shard when it is split
-        as the operator's model (forward) or data (adjoint) space, else
-        regathered into that split; a BROADCAST vector's own slice."""
+        """``x``'s rows of this rank's blocks, in the operator's model
+        (forward) or data (adjoint) split (:func:`_chunk_rows`)."""
         want = self.local_shapes_m if forward else self.local_shapes_n
-        rows = [s[0] for s in want]
-        if x.partition != Partition.SCATTER:
-            if self._P == 1:
-                return x.array
-            off = shard_offsets(rows)[self._rank]
-            return x.array[off:off + rows[self._rank]]
-        if [s[0] for s in x.local_shapes] != rows:
-            x = x._relayout(tuple((r,) + tuple(x.global_shape[1:])
-                                  for r in rows))
-        return x.array
+        return _chunk_rows(x, [s[0] for s in want])
 
     def _output(self, arr: torch.Tensor, x: DistributedArray,
                 forward: bool) -> DistributedArray:

@@ -1,16 +1,16 @@
 """N-D Cartesian halo operator.
 
 PyTorch counterpart of ``pylops_mpi_tpu/ops/halo.py`` (the reference's
-``pylops_mpi/basicoperators/Halo.py:12-423``). The reference arranges
-the ranks in a Cartesian grid, zero-pads each rank's block and fills the
-halo zones from the neighbours' blocks; the adjoint crops the halo. It
-is built to sandwich local operators: ``HOp.H @ MPIBlockDiag(ops) @ HOp``.
-
-The per-rank geometry (block slices, trimmed halos, extents) is kept
-as the JAX package keeps it. With the one worker of this port the grid
-is all ones, so a rank's haloed block is the global array's window
-around its block, zero outside the domain: what the neighbour exchange
-would deliver. A later multi-worker slice adds only the exchange.
+``pylops_mpi/basicoperators/Halo.py:12-423``). The ranks form a
+Cartesian grid (row-major over ``proc_grid_shape``), each holding one
+block of the field (the ceil split of :func:`halo_block_split`) as its
+flat SCATTER shard. The forward extends the block with ghost zones from
+its neighbours, one axis at a time
+(:func:`~..parallel.collectives.cart_halo_extend`: boundary slabs only,
+the corners relayed by the later axes, zeros at the domain's edges), and
+cuts the rank's haloed window out of it; the adjoint crops the halo,
+with no communication. It is built to sandwich local operators:
+``HOp.H @ MPIBlockDiag(ops) @ HOp``.
 """
 
 from __future__ import annotations
@@ -19,12 +19,11 @@ import math
 from typing import List, Optional, Tuple
 
 import numpy as np
-import torch
-import torch.nn.functional as F
 
 from ..distributedarray import DistributedArray
 from ..linearoperator import MPILinearOperator
-from ..parallel.mesh import require_world_of_one, world_size
+from ..parallel import collectives
+from ..parallel.mesh import check_mesh, rank, world_size
 from ..parallel.partition import Partition
 
 __all__ = ["MPIHalo", "halo_block_split"]
@@ -62,24 +61,26 @@ class MPIHalo(MPILinearOperator):
     (ref ``Halo.py:69-423``; JAX package ``ops/halo.py:73-416``).
 
     ``halo`` is a scalar (symmetric everywhere, trimmed to zero at the
-    grid's edges as the reference does for scalars, so with one worker
+    grid's edges as the reference does for scalars, so with one rank
     the identity), a length-``ndim`` tuple (symmetric per axis, kept at
     the edges with zero fill), or a length-``2*ndim`` tuple of
-    (minus, plus) pairs. The forward takes a SCATTER array of the
-    blocks and returns the haloed blocks, SCATTER; the adjoint crops
-    each haloed block back to its block (the sandwich's left inverse,
-    as in the reference, not the strict adjoint).
+    (minus, plus) pairs. The forward takes a SCATTER array whose shards
+    are the ranks' blocks (``local_dim_sizes``) and returns the haloed
+    blocks, SCATTER (``local_extent_sizes``); the adjoint crops each
+    haloed block back to its block (the sandwich's left inverse, as in
+    the reference, not the strict adjoint).
 
-    ``proc_grid_shape`` must multiply to the number of workers (one
-    here). ``overlap`` and ``hierarchical`` select, in the JAX package,
-    how the neighbour exchange overlaps the repack and which mesh axes
-    it runs over; with one worker there is no exchange, so they are
-    accepted and have no effect.
+    ``proc_grid_shape`` must multiply to the number of ranks. ``mesh``
+    keeps the JAX package's argument order and must describe the
+    process group. ``overlap`` and ``hierarchical`` select, in the JAX
+    package, how the exchange overlaps the repack and which mesh axes
+    it runs over; they are accepted and have no effect (ROADMAP.md
+    §A.3b): the plain exchange gives the same numbers.
     """
 
-    def __init__(self, dims, halo, proc_grid_shape=None, dtype=np.float64,
-                 overlap=None, hierarchical=None):
-        require_world_of_one("MPIHalo", "A.3")
+    def __init__(self, dims, halo, proc_grid_shape=None, mesh=None,
+                 dtype=np.float64, overlap=None, hierarchical=None):
+        check_mesh(mesh)
         self.global_dims = tuple(int(d) for d in np.atleast_1d(dims))
         self.ndim = len(self.global_dims)
         P_ = world_size()
@@ -92,6 +93,9 @@ class MPIHalo(MPILinearOperator):
                 f"size {P_}")
         scalar_halo = isinstance(halo, (int, np.integer))
         base = self._parse_halo(halo)
+        # the exchange moves the untrimmed widths everywhere, so that the
+        # slabs relayed along later axes agree between neighbours
+        self._base_halo = base
         # per-rank geometry
         self.block_slices: List[Tuple[slice, ...]] = []
         self.halos: List[Tuple[int, ...]] = []
@@ -169,52 +173,42 @@ class MPIHalo(MPILinearOperator):
     # ------------------------------------------------------------- apply
     @staticmethod
     def _check_layout(x: DistributedArray, sizes, what: str) -> None:
+        """The JAX package's checks and errors (``ops/halo.py:366-373``,
+        ``:392-399``)."""
         if x.partition != Partition.SCATTER:
             raise ValueError(
                 f"x should have partition={Partition.SCATTER} "
                 f"Got {x.partition} instead...")
         if tuple(s[0] for s in x.local_shapes) != tuple(s[0] for s in sizes):
-            raise ValueError(f"MPIHalo {what} local shapes do not match "
-                             "the Cartesian block decomposition")
-
-    def _window(self, g: torch.Tensor, r: int) -> torch.Tensor:
-        """Rank ``r``'s haloed block from the global field ``g``: the
-        window ``[start - minus, stop + plus)`` per axis, zero outside
-        the domain (a view where no zero is needed)."""
-        sl, pads = [], []
-        for ax in range(self.ndim):
-            s, hm, hp = (self.block_slices[r][ax], self.halos[r][2 * ax],
-                         self.halos[r][2 * ax + 1])
-            lo, hi = s.start - hm, s.stop + hp
-            sl.append(slice(max(lo, 0), min(hi, self.global_dims[ax])))
-            pads.append((max(-lo, 0), max(hi - self.global_dims[ax], 0)))
-        w = g[tuple(sl)]
-        if any(p for pair in pads for p in pair):
-            # F.pad lists the last axis first
-            w = F.pad(w, [p for pair in reversed(pads) for p in pair])
-        return w
+            raise ValueError(f"MPIHalo {what}")
 
     def _matvec(self, x: DistributedArray) -> DistributedArray:
-        self._check_layout(x, self.local_dim_sizes, "input")
-        # one worker: its block is the whole field
-        g = x.array.reshape(self.global_dims)
-        parts = [self._window(g, r).reshape(-1)
-                 for r in range(len(self.halos))]
-        arr = parts[0] if len(parts) == 1 else torch.cat(parts)
-        return DistributedArray.to_dist(arr, partition=Partition.SCATTER,
-                                        local_shapes=self.local_extent_sizes)
+        self._check_layout(x, self.local_dim_sizes, "input local shapes do "
+                           "not match the Cartesian block decomposition")
+        r, base = rank(), self._base_halo
+        blk = x.array.reshape(self.local_dims_all[r])
+        for ax in range(self.ndim):
+            blk = collectives.cart_halo_extend(
+                blk, self.proc_grid_shape, ax, base[2 * ax], base[2 * ax + 1])
+        # the rank's window in the block extended by the untrimmed widths
+        win = tuple(slice(base[2 * ax] - h, base[2 * ax] - h + e)
+                    for ax, (h, e) in enumerate(zip(self.halos[r][::2],
+                                                    self.extents[r])))
+        return DistributedArray._wrap(blk[win].reshape(-1), x,
+                                      global_shape=(self.shape[0],),
+                                      local_shapes=self.local_extent_sizes)
 
     def _rmatvec(self, x: DistributedArray) -> DistributedArray:
         """Crop the halo zones (ref ``Halo.py:400-423``): ghost
-        contributions are discarded, not added back."""
-        self._check_layout(x, self.local_extent_sizes, "adjoint input")
-        parts = []
-        for blk, ext, ld, h in zip(
-                torch.split(x.array, [s[0] for s in self.local_extent_sizes]),
-                self.extents, self.local_dims_all, self.halos):
-            sl = tuple(slice(h[2 * ax], h[2 * ax] + ld[ax])
-                       for ax in range(self.ndim))
-            parts.append(blk.reshape(ext)[sl].reshape(-1))
-        arr = parts[0] if len(parts) == 1 else torch.cat(parts)
-        return DistributedArray.to_dist(arr, partition=Partition.SCATTER,
-                                        local_shapes=self.local_dim_sizes)
+        contributions are discarded, not added back. Local to each
+        rank."""
+        self._check_layout(x, self.local_extent_sizes, "adjoint input "
+                           "local shapes do not match the haloed "
+                           "decomposition")
+        r = rank()
+        h, ld = self.halos[r], self.local_dims_all[r]
+        sl = tuple(slice(h[2 * ax], h[2 * ax] + ld[ax])
+                   for ax in range(self.ndim))
+        return DistributedArray._wrap(
+            x.array.reshape(self.extents[r])[sl].reshape(-1), x,
+            global_shape=(self.shape[1],), local_shapes=self.local_dim_sizes)

@@ -26,8 +26,9 @@ import torch.nn.functional as F
 from ._precision import as_torch_dtype, result_dtype
 from ..parallel.mesh import DeviceLike, resolve_device
 
-__all__ = ["LocalOperator", "MatrixMult", "Identity", "Diagonal", "Zero",
-           "Transpose", "FirstDerivative", "SecondDerivative", "Laplacian",
+__all__ = ["LocalOperator", "ShapeOnly", "MatrixMult", "Identity",
+           "Diagonal", "Zero", "Transpose", "FirstDerivative",
+           "SecondDerivative", "Laplacian",
            "Roll", "Pad", "Flip", "FunctionOperator", "VStack", "HStack",
            "BlockDiag", "FFT", "Conv1D", "NonStationaryConvolve1D"]
 
@@ -187,6 +188,22 @@ class _Sum(LocalOperator):
 
     def _rmatvec(self, x):
         return self.A._rmatvec(x) + self.B._rmatvec(x)
+
+
+class ShapeOnly(LocalOperator):
+    """Another rank's operator, held by its shapes and dtype only. Every
+    rank passes the whole list of blocks or rows to a distributed
+    operator, which keeps its own chunk; the others need only their
+    sizes, and a rank can stand in this for an operator it would be
+    costly to build (``MPILSM``'s batches, ``MPINonStationaryConvolve1D``'s
+    shards, the blocks ``convert`` leaves on the host). Applying it
+    raises."""
+
+    def _matvec(self, x):
+        raise RuntimeError("a ShapeOnly operator stands for another rank's "
+                           "operator and cannot be applied")
+
+    _rmatvec = _matvec
 
 
 class MatrixMult(LocalOperator):

@@ -8,6 +8,11 @@ time of the model and data (``ops/local.FFT``, cuFFT on the card),
 and :class:`~.fredholm.MPIFredholm1` is the frequency-batched complex
 product. The kernel is prescaled by ``dr·dt·√nt`` (ref ``MDC.py:37-43``).
 
+Every rank applies the FFTs to the whole BROADCAST model and data, which
+repeats that work on each rank, as the JAX package and the reference
+do; only the Fredholm core is split over the ranks (each its chunk of
+the frequencies) and communicates.
+
 Only the JAX package's ``engine="complex"`` chain is ported; its
 ``"planar"`` engine (real plane pairs for TPUs with no complex support)
 raises.
@@ -19,10 +24,10 @@ import logging
 from typing import Optional
 
 import numpy as np
-import torch
 
 from ..linearoperator import MPILinearOperator, aslinearoperator
-from ..parallel.mesh import DeviceLike, require_world_of_one, resolve_device
+from ..parallel.mesh import DeviceLike
+from ._precision import as_torch_dtype
 from .fredholm import MPIFredholm1
 from .local import FFT as _LocalFFT, Identity as _LocalIdentity
 
@@ -31,18 +36,21 @@ __all__ = ["MPIMDC"]
 
 def MPIMDC(G, nt: int, nv: int, nfreq: Optional[int] = None, dt: float = 1.0,
            dr: float = 1.0, twosided: bool = True, saveGt: bool = True,
-           conj: bool = False, prescaled: bool = False, compute_dtype=None,
-           engine: Optional[str] = None,
+           conj: bool = False, prescaled: bool = False, mesh=None,
+           compute_dtype=None, engine: Optional[str] = None, *,
            device: DeviceLike = None) -> MPILinearOperator:
-    """MDC operator (ref ``MDC.py:82-180``). ``G`` is the frequency-domain
-    kernel ``(nfmax, ns, nr)``, a tensor (kept on its device unless
-    ``device`` is given) or a numpy array (placed on ``device``, default
-    ``"cuda"``). The model is ``(nt, nr, nv)`` and the data
+    """MDC operator (ref ``MDC.py:82-180``). ``G`` is the whole
+    frequency-domain kernel ``(nfmax, ns, nr)`` on every rank, a tensor
+    or a numpy array: the rank keeps its chunk of the frequencies
+    (:class:`~.fredholm.MPIFredholm1`), which stays on a tensor's device
+    unless ``device`` is given, and goes to ``device`` (default
+    ``"cuda"``) from an array. The model is ``(nt, nr, nv)`` and the data
     ``(nt, ns, nv)``, both real, time first. ``compute_dtype`` narrows
     the stored kernel (``MPIFredholm1(compute_dtype=...)``); with
     ``saveGt`` the operator keeps ``Gᴴ`` beside ``G``, twice the
-    kernel's memory. ``engine``: ``"complex"`` or ``None`` (the same)."""
-    require_world_of_one("MPIMDC", "A.3")
+    kernel's memory. ``mesh`` keeps the JAX package's argument order and
+    must describe the process group. ``engine``: ``"complex"`` or
+    ``None`` (the same)."""
     if engine is None:
         engine = "complex"
     if engine == "planar":
@@ -51,14 +59,9 @@ def MPIMDC(G, nt: int, nv: int, nfreq: Optional[int] = None, dt: float = 1.0,
     if engine != "complex":
         raise ValueError(f"engine must be 'complex', 'planar' or None, "
                          f"got {engine!r}")
-    if isinstance(G, torch.Tensor):
-        if device is not None:
-            G = G.to(resolve_device(device))
-    else:
-        G = torch.tensor(np.asarray(G)).to(resolve_device(device))
     if twosided and nt % 2 == 0:
         raise ValueError("nt must be odd number")
-    dtype = G.dtype
+    dtype = as_torch_dtype(G.dtype)
     rdtype = dtype.to_real() if dtype.is_complex else dtype
     nfmax, ns, nr = G.shape
     nfft = int(np.ceil((nt + 1) / 2))
@@ -71,8 +74,8 @@ def MPIMDC(G, nt: int, nv: int, nfreq: Optional[int] = None, dt: float = 1.0,
         nfmax = nfmax_req
 
     scale = 1.0 if prescaled else dr * dt * np.sqrt(nt)
-    Frop = MPIFredholm1(G * scale, nv, saveGt=saveGt, dtype=dtype,
-                        compute_dtype=compute_dtype)
+    Frop = MPIFredholm1(G, nv, saveGt, True, mesh, dtype, compute_dtype,
+                        scale=scale, device=device)
     if conj:
         Frop = Frop.conj()
     Fop = aslinearoperator(_LocalFFT((nt, nr, nv), axis=0, real=True,

@@ -4,9 +4,10 @@ PyTorch counterpart of ``pylops_mpi_tpu/ops/nonstatconv.py`` (the
 reference's ``pylops_mpi/signalprocessing/NonStatConvolve1d.py:16-189``):
 a factory that computes the halo width from the filter spacing, gives
 each shard the filters its haloed block needs, and returns the sandwich
-``HOp.H @ MPIBlockDiag([local NonStationaryConvolve1D]) @ HOp``. With
-the one worker of this port the halo is 0 and the one block holds every
-filter.
+``HOp.H @ MPIBlockDiag([local NonStationaryConvolve1D]) @ HOp``. Each
+rank builds the local operator of its own shard only; the others enter
+``MPIBlockDiag`` by their shapes. With one rank the halo is 0 and the
+one block holds every filter.
 """
 
 from __future__ import annotations
@@ -14,24 +15,27 @@ from __future__ import annotations
 import numpy as np
 
 from ..linearoperator import MPILinearOperator
-from ..parallel.mesh import DeviceLike, require_world_of_one, world_size
+from ..parallel.mesh import DeviceLike, check_mesh, rank, world_size
 from .blockdiag import MPIBlockDiag
 from .halo import MPIHalo
-from .local import NonStationaryConvolve1D, _tensor
+from .local import NonStationaryConvolve1D, ShapeOnly, _tensor
 
 __all__ = ["MPINonStationaryConvolve1D"]
 
 
-def MPINonStationaryConvolve1D(dims, hs, ih, axis: int = -1,
-                               dtype="float64",
-                               device: DeviceLike = None) -> MPILinearOperator:
+def MPINonStationaryConvolve1D(dims, hs, ih, axis: int = -1, mesh=None,
+                               dtype="float64", *,
+                               device: DeviceLike = None
+                               ) -> MPILinearOperator:
     """Distributed non-stationary convolution (JAX package
     ``ops/nonstatconv.py:26-111``). ``hs``: ``(nfilt, nh)`` odd-length
     filters, a tensor (kept on its device) or an array (placed on
     ``device``, default ``"cuda"``); ``ih``: their regularly spaced
-    positions along ``axis``, which must be 0 for N-D ``dims``."""
-    require_world_of_one("MPINonStationaryConvolve1D", "A.3")
-    size = world_size()
+    positions along ``axis``, which must be 0 for N-D ``dims``. ``mesh``
+    keeps the JAX package's argument order and must describe the
+    process group."""
+    check_mesh(mesh)
+    size, me = world_size(), rank()
     dims = tuple(int(d) for d in np.atleast_1d(dims))
     hs = _tensor(hs, device)
     ih = np.asarray(ih)
@@ -88,16 +92,20 @@ def MPINonStationaryConvolve1D(dims, hs, ih, axis: int = -1,
     # within one spacing of the extended block (the JAX package's window,
     # not the reference's one-filter overlap, which lets the ghost rows'
     # interpolation clamp when the halo spans more than one spacing).
+    # Only this rank's is built.
     cops = []
     for r in range(size):
         start = r * dims_local
         end = start + dims_local - 1
         front = halo if r > 0 else 0
         back = halo if r < size - 1 else 0
-        sel = np.where((ih >= start - front - ihdiff)
-                       & (ih <= end + back + ihdiff))[0]
         dims_ns = list(dims)
         dims_ns[axis] = dims_local + front + back
+        if r != me:
+            cops.append(ShapeOnly(dims_ns, dims_ns, dtype=dtype))
+            continue
+        sel = np.where((ih >= start - front - ihdiff)
+                       & (ih <= end + back + ihdiff))[0]
         cops.append(NonStationaryConvolve1D(
             dims_ns, hs[sel[0]:sel[-1] + 1],
             ih[sel[0]:sel[-1] + 1] - (start - front), axis=axis,

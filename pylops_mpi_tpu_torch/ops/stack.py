@@ -9,11 +9,13 @@ PyTorch counterpart of ``pylops_mpi_tpu/ops/stack.py`` (the reference's
 - :class:`MPIStackedVStack` — one shared model, stacked data.
 - :class:`MPIHStack` — the adjoint of a :class:`MPIVStack` of adjoints.
 
-:class:`MPIVStack` and :class:`MPIHStack` run with one rank, where the
-reference's adjoint allreduce is the local sum of the partials; under a
-group of more ranks they raise (ROADMAP.md §A.3).
-:class:`MPIStackedVStack` runs across ranks: its components share the
-model's split, so it needs no collective of its own.
+Every rank is given the whole list of rows and keeps its chunk, by the
+rule ``MPIBlockDiag`` follows (``_chunk_ops``). The forward applies the
+rank's rows to the whole model and communicates nothing (a SCATTER
+model is gathered first, as the JAX package's arrays are global); the
+adjoint sums the rank's partials ``Lᵢᴴ yᵢ`` and reduces them over the
+group with one ``all_reduce``. :class:`MPIStackedVStack`'s components
+share the model's split, so it needs no collective of its own.
 """
 
 from __future__ import annotations
@@ -25,12 +27,14 @@ import torch
 
 from ..distributedarray import DistributedArray
 from ..linearoperator import MPILinearOperator
-from ..parallel.mesh import require_world_of_one
+from ..parallel import collectives
+from ..parallel.mesh import check_mesh, rank, world_size
 from ..parallel.partition import Partition
 from ..stacked import StackedDistributedArray
 from ..stackedlinearoperator import MPIStackedLinearOperator
 from ._precision import (as_torch_dtype, check_compute_dtype,
                          default_compute_dtype, matmul_narrow, result_dtype)
+from .blockdiag import _chunk_ops, _chunk_rows
 from .local import LocalOperator, MatrixMult, _Adjoint
 
 __all__ = ["MPIVStack", "MPIStackedVStack", "MPIHStack"]
@@ -38,45 +42,57 @@ __all__ = ["MPIVStack", "MPIStackedVStack", "MPIHStack"]
 
 class MPIVStack(MPILinearOperator):
     """Vertical stack of local operators (ref
-    ``basicoperators/VStack.py:21-203``): forward ``[L0 x; L1 x; ...]``
-    with a replicated model, output SCATTER over the row blocks; adjoint
-    ``Σᵢ Lᵢᴴ yᵢ``, output BROADCAST.
+    ``basicoperators/VStack.py:21-203``; JAX package ``ops/stack.py``):
+    forward ``[L0 x; L1 x; ...]`` with a replicated model, output
+    SCATTER over the row blocks; adjoint ``Σᵢ Lᵢᴴ yᵢ``, output
+    BROADCAST.
 
-    Rows that are all plain ``MatrixMult`` blocks of one shape, or all
-    ``MatrixMult(...).H`` (the :class:`MPIHStack` construction), collapse
-    into one ``(nblk, m, n)`` stack stored at ``compute_dtype`` (``None``
-    lets the precision policy decide), applied as one product: plain
-    rows take one GEMM (a GEMV for a vector) with the flattened
-    ``(nblk·m, n)`` stack, forward and adjoint; adjoint rows take one
-    batched GEMM, and their adjoint a sum over the blocks after it.
-    Block (``(N, K)``) vectors widen the same products; other rows
-    apply one by one, and block vectors then column by column.
+    Every rank passes all the rows and keeps its chunk; the rows of the
+    other ranks are read for their shapes only, so a rank may pass
+    :class:`~.local.ShapeOnly` stand-ins for them. ``local_shapes_n``
+    gives each rank's row count. The rank's rows that are all plain
+    ``MatrixMult`` blocks of one shape, or all ``MatrixMult(...).H``
+    (the :class:`MPIHStack` construction), collapse into one
+    ``(nblk, m, n)`` stack stored at ``compute_dtype`` (``None`` lets the
+    precision policy decide), applied as one product: plain rows take
+    one GEMM (a GEMV for a vector) with the flattened ``(nblk·m, n)``
+    stack, forward and adjoint; adjoint rows take one batched GEMM, and
+    their adjoint a sum over the blocks after it. Block (``(N, K)``)
+    vectors widen the same products; other rows apply one by one, and
+    block vectors then column by column.
 
+    ``mask`` is stamped on both outputs, so that their ``dot``/``norm``
+    reduce within the rank's color group; the adjoint still sums every
+    rank's partial, as the JAX package's does. ``mesh`` keeps the JAX
+    package's argument order and must describe the process group.
     ``overlap`` and ``hierarchical`` select, in the JAX package, the
-    ring and two-level forms of the adjoint's reduction over several
-    devices; with one worker there is nothing to reduce across, so they
-    are accepted and have no effect (as in the JAX package on one
-    device). ``mask`` must be ``None``: sub-communicator stacks are not
-    ported.
+    ring and two-level forms of the adjoint's reduction; they are
+    accepted and have no effect (ROADMAP.md §A.3b): the plain reduction
+    gives the same numbers.
     """
 
     def __init__(self, ops: Sequence[LocalOperator],
-                 mask: Optional[Sequence[int]] = None, dtype=None,
+                 mask: Optional[Sequence[int]] = None, mesh=None, dtype=None,
                  compute_dtype=None, overlap=None, hierarchical=None):
-        require_world_of_one("MPIVStack (and MPIHStack)", "A.3")
-        if mask is not None:
-            raise NotImplementedError(
-                "mask= (sub-communicator stacks) is not ported: the port "
-                "has one worker; pass mask=None")
-        self.ops = list(ops)
-        cols = {op.shape[1] for op in self.ops}
+        check_mesh(mesh)
+        ops = list(ops)
+        cols = {op.shape[1] for op in ops}
         if len(cols) != 1:
             raise ValueError("column size mismatch in MPIVStack")
-        self.nops = np.asarray([op.shape[0] for op in self.ops])
-        self.local_shapes_n = ((int(self.nops.sum()),),)
+        self._P, self._rank = world_size(), rank()
+        if mask is not None and len(mask) != self._P:
+            raise ValueError(f"mask must have {self._P} entries")
+        self.mask = None if mask is None else tuple(mask)
+        self.nops = np.asarray([op.shape[0] for op in ops])
+        chunks = _chunk_ops(ops, self._P)
+        self.local_shapes_n = tuple(
+            (int(sum(op.shape[0] for op in c)),) for c in chunks)
         shape = (int(self.nops.sum()), int(cols.pop()))
         super().__init__(shape=shape, dtype=dtype or result_dtype(
-            *[op.dtype for op in self.ops]))
+            *[op.dtype for op in ops]))
+        # this rank's rows only: the others can be freed by the caller
+        self.ops = chunks[self._rank]
+        del chunks
         self.compute_dtype = as_torch_dtype(compute_dtype)
         if self.compute_dtype is None:
             self.compute_dtype = default_compute_dtype(self.dtype)
@@ -85,7 +101,7 @@ class MPIVStack(MPILinearOperator):
     def _try_batch(self):
         """Homogeneous matrix rows → one ``(nblk, m, n)`` stack and the
         flag saying the rows are its blocks' adjoints; ``(None, False)``
-        for any other list of rows."""
+        for any other list of rows (an empty one included)."""
         mats, adjs = [], []
         for op in self.ops:
             if isinstance(op, MatrixMult) and not op.otherdims:
@@ -107,11 +123,11 @@ class MPIVStack(MPILinearOperator):
 
     @property
     def device(self):
-        """Device of the block stack (or of the first row's matrix);
-        ``None`` for rows without one."""
+        """Device of the block stack (or of the rank's first row's
+        matrix); ``None`` for rows without one, or no rows."""
         if self._batched is not None:
             return self._batched.device
-        A = getattr(self.ops[0], "A", None)
+        A = getattr(self.ops[0], "A", None) if self.ops else None
         return A.device if isinstance(A, torch.Tensor) else None
 
     accepts_block = True
@@ -133,31 +149,53 @@ class MPIVStack(MPILinearOperator):
         Y = matmul_narrow(A, x.reshape(nblk, n, -1), cd, dt).sum(0)
         return Y.reshape((m,) + tail)
 
+    def _rows_apply(self, x: torch.Tensor, forward: bool) -> torch.Tensor:
+        """The rank's rows one by one on ``x``: forward their
+        concatenation, adjoint the sum of their partials; a block
+        ``(len, K)`` column by column."""
+        if x.ndim == 2:
+            return torch.stack([self._rows_apply(x[:, j].contiguous(),
+                                                 forward)
+                                for j in range(x.shape[1])], dim=1)
+        if not self.ops:
+            n = 0 if forward else self.shape[1]
+            return x.new_zeros(n, dtype=torch.promote_types(self.dtype,
+                                                            x.dtype))
+        if forward:
+            parts = [op.matvec(x) for op in self.ops]
+            return parts[0] if len(parts) == 1 else torch.cat(parts)
+        parts = torch.split(x, [op.shape[0] for op in self.ops])
+        acc = self.ops[0].rmatvec(parts[0])
+        for op, p in zip(self.ops[1:], parts[1:]):
+            acc = acc + op.rmatvec(p)
+        return acc
+
+    def _apply(self, x: torch.Tensor, forward: bool) -> torch.Tensor:
+        arr = (self._batched_apply(x, forward) if self._batched is not None
+               else self._rows_apply(x, forward))
+        if self._P > 1:
+            # every rank's piece at one dtype, whatever its rows
+            arr = arr.to(torch.promote_types(self.dtype, x.dtype))
+        return arr
+
     def _matvec(self, x: DistributedArray) -> DistributedArray:
-        ncol = x.global_shape[1] if x.ndim == 2 else None
-        if self._batched is not None:
-            arr = self._batched_apply(x.array, forward=True)
-        elif ncol is not None:
-            return self._apply_columns(x, forward=True)
-        else:
-            parts = [op.matvec(x.array) for op in self.ops]
-            arr = parts[0] if len(parts) == 1 else torch.cat(parts)
-        lsh = (self.local_shapes_n if ncol is None
-               else tuple(tuple(s) + (ncol,) for s in self.local_shapes_n))
-        return DistributedArray.to_dist(arr, partition=Partition.SCATTER,
-                                        local_shapes=lsh)
+        tail = tuple(x.global_shape[1:])
+        arr = self._apply(x._global(), forward=True)
+        return DistributedArray._wrap(
+            arr, x, global_shape=(self.shape[0],) + tail,
+            partition=Partition.SCATTER, axis=0, mask=self.mask,
+            local_shapes=tuple(tuple(s) + tail for s in self.local_shapes_n))
 
     def _rmatvec(self, x: DistributedArray) -> DistributedArray:
-        if self._batched is not None:
-            arr = self._batched_apply(x.array, forward=False)
-        elif x.ndim == 2:
-            return self._apply_columns(x, forward=False)
-        else:
-            parts = torch.split(x.array, self.nops.tolist())
-            arr = self.ops[0].rmatvec(parts[0])
-            for op, p in zip(self.ops[1:], parts[1:]):
-                arr = arr + op.rmatvec(p)
-        return DistributedArray.to_dist(arr, partition=Partition.BROADCAST)
+        tail = tuple(x.global_shape[1:])
+        arr = self._apply(_chunk_rows(x, [s[0] for s in self.local_shapes_n]),
+                          forward=False)
+        if self._P > 1:
+            arr = collectives.all_reduce(arr.contiguous(), "sum")
+        n = (self.shape[1],) + tail
+        return DistributedArray._wrap(
+            arr, x, global_shape=n, partition=Partition.BROADCAST, axis=0,
+            local_shapes=(n,) * self._P, mask=self.mask)
 
 
 class MPIStackedVStack(MPIStackedLinearOperator):
@@ -191,18 +229,20 @@ class MPIStackedVStack(MPIStackedLinearOperator):
 class MPIHStack(MPILinearOperator):
     """Horizontal stack ``[L0, L1, ...]``, the adjoint of a
     :class:`MPIVStack` of the adjoints (ref ``HStack.py:98-100``; JAX
-    package ``ops/stack.py:356-377``): forward input SCATTER, output
-    BROADCAST. The keywords are :class:`MPIVStack`'s."""
+    package ``ops/stack.py:356-377``): forward input SCATTER (split as
+    ``local_shapes_m``; any other split is regathered into it), output
+    BROADCAST. The arguments are :class:`MPIVStack`'s."""
 
     accepts_block = True
 
     def __init__(self, ops: Sequence[LocalOperator],
-                 mask: Optional[Sequence[int]] = None, dtype=None,
+                 mask: Optional[Sequence[int]] = None, mesh=None, dtype=None,
                  compute_dtype=None, overlap=None, hierarchical=None):
-        self.vstack = MPIVStack([op.H for op in ops], mask=mask, dtype=dtype,
-                                compute_dtype=compute_dtype, overlap=overlap,
-                                hierarchical=hierarchical)
+        self.vstack = MPIVStack([op.H for op in ops], mask, mesh, dtype,
+                                compute_dtype, overlap, hierarchical)
         self.ops = self.vstack.ops
+        self.mask = self.vstack.mask
+        self.local_shapes_m = self.vstack.local_shapes_n
         super().__init__(shape=(self.vstack.shape[1], self.vstack.shape[0]),
                          dtype=self.vstack.dtype)
 

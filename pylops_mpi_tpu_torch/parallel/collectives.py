@@ -3,15 +3,18 @@
 PyTorch counterpart of the parts of ``pylops_mpi_tpu/parallel/collectives.py``
 the sharded arrays and operators use: reductions of solver scalars
 (:func:`all_reduce`), gathers of ragged shards (:func:`all_gather`),
-the all-to-all of a change of sharded axis (:func:`all_to_all`), and the
+the all-to-all of a change of sharded axis (:func:`all_to_all`), the
 neighbour exchange of stencil ghost rows (:func:`halo_exchange`, the
-counterpart of ``halo_slab``).
+counterpart of ``halo_slab``) and its Cartesian form, one grid axis at a
+time (:func:`cart_halo_extend`, the counterpart of ``cart_halo_extend``'s
+plain path).
 
 Every function is called at every world size, one included: under a
 group of one rank on the card the reductions still go through NCCL.
 Without a process group they return at once and communicate nothing.
 Each call under a group adds one to ``counts[name]`` (the counterpart of
-the JAX package's ``_count_collective``), which tests and
+the JAX package's ``_count_collective``) and the bytes this rank
+receives to ``received[name]`` (padding included), which tests and
 ``chip_smoke.py`` read.
 
 gloo moves CPU tensors only for point-to-point sends and gathers. Under
@@ -24,17 +27,21 @@ from __future__ import annotations
 from collections import Counter
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from .mesh import initialized, rank, world_size
 from .partition import padded_shard_size
 
-__all__ = ["counts", "reset_counts", "mask_group", "forget_groups",
-           "all_reduce", "all_gather", "all_to_all", "halo_exchange"]
+__all__ = ["counts", "received", "reset_counts", "mask_group",
+           "forget_groups", "all_reduce", "all_gather", "all_to_all",
+           "halo_exchange", "cart_halo_extend"]
 
-# collective calls under a group since the last reset_counts()
+# collective calls under a group, and the bytes this rank received in
+# them, since the last reset_counts()
 counts: Counter = Counter()
+received: Counter = Counter()
 
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
         "min": dist.ReduceOp.MIN}
@@ -45,6 +52,11 @@ _GROUPS: Dict[tuple, object] = {}
 
 def reset_counts() -> None:
     counts.clear()
+    received.clear()
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 def forget_groups() -> None:
@@ -80,15 +92,15 @@ def _gloo(group) -> bool:
 
 def all_reduce(t: torch.Tensor, op: str = "sum",
                group: Optional[object] = None) -> torch.Tensor:
-    """``op`` (``"sum"``, ``"max"``, ``"min"``) of a 0-d or 1-d tensor
+    """``op`` (``"sum"``, ``"max"``, ``"min"``) of a contiguous tensor
     over the group (the whole world for ``None``), in place; returns
     ``t``."""
     if not initialized():
         return t
     counts["all_reduce"] += 1
-    if t.ndim > 1:
-        raise ValueError(f"all_reduce takes 0-d or 1-d tensors, got "
-                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError("all_reduce takes contiguous tensors")
+    received["all_reduce"] += _nbytes(t)
     if t.is_cuda and _gloo(group):
         host = t.cpu()
         dist.all_reduce(host, op=_OPS[op], group=group)
@@ -116,6 +128,7 @@ def all_gather(t: torch.Tensor, sizes: Sequence[int], axis: int = 0,
     if stage:
         v = v.cpu()
     parts = [torch.empty_like(v) for _ in sizes]
+    received["all_gather"] += _nbytes(v) * (len(sizes) - 1)
     dist.all_gather(parts, v, group=group)
     parts = [p.narrow(axis, 0, n) for p, n in zip(parts, sizes)]
     out = torch.cat(parts, dim=axis)
@@ -154,6 +167,7 @@ def all_to_all(sends: Sequence[torch.Tensor],
     tx = [(s.contiguous().cpu() if stage else s.contiguous(), q)
           for q, s in enumerate(sends) if q != me]
     rx = [(out[q], q) for q in range(len(recv_shapes)) if q != me]
+    received["all_to_all"] += sum(_nbytes(t) for t, _ in rx)
     _p2p(tx, rx, group)
     out = [o.to(like.device) for o in out] if stage else out
     out[me] = like
@@ -161,6 +175,51 @@ def all_to_all(sends: Sequence[torch.Tensor],
 
 
 Piece = Union[int, torch.Tensor]
+
+
+def _exchange(name: str, block: torch.Tensor, axis: int, front: int,
+              back: int, prev: Optional[int],
+              nxt: Optional[int]) -> Tuple[Piece, Piece]:
+    """The neighbour exchange along ``axis`` of ``block``: receive the
+    ``prev`` rank's last ``front`` slices and the ``nxt`` rank's first
+    ``back`` ones, and send this rank's to them, as one
+    ``batch_isend_irecv``. ``prev``/``nxt`` are ``None`` past the ends;
+    there the piece is a count of (zero) slices instead of a tensor.
+    Slabs along an axis other than 0 go as contiguous copies."""
+    counts[name] += 1
+    shape = list(block.shape)
+    stage = block.is_cuda and _gloo(None)
+    dev = torch.device("cpu") if stage else block.device
+
+    def out(n):
+        shape[axis] = n
+        return torch.empty(shape, dtype=block.dtype, device=dev)
+
+    def send(t):
+        t = t.contiguous()
+        return t.cpu() if stage else t
+
+    rows = int(block.shape[axis])
+    top = out(front) if prev is not None and front else front
+    bottom = out(back) if nxt is not None and back else back
+    sends, recvs = [], []
+    if prev is not None:
+        if back:
+            sends.append((send(block.narrow(axis, 0, back)), prev))
+        if front:
+            recvs.append((top, prev))
+    if nxt is not None:
+        if front:
+            sends.append((send(block.narrow(axis, rows - front, front)), nxt))
+        if back:
+            recvs.append((bottom, nxt))
+    received[name] += sum(_nbytes(t) for t, _ in recvs)
+    _p2p(sends, recvs, None)
+    if stage:
+        top = top.to(block.device) if isinstance(top, torch.Tensor) else top
+        bottom = (bottom.to(block.device) if isinstance(bottom, torch.Tensor)
+                  else bottom)
+    return top, bottom
 
 
 def halo_exchange(block: torch.Tensor, front: int,
@@ -180,39 +239,46 @@ def halo_exchange(block: torch.Tensor, front: int,
     first ``back`` rows back, so it must hold that many."""
     if not initialized():
         return front, back
-    counts["halo_exchange"] += 1
     P, r = world_size(), rank()
     rows = int(block.shape[0])
     if rows < max(front if r < P - 1 else 0, back if r > 0 else 0):
         raise ValueError(f"rank {r} holds {rows} rows, fewer than the "
                          f"ghost widths ({front}, {back}) it sends")
-    tail = tuple(block.shape[1:])
-    stage = block.is_cuda and _gloo(None)
-    dev = torch.device("cpu") if stage else block.device
+    return _exchange("halo_exchange", block, 0, front, back,
+                     r - 1 if r > 0 else None, r + 1 if r < P - 1 else None)
 
-    def out(n):
-        return torch.empty((n,) + tail, dtype=block.dtype, device=dev)
 
-    def send(t):
-        t = t.contiguous()
-        return t.cpu() if stage else t
-
-    top = out(front) if r > 0 and front else front
-    bottom = out(back) if r < P - 1 and back else back
-    sends, recvs = [], []
-    if r > 0:
-        if back:
-            sends.append((send(block[:back]), r - 1))
-        if front:
-            recvs.append((top, r - 1))
-    if r < P - 1:
-        if front:
-            sends.append((send(block[rows - front:]), r + 1))
-        if back:
-            recvs.append((bottom, r + 1))
-    _p2p(sends, recvs, None)
-    if stage:
-        top = top.to(block.device) if isinstance(top, torch.Tensor) else top
-        bottom = (bottom.to(block.device) if isinstance(bottom, torch.Tensor)
-                  else bottom)
-    return top, bottom
+def cart_halo_extend(block: torch.Tensor, grid: Sequence[int], ax: int,
+                     hm: int, hp: int) -> torch.Tensor:
+    """``block`` extended along axis ``ax`` with ``hm`` ghost slices from
+    its minus neighbour on the Cartesian ``grid`` and ``hp`` from its plus
+    neighbour, zeros past the grid's ends (the plain path of the JAX
+    package's ``cart_halo_extend``). The ranks map onto ``grid`` row-major,
+    so the neighbours along ``ax`` are ``rank ∓ prod(grid[ax + 1:])``.
+    Called once per axis in turn, each call sends slabs of the block the
+    earlier calls extended, which relays the corner values. Along an axis
+    of one rank, or without a group, the ghosts are zeros and nothing
+    moves; a call that moves nothing is not counted."""
+    if not hm and not hp:
+        return block
+    grid = tuple(int(g) for g in grid)
+    pieces: Tuple[Piece, Piece] = (hm, hp)
+    if initialized() and grid[ax] > 1:
+        if int(np.prod(grid)) != world_size():
+            raise ValueError(f"grid {grid} does not match the world of "
+                             f"{world_size()} ranks")
+        r = rank()
+        coord = int(np.unravel_index(r, grid)[ax])
+        stride = int(np.prod(grid[ax + 1:]))
+        pieces = _exchange("cart_halo_extend", block, ax, hm, hp,
+                           r - stride if coord > 0 else None,
+                           r + stride if coord < grid[ax] - 1 else None)
+    parts = []
+    for p in (pieces[0], block, pieces[1]):
+        if isinstance(p, torch.Tensor):
+            parts.append(p)
+        elif p:
+            shape = list(block.shape)
+            shape[ax] = p
+            parts.append(block.new_zeros(shape))
+    return torch.cat(parts, dim=ax) if len(parts) > 1 else block

@@ -28,7 +28,7 @@ import torch.distributed as dist
 
 __all__ = ["Mesh", "make_mesh", "default_mesh", "init", "destroy",
            "default_device", "set_default_device", "resolve_device",
-           "world_size", "rank", "require_world_of_one"]
+           "world_size", "rank", "check_mesh"]
 
 DeviceLike = Union[str, torch.device, None]
 
@@ -181,13 +181,11 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
-def require_world_of_one(what: str, item: str) -> None:
-    """Raise ``NotImplementedError`` naming ``item`` of ROADMAP.md when
-    ``what`` runs under a group of more than one rank: ``what`` would
-    otherwise take a shard for the whole field."""
-    n = world_size()
-    if n > 1:
-        raise NotImplementedError(
-            f"{what} does not run across ranks yet (world size {n}): it is "
-            f"ROADMAP.md §{item}; run it without a process group or with "
-            "one rank")
+def check_mesh(mesh: Optional[Mesh]) -> None:
+    """Refuse a ``mesh`` (the JAX package's argument, kept in its slot
+    of every constructor) that does not describe the default process
+    group: operators split over the group itself."""
+    if mesh is not None and (mesh.size, mesh.rank) != (world_size(), rank()):
+        raise ValueError(
+            f"mesh of rank {mesh.rank} of {mesh.size} does not match the "
+            f"process group (rank {rank()} of {world_size()})")

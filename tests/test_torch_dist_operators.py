@@ -1,8 +1,9 @@
 """The port's operators across ranks, held against the JAX package on a
 mesh of the same size: ``MPIBlockDiag`` (with and without ``mask``), the
 derivative family, ``MPIGradient``, ``MPILaplacian`` and
-``MPIStackedVStack``, with dot tests; and the operators that do not run
-across ranks yet, which must raise. Gloo worlds of 1 to 4 ranks are
+``MPIStackedVStack``, with dot tests (the other operators across ranks:
+``test_torch_dist_stack.py``, ``test_torch_dist_halo.py``,
+``test_torch_dist_fredholm.py``). Gloo worlds of 1 to 4 ranks are
 spawned as in ``test_torch_process_group.py``; the rank-side functions
 import no JAX.
 
@@ -371,59 +372,6 @@ def test_gradient_laplacian_stack(n, tmp_path, rng, monkeypatch):
         close(gxs, xs.local_arrays()[r])
         assert lsm == tuple(lay) and dot
         close(o["bcast"], y.asarray())
-
-
-# ------------------------------------- what does not run across ranks yet
-
-def _raises_rank(blocks):
-    import pylops_mpi_tpu_torch as pmtt
-    from pylops_mpi_tpu_torch import DistributedArray as D
-    from pylops_mpi_tpu_torch.ops.local import FirstDerivative, MatrixMult
-    mats = [MatrixMult(torch.from_numpy(b)) for b in blocks]
-    G = torch.from_numpy(np.ones((3, 4, 4)))
-    wav = np.ones(5)
-    lsm_args = (np.arange(8.0), np.arange(6.0), np.arange(16.0),
-                np.zeros((2, 2)), np.zeros((2, 2)), 1000.0, wav, 2)
-    cases = {
-        "MPIVStack": lambda: pmtt.MPIVStack(mats),
-        "MPIHStack": lambda: pmtt.MPIHStack(mats),
-        "MPIHalo": lambda: pmtt.MPIHalo((8, 8), 1),
-        "MPINonStationaryConvolve1D": lambda: pmtt.MPINonStationaryConvolve1D(
-            (8, 8), np.ones((2, 3)), np.array([2, 6]), axis=0, device="cpu"),
-        "MPIFredholm1": lambda: pmtt.MPIFredholm1(G, nz=2),
-        "MPIMDC": lambda: pmtt.MPIMDC(G, nt=5, nv=1),
-        "models.mdd": lambda: pmtt.models.mdd(G, None, nt=5),
-        "models.MPILSM": lambda: pmtt.models.MPILSM(*lsm_args),
-        "models.lsm": lambda: pmtt.models.lsm(*lsm_args, None),
-        "A local operator": lambda: pmtt.asmpilinearoperator(
-            FirstDerivative((8, 2))).matvec(D.to_dist(np.ones(16),
-                                                      device="cpu")),
-    }
-    out = {}
-    for name, fn in cases.items():
-        try:
-            fn()
-            out[name] = None
-        except NotImplementedError as e:
-            out[name] = str(e)
-    # a BROADCAST vector is whole on every rank: the local operator runs
-    y = pmtt.asmpilinearoperator(FirstDerivative((8, 2))).matvec(
-        D.to_dist(np.arange(16.0), partition=pmtt.Partition.BROADCAST,
-                  device="cpu"))
-    out["bcast"] = y.asarray()
-    return out
-
-
-def test_not_rank_aware_raises(tmp_path, rng):
-    from pylops_mpi_tpu.ops.local import FirstDerivative
-    blocks = _blocks(rng, [(4, 3)] * 4)
-    for o in run_world(_raises_rank, 2, tmp_path, blocks):
-        bcast = o.pop("bcast")
-        close(bcast, FirstDerivative((8, 2)).matvec(np.arange(16.0)))
-        for name, msg in o.items():
-            assert msg is not None, f"{name} ran across ranks"
-            assert name in msg and "ROADMAP.md §A.3" in msg
-            assert "world size 2" in msg
 
 
 # ------------------------------------------------- the world-of-one fixes

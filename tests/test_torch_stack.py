@@ -179,10 +179,19 @@ def test_complex_guard_and_deferred_keywords(rng):
         pmtt.convert.vstack_from_numpy(blocks, compute_dtype=torch.bfloat16,
                                        device=CPU)
     rows = [tl.MatrixMult(b, device=CPU) for b in blocks]
-    with pytest.raises(NotImplementedError, match="mask"):
+    # mask= has one color per rank (one rank here), stamped on the outputs
+    with pytest.raises(ValueError, match="mask must have 1 entries"):
         pmtt.MPIVStack(rows, mask=[0] * NBLK)
-    with pytest.raises(NotImplementedError, match="mask"):
+    with pytest.raises(ValueError, match="mask must have 1 entries"):
         pmtt.MPIHStack(rows, mask=[0] * NBLK)
+    xm = pmtt.DistributedArray.to_dist(_vec(rng, 3, True), device=CPU,
+                                       partition=pmtt.Partition.BROADCAST)
+    vm = pmtt.MPIVStack(rows, mask=[5])
+    ym = vm.matvec(xm)
+    assert ym.mask == (5,) and vm.rmatvec(ym).mask == (5,)
+    x4 = pmtt.DistributedArray.to_dist(_vec(rng, 4, True), device=CPU,
+                                       partition=pmtt.Partition.BROADCAST)
+    assert pmtt.MPIHStack(rows, mask=[5]).rmatvec(x4).mask == (5,)
     with pytest.raises(ValueError, match="column size mismatch"):
         pmtt.MPIVStack([tl.MatrixMult(np.ones((2, 3)), device=CPU),
                         tl.MatrixMult(np.ones((2, 4)), device=CPU)])
