@@ -110,10 +110,28 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    process; per rank collective calls per iteration, bytes received per
    apply and walls per iteration (gloo ranks sharing one card, staged
    through the host: not a multi-card number).
+17. slice 8 at full width with no group: ``MPIMatrixMult`` of a 32768 x
+   16384 f32 A (2.147 GB, kappa ~ 5.8) and 64 columns, every kind and
+   SUMMA schedule held to one ``torch.matmul`` forward and adjoint and
+   timed against the FMA bound, bf16 storage, and CGLS (30 iterations)
+   to the known model with no rising cost; ``MPIFFTND`` of a 512^3
+   complex64 cube (1.074 GB) forward and adjoint against the byte bound,
+   its round trip and dottest; the real ``MPIFFT2D`` of a (16384, 8192)
+   field against ``torch.fft.rfft2`` with the same scaling and shift;
+18. slice 8 across two to four ranks sharing the card over gloo (grids
+   (1, 2), (1, 3), (2, 2)), each against the same work with no group:
+   CGLS (10 iterations) through ``MPIMatrixMult`` at (4096, 2048, 64)
+   f32 with both SUMMA schedules forced, ``auto`` and the block kind,
+   each rank holding its tile or rows of A; the bytes a rank receives in
+   the SUMMA collectives held to the volume model, and the flat↔tile
+   moves beside them; the FFT of a (256, 256, 128) complex64 cube
+   forward and adjoint (two transposes an apply, ragged at 3 ranks); a
+   ragged f64 case (N=23, K=17, M=10 and a (17, 12, 9) cube) against
+   one CPU process.
 
-Phases 8, 9, 11-13 and 16 reach none of the hand-written kernels: the JAX
-package runs their FFTs, products, thresholds, convolutions, sprays and
-gathers outside Pallas, and so does the port (cuFFT, cuBLAS, cuDNN,
+Phases 8, 9, 11-13 and 16-18 reach none of the hand-written kernels: the
+JAX package runs their FFTs, products, thresholds, convolutions, sprays
+and gathers outside Pallas, and so does the port (cuFFT, cuBLAS, cuDNN,
 ``index_add_``/``index_select`` and elementwise PyTorch); their kernel
 launch counts are read all the same.
 
@@ -233,6 +251,23 @@ TOL_16 = dict(vstack_f32=1e-5, vstack_bf16=1e-4, mdd=1e-5, nonstat=1e-5,
               # where the same amplification of f64 rounding stays far
               # below this bound
               lsm_x_f64=1e-6, f64=1e-10)
+
+
+# phases 17-18 (slice 8): the dense matmul and the pencil FFTs. Phase 17
+# at full width with no group: A of 32768 x 16384 f32 (2.147 GB; a
+# Gaussian A of twice as many rows as columns has kappa ~ 5.8), X of 64
+# columns; a 512^3 complex64 cube (1.074 GB); a (16384, 8192) real field
+# (537 MB in and out). Phase 18 at (4096, 2048, 64) and a (256, 256, 128)
+# complex64 cube (67.1 MB) on 2-4 gloo ranks sharing the card
+N_MM, K_MM, M_MM, NITER_MM = 32768, 16384, 64, 30
+MM_ERR_LIMIT, MM_BF16_LIMIT, MM_AGREE = 1e-3, 5e-2, 1e-5
+FFT3, FFT2, FFT_TOL = (512, 512, 512), (16384, 8192), 1e-5
+N_18, K_18, M_18, NITER_18 = 4096, 2048, 64, 10
+FFT_18 = (256, 256, 128)
+WORLDS_18 = (2, 3, 4)
+TOL_18, F64_18 = 1e-5, 1e-12
+MM_KINDS = (("gather", "summa", "gather"), ("stat_a", "summa", "stat_a"),
+            ("auto", "summa", "auto"), ("block", "block", "auto"))
 
 
 def log(*a):
@@ -2057,6 +2092,399 @@ def slice7_phase(torch, pmtt, here, dev, timeout=600):
         shutil.rmtree(refdir, ignore_errors=True)
 
 
+def matmul_bound_ms(N, K, M, itemsize=4):
+    """Least time of ``A (N, K) @ X (K, M)``: the larger of 2·N·K·M
+    operations at the f32 rate and A, X and Y moved once at the memory
+    rate; and which bounds it."""
+    t_ops = 2.0 * N * K * M / F32_OPS_PER_S * 1e3
+    t_bytes = bytes_bound_ms((N * K + K * M + N * M) * itemsize)
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def timed_solve(torch, fn, runs=2):
+    """``fn()``'s result and the walls (s) of ``runs`` synchronized
+    calls."""
+    walls, res = [], None
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return res, walls
+
+
+def matmul_fft_phase(torch, pmtt, kernels, dev):
+    """Phase 17: slice 8 at full width with no group. MPIMatrixMult
+    (SUMMA, its two forced schedules, block and auto: one GEMM each at a
+    world of one) forward and adjoint, held to one another and timed
+    against the FMA bound and one torch.matmul; bf16 storage; CGLS (30
+    iterations) to the known model. MPIFFTND on a 512^3 complex64 cube
+    (forward, adjoint, round trip, dottest) and the real MPIFFT2D
+    against torch.fft.rfft2 with the same scaling and shift."""
+    D = pmtt.DistributedArray
+    f32 = torch.float32
+    res = {}
+    for k in kernels:
+        k.reset_launches()
+    g = torch.Generator(device=dev).manual_seed(17)
+    A = torch.randn((N_MM, K_MM), generator=g, device=dev)
+    A /= math.sqrt(N_MM)
+    xt = torch.randn(K_MM * M_MM, generator=g, device=dev)
+    v = torch.randn(N_MM * M_MM, generator=g, device=dev)
+    x, vd = D.to_dist(xt), D.to_dist(v)
+    ops = {label: pmtt.MPIMatrixMult(A, M_MM, kind=kind, schedule=sch)
+           for label, kind, sch in MM_KINDS}
+    ys = {k: op.matvec(x).array for k, op in ops.items()}
+    xas = {k: op.rmatvec(vd).array for k, op in ops.items()}
+    Xm, Vm = xt.view(K_MM, M_MM), v.view(N_MM, M_MM)
+    want_y, want_xa = (A @ Xm).reshape(-1), (A.mT @ Vm).reshape(-1)
+    agree = {k: max(max_rel_err(ys[k], want_y), max_rel_err(xas[k], want_xa))
+             for k in ops}
+    bound, by = matmul_bound_ms(N_MM, K_MM, M_MM)
+    mm = dict(shape=(N_MM, K_MM, M_MM), bound_ms=bound, bound_by=by,
+              bytes_bound_ms=bytes_bound_ms(4 * (N_MM * K_MM + K_MM * M_MM
+                                                 + N_MM * M_MM)),
+              agree_with_matmul=agree, schedule_auto=ops["auto"].schedule,
+              library_matvec_ms=cuda_ms(lambda: A @ Xm),
+              library_rmatvec_ms=cuda_ms(lambda: A.mT @ Vm))
+    for k, op in ops.items():
+        mm[k] = dict(matvec_ms=cuda_ms(lambda op=op: op.matvec(x)),
+                     rmatvec_ms=cuda_ms(lambda op=op: op.rmatvec(vd)))
+    del ys, xas
+    print(f"17. MPIMatrixMult ({N_MM}, {K_MM}, {M_MM}) f32, no group: "
+          f"kinds vs one torch.matmul {agree} (limit {MM_AGREE}); auto "
+          f"picks {mm['schedule_auto']}; ms (matvec, rmatvec): "
+          + ", ".join(f"{k} {mm[k]['matvec_ms']:.3f}/{mm[k]['rmatvec_ms']:.3f}"
+                      for k in ops)
+          + f"; torch.matmul {mm['library_matvec_ms']:.3f}/"
+          f"{mm['library_rmatvec_ms']:.3f}; bound {bound:.3f} ms "
+          f"({by}; bytes {mm['bytes_bound_ms']:.3f})", flush=True)
+    bad = {k: e for k, e in agree.items() if not e <= MM_AGREE}
+    if bad:
+        raise RuntimeError(f"phase 17: MPIMatrixMult kinds disagree: {bad}")
+    y = ops["auto"].matvec(x)
+    x0 = D(global_shape=K_MM * M_MM, dtype=f32, device=dev)
+    for label, op in (("f32", ops["auto"]),
+                      ("bf16", pmtt.MPIMatrixMult(
+                          A, M_MM, compute_dtype=torch.bfloat16))):
+        out, walls = timed_solve(torch, lambda op=op: pmtt.cgls(
+            op, y, x0=x0, niter=NITER_MM, tol=0.0))
+        cost = np.asarray(torch.as_tensor(out[5]).cpu(), dtype=np.float64)
+        err = rel_norm(out[0].array, xt)
+        rise = bool(np.any(np.diff(cost) > 1e-6 * cost[0]))
+        run = dict(iters_per_s=NITER_MM / min(walls), wall_s=walls,
+                   rel_err=err, cost_rises=rise, cost=cost.tolist())
+        if label == "bf16":
+            run.update(matvec_ms=cuda_ms(lambda op=op: op.matvec(x)),
+                       rmatvec_ms=cuda_ms(lambda op=op: op.rmatvec(vd)),
+                       A_dtype=str(op.A.dtype))
+        mm["cgls_" + label] = run
+        limit = MM_ERR_LIMIT if label == "f32" else MM_BF16_LIMIT
+        print(f"17. CGLS through MPIMatrixMult ({label} storage): "
+              f"{NITER_MM} iterations in {min(walls):.4f} s = "
+              f"{run['iters_per_s']:.1f} iters/s (walls {walls}), rel_err "
+              f"{err:.3e} (limit {limit:.0e}), cost rises: {rise}"
+              + (f"; matvec {run['matvec_ms']:.3f} ms, rmatvec "
+                 f"{run['rmatvec_ms']:.3f} ms" if label == "bf16" else ""),
+              flush=True)
+        if not err <= limit or rise:
+            raise RuntimeError(f"phase 17: CGLS ({label}) missed: {run}")
+        del op, out
+    res["matrixmult"] = mm
+    del ops, A, x, vd, y, x0, xt, v, Xm, Vm, want_y, want_xa
+    torch.cuda.empty_cache()
+    # the 512^3 complex64 cube
+    F = pmtt.MPIFFTND(FFT3, axes=(0, 1, 2), dtype=torch.complex64)
+    n3 = int(np.prod(FFT3))
+    c = torch.randn(n3, generator=g, device=dev, dtype=torch.complex64)
+    w = torch.randn(n3, generator=g, device=dev, dtype=torch.complex64)
+    cd, wd = D.to_dist(c), D.to_dist(w)
+    y3 = F.matvec(cd)
+    lib = torch.fft.fftn(c.view(FFT3))
+    fwd_err = max_rel_err(y3.array, lib.reshape(-1))
+    del lib
+    trip = max_rel_err(F.rmatvec(y3).array / F._scale, c)
+    dot = pmtt.dottest(F, cd, wd, rtol=FFT_TOL)
+    cube_bound = bytes_bound_ms(2 * n3 * 8)
+    fft = dict(dims=FFT3, forward_err=fwd_err, round_trip_err=trip,
+               dottest=dot, bound_ms=cube_bound, bound_by="bytes",
+               matvec_ms=cuda_ms(lambda: F.matvec(cd)),
+               rmatvec_ms=cuda_ms(lambda: F.rmatvec(wd)),
+               library_ms=cuda_ms(lambda: torch.fft.fftn(c.view(FFT3))))
+    print(f"17. MPIFFTND {FFT3} complex64: forward vs torch.fft.fftn "
+          f"{fwd_err:.3e}, round trip {trip:.3e} (limit {FFT_TOL:.0e}), "
+          f"dottest {dot}; matvec {fft['matvec_ms']:.3f} ms, rmatvec "
+          f"{fft['rmatvec_ms']:.3f} ms, fftn {fft['library_ms']:.3f} ms, "
+          f"bound {cube_bound:.3f} ms (bytes)", flush=True)
+    if not (fwd_err <= FFT_TOL and trip <= FFT_TOL and dot):
+        raise RuntimeError(f"phase 17: MPIFFTND missed: {fft}")
+    res["fftnd"] = fft
+    del F, c, w, cd, wd, y3
+    torch.cuda.empty_cache()
+    # the real 2-D transform against rfft2 with the same scaling and shift
+    F2 = pmtt.MPIFFT2D(FFT2, real=True, dtype=f32,
+                       fftshift_after=(True, False))
+    xr = torch.randn(FFT2, generator=g, device=dev)
+    xd = D.to_dist(xr.reshape(-1))
+
+    def plain():
+        p = torch.fft.rfft2(xr)
+        hi = 1 + (FFT2[1] - 1) // 2
+        fac = torch.ones(p.shape[1], device=dev)
+        fac[1:hi] = math.sqrt(2.0)
+        return torch.fft.fftshift(p * fac, dim=0).reshape(-1)
+
+    y2 = F2.matvec(xd)
+    err2 = max_rel_err(y2.array, plain())
+    nin = xr.numel() * 4
+    nout = y2.array.numel() * 8
+    f2 = dict(dims=FFT2, err=err2, matvec_ms=cuda_ms(lambda: F2.matvec(xd)),
+              rmatvec_ms=cuda_ms(lambda: F2.rmatvec(y2)),
+              plain_ms=cuda_ms(plain), bound_ms=bytes_bound_ms(nin + nout),
+              bound_by="bytes")
+    print(f"17. MPIFFT2D {FFT2} real f32, fftshift_after=(True, False): vs "
+          f"rfft2 with the same scaling and shift {err2:.3e} (limit "
+          f"{FFT_TOL:.0e}); matvec {f2['matvec_ms']:.3f} ms, rmatvec "
+          f"{f2['rmatvec_ms']:.3f} ms, plain {f2['plain_ms']:.3f} ms, bound "
+          f"{f2['bound_ms']:.3f} ms (bytes)", flush=True)
+    if not err2 <= FFT_TOL:
+        raise RuntimeError(f"phase 17: MPIFFT2D missed: {f2}")
+    res["fft2d"] = f2
+    res["kernel_launches"] = [k.launches for k in kernels]
+    del F2, xr, xd, y2
+    torch.cuda.empty_cache()
+    return res
+
+
+def summa_problem():
+    """Phase 18's matrix and model, from a seeded host generator: every
+    rank passes the whole A and keeps its rows or tile."""
+    rng = np.random.default_rng(18)
+    A = (rng.standard_normal((N_18, K_18)) / math.sqrt(N_18)).astype(
+        np.float32)
+    return A, rng.standard_normal(K_18 * M_18).astype(np.float32)
+
+
+def fft18_inputs():
+    rng = np.random.default_rng(19)
+    n = int(np.prod(FFT_18))
+    c = (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype(
+        np.complex64)
+    w = (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype(
+        np.complex64)
+    return c, w
+
+
+def slice8_f64_case(torch, pmtt, dev):
+    """Phase 18's ragged f64 case, run alike by a world of ranks and by
+    one process without a group: MPIMatrixMult (N, K, M) = (23, 17, 10)
+    of every kind and schedule on the default grid ((2, 2) at four
+    ranks) and SUMMA on a (P, 1) grid, and the FFTs of a (17, 12, 9)
+    complex cube and a real (17, 10) field with shifts, forward and
+    adjoint. Returns the gathered results."""
+    D = pmtt.DistributedArray
+    n = pmtt.parallel.world_size()
+    rng = np.random.default_rng(23)
+    A = rng.standard_normal((23, 17))
+    x, v = rng.standard_normal(170), rng.standard_normal(230)
+    out = {}
+    for label, kind, sch in MM_KINDS + (("gather_p1", "summa", "gather"),
+                                        ("stat_a_p1", "summa", "stat_a")):
+        op = pmtt.MPIMatrixMult(A, 10, kind=kind, schedule=sch,
+                                grid=(n, 1) if label.endswith("p1") else None,
+                                device=dev)
+        out["mm_" + label] = op.matvec(D.to_dist(x, device=dev)).asarray()
+        out["mm_adj_" + label] = op.rmatvec(D.to_dist(v, device=dev)) \
+            .asarray()
+    for label, F in (("cube", pmtt.MPIFFTND((17, 12, 9), axes=(0, 1, 2))),
+                     ("real", pmtt.MPIFFT2D((17, 10), real=True,
+                                            dtype=torch.float64,
+                                            fftshift_after=(True, False)))):
+        m = rng.standard_normal(F.shape[1])
+        if not F.real:
+            m = m + 1j * rng.standard_normal(F.shape[1])
+        d = rng.standard_normal(F.shape[0]) \
+            + 1j * rng.standard_normal(F.shape[0])
+        out["fft_" + label] = F.matvec(D.to_dist(
+            m, local_shapes=F.model_local_shapes, device=dev)).asarray()
+        out["fft_adj_" + label] = F.rmatvec(D.to_dist(
+            d, local_shapes=F.data_local_shapes, device=dev)).asarray()
+    return out
+
+
+def _slice8_cases(torch, pmtt, dev, refdir):
+    """What each rank of phase 18 runs; returns this rank's record: per
+    kind and schedule the x gap of 10 CGLS iterations to the no-group
+    solve, the collectives and bytes of one forward and one adjoint
+    apply, the bytes of A it holds and the wall per iteration; the same
+    for the FFT's applies; and the ragged f64 case."""
+    from pylops_mpi_tpu_torch.ops import normal_kernels as nk
+    from pylops_mpi_tpu_torch.ops import stencil_kernels as sk
+    from pylops_mpi_tpu_torch.parallel import collectives as co
+    D = pmtt.DistributedArray
+    r = pmtt.parallel.rank()
+    out = dict(rank=r)
+    for k in (nk, sk):
+        k.reset_launches()
+
+    def gap(got, name):
+        want = np.load(f"{refdir}/{name}.npy").ravel()
+        got = np.asarray(got).ravel()
+        return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+    def calls(fn):
+        co.reset_counts()
+        fn()
+        return dict(co.counts), dict(co.received)
+
+    A, xt = summa_problem()
+    x = D.to_dist(torch.from_numpy(xt).to(dev))
+    y = D.to_dist(torch.from_numpy(np.load(f"{refdir}/mm_y.npy")).to(dev))
+    x0 = D(global_shape=K_18 * M_18, dtype=torch.float32, device=dev)
+    for label, kind, sch in MM_KINDS:
+        op = pmtt.MPIMatrixMult(A, M_18, kind=kind, schedule=sch,
+                                device=dev)
+        fwd, adj = calls(lambda: op.matvec(x)), calls(lambda: op.rmatvec(y))
+        xs, walls = timed_solve(torch, lambda: pmtt.cgls(
+            op, y, x0=x0, niter=NITER_18, tol=0.0)[0], runs=1)
+        out["mm_" + label] = dict(
+            x_gap=gap(xs.asarray(), "mm_x_" + label), forward=fwd,
+            adjoint=adj, A_bytes=op.A.numel() * op.A.element_size(),
+            A_shape=tuple(op.A.shape), grid=getattr(op, "grid", None),
+            schedule=getattr(op, "schedule", None),
+            wall_per_iter_s=walls[0] / NITER_18)
+        del op, xs
+    c, w = fft18_inputs()
+    F = pmtt.MPIFFTND(FFT_18, axes=(0, 1, 2), dtype=torch.complex64)
+    cd = D.to_dist(torch.from_numpy(c).to(dev),
+                   local_shapes=F.model_local_shapes)
+    wd = D.to_dist(torch.from_numpy(w).to(dev),
+                   local_shapes=F.data_local_shapes)
+    fwd, adj = calls(lambda: F.matvec(cd)), calls(lambda: F.rmatvec(wd))
+    y3, wf = timed_solve(torch, lambda: F.matvec(cd))
+    xa, wa = timed_solve(torch, lambda: F.rmatvec(wd))
+    out["fft"] = dict(forward_gap=gap(y3.asarray(), "fft_y"),
+                      adjoint_gap=gap(xa.asarray(), "fft_xa"),
+                      rows=(F.model_local_shapes[r][0] // (FFT_18[1]
+                                                          * FFT_18[2])),
+                      forward=fwd, adjoint=adj, forward_wall_s=min(wf),
+                      adjoint_wall_s=min(wa))
+    out["f64"] = slice8_f64_case(torch, pmtt, dev)
+    out["kernel_launches"] = [nk.launches, sk.launches]
+    return out
+
+
+def slice8_ranks_phase(torch, pmtt, here, dev, timeout=600):
+    """Phase 18: slice 8 across 2-4 gloo ranks sharing the card (grids
+    (1, 2), (1, 3), (2, 2)), against the same work with no group in this
+    process: CGLS (10 iterations) through MPIMatrixMult at (4096, 2048,
+    64) f32 with both SUMMA schedules forced, ``auto`` and the block
+    kind, each rank's share of A, and the bytes each apply receives
+    against the volume model; the FFT of a (256, 256, 128) complex64
+    cube forward and adjoint; a ragged f64 case against one CPU
+    process."""
+    import shutil
+    import tempfile
+    from pylops_mpi_tpu_torch.ops.matrixmult import summa_comm_volume
+    D = pmtt.DistributedArray
+    refdir = tempfile.mkdtemp(prefix="chip_smoke_slice8_")
+    try:
+        t0 = time.perf_counter()
+        A, xt = summa_problem()
+        op = pmtt.MPIMatrixMult(A, M_18, device=dev)
+        y = op.matvec(D.to_dist(torch.from_numpy(xt).to(dev)))
+        np.save(f"{refdir}/mm_y.npy", y.asarray())
+        x0 = D(global_shape=K_18 * M_18, dtype=torch.float32, device=dev)
+        for label, kind, sch in MM_KINDS:
+            op = pmtt.MPIMatrixMult(A, M_18, kind=kind, schedule=sch,
+                                    device=dev)
+            np.save(f"{refdir}/mm_x_{label}.npy", pmtt.cgls(
+                op, y, x0=x0, niter=NITER_18, tol=0.0)[0].asarray())
+        c, w = fft18_inputs()
+        F = pmtt.MPIFFTND(FFT_18, axes=(0, 1, 2), dtype=torch.complex64)
+        np.save(f"{refdir}/fft_y.npy", F.matvec(D.to_dist(
+            torch.from_numpy(c).to(dev))).asarray())
+        np.save(f"{refdir}/fft_xa.npy", F.rmatvec(D.to_dist(
+            torch.from_numpy(w).to(dev))).asarray())
+        cpu = slice8_f64_case(torch, pmtt, torch.device("cpu"))
+        whole = A.nbytes
+        del op, y, x0, F
+        torch.cuda.empty_cache()
+        print(f"18. no-group references in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        summary = {}
+        for n in WORLDS_18:
+            t0 = time.perf_counter()
+            ranks = spawn_shared_card(n, here, _slice8_cases, (refdir,),
+                                      timeout)
+            o0 = ranks[0]
+            gaps = {k: o0["mm_" + k]["x_gap"] for k, _, _ in MM_KINDS}
+            gaps["fft_forward"] = o0["fft"]["forward_gap"]
+            gaps["fft_adjoint"] = o0["fft"]["adjoint_gap"]
+            f64 = max(float(np.abs(o0["f64"][k] - cpu[k]).max()
+                            / np.abs(cpu[k]).max()) for k in cpu)
+            grid = o0["mm_gather"]["grid"]
+            vol = summa_comm_volume(N_18, K_18, M_18, grid)
+            per_rank = []
+            for o in ranks:
+                rec = dict(rank=o["rank"], fft=o["fft"],
+                           kernel_launches=o["kernel_launches"])
+                for label, _, _ in MM_KINDS:
+                    v = {k: vv for k, vv in o["mm_" + label].items()
+                         if k != "x_gap"}
+                    v["A_share"] = v["A_bytes"] / whole
+                    if label != "block":
+                        got = v["forward"][1]
+                        v["kernel_bytes"] = (got.get("all_gather", 0)
+                                             + got.get("reduce_scatter", 0))
+                        v["model_bytes"] = 4 * vol[v["schedule"]]
+                    rec["mm_" + label] = v
+                per_rank.append(rec)
+            secs = time.perf_counter() - t0
+            summary[n] = dict(grid=grid, gaps=gaps, f64=f64,
+                              model_elements=vol, ranks=per_rank,
+                              seconds=secs)
+            print(f"18. {n} ranks on one card (gloo, staged through the "
+                  f"host), grid {grid}: gaps to the no-group solves and "
+                  f"applies {gaps} (limit {TOL_18:.0e}), ragged f64 vs CPU "
+                  f"{f64:.3e} (limit {F64_18:.0e}); volume model "
+                  f"(elements per forward, adjoint all-reduce) {vol}; per "
+                  f"rank (collectives and bytes received per apply, A "
+                  f"share, walls of gloo ranks sharing one card through "
+                  f"the host, not a multi-card number) {per_rank}; "
+                  f"{secs:.1f} s", flush=True)
+            bad = {k: v for k, v in gaps.items() if not v <= TOL_18}
+            if bad or not f64 <= F64_18:
+                raise RuntimeError(f"phase 18, {n} ranks: results disagree: "
+                                   f"{bad}, f64 {f64}")
+            for rec in per_rank:
+                for label, _, _ in MM_KINDS:
+                    v = rec["mm_" + label]
+                    if label == "block":
+                        rows = -(-N_18 // n) if rec["rank"] < N_18 % n \
+                            else N_18 // n
+                        want = (rows, K_18)
+                    else:  # the tile of the padded matrix
+                        want = (-(-N_18 // v["grid"][0]),
+                                -(-K_18 // v["grid"][1]))
+                    if v["A_shape"] != want or v["A_share"] > 1.01 / n:
+                        raise RuntimeError(
+                            f"phase 18: rank {rec['rank']} holds A of "
+                            f"{v['A_shape']} ({v['A_share']:.4f} of it), "
+                            f"not its {want}")
+                    if label != "block" and \
+                            v["kernel_bytes"] != v["model_bytes"]:
+                        raise RuntimeError(
+                            f"phase 18: rank {rec['rank']} {label} "
+                            f"received {v['kernel_bytes']} B in the SUMMA "
+                            f"collectives, the model says "
+                            f"{v['model_bytes']}")
+        return summary
+    finally:
+        shutil.rmtree(refdir, ignore_errors=True)
+
+
 def main() -> int:
     here = Path(__file__).resolve().parent
     if not (here / "pylops_mpi_tpu_torch" / "__init__.py").is_file():
@@ -2442,6 +2870,16 @@ def main() -> int:
     slice7 = slice7_phase(torch, pmtt, here, dev)
     print(f"phase 16 in {time.perf_counter() - t16:.1f} s", flush=True)
 
+    # 17-18. slice 8: the dense matmul and the pencil FFTs at full width
+    # with no group, then across two to four gloo ranks on the card
+    torch.cuda.empty_cache()
+    t17 = time.perf_counter()
+    slice8 = matmul_fft_phase(torch, pmtt, kernel_mods, dev)
+    print(f"phase 17 in {time.perf_counter() - t17:.1f} s", flush=True)
+    t18 = time.perf_counter()
+    slice8_ranks = slice8_ranks_phase(torch, pmtt, here, dev)
+    print(f"phase 18 in {time.perf_counter() - t18:.1f} s", flush=True)
+
     kernels = []
     for name, run in (("float32", "normal_f32"), ("bfloat16", "normal_bf16")):
         s = stats[name]
@@ -2483,7 +2921,8 @@ def main() -> int:
                       "reflectivity": refl, "card_vs_cpu_f64": gaps,
                       "stacking": stack_res, "nonstationary": ns_res,
                       "lsm": lsm_res, "group_of_one": group1,
-                      "shared_card": shared, "slice7_ranks": slice7}),
+                      "shared_card": shared, "slice7_ranks": slice7,
+                      "slice8": slice8, "slice8_ranks": slice8_ranks}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

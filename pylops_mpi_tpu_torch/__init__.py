@@ -3,9 +3,12 @@
 Distributed and stacked arrays, the lazy linear-operator algebra, the
 block-diagonal, stacking and halo operators, the derivative family, the
 non-stationary convolution, the Fredholm and MDC operators, the
-post-stack, MDD and least-squares migration pipelines, the CG/CGLS
-solvers (functions and classes), ISTA/FISTA and the power iteration,
-in PyTorch on one NVIDIA Hopper GPU. Two hand-written CUDA kernels carry the hot loops:
+distributed dense matrix product (block and SUMMA on a 2-D grid of
+ranks) and the pencil FFTs, the post-stack, MDD and least-squares
+migration pipelines, the CG/CGLS solvers (functions and classes),
+ISTA/FISTA and the power iteration, in PyTorch on NVIDIA Hopper GPUs,
+one rank a card or a world of ranks over ``torch.distributed``. Two
+hand-written CUDA kernels carry the hot loops:
 the CGLS normal product (``csrc/normal_matvec.cu``) and the axis-0 tap
 stencil of the derivative operators (``csrc/stencil_taps.cu``). Module layout and public names follow the
 JAX package ``pylops_mpi_tpu``, which is the reference the port is
@@ -34,6 +37,8 @@ from .ops.halo import MPIHalo, halo_block_split
 from .ops.nonstatconv import MPINonStationaryConvolve1D
 from .ops.fredholm import MPIFredholm1
 from .ops.mdc import MPIMDC
+from .ops.matrixmult import MPIMatrixMult
+from .ops.fft import MPIFFTND, MPIFFT2D
 from .solvers.basic import CG, CGLS, cg, cgls
 from .solvers.sparsity import ISTA, FISTA, ista, fista
 from .solvers.eigs import power_iteration

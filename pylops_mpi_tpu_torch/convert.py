@@ -28,6 +28,7 @@ from .stacked import StackedDistributedArray
 from .ops._precision import as_torch_dtype
 from .ops.blockdiag import MPIBlockDiag, _chunk_ops
 from .ops.fredholm import MPIFredholm1
+from .ops.matrixmult import MPIMatrixMult
 from .ops.mdc import MPIMDC
 from .ops.stack import MPIHStack, MPIVStack
 from .ops.local import MatrixMult, ShapeOnly
@@ -36,7 +37,7 @@ from .parallel.partition import Partition
 
 __all__ = ["blockdiag_from_numpy", "vstack_from_numpy", "hstack_from_numpy",
            "array_from_numpy", "stacked_from_numpy", "fredholm_from_numpy",
-           "mdc_from_numpy"]
+           "mdc_from_numpy", "matrixmult_from_numpy"]
 
 
 def _matrices(blocks: Sequence[np.ndarray], dtype,
@@ -149,3 +150,18 @@ def mdc_from_numpy(G: np.ndarray, nt: int, nv: int, dtype=None,
     :func:`~.ops.mdc.MPIMDC`."""
     return MPIMDC(_kernel(G, dtype), nt=nt, nv=nv,
                   device=resolve_device(device), **kwargs)
+
+
+def matrixmult_from_numpy(A: np.ndarray, M: int, kind: str = "summa",
+                          dtype=None, device: DeviceLike = None, **kwargs):
+    """``MPIMatrixMult`` of the whole matrix ``A (N, K)`` cast to
+    ``dtype`` (default: its own), this rank's rows or tile of it on
+    ``device`` (default ``"cuda"``); ``kwargs`` as for
+    :func:`~.ops.matrixmult.MPIMatrixMult` (``grid``, ``schedule``,
+    ``saveAt``, ``compute_dtype``). From a JAX operator ``op``:
+    ``matrixmult_from_numpy(np.asarray(op.A), op.M, kind, grid=op.grid)``
+    (the block kind has no grid)."""
+    K = _kernel(A, dtype)
+    kwargs.setdefault("dtype", as_torch_dtype(K.dtype))
+    return MPIMatrixMult(K, M, kind=kind, device=resolve_device(device),
+                         **kwargs)

@@ -1,6 +1,7 @@
 """Operators of the port: local operators, the block-diagonal,
 stacking and halo operators, the derivative family, the non-stationary
-convolution, the Fredholm and MDC operators, and the wrappers of the
+convolution, the Fredholm and MDC operators, the distributed dense
+matrix product and the pencil FFTs, and the wrappers of the
 hand-written kernels (normal product, tap stencil).
 
 The distributed operators are importable from here as from the JAX
@@ -18,6 +19,9 @@ _EXPORTS = {
     "MPIHalo": "halo", "halo_block_split": "halo",
     "MPINonStationaryConvolve1D": "nonstatconv",
     "MPIFredholm1": "fredholm", "MPIMDC": "mdc",
+    "MPIMatrixMult": "matrixmult", "active_grid_comm": "matrixmult",
+    "local_block_split": "matrixmult", "block_gather": "matrixmult",
+    "MPIFFTND": "fft", "MPIFFT2D": "fft",
 }
 
 __all__ = sorted(_EXPORTS)

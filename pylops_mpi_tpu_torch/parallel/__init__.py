@@ -1,12 +1,13 @@
 from .partition import (Partition, local_split, shard_offsets,
-                        padded_shard_size, pad_index_map, unpad_index_map)
+                        padded_shard_size, pad_index_map, unpad_index_map,
+                        flat_outer_shapes)
 from .mesh import (Mesh, make_mesh, default_mesh, init, destroy,
                    default_device, set_default_device, resolve_device,
-                   world_size, rank)
+                   world_size, rank, best_grid_2d, Grid2D, make_grid_2d)
 from . import collectives
 
 __all__ = ["Partition", "local_split", "shard_offsets", "padded_shard_size",
-           "pad_index_map", "unpad_index_map", "Mesh", "make_mesh",
-           "default_mesh", "init", "destroy", "default_device",
+           "pad_index_map", "unpad_index_map", "flat_outer_shapes", "Mesh",
+           "make_mesh", "default_mesh", "init", "destroy", "default_device",
            "set_default_device", "resolve_device", "world_size", "rank",
-           "collectives"]
+           "best_grid_2d", "Grid2D", "make_grid_2d", "collectives"]

@@ -3,7 +3,9 @@
 PyTorch counterpart of the parts of ``pylops_mpi_tpu/parallel/collectives.py``
 the sharded arrays and operators use: reductions of solver scalars
 (:func:`all_reduce`), gathers of ragged shards (:func:`all_gather`),
-the all-to-all of a change of sharded axis (:func:`all_to_all`), the
+the reduce-scatter of partial products (:func:`reduce_scatter`), the
+all-to-all of a change of sharded axis or of a pencil transpose
+(:func:`all_to_all`), the
 neighbour exchange of stencil ghost rows (:func:`halo_exchange`, the
 counterpart of ``halo_slab``) and its Cartesian form, one grid axis at a
 time (:func:`cart_halo_extend`, the counterpart of ``cart_halo_extend``'s
@@ -11,6 +13,9 @@ plain path).
 
 Every function is called at every world size, one included: under a
 group of one rank on the card the reductions still go through NCCL.
+``group`` is ``None`` for the whole world or a sub-group (a mask's
+color group, a row or column of a 2-D grid of ranks); pieces and sizes
+are then listed in the group's rank order.
 Without a process group they return at once and communicate nothing.
 Each call under a group adds one to ``counts[name]`` (the counterpart of
 the JAX package's ``_count_collective``) and the bytes this rank
@@ -35,8 +40,8 @@ from .mesh import initialized, rank, world_size
 from .partition import padded_shard_size
 
 __all__ = ["counts", "received", "reset_counts", "mask_group",
-           "forget_groups", "all_reduce", "all_gather", "all_to_all",
-           "halo_exchange", "cart_halo_extend"]
+           "forget_groups", "all_reduce", "all_gather", "reduce_scatter",
+           "all_to_all", "halo_exchange", "cart_halo_extend"]
 
 # collective calls under a group, and the bytes this rank received in
 # them, since the last reset_counts()
@@ -148,25 +153,61 @@ def _p2p(sends: List[Tuple[torch.Tensor, int]],
             req.wait()
 
 
+def reduce_scatter(t: torch.Tensor, sizes: Sequence[int], axis: int = 0,
+                   group: Optional[object] = None) -> torch.Tensor:
+    """The sum over the group of every rank's ``t``, of which this rank
+    keeps its piece along ``axis``: the group's rank ``q`` keeps
+    ``sizes[q]`` entries, in order (the counterpart of ``psum_scatter``).
+    Ragged pieces are padded to the largest (NCCL moves equal sizes),
+    reduced and unpadded."""
+    if not initialized():
+        return t
+    counts["reduce_scatter"] += 1
+    me = dist.get_group_rank(group, rank()) if group is not None else rank()
+    width = padded_shard_size(sizes)
+    pieces = []
+    for piece in torch.split(t, list(sizes), dim=axis):
+        pad = width - piece.shape[axis]
+        if pad:
+            shp = list(piece.shape)
+            shp[axis] = pad
+            piece = torch.cat([piece, piece.new_zeros(shp)], dim=axis)
+        pieces.append(piece.contiguous())
+    stage = t.is_cuda and _gloo(group)
+    if stage:
+        pieces = [p.cpu() for p in pieces]
+    out = torch.empty_like(pieces[me])
+    received["reduce_scatter"] += _nbytes(out) * (len(sizes) - 1)
+    dist.reduce_scatter(out, pieces, op=dist.ReduceOp.SUM, group=group)
+    out = out.narrow(axis, 0, int(sizes[me]))
+    return out.to(t.device) if stage else out
+
+
 def all_to_all(sends: Sequence[torch.Tensor],
                recv_shapes: Sequence[Tuple[int, ...]],
                group: Optional[object] = None) -> List[torch.Tensor]:
     """Rank ``p`` sends ``sends[q]`` to every rank ``q`` and receives a
     tensor of ``recv_shapes[q]`` from each (sizes may differ, which
     gloo's own ``all_to_all`` refuses): point-to-point pairs in one
-    batch, this rank's own piece copied locally."""
+    batch, this rank's own piece copied locally. On a sub-group, ``p``
+    and ``q`` are ranks of the group, mapped to their global ranks for
+    the transfers."""
     if not initialized():
         return [sends[0]]
     counts["all_to_all"] += 1
-    me = rank()
+    me = dist.get_group_rank(group, rank()) if group is not None else rank()
+
+    def peer(q):
+        return dist.get_global_rank(group, q) if group is not None else q
+
     like = sends[me]
     stage = like.is_cuda and _gloo(group)
     dev = torch.device("cpu") if stage else like.device
     out = [torch.empty(tuple(s), dtype=like.dtype, device=dev)
            for s in recv_shapes]
-    tx = [(s.contiguous().cpu() if stage else s.contiguous(), q)
+    tx = [(s.contiguous().cpu() if stage else s.contiguous(), peer(q))
           for q, s in enumerate(sends) if q != me]
-    rx = [(out[q], q) for q in range(len(recv_shapes)) if q != me]
+    rx = [(out[q], peer(q)) for q in range(len(recv_shapes)) if q != me]
     received["all_to_all"] += sum(_nbytes(t) for t, _ in rx)
     _p2p(tx, rx, group)
     out = [o.to(like.device) for o in out] if stage else out

@@ -11,6 +11,8 @@ With no process group initialized the world is one rank (rank 0 of 1)
 and nothing communicates, which matches the reference run without
 ``mpiexec``. :func:`init` starts a group; :func:`default_mesh` describes
 it as a :class:`Mesh` (group, rank, size, the rank's device).
+:func:`make_grid_2d` lays the ranks row-major on a 2-D grid and gives a
+rank its row and column sub-groups (the JAX package's ``make_mesh_2d``).
 
 Entry points run on the card unless the caller asks for the CPU: the
 default device is ``"cuda"``, and asking for it on a machine without a
@@ -21,14 +23,16 @@ from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 __all__ = ["Mesh", "make_mesh", "default_mesh", "init", "destroy",
            "default_device", "set_default_device", "resolve_device",
-           "world_size", "rank", "check_mesh"]
+           "world_size", "rank", "check_mesh", "best_grid_2d", "Grid2D",
+           "make_grid_2d"]
 
 DeviceLike = Union[str, torch.device, None]
 
@@ -189,3 +193,47 @@ def check_mesh(mesh: Optional[Mesh]) -> None:
         raise ValueError(
             f"mesh of rank {mesh.rank} of {mesh.size} does not match the "
             f"process group (rank {rank()} of {world_size()})")
+
+
+def best_grid_2d(n: int) -> Tuple[int, int]:
+    """The ``(pr, pc)`` grid with ``pr·pc == n`` and ``pr`` the largest
+    divisor of ``n`` not above ``√n``: no rank idles (JAX
+    ``parallel/mesh.py:63-74``)."""
+    pr = int(np.sqrt(n))
+    while n % pr != 0:
+        pr -= 1
+    return pr, n // pr
+
+
+@dataclass(frozen=True)
+class Grid2D:
+    """The ranks laid row-major on a ``(pr, pc)`` grid, as this rank sees
+    it: its coordinates ``(i, j)`` (rank ``i·pc + j``), and its sub-groups
+    named as the JAX package's mesh axes: ``c``, the ranks of its grid
+    row (``i`` fixed, group rank ``j``), and ``r``, the ranks of its grid
+    column (``j`` fixed, group rank ``i``). Both are ``None`` without a
+    process group."""
+
+    shape: Tuple[int, int]
+    coords: Tuple[int, int]
+    c: Optional[object]
+    r: Optional[object]
+
+
+def make_grid_2d(grid: Optional[Tuple[int, int]] = None) -> Grid2D:
+    """The :class:`Grid2D` of the process group on ``grid`` (default
+    :func:`best_grid_2d` of the world size; JAX ``make_mesh_2d``,
+    ``parallel/mesh.py:77-95``). ``dist.new_group`` is collective over
+    the world, so every rank creates every row and every column group,
+    in one fixed order, through ``collectives.mask_group`` (cached per
+    grid; :func:`destroy` forgets them)."""
+    from . import collectives
+    n = world_size()
+    pr, pc = best_grid_2d(n) if grid is None else (int(grid[0]),
+                                                   int(grid[1]))
+    if pr < 1 or pc < 1 or pr * pc != n:
+        raise ValueError(f"grid {(pr, pc)} does not tile {n} ranks")
+    i, j = divmod(rank(), pc)
+    c = collectives.mask_group([q // pc for q in range(n)])
+    r = collectives.mask_group([q % pc for q in range(n)])
+    return Grid2D((pr, pc), (i, j), c, r)

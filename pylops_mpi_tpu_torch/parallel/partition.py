@@ -23,7 +23,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 
 __all__ = ["Partition", "local_split", "shard_offsets", "padded_shard_size",
-           "pad_index_map", "unpad_index_map"]
+           "pad_index_map", "unpad_index_map", "flat_outer_shapes"]
 
 
 class Partition(Enum):
@@ -91,3 +91,13 @@ def unpad_index_map(local_sizes: Sequence[int],
     return np.concatenate(
         [np.arange(n, dtype=np.int64) + p * sp
          for p, n in enumerate(sizes)]) if len(sizes) else np.empty(0, np.int64)
+
+
+def flat_outer_shapes(n_outer: int, inner: int, n_shards: int):
+    """Per-shard flat sizes of a SCATTER split of an ``(n_outer, ...)``
+    array along axis 0: each shard's row count (balanced
+    :func:`local_split`) times the per-row ``inner`` size. The
+    row-aligned layout of the pencil FFT's flat model and data vectors
+    (``ops/fft.py``)."""
+    shapes = local_split((int(n_outer),), n_shards, Partition.SCATTER, 0)
+    return tuple((s[0] * int(inner),) for s in shapes)
