@@ -129,6 +129,34 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    ragged f64 case (N=23, K=17, M=10 and a (17, 12, 9) cube) against
    one CPU process.
 
+19. slice 9's solver tiers at full width with no group: on the 32
+   blocks of phase 3 with columns scaled by 10^U(-1, 1), normal=True CGLS
+   without a preconditioner, with Jacobi and with the exact block-Jacobi
+   inverse (each to its own relative tol: iterations, wall, rel_err,
+   normal-kernel launches per iteration; the block-Jacobi build and its
+   apply against the byte bound and one ``torch.cholesky_solve``);
+   ``block_cgls`` of 16 columns against 16 sequential normal=True and
+   classic solves (30 iterations, solves/s, column gaps); the pipelined
+   and s-step engines against the classic one under a group of one over
+   NCCL (iterations to the same tol, x gaps, all_reduce calls per
+   iteration, 6 alternating pairs of walls), CGLS on the blocks and CG
+   on their Gram blocks plus I; ``MPISparseMatrixMult.from_banded`` at
+   2^24 rows (83.9 M nonzeros) forward and adjoint against the byte bound
+   and a ``torch.sparse`` CSR mv, the adjoint's run-to-run spread and 30
+   damped CGLS iterations; CG on the Laplacian + 0.05 at (2048, 2048)
+   without a preconditioner and with a 6-level V-cycle;
+20. slice 9 across two and three gloo ranks sharing the card, each
+   solve first run with no group here (10 iterations, 8 blocks of
+   1024^2 f32, ragged at three ranks): block CGLS, PCGLS with Jacobi and
+   with the chunk's block-Jacobi, PCG with block-Jacobi blocks that
+   straddle the shards at three ranks, pipelined CGLS normal=True,
+   s-step CG (held in f64; the f32 gap is printed: the monomial basis
+   carries another summation order into x amplified like 1/residual),
+   the sparse CGLS; every x within 1e-5, a ragged f64 case
+   within 1e-12 of one CPU process, each rank's all_reduce calls per
+   iteration (pipelined 1) and the bytes it receives per preconditioner
+   and sparse apply.
+
 Phases 8, 9, 11-13 and 16-18 reach none of the hand-written kernels: the
 JAX package runs their FFTs, products, thresholds, convolutions, sprays
 and gathers outside Pallas, and so does the port (cuFFT, cuBLAS, cuDNN,
@@ -2485,6 +2513,663 @@ def slice8_ranks_phase(torch, pmtt, here, dev, timeout=600):
         shutil.rmtree(refdir, ignore_errors=True)
 
 
+# phases 19-20 (slice 9): the solver tiers. Phase 19 at a world of one on
+# phase 3's 32 blocks of 4096x4096 f32: the preconditioner race (columns
+# scaled by 10^U(-SPREAD_19, SPREAD_19), so the normal system's condition
+# grows by up to 10^(4·SPREAD_19)), block CGLS against sequential solves,
+# the CA engines under a group of one over NCCL, the banded sparse matrix
+# of N_SP rows (offsets -2..2: 83.9 M nonzeros, 1.007 GB of int32/int32/
+# f32 triplets), and V-cycle PCG on the Laplacian of bench.py's
+# _precond_race_row at VC_DIMS. Phase 20: gloo ranks sharing the card at
+# a reduced size, each configuration first solved with no group here
+SPREAD_19, RTOL_19, CAP_19 = 1.0, 1e-3, 3000
+NITER_19, K_19, BLOCK_GAP_19 = 30, 16, 1e-5
+# the CA engines: iterations to RTOL_CA, then all_reduce counts and
+# alternating pairs of walls over NITER_CA iterations (tol 0; short of
+# the f32 machine floor on these systems, so every engine runs them all)
+RTOL_CA, CAP_CA, NITER_CA = 1e-4, 500, 8
+N_SP, SP_NITER, SP_DAMP = 1 << 24, 30, 1e-3
+VC_DIMS, VC_LEVELS, VC_EPS, VC_RTOL, VC_CAP = (2048, 2048), 6, 0.05, 1e-4, 2000
+NBLK_20, NSPD_20, M_20, K_20, NITER_20 = 8, 6, 1024, 4, 10
+# the SPD blocks' shift: AᵢᵀAᵢ + SHIFT_20·I has a condition number near 5,
+# so that s-step's monomial basis (conditioned like its s-th power) keeps
+# f32 rounding of another summation order below TOL_20
+SHIFT_20 = 4.0
+N_SP_20, WORLDS_20, TOL_20, F64_20 = 1 << 18, (2, 3), 1e-5, 1e-12
+
+
+def lap_op(torch, pmtt, dims, eps, dtype):
+    """The Dirichlet 5-point Laplacian plus ``eps`` on the ``dims`` grid
+    (``bench.py:_precond_race_row``) as a port operator: every rank
+    gathers, applies and keeps its rows."""
+    ny, nx = dims
+
+    class Lap(pmtt.MPILinearOperator):
+        accepts_block = True
+
+        def __init__(self):
+            super().__init__(shape=(ny * nx, ny * nx), dtype=dtype)
+
+        def _matvec(self, x):
+            g = x._global()
+            t = g.reshape((ny, nx) + tuple(g.shape[1:]))
+            p = torch.nn.functional.pad(
+                t.movedim((0, 1), (-2, -1)), (1, 1, 1, 1)).movedim(
+                    (-2, -1), (0, 1))
+            out = (4.0 * t - p[:-2, 1:-1] - p[2:, 1:-1]
+                   - p[1:-1, :-2] - p[1:-1, 2:])
+            flat = (eps * g + out.reshape(g.shape)).to(g.dtype)
+            return pmtt.DistributedArray._wrap(
+                x._shard_of(flat).contiguous(), x)
+
+        _rmatvec = _matvec
+
+    return Lap()
+
+
+def banded(n, seed):
+    """A diagonally dominant banded matrix of ``n`` rows, offsets -2..2
+    (f32 bands from a seeded host generator)."""
+    rng = np.random.default_rng(seed)
+    offsets = (-2, -1, 0, 1, 2)
+    bands = [(rng.standard_normal(n - abs(o)) * 0.5).astype(np.float32)
+             if o else (4.0 + rng.random(n)).astype(np.float32)
+             for o in offsets]
+    return offsets, bands
+
+
+def sparse_bound_ms(nnz, n, itemsize=4):
+    """Least time of one sparse apply: each triplet (int32 row, int32
+    column, value) read once, x read and y written once."""
+    return bytes_bound_ms(nnz * (8 + itemsize) + 2 * n * itemsize)
+
+
+def set_ca(mode):
+    import os
+    os.environ["PYLOPS_MPI_TPU_TORCH_CA"] = mode
+
+
+def precond_race(torch, pmtt, nk, A, xtrue, dev):
+    """Phase 19.1: normal=True CGLS on the column-scaled blocks, without
+    a preconditioner, with Jacobi (diag(AᵀA)) and with the exact
+    block-Jacobi inverse; each arm's tol relative to its own kold0."""
+    D = pmtt.DistributedArray
+    from pylops_mpi_tpu_torch.ops.local import MatrixMult
+    g = torch.Generator(device=dev).manual_seed(19)
+    scale = 10.0 ** ((torch.rand((NBLK, 1, NBLOCK), generator=g,
+                                 device=dev) * 2 - 1) * SPREAD_19)
+    As = A * scale
+    y = D.to_dist(torch.bmm(As, xtrue.view(NBLK, NBLOCK, 1)).reshape(-1))
+    Op = pmtt.MPIBlockDiag([MatrixMult(As[i]) for i in range(NBLK)])
+    del As
+    g0 = Op.rmatvec(y)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    MB = pmtt.BlockJacobiPrecond.from_block_diag(Op, normal=True)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    MJ = pmtt.JacobiPrecond((Op._batched ** 2).sum(dim=1).reshape(-1))
+    out = dict(spread=SPREAD_19, rtol=RTOL_19, cap=CAP_19,
+               block_jacobi_build_s=build_s, block_jacobi_clamped=MB.clamped)
+    for label, M in (("none", None), ("jacobi", MJ), ("block_jacobi", MB)):
+        z0 = g0 if M is None else M.matvec(g0)
+        tol = RTOL_19 ** 2 * float(g0.dot(z0))
+        pmtt.cgls(Op, y, niter=2, tol=0.0, normal=True, M=M)  # warm-up
+        sol, walls = timed_solve(torch, lambda: pmtt.cgls(
+            Op, y, niter=CAP_19, tol=tol, normal=True, M=M), runs=1)
+        x, iiter, wall = sol[0], sol[2], walls[0]
+        rel = float(torch.linalg.vector_norm(x.array - xtrue)
+                    / torch.linalg.vector_norm(xtrue))
+        nk.reset_launches()
+        pmtt.cgls(Op, y, niter=10, tol=0.0, normal=True, M=M)
+        torch.cuda.synchronize()
+        lpi = nk.launches / 10
+        out[label] = dict(iters=iiter, wall_s=wall, rel_err=rel, tol=tol,
+                          iters_per_s=iiter / wall, launches_per_iter=lpi)
+        print(f"19.1 PCGLS normal=True, M={label}: {iiter} iterations to "
+              f"rtol {RTOL_19:.0e} (cap {CAP_19}) in {wall:.4f} s, rel_err "
+              f"{rel:.3e}, normal-kernel launches per iteration {lpi:.2f}",
+              flush=True)
+        if not np.isfinite(rel) or lpi != 1.0:
+            raise RuntimeError(f"19.1 {label}: rel_err {rel}, {lpi} normal "
+                               "launches an iteration (want 1)")
+    if out["block_jacobi"]["iters"] > 5 or out["block_jacobi"]["rel_err"] \
+            > 1e-2:
+        raise RuntimeError(f"19.1 the exact block-Jacobi arm took "
+                           f"{out['block_jacobi']}: the seam is wrong")
+    rb = g0.array.reshape(NBLK, NBLOCK, 1)
+    apply_ms = cuda_ms(lambda: MB.matvec(g0))
+    lib_ms = cuda_ms(lambda: torch.cholesky_solve(rb, MB._chol))
+    bound = bytes_bound_ms(2 * MB._chol.numel() * 4)
+    out.update(block_jacobi_apply_ms=apply_ms, cholesky_solve_ms=lib_ms,
+               block_jacobi_bound_ms=bound)
+    print(f"19.1 block-Jacobi: build (Gram einsum {2 * NBLK * NBLOCK ** 3 / 1e12:.2f}"
+          f" TFLOP, symmetrize, Cholesky, triangular inverse) {build_s:.3f} "
+          f"s, {MB.clamped} blocks clamped; apply (two batched products "
+          f"with the inverse factors) {apply_ms:.3f} ms against the byte "
+          f"bound {bound:.3f} ms (the factors read twice); the library's "
+          f"torch.cholesky_solve {lib_ms:.3f} ms", flush=True)
+    del Op, MB, MJ, g0, y
+    torch.cuda.empty_cache()
+    return out
+
+
+def block_race(torch, pmtt, A, dev):
+    """Phase 19.2: block_cgls of K_19 columns against K_19 sequential
+    normal=True and classic cgls, NITER_19 iterations each
+    (``bench.py:_batched_race_row`` at full width)."""
+    D = pmtt.DistributedArray
+    from pylops_mpi_tpu_torch.ops.local import MatrixMult
+    g = torch.Generator(device=dev).manual_seed(192)
+    Op = pmtt.MPIBlockDiag([MatrixMult(A[i]) for i in range(NBLK)])
+    Y = torch.randn((NBLK * NBLOCK, K_19), generator=g, device=dev)
+    yb = D.to_dist(Y)
+    ys = [D.to_dist(Y[:, j].contiguous()) for j in range(K_19)]
+    pmtt.block_cgls(Op, yb, niter=2, tol=0.0)
+    for normal in (True, False):
+        pmtt.cgls(Op, ys[0], niter=2, tol=0.0, normal=normal)
+    xb, wb = timed_solve(torch, lambda: pmtt.block_cgls(
+        Op, yb, niter=NITER_19, tol=0.0)[0], runs=2)
+    seq = {}
+    for label, normal in (("normal", True), ("classic", False)):
+        xs, ws = timed_solve(torch, lambda: [pmtt.cgls(
+            Op, yj, niter=NITER_19, tol=0.0, normal=normal)[0]
+            for yj in ys], runs=2)
+        gap = max(float(torch.linalg.vector_norm(xb.array[:, j] - x.array)
+                        / torch.linalg.vector_norm(x.array))
+                  for j, x in enumerate(xs))
+        seq[label] = dict(wall_s=ws, solves_per_s=K_19 / min(ws), gap=gap)
+    out = dict(K=K_19, niter=NITER_19, block_wall_s=wb,
+               block_solves_per_s=K_19 / min(wb), sequential=seq,
+               speedup_vs_normal=min(seq["normal"]["wall_s"]) / min(wb),
+               speedup_vs_classic=min(seq["classic"]["wall_s"]) / min(wb))
+    print(f"19.2 block_cgls K={K_19}, {NITER_19} iterations: "
+          f"{out['block_solves_per_s']:.1f} solves/s (walls {wb}); 16 "
+          f"sequential cgls normal=True {seq['normal']['solves_per_s']:.1f} "
+          f"solves/s, classic {seq['classic']['solves_per_s']:.1f}; max "
+          f"column gap to classic x {seq['classic']['gap']:.3e} (limit "
+          f"{BLOCK_GAP_19:.0e}), to normal=True x {seq['normal']['gap']:.3e}",
+          flush=True)
+    if not seq["classic"]["gap"] <= BLOCK_GAP_19:
+        raise RuntimeError(f"19.2 block vs sequential classic gap "
+                           f"{seq['classic']['gap']:.3e}")
+    del Op, Y, yb, ys, xb
+    torch.cuda.empty_cache()
+    return out
+
+
+def ca_race(torch, pmtt, nk, A, xtrue, dev):
+    """Phase 19.3: the CA engines against the classic engine under a
+    group of one over NCCL: iterations to the same tol, the x gap, and
+    over NITER_CA iterations (tol 0) all_reduce calls per iteration and
+    PAIRS alternating pairs of walls."""
+    import os
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    D = pmtt.DistributedArray
+    from pylops_mpi_tpu_torch.ops.local import MatrixMult
+    from pylops_mpi_tpu_torch.parallel import collectives as co
+    from pylops_mpi_tpu_torch.solvers import ca
+    Op = pmtt.MPIBlockDiag([MatrixMult(A[i]) for i in range(NBLK)])
+    G = torch.bmm(A.transpose(1, 2), A)
+    G.diagonal(dim1=1, dim2=2).add_(1.0)
+    S = pmtt.MPIBlockDiag([MatrixMult(G[i]) for i in range(NBLK)])
+    del G
+    xt = xtrue.view(NBLK, NBLOCK, 1)
+    y = D.to_dist(torch.bmm(A, xt).reshape(-1))
+    ysp = D.to_dist(torch.bmm(S._batched, xt).reshape(-1))
+    k0 = {"cgls": float(Op.rmatvec(y).norm() ** 2),
+          "cg": float(ysp.norm() ** 2)}
+    fams = {"cgls_normal": ("cgls", True, ("off", "pipelined")),
+            "cgls_classic": ("cgls", False, ("off", "pipelined")),
+            "cg": ("cg", None, ("off", "pipelined", "sstep"))}
+
+    def solve(fam, mode, niter, tol):
+        solver, normal, _ = fams[fam]
+        set_ca(mode)
+        if solver == "cg":
+            x, it, _ = pmtt.cg(S, ysp, niter=niter, tol=tol)
+        else:
+            x, _, it, _, _, _ = pmtt.cgls(Op, y, niter=niter, tol=tol,
+                                          normal=normal)
+        return x, it
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ca_")
+    pmtt.parallel.init(backend="nccl", store=dist.FileStore(f"{tmp}/store", 1),
+                       rank=0, world_size=1, device=dev)
+    out = dict(pairs=PAIRS, rtol=RTOL_CA, s=None)
+    try:
+        from pylops_mpi_tpu_torch.utils.deps import ca_s_default
+        out["s"] = ca_s_default()
+        for fam, (solver, normal, modes) in fams.items():
+            tol = RTOL_CA ** 2 * k0[solver]
+            rec = {}
+            for mode in modes:
+                solve(fam, mode, 2, 0.0)  # warm-up
+                ca.clear_fallback()
+                x, it = solve(fam, mode, CAP_CA, tol)
+                fb = ca.last_fallback()
+                co.reset_counts()
+                solve(fam, mode, 0, 0.0)  # the setup's reductions alone
+                setup = co.counts["all_reduce"]
+                co.reset_counts()
+                nk.reset_launches()
+                _, itc = solve(fam, mode, NITER_CA, 0.0)
+                torch.cuda.synchronize()
+                calls = co.counts["all_reduce"]
+                rec[mode] = dict(
+                    iters=it, x=x.array.clone(), fallback=fb,
+                    all_reduce=calls, setup_all_reduce=setup,
+                    count_iters=itc, all_reduce_per_iter=calls / itc,
+                    loop_all_reduce_per_iter=(calls - setup) / itc,
+                    normal_launches_per_iter=nk.launches / itc)
+            # walls per iteration, in alternating order
+            walls = {m: [] for m in modes}
+            for i in range(PAIRS):
+                order = modes if i % 2 == 0 else modes[::-1]
+                for mode in order:
+                    walls[mode].append(timed_solve(
+                        torch, lambda: solve(fam, mode, NITER_CA, 0.0),
+                        runs=1)[1][0] / rec[mode]["count_iters"])
+            base = rec["off"]["x"]
+            for mode in modes:
+                r = rec[mode]
+                r["gap"] = float(torch.linalg.vector_norm(r.pop("x") - base)
+                                 / torch.linalg.vector_norm(base))
+                r["wall_s"] = walls[mode]
+                if mode != "off":
+                    ratios = [a / b for a, b in zip(walls["off"],
+                                                    walls[mode])]
+                    r.update(ratio_classic_over=ratios,
+                             ratio_median=float(np.median(ratios)),
+                             ratio_min=min(ratios), ratio_max=max(ratios))
+                print(f"19.3 {fam} {mode}: {r['iters']} iterations to rtol "
+                      f"{RTOL_CA:.0e} (classic {rec['off']['iters']}), x gap "
+                      f"to classic {r['gap']:.3e}; over {r['count_iters']} "
+                      f"iterations (group of one, nccl) {r['all_reduce']} "
+                      f"all_reduce = {r['all_reduce_per_iter']:.3f} an "
+                      f"iteration, {r['loop_all_reduce_per_iter']:.3f} after "
+                      f"the setup's {r['setup_all_reduce']}; normal-kernel "
+                      f"launches per iteration "
+                      f"{r['normal_launches_per_iter']:.3f}; s-step fallback "
+                      f"{r['fallback']}; median wall "
+                      f"{np.median(walls[mode]) * 1e3:.3f} ms an iteration"
+                      + (f"; wall ratio classic/{mode} median "
+                         f"{r['ratio_median']:.4f} range "
+                         f"[{r['ratio_min']:.4f}, {r['ratio_max']:.4f}]"
+                         if mode != "off" else ""), flush=True)
+                if not (np.isfinite(r["gap"]) and r["gap"] <= 1e-3):
+                    raise RuntimeError(f"19.3 {fam} {mode}: x gap "
+                                       f"{r['gap']:.3e} to the classic x")
+            if rec["pipelined"]["loop_all_reduce_per_iter"] != 1.0:
+                raise RuntimeError(f"19.3 {fam}: pipelined took "
+                                   f"{rec['pipelined']['loop_all_reduce_per_iter']}"
+                                   " all_reduce an iteration")
+            out[fam] = rec
+    finally:
+        set_ca("off")
+        os.environ.pop("PYLOPS_MPI_TPU_TORCH_CA", None)
+        pmtt.parallel.destroy()
+        shutil.rmtree(tmp, ignore_errors=True)
+    del Op, S, y, ysp
+    torch.cuda.empty_cache()
+    return out
+
+
+def sparse_race(torch, pmtt, dev):
+    """Phase 19.4: the banded sparse matrix of N_SP rows: forward and
+    adjoint against the byte bound and one torch.sparse CSR mv, the
+    adjoint's run-to-run spread, and SP_NITER damped CGLS iterations."""
+    D = pmtt.DistributedArray
+    t0 = time.perf_counter()
+    offsets, bands = banded(N_SP, 194)
+    Sp = pmtt.MPISparseMatrixMult.from_banded(offsets, bands, (N_SP, N_SP),
+                                              device=dev)
+    build = time.perf_counter() - t0
+    g = torch.Generator(device=dev).manual_seed(194)
+    xt = torch.randn(N_SP, generator=g, device=dev)
+    x = D.to_dist(xt)
+    y = Sp.matvec(x)
+    # the same matrix as one library CSR tensor (the forward's rows)
+    csr = Sp._rows_csr(torch.float32)
+    lib = torch.mv(csr, xt)
+    fw_gap = float((y.array - lib).abs().max() / lib.abs().max())
+
+    def spread(fn):
+        runs = [fn().array.clone() for _ in range(5)]
+        return max(float((a - runs[0]).abs().max() / runs[0].abs().max())
+                   for a in runs[1:])
+
+    fw_spread = spread(lambda: Sp.matvec(x))
+    adj_spread = spread(lambda: Sp.rmatvec(y))
+    fw_ms = cuda_ms(lambda: Sp.matvec(x))
+    ad_ms = cuda_ms(lambda: Sp.rmatvec(y))
+    lib_ms = cuda_ms(lambda: torch.mv(csr, xt))
+    bound = sparse_bound_ms(Sp.nnz, N_SP)
+    pmtt.cgls(Sp, y, niter=2, damp=SP_DAMP, tol=0.0)
+    xs, ws = timed_solve(torch, lambda: pmtt.cgls(
+        Sp, y, niter=SP_NITER, damp=SP_DAMP, tol=0.0)[0], runs=2)
+    rel = float(torch.linalg.vector_norm(xs.array - xt)
+                / torch.linalg.vector_norm(xt))
+    out = dict(N=N_SP, nnz=Sp.nnz, triplet_bytes=Sp.nnz * 12,
+               host_build_s=build, forward_ms=fw_ms, adjoint_ms=ad_ms,
+               csr_mv_ms=lib_ms, bound_ms=bound, forward_gap_to_mv=fw_gap,
+               forward_run_to_run=fw_spread, adjoint_run_to_run=adj_spread,
+               cgls_iters_per_s=SP_NITER / min(ws),
+               cgls_wall_s=ws, cgls_rel_err=rel)
+    print(f"19.4 sparse banded N={N_SP}, nnz {Sp.nnz} ({Sp.nnz * 12 / 1e9:.3f}"
+          f" GB of triplets, host build {build:.1f} s): forward {fw_ms:.3f} "
+          f"ms, adjoint {ad_ms:.3f} ms, byte bound {bound:.3f} ms, one "
+          f"torch.sparse CSR mv {lib_ms:.3f} ms (forward gap to it "
+          f"{fw_gap:.2e}); run-to-run spread of 5 calls: forward "
+          f"{fw_spread:.2e}, adjoint {adj_spread:.2e}; CGLS "
+          f"{SP_NITER} iterations (damp {SP_DAMP}) "
+          f"{out['cgls_iters_per_s']:.1f} iters/s, rel_err {rel:.3e}",
+          flush=True)
+    if not (fw_gap <= 1e-5 and adj_spread <= 1e-5 and rel <= 1e-3):
+        raise RuntimeError(f"19.4 sparse: gap {fw_gap}, spread "
+                           f"{adj_spread}, rel_err {rel}")
+    del Sp, csr, x, y, xs
+    torch.cuda.empty_cache()
+    return out
+
+
+def vcycle_race(torch, pmtt, dev):
+    """Phase 19.5: CG on the Laplacian + eps at VC_DIMS without a
+    preconditioner and with the VC_LEVELS-level V-cycle, each to its own
+    relative tol."""
+    D = pmtt.DistributedArray
+    Lop = lap_op(torch, pmtt, VC_DIMS, VC_EPS, torch.float32)
+    n = VC_DIMS[0] * VC_DIMS[1]
+    g = torch.Generator(device=dev).manual_seed(195)
+    xt = torch.randn(n, generator=g, device=dev)
+    y = Lop.matvec(D.to_dist(xt))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    V = pmtt.VCyclePrecond(lambda d: lap_op(torch, pmtt, d, VC_EPS,
+                                            torch.float32),
+                           VC_DIMS, levels=VC_LEVELS, device=dev)
+    torch.cuda.synchronize()
+    build = time.perf_counter() - t0
+    out = dict(dims=VC_DIMS, eps=VC_EPS, levels=V.level_dims, rtol=VC_RTOL,
+               build_s=build, coarse="cholesky" if V._chol_c is not None
+               else "pinv")
+    for label, M in (("none", None), ("vcycle", V)):
+        z0 = y if M is None else M.matvec(y)
+        tol = VC_RTOL ** 2 * float(y.dot(z0))
+        pmtt.cg(Lop, y, niter=2, tol=0.0, M=M)
+        (x, it, _), ws = timed_solve(torch, lambda: pmtt.cg(
+            Lop, y, niter=VC_CAP, tol=tol, M=M), runs=1)
+        rel = float(torch.linalg.vector_norm(x.array - xt)
+                    / torch.linalg.vector_norm(xt))
+        out[label] = dict(iters=it, wall_s=ws[0], rel_err=rel)
+        print(f"19.5 CG on the Laplacian + {VC_EPS} at {VC_DIMS}, M={label}:"
+              f" {it} iterations to rtol {VC_RTOL:.0e} in {ws[0]:.4f} s, "
+              f"rel_err {rel:.3e}", flush=True)
+    print(f"19.5 V-cycle levels {V.level_dims}, built in {build:.2f} s "
+          f"(coarse {out['coarse']})", flush=True)
+    if not out["vcycle"]["iters"] < out["none"]["iters"] \
+            or out["vcycle"]["rel_err"] > 1e-3:
+        raise RuntimeError(f"19.5 the V-cycle did not help: {out}")
+    del V, Lop, y
+    torch.cuda.empty_cache()
+    return out
+
+
+def solver_tiers_phase(torch, pmtt, kernels, dev):
+    """Phase 19: slice 9's tiers at a world of one, full width."""
+    nk = kernels[0]
+    A, xtrue, _ = make_problem(torch, dev)
+    res = {}
+    for name, fn in (("precond", lambda: precond_race(torch, pmtt, nk, A,
+                                                      xtrue, dev)),
+                     ("block", lambda: block_race(torch, pmtt, A, dev)),
+                     ("ca", lambda: ca_race(torch, pmtt, nk, A, xtrue, dev))):
+        t0 = time.perf_counter()
+        res[name] = fn()
+        print(f"19 {name} in {time.perf_counter() - t0:.1f} s", flush=True)
+    del A, xtrue
+    torch.cuda.empty_cache()
+    for name, fn in (("sparse", sparse_race), ("vcycle", vcycle_race)):
+        t0 = time.perf_counter()
+        res[name] = fn(torch, pmtt, dev)
+        print(f"19 {name} in {time.perf_counter() - t0:.1f} s", flush=True)
+    return res
+
+
+# ---------------------------------------------------------------- phase 20
+def tiers20_problem(torch, pmtt, dev):
+    """Phase 20's operators and data, made alike on every rank and in the
+    parent: NBLK_20 f32 blocks of M_20 (make_problem's style, from a
+    device generator), the SPD operator of the first NSPD_20 Gram blocks
+    plus SHIFT_20·I, its block-Jacobi blocks of 1.5·M_20 (they straddle the shards
+    of three ranks), and a banded sparse matrix of N_SP_20 rows."""
+    from pylops_mpi_tpu_torch.ops.local import MatrixMult
+    g = torch.Generator(device=dev).manual_seed(20)
+    A = torch.randn((NBLK_20, M_20, M_20), generator=g, device=dev)
+    A = A / math.sqrt(M_20)
+    A.diagonal(dim1=1, dim2=2).add_(4.0)
+    G = torch.bmm(A[:NSPD_20].transpose(1, 2), A[:NSPD_20])
+    G.diagonal(dim1=1, dim2=2).add_(SHIFT_20)
+    dense = torch.block_diag(*G)
+    b = 3 * M_20 // 2
+    bj = torch.stack([dense[i:i + b, i:i + b]
+                      for i in range(0, NSPD_20 * M_20, b)])
+    del dense
+    Y = torch.randn((NBLK_20 * M_20, K_20), generator=g, device=dev)
+    ysp = torch.randn(NSPD_20 * M_20, generator=g, device=dev)
+    offsets, bands = banded(N_SP_20, 20)
+    return dict(
+        Op=pmtt.MPIBlockDiag([MatrixMult(A[i]) for i in range(NBLK_20)]),
+        S=pmtt.MPIBlockDiag([MatrixMult(G[i]) for i in range(NSPD_20)]),
+        S64=pmtt.MPIBlockDiag([MatrixMult(G[i].double())
+                               for i in range(NSPD_20)]),
+        bj=bj, Y=Y, ysp=ysp, djac=(A ** 2).sum(dim=1).reshape(-1),
+        Sp=pmtt.MPISparseMatrixMult.from_banded(
+            offsets, bands, (N_SP_20, N_SP_20), device=dev),
+        xsp=torch.randn(N_SP_20, generator=g, device=dev))
+
+
+def tiers20_f64_case(torch, pmtt, dev):
+    """Phase 20's ragged f64 case, run alike by a world of ranks and by
+    one CPU process: 10 blocks of (24, 16) (ragged over 3 ranks) through
+    block CGLS, PCGLS with Jacobi, pipelined CGLS, and a sparse CGLS."""
+    D = pmtt.DistributedArray
+    rng = np.random.default_rng(201)
+    blocks = [rng.standard_normal((24, 16)) / 4 + 2 * np.eye(24, 16)
+              for _ in range(10)]
+    Op = pmtt.convert.blockdiag_from_numpy(blocks, device=dev)
+    Y = rng.standard_normal((240, 3))
+    y = rng.standard_normal(240)
+    A = rng.standard_normal((37, 29)) * (rng.random((37, 29)) < 0.2)
+    A[np.arange(29), np.arange(29)] += 2.0
+    ysp = rng.standard_normal(37)
+    yb = D.to_dist(Y, local_shapes=[(s[0], 3) for s in Op.local_shapes_n],
+                   device=dev)
+    yd = D.to_dist(y, local_shapes=Op.local_shapes_n, device=dev)
+    d = np.concatenate([np.sum(b ** 2, axis=0) for b in blocks])
+    M = pmtt.JacobiPrecond(d, device=dev)
+    out = {"block_cgls": pmtt.block_cgls(Op, yb, niter=NITER_20,
+                                         tol=0.0)[0].asarray(),
+           "pcgls": pmtt.cgls(Op, yd, niter=NITER_20, tol=0.0,
+                              M=M)[0].asarray()}
+    set_ca("pipelined")
+    try:
+        out["pipelined"] = pmtt.cgls(Op, yd, niter=NITER_20, damp=0.2,
+                                     tol=0.0)[0].asarray()
+    finally:
+        set_ca("off")
+    Sp = pmtt.MPISparseMatrixMult.from_dense(A, device=dev)
+    out["sparse"] = pmtt.cgls(Sp, D.to_dist(ysp, device=dev), niter=NITER_20,
+                              damp=0.1, tol=0.0)[0].asarray()
+    return out
+
+
+def _tiers20_solves(torch, pmtt, p, dev):
+    """The f32 solves of phase 20, on the problem ``p``: {name: (x on the
+    host, all_reduce calls, iterations)}; with a group, each rank's
+    vectors follow the operators' splits."""
+    import os
+    D = pmtt.DistributedArray
+    from pylops_mpi_tpu_torch.parallel import collectives as co
+    from pylops_mpi_tpu_torch.solvers import ca
+    Op, S, Sp = p["Op"], p["S"], p["Sp"]
+    K = p["Y"].shape[1]
+    yb = D.to_dist(p["Y"], local_shapes=[(s[0], K) for s in Op.local_shapes_n])
+    y = D.to_dist(p["Y"][:, 0].contiguous(), local_shapes=Op.local_shapes_n)
+    ysp = D.to_dist(p["ysp"], local_shapes=S.local_shapes_n)
+    MJ = pmtt.JacobiPrecond(p["djac"])
+    MB = pmtt.BlockJacobiPrecond.from_block_diag(Op, normal=True)
+    MS = pmtt.BlockJacobiPrecond(p["bj"])
+    yspar = Sp.matvec(D.to_dist(p["xsp"]))
+    out = {}
+
+    def run(name, fn):
+        co.reset_counts()
+        x, it = fn()
+        torch.cuda.synchronize()
+        out[name] = (x.asarray(), co.counts["all_reduce"], it)
+
+    run("block_cgls", lambda: (lambda o: (o[0], o[2]))(
+        pmtt.block_cgls(Op, yb, niter=NITER_20, tol=0.0)))
+    run("pcgls_jacobi", lambda: (lambda o: (o[0], o[2]))(
+        pmtt.cgls(Op, y, niter=NITER_20, tol=0.0, M=MJ)))
+    run("pcgls_block", lambda: (lambda o: (o[0], o[2]))(
+        pmtt.cgls(Op, y, niter=NITER_20, tol=0.0, normal=True, M=MB)))
+    run("pcg_straddle", lambda: pmtt.cg(S, ysp, niter=NITER_20, tol=0.0,
+                                        M=MS)[:2])
+    try:
+        set_ca("pipelined")
+        run("pipelined_normal", lambda: (lambda o: (o[0], o[2]))(
+            pmtt.cgls(Op, y, niter=NITER_20, tol=0.0, normal=True)))
+        set_ca("sstep")
+        ca.clear_fallback()
+        run("sstep_cg", lambda: pmtt.cg(S, ysp, niter=NITER_20, tol=0.0)[:2])
+        S64 = p["S64"]
+        y64 = D.to_dist(p["ysp"].double(), local_shapes=S64.local_shapes_n)
+        run("sstep_cg_f64", lambda: pmtt.cg(S64, y64, niter=NITER_20,
+                                            tol=0.0)[:2])
+        out["sstep_fallback"] = ca.last_fallback()
+    finally:
+        os.environ.pop("PYLOPS_MPI_TPU_TORCH_CA", None)
+    run("sparse_cgls", lambda: (lambda o: (o[0], o[2]))(
+        pmtt.cgls(Sp, yspar, niter=NITER_20, damp=SP_DAMP, tol=0.0)))
+    # the bytes this rank receives in one apply of each
+    moved = {}
+    g = Op.rmatvec(y)
+    xsp = D.to_dist(p["xsp"])
+    for name, fn in (("jacobi", lambda: MJ.matvec(g)),
+                     ("block_jacobi_chunk", lambda: MB.matvec(g)),
+                     ("block_jacobi_straddle", lambda: MS.matvec(ysp)),
+                     ("sparse_forward", lambda: Sp.matvec(xsp)),
+                     ("sparse_adjoint", lambda: Sp.rmatvec(yspar))):
+        co.reset_counts()
+        fn()
+        torch.cuda.synchronize()
+        moved[name] = (dict(co.counts), dict(co.received))
+    out["moved"] = moved
+    return out
+
+
+def _tiers20_rank(torch, pmtt, dev, refdir):
+    """What each rank of phase 20 runs: the f32 solves against the
+    no-group ones (saved in ``refdir``), their all_reduce calls, the
+    bytes of each apply, and the ragged f64 case."""
+    r = pmtt.parallel.rank()
+    p = tiers20_problem(torch, pmtt, dev)
+    solves = _tiers20_solves(torch, pmtt, p, dev)
+    out = dict(rank=r, gaps={}, all_reduce={}, moved=solves.pop("moved"),
+               sstep_fallback=solves.pop("sstep_fallback"))
+    for name, (x, calls, it) in solves.items():
+        want = np.load(f"{refdir}/{name}.npy")
+        out["gaps"][name] = float(np.linalg.norm(x - want)
+                                  / np.linalg.norm(want))
+        out["all_reduce"][name] = (calls, it)
+    f64 = tiers20_f64_case(torch, pmtt, dev)
+    out["f64"] = f64 if r == 0 else None
+    return out
+
+
+def slice9_ranks_phase(torch, pmtt, here, dev, timeout=600):
+    """Phase 20: the solver tiers across two and three gloo ranks sharing
+    the card, against the same solves with no group in this process:
+    every x within TOL_20, the ragged f64 case within F64_20 of one CPU
+    process, each rank's all_reduce calls per iteration (pipelined 1,
+    s-step 1 an outer step) and the bytes it receives per
+    preconditioner and sparse apply."""
+    import shutil
+    import tempfile
+    refdir = tempfile.mkdtemp(prefix="chip_smoke_slice9_")
+    try:
+        t0 = time.perf_counter()
+        p = tiers20_problem(torch, pmtt, dev)
+        ref = _tiers20_solves(torch, pmtt, p, dev)
+        del p
+        for name, v in ref.items():
+            if name not in ("moved", "sstep_fallback"):
+                np.save(f"{refdir}/{name}.npy", v[0])
+        cpu = tiers20_f64_case(torch, pmtt, torch.device("cpu"))
+        torch.cuda.empty_cache()
+        print(f"20. no-group references in {time.perf_counter() - t0:.1f} s "
+              f"(s-step fallback {ref['sstep_fallback']})", flush=True)
+        summary = {}
+        setup = {"block_cgls": 2, "pcgls_jacobi": 2, "pcgls_block": 2,
+                 "pcg_straddle": 1, "pipelined_normal": 1, "sstep_cg": 1,
+                 "sstep_cg_f64": 1, "sparse_cgls": 3}
+        for n in WORLDS_20:
+            t0 = time.perf_counter()
+            ranks = spawn_shared_card(n, here, _tiers20_rank, (refdir,),
+                                      timeout)
+            f64 = max(float(np.abs(ranks[0]["f64"][k] - cpu[k]).max()
+                            / np.abs(cpu[k]).max()) for k in cpu)
+            per_rank = []
+            for o in ranks:
+                per_iter = {k: (c - setup[k]) / it
+                            for k, (c, it) in o["all_reduce"].items()}
+                per_rank.append(dict(rank=o["rank"], gaps=o["gaps"],
+                                     all_reduce=o["all_reduce"],
+                                     all_reduce_per_iter=per_iter,
+                                     moved=o["moved"],
+                                     sstep_fallback=o["sstep_fallback"]))
+            secs = time.perf_counter() - t0
+            summary[n] = dict(f64=f64, ranks=per_rank, seconds=secs)
+            print(f"20. {n} ranks on one card (gloo, staged through the "
+                  f"host): ragged f64 vs CPU {f64:.3e} (limit "
+                  f"{F64_20:.0e}); per rank (x gaps to the no-group solves, "
+                  f"limit {TOL_20:.0e}; all_reduce calls per iteration after "
+                  f"the setup's; collectives and bytes received per apply) "
+                  f"{per_rank}; {secs:.1f} s", flush=True)
+            if not f64 <= F64_20:
+                raise RuntimeError(f"phase 20, {n} ranks: f64 gap {f64}")
+            for rec in per_rank:
+                # f32 s-step is printed, not held: its coordinate
+                # recurrences take the Gram tile's rounding (here another
+                # summation order) to x amplified like 1/residual, so it
+                # is held in f64
+                bad = {k: v for k, v in rec["gaps"].items()
+                       if k != "sstep_cg" and not v <= TOL_20}
+                if bad:
+                    raise RuntimeError(f"phase 20, {n} ranks, rank "
+                                       f"{rec['rank']}: gaps {bad}")
+                pi = rec["all_reduce_per_iter"]
+                if pi["pipelined_normal"] != 1.0:
+                    raise RuntimeError(f"phase 20: rank {rec['rank']} took "
+                                       f"{pi['pipelined_normal']} all_reduce "
+                                       "an iteration in pipelined CGLS")
+                # one Gram reduction an outer step of s iterations (one
+                # more where every lane froze at the machine floor)
+                calls, it = rec["all_reduce"]["sstep_cg_f64"]
+                if rec["sstep_fallback"] is None and \
+                        calls - setup["sstep_cg"] > -(-it // 4) + 1:
+                    raise RuntimeError(f"phase 20: rank {rec['rank']} took "
+                                       f"{calls - 1} s-step Gram reductions "
+                                       f"in {it} iterations")
+        return summary
+    finally:
+        shutil.rmtree(refdir, ignore_errors=True)
+
+
 def main() -> int:
     here = Path(__file__).resolve().parent
     if not (here / "pylops_mpi_tpu_torch" / "__init__.py").is_file():
@@ -2880,6 +3565,16 @@ def main() -> int:
     slice8_ranks = slice8_ranks_phase(torch, pmtt, here, dev)
     print(f"phase 18 in {time.perf_counter() - t18:.1f} s", flush=True)
 
+    # 19-20. slice 9: the solver tiers at full width with no group (the CA
+    # engines under a group of one), then across two and three gloo ranks
+    torch.cuda.empty_cache()
+    t19 = time.perf_counter()
+    slice9 = solver_tiers_phase(torch, pmtt, kernel_mods, dev)
+    print(f"phase 19 in {time.perf_counter() - t19:.1f} s", flush=True)
+    t20 = time.perf_counter()
+    slice9_ranks = slice9_ranks_phase(torch, pmtt, here, dev)
+    print(f"phase 20 in {time.perf_counter() - t20:.1f} s", flush=True)
+
     kernels = []
     for name, run in (("float32", "normal_f32"), ("bfloat16", "normal_bf16")):
         s = stats[name]
@@ -2897,6 +3592,14 @@ def main() -> int:
             plain_ms=s["plain_ms"], bound_ms=s["bound_ms"],
             bound_by=s["bound_by"], library_ms=s["library_ms"],
             shape=s["shape"], dtype=name))
+    # slice 9's paths through the normal kernel (f32 storage): PCGLS
+    # normal=True per arm (10 iterations, counts reset just before) and
+    # pipelined CGLS normal=True (its setup applies the kernel once)
+    kernels[0]["slice9_launches_per_iter"] = dict(
+        {f"pcgls_normal_{k}": slice9["precond"][k]["launches_per_iter"]
+         for k in ("none", "jacobi", "block_jacobi")},
+        pipelined_cgls_normal=slice9["ca"]["cgls_normal"]["pipelined"][
+            "normal_launches_per_iter"])
     gr = post["gradient_cgls"]
     for name in ("float32", "bfloat16"):
         st = sstats[name]
@@ -2922,7 +3625,8 @@ def main() -> int:
                       "stacking": stack_res, "nonstationary": ns_res,
                       "lsm": lsm_res, "group_of_one": group1,
                       "shared_card": shared, "slice7_ranks": slice7,
-                      "slice8": slice8, "slice8_ranks": slice8_ranks}),
+                      "slice8": slice8, "slice8_ranks": slice8_ranks,
+                      "slice9": slice9, "slice9_ranks": slice9_ranks}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,9 @@ block-diagonal, stacking and halo operators, the derivative family, the
 non-stationary convolution, the Fredholm and MDC operators, the
 distributed dense matrix product (block and SUMMA on a 2-D grid of
 ranks) and the pencil FFTs, the post-stack, MDD and least-squares
-migration pipelines, the CG/CGLS solvers (functions and classes),
+migration pipelines, the CG/CGLS solvers (functions and classes) with
+the preconditioner seam (Jacobi, block-Jacobi, V-cycle), block CG/CGLS
+and the communication-avoiding engines, the sparse matrix product,
 ISTA/FISTA and the power iteration, in PyTorch on NVIDIA Hopper GPUs,
 one rank a card or a world of ranks over ``torch.distributed``. Two
 hand-written CUDA kernels carry the hot loops:
@@ -39,7 +41,12 @@ from .ops.fredholm import MPIFredholm1
 from .ops.mdc import MPIMDC
 from .ops.matrixmult import MPIMatrixMult
 from .ops.fft import MPIFFTND, MPIFFT2D
+from .ops.precond import (JacobiPrecond, BlockJacobiPrecond, VCyclePrecond,
+                          make_precond)
+from .ops.sparse import MPISparseMatrixMult, auto_sparse_matmult
 from .solvers.basic import CG, CGLS, cg, cgls
+from .solvers.block import (block_cg, block_cgls, block_cg_segmented,
+                            batched_solve, batched_cache_info)
 from .solvers.sparsity import ISTA, FISTA, ista, fista
 from .solvers.eigs import power_iteration
 from .utils.dottest import dottest

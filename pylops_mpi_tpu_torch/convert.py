@@ -7,7 +7,11 @@ the same operator here (``MPIBlockDiag``, ``MPIVStack``,
 Stacked vectors come over as (nested) lists of their components'
 arrays. A frequency kernel ``(nfmax, ns, nr)`` comes over as one numpy
 array (``np.asarray(jax_op.G)`` for ``MPIFredholm1``, or the array given
-to the JAX package's ``MPIMDC``).
+to the JAX package's ``MPIMDC``). The preconditioners come over as
+their arrays: a Jacobi preconditioner's inverted diagonal
+(``np.asarray(jax_M._dinv)``) and a block-Jacobi one's Cholesky factors
+(``np.asarray(jax_M._chol)``); a sparse operator as its triplets
+(``np.asarray(jax_op._rows)``, ``_cols``, ``_data``) and shape.
 
 Under a process group every rank passes the same global arrays, as the
 JAX package's controller does, and keeps its own shard, its chunk of the
@@ -30,6 +34,8 @@ from .ops.blockdiag import MPIBlockDiag, _chunk_ops
 from .ops.fredholm import MPIFredholm1
 from .ops.matrixmult import MPIMatrixMult
 from .ops.mdc import MPIMDC
+from .ops.precond import BlockJacobiPrecond, JacobiPrecond
+from .ops.sparse import MPISparseMatrixMult
 from .ops.stack import MPIHStack, MPIVStack
 from .ops.local import MatrixMult, ShapeOnly
 from .parallel.mesh import DeviceLike, rank, resolve_device, world_size
@@ -37,7 +43,8 @@ from .parallel.partition import Partition
 
 __all__ = ["blockdiag_from_numpy", "vstack_from_numpy", "hstack_from_numpy",
            "array_from_numpy", "stacked_from_numpy", "fredholm_from_numpy",
-           "mdc_from_numpy", "matrixmult_from_numpy"]
+           "mdc_from_numpy", "matrixmult_from_numpy", "jacobi_from_numpy",
+           "block_jacobi_from_numpy", "sparse_from_numpy"]
 
 
 def _matrices(blocks: Sequence[np.ndarray], dtype,
@@ -165,3 +172,33 @@ def matrixmult_from_numpy(A: np.ndarray, M: int, kind: str = "summa",
     kwargs.setdefault("dtype", as_torch_dtype(K.dtype))
     return MPIMatrixMult(K, M, kind=kind, device=resolve_device(device),
                          **kwargs)
+
+
+def jacobi_from_numpy(dinv: np.ndarray, dtype=None,
+                      device: DeviceLike = None) -> JacobiPrecond:
+    """A :class:`~.ops.precond.JacobiPrecond` whose inverted diagonal is
+    ``dinv`` (the JAX object's ``_dinv``) cast to ``dtype``, on
+    ``device`` (default ``"cuda"``)."""
+    return JacobiPrecond.from_inverse(_kernel(dinv, dtype), device=device)
+
+
+def block_jacobi_from_numpy(chol: np.ndarray, dtype=None,
+                            device: DeviceLike = None) -> BlockJacobiPrecond:
+    """A :class:`~.ops.precond.BlockJacobiPrecond` of the lower Cholesky
+    factors ``chol (nblk, m, m)`` (the JAX object's ``_chol``) cast to
+    ``dtype``; each rank keeps the factors covering its rows, on
+    ``device`` (default ``"cuda"``)."""
+    return BlockJacobiPrecond.from_factors(_kernel(chol, dtype),
+                                           device=device)
+
+
+def sparse_from_numpy(rows: np.ndarray, cols: np.ndarray, data: np.ndarray,
+                      shape, dtype=None, device: DeviceLike = None,
+                      **kwargs) -> MPISparseMatrixMult:
+    """``MPISparseMatrixMult`` of the triplets ``(rows, cols, data)`` of
+    a ``shape`` matrix (the JAX object's ``_rows``, ``_cols``,
+    ``_data``), values cast to ``dtype``; each rank keeps the triplets
+    of its rows on ``device`` (default ``"cuda"``); ``kwargs`` as for
+    the operator (``compute_dtype``, ``adjoint_mode``)."""
+    return MPISparseMatrixMult(rows, cols, _kernel(data, dtype), shape,
+                               device=device, **kwargs)

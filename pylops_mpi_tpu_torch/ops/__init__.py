@@ -1,8 +1,9 @@
 """Operators of the port: local operators, the block-diagonal,
 stacking and halo operators, the derivative family, the non-stationary
 convolution, the Fredholm and MDC operators, the distributed dense
-matrix product and the pencil FFTs, and the wrappers of the
-hand-written kernels (normal product, tap stencil).
+matrix product and the pencil FFTs, the preconditioners, the sparse
+matrix product, and the wrappers of the hand-written kernels (normal
+product, tap stencil).
 
 The distributed operators are importable from here as from the JAX
 package's ``ops``. They load on first access: their modules import the
@@ -22,6 +23,10 @@ _EXPORTS = {
     "MPIMatrixMult": "matrixmult", "active_grid_comm": "matrixmult",
     "local_block_split": "matrixmult", "block_gather": "matrixmult",
     "MPIFFTND": "fft", "MPIFFT2D": "fft",
+    "JacobiPrecond": "precond", "BlockJacobiPrecond": "precond",
+    "VCyclePrecond": "precond", "make_precond": "precond",
+    "probe_diagonal": "precond",
+    "MPISparseMatrixMult": "sparse", "auto_sparse_matmult": "sparse",
 }
 
 __all__ = sorted(_EXPORTS)

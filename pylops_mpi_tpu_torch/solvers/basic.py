@@ -10,7 +10,13 @@ The classes keep the reference's ``setup``/``step``/``run``/
 ``finalize``/``solve`` with a per-iteration ``callback`` and ``show``;
 their ``run`` reads ``kold`` on the host every iteration, as the
 reference's loop test demands. The functional ``cg``/``cgls`` below are
-the fast path.
+the fast path. They take the preconditioner seam ``M=`` (JAX
+``_precond_apply``, ``basic.py:100-112``): ``z = M r`` replaces ``r`` in
+the recurrence norm (``kold = r·z``, tested absolutely against ``tol``)
+and in the direction update; ``M=None`` runs the unpreconditioned loop
+op for op. Under ``PYLOPS_MPI_TPU_TORCH_CA`` other than ``off`` they
+hand the solve to the communication-avoiding engines
+(:mod:`.ca`).
 
 The JAX package runs a solve as one ``lax.while_loop`` that leaves when
 ``iiter == niter`` or ``max(kold) <= tol``. Here the loop is a Python
@@ -99,6 +105,27 @@ def _damped_norm(sn: torch.Tensor, damp2: float, x: Vector) -> torch.Tensor:
     if not damp2:
         return torch.sqrt(sn ** 2)
     return torch.sqrt(sn ** 2 + damp2 * _rdot(x, x))
+
+
+def _cast_vec(v: Vector, dt: torch.dtype) -> Vector:
+    """A (possibly stacked) distributed vector cast to ``dt``."""
+    if isinstance(v, StackedDistributedArray):
+        return StackedDistributedArray([_cast_vec(d, dt)
+                                        for d in v.distarrays])
+    return DistributedArray._wrap(v.array.to(dt), v)
+
+
+def _precond_apply(M, r: Vector, xdt: torch.dtype) -> Vector:
+    """The preconditioner seam ``z = M r`` (``M.matvec``: the operator
+    is the approximate inverse), cast back to the carry dtype.
+    ``M=None`` returns ``r`` itself, so the unpreconditioned loop runs
+    the same operations as before the seam existed."""
+    if M is None:
+        return r
+    z = M.matvec(r)
+    if z.dtype != xdt:
+        z = _cast_vec(z, xdt)
+    return z
 
 
 def _record(buf: torch.Tensor, i: int, value, active) -> None:
@@ -258,22 +285,22 @@ class CGLS(_BaseSolver):
 
 
 def _use_fused(name: str, callback, show: bool, fused: Optional[bool],
-           guards, M, normal: bool = False) -> bool:
+               guards, M, normal: bool = False) -> bool:
     """Whether a functional solve runs the fused loop (no per-iteration
-    hooks) or the class API, with the JAX package's checks."""
+    hooks) or the class API, with the JAX package's checks
+    (``basic.py:685-691``, ``:819-829``)."""
     if guards is not None:
         raise NotImplementedError(
             f"{name}(guards=...) is not ported: the guarded solvers are "
             "ROADMAP.md §A.7")
-    if M is not None:
-        raise NotImplementedError(
-            f"{name}(M=...) is not ported: preconditioning is ROADMAP.md "
-            "§A.6")
     use_fused = fused if fused is not None else (callback is None
                                                  and not show)
     if use_fused and (callback is not None or show):
         raise ValueError("fused=True cannot honor callback/show; use "
                          "fused=False for per-iteration hooks")
+    if M is not None and not use_fused:
+        raise ValueError("M= (preconditioning) requires the fused path; "
+                         "drop callback/show or pass fused=True")
     if normal and not use_fused:
         raise ValueError("normal=True requires the fused path; drop "
                          "callback/show or pass fused=True")
@@ -288,7 +315,8 @@ def cg(Op, y: Vector, x0: Optional[Vector] = None,
     (ref ``optimization/basic.py:13-70``), in the JAX package's argument
     order. Without ``callback`` or ``show`` it runs the fused loop;
     with them (or ``fused=False``) the :class:`CG` class, printing on
-    rank 0. ``guards`` and ``M`` are not ported and raise.
+    rank 0. ``M`` (fused loop only) is an SPD approximation of
+    ``Op⁻¹``: the loop is then PCG. ``guards`` is not ported and raises.
 
     Returns ``(x, iiter, cost)``: the solution, the iterations run and
     the residual-norm history ``cost[:iiter+1]`` (a device tensor; a
@@ -300,11 +328,16 @@ def cg(Op, y: Vector, x0: Optional[Vector] = None,
         x0 = _zero_like_model(Op, y) if x0 is None else x0
         return solver.solve(y, x0, niter=niter, tol=tol, show=show,
                             itershow=itershow)
+    from . import ca
+    mode = ca.resolve_mode(Op, "cg")
     x = _zero_like_model(Op, y) if x0 is None else x0
+    if mode != "off":
+        return ca.run_cg(Op, y, x, niter, tol, M=M, mode=mode)
     xdt = x.dtype
     r = y - Op.matvec(x)
-    c = r
-    kold = _rdot(r, r)
+    z = _precond_apply(M, r, xdt)
+    c = z
+    kold = _rdot(r, z)
     floors = _mp_floor(kold)
     cost = torch.zeros(niter + 1, dtype=kold.dtype, device=kold.device)
     cost[0] = torch.sqrt(kold)
@@ -316,9 +349,10 @@ def cg(Op, y: Vector, x0: Optional[Vector] = None,
         a = torch.where(frozen, torch.zeros_like(kold), kold / _rdot(c, Opc))
         x = x + c * _step_scalar(a, xdt)
         r = r - Opc * _step_scalar(a, xdt)
-        k = torch.where(frozen, kold, _rdot(r, r))
+        z = _precond_apply(M, r, xdt)
+        k = torch.where(frozen, kold, _rdot(r, z))
         b = torch.where(frozen, torch.zeros_like(k), k / kold)
-        c = r + c * _step_scalar(b, xdt)
+        c = z + c * _step_scalar(b, xdt)
         kold = k
         iiter = iiter + active.to(iiter.dtype)
         _record(cost, it + 1, torch.sqrt(k), active)
@@ -337,8 +371,10 @@ def cgls(Op, y: Vector, x0: Optional[Vector] = None,
     """Damped least-squares CGLS (ref ``optimization/basic.py:73-148``),
     in the JAX package's argument order. Without ``callback`` or
     ``show`` it runs the fused loop; with them (or ``fused=False``) the
-    :class:`CGLS` class, printing on rank 0. ``guards`` and ``M`` are
-    not ported and raise.
+    :class:`CGLS` class, printing on rank 0. ``M`` (fused loop only)
+    is an SPD approximation of ``(OpᴴOp + damp²I)⁻¹`` applied to the
+    normal residual in both schedules (PCGLS). ``guards`` is not ported
+    and raises.
 
     ``normal=True`` runs the one-sweep schedule (fused loop only): each
     iteration takes ``(u, q) = Op.normal_matvec(c)`` (one read of the
@@ -361,17 +397,25 @@ def cgls(Op, y: Vector, x0: Optional[Vector] = None,
                             show=show, itershow=itershow)
     normal = bool(normal)
     damp2 = damp ** 2
+    from . import ca
+    mode = ca.resolve_mode(Op, "cgls")
     x = _zero_like_model(Op, y) if x0 is None else x0
+    if mode != "off":
+        x, iiter, cost, kold = ca.run_cgls(Op, y, x, niter, damp, tol,
+                                           normal, M=M)
+        istop = 1 if float(kold) < tol else 2
+        return x, istop, iiter, kold, cost[iiter], cost
     xdt = x.dtype
     s = y - Op.matvec(x)
     rq = Op.rmatvec(s) - x * damp  # the reference's un-squared setup damp
-    c = rq
+    z = _precond_apply(M, rq, xdt)
+    c = z
     if normal:
         # the recurrence tracks the true gradient Opᴴs − damp²x
         r = rq + x * (damp - damp2)
     else:
         q = Op.matvec(c)
-    kold = _rdot(rq, rq)
+    kold = _rdot(rq, z)
     floors = _mp_floor(kold)
     sn = s.norm()
     cost = torch.zeros(niter + 1, dtype=sn.dtype, device=sn.device)
@@ -393,9 +437,10 @@ def cgls(Op, y: Vector, x0: Optional[Vector] = None,
             r = r - (u + c * damp2) * _step_scalar(a, xdt)
         else:
             r = Op.rmatvec(s) - x * damp2
-        k = torch.where(frozen, kold, _rdot(r, r))
+        z = _precond_apply(M, r, xdt)
+        k = torch.where(frozen, kold, _rdot(r, z))
         b = torch.where(frozen, torch.zeros_like(k), k / kold)
-        c = r + c * _step_scalar(b, xdt)
+        c = z + c * _step_scalar(b, xdt)
         if not normal:
             q = Op.matvec(c)
         kold = k

@@ -1,0 +1,237 @@
+"""Block CG / CGLS: K right-hand sides through one loop.
+
+PyTorch counterpart of ``pylops_mpi_tpu/solvers/block.py:60-532``. The
+data and model vectors are 2-D ``(n, K)`` :class:`DistributedArray` s,
+rows sharded and columns local; every operator apply moves all K
+columns (``accepts_block`` operators widen their contraction, the rest
+apply column by column), and each recurrence scalar becomes a ``(K,)``
+vector from :meth:`DistributedArray.col_dot`, one ``all_reduce`` each.
+Columns converge on their own: a column whose ``kold`` falls below
+``max(floor, tol)`` freezes (zero step, zero momentum) while the others
+go on. ``M=`` preconditions all K columns in one apply.
+
+A block of one column routes to the single-RHS ``cg``/``cgls``, whose
+results it returns bit for bit with a trailing unit axis. Under
+``PYLOPS_MPI_TPU_TORCH_CA`` other than ``off`` a block of several
+columns runs the pipelined engine of :mod:`.ca`.
+
+``block_cg_segmented``, ``batched_solve``, ``BatchedResult`` and
+``batched_cache_info`` are exported with the JAX package's names and
+raise: they need the segmented driver and checkpoints, and a
+stacked-operator design of their own (ROADMAP.md §A.6).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..distributedarray import DistributedArray, Partition
+from .basic import (_CHECK_EVERY, _mp_floor, _precond_apply, _record,
+                    _step_scalar, cg, cgls)
+from . import ca
+from .ca import _bdot, _cost0, _tol_floor
+
+__all__ = ["block_cg", "block_cgls", "block_cg_segmented",
+           "batched_solve", "BatchedResult", "batched_cache_info"]
+
+
+def _check_block(Op, y) -> None:
+    if not (isinstance(y, DistributedArray) and y.ndim == 2):
+        raise ValueError(
+            "block solvers need a 2-D (rows, columns) DistributedArray "
+            f"data vector; got {type(y).__name__} with shape "
+            f"{getattr(y, 'global_shape', None)}")
+    if y.global_shape[0] != Op.shape[0]:
+        raise ValueError(
+            f"data rows {y.global_shape[0]} do not match operator rows "
+            f"{Op.shape[0]}")
+
+
+def _check_guards(name: str, guards) -> None:
+    if guards is not None:
+        raise NotImplementedError(
+            f"{name}(guards=...) is not ported: the guarded solvers are "
+            "ROADMAP.md §A.7")
+
+
+def _squeeze_col(v: DistributedArray) -> DistributedArray:
+    """``(n, 1)`` block vector → the 1-D vector of the single-RHS
+    solvers."""
+    return DistributedArray._wrap(
+        v.array[..., 0], v, global_shape=(v.global_shape[0],),
+        local_shapes=tuple((s[0],) for s in v.local_shapes))
+
+
+def _expand_col(v: DistributedArray) -> DistributedArray:
+    """1-D vector → ``(n, 1)`` block vector."""
+    return DistributedArray._wrap(
+        v.array[..., None], v, global_shape=v.global_shape + (1,),
+        local_shapes=tuple(tuple(s) + (1,) for s in v.local_shapes))
+
+
+def _zero_block_model(Op, y: DistributedArray) -> DistributedArray:
+    """Zero ``(Op.shape[1], K)`` model in the operator's model split
+    where it fixes one, at the operator's dtype (complex for complex
+    data), on the operator's device or the data's."""
+    K = int(y.global_shape[1])
+    dtype = y.dtype if Op.dtype is None else torch.promote_types(Op.dtype,
+                                                                 y.dtype)
+    device = getattr(Op, "device", None) or y.device
+    local_shapes = None
+    if y.partition == Partition.SCATTER and Op.local_shapes_m is not None:
+        local_shapes = tuple((s[0], K) for s in Op.local_shapes_m)
+    return DistributedArray(global_shape=(Op.shape[1], K),
+                            partition=y.partition, axis=0,
+                            local_shapes=local_shapes, dtype=dtype,
+                            device=device)
+
+
+def block_cg(Op, y: DistributedArray, x0: Optional[DistributedArray] = None,
+             niter: int = 10, tol: float = 1e-4,
+             guards: Optional[bool] = None, M=None):
+    """Block CG (JAX ``block.py:343-452``): K columns of ``y`` (``(n, K)``)
+    through one loop. Returns ``(x, iiter, cost)``, ``cost`` of shape
+    ``(iiter+1, K)`` (a device tensor). ``guards`` is not ported and
+    raises."""
+    _check_block(Op, y)
+    _check_guards("block_cg", guards)
+    K = int(y.global_shape[1])
+    if K == 1:
+        x1, iiter, cost = cg(Op, _squeeze_col(y),
+                             None if x0 is None else _squeeze_col(x0),
+                             niter=niter, tol=tol, M=M)
+        return _expand_col(x1), iiter, cost[:, None]
+    x = _zero_block_model(Op, y) if x0 is None else x0
+    mode = ca.resolve_mode(Op, "block_cg")
+    if mode != "off":
+        return ca.run_block_cg(Op, y, x, niter, tol, M=M)
+    xdt = x.dtype
+    r = y - Op.matvec(x)
+    z = _precond_apply(M, r, xdt)
+    c = z
+    kold = _bdot(r, z)
+    stop = _tol_floor(_mp_floor(kold), tol)
+    cost = _cost0(torch.sqrt(kold), niter)
+    iiter = torch.zeros((), dtype=torch.int64, device=kold.device)
+    for it in range(niter):
+        active = torch.max(kold) > tol
+        done = kold <= stop
+        Opc = Op.matvec(c)
+        a = torch.where(done, torch.zeros_like(kold), kold / _bdot(c, Opc))
+        x = x + c * _step_scalar(a, xdt)
+        r = r - Opc * _step_scalar(a, xdt)
+        z = _precond_apply(M, r, xdt)
+        k = torch.where(done, kold, _bdot(r, z))
+        b = torch.where(done, torch.zeros_like(k), k / kold)
+        c = z + c * _step_scalar(b, xdt)
+        kold = k
+        iiter = iiter + active.to(iiter.dtype)
+        _record(cost, it + 1, torch.sqrt(k), active)
+        if (it + 1) % _CHECK_EVERY == 0 and not bool(torch.max(kold) > tol):
+            break
+    iiter = int(iiter)
+    return x, iiter, cost[:iiter + 1]
+
+
+def block_cgls(Op, y: DistributedArray,
+               x0: Optional[DistributedArray] = None, niter: int = 10,
+               damp: float = 0.0, tol: float = 1e-4,
+               guards: Optional[bool] = None, M=None):
+    """Block CGLS, the classic two-sweep schedule (JAX
+    ``block.py:454-532``). Returns ``(x, istop, iiter, kold, r2norm,
+    cost)`` as ``cgls`` does, with ``(K,)`` ``istop``/``kold``/``r2norm``
+    and a ``(iiter+1, K)`` ``cost`` (device tensors). ``M`` approximates
+    ``(OpᴴOp + damp²I)⁻¹``. ``guards`` is not ported and raises."""
+    _check_block(Op, y)
+    _check_guards("block_cgls", guards)
+    K = int(y.global_shape[1])
+    if K == 1:
+        x1, _, iiter, kold, r2, cost = cgls(
+            Op, _squeeze_col(y), None if x0 is None else _squeeze_col(x0),
+            niter=niter, damp=damp, tol=tol, M=M)
+        kold = kold.reshape(1)
+        return (_expand_col(x1), torch.where(kold < tol, 1, 2), iiter, kold,
+                r2.reshape(1), cost[:, None])
+    x = _zero_block_model(Op, y) if x0 is None else x0
+    mode = ca.resolve_mode(Op, "block_cgls")
+    if mode != "off":
+        return ca.run_block_cgls(Op, y, x, niter, damp, tol, M=M)
+    damp2 = damp ** 2
+    xdt = x.dtype
+    s = y - Op.matvec(x)
+    rq = Op.rmatvec(s) - x * damp  # the reference's un-squared setup damp
+    z = _precond_apply(M, rq, xdt)
+    c = z
+    q = Op.matvec(c)
+    kold = _bdot(rq, z)
+    stop = _tol_floor(_mp_floor(kold), tol)
+    sn = torch.sqrt(_bdot(s, s))
+    cost = _cost0(sn, niter)
+    cost1 = _cost0(_damped(sn, damp2, x), niter)
+    iiter = torch.zeros((), dtype=torch.int64, device=kold.device)
+    for it in range(niter):
+        active = torch.max(kold) > tol
+        done = kold <= stop
+        qq = _bdot(q, q)
+        a = torch.abs(kold / (qq + damp2 * _bdot(c, c) if damp2 else qq))
+        a = torch.where(done, torch.zeros_like(a), a)
+        x = x + c * _step_scalar(a, xdt)
+        s = s - q * _step_scalar(a, xdt)
+        r = Op.rmatvec(s) - x * damp2
+        z = _precond_apply(M, r, xdt)
+        k = torch.where(done, kold, _bdot(r, z))
+        b = torch.where(done, torch.zeros_like(k), k / kold)
+        c = z + c * _step_scalar(b, xdt)
+        q = Op.matvec(c)
+        kold = k
+        iiter = iiter + active.to(iiter.dtype)
+        sn = torch.sqrt(_bdot(s, s))
+        _record(cost, it + 1, sn, active)
+        _record(cost1, it + 1, _damped(sn, damp2, x), active)
+        if (it + 1) % _CHECK_EVERY == 0 and not bool(torch.max(kold) > tol):
+            break
+    iiter = int(iiter)
+    return (x, torch.where(kold < tol, 1, 2), iiter, kold, cost1[iiter],
+            cost[:iiter + 1])
+
+
+def _damped(sn: torch.Tensor, damp2: float, x) -> torch.Tensor:
+    """Per-column ``sqrt(sn² + damp²·x·x)``; undamped, the ``x·x``
+    reduction is skipped (adding ``0·x·x`` changes no finite bit)."""
+    if not damp2:
+        return torch.sqrt(sn ** 2)
+    return torch.sqrt(sn ** 2 + damp2 * _bdot(x, x))
+
+
+# ------------------------------------------------------ waiting items
+def _waits(name: str):
+    raise NotImplementedError(
+        f"{name} is not ported: it waits for its own item of ROADMAP.md "
+        "§A.6 (batched_solve and its stacked-operator design; "
+        "block_cg_segmented with segmented.py and checkpoint.py)")
+
+
+def block_cg_segmented(*args, **kwargs):
+    """Segmented block CG with checkpoints (JAX ``block.py:560``): not
+    ported, raises."""
+    _waits("block_cg_segmented")
+
+
+def batched_solve(*args, **kwargs):
+    """One solve over a stacked family of operators (JAX
+    ``block.py:732-849``): not ported, raises."""
+    _waits("batched_solve")
+
+
+class BatchedResult:
+    """The result record of :func:`batched_solve`: not ported, raises."""
+
+    def __init__(self, *args, **kwargs):
+        _waits("BatchedResult")
+
+
+def batched_cache_info(*args, **kwargs):
+    """The batched engine's cache statistics: not ported, raises."""
+    _waits("batched_cache_info")

@@ -1,0 +1,462 @@
+"""Communication-avoiding CG/CGLS engines (``PYLOPS_MPI_TPU_TORCH_CA``).
+
+PyTorch counterpart of ``pylops_mpi_tpu/solvers/ca.py:82-893`` (its
+segmented builders, ``:895-1048``, wait with ``solvers/segmented.py``).
+A classic fused iteration reduces 2 (CG) to 5 (damped CGLS) scalars,
+each its own ``all_reduce`` whose result the next step waits for. The
+engines here trade a little algebra for fewer collectives:
+
+- **pipelined (P)CG / (P)CGLS** (``mode="pipelined"``): the
+  Ghysels–Vanroose recurrences carry ``u = M r``, ``w = A u`` and the
+  companions ``z, q, s, p`` of the search direction, so an iteration's
+  two dots ``γ = (r, u)`` and ``δ = (w, u)`` are stacked into one small
+  tensor and reduced by ONE ``all_reduce`` (:func:`_stacked`),
+  issued before the operator apply it does not depend on. CGLS runs
+  pipelined CG on the damped normal system ``(AᴴA + damp²I) x = Aᴴy``
+  (with ``normal=True`` through ``Op.normal_matvec``, the one-sweep
+  kernel on ``MPIBlockDiag``); its ``cost`` records the normal-residual
+  norm ``sqrt(γ)``, not the data residual the classic engine logs. The
+  stopping test lags the classic engine by one iteration (cost lane
+  ``j`` holds the residual of iterate ``j - 1``).
+- **s-step CA-CG** (``mode="sstep"``): each outer step grows the
+  monomial chains ``{(MA)^j p}`` and ``{(MA)^j z}`` locally (``2s - 1``
+  operator applies), then reduces ONE ``(2s+1, 2s)`` Gram tile; ``s``
+  CG steps then run on replicated coordinate vectors with no further
+  communication. A non-finite or non-positive pivot (the monomial
+  basis conditions like κ^s) rejects the outer update and ends the
+  loop with ``BREAKDOWN``; the solve then continues under the
+  pipelined engine from the last completed outer iterate, which
+  :func:`last_fallback` reports. That is the JAX package's algorithm,
+  not a device fallback. s-step serves CG on plain, unmasked, evenly
+  split, real vectors; CGLS, block solves and other spaces (masked,
+  ragged, complex, stacked) take the pipelined engine.
+
+``off`` never reaches this module. ``auto`` needs the cost model
+(ROADMAP.md §A.7) and raises. The loops follow :mod:`.basic`: a Python
+loop whose scalars stay on the device, an ``active`` mask that stops the
+updates once the tolerance is met, and a host read every few
+iterations to leave early (the s-step loop reads it once per outer
+step). Every rank issues the same collectives in the same order: the
+decisions read only reduced (replicated) scalars and layout metadata.
+
+One difference from the JAX package: its stacked reduction falls back
+to one collective per dot for ragged splits (padded physical layout);
+the port's shards are exact-size tensors, so ragged splits stack too.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..distributedarray import DistributedArray
+from ..ops._precision import accum_dtype, reduction_dtype
+from ..parallel import collectives
+from ..utils import deps
+from .basic import (_CHECK_EVERY, _mp_floor, _precond_apply, _rdot,
+                    _record, _step_scalar)
+
+__all__ = ["resolve_mode", "ca_key", "classic_reductions_per_iter",
+           "ca_reductions_per_iter", "last_fallback", "clear_fallback",
+           "run_cg", "run_cgls", "run_block_cg", "run_block_cgls",
+           "RUNNING", "BREAKDOWN"]
+
+# status words, the values of the JAX package's resilience/status.py
+RUNNING, BREAKDOWN = 0, 3
+
+# all_reduce calls per iteration of the classic fused engines (the JAX
+# table: undamped CG 2; damped CGLS 5)
+_CLASSIC_REDUCTIONS = {"cg": 2, "cgls": 5, "block_cg": 2, "block_cgls": 5}
+
+
+def classic_reductions_per_iter(solver: str) -> int:
+    """All-reduces per iteration of the classic fused engine."""
+    return _CLASSIC_REDUCTIONS.get(solver, 2)
+
+
+def ca_reductions_per_iter(mode: str, s: int = 1) -> float:
+    """All-reduces per iteration under a CA mode: pipelined 1, s-step
+    ``1/s``."""
+    if mode == "sstep":
+        return 1.0 / max(1, int(s))
+    if mode == "pipelined":
+        return 1.0
+    return float(_CLASSIC_REDUCTIONS["cg"])
+
+
+def resolve_mode(Op=None, solver: str = "cg") -> str:
+    """``PYLOPS_MPI_TPU_TORCH_CA`` as the engine of this solve: ``off``,
+    ``pipelined`` or ``sstep``. ``auto`` raises: the JAX package picks
+    by its cost model's latency term, which is ROADMAP.md §A.7."""
+    mode = deps.ca_mode()
+    if mode == "auto":
+        raise NotImplementedError(
+            "PYLOPS_MPI_TPU_TORCH_CA=auto is not ported: it picks the "
+            "engine by the cost model, ROADMAP.md §A.7; set off, "
+            "pipelined or sstep")
+    return mode
+
+
+def ca_key(mode: str, s: Optional[int] = None):
+    """Key fragment naming a CA engine; ``off`` contributes nothing."""
+    if mode == "off":
+        return ()
+    if mode == "sstep":
+        return (("ca", "sstep", int(s)),)
+    return (("ca", mode),)
+
+
+# ------------------------------------------------------ fallback events
+_LAST_FALLBACK: Optional[dict] = None
+
+
+def _record_fallback(solver: str, s: int, iiter: int) -> None:
+    global _LAST_FALLBACK
+    _LAST_FALLBACK = {"solver": solver, "s": int(s), "iteration": int(iiter)}
+
+
+def last_fallback() -> Optional[dict]:
+    """The latest s-step → pipelined breakdown fallback, ``{solver, s,
+    iteration}``, or ``None``."""
+    return dict(_LAST_FALLBACK) if _LAST_FALLBACK else None
+
+
+def clear_fallback() -> None:
+    global _LAST_FALLBACK
+    _LAST_FALLBACK = None
+
+
+# ------------------------------------------------------ stacked reductions
+def _bdot(u: DistributedArray, v: DistributedArray) -> torch.Tensor:
+    """Per-column recurrence dots ``|conj(u)·v|`` of block vectors at the
+    reduction dtype, one ``all_reduce`` (``DistributedArray.col_dot``)."""
+    return torch.abs(u.col_dot(v, vdot=True)).to(reduction_dtype(u.dtype))
+
+
+def _fusable(vs) -> bool:
+    """The dots over these vectors can share one ``all_reduce``: plain
+    unmasked :class:`DistributedArray` s of one layout."""
+    v0 = vs[0]
+    return all(isinstance(v, DistributedArray) and v.mask is None
+               and v.local_shapes == v0.local_shapes
+               and v.partition == v0.partition and v.axis == v0.axis
+               for v in vs)
+
+
+def _stacked(pairs, block: bool) -> torch.Tensor:
+    """The recurrence dots of ``pairs`` stacked into one tensor before
+    ONE ``all_reduce``: ``(m,)`` of ``|u·conj(v)|`` (``(m, K)`` of
+    per-column ``|conj(u)·v|`` for block vectors). Spaces that cannot
+    share a reduction (stacked, masked, differently split) take one
+    collective per dot."""
+    flat = [v for p in pairs for v in p]
+    if not _fusable(flat):
+        one = _bdot if block else _rdot
+        return torch.stack([one(u, v) for u, v in pairs])
+    u0 = pairs[0][0]
+    acc = accum_dtype(u0.dtype)
+    if block:
+        parts = [torch.sum((u.array.conj() * v.array).to(acc), dim=0)
+                 for u, v in pairs]
+    else:
+        parts = [torch.sum((u.array * v.array.conj()).to(acc))
+                 for u, v in pairs]
+    k = torch.stack(parts)
+    if u0._reduces():
+        k = collectives.all_reduce(k, "sum")
+    return torch.abs(k).to(reduction_dtype(u0.dtype))
+
+
+# ------------------------------------------------------ pipelined engine
+def _pipe_loop(applyA, M, xdt, x, r, u, kold, floors, cost, niter: int,
+               tol: float, block: bool):
+    """The pipelined (P)CG iteration (JAX ``_make_pipe_body``) from the
+    seeded ``x, r, u = M r`` and ``kold``. Returns ``(x, iiter, cost,
+    kold)``. The freeze is per column for block vectors (``kold <=
+    max(floors, tol)``), at the machine floor ``γ <= floors`` otherwise;
+    once ``max(kold) <= tol`` nothing moves any more."""
+    precond = M is not None
+    w = applyA(u)
+    # the first iteration overwrites every companion (b = 0 there), so
+    # they start as aliases
+    z, s, p = w, w, u
+    q = u if precond else None
+    aold = torch.ones_like(kold)
+    iiter = torch.zeros((), dtype=torch.int64, device=kold.device)
+    stop = _tol_floor(floors, tol)
+    for it in range(niter):
+        active = torch.max(kold) > tol
+        # the single reduction, first: the apply below does not wait on it
+        g = _stacked(((r, u), (w, u)), block)
+        gamma, delta = g[0], g[1]
+        m = _precond_apply(M, w, xdt)
+        n = applyA(m)
+        done = (kold <= stop) if block else (gamma <= floors)
+        done = done | ~active
+        zero = torch.zeros_like(gamma)
+        b = zero if it == 0 else torch.where(done, zero, gamma / kold)
+        a = torch.where(done, zero, gamma / (delta - b * gamma / aold))
+        bs = _step_scalar(b, xdt)
+        as_ = _step_scalar(a, xdt)
+        z = n + z * bs
+        s = w + s * bs
+        p = u + p * bs
+        if precond:
+            q = m + q * bs
+            u = u - q * as_
+        x = x + p * as_
+        r = r - s * as_
+        w = w - z * as_
+        if not precond:
+            u = r
+        aold = torch.where(done, aold, a)
+        kold = torch.where(active, gamma, kold)
+        iiter = iiter + active.to(iiter.dtype)
+        _record(cost, it + 1, torch.sqrt(kold), active)
+        if (it + 1) % _CHECK_EVERY == 0 and not bool(torch.max(kold) > tol):
+            break
+    return x, int(iiter), cost, kold
+
+
+def _cost0(first: torch.Tensor, niter: int) -> torch.Tensor:
+    """The ``(niter+1, ...)`` history buffer, ``first`` in its row 0."""
+    cost = torch.zeros((niter + 1,) + tuple(first.shape), dtype=first.dtype,
+                       device=first.device)
+    cost[0] = first
+    return cost
+
+
+def _tol_floor(floors: torch.Tensor, tol: float) -> torch.Tensor:
+    """``max(floors, tol)``: where a lane freezes."""
+    return torch.maximum(floors, torch.as_tensor(tol, dtype=floors.dtype,
+                                                 device=floors.device))
+
+
+def _pipe_cg(Op, y, x, niter: int, tol: float, M, block: bool):
+    """Pipelined (P)CG from ``x``: ``(x, iiter, cost, kold)``."""
+    xdt = x.dtype
+    r = y - Op.matvec(x)
+    u = _precond_apply(M, r, xdt)
+    kold = _bdot(r, u) if block else _rdot(r, u)
+    return _pipe_loop(Op.matvec, M, xdt, x, r, u, kold, _mp_floor(kold),
+                      _cost0(torch.sqrt(kold), niter), niter, tol, block)
+
+
+def _normal_apply(Op, damp2: float, xdt, normal: bool):
+    """``v → (AᴴA + damp²I) v``: one ``Op.normal_matvec`` (the one-sweep
+    kernel where the operator has it) with ``normal=True``, else
+    ``rmatvec(matvec(v))``."""
+    d2 = _step_scalar(torch.tensor(damp2, dtype=torch.float64), xdt)
+    if normal:
+        def applyA(v):
+            u2, _ = Op.normal_matvec(v)
+            return u2 + v * d2
+    else:
+        def applyA(v):
+            return Op.rmatvec(Op.matvec(v)) + v * d2
+    return applyA
+
+
+def _pipe_cgls(Op, y, x, niter: int, damp: float, tol: float,
+               normal: bool, M, block: bool):
+    """Pipelined (P)CGLS from ``x`` (JAX ``_pipe_cgls_seed``): the seed
+    matches the classic engine's, the reference's un-squared setup damp
+    included, so ``kold``, the floors and ``cost[0]`` agree with it; the
+    carried residual is the true damped normal residual."""
+    xdt = x.dtype
+    damp2 = damp ** 2
+    sc = torch.tensor(damp, dtype=torch.float64)
+    applyA = _normal_apply(Op, damp2, xdt, normal)
+    s0 = y - Op.matvec(x)
+    rq = Op.rmatvec(s0) - x * _step_scalar(sc, xdt)
+    zq = _precond_apply(M, rq, xdt)
+    kold = _bdot(rq, zq) if block else _rdot(rq, zq)
+    floors = _mp_floor(kold)
+    r = rq + x * _step_scalar(sc - damp2, xdt)
+    u = _precond_apply(M, r, xdt)
+    return _pipe_loop(applyA, M, xdt, x, r, u, kold, floors,
+                      _cost0(torch.sqrt(kold), niter), niter, tol, block)
+
+
+# ------------------------------------------------------ s-step engine
+def _even(v: DistributedArray) -> bool:
+    return len(set(v.local_shapes)) == 1
+
+
+def _sstep_eligible(*vs) -> bool:
+    """s-step needs signed real Gram algebra on one even layout: plain,
+    unmasked, evenly split, real :class:`DistributedArray` s."""
+    return all(isinstance(v, DistributedArray) and v.mask is None
+               and _even(v) and not v.dtype.is_complex for v in vs)
+
+
+def _sstep_maps(s: int):
+    """Coordinate operators of the ``2s+1``-column basis ``V = [V_0..V_s
+    | Z_0..Z_{s-1}]`` with products ``W = [W_0..W_{s-1} | Y_0..Y_{s-2}]``
+    (``W_j = A V_j``, ``Y_j = A Z_j``): ``Amap`` takes V-coordinates to
+    the W-coordinates of ``A·``, ``Smap`` shifts V-coordinates by one
+    application of ``M A`` (JAX ``_sstep_maps``)."""
+    nv, nw = 2 * s + 1, 2 * s - 1
+    Amap = np.zeros((nw, nv))
+    Smap = np.zeros((nv, nv))
+    for j in range(s):
+        Amap[j, j] = 1.0
+        Smap[j + 1, j] = 1.0
+    for j in range(s - 1):
+        Amap[s + j, s + 1 + j] = 1.0
+        Smap[s + 2 + j, s + 1 + j] = 1.0
+    return Amap, Smap
+
+
+def _sstep_cg(Op, y, x, niter: int, tol: float, s: int, M):
+    """s-step CA-CG (JAX ``_make_sstep_body``/``_sstep_cg_fused``).
+    Returns ``(x, iiter, cost, status)``; ``status`` is ``BREAKDOWN``
+    when the basis guard rejected an outer step."""
+    xdt = x.dtype
+    precond = M is not None
+    r = y - Op.matvec(x)
+    r = DistributedArray._wrap(x._coerce_operand(r), x)
+    z = _precond_apply(M, r, xdt)
+    kold = _rdot(r, z)
+    floors = _mp_floor(kold)
+    cost = _cost0(torch.sqrt(kold), niter)
+    p = z
+    dev = kold.device
+    acc = accum_dtype(xdt)
+    Amap, Smap = (torch.as_tensor(t, dtype=acc, device=dev)
+                  for t in _sstep_maps(s))
+    nv, nw = 2 * s + 1, 2 * s - 1
+    iiter = torch.zeros((), dtype=torch.int64, device=dev)
+    status = torch.tensor(RUNNING, dtype=torch.int32, device=dev)
+    tol_floor = _tol_floor(floors.to(acc), tol)
+    moved = torch.ones((), dtype=torch.bool, device=dev)
+    # ``moved``: an outer step that ran no inner step (every lane frozen
+    # at the machine floor, tol below it) ends the loop; the JAX
+    # package's while loop would spin there
+    while bool((iiter < niter) & (kold > tol) & (status == RUNNING)
+               & moved):
+        # monomial chains from the direction p and the residual z: all
+        # operator applies, no dots
+        V, W = [p], []
+        v = p
+        for _ in range(s):
+            Av = Op.matvec(v)
+            W.append(Av)
+            v = _precond_apply(M, Av, xdt)
+            V.append(v)
+        Zc, Yc = [z], []
+        zc = z
+        for _ in range(s - 1):
+            Az = Op.matvec(zc)
+            Yc.append(Az)
+            zc = _precond_apply(M, Az, xdt)
+            Zc.append(zc)
+        Vm = torch.stack([x._coerce_operand(c) for c in V + Zc]).to(acc)
+        Wm = torch.stack([x._coerce_operand(c) for c in W + Yc]
+                         + [r.array]).to(acc)
+        # THE collective of the outer step: every inner product s CG
+        # iterations need, in one (2s+1, 2s) tile
+        Gall = (Vm @ Wm.T).contiguous()
+        if x._reduces():
+            Gall = collectives.all_reduce(Gall, "sum")
+        G, g0 = Gall[:, :nw], Gall[:, nw]
+        cp = torch.zeros(nv, dtype=acc, device=dev)
+        cp[0] = 1.0
+        cz = torch.zeros(nv, dtype=acc, device=dev)
+        cz[s + 1] = 1.0
+        d = torch.zeros(nw, dtype=acc, device=dev)
+        e = torch.zeros(nv, dtype=acc, device=dev)
+        k_run = kold.to(acc)
+        bad = torch.zeros((), dtype=torch.bool, device=dev)
+        iit = iiter
+        zero = torch.zeros((), dtype=acc, device=dev)
+        for _ in range(s):
+            gamma = g0 @ cz - d @ (G.T @ cz)
+            done = (k_run <= tol_floor) | (iit >= niter)
+            acp = Amap @ cp
+            delta = acp @ (G.T @ cp)
+            alpha = gamma / delta
+            sick = (~torch.isfinite(alpha) | ~torch.isfinite(gamma)
+                    | ~torch.isfinite(delta) | (delta <= 0))
+            bad = bad | (sick & ~done)
+            live = ~done & ~bad
+            alpha = torch.where(live, alpha, zero)
+            e = e + alpha * cp
+            d = d + alpha * acp
+            cz = cz - alpha * (Smap @ cp)
+            gamma_n = g0 @ cz - d @ (G.T @ cz)
+            beta = torch.where(live, gamma_n / gamma, zero)
+            cp = torch.where(live, cz + beta * cp, cp)
+            k_run = torch.where(live, torch.abs(gamma_n), k_run)
+            iit = iit + live.to(iit.dtype)
+            cost[iit] = torch.sqrt(k_run).to(cost.dtype)
+        # recombination against the stored basis, local
+        xn = x.array + (e @ Vm).to(x.dtype)
+        rn = r.array - (d @ Wm[:nw]).to(r.dtype)
+        x = DistributedArray._wrap(torch.where(bad, x.array, xn), x)
+        r = DistributedArray._wrap(torch.where(bad, r.array, rn), r)
+        p = DistributedArray._wrap(
+            torch.where(bad, p.array, (cp @ Vm).to(r.dtype)), r)
+        if precond:
+            z = DistributedArray._wrap(
+                torch.where(bad, z.array, (cz @ Vm).to(r.dtype)), r)
+        else:
+            z = r
+        kold = torch.where(bad, kold, k_run.to(kold.dtype))
+        status = torch.where(bad, torch.tensor(BREAKDOWN, dtype=torch.int32,
+                                               device=dev), status)
+        moved = (iit > iiter) | bad
+        iiter = iit
+    return x, int(iiter), cost, int(status)
+
+
+# ------------------------------------------------------ runners
+def run_cg(Op, y, x0, niter: int, tol: float, M=None,
+           mode: str = "pipelined"):
+    """CA twin of the fused ``cg``: ``(x, iiter, cost[:iiter+1])``.
+    ``sstep`` on an ineligible space runs pipelined; a basis breakdown
+    continues pipelined from the last completed outer iterate."""
+    if mode == "sstep" and not _sstep_eligible(y, x0):
+        mode = "pipelined"
+    if mode == "sstep":
+        s = deps.ca_s_default()
+        x, iiter, cost, status = _sstep_cg(Op, y, x0, niter, tol, s, M)
+        cost = cost[:iiter + 1]
+        if status == BREAKDOWN and iiter < niter:
+            _record_fallback("cg", s, iiter)
+            x, it2, cost2, _ = _pipe_cg(Op, y, x, niter - iiter, tol, M,
+                                        False)
+            cost = torch.cat([cost, cost2[1:it2 + 1]])
+            iiter += it2
+        return x, iiter, cost
+    x, iiter, cost, _ = _pipe_cg(Op, y, x0, niter, tol, M, False)
+    return x, iiter, cost[:iiter + 1]
+
+
+def run_cgls(Op, y, x0, niter: int, damp: float, tol: float,
+             normal: bool, M=None):
+    """CA twin of the fused ``cgls``: ``(x, iiter, cost[:iiter+1],
+    kold)``, ``cost`` the normal-residual norms. s-step requests run
+    pipelined, which already takes one reduction an iteration."""
+    x, iiter, cost, kold = _pipe_cgls(Op, y, x0, niter, damp, tol, normal,
+                                      M, False)
+    return x, iiter, cost[:iiter + 1], kold
+
+
+def run_block_cg(Op, y, x0, niter: int, tol: float, M=None):
+    """Pipelined block CG (K > 1; s-step has no block form):
+    ``(x, iiter, cost[:iiter+1])`` with ``(K,)`` lanes."""
+    x, iiter, cost, _ = _pipe_cg(Op, y, x0, niter, tol, M, True)
+    return x, iiter, cost[:iiter + 1]
+
+
+def run_block_cgls(Op, y, x0, niter: int, damp: float, tol: float, M=None):
+    """Pipelined block CGLS (K > 1): ``(x, istop, iiter, kold, r2norm,
+    cost)`` as ``block_cgls`` returns, ``cost`` the normal-residual
+    norms."""
+    x, iiter, cost, kold = _pipe_cgls(Op, y, x0, niter, damp, tol, False,
+                                      M, True)
+    istop = torch.where(kold < tol, 1, 2)
+    return x, istop, iiter, kold, cost[iiter], cost[:iiter + 1]

@@ -8,7 +8,7 @@ Gloo worlds of 1 to 4 ranks are spawned as in
 
 Also, with no process group, the functional ``cg``/``cgls`` argument
 order of the JAX package: the positional ``show``, ``callback`` once per
-iteration, ``guards=``/``M=`` raising.
+iteration, ``guards=`` raising and ``M=`` refusing the class path.
 
 Tolerance: rtol 1e-9 (relative to the largest entry of the reference)
 for 10 CGLS/CG iterations in f64.
@@ -314,8 +314,9 @@ def test_guards_and_m_raise(rng, solver):
     fn = getattr(pmtt, solver)
     with pytest.raises(NotImplementedError, match="§A.7"):
         fn(top, ty, niter=2, guards=True)
-    with pytest.raises(NotImplementedError, match="§A.6"):
-        fn(top, ty, niter=2, M=top)
+    # M= is the preconditioner seam now: the fused loop only
+    with pytest.raises(ValueError, match="fused"):
+        fn(top, ty, niter=2, show=True, M=top)
     with pytest.raises(ValueError, match="fused=True"):
         fn(top, ty, niter=2, show=True, fused=True)
     if solver == "cgls":
