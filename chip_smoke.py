@@ -155,9 +155,37 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    the sparse CGLS; every x within 1e-5, a ragged f64 case
    within 1e-12 of one CPU process, each rank's all_reduce calls per
    iteration (pipelined 1) and the bytes it receives per preconditioner
-   and sparse apply.
+   and sparse apply; and the serving pool's packed solve of four
+   requests (bucket 4) against the no-group pool within 1e-5, with
+   ``SolveDaemon`` refusing every world of more than one rank.
 
-Phases 8, 9, 11-13 and 16-18 reach none of the hand-written kernels: the
+21. slice 10, the solve service at a world of one, full width: a
+   ``cgls`` family on phase 3's 32 blocks of 4096x4096 f32 (30
+   iterations, tol 0) and a ``cg`` family on their Gram blocks plus I
+   (50 iterations, tol 1e-3 absolute on the squared residual), buckets
+   1, 2, 4, 8, 16. 21.1 the first request of a cold dispatcher thread
+   against a warm one, then each bucket prewarmed on the dispatcher
+   thread (ms each); 21.2 64 single-RHS requests from 8 submitting
+   threads through ``SolveDaemon`` (5 ms window): solves/s, batches,
+   mean fill, forced dispatches, p50/p99 of queue wait and of
+   end-to-end latency, the ratio to sequential classic ``cgls`` (timed
+   after a warm solve), every column within 1e-5 of its sequential
+   oracle and every batch bitwise equal to ``block_cgls`` on the same
+   padded block; 21.3 16 requests to the ``cg`` family, all
+   ``converged`` as their oracles, ``iiter`` within one of the oracles'
+   largest; 21.4 a bucket-16 batch with one NaN column: with guards it
+   reads ``breakdown`` and the other 15 equal the clean batch bitwise,
+   without guards it returns x0 and ``iiter`` 0, and guard-on over
+   guard-off wall per iteration in alternating pairs; 21.5 a deadline
+   already past fails its tickets with no solve, and after a full warm
+   batch a near one dispatches an undersized batch that resolves by its
+   deadline; 21.6 ``worker_main`` on a temporary spool in a
+   thread: 32 spooled requests and a DRAIN marker, every result banked
+   and matching 21.2's oracles.
+
+Phases 8, 9, 11-13, 16-18 and 21 (and phase 20's pool case) reach none
+of the hand-written kernels (a block solve of ``MPIBlockDiag`` runs a
+batched GEMM, bucket 1 runs classic ``cgls``): the
 JAX package runs their FFTs, products, thresholds, convolutions, sprays
 and gathers outside Pallas, and so does the port (cuFFT, cuBLAS, cuDNN,
 ``index_add_``/``index_select`` and elementwise PyTorch); their kernel
@@ -2536,6 +2564,13 @@ NBLK_20, NSPD_20, M_20, K_20, NITER_20 = 8, 6, 1024, 4, 10
 # f32 rounding of another summation order below TOL_20
 SHIFT_20 = 4.0
 N_SP_20, WORLDS_20, TOL_20, F64_20 = 1 << 18, (2, 3), 1e-5, 1e-12
+# phase 21 (slice 10): the solve service on phase 3's blocks. The cg
+# family's tol is absolute on the squared residual: 1e-3 against
+# |y|^2 ~ 1.3e5 (a relative residual of ~9e-5), where f32 CG on the
+# Gram blocks + I (condition ~3) converges well above its floor
+NITER_21, NITER_CG_21, TOL_CG_21 = 30, 50, 1e-3
+BUCKETS_21, WINDOW_21, REQ_21, THREADS_21 = (1, 2, 4, 8, 16), 0.005, 64, 8
+SEQ_21, SPOOL_21, GAP_21, PAIRS_21, DUE_21 = 16, 32, 1e-5, 6, 1.5
 
 
 def lap_op(torch, pmtt, dims, eps, dtype):
@@ -3055,6 +3090,16 @@ def _tiers20_solves(torch, pmtt, p, dev):
         os.environ.pop("PYLOPS_MPI_TPU_TORCH_CA", None)
     run("sparse_cgls", lambda: (lambda o: (o[0], o[2]))(
         pmtt.cgls(Sp, yspar, niter=NITER_20, damp=SP_DAMP, tol=0.0)))
+    # the serving pool, SPMD: every rank packs the same K_20 requests
+    # into the bucket of 4 (a zero-padded block_cgls)
+    pool = pmtt.serving.WarmPool(buckets=(1, 2, 4))
+    pool.register(pmtt.serving.FamilySpec("f20", Op, solver="cgls",
+                                          niter=NITER_20))
+    co.reset_counts()
+    res = pool.solve("f20", p["Y"].cpu().numpy())
+    if res.bucket != 4:
+        raise RuntimeError(f"phase 20: the pool packed into {res.bucket}")
+    out["pool"] = (res.x, co.counts["all_reduce"], res.iiter)
     # the bytes this rank receives in one apply of each
     moved = {}
     g = Op.rmatvec(y)
@@ -3081,6 +3126,11 @@ def _tiers20_rank(torch, pmtt, dev, refdir):
     solves = _tiers20_solves(torch, pmtt, p, dev)
     out = dict(rank=r, gaps={}, all_reduce={}, moved=solves.pop("moved"),
                sstep_fallback=solves.pop("sstep_fallback"))
+    try:
+        pmtt.serving.SolveDaemon(pmtt.serving.WarmPool())
+        out["daemon_refused"] = None
+    except RuntimeError as e:  # the refusal this phase requires
+        out["daemon_refused"] = str(e)
     for name, (x, calls, it) in solves.items():
         want = np.load(f"{refdir}/{name}.npy")
         out["gaps"][name] = float(np.linalg.norm(x - want)
@@ -3116,7 +3166,7 @@ def slice9_ranks_phase(torch, pmtt, here, dev, timeout=600):
         summary = {}
         setup = {"block_cgls": 2, "pcgls_jacobi": 2, "pcgls_block": 2,
                  "pcg_straddle": 1, "pipelined_normal": 1, "sstep_cg": 1,
-                 "sstep_cg_f64": 1, "sparse_cgls": 3}
+                 "sstep_cg_f64": 1, "sparse_cgls": 3, "pool": 2}
         for n in WORLDS_20:
             t0 = time.perf_counter()
             ranks = spawn_shared_card(n, here, _tiers20_rank, (refdir,),
@@ -3131,7 +3181,8 @@ def slice9_ranks_phase(torch, pmtt, here, dev, timeout=600):
                                      all_reduce=o["all_reduce"],
                                      all_reduce_per_iter=per_iter,
                                      moved=o["moved"],
-                                     sstep_fallback=o["sstep_fallback"]))
+                                     sstep_fallback=o["sstep_fallback"],
+                                     daemon_refused=o["daemon_refused"]))
             secs = time.perf_counter() - t0
             summary[n] = dict(f64=f64, ranks=per_rank, seconds=secs)
             print(f"20. {n} ranks on one card (gloo, staged through the "
@@ -3152,6 +3203,9 @@ def slice9_ranks_phase(torch, pmtt, here, dev, timeout=600):
                 if bad:
                     raise RuntimeError(f"phase 20, {n} ranks, rank "
                                        f"{rec['rank']}: gaps {bad}")
+                if not (rec["daemon_refused"] or "").count("ROADMAP"):
+                    raise RuntimeError(f"phase 20: SolveDaemon accepted a "
+                                       f"world of {n} on rank {rec['rank']}")
                 pi = rec["all_reduce_per_iter"]
                 if pi["pipelined_normal"] != 1.0:
                     raise RuntimeError(f"phase 20: rank {rec['rank']} took "
@@ -3168,6 +3222,348 @@ def slice9_ranks_phase(torch, pmtt, here, dev, timeout=600):
         return summary
     finally:
         shutil.rmtree(refdir, ignore_errors=True)
+
+# ---------------------------------------------------------------- phase 21
+def cold_first_request():
+    """Phase 21.1's cold start, run in a fresh process
+    (``python3 -c "import chip_smoke; chip_smoke.cold_first_request()"``):
+    phase 3's blocks made with elementwise work only, a ``cgls`` family,
+    a daemon started without prewarm, then one request (the process's
+    first solve: cuBLAS handle and workspace, algorithm choice, lazy
+    module loading, allocator growth) and a second one (warm). Prints
+    one JSON line of the two latencies in seconds."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import torch
+    import pylops_mpi_tpu_torch as pmtt
+    from pylops_mpi_tpu_torch.ops.local import MatrixMult
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    A = torch.randn((NBLK, NBLOCK, NBLOCK), generator=g, device=dev)
+    A /= math.sqrt(NBLOCK)
+    A.diagonal(dim1=1, dim2=2).add_(4.0)
+    torch.cuda.synchronize()
+    pool = pmtt.serving.WarmPool(buckets=BUCKETS_21)
+    pool.register(pmtt.serving.FamilySpec(
+        "cgls", pmtt.MPIBlockDiag([MatrixMult(A[i]) for i in range(NBLK)]),
+        solver="cgls", niter=NITER_21))
+    ys = np.random.default_rng(21).standard_normal(
+        (NBLK * NBLOCK, 2)).astype(np.float32)
+    d = pmtt.serving.SolveDaemon(pool, window_s=0.0).start()
+    lat = []
+    for j in range(2):
+        t0 = time.perf_counter()
+        d.submit("cgls", ys[:, j]).wait(timeout=600)
+        lat.append(time.perf_counter() - t0)
+    if not d.drain(timeout=60):
+        raise RuntimeError("21.1: the cold daemon did not drain")
+    print(json.dumps({"cold_s": lat[0], "warm_s": lat[1],
+                      "device": torch.cuda.get_device_name(0)}), flush=True)
+
+
+def _submit_threads(d, fam, cols, threads):
+    """Submit ``cols[j]`` from ``threads`` threads, round robin; returns
+    the tickets in request order and each submit's monotonic time."""
+    import threading
+    tickets, t_sub = [None] * len(cols), [0.0] * len(cols)
+
+    def submitter(i):
+        for j in range(i, len(cols), threads):
+            t_sub[j] = time.monotonic()
+            tickets[j] = d.submit(fam, cols[j])
+
+    ths = [threading.Thread(target=submitter, args=(i,))
+           for i in range(threads)]
+    for t in ths:
+        t.start()
+    for t in ths:
+        t.join(timeout=120)
+    if any(t.is_alive() for t in ths) or any(t is None for t in tickets):
+        raise RuntimeError("21: a submitting thread did not finish")
+    return tickets, t_sub
+
+
+def _gap(x, want):
+    return float(np.linalg.norm(x - want) / np.linalg.norm(want))
+
+
+def service_phase(torch, pmtt, here, dev):
+    """Phase 21: the solve service at a world of one on phase 3's blocks
+    (module docstring, 21). Every ticket must resolve (``Ticket.wait``
+    raises a batch's error, which ends the phase), every check holds or
+    the phase raises."""
+    import os
+    import shutil
+    import tempfile
+    import threading
+    D = pmtt.DistributedArray
+    sv = pmtt.serving
+    from pylops_mpi_tpu_torch.diagnostics.metrics import quantiles
+    from pylops_mpi_tpu_torch.ops.local import MatrixMult
+    out = {}
+    t0 = time.perf_counter()
+    cold = subprocess.run(
+        [sys.executable, "-c",
+         "import chip_smoke; chip_smoke.cold_first_request()"],
+        cwd=str(here), capture_output=True, text=True, timeout=300,
+        check=True)
+    out["cold"] = json.loads(cold.stdout.strip().splitlines()[-1])
+    print(f"21.1 first request in a fresh process (no prewarm, bucket 1, "
+          f"cgls {NITER_21} iterations): cold {out['cold']['cold_s'] * 1e3:.1f}"
+          f" ms, the next one warm {out['cold']['warm_s'] * 1e3:.1f} ms "
+          f"({time.perf_counter() - t0:.1f} s with the process)", flush=True)
+
+    A, _, _ = make_problem(torch, dev)
+    G = torch.bmm(A.transpose(1, 2), A)
+    G.diagonal(dim1=1, dim2=2).add_(1.0)
+    Op = pmtt.MPIBlockDiag([MatrixMult(A[i]) for i in range(NBLK)])
+    S = pmtt.MPIBlockDiag([MatrixMult(G[i]) for i in range(NBLK)])
+    del G
+    N = NBLK * NBLOCK
+    pool = sv.WarmPool(buckets=BUCKETS_21)
+    pool.register(sv.FamilySpec("cgls", Op, solver="cgls", niter=NITER_21))
+    pool.register(sv.FamilySpec("cg", S, solver="cg", niter=NITER_CG_21,
+                                tol=TOL_CG_21))
+    records = []  # every packed solve: (family, Y, outcome)
+    real_solve = pool.solve
+
+    def spy(name, Y):
+        res = real_solve(name, Y)
+        records.append((name, np.array(Y, copy=True), res))
+        return res
+
+    pool.solve = spy
+    rng = np.random.default_rng(2110)
+    Y = rng.standard_normal((N, REQ_21)).astype(np.float32)
+    cols = [np.ascontiguousarray(Y[:, j]) for j in range(REQ_21)]
+
+    # sequential classic cgls: the oracles, the first SEQ_21 timed after
+    # one warm solve
+    ys = [D.to_dist(c, device=dev) for c in cols]
+    pmtt.cgls(Op, ys[0], niter=NITER_21, tol=0.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    oracles = [pmtt.cgls(Op, ys[j], niter=NITER_21, tol=0.0)[0].asarray()
+               for j in range(SEQ_21)]
+    seq_wall = time.perf_counter() - t0
+    oracles += [pmtt.cgls(Op, ys[j], niter=NITER_21, tol=0.0)[0].asarray()
+                for j in range(SEQ_21, REQ_21)]
+    del ys
+    out["sequential"] = dict(solves=SEQ_21, wall_s=seq_wall,
+                             solves_per_s=SEQ_21 / seq_wall)
+
+    # 21.1 prewarm on the dispatcher thread
+    d = sv.SolveDaemon(pool, window_s=WINDOW_21).start(prewarm=True)
+    out["prewarm_ms"] = {f"{f}/{b}": v * 1e3
+                         for (f, b), v in sorted(pool.prewarm_s.items())}
+    t0 = time.perf_counter()
+    d.submit("cgls", cols[0]).wait(timeout=600)
+    out["first_after_prewarm_s"] = time.perf_counter() - t0
+    print(f"21.1 prewarm on the dispatcher thread, ms per family/bucket: "
+          f"{ {k: round(v, 1) for k, v in out['prewarm_ms'].items()} }; "
+          f"first request after it (bucket 1) "
+          f"{out['first_after_prewarm_s'] * 1e3:.1f} ms", flush=True)
+
+    # 21.2 REQ_21 requests from THREADS_21 submitting threads
+    first = len(records)
+    tickets, t_sub = _submit_threads(d, "cgls", cols, THREADS_21)
+    res = [t.wait(timeout=600) for t in tickets]
+    st = d.stats()
+    if not d.drain(timeout=120):
+        raise RuntimeError("21.2: the daemon did not drain")
+    ends = [t + r["wait_s"] for t, r in zip(t_sub, res)]
+    wall = max(ends) - min(t_sub)
+    gaps = [_gap(r["x"], o) for r, o in zip(res, oracles)]
+    batches = records[first:]
+    bitwise = []
+    for name, Yb, o in batches:
+        k = Yb.shape[1]
+        Yp = np.concatenate([Yb, np.zeros((N, o.bucket - k), Yb.dtype)], 1)
+        xb = pmtt.block_cgls(Op, D.to_dist(Yp, device=dev),
+                             niter=NITER_21, tol=0.0)[0].asarray()
+        bitwise.append(bool(np.array_equal(xb[:, :k], o.x))
+                       and not np.any(xb[:, k:]))
+    fills = [o.k / o.bucket for _, _, o in batches]
+    q50, q99 = quantiles([r["queue_s"] for r in res])
+    e50, e99 = quantiles([r["wait_s"] for r in res])
+    svc = REQ_21 / wall
+    out["service"] = dict(
+        requests=REQ_21, threads=THREADS_21, window_ms=WINDOW_21 * 1e3,
+        wall_s=wall, solves_per_s=svc,
+        solve_basis_solves_per_s=REQ_21 / sum(o.wall_s for *_, o in batches),
+        batches=len(batches), fill_mean=sum(fills) / len(fills),
+        forced=st["forced"], failed=st["failed"],
+        fills=[o.k for _, _, o in batches],
+        queue_p50_ms=q50 * 1e3, queue_p99_ms=q99 * 1e3,
+        latency_p50_ms=e50 * 1e3, latency_p99_ms=e99 * 1e3,
+        ratio_to_sequential=svc / out["sequential"]["solves_per_s"],
+        max_gap=max(gaps), bitwise_batches=bitwise)
+    o2 = out["service"]
+    print(f"21.2 {REQ_21} requests from {THREADS_21} threads, window "
+          f"{WINDOW_21 * 1e3:.0f} ms: {svc:.1f} solves/s over {wall:.3f} s "
+          f"({o2['solve_basis_solves_per_s']:.1f} on the solve walls), "
+          f"{o2['batches']} batches (fills {o2['fills']}), mean fill "
+          f"{o2['fill_mean']:.3f}, "
+          f"forced {st['forced']}, failed {st['failed']}; queue wait p50 "
+          f"{q50 * 1e3:.2f} ms p99 {q99 * 1e3:.2f} ms; end-to-end p50 "
+          f"{e50 * 1e3:.1f} ms p99 {e99 * 1e3:.1f} ms; sequential classic "
+          f"cgls {out['sequential']['solves_per_s']:.1f} solves/s, ratio "
+          f"{o2['ratio_to_sequential']:.2f}x; max column gap to the "
+          f"oracles {max(gaps):.3e} (limit {GAP_21:.0e}); batches bitwise "
+          f"equal to block_cgls on the padded block: {bitwise}", flush=True)
+    if st["failed"] or not all(bitwise) or not max(gaps) <= GAP_21:
+        raise RuntimeError(f"21.2 failed: {o2}")
+
+    # 21.3 the cg family: one batch of 16
+    Ycg = rng.standard_normal((N, 16)).astype(np.float32)
+    cg_or = []
+    for j in range(16):
+        x, it, cost = pmtt.cg(S, D.to_dist(Ycg[:, j].copy(), device=dev),
+                              niter=NITER_CG_21, tol=TOL_CG_21)
+        cg_or.append((x.asarray(), it, float(cost[-1]) ** 2))
+    d = sv.SolveDaemon(pool, window_s=0.5).start()
+    res = [t.wait(timeout=600) for t in
+           [d.submit("cg", Ycg[:, j].copy()) for j in range(16)]]
+    d.drain(timeout=120)
+    its = [it for _, it, _ in cg_or]
+    cgap = max(_gap(r["x"], o[0]) for r, o in zip(res, cg_or))
+    out["cg"] = dict(tol=TOL_CG_21, oracle_iters=its,
+                     oracle_converged=all(k < TOL_CG_21 for *_, k in cg_or),
+                     statuses=sorted({r["status"] for r in res}),
+                     batch_k=[r["batch_k"] for r in res][0],
+                     iiter=res[0]["iiter"], max_gap=cgap)
+    print(f"21.3 cg family (tol {TOL_CG_21:g} absolute on the squared "
+          f"residual, |y|^2 ~ {N:.3g}): one batch of "
+          f"{out['cg']['batch_k']}, statuses {out['cg']['statuses']}, iiter "
+          f"{out['cg']['iiter']} against the oracles' {min(its)}-{max(its)}, "
+          f"max gap {cgap:.3e}", flush=True)
+    if not (out["cg"]["oracle_converged"] and out["cg"]["statuses"] ==
+            ["converged"] and abs(res[0]["iiter"] - max(its)) <= 1
+            and out["cg"]["batch_k"] == 16 and cgap <= GAP_21):
+        raise RuntimeError(f"21.3 failed: {out['cg']}")
+
+    # 21.4 a poisoned column, guards on and off; guard cost in pairs
+    Yc = Y[:, :16].copy()
+    Yn = Yc.copy()
+    Yn[7, 1] = np.nan
+    os.environ["PYLOPS_MPI_TPU_TORCH_GUARDS"] = "on"
+    try:
+        clean = pool.solve("cgls", Yc)
+        pois = pool.solve("cgls", Yn)
+    finally:
+        os.environ.pop("PYLOPS_MPI_TPU_TORCH_GUARDS")
+    off = pool.solve("cgls", Yn)
+    healthy = [j for j in range(16) if j != 1]
+    same = bool(np.array_equal(pois.x[:, healthy], clean.x[:, healthy]))
+    pairs = []
+    for i in range(PAIRS_21):
+        walls = {}
+        for guards in (("on", "off") if i % 2 == 0 else ("off", "on")):
+            if guards == "on":
+                os.environ["PYLOPS_MPI_TPU_TORCH_GUARDS"] = "on"
+            try:
+                o = pool.solve("cgls", Yc)
+            finally:
+                os.environ.pop("PYLOPS_MPI_TPU_TORCH_GUARDS", None)
+            walls[guards] = o.wall_s / o.iiter
+        pairs.append(walls["on"] / walls["off"])
+    pairs.sort()
+    out["guards"] = dict(
+        on_statuses=pois.statuses, healthy_bitwise=same,
+        off_statuses=off.statuses, off_iiter=off.iiter,
+        off_x_is_x0=bool(not np.any(off.x)),
+        ratio_median=pairs[len(pairs) // 2], ratio_range=[pairs[0],
+                                                          pairs[-1]])
+    print(f"21.4 bucket-16 batch with a NaN in column 1: guards on -> "
+          f"column 1 {pois.statuses[1]}, the others {sorted(set(pois.statuses[:1] + pois.statuses[2:]))} "
+          f"and bitwise equal to the clean batch: {same}; guards off -> "
+          f"iiter {off.iiter}, x is x0 (zeros): {out['guards']['off_x_is_x0']}"
+          f", statuses {sorted(set(off.statuses))}; guard-on over guard-off "
+          f"wall per iteration, {PAIRS_21} alternating pairs: median "
+          f"{out['guards']['ratio_median']:.4f}, range "
+          f"{pairs[0]:.4f}-{pairs[-1]:.4f}", flush=True)
+    if not (pois.statuses[1] == "breakdown" and same and off.iiter == 0
+            and out["guards"]["off_x_is_x0"]
+            and off.statuses[1] == "breakdown"):
+        raise RuntimeError(f"21.4 failed: {out['guards']}")
+
+    # 21.5 deadlines: one already past; then, after a full warm batch
+    # has set the dispatcher's solve-wall estimate (its margin is 1.5x
+    # that estimate + 10 ms), three requests due in DUE_21 s with a 30 s
+    # window, which must go out undersized and resolve by their deadline
+    d = sv.SolveDaemon(pool, window_s=30.0).start(prewarm=True)
+    n0 = len(records)
+    t = d.submit("cgls", cols[0], deadline_ts=time.time() - 5.0)
+    try:
+        t.wait(timeout=120)
+        missed = None
+    except RuntimeError as e:  # the failure this step requires
+        missed = str(e)
+    skipped_solves = len(records) - n0
+    for t in [d.submit("cgls", cols[j]) for j in range(16)]:
+        t.wait(timeout=120)
+    warm_wall = records[-1][2].wall_s
+    forced0 = d.stats()["forced"]  # the missed batch was forced too
+    due = time.time() + DUE_21
+    near = [d.submit("cgls", cols[j], deadline_ts=due) for j in range(3)]
+    res = [t.wait(timeout=120) for t in near]
+    late = time.time() - due  # read after the waits: an upper bound
+    st = d.stats()
+    d.drain(timeout=120)
+    fgap = max(_gap(r["x"], oracles[j]) for j, r in enumerate(res))
+    out["deadline"] = dict(missed=missed, solves_for_missed=skipped_solves,
+                           warm_wall_s=warm_wall,
+                           forced=st["forced"] - forced0,
+                           resolved_before_deadline_s=-late,
+                           forced_wall_s=records[-1][2].wall_s,
+                           batch_k=res[0]["batch_k"],
+                           bucket=res[0]["bucket"], max_gap=fgap)
+    print(f"21.5 a deadline 5 s past: ticket failed ({missed!r}) after "
+          f"{skipped_solves} solves; after a warm batch of 16 (wall "
+          f"{warm_wall * 1e3:.1f} ms), 3 requests due in {DUE_21} s with a "
+          f"30 s window: forced {st['forced'] - forced0}, dispatched as "
+          f"{res[0]['batch_k']} in bucket {res[0]['bucket']} (wall "
+          f"{records[-1][2].wall_s * 1e3:.1f} ms), resolved "
+          f"{-late * 1e3:.1f} ms before the deadline, max gap {fgap:.3e}",
+          flush=True)
+    if not (missed and "window exhausted" in missed and skipped_solves == 0
+            and st["forced"] - forced0 == 1 and late <= 0.0
+            and res[0]["batch_k"] == 3 and fgap <= GAP_21):
+        raise RuntimeError(f"21.5 failed: {out['deadline']}")
+
+    # 21.6 worker_main on a temporary spool, in a thread
+    root = tempfile.mkdtemp(prefix="chip_smoke_spool_")
+    try:
+        for j in range(SPOOL_21):
+            sv.spool.enqueue(root, "cgls", cols[j], request_id=f"r{j:02d}")
+        sv.spool.request_drain(root)
+        got = []
+        th = threading.Thread(target=lambda: got.append(sv.worker_main(
+            root, pool, prewarm=False, window_s=WINDOW_21)))
+        t0 = time.perf_counter()
+        th.start()
+        th.join(timeout=600)
+        wwall = time.perf_counter() - t0
+        if th.is_alive():
+            raise RuntimeError("21.6: worker_main did not return")
+        banked = [sv.spool.read_result(root, f"r{j:02d}")
+                  for j in range(SPOOL_21)]
+        wgap = max(_gap(b["x"], oracles[j]) for j, b in enumerate(banked))
+        out["worker"] = dict(returned=got, banked=len(
+            sv.spool.result_ids(root)), wall_s=wwall, max_gap=wgap,
+            pending=sv.spool.pending_count(root),
+            failed=len(os.listdir(os.path.join(root, "failed"))))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"21.6 worker_main on a spool of {SPOOL_21} requests and a DRAIN "
+          f"marker: returned {got}, {out['worker']['banked']} results "
+          f"banked, {out['worker']['failed']} failed, in {wwall:.3f} s, max "
+          f"gap to 21.2's oracles {wgap:.3e}", flush=True)
+    if not (got == [SPOOL_21] and out["worker"]["banked"] == SPOOL_21
+            and out["worker"]["failed"] == 0 and wgap <= GAP_21):
+        raise RuntimeError(f"21.6 failed: {out['worker']}")
+    del pool, Op, S, A
+    torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -3575,6 +3971,12 @@ def main() -> int:
     slice9_ranks = slice9_ranks_phase(torch, pmtt, here, dev)
     print(f"phase 20 in {time.perf_counter() - t20:.1f} s", flush=True)
 
+    # 21. slice 10: the solve service at full width, a world of one
+    torch.cuda.empty_cache()
+    t21 = time.perf_counter()
+    slice10 = service_phase(torch, pmtt, here, dev)
+    print(f"phase 21 in {time.perf_counter() - t21:.1f} s", flush=True)
+
     kernels = []
     for name, run in (("float32", "normal_f32"), ("bfloat16", "normal_bf16")):
         s = stats[name]
@@ -3626,7 +4028,8 @@ def main() -> int:
                       "lsm": lsm_res, "group_of_one": group1,
                       "shared_card": shared, "slice7_ranks": slice7,
                       "slice8": slice8, "slice8_ranks": slice8_ranks,
-                      "slice9": slice9, "slice9_ranks": slice9_ranks}),
+                      "slice9": slice9, "slice9_ranks": slice9_ranks,
+                      "slice10": slice10}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

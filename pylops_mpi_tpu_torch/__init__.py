@@ -8,7 +8,10 @@ ranks) and the pencil FFTs, the post-stack, MDD and least-squares
 migration pipelines, the CG/CGLS solvers (functions and classes) with
 the preconditioner seam (Jacobi, block-Jacobi, V-cycle), block CG/CGLS
 and the communication-avoiding engines, the sparse matrix product,
-ISTA/FISTA and the power iteration, in PyTorch on NVIDIA Hopper GPUs,
+ISTA/FISTA and the power iteration, with the solvers' guard carries,
+and the solve service that packs single-RHS requests into block solves
+(``serving``, on the ``diagnostics`` and ``resilience`` layers), in
+PyTorch on NVIDIA Hopper GPUs,
 one rank a card or a world of ranks over ``torch.distributed``. Two
 hand-written CUDA kernels carry the hot loops:
 the CGLS normal product (``csrc/normal_matvec.cu``) and the axis-0 tap
@@ -44,12 +47,13 @@ from .ops.fft import MPIFFTND, MPIFFT2D
 from .ops.precond import (JacobiPrecond, BlockJacobiPrecond, VCyclePrecond,
                           make_precond)
 from .ops.sparse import MPISparseMatrixMult, auto_sparse_matmult
-from .solvers.basic import CG, CGLS, cg, cgls
+from .solvers.basic import CG, CGLS, cg, cgls, cg_guarded, cgls_guarded
 from .solvers.block import (block_cg, block_cgls, block_cg_segmented,
                             batched_solve, batched_cache_info)
 from .solvers.sparsity import ISTA, FISTA, ista, fista
 from .solvers.eigs import power_iteration
 from .utils.dottest import dottest
-from . import convert, models, ops, optimization, parallel, solvers, utils
+from . import (aot, convert, diagnostics, models, ops, optimization,
+               parallel, resilience, serving, solvers, tuning, utils)
 
 __version__ = "0.1.0"

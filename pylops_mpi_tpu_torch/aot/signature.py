@@ -1,0 +1,75 @@
+"""Structural signatures of operators and of the build environment.
+
+PyTorch counterpart of ``pylops_mpi_tpu/aot/signature.py``.
+:func:`op_signature` fingerprints an operator by class, shape, dtype and
+the shapes and dtypes of the tensors it holds, so two instances built
+alike (a restarted daemon's fresh operator) share one signature;
+:func:`compile_signature` fingerprints what a stored build would depend
+on (the torch and CUDA versions, the device, the world size and the
+knobs that change the solvers' arithmetic). The port has no bank of
+captured executables yet (ROADMAP.md §A.7): the serving pool folds
+:func:`op_signature` into its family signature, and
+:func:`~pylops_mpi_tpu_torch.aot.aot_enabled` is false.
+"""
+
+import os
+from typing import Any, Dict, List, Tuple
+
+__all__ = ["compile_signature", "op_signature"]
+
+# knobs that change what a solve computes
+_COMPILE_KNOBS = (
+    "PYLOPS_MPI_TPU_TORCH_PRECISION",
+    "PYLOPS_MPI_TPU_TORCH_CA",
+    "PYLOPS_MPI_TPU_TORCH_CA_S",
+    "PYLOPS_MPI_TPU_TORCH_GUARDS",
+    "PYLOPS_MPI_TPU_TORCH_GUARD_STALL",
+)
+
+
+def compile_signature() -> Dict[str, Any]:
+    """The environment's fingerprint, JSON scalars only."""
+    import torch
+    from ..parallel.mesh import world_size
+    cuda = torch.cuda.is_available()
+    return {
+        "torch": torch.__version__,
+        "cuda": torch.version.cuda,
+        "platform": "cuda" if cuda else "cpu",
+        "device_name": torch.cuda.get_device_name(0) if cuda else "cpu",
+        "world_size": world_size(),
+        "knobs": {k: os.environ.get(k, "") for k in _COMPILE_KNOBS},
+    }
+
+
+def _tensors(obj, out: List, seen: set) -> None:
+    """(shape, dtype) of every tensor reachable from ``obj`` through
+    attributes, lists, tuples and dicts, in attribute-name order."""
+    import torch
+    if id(obj) in seen:
+        return
+    seen.add(id(obj))
+    if isinstance(obj, torch.Tensor):
+        out.append((tuple(obj.shape), str(obj.dtype)))
+    elif isinstance(obj, (list, tuple)):
+        for v in obj:
+            _tensors(v, out, seen)
+    elif isinstance(obj, dict):
+        for k in sorted(obj, key=str):
+            _tensors(obj[k], out, seen)
+    elif hasattr(obj, "shape") and hasattr(obj, "__dict__"):
+        for k in sorted(vars(obj)):
+            _tensors(vars(obj)[k], out, seen)
+
+
+def op_signature(Op) -> Tuple:
+    """``(class name, shape, dtype, tensors)`` of an operator, or
+    ``("custom", class name, ...)`` from its ``aot_signature()`` where it
+    defines one."""
+    hook = getattr(Op, "aot_signature", None)
+    if callable(hook):
+        return ("custom", type(Op).__name__, tuple(hook()))
+    leaves: List = []
+    _tensors(Op, leaves, set())
+    return (type(Op).__name__, tuple(Op.shape), str(Op.dtype),
+            tuple(leaves))

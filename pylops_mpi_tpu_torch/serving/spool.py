@@ -1,0 +1,282 @@
+"""The request spool: a crash-safe handoff between processes.
+
+PyTorch counterpart of ``pylops_mpi_tpu/serving/spool.py``, with the same
+file format, so a spool is readable by either package. The in-process
+:class:`~.queue.AdmissionQueue` dies with its process; a worker that
+serves from a spool loses nothing when it dies. Every transition is a
+temporary file and ``os.replace``, or an ``os.rename``:
+
+::
+
+    pending/<id>.a<attempt>.npz   enqueued, unowned
+    claimed/<id>.a<attempt>.npz   owned by one worker (one rename wins)
+    results/<id>.npz              solved (rewritten whole by a re-solve)
+    failed/<id>.a<attempt>.npz    given up, beside <name>.err
+    DRAIN                         marker: workers finish what is pending
+                                  and return
+
+:func:`recover_claimed` moves a dead worker's claims back to pending
+with the attempt counter raised, up to the retry budget
+(``PYLOPS_MPI_TPU_TORCH_RETRIES`` + 1 attempts in all); a request that
+used it up goes to ``failed/``. Workers on one spool coordinate only
+through rename atomicity: no locks, no daemon, no network.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import uuid
+from collections import namedtuple
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+from ..diagnostics import metrics as _metrics
+from ..diagnostics import trace as _trace
+
+__all__ = ["init_spool", "enqueue", "claim", "complete", "fail",
+           "recover_claimed", "read_result", "result_ids",
+           "pending_count", "claimed_count", "request_drain",
+           "drain_requested", "Claim"]
+
+_DIRS = ("pending", "claimed", "results", "failed")
+
+Claim = namedtuple("Claim", ["request_id", "attempt", "family", "y",
+                             "deadline_ts", "path"])
+Claim.__doc__ = ("One claimed request: identity, 0-based re-enqueue "
+                 "counter, payload, and the claimed-file path this "
+                 "worker owns.")
+
+
+def init_spool(root: str) -> str:
+    root = os.path.abspath(root)
+    for d in _DIRS:
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    return root
+
+
+def _parse_name(fname: str) -> Optional[Tuple[str, int]]:
+    """``<id>.a<attempt>.npz`` → ``(id, attempt)``; None for foreign
+    files (editor droppings etc. must not crash the claim loop)."""
+    if not fname.endswith(".npz"):
+        return None
+    stem = fname[:-4]
+    rid, sep, att = stem.rpartition(".a")
+    if not sep or not rid or not att.isdigit():
+        return None
+    return rid, int(att)
+
+
+def enqueue(root: str, family: str, y: np.ndarray, *,
+            request_id: Optional[str] = None,
+            deadline_ts: Optional[float] = None) -> str:
+    """Append one single-RHS request; returns its id. Atomic: the file
+    appears in ``pending/`` complete or not at all."""
+    root = init_spool(root)
+    rid = request_id or uuid.uuid4().hex[:16]
+    meta = {"family": str(family),
+            "deadline_ts": deadline_ts}
+    tmp = os.path.join(root, f".enq_{os.getpid()}_{rid}.npz")
+    dst = os.path.join(root, "pending", f"{rid}.a0.npz")
+    with open(tmp, "wb") as f:
+        np.savez(f, y=np.asarray(y), meta=json.dumps(meta))
+    os.replace(tmp, dst)
+    _metrics.inc("serve.spool.enqueued")
+    return rid
+
+
+def _load(path: str, rid: str, attempt: int) -> Optional[Claim]:
+    try:
+        with np.load(path, allow_pickle=False) as z:
+            y = np.asarray(z["y"])
+            meta = json.loads(str(z["meta"]))
+    except (OSError, ValueError, KeyError):
+        return None  # torn/foreign file: skip, never crash the worker
+    return Claim(request_id=rid, attempt=attempt,
+                 family=meta.get("family", ""), y=y,
+                 deadline_ts=meta.get("deadline_ts"), path=path)
+
+
+def claim(root: str, limit: int) -> List[Claim]:
+    """Atomically take up to ``limit`` pending requests (oldest
+    first). Concurrent workers race on ``os.rename``; exactly one
+    wins each file, losers skip on ``FileNotFoundError``."""
+    root = os.path.abspath(root)
+    pend = os.path.join(root, "pending")
+    try:
+        names = os.listdir(pend)
+    except OSError:
+        return []
+    entries = []
+    for n in names:
+        parsed = _parse_name(n)
+        if parsed is None:
+            continue
+        p = os.path.join(pend, n)
+        try:
+            entries.append((os.path.getmtime(p), n, parsed))
+        except OSError:
+            continue  # another worker just claimed it
+    entries.sort()
+    out: List[Claim] = []
+    for _, n, (rid, att) in entries:
+        if len(out) >= limit:
+            break
+        src = os.path.join(pend, n)
+        dst = os.path.join(root, "claimed", n)
+        try:
+            os.rename(src, dst)
+        except OSError:
+            continue  # lost the race
+        c = _load(dst, rid, att)
+        if c is not None:
+            out.append(c)
+            _metrics.inc("serve.spool.claimed")
+    return out
+
+
+def complete(root: str, c: Claim, x: np.ndarray, *,
+             iiter: int = 0, status: str = "converged") -> str:
+    """Bank the result and release the claim. The result file, keyed by
+    request id only, is replaced whole: a request re-solved after a
+    crash between this write and the release rewrites it (in another
+    batch its last bits may differ; both are the request's solve), so
+    recovery never leaves a torn or foreign result."""
+    root = os.path.abspath(root)
+    dst = os.path.join(root, "results", f"{c.request_id}.npz")
+    tmp = dst + f".tmp{os.getpid()}"
+    with open(tmp, "wb") as f:
+        np.savez(f, x=np.asarray(x), iiter=np.int64(iiter),
+                 status=str(status))
+    os.replace(tmp, dst)
+    try:
+        os.remove(c.path)
+    except OSError:
+        pass  # already recovered elsewhere; the result stands
+    _metrics.inc("serve.spool.completed")
+    return dst
+
+
+def fail(root: str, c: Claim, error: str) -> None:
+    """Quarantine a request this worker cannot solve (solver error,
+    not a crash): move the claim to ``failed/`` with the error text
+    alongside."""
+    root = os.path.abspath(root)
+    dst = os.path.join(root, "failed", os.path.basename(c.path))
+    try:
+        os.rename(c.path, dst)
+        with open(dst + ".err", "w") as f:
+            f.write(str(error)[:2000])
+    except OSError:
+        pass
+    _metrics.inc("serve.spool.failed")
+
+
+def recover_claimed(root: str,
+                    max_attempts: Optional[int] = None
+                    ) -> Tuple[int, int]:
+    """Re-enqueue every claimed-but-unfinished request (the dead
+    attempt's in-flight work), attempt counter bumped; requests past
+    the retry budget (default ``PYLOPS_MPI_TPU_TORCH_RETRIES`` + 1 total
+    attempts) go to ``failed/`` instead. A request whose result
+    ALREADY exists (crash between result write and claim release) is
+    simply released — re-solving is harmless but pointless. Returns
+    ``(requeued, quarantined)``. Idempotent: a second sweep finds an
+    empty ``claimed/`` and does nothing."""
+    if max_attempts is None:
+        from ..resilience.retry import default_retries
+        max_attempts = default_retries() + 1
+    root = os.path.abspath(root)
+    cl = os.path.join(root, "claimed")
+    try:
+        names = os.listdir(cl)
+    except OSError:
+        return 0, 0
+    requeued = quarantined = 0
+    for n in sorted(names):
+        parsed = _parse_name(n)
+        if parsed is None:
+            continue
+        rid, att = parsed
+        src = os.path.join(cl, n)
+        if os.path.exists(os.path.join(root, "results", f"{rid}.npz")):
+            try:
+                os.remove(src)
+            except OSError:
+                pass
+            continue
+        if att + 1 >= max_attempts:
+            try:
+                os.rename(src, os.path.join(root, "failed", n))
+                with open(os.path.join(root, "failed", n + ".err"),
+                          "w") as f:
+                    f.write(f"retry budget exhausted after "
+                            f"{att + 1} attempts")
+            except OSError:
+                continue
+            quarantined += 1
+            _metrics.inc("serve.spool.quarantined")
+            continue
+        dst = os.path.join(root, "pending", f"{rid}.a{att + 1}.npz")
+        try:
+            os.rename(src, dst)
+        except OSError:
+            continue
+        requeued += 1
+        _metrics.inc("serve.requeues")
+    if requeued or quarantined:
+        _trace.event("serve.spool_recover", cat="serving",
+                     requeued=requeued, quarantined=quarantined)
+    return requeued, quarantined
+
+
+def read_result(root: str, request_id: str) -> Optional[Dict]:
+    path = os.path.join(os.path.abspath(root), "results",
+                        f"{request_id}.npz")
+    try:
+        with np.load(path, allow_pickle=False) as z:
+            return {"x": np.asarray(z["x"]),
+                    "iiter": int(z["iiter"]),
+                    "status": str(z["status"])}
+    except (OSError, ValueError, KeyError):
+        return None
+
+
+def result_ids(root: str) -> List[str]:
+    try:
+        names = os.listdir(os.path.join(os.path.abspath(root),
+                                        "results"))
+    except OSError:
+        return []
+    return sorted(n[:-4] for n in names if n.endswith(".npz"))
+
+
+def pending_count(root: str) -> int:
+    try:
+        return len([n for n in os.listdir(
+            os.path.join(os.path.abspath(root), "pending"))
+            if n.endswith(".npz")])
+    except OSError:
+        return 0
+
+
+def claimed_count(root: str) -> int:
+    try:
+        return len([n for n in os.listdir(
+            os.path.join(os.path.abspath(root), "claimed"))
+            if n.endswith(".npz")])
+    except OSError:
+        return 0
+
+
+def request_drain(root: str) -> None:
+    """Drop the DRAIN marker: workers stop claiming once pending is
+    empty and exit 0 — the deployment-wide graceful stop."""
+    path = os.path.join(init_spool(root), "DRAIN")
+    with open(path, "w") as f:
+        f.write("drain\n")
+
+
+def drain_requested(root: str) -> bool:
+    return os.path.exists(os.path.join(os.path.abspath(root), "DRAIN"))

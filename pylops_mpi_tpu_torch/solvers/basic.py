@@ -21,10 +21,14 @@ hand the solve to the communication-avoiding engines
 The JAX package runs a solve as one ``lax.while_loop`` that leaves when
 ``iiter == niter`` or ``max(kold) <= tol``. Here the loop is a Python
 loop whose scalars all stay on the device: an ``active = kold > tol``
-mask, computed on the device each iteration, zeroes the step and stops
-``iiter`` and the cost buffers once the tolerance is met, so the result
-equals the while loop's exit exactly. The host reads ``active`` only
-every ``_CHECK_EVERY`` iterations, to leave the loop early.
+mask, computed on the device each iteration, zeroes the step, holds x
+and stops ``iiter`` and the cost buffers once the condition fails, so
+the result equals the while loop's exit exactly (a non-finite ``y``
+returns ``x0`` with ``iiter = 0``). The host reads ``active`` only
+every ``_CHECK_EVERY`` iterations, to leave the loop early. With
+``guards`` on (JAX ``basic.py:342-400``) the loop also carries a status
+word (:mod:`..resilience.status`) in device tensors; ``cg_guarded`` and
+``cgls_guarded`` return it.
 
 Preserved from the JAX package: the recurrence dots at the policy's
 reduction dtype (``_rdot``), step scalars re-entering vector updates at
@@ -45,12 +49,14 @@ from typing import Callable, Optional, Union
 
 import torch
 
+from ..diagnostics import metrics as _metrics
+from ..diagnostics import trace as _trace
 from ..distributedarray import DistributedArray, Partition
 from ..ops._precision import reduction_dtype
 from ..parallel.mesh import rank
 from ..stacked import StackedDistributedArray
 
-__all__ = ["CG", "CGLS", "cg", "cgls"]
+__all__ = ["CG", "CGLS", "cg", "cgls", "cg_guarded", "cgls_guarded"]
 
 Vector = Union[DistributedArray, StackedDistributedArray]
 
@@ -285,14 +291,10 @@ class CGLS(_BaseSolver):
 
 
 def _use_fused(name: str, callback, show: bool, fused: Optional[bool],
-               guards, M, normal: bool = False) -> bool:
+               M, normal: bool = False) -> bool:
     """Whether a functional solve runs the fused loop (no per-iteration
     hooks) or the class API, with the JAX package's checks
     (``basic.py:685-691``, ``:819-829``)."""
-    if guards is not None:
-        raise NotImplementedError(
-            f"{name}(guards=...) is not ported: the guarded solvers are "
-            "ROADMAP.md §A.7")
     use_fused = fused if fused is not None else (callback is None
                                                  and not show)
     if use_fused and (callback is not None or show):
@@ -307,32 +309,99 @@ def _use_fused(name: str, callback, show: bool, fused: Optional[bool],
     return use_fused
 
 
-def cg(Op, y: Vector, x0: Optional[Vector] = None,
-       niter: int = 10, tol: float = 1e-4, show: bool = False,
-       itershow=(10, 10, 10), callback: Optional[Callable] = None,
-       fused: Optional[bool] = None, guards: Optional[bool] = None, M=None):
-    """Conjugate gradient for a square operator
-    (ref ``optimization/basic.py:13-70``), in the JAX package's argument
-    order. Without ``callback`` or ``show`` it runs the fused loop;
-    with them (or ``fused=False``) the :class:`CG` class, printing on
-    rank 0. ``M`` (fused loop only) is an SPD approximation of
-    ``Op⁻¹``: the loop is then PCG. ``guards`` is not ported and raises.
+# ------------------------------------------------------------------ guards
+# With guards on (JAX ``basic.py:342-400``) the fused loops carry a status
+# word, the best residual and a stall counter, all device tensors updated
+# by a few ``torch.where`` an iteration: a non-finite step, momentum or
+# norm scalar rejects the update wholesale (the vectors keep their last
+# finite values: scaling the step to zero would not do, ``NaN * 0`` is
+# ``NaN``) and ends the loop with BREAKDOWN; ``stall_n`` iterations
+# without a new best residual end it with STAGNATION. The loop still
+# reads the device once every ``_CHECK_EVERY`` iterations.
 
-    Returns ``(x, iiter, cost)``: the solution, the iterations run and
-    the residual-norm history ``cost[:iiter+1]`` (a device tensor; a
-    numpy array from the class)."""
-    if not _use_fused("cg", callback, show, fused, guards, M):
-        solver = CG(Op)
-        if callback is not None:
-            solver.callback = callback
-        x0 = _zero_like_model(Op, y) if x0 is None else x0
-        return solver.solve(y, x0, niter=niter, tol=tol, show=show,
-                            itershow=itershow)
-    from . import ca
-    mode = ca.resolve_mode(Op, "cg")
-    x = _zero_like_model(Op, y) if x0 is None else x0
-    if mode != "off":
-        return ca.run_cg(Op, y, x, niter, tol, M=M, mode=mode)
+def _reject(hold, old: Vector, new: Vector) -> Vector:
+    """``old`` where ``hold`` else ``new``, over a (stacked) vector;
+    ``hold`` is a 0-d mask or a ``(K,)`` mask of block columns."""
+    if isinstance(new, StackedDistributedArray):
+        return StackedDistributedArray(
+            [_reject(hold, o, n)
+             for o, n in zip(old.distarrays, new.distarrays)])
+    return DistributedArray._wrap(torch.where(hold, old.array, new.array),
+                                  new)
+
+
+def _or_idle(mask: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
+    """``mask | ~active`` in one device op: ``mask`` while the loop is
+    live, all true once its condition has failed."""
+    return torch.where(active, mask, True)
+
+
+def _nonfinite(*scalars) -> torch.Tensor:
+    """Whether any of the recurrence scalars is NaN or Inf, lane by lane
+    for ``(K,)`` scalars."""
+    bad = ~torch.isfinite(scalars[0])
+    for v in scalars[1:]:
+        bad = bad | ~torch.isfinite(v)
+    return bad
+
+
+def _status0(device, K: Optional[int] = None) -> torch.Tensor:
+    from ..resilience.status import RUNNING
+    shape = () if K is None else (K,)
+    return torch.full(shape, RUNNING, dtype=torch.int32, device=device)
+
+
+def _guard_update(status, bestk, stall, bad, k, done, stall_n: int, live):
+    """One step of the scalar guard carry (JAX ``_guard_update``), taken
+    only while the loop is ``live``: breakdown beats stagnation; the
+    stall counter runs only while the recurrence is neither poisoned
+    nor parked at the machine floor (``done``)."""
+    from ..resilience.status import BREAKDOWN, STAGNATION
+    kmax = torch.max(k)
+    improved = (kmax < bestk) & ~bad
+    frozen = torch.all(done)
+    nstall = torch.where(bad | frozen, stall,
+                         torch.where(improved, torch.zeros_like(stall),
+                                     stall + 1))
+    nbest = torch.where(improved, kmax, bestk)
+    nstatus = torch.where(bad, torch.full_like(status, BREAKDOWN),
+                          torch.where(nstall >= stall_n,
+                                      torch.full_like(status, STAGNATION),
+                                      status))
+    return (torch.where(live, nstatus, status),
+            torch.where(live, nbest, bestk),
+            torch.where(live, nstall, stall))
+
+
+def _resolve_status(status, kold, tol: float) -> int:
+    """The verdict after the loop: the guard's, else converged when
+    ``max(kold) <= tol``, else maxiter; elementwise for block columns
+    (then a list)."""
+    from ..resilience.status import CONVERGED, MAXITER, RUNNING
+    out = torch.where(status != RUNNING, status,
+                      torch.where(kold <= tol,
+                                  torch.full_like(status, CONVERGED),
+                                  torch.full_like(status, MAXITER)))
+    return int(out) if out.dim() == 0 else [int(c) for c in out.tolist()]
+
+
+def _live(kold, tol: float, status=None) -> torch.Tensor:
+    """The loop's condition on the device: ``max(kold) > tol``
+    (unguarded), or some column above ``tol`` with no verdict yet
+    (guarded; JAX ``block.py:247-250``)."""
+    if status is None:
+        return kold > tol if kold.dim() == 0 else torch.max(kold) > tol
+    from ..resilience.status import RUNNING
+    return torch.any((kold > tol) & (status == RUNNING))
+
+
+def _run_cg(Op, y: Vector, x: Vector, niter: int, tol: float, M,
+            guards: bool):
+    """The fused CG loop from ``x``: ``(x, iiter, cost[:iiter+1], code)``,
+    ``code`` the status word with guards on, else ``None``. Once the
+    loop's condition fails it changes nothing more, so a non-finite
+    ``y`` returns ``x`` as given with ``iiter = 0``, as the JAX
+    package's ``while_loop`` does."""
     xdt = x.dtype
     r = y - Op.matvec(x)
     z = _precond_apply(M, r, xdt)
@@ -342,69 +411,51 @@ def cg(Op, y: Vector, x0: Optional[Vector] = None,
     cost = torch.zeros(niter + 1, dtype=kold.dtype, device=kold.device)
     cost[0] = torch.sqrt(kold)
     iiter = torch.zeros((), dtype=torch.int64, device=kold.device)
+    status = _status0(kold.device) if guards else None
+    if guards:
+        from ..resilience.status import stall_window
+        stall_n = stall_window()
+        bestk = kold.clone()
+        stall = torch.zeros((), dtype=torch.int32, device=kold.device)
     for it in range(niter):
-        active = kold > tol
-        frozen = (kold <= floors) | ~active
+        active = _live(kold, tol, status)
+        done = kold <= floors
+        frozen = _or_idle(done, active)
         Opc = Op.matvec(c)
         a = torch.where(frozen, torch.zeros_like(kold), kold / _rdot(c, Opc))
-        x = x + c * _step_scalar(a, xdt)
-        r = r - Opc * _step_scalar(a, xdt)
-        z = _precond_apply(M, r, xdt)
-        k = torch.where(frozen, kold, _rdot(r, z))
+        xn = x + c * _step_scalar(a, xdt)
+        rn = r - Opc * _step_scalar(a, xdt)
+        zn = _precond_apply(M, rn, xdt)
+        k = torch.where(frozen, kold, _rdot(rn, zn))
         b = torch.where(frozen, torch.zeros_like(k), k / kold)
-        c = z + c * _step_scalar(b, xdt)
+        cn = zn + c * _step_scalar(b, xdt)
+        if guards:
+            bad = _nonfinite(a, k, b)
+            hold = _or_idle(bad, active)
+            x, r, c = (_reject(hold, x, xn), _reject(hold, r, rn),
+                       _reject(hold, c, cn))
+            k = torch.where(bad, kold, k)
+            status, bestk, stall = _guard_update(status, bestk, stall, bad,
+                                                 k, done, stall_n, active)
+        else:
+            x, r, c = _reject(active, xn, x), rn, cn  # x held once idle
         kold = k
         iiter = iiter + active.to(iiter.dtype)
         _record(cost, it + 1, torch.sqrt(k), active)
-        if (it + 1) % _CHECK_EVERY == 0 and not bool(kold > tol):
+        if (it + 1) % _CHECK_EVERY == 0 and not bool(_live(kold, tol,
+                                                           status)):
             break
     iiter = int(iiter)
-    return x, iiter, cost[:iiter + 1]
+    code = _resolve_status(status, kold, tol) if guards else None
+    return x, iiter, cost[:iiter + 1], code
 
 
-def cgls(Op, y: Vector, x0: Optional[Vector] = None,
-         niter: int = 10, damp: float = 0.0, tol: float = 1e-4,
-         show: bool = False, itershow=(10, 10, 10),
-         callback: Optional[Callable] = None, fused: Optional[bool] = None,
-         normal: Optional[bool] = None, guards: Optional[bool] = None,
-         M=None):
-    """Damped least-squares CGLS (ref ``optimization/basic.py:73-148``),
-    in the JAX package's argument order. Without ``callback`` or
-    ``show`` it runs the fused loop; with them (or ``fused=False``) the
-    :class:`CGLS` class, printing on rank 0. ``M`` (fused loop only)
-    is an SPD approximation of ``(OpᴴOp + damp²I)⁻¹`` applied to the
-    normal residual in both schedules (PCGLS). ``guards`` is not ported
-    and raises.
-
-    ``normal=True`` runs the one-sweep schedule (fused loop only): each
-    iteration takes ``(u, q) = Op.normal_matvec(c)`` (one read of the
-    blocks for ``MPIBlockDiag``) and updates the gradient by the
-    recurrence ``r ← r − a (u + damp² c)``. ``normal=False`` is the
-    classic schedule with one ``rmatvec`` and one ``matvec`` per
-    iteration.
-
-    Returns ``(x, istop, iiter, r1norm, r2norm, cost)`` as the JAX
-    package does: ``istop`` 1 when ``kold < tol`` else 2, ``r1norm`` the
-    final ``kold``, ``r2norm`` the final damped residual norm and
-    ``cost`` the residual-norm history ``cost[:iiter+1]`` (device
-    tensors; ``cost`` a numpy array from the class)."""
-    if not _use_fused("cgls", callback, show, fused, guards, M, bool(normal)):
-        solver = CGLS(Op)
-        if callback is not None:
-            solver.callback = callback
-        x0 = _zero_like_model(Op, y) if x0 is None else x0
-        return solver.solve(y, x0, niter=niter, damp=damp, tol=tol,
-                            show=show, itershow=itershow)
-    normal = bool(normal)
+def _run_cgls(Op, y: Vector, x: Vector, niter: int, damp: float, tol: float,
+              normal: bool, M, guards: bool):
+    """The fused CGLS loop from ``x`` in either schedule: ``(x, iiter,
+    cost[:iiter+1], cost1[:iiter+1], kold, code)``; see
+    :func:`_run_cg`."""
     damp2 = damp ** 2
-    from . import ca
-    mode = ca.resolve_mode(Op, "cgls")
-    x = _zero_like_model(Op, y) if x0 is None else x0
-    if mode != "off":
-        x, iiter, cost, kold = ca.run_cgls(Op, y, x, niter, damp, tol,
-                                           normal, M=M)
-        istop = 1 if float(kold) < tol else 2
-        return x, istop, iiter, kold, cost[iiter], cost
     xdt = x.dtype
     s = y - Op.matvec(x)
     rq = Op.rmatvec(s) - x * damp  # the reference's un-squared setup damp
@@ -423,33 +474,210 @@ def cgls(Op, y: Vector, x0: Optional[Vector] = None,
     cost[0] = sn
     cost1[0] = _damped_norm(sn, damp2, x)
     iiter = torch.zeros((), dtype=torch.int64, device=kold.device)
+    status = _status0(kold.device) if guards else None
+    if guards:
+        from ..resilience.status import stall_window
+        stall_n = stall_window()
+        bestk = kold.clone()
+        stall = torch.zeros((), dtype=torch.int32, device=kold.device)
     for it in range(niter):
-        active = kold > tol
-        frozen = (kold <= floors) | ~active
+        active = _live(kold, tol, status)
+        done = kold <= floors
+        frozen = _or_idle(done, active)
         if normal:
-            u, q = Op.normal_matvec(c)
-        qq = _rdot(q, q)
+            u, qn = Op.normal_matvec(c)
+            qq = _rdot(qn, qn)
+        else:
+            qq = _rdot(q, q)
+            qn = q
         a = torch.abs(kold / (qq + damp2 * _rdot(c, c) if damp2 else qq))
         a = torch.where(frozen, torch.zeros_like(a), a)
-        x = x + c * _step_scalar(a, xdt)
-        s = s - q * _step_scalar(a, xdt)
+        xn = x + c * _step_scalar(a, xdt)
+        sn_ = s - qn * _step_scalar(a, xdt)
         if normal:
-            r = r - (u + c * damp2) * _step_scalar(a, xdt)
+            rn = r - (u + c * damp2) * _step_scalar(a, xdt)
         else:
-            r = Op.rmatvec(s) - x * damp2
-        z = _precond_apply(M, r, xdt)
-        k = torch.where(frozen, kold, _rdot(r, z))
+            rn = Op.rmatvec(sn_) - xn * damp2
+        z = _precond_apply(M, rn, xdt)
+        k = torch.where(frozen, kold, _rdot(rn, z))
         b = torch.where(frozen, torch.zeros_like(k), k / kold)
-        c = z + c * _step_scalar(b, xdt)
+        cn = z + c * _step_scalar(b, xdt)
         if not normal:
-            q = Op.matvec(c)
+            qn = Op.matvec(cn)
+        if guards:
+            bad = _nonfinite(a, k, b)
+            hold = _or_idle(bad, active)
+            x, s, c = (_reject(hold, x, xn), _reject(hold, s, sn_),
+                       _reject(hold, c, cn))
+            if normal:
+                r = _reject(hold, r, rn)
+            else:
+                q = _reject(hold, q, qn)
+            k = torch.where(bad, kold, k)
+            status, bestk, stall = _guard_update(status, bestk, stall, bad,
+                                                 k, done, stall_n, active)
+        else:
+            x, s, c = _reject(active, xn, x), sn_, cn  # x held once idle
+            if normal:
+                r = rn
+            else:
+                q = qn
         kold = k
         iiter = iiter + active.to(iiter.dtype)
         sn = s.norm()
         _record(cost, it + 1, sn, active)
         _record(cost1, it + 1, _damped_norm(sn, damp2, x), active)
-        if (it + 1) % _CHECK_EVERY == 0 and not bool(kold > tol):
+        if (it + 1) % _CHECK_EVERY == 0 and not bool(_live(kold, tol,
+                                                           status)):
             break
     iiter = int(iiter)
+    code = _resolve_status(status, kold, tol) if guards else None
+    return x, iiter, cost[:iiter + 1], cost1[:iiter + 1], kold, code
+
+
+def _guards_on(name: str, guards, mode: str) -> bool:
+    """``guards`` (or the knob) resolved for a fused solve; guards on a
+    communication-avoiding engine raise (ROADMAP.md §A.7)."""
+    from ..resilience.status import guards_enabled
+    on = guards_enabled(guards)
+    if on and mode != "off":
+        raise NotImplementedError(
+            f"{name}(guards=True) under PYLOPS_MPI_TPU_TORCH_CA={mode} is "
+            "not ported: the CA engines' guard carries are ROADMAP.md §A.7")
+    return on
+
+
+def _solve_cg(Op, y, x0, niter, tol, M, guards):
+    """The fused CG with its span, metrics and, with guards, its
+    published verdict: ``(x, iiter, cost, code)``."""
+    from ..resilience import status as _rstatus
+    from . import ca
+    mode = ca.resolve_mode(Op, "cg")
+    use_guards = _guards_on("cg", guards, mode)
+    x = _zero_like_model(Op, y) if x0 is None else x0
+    with _trace.span("solver.cg", cat="solver", op=type(Op).__name__,
+                     shape=Op.shape, dtype=x.dtype, niter=niter, tol=tol,
+                     fused=True, guards=use_guards), \
+            _metrics.timer("solver.cg"):
+        if mode != "off":
+            x, iiter, cost = ca.run_cg(Op, y, x, niter, tol, M=M, mode=mode)
+            code = None
+        else:
+            x, iiter, cost, code = _run_cg(Op, y, x, niter, tol, M,
+                                           use_guards)
+    if use_guards:
+        _rstatus.record("cg", code, iiter)
+    _metrics.inc("solver.cg.solves")
+    _metrics.inc("solver.cg.iterations", iiter)
+    return x, iiter, cost, code
+
+
+def _solve_cgls(Op, y, x0, niter, damp, tol, normal, M, guards):
+    """The fused CGLS with its span, metrics and, with guards, its
+    published verdict: ``(x, iiter, cost, cost1, kold, code)``; under a
+    CA engine ``cost1`` holds only ``r2norm``."""
+    from ..resilience import status as _rstatus
+    from . import ca
+    mode = ca.resolve_mode(Op, "cgls")
+    use_guards = _guards_on("cgls", guards, mode)
+    x = _zero_like_model(Op, y) if x0 is None else x0
+    with _trace.span("solver.cgls", cat="solver", op=type(Op).__name__,
+                     shape=Op.shape, dtype=x.dtype, niter=niter, damp=damp,
+                     tol=tol, fused=True, normal=normal,
+                     guards=use_guards), \
+            _metrics.timer("solver.cgls"):
+        if mode != "off":
+            x, iiter, cost, kold = ca.run_cgls(Op, y, x, niter, damp, tol,
+                                               normal, M=M)
+            out = (x, iiter, cost, cost[iiter:iiter + 1], kold, None)
+        else:
+            out = _run_cgls(Op, y, x, niter, damp, tol, normal, M,
+                            use_guards)
+    if use_guards:
+        _rstatus.record("cgls", out[5], out[1])
+    _metrics.inc("solver.cgls.solves")
+    _metrics.inc("solver.cgls.iterations", out[1])
+    return out
+
+
+def cg(Op, y: Vector, x0: Optional[Vector] = None,
+       niter: int = 10, tol: float = 1e-4, show: bool = False,
+       itershow=(10, 10, 10), callback: Optional[Callable] = None,
+       fused: Optional[bool] = None, guards: Optional[bool] = None, M=None):
+    """Conjugate gradient for a square operator
+    (ref ``optimization/basic.py:13-70``), in the JAX package's argument
+    order. Without ``callback`` or ``show`` it runs the fused loop;
+    with them (or ``fused=False``) the :class:`CG` class, printing on
+    rank 0. ``M`` (fused loop only) is an SPD approximation of
+    ``Op⁻¹``: the loop is then PCG. ``guards`` (``None`` defers to
+    ``PYLOPS_MPI_TPU_TORCH_GUARDS``) adds the guard carry to the fused
+    loop, which may then leave early; the verdict is published in
+    ``resilience.status.last_status("cg")``.
+
+    Returns ``(x, iiter, cost)``: the solution, the iterations run and
+    the residual-norm history ``cost[:iiter+1]`` (a device tensor; a
+    numpy array from the class)."""
+    if not _use_fused("cg", callback, show, fused, M):
+        solver = CG(Op)
+        if callback is not None:
+            solver.callback = callback
+        x0 = _zero_like_model(Op, y) if x0 is None else x0
+        return solver.solve(y, x0, niter=niter, tol=tol, show=show,
+                            itershow=itershow)
+    return _solve_cg(Op, y, x0, niter, tol, M, guards)[:3]
+
+
+def cg_guarded(Op, y: Vector, x0: Optional[Vector] = None, niter: int = 10,
+               tol: float = 1e-4, M=None):
+    """Guarded fused CG (JAX ``basic.py:949-966``): ``(x, iiter, cost,
+    status_code)``, the code one of ``resilience.status.CONVERGED``,
+    ``MAXITER``, ``BREAKDOWN``, ``STAGNATION``; on breakdown ``x`` is the
+    last finite iterate."""
+    return _solve_cg(Op, y, x0, niter, tol, M, True)
+
+
+def cgls(Op, y: Vector, x0: Optional[Vector] = None,
+         niter: int = 10, damp: float = 0.0, tol: float = 1e-4,
+         show: bool = False, itershow=(10, 10, 10),
+         callback: Optional[Callable] = None, fused: Optional[bool] = None,
+         normal: Optional[bool] = None, guards: Optional[bool] = None,
+         M=None):
+    """Damped least-squares CGLS (ref ``optimization/basic.py:73-148``),
+    in the JAX package's argument order. Without ``callback`` or
+    ``show`` it runs the fused loop; with them (or ``fused=False``) the
+    :class:`CGLS` class, printing on rank 0. ``M`` (fused loop only)
+    is an SPD approximation of ``(OpᴴOp + damp²I)⁻¹`` applied to the
+    normal residual in both schedules (PCGLS). ``guards`` as in
+    :func:`cg` (``last_status("cgls")``).
+
+    ``normal=True`` runs the one-sweep schedule (fused loop only): each
+    iteration takes ``(u, q) = Op.normal_matvec(c)`` (one read of the
+    blocks for ``MPIBlockDiag``) and updates the gradient by the
+    recurrence ``r ← r − a (u + damp² c)``. ``normal=False`` is the
+    classic schedule with one ``rmatvec`` and one ``matvec`` per
+    iteration.
+
+    Returns ``(x, istop, iiter, r1norm, r2norm, cost)`` as the JAX
+    package does: ``istop`` 1 when ``kold < tol`` else 2, ``r1norm`` the
+    final ``kold``, ``r2norm`` the final damped residual norm and
+    ``cost`` the residual-norm history ``cost[:iiter+1]`` (device
+    tensors; ``cost`` a numpy array from the class)."""
+    if not _use_fused("cgls", callback, show, fused, M, bool(normal)):
+        solver = CGLS(Op)
+        if callback is not None:
+            solver.callback = callback
+        x0 = _zero_like_model(Op, y) if x0 is None else x0
+        return solver.solve(y, x0, niter=niter, damp=damp, tol=tol,
+                            show=show, itershow=itershow)
+    x, iiter, cost, cost1, kold, _ = _solve_cgls(
+        Op, y, x0, niter, damp, tol, bool(normal), M, guards)
     istop = 1 if float(kold) < tol else 2
-    return x, istop, iiter, kold, cost1[iiter], cost[:iiter + 1]
+    return x, istop, iiter, kold, cost1[-1], cost
+
+
+def cgls_guarded(Op, y: Vector, x0: Optional[Vector] = None,
+                 niter: int = 10, damp: float = 0.0, tol: float = 1e-4,
+                 normal: bool = False, M=None):
+    """Guarded fused CGLS (JAX ``basic.py:1088-1106``): ``(x, iiter,
+    cost, cost1, kold, status_code)``; see :func:`cg_guarded`."""
+    return _solve_cgls(Op, y, x0, niter, damp, tol, bool(normal), M, True)

@@ -8,7 +8,11 @@ apply column by column), and each recurrence scalar becomes a ``(K,)``
 vector from :meth:`DistributedArray.col_dot`, one ``all_reduce`` each.
 Columns converge on their own: a column whose ``kold`` falls below
 ``max(floor, tol)`` freezes (zero step, zero momentum) while the others
-go on. ``M=`` preconditions all K columns in one apply.
+go on. ``M=`` preconditions all K columns in one apply. With ``guards``
+on (JAX ``block.py:103-340``) each column carries its own status word:
+a column whose step, momentum or norm is not finite keeps its last
+finite values and reads ``breakdown`` while the others run on, and the
+loop runs while some column above ``tol`` has no verdict.
 
 A block of one column routes to the single-RHS ``cg``/``cgls``, whose
 results it returns bit for bit with a trailing unit axis. Under
@@ -27,9 +31,13 @@ from typing import Optional
 
 import torch
 
+from ..diagnostics import metrics as _metrics
+from ..diagnostics import trace as _trace
 from ..distributedarray import DistributedArray, Partition
-from .basic import (_CHECK_EVERY, _mp_floor, _precond_apply, _record,
-                    _step_scalar, cg, cgls)
+from .basic import (_CHECK_EVERY, _guards_on, _live, _mp_floor, _nonfinite,
+                    _or_idle, _precond_apply, _record, _reject,
+                    _resolve_status, _solve_cg, _solve_cgls, _status0,
+                    _step_scalar)
 from . import ca
 from .ca import _bdot, _cost0, _tol_floor
 
@@ -47,13 +55,6 @@ def _check_block(Op, y) -> None:
         raise ValueError(
             f"data rows {y.global_shape[0]} do not match operator rows "
             f"{Op.shape[0]}")
-
-
-def _check_guards(name: str, guards) -> None:
-    if guards is not None:
-        raise NotImplementedError(
-            f"{name}(guards=...) is not ported: the guarded solvers are "
-            "ROADMAP.md §A.7")
 
 
 def _squeeze_col(v: DistributedArray) -> DistributedArray:
@@ -88,25 +89,43 @@ def _zero_block_model(Op, y: DistributedArray) -> DistributedArray:
                             device=device)
 
 
-def block_cg(Op, y: DistributedArray, x0: Optional[DistributedArray] = None,
-             niter: int = 10, tol: float = 1e-4,
-             guards: Optional[bool] = None, M=None):
-    """Block CG (JAX ``block.py:343-452``): K columns of ``y`` (``(n, K)``)
-    through one loop. Returns ``(x, iiter, cost)``, ``cost`` of shape
-    ``(iiter+1, K)`` (a device tensor). ``guards`` is not ported and
-    raises."""
-    _check_block(Op, y)
-    _check_guards("block_cg", guards)
-    K = int(y.global_shape[1])
-    if K == 1:
-        x1, iiter, cost = cg(Op, _squeeze_col(y),
-                             None if x0 is None else _squeeze_col(x0),
-                             niter=niter, tol=tol, M=M)
-        return _expand_col(x1), iiter, cost[:, None]
-    x = _zero_block_model(Op, y) if x0 is None else x0
-    mode = ca.resolve_mode(Op, "block_cg")
-    if mode != "off":
-        return ca.run_block_cg(Op, y, x, niter, tol, M=M)
+def _bguard_update(status, bestk, stall, bad, k, done, stall_n: int, live):
+    """One step of the per-column guard carry (JAX ``_bguard_update``),
+    taken only while the loop is ``live``: each column's verdict is its
+    own and sticky (the first wins), and a frozen or poisoned column
+    does not run its stall counter."""
+    from ..resilience.status import BREAKDOWN, RUNNING, STAGNATION
+    improved = (k < bestk) & ~bad
+    nstall = torch.where(bad | done, stall,
+                         torch.where(improved, torch.zeros_like(stall),
+                                     stall + 1))
+    nbest = torch.where(improved, k, bestk)
+    verdict = torch.where(bad, torch.full_like(status, BREAKDOWN),
+                          torch.where(nstall >= stall_n,
+                                      torch.full_like(status, STAGNATION),
+                                      torch.full_like(status, RUNNING)))
+    nstatus = torch.where(status == RUNNING, verdict, status)
+    return (torch.where(live, nstatus, status),
+            torch.where(live, nbest, bestk),
+            torch.where(live, nstall, stall))
+
+
+def _guard_carry(kold, guards: bool):
+    """The per-column guard carry's start ``(status, bestk, stall,
+    stall_n)``, or Nones with guards off."""
+    if not guards:
+        return None, None, None, 0
+    from ..resilience.status import stall_window
+    K = kold.shape[0]
+    return (_status0(kold.device, K), kold.clone(),
+            torch.zeros(K, dtype=torch.int32, device=kold.device),
+            stall_window())
+
+
+def _block_cg_loop(Op, y, x, niter: int, tol: float, M, guards: bool):
+    """The block CG loop from ``x``: ``(x, iiter, cost[:iiter+1],
+    codes)``, ``codes`` the columns' status words with guards on."""
+    from ..resilience.status import RUNNING
     xdt = x.dtype
     r = y - Op.matvec(x)
     z = _precond_apply(M, r, xdt)
@@ -115,49 +134,47 @@ def block_cg(Op, y: DistributedArray, x0: Optional[DistributedArray] = None,
     stop = _tol_floor(_mp_floor(kold), tol)
     cost = _cost0(torch.sqrt(kold), niter)
     iiter = torch.zeros((), dtype=torch.int64, device=kold.device)
+    status, bestk, stall, stall_n = _guard_carry(kold, guards)
     for it in range(niter):
-        active = torch.max(kold) > tol
-        done = kold <= stop
+        active = _live(kold, tol, status)
+        done = _or_idle(kold <= stop, active)
+        if guards:
+            done = done | (status != RUNNING)
         Opc = Op.matvec(c)
         a = torch.where(done, torch.zeros_like(kold), kold / _bdot(c, Opc))
-        x = x + c * _step_scalar(a, xdt)
-        r = r - Opc * _step_scalar(a, xdt)
-        z = _precond_apply(M, r, xdt)
-        k = torch.where(done, kold, _bdot(r, z))
+        xn = x + c * _step_scalar(a, xdt)
+        rn = r - Opc * _step_scalar(a, xdt)
+        zn = _precond_apply(M, rn, xdt)
+        k = torch.where(done, kold, _bdot(rn, zn))
         b = torch.where(done, torch.zeros_like(k), k / kold)
-        c = z + c * _step_scalar(b, xdt)
+        cn = zn + c * _step_scalar(b, xdt)
+        if guards:
+            # only the poisoned columns' updates are rejected
+            bad = _nonfinite(a, k, b)
+            hold = _or_idle(bad, active)
+            x, r, c = (_reject(hold, x, xn), _reject(hold, r, rn),
+                       _reject(hold, c, cn))
+            k = torch.where(bad, kold, k)
+            status, bestk, stall = _bguard_update(status, bestk, stall, bad,
+                                                  k, done, stall_n, active)
+        else:
+            x, r, c = _reject(active, xn, x), rn, cn  # x held once idle
         kold = k
         iiter = iiter + active.to(iiter.dtype)
         _record(cost, it + 1, torch.sqrt(k), active)
-        if (it + 1) % _CHECK_EVERY == 0 and not bool(torch.max(kold) > tol):
+        if (it + 1) % _CHECK_EVERY == 0 and not bool(_live(kold, tol,
+                                                           status)):
             break
     iiter = int(iiter)
-    return x, iiter, cost[:iiter + 1]
+    codes = _resolve_status(status, kold, tol) if guards else None
+    return x, iiter, cost[:iiter + 1], codes
 
 
-def block_cgls(Op, y: DistributedArray,
-               x0: Optional[DistributedArray] = None, niter: int = 10,
-               damp: float = 0.0, tol: float = 1e-4,
-               guards: Optional[bool] = None, M=None):
-    """Block CGLS, the classic two-sweep schedule (JAX
-    ``block.py:454-532``). Returns ``(x, istop, iiter, kold, r2norm,
-    cost)`` as ``cgls`` does, with ``(K,)`` ``istop``/``kold``/``r2norm``
-    and a ``(iiter+1, K)`` ``cost`` (device tensors). ``M`` approximates
-    ``(OpᴴOp + damp²I)⁻¹``. ``guards`` is not ported and raises."""
-    _check_block(Op, y)
-    _check_guards("block_cgls", guards)
-    K = int(y.global_shape[1])
-    if K == 1:
-        x1, _, iiter, kold, r2, cost = cgls(
-            Op, _squeeze_col(y), None if x0 is None else _squeeze_col(x0),
-            niter=niter, damp=damp, tol=tol, M=M)
-        kold = kold.reshape(1)
-        return (_expand_col(x1), torch.where(kold < tol, 1, 2), iiter, kold,
-                r2.reshape(1), cost[:, None])
-    x = _zero_block_model(Op, y) if x0 is None else x0
-    mode = ca.resolve_mode(Op, "block_cgls")
-    if mode != "off":
-        return ca.run_block_cgls(Op, y, x, niter, damp, tol, M=M)
+def _block_cgls_loop(Op, y, x, niter: int, damp: float, tol: float, M,
+                     guards: bool):
+    """The block CGLS loop (classic two-sweep schedule) from ``x``:
+    ``(x, iiter, cost[:iiter+1], cost1, kold, codes)``."""
+    from ..resilience.status import RUNNING
     damp2 = damp ** 2
     xdt = x.dtype
     s = y - Op.matvec(x)
@@ -171,30 +188,126 @@ def block_cgls(Op, y: DistributedArray,
     cost = _cost0(sn, niter)
     cost1 = _cost0(_damped(sn, damp2, x), niter)
     iiter = torch.zeros((), dtype=torch.int64, device=kold.device)
+    status, bestk, stall, stall_n = _guard_carry(kold, guards)
     for it in range(niter):
-        active = torch.max(kold) > tol
-        done = kold <= stop
+        active = _live(kold, tol, status)
+        done = _or_idle(kold <= stop, active)
+        if guards:
+            done = done | (status != RUNNING)
         qq = _bdot(q, q)
         a = torch.abs(kold / (qq + damp2 * _bdot(c, c) if damp2 else qq))
         a = torch.where(done, torch.zeros_like(a), a)
-        x = x + c * _step_scalar(a, xdt)
-        s = s - q * _step_scalar(a, xdt)
-        r = Op.rmatvec(s) - x * damp2
+        xn = x + c * _step_scalar(a, xdt)
+        sn_ = s - q * _step_scalar(a, xdt)
+        r = Op.rmatvec(sn_) - xn * damp2
         z = _precond_apply(M, r, xdt)
         k = torch.where(done, kold, _bdot(r, z))
         b = torch.where(done, torch.zeros_like(k), k / kold)
-        c = z + c * _step_scalar(b, xdt)
-        q = Op.matvec(c)
+        cn = z + c * _step_scalar(b, xdt)
+        qn = Op.matvec(cn)
+        if guards:
+            bad = _nonfinite(a, k, b)
+            hold = _or_idle(bad, active)
+            x, s, c, q = (_reject(hold, x, xn), _reject(hold, s, sn_),
+                          _reject(hold, c, cn), _reject(hold, q, qn))
+            k = torch.where(bad, kold, k)
+            status, bestk, stall = _bguard_update(status, bestk, stall, bad,
+                                                  k, done, stall_n, active)
+        else:
+            x, s, c, q = _reject(active, xn, x), sn_, cn, qn  # held idle
         kold = k
         iiter = iiter + active.to(iiter.dtype)
         sn = torch.sqrt(_bdot(s, s))
         _record(cost, it + 1, sn, active)
         _record(cost1, it + 1, _damped(sn, damp2, x), active)
-        if (it + 1) % _CHECK_EVERY == 0 and not bool(torch.max(kold) > tol):
+        if (it + 1) % _CHECK_EVERY == 0 and not bool(_live(kold, tol,
+                                                           status)):
             break
     iiter = int(iiter)
-    return (x, torch.where(kold < tol, 1, 2), iiter, kold, cost1[iiter],
-            cost[:iiter + 1])
+    codes = _resolve_status(status, kold, tol) if guards else None
+    return x, iiter, cost[:iiter + 1], cost1, kold, codes
+
+
+def block_cg(Op, y: DistributedArray, x0: Optional[DistributedArray] = None,
+             niter: int = 10, tol: float = 1e-4,
+             guards: Optional[bool] = None, M=None):
+    """Block CG (JAX ``block.py:343-452``): K columns of ``y`` (``(n, K)``)
+    through one loop. Returns ``(x, iiter, cost)``, ``cost`` of shape
+    ``(iiter+1, K)`` (a device tensor). With ``guards`` on (or the knob)
+    each column carries its own status word: a poisoned column breaks
+    down alone while the others run on, and the verdicts land in
+    ``resilience.status.last_status("block_cg")["columns"]``."""
+    from ..resilience import status as _rstatus
+    _check_block(Op, y)
+    K = int(y.global_shape[1])
+    if K == 1:
+        x1, iiter, cost, code = _solve_cg(
+            Op, _squeeze_col(y), None if x0 is None else _squeeze_col(x0),
+            niter, tol, M, guards)
+        if code is not None:
+            _rstatus.record_columns("block_cg", [code], iiter)
+        return _expand_col(x1), iiter, cost[:, None]
+    x = _zero_block_model(Op, y) if x0 is None else x0
+    mode = ca.resolve_mode(Op, "block_cg")
+    use_guards = _guards_on("block_cg", guards, mode)
+    with _trace.span("solver.block_cg", cat="solver", op=type(Op).__name__,
+                     shape=Op.shape, batch=K, dtype=x.dtype, niter=niter,
+                     tol=tol, guards=use_guards):
+        if mode != "off":
+            x, iiter, cost = ca.run_block_cg(Op, y, x, niter, tol, M=M)
+            codes = None
+        else:
+            x, iiter, cost, codes = _block_cg_loop(Op, y, x, niter, tol, M,
+                                                   use_guards)
+    if use_guards:
+        _rstatus.record_columns("block_cg", codes, iiter)
+    _metrics.inc("solver.block_cg.solves")
+    _metrics.inc("solver.block_cg.iterations", iiter)
+    return x, iiter, cost
+
+
+def block_cgls(Op, y: DistributedArray,
+               x0: Optional[DistributedArray] = None, niter: int = 10,
+               damp: float = 0.0, tol: float = 1e-4,
+               guards: Optional[bool] = None, M=None):
+    """Block CGLS, the classic two-sweep schedule (JAX
+    ``block.py:454-532``). Returns ``(x, istop, iiter, kold, r2norm,
+    cost)`` as ``cgls`` does, with ``(K,)`` ``istop``/``kold``/``r2norm``
+    and a ``(iiter+1, K)`` ``cost`` (device tensors). ``M`` approximates
+    ``(OpᴴOp + damp²I)⁻¹``. ``guards`` as in :func:`block_cg`
+    (``last_status("block_cgls")``)."""
+    from ..resilience import status as _rstatus
+    _check_block(Op, y)
+    K = int(y.global_shape[1])
+    if K == 1:
+        x1, iiter, cost, cost1, kold, code = _solve_cgls(
+            Op, _squeeze_col(y), None if x0 is None else _squeeze_col(x0),
+            niter, damp, tol, False, M, guards)
+        if code is not None:
+            _rstatus.record_columns("block_cgls", [code], iiter)
+        kold = kold.reshape(1)
+        return (_expand_col(x1), torch.where(kold < tol, 1, 2), iiter, kold,
+                cost1[-1].reshape(1), cost[:, None])
+    x = _zero_block_model(Op, y) if x0 is None else x0
+    mode = ca.resolve_mode(Op, "block_cgls")
+    use_guards = _guards_on("block_cgls", guards, mode)
+    with _trace.span("solver.block_cgls", cat="solver",
+                     op=type(Op).__name__, shape=Op.shape, batch=K,
+                     dtype=x.dtype, niter=niter, damp=damp, tol=tol,
+                     guards=use_guards):
+        if mode != "off":
+            out = ca.run_block_cgls(Op, y, x, niter, damp, tol, M=M)
+            iiter, codes = out[2], None
+        else:
+            x, iiter, cost, cost1, kold, codes = _block_cgls_loop(
+                Op, y, x, niter, damp, tol, M, use_guards)
+            out = (x, torch.where(kold < tol, 1, 2), iiter, kold,
+                   cost1[iiter], cost)
+    if use_guards:
+        _rstatus.record_columns("block_cgls", codes, iiter)
+    _metrics.inc("solver.block_cgls.solves")
+    _metrics.inc("solver.block_cgls.iterations", iiter)
+    return out
 
 
 def _damped(sn: torch.Tensor, damp2: float, x) -> torch.Tensor:

@@ -54,17 +54,16 @@ import torch
 from ..distributedarray import DistributedArray
 from ..ops._precision import accum_dtype, reduction_dtype
 from ..parallel import collectives
+from ..resilience.status import BREAKDOWN, RUNNING
 from ..utils import deps
-from .basic import (_CHECK_EVERY, _mp_floor, _precond_apply, _rdot,
-                    _record, _step_scalar)
+from .basic import (_CHECK_EVERY, _mp_floor, _or_idle, _precond_apply,
+                    _rdot, _record, _reject, _step_scalar)
 
 __all__ = ["resolve_mode", "ca_key", "classic_reductions_per_iter",
            "ca_reductions_per_iter", "last_fallback", "clear_fallback",
            "run_cg", "run_cgls", "run_block_cg", "run_block_cgls",
            "RUNNING", "BREAKDOWN"]
 
-# status words, the values of the JAX package's resilience/status.py
-RUNNING, BREAKDOWN = 0, 3
 
 # all_reduce calls per iteration of the classic fused engines (the JAX
 # table: undamped CG 2; damped CGLS 5)
@@ -194,7 +193,7 @@ def _pipe_loop(applyA, M, xdt, x, r, u, kold, floors, cost, niter: int,
         m = _precond_apply(M, w, xdt)
         n = applyA(m)
         done = (kold <= stop) if block else (gamma <= floors)
-        done = done | ~active
+        done = _or_idle(done, active)
         zero = torch.zeros_like(gamma)
         b = zero if it == 0 else torch.where(done, zero, gamma / kold)
         a = torch.where(done, zero, gamma / (delta - b * gamma / aold))
@@ -206,7 +205,9 @@ def _pipe_loop(applyA, M, xdt, x, r, u, kold, floors, cost, niter: int,
         if precond:
             q = m + q * bs
             u = u - q * as_
-        x = x + p * as_
+        # nothing moves once the loop's condition failed (a non-finite
+        # lane would otherwise leak into x through p·0)
+        x = _reject(active, x + p * as_, x)
         r = r - s * as_
         w = w - z * as_
         if not precond:

@@ -1,0 +1,192 @@
+"""The plan-cache file: schema, lock and atomic writes.
+
+PyTorch counterpart of ``pylops_mpi_tpu/tuning/cache.py``, the storage
+layer of the tuner; the port reads it for the serving pool's prewarm
+(:func:`~.plan.cached_batch_widths`), and the search that fills it is
+ROADMAP.md §A.7.
+
+- ``PYLOPS_MPI_TPU_TORCH_TUNE_CACHE`` names the JSON file; unset, the
+  cache lives in this process's memory only.
+- The file is ``{"schema": N, "plans": {key: entry}}``; another schema,
+  an unreadable file or garbage reads as an empty cache, with a
+  ``tuning.cache_error`` trace event and a one-time warning.
+- Writes read, merge and replace the file through a temporary file
+  under an ``fcntl`` lock on a ``.lock`` sidecar, so concurrent writers
+  merge instead of dropping each other's entries.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import tempfile
+import threading
+from typing import Dict, Optional
+
+from ..diagnostics import metrics as _metrics
+from ..diagnostics import trace as _trace
+
+__all__ = ["SCHEMA_VERSION", "cache_path", "lookup", "store",
+           "load_plans", "cached_keys", "clear_memory"]
+
+SCHEMA_VERSION = 1
+
+_LOCK = threading.Lock()
+# process-local store: always consulted first; the only store when no
+# cache file is configured (a process without the knob never touches
+# the filesystem)
+_MEM: Dict[str, dict] = {}
+_warned_corrupt = False
+
+
+def cache_path(path: Optional[str] = None) -> Optional[str]:
+    """Resolved cache-file path: the explicit argument, else
+    ``PYLOPS_MPI_TPU_TORCH_TUNE_CACHE``, else ``None`` (memory-only)."""
+    if path:
+        return path
+    return os.environ.get("PYLOPS_MPI_TPU_TORCH_TUNE_CACHE") or None
+
+
+def _cache_error(path: str, why: str) -> None:
+    """One structured event + one-time warning per corrupt/mismatched
+    cache; the caller proceeds with an empty cache, never an
+    exception."""
+    global _warned_corrupt
+    _trace.event("tuning.cache_error", cat="tuning", path=path, why=why)
+    if not _warned_corrupt:
+        import warnings
+        warnings.warn(
+            f"pylops_mpi_tpu_torch tuning cache {path!r} unusable ({why}); "
+            "reading it as empty", stacklevel=3)
+        _warned_corrupt = True
+
+
+def load_plans(path: Optional[str] = None) -> Dict[str, dict]:
+    """Plans from the cache file (``{}`` when unset/missing/corrupt/
+    version-mismatched — every failure mode is a logged miss)."""
+    path = cache_path(path)
+    if not path or not os.path.exists(path):
+        return {}
+    try:
+        with open(path) as f:
+            doc = json.load(f)
+    except (OSError, ValueError) as e:
+        _cache_error(path, f"unreadable: {e!r}")
+        return {}
+    if not isinstance(doc, dict):
+        _cache_error(path, "not a JSON object")
+        return {}
+    if doc.get("schema") != SCHEMA_VERSION:
+        _cache_error(path, f"schema {doc.get('schema')!r} != "
+                           f"{SCHEMA_VERSION}")
+        return {}
+    plans = doc.get("plans")
+    if not isinstance(plans, dict):
+        _cache_error(path, "missing 'plans' table")
+        return {}
+    return {str(k): v for k, v in plans.items() if isinstance(v, dict)}
+
+
+def cached_keys(path: Optional[str] = None) -> list:
+    """Every plan key currently known — the union of the in-memory
+    store and the cache file, sorted. The serving warm pool consults
+    this at startup to decide which (family, K-bucket) pairs earned a
+    measured plan and should be prewarmed before traffic arrives."""
+    with _LOCK:
+        keys = set(_MEM)
+    keys.update(load_plans(path))
+    return sorted(keys)
+
+
+def lookup(key: str, path: Optional[str] = None) -> Optional[dict]:
+    """Entry for ``key``: the in-memory store first, then the cache
+    file (re-read per lookup — the file is small and another process
+    may have just banked it)."""
+    with _LOCK:
+        if key in _MEM:
+            _metrics.inc("tuning.cache.hit")
+            return _MEM[key]
+    entry = load_plans(path).get(key)
+    _metrics.inc("tuning.cache.hit" if entry is not None
+                 else "tuning.cache.miss")
+    return entry
+
+
+class _file_lock:
+    """Best-effort cross-process mutex around the read-merge-write
+    cycle: two concurrent writers would each read, merge only their own
+    entry and atomically replace, silently dropping the other's plan.
+    An ``fcntl.flock`` on a ``.lock``
+    sidecar serializes the cycle; on platforms without ``fcntl`` the
+    lock degrades to a no-op (the write stays atomic and valid, a
+    concurrent entry may be lost — never the file)."""
+
+    def __init__(self, path: str):
+        self._path = path + ".lock"
+        self._fh = None
+
+    def __enter__(self):
+        try:
+            import fcntl
+            self._fh = open(self._path, "a")
+            fcntl.flock(self._fh.fileno(), fcntl.LOCK_EX)
+        except Exception:
+            if self._fh is not None:
+                self._fh.close()
+            self._fh = None
+        return self
+
+    def __exit__(self, *exc):
+        if self._fh is not None:
+            try:
+                import fcntl
+                fcntl.flock(self._fh.fileno(), fcntl.LOCK_UN)
+            except Exception:
+                pass
+            self._fh.close()
+        return False
+
+
+def store(key: str, entry: dict, path: Optional[str] = None) -> None:
+    """Bank ``entry`` under ``key``: always into the in-memory store;
+    additionally read-merge-atomic-write the cache file when one is
+    configured — under a cross-process file lock so concurrent writers
+    merge instead of clobbering, through a pid-suffixed temp file so
+    two processes can never collide on the same staging name. A failed
+    file write is logged (trace event) and swallowed — persistence is
+    best-effort, the in-process plan is already usable."""
+    with _LOCK:
+        _MEM[key] = dict(entry)
+    path = cache_path(path)
+    if not path:
+        return
+    try:
+        d = os.path.dirname(os.path.abspath(path))
+        os.makedirs(d, exist_ok=True)
+        with _file_lock(os.path.abspath(path)):
+            plans = load_plans(path)
+            plans[key] = dict(entry)
+            doc = {"schema": SCHEMA_VERSION, "plans": plans}
+            fd, tmp = tempfile.mkstemp(
+                prefix=f".tune_cache_{os.getpid()}_", dir=d)
+            try:
+                with os.fdopen(fd, "w") as f:
+                    json.dump(doc, f, indent=1, sort_keys=True)
+                os.replace(tmp, path)
+            finally:
+                if os.path.exists(tmp):
+                    try:
+                        os.remove(tmp)
+                    except OSError:
+                        pass
+    except Exception as e:  # persistence must never break the workload
+        _trace.event("tuning.cache_error", cat="tuning", path=path,
+                     why=f"write failed: {e!r}")
+
+
+def clear_memory() -> None:
+    """Drop the process-local store (test isolation helper)."""
+    global _warned_corrupt
+    with _LOCK:
+        _MEM.clear()
+    _warned_corrupt = False

@@ -19,7 +19,7 @@ import warnings
 
 import torch
 
-__all__ = ["KNOBS", "apply_environment", "precond_default",
+__all__ = ["KNOBS", "SERVICE_KNOBS", "apply_environment", "precond_default",
            "mg_levels_default", "ca_mode", "ca_s_default"]
 
 # (name, values, default, consumer module, one-line purpose)
@@ -39,6 +39,49 @@ KNOBS = [
      "solvers (auto waits for the cost model and raises)"),
     ("PYLOPS_MPI_TPU_TORCH_CA_S", "int >= 2", "4", "solvers/ca.py",
      "s-step depth of the CA Gram mode"),
+]
+
+# the solve service's knobs and those of the layers under it, with the
+# JAX package's defaults (same tuple layout as KNOBS)
+SERVICE_KNOBS = [
+    ("PYLOPS_MPI_TPU_TORCH_GUARDS", "off|on", "off", "resilience/status.py",
+     "guard carry (status word) in cg/cgls/block_cg/block_cgls when "
+     "guards=None"),
+    ("PYLOPS_MPI_TPU_TORCH_GUARD_STALL", "int >= 2", "50",
+     "resilience/status.py",
+     "iterations without a new best residual before STAGNATION"),
+    ("PYLOPS_MPI_TPU_TORCH_TRACE", "off|spans|full", "off",
+     "diagnostics/trace.py", "span tracer"),
+    ("PYLOPS_MPI_TPU_TORCH_TRACE_FILE", "path", "", "diagnostics/trace.py",
+     "flush the trace buffer there at exit and on SIGTERM"),
+    ("PYLOPS_MPI_TPU_TORCH_TRACE_BUFFER", "int >= 1024", "65536",
+     "diagnostics/trace.py", "events the trace buffer keeps"),
+    ("PYLOPS_MPI_TPU_TORCH_METRICS", "off|on", "off",
+     "diagnostics/metrics.py", "counters, gauges and histograms"),
+    ("PYLOPS_MPI_TPU_TORCH_METRICS_FILE", "path", "",
+     "diagnostics/metrics.py", "periodic metrics snapshot file"),
+    ("PYLOPS_MPI_TPU_TORCH_METRICS_INTERVAL", "float >= 0.05", "5.0",
+     "diagnostics/metrics.py", "seconds between snapshot writes"),
+    ("PYLOPS_MPI_TPU_TORCH_HEARTBEAT", "float >= 0.05", "1.0",
+     "resilience/elastic.py", "seconds between heartbeats"),
+    ("PYLOPS_MPI_TPU_TORCH_HEARTBEAT_FILE", "path", "",
+     "resilience/elastic.py", "heartbeat file (set when supervised)"),
+    ("PYLOPS_MPI_TPU_TORCH_RETRIES", "int >= 0", "3", "resilience/retry.py",
+     "extra attempts of retry_call and of a spooled request"),
+    ("PYLOPS_MPI_TPU_TORCH_RETRY_BACKOFF", "float >= 0", "0.5",
+     "resilience/retry.py", "first retry sleep in seconds (doubling)"),
+    ("PYLOPS_MPI_TPU_TORCH_RETRY_JITTER", "float in [0, 1]", "0",
+     "resilience/retry.py", "fraction by which a retry sleep may shrink"),
+    ("PYLOPS_MPI_TPU_TORCH_SERVE_K_BUCKETS", "comma-separated ints",
+     "1,2,4,8,16", "serving/engine.py", "block widths of packed solves"),
+    ("PYLOPS_MPI_TPU_TORCH_SERVE_QUEUE", "int >= 1", "1024",
+     "serving/queue.py", "admission queue bound"),
+    ("PYLOPS_MPI_TPU_TORCH_SERVE_WINDOW_MS", "float >= 0", "10",
+     "serving/queue.py", "batch-formation window in milliseconds"),
+    ("PYLOPS_MPI_TPU_TORCH_SERVE_DRAIN_TIMEOUT", "float >= 0", "30",
+     "serving/service.py", "graceful drain bound in seconds"),
+    ("PYLOPS_MPI_TPU_TORCH_TUNE_CACHE", "path", "", "tuning/cache.py",
+     "plan-cache file (memory only when unset)"),
 ]
 
 

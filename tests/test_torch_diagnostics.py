@@ -1,0 +1,294 @@
+"""The port's trace, metrics, stage-budget, retry and heartbeat/drain
+layers held against the JAX package: the same calls made through both
+give the same span trees, events, counters, gauges, histogram summaries
+and quantiles, the same snapshot round trip, the same budget for every
+stage with and without its override, the same deadline-runner records,
+and the same retry schedule. Every sleep is injected or bounded (the
+heartbeat test polls for a file at 5 ms steps).
+"""
+
+import json
+import os
+import signal
+import threading
+import time
+
+import pytest
+
+from pylops_mpi_tpu.diagnostics import metrics as jmetrics
+from pylops_mpi_tpu.diagnostics import profiler as jprofiler
+from pylops_mpi_tpu.diagnostics import trace as jtrace
+from pylops_mpi_tpu.resilience import retry as jretry
+from pylops_mpi_tpu_torch.diagnostics import metrics as tmetrics
+from pylops_mpi_tpu_torch.diagnostics import profiler as tprofiler
+from pylops_mpi_tpu_torch.diagnostics import trace as ttrace
+from pylops_mpi_tpu_torch.resilience import elastic, retry as tretry
+
+PAIRS = ((jtrace, jmetrics, "PYLOPS_MPI_TPU_"),
+         (ttrace, tmetrics, "PYLOPS_MPI_TPU_TORCH_"))
+
+
+@pytest.fixture(autouse=True)
+def _clean(monkeypatch):
+    for pre in ("PYLOPS_MPI_TPU_", "PYLOPS_MPI_TPU_TORCH_"):
+        for k in ("TRACE", "TRACE_FILE", "METRICS", "METRICS_FILE",
+                  "RETRIES", "RETRY_BACKOFF", "RETRY_JITTER", "HEARTBEAT",
+                  "HEARTBEAT_FILE"):
+            monkeypatch.delenv(pre + k, raising=False)
+    for tr, me, _ in PAIRS:
+        tr.clear_events()
+        me.clear_metrics()
+    elastic.reset_drain()
+    yield
+    for tr, me, _ in PAIRS:
+        tr.clear_events()
+        me.clear_metrics()
+    elastic.reset_drain()
+
+
+def _strip(node):
+    """A span-tree node without its timings."""
+    return (node["name"], node["dur"] is None,
+            {k: v for k, v in node["args"].items()},
+            [_strip(c) for c in node["children"]])
+
+
+def _workload(tr):
+    with tr.span("solve", cat="solver", shape=(4, 3), n=2):
+        with tr.span("apply", cat="operator") as s:
+            s.tag(chunks=3)
+            tr.event("note", cat="event", why="fallback")
+        with tr.span("apply", cat="operator"):
+            tr.counter("resid", {"k": 0.5})
+    tr.event("after", size=7)
+
+
+def test_spans_events_counters_match_jax(monkeypatch):
+    trees, kinds = [], []
+    for tr, _, pre in PAIRS:
+        monkeypatch.setenv(pre + "TRACE", "spans")
+        _workload(tr)
+        evs = tr.get_events()
+        kinds.append([(e["name"], e["ph"], e["cat"],
+                       {k: v for k, v in e["args"].items()}) for e in evs])
+        trees.append([_strip(n) for n in tr.span_tree(evs)])
+    assert kinds[1] == kinds[0]
+    assert trees[1] == trees[0]
+    root = trees[1][0]
+    assert root[0] == "solve" and [c[0] for c in root[3]] == ["apply",
+                                                              "apply"]
+    assert root[3][0][2]["chunks"] == 3 and root[3][0][2]["parent"] == \
+        "solve"
+
+
+def test_trace_off_records_nothing_and_open_spans_dump(monkeypatch,
+                                                      tmp_path):
+    _workload(ttrace)
+    assert ttrace.get_events() == []
+    assert ttrace.span("x") is ttrace.span("y")  # the shared no-op
+    monkeypatch.setenv("PYLOPS_MPI_TPU_TORCH_TRACE", "spans")
+    monkeypatch.setenv("PYLOPS_MPI_TPU_TRACE", "spans")
+    outs = []
+    for tr, path in ((jtrace, tmp_path / "j.jsonl"),
+                     (ttrace, tmp_path / "t.jsonl")):
+        with tr.span("outer"):
+            with tr.span("inner"):
+                pass
+            n = tr.dump(str(path))
+        lines = [json.loads(line) for line in open(path)]
+        assert n == len(lines) == 2
+        outs.append([_strip(t) for t in tr.span_tree(lines)])
+        with pytest.raises(ValueError, match="fmt"):
+            tr.dump(str(path), fmt="xml")
+    assert outs[0] == outs[1]
+    assert outs[1][0][0] == "outer" and outs[1][0][1]  # still open: dur None
+    # garbage lines degrade, never raise
+    assert ttrace.span_tree([1, {"ph": "X"}, {"ph": "X", "name": "a",
+                                              "ts": 1.0, "args": "?"}])[0][
+        "name"] == "a"
+    monkeypatch.setenv("PYLOPS_MPI_TPU_TORCH_TRACE", "sideways")
+    monkeypatch.setattr(ttrace, "_warned_mode", False)
+    with pytest.warns(UserWarning, match="PYLOPS_MPI_TPU_TORCH_TRACE"):
+        assert ttrace.trace_mode() == "off"
+
+
+def _metric_workload(me):
+    me.inc("serve.requests")
+    me.inc("serve.requests", 2)
+    me.set_gauge("serve.queue.depth", 5)
+    for v in range(1, 101):
+        me.observe("serve.queue.wait_s", float(v))
+    me.collective_bytes("all_reduce", 64)
+    me.collective_bytes("all_reduce", 32, fabric="ici")
+    me.collective_bytes("spill", 16, fabric="h2d")
+    with me.timer("stage"):
+        pass
+
+
+def test_metrics_match_jax_and_roundtrip(monkeypatch, tmp_path):
+    snaps = []
+    for _, me, pre in PAIRS:
+        _metric_workload(me)  # off: nothing
+        assert me.snapshot()["counters"] == {}
+        assert me.hist_quantiles("serve.queue.wait_s") is None
+        monkeypatch.setenv(pre + "METRICS", "on")
+        _metric_workload(me)
+        snaps.append(me.snapshot())
+        q = me.hist_quantiles("serve.queue.wait_s")
+        assert q["p50"] in (50.0, 51.0) and q["p99"] == 99.0
+        q = me.hist_quantiles("serve.queue.wait_s", qs=(0.0, 1.0))
+        assert q == {"p0": 1.0, "p100": 100.0}
+    j, t = snaps
+    assert t["counters"] == j["counters"]
+    assert t["gauges"] == j["gauges"]
+    hj = {k: v for k, v in j["histograms"].items() if k != "stage.wall_s"}
+    ht = {k: v for k, v in t["histograms"].items() if k != "stage.wall_s"}
+    assert ht == hj and t["histograms"]["stage.wall_s"]["count"] == 1
+    assert t["schema"] == j["schema"] == tmetrics.SNAPSHOT_SCHEMA
+    path = tmetrics.write_snapshot(str(tmp_path / "m" / "snap.json"))
+    back = tmetrics.read_snapshot(path)
+    assert back["counters"] == t["counters"]
+    assert jmetrics.read_snapshot(path)["counters"] == t["counters"]
+    assert tmetrics.read_snapshot(str(tmp_path / "missing.json")) is None
+    (tmp_path / "bad.json").write_text("[1, 2]")
+    assert tmetrics.read_snapshot(str(tmp_path / "bad.json")) is None
+    assert tmetrics.write_snapshot() is None  # no file configured
+
+
+def test_stage_budgets_match_jax_for_every_stage_and_override():
+    assert tprofiler.STAGE_BUDGETS == jprofiler.STAGE_BUDGETS
+    for stage in jprofiler.STAGE_BUDGETS:
+        name = jprofiler._env_name(stage)
+        assert tprofiler._env_name(stage) == name
+        for env in ({}, {name: "17"}, {name: "junk"}):
+            for rehearse in (False, True):
+                assert tprofiler.stage_budget(stage, rehearse, env) == \
+                    jprofiler.stage_budget(stage, rehearse, env)
+    for mod in (tprofiler, jprofiler):
+        with pytest.raises(KeyError, match="unknown harvest stage"):
+            mod.stage_budget("nope")
+
+
+def test_deadline_runner_records_match_jax():
+    def good(eff):
+        return {"v": eff}, None
+
+    def boom(eff):
+        raise RuntimeError("bad stage")
+
+    recs = []
+    for mod in (jprofiler, tprofiler):
+        logged = []
+        r = mod.DeadlineRunner(deadline_ts=time.time() + 1000,
+                               min_stage_s=0, log=logged.append)
+        a = r.run("serve_batch", good, 120)
+        b = r.run("serve_batch", boom, 120)
+        past = mod.DeadlineRunner(deadline_ts=time.time() - 5, min_stage_s=0)
+        c = past.run("serve_batch", good, 120)
+        none = mod.DeadlineRunner(min_stage_s=0).run("tune", good, 60)
+        keys = ("stage", "budget_s", "effective_timeout_s", "ok", "skipped",
+                "banked_partial")
+        recs.append(([{k: x.get(k) for k in keys} for x in (a, b, none)],
+                     b["error"], c["skipped"], c["reason"][:16], a.result,
+                     len(logged), r.report()["skipped"]))
+    assert recs[1] == recs[0]
+    assert recs[1][1] == "stage raised: RuntimeError('bad stage')"
+
+
+def test_retry_schedule_matches_jax():
+    import random
+    schedules = []
+    for mod in (jretry, tretry):
+        slept, calls = [], []
+
+        def flaky():
+            calls.append(1)
+            if len(calls) < 4:
+                raise OSError("refused")
+            return "up"
+
+        assert mod.retry_call(flaky, retries=5, backoff_s=0.5, jitter=0.25,
+                              sleep=slept.append,
+                              rng=random.Random(3)) == "up"
+        with pytest.raises(OSError):
+            mod.retry_call(lambda: (_ for _ in ()).throw(OSError("x")),
+                           retries=1, backoff_s=0.0, sleep=slept.append)
+        with pytest.raises(ValueError):
+            mod.retry_call(lambda: (_ for _ in ()).throw(ValueError("no")),
+                           retry_if=lambda e: False, sleep=slept.append)
+        schedules.append(slept)
+    assert schedules[1] == schedules[0]
+
+
+def test_retry_knobs(monkeypatch):
+    for raw, want in [("5", 5), ("-1", 0), ("junk", 3)]:
+        monkeypatch.setenv("PYLOPS_MPI_TPU_TORCH_RETRIES", raw)
+        assert tretry.default_retries() == want
+    for raw, want in [("0.1", 0.1), ("-2", 0.0), ("junk", 0.5)]:
+        monkeypatch.setenv("PYLOPS_MPI_TPU_TORCH_RETRY_BACKOFF", raw)
+        assert tretry.default_backoff_s() == want
+    for raw, want in [("0.3", 0.3), ("7", 1.0), ("junk", 0.0)]:
+        monkeypatch.setenv("PYLOPS_MPI_TPU_TORCH_RETRY_JITTER", raw)
+        assert tretry.default_jitter() == want
+
+
+def test_heartbeat_writes_beats_with_metrics(monkeypatch, tmp_path):
+    path = tmp_path / "hb" / "beat.json"
+    assert elastic.maybe_start_heartbeat() is None  # unsupervised
+    monkeypatch.setenv("PYLOPS_MPI_TPU_TORCH_METRICS", "on")
+    tmetrics.inc("serve.requests")
+    monkeypatch.setenv("PYLOPS_MPI_TPU_TORCH_HEARTBEAT_FILE", str(path))
+    w = elastic.maybe_start_heartbeat()
+    try:
+        assert elastic.start_heartbeat() is w
+        end = time.monotonic() + 5.0
+        while not path.exists() and time.monotonic() < end:
+            time.sleep(0.005)
+        beat = elastic.read_heartbeat(str(path))
+    finally:
+        elastic.stop_heartbeat()
+    assert not w.is_alive()
+    assert beat["pid"] == os.getpid() and beat["seq"] >= 1
+    assert beat["metrics"]["counters"]["serve.requests"] == 1
+    assert elastic.read_heartbeat(str(tmp_path / "none.json")) is None
+    monkeypatch.setenv("PYLOPS_MPI_TPU_TORCH_HEARTBEAT", "0.001")
+    assert elastic.heartbeat_interval() == 0.05
+
+
+def test_drain_flag_and_sigterm_chain():
+    assert not elastic.drain_requested()
+    elastic.request_drain()
+    assert elastic.drain_requested()
+    elastic.reset_drain()
+    seen = []
+    prev = signal.getsignal(signal.SIGTERM)
+    try:
+        signal.signal(signal.SIGTERM, lambda s, f: seen.append(s))
+        assert elastic.install_sigterm_drain()
+        assert elastic.install_sigterm_drain()  # a second call keeps it
+        os.kill(os.getpid(), signal.SIGTERM)
+        end = time.monotonic() + 5.0
+        while not seen and time.monotonic() < end:
+            time.sleep(0.005)
+        assert elastic.drain_requested()
+        assert seen == [signal.SIGTERM]  # the previous handler ran too
+    finally:
+        signal.signal(signal.SIGTERM, prev)
+    out = []
+    t = threading.Thread(target=lambda: out.append(
+        elastic.install_sigterm_drain()))
+    t.start()
+    t.join(timeout=10)
+    assert out == [False]
+
+
+def test_profile_capture(tmp_path):
+    with tprofiler.profile_capture("region"):
+        pass  # no directory: a no-op
+    assert not any(tmp_path.iterdir())
+    import torch
+    with tprofiler.profile_capture("region", str(tmp_path / "out")):
+        torch.ones(4).sum()
+    trace = json.loads((tmp_path / "out" / "trace.json").read_text())
+    names = {e.get("name") for e in trace["traceEvents"]}
+    assert "region" in names

@@ -3,7 +3,8 @@ a mesh of the same size: block CGLS on ragged blocks, PCGLS with Jacobi
 and with block-Jacobi, PCG with block-Jacobi blocks that straddle the
 shards (and the three schedules of a block-Jacobi apply), pipelined
 CGLS (``normal=True`` and on ragged f64 blocks), s-step CG, and the
-sparse product's applies and CGLS. Each world also counts its
+sparse product's applies and CGLS, and the serving pool's packed solve
+(with the daemon's refusal of a group). Each world also counts its
 ``all_reduce`` calls: one an iteration for the pipelined engines, one
 an outer step for s-step, one a stacked block reduction.
 
@@ -49,7 +50,8 @@ def make_data():
                 djac=djac, Y=rng.standard_normal((100, 3)),
                 y80=rng.standard_normal(80), y100=rng.standard_normal(100),
                 y48=rng.standard_normal(48), v48=rng.standard_normal(48),
-                y37=rng.standard_normal(37), x29=rng.standard_normal(29))
+                y37=rng.standard_normal(37), x29=rng.standard_normal(29),
+                Ypool=rng.standard_normal((80, 3)))
 
 
 # ------------------------------------------------------------ the ranks
@@ -144,6 +146,21 @@ def _tiers_rank(d):
     run("sparse_cgls", lambda: (lambda o: (o[0].asarray(), o[2],
                                            o[5].numpy()))(
         pmtt.cgls(Sp, vec(d["y37"]), niter=NITER, damp=0.1, tol=0.0)))
+    # the serving pool, SPMD: every rank solves the same three requests
+    # in the 4-bucket; the daemon, whose batches depend on timing,
+    # refuses the group
+    import torch
+    from pylops_mpi_tpu_torch import serving
+    pool = serving.WarmPool(buckets=(4,))
+    pool.register(serving.FamilySpec("fam", G, solver="cgls", niter=NITER,
+                                     dtype=torch.float64))
+    res = pool.solve("fam", d["Ypool"])
+    out["pool"] = (res.x, res.iiter, res.bucket)
+    try:
+        serving.SolveDaemon(pool)
+        out["daemon_refused"] = None
+    except RuntimeError as e:
+        out["daemon_refused"] = str(e)
     return out
 
 
@@ -212,6 +229,17 @@ def _reference(n, d):
                            np.asarray(Sp.rmatvec(vec(d["y37"])).asarray()))
     ref["sparse_cgls"] = cgls3(pmt.cgls(Sp, vec(d["y37"]), niter=NITER,
                                         damp=0.1, tol=0.0))
+    from pylops_mpi_tpu import serving as jserving
+    from pylops_mpi_tpu.parallel import mesh as jmesh
+    pool = jserving.WarmPool(buckets=(4,))
+    pool.register(jserving.FamilySpec("fam", G, solver="cgls", niter=NITER,
+                                      dtype=np.float64))
+    saved = jmesh.default_mesh()
+    jmesh.set_default_mesh(mesh)  # the pool's block lives on the default mesh
+    try:
+        ref["pool"] = pool.solve("fam", d["Ypool"]).x
+    finally:
+        jmesh.set_default_mesh(saved)
     return ref
 
 
@@ -251,6 +279,19 @@ def test_solves_match_jax(worlds, n, key):
         assert all(o["sstep_fallback"] is None for o in res)
     if key == "pcgls_block":  # the chunk's blocks: local applies
         assert all(o["pcgls_block_gathers"] == 1 for o in res)
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_warm_pool_matches_jax_and_daemon_refuses(worlds, n):
+    """``WarmPool.solve`` under a group (every rank the same requests)
+    against the JAX package's pool on a mesh of ``n`` devices; the
+    daemon refuses a world of more than one rank."""
+    res, ref = worlds[n]
+    for o in res:
+        x, it, bucket = o["pool"]
+        assert (it, bucket, x.shape) == (NITER, 4, (64, 3))
+        close(x, ref["pool"], RTOL)
+        assert "ROADMAP.md" in o["daemon_refused"]
 
 
 @pytest.mark.parametrize("n", SIZES)

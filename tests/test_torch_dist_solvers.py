@@ -8,7 +8,8 @@ Gloo worlds of 1 to 4 ranks are spawned as in
 
 Also, with no process group, the functional ``cg``/``cgls`` argument
 order of the JAX package: the positional ``show``, ``callback`` once per
-iteration, ``guards=`` raising and ``M=`` refusing the class path.
+iteration, ``guards=`` raising on a communication-avoiding engine and
+``M=`` refusing the class path.
 
 Tolerance: rtol 1e-9 (relative to the largest entry of the reference)
 for 10 CGLS/CG iterations in f64.
@@ -16,6 +17,7 @@ for 10 CGLS/CG iterations in f64.
 
 import contextlib
 import io
+import os
 
 import numpy as np
 import pytest
@@ -312,8 +314,13 @@ def test_guards_and_m_raise(rng, solver):
     import pylops_mpi_tpu_torch as pmtt
     _, _, top, ty = _systems(rng)
     fn = getattr(pmtt, solver)
-    with pytest.raises(NotImplementedError, match="§A.7"):
-        fn(top, ty, niter=2, guards=True)
+    # guards are ported, but not on the communication-avoiding engines
+    os.environ["PYLOPS_MPI_TPU_TORCH_CA"] = "pipelined"
+    try:
+        with pytest.raises(NotImplementedError, match="§A.7"):
+            fn(top, ty, niter=2, guards=True)
+    finally:
+        os.environ.pop("PYLOPS_MPI_TPU_TORCH_CA")
     # M= is the preconditioner seam now: the fused loop only
     with pytest.raises(ValueError, match="fused"):
         fn(top, ty, niter=2, show=True, M=top)
