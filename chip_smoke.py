@@ -183,6 +183,30 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    thread: 32 spooled requests and a DRAIN marker, every result banked
    and matching 21.2's oracles.
 
+22. slice 11, the bank of captured loops (``PYLOPS_MPI_TPU_TORCH_AOT=on``
+   set in-process): phase 3's CGLS (``normal=True`` f32 and bf16,
+   classic, 50 iterations), ``block_cgls`` of 16 columns, phase 7's
+   Gradient CGLS and phase 9's FISTA and ISTA (26 iterations: device
+   bound), V-cycle PCG on phase 19.5's Laplacian to its tolerance, and
+   the pipelined CGLS under a group of one over NCCL (its reductions
+   inside the graph); each solved eagerly and then twice through the
+   bank: x, ``iiter`` and the costs bitwise equal to the eager run's,
+   the kernel launch, path and collective counts equal, one capture and
+   none on the second solve; then 4 alternating pairs of walls (iters/s
+   with graphs against without, median and range), each way's idle
+   share and the kernels' device ms from ``torch.profiler``; the
+   profiler's count of normal or tap kernel events in the graph run
+   must equal the eager run's (one normal kernel an iteration on the
+   ``normal=True`` paths), though only the tail launches from Python
+   there; the capture's ms and the bank's bytes. 22.7 phase 21.2's 64 requests
+   from 8 threads with the dispatcher's prewarm capturing every bucket:
+   every ticket resolves, no capture during the traffic, each batch
+   bitwise equal to eager ``block_cgls``; solves/s and p50/p99 beside
+   phase 21's. 22.8 two gloo ranks sharing the card with the bank
+   armed: each solve runs eagerly with the reason ``gloo``, x within
+   1e-5 of the no-group solve. Run it alone with ``graphs_phase(torch,
+   pmtt, (nk, sk), here, dev)``.
+
 Phases 8, 9, 11-13, 16-18 and 21 (and phase 20's pool case) reach none
 of the hand-written kernels (a block solve of ``MPIBlockDiag`` runs a
 batched GEMM, bucket 1 runs classic ``cgls``): the
@@ -3566,6 +3590,426 @@ def service_phase(torch, pmtt, here, dev):
     return out
 
 
+# phase 22 (slice 11): each fused loop through the bank of captured CUDA
+# graphs (PYLOPS_MPI_TPU_TORCH_AOT=on, set in-process) against the same
+# solve run eagerly. NITER_22 is not a multiple of 8, so every path runs
+# an eager tail; PAIRS_22 alternating pairs of walls per path
+NITER_22, PAIRS_22, K_22, GLOO_22 = 50, 4, 16, 2
+PROFILES_22 = 3
+# the device-bound paths (the Gradient CGLS ~16.5 ms an iteration,
+# FISTA/ISTA 7.5-10.7 ms) run fewer iterations, also not a multiple of 8
+NITER_SLOW_22 = 26
+GLOO_N_22, GLOO_M_22, GLOO_TOL_22 = 8, 512, 1e-5
+
+
+def set_aot(on):
+    import os
+    os.environ["PYLOPS_MPI_TPU_TORCH_AOT"] = "on" if on else "off"
+
+
+def _flat_out(torch, out):
+    """A solver's outputs as a flat list: the tensors of its vectors, its
+    tensors and its Python numbers."""
+    items = []
+    for v in out if isinstance(out, tuple) else (out,):
+        if hasattr(v, "distarrays"):
+            items += [d.array for d in v.distarrays]
+        elif hasattr(v, "array") and isinstance(v.array, torch.Tensor):
+            items.append(v.array)
+        elif isinstance(v, (list, tuple)):
+            items += list(v)
+        else:
+            items.append(v)
+    return items
+
+
+def _bitwise(torch, a, b):
+    if len(a) != len(b):
+        return False
+    for u, v in zip(a, b):
+        if isinstance(u, torch.Tensor):
+            if not (isinstance(v, torch.Tensor) and u.dtype == v.dtype
+                    and u.shape == v.shape and torch.equal(u, v)):
+                return False
+        elif u != v:
+            return False
+    return True
+
+
+def _counts22(kernels):
+    """The launch, path and collective counts a solve leaves."""
+    from pylops_mpi_tpu_torch.ops import derivatives
+    from pylops_mpi_tpu_torch.parallel import collectives as co
+    nk, sk = kernels
+    return dict(normal=nk.launches, stencil=sk.launches,
+                collectives=dict(co.counts), paths=dict(derivatives.paths))
+
+
+def _reset22(kernels):
+    from pylops_mpi_tpu_torch.ops import derivatives
+    from pylops_mpi_tpu_torch.parallel import collectives as co
+    for k in kernels:
+        k.reset_launches()
+    co.reset_counts()
+    derivatives.paths.clear()
+
+
+def graph_path(torch, pmtt, kernels, label, solve, it_index,
+               match=("normal_kernel<", "normal_reduce_kernel<"),
+               counter="normal", per_iter=None):
+    """One path of phase 22: ``solve()`` eagerly, then twice through the
+    bank (the first captures, the second must capture nothing), each
+    banked result bitwise equal to the eager one with the same launch,
+    path and collective counts; then PAIRS_22 alternating pairs of walls
+    and a profile of each way (idle share; device ms of the kernels whose
+    name holds one of ``match``). The profiler also counts the kernel
+    events named ``match[0]`` in the graph run and in the eager run: the
+    graph run's count must equal the eager run's and, given
+    ``per_iter``, that many an iteration; the wrapper's count
+    ``counter`` is printed beside them. A replay runs no Python, so no
+    wrapper counts its launches; only the iterations outside full
+    segments (the tail) launch from Python in the graph run, so the rest
+    of its count ran inside the replays. ``it_index``: where the
+    iteration count sits in the flat outputs."""
+    from pylops_mpi_tpu_torch.aot import graphs, store
+
+    def run(on):
+        set_aot(on)
+        _reset22(kernels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = _flat_out(torch, solve())
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, out, _counts22(kernels)
+
+    def events(rows):
+        return sum(n for _, name, n in rows if match[0] in name)
+
+    _, eager, ce = run(False)
+    c0 = graphs.capture_count()
+    with graphs.recording_keys() as keys:
+        _, first, c1 = run(True)
+    caps = graphs.capture_count() - c0
+    entries = [store.mem_get(k) for k in dict.fromkeys(keys)]
+    cap_ms = [e.ms for e in entries]
+    _, second, c2 = run(True)
+    recaptured = graphs.capture_count() - c0 - caps
+    iters = int(eager[it_index])
+    res = dict(iiter=iters, captures=caps, capture_ms=cap_ms,
+               recaptured=recaptured, counts=ce,
+               counts_equal=(c1 == ce and c2 == ce),
+               bitwise=(_bitwise(torch, first, eager)
+                        and _bitwise(torch, second, eager)))
+    if not (res["bitwise"] and res["counts_equal"] and caps >= 1
+            and recaptured == 0):
+        raise RuntimeError(f"22 {label}: the graph run differs from the "
+                           f"eager run: {res}, counts {c1} {c2}")
+    walls = {False: [], True: []}
+    for i in range(PAIRS_22):
+        for on in ((False, True) if i % 2 == 0 else (True, False)):
+            walls[on].append(run(on)[0])
+    ratios = [e / g for e, g in zip(walls[False], walls[True])]
+    res.update(eager_wall_s=walls[False], graph_wall_s=walls[True],
+               eager_iters_per_s=[iters / w for w in walls[False]],
+               graph_iters_per_s=[iters / w for w in walls[True]],
+               speedup=ratios, speedup_median=float(np.median(ratios)),
+               bank_bytes=graphs.bank_bytes())
+    # a profile may miss a kernel record (the pipelined path's graph run
+    # once counted 50 of its 51; the Gradient CGLS's eager and graph runs
+    # 54 of the wrapper's 55 in three pairs of one run, 55 in another), so
+    # the gate holds the two profiles to each other, not to the wrapper:
+    # up to PROFILES_22 pairs, every pair's counts kept and printed, the
+    # gate held on the last
+    want = None if per_iter is None else per_iter * iters
+    res["profiled_events"] = []
+    for _ in range(PROFILES_22):
+        for on, name in ((False, "eager"), (True, "graph")):
+            set_aot(on)
+            _reset22(kernels)
+            r0 = graphs.stats().get("replays", 0)
+            wall_ms, rows = device_rows(torch, solve)
+            res[f"{name}_idle_share"] = 1.0 - sum(r[0] for r in rows) / wall_ms
+            res[f"{name}_kernel_ms"] = sum(r[0] for r in rows
+                                           if any(k in r[1] for k in match))
+            res[f"{name}_kernel_events"] = events(rows)
+            res[f"{name}_wrapper_count"] = _counts22(kernels)[counter]
+            res[f"{name}_replays"] = graphs.stats().get("replays", 0) - r0
+            res[f"{name}_profile_top"] = [(ms, n[:60], c)
+                                          for ms, n, c in rows[:6]]
+        res["profiled_events"].append((res["eager_kernel_events"],
+                                       res["graph_kernel_events"]))
+        if res["graph_kernel_events"] == res["eager_kernel_events"] \
+                and want in (None, res["graph_kernel_events"]):
+            break
+    set_aot(False)
+    if not (res["graph_kernel_events"] == res["eager_kernel_events"]
+            and want in (None, res["graph_kernel_events"])
+            and res["graph_replays"] >= 1):
+        raise RuntimeError(
+            f"22 {label}: kernel events {match[0]} in the profiles: graph "
+            f"run {res['graph_kernel_events']}, eager run "
+            f"{res['eager_kernel_events']} (pairs {res['profiled_events']})"
+            f", {want} wanted; the eager wrapper counted "
+            f"{ce[counter]}; replays {res['graph_replays']}")
+    gi, ei = res["graph_iters_per_s"], res["eager_iters_per_s"]
+    print(f"22 {label}: {iters} iterations, graph vs eager bitwise equal "
+          f"(x, iiter, costs) with equal counts {ce}; {caps} capture(s) of "
+          f"{[round(m, 1) for m in cap_ms]} ms, none on the second solve; "
+          f"iters/s graph median {np.median(gi):.1f} ({min(gi):.1f}-"
+          f"{max(gi):.1f}) vs eager {np.median(ei):.1f} ({min(ei):.1f}-"
+          f"{max(ei):.1f}), pair ratios {[round(r, 3) for r in ratios]}; "
+          f"idle share graph {res['graph_idle_share']:.1%} vs eager "
+          f"{res['eager_idle_share']:.1%}; matched kernels' device ms in "
+          f"the graph run {res['graph_kernel_ms']:.3f}; {match[0]} events "
+          f"in the profiles: graph run {res['graph_kernel_events']}, eager "
+          f"run {res['eager_kernel_events']} (eager, graph pairs profiled "
+          f"{res['profiled_events']}), the wrapper's {ce[counter]}; the "
+          f"graph run's replays {res['graph_replays']};"
+          f" bank {res['bank_bytes'] / 2**20:.1f} MiB", flush=True)
+    return res
+
+
+def _gloo22_problem(torch, pmtt, dev):
+    """Phase 22's gloo problem, made alike in the parent and every rank:
+    GLOO_N_22 f32 blocks of GLOO_M_22 and one right-hand side."""
+    from pylops_mpi_tpu_torch.ops.local import MatrixMult
+    g = torch.Generator(device=dev).manual_seed(22)
+    A = torch.randn((GLOO_N_22, GLOO_M_22, GLOO_M_22), generator=g,
+                    device=dev) / math.sqrt(GLOO_M_22)
+    A.diagonal(dim1=1, dim2=2).add_(4.0)
+    y = torch.randn(GLOO_N_22 * GLOO_M_22, generator=g, device=dev)
+    Op = pmtt.MPIBlockDiag([MatrixMult(A[i]) for i in range(GLOO_N_22)])
+    return Op, pmtt.DistributedArray.to_dist(y,
+                                             local_shapes=Op.local_shapes_n)
+
+
+def _gloo22_cases(torch, pmtt, dev):
+    """What each gloo rank of phase 22 runs: the knob on, a normal=True
+    CGLS that must run eagerly with the reason ``gloo``."""
+    from pylops_mpi_tpu_torch.aot import graphs
+    set_aot(True)
+    graphs.reset_capture_count()
+    Op, y = _gloo22_problem(torch, pmtt, dev)
+    x = pmtt.cgls(Op, y, niter=NITER_22, tol=0.0, normal=True)[0].asarray()
+    return dict(rank=pmtt.parallel.rank(), x=x, stats=graphs.stats())
+
+
+def _service22(torch, pmtt, dev, A, eager21):
+    """22.7: phase 21.2's REQ_21 requests from THREADS_21 threads with
+    the bank armed: prewarm captures each bucket on the dispatcher
+    thread, every ticket resolves and every batch equals block_cgls (run
+    eagerly) on its padded block bitwise."""
+    D = pmtt.DistributedArray
+    sv = pmtt.serving
+    from pylops_mpi_tpu_torch.aot import graphs
+    from pylops_mpi_tpu_torch.diagnostics.metrics import quantiles
+    from pylops_mpi_tpu_torch.ops.local import MatrixMult
+    Op = pmtt.MPIBlockDiag([MatrixMult(A[i]) for i in range(NBLK)])
+    N = NBLK * NBLOCK
+    pool = sv.WarmPool(buckets=BUCKETS_21)
+    pool.register(sv.FamilySpec("cgls", Op, solver="cgls", niter=NITER_21))
+    records = []
+    real_solve = pool.solve
+
+    def spy(name, Y):
+        res = real_solve(name, Y)
+        records.append((np.array(Y, copy=True), res))
+        return res
+
+    pool.solve = spy
+    Y = np.random.default_rng(2110).standard_normal(
+        (N, REQ_21)).astype(np.float32)
+    cols = [np.ascontiguousarray(Y[:, j]) for j in range(REQ_21)]
+    set_aot(True)
+    c0 = graphs.capture_count()
+    d = sv.SolveDaemon(pool, window_s=WINDOW_21).start(prewarm=True)
+    captures = graphs.capture_count() - c0
+    first = len(records)  # after the prewarm solves
+    tickets, t_sub = _submit_threads(d, "cgls", cols, THREADS_21)
+    res = [t.wait(timeout=600) for t in tickets]
+    st = d.stats()
+    if not d.drain(timeout=120):
+        raise RuntimeError("22.7: the daemon did not drain")
+    traffic_captures = graphs.capture_count() - c0 - captures
+    ends = [t + r["wait_s"] for t, r in zip(t_sub, res)]
+    wall = max(ends) - min(t_sub)
+    batches = records[first:]
+    set_aot(False)
+    bitwise = []
+    for Yb, o in batches:
+        k = Yb.shape[1]
+        Yp = np.concatenate([Yb, np.zeros((N, o.bucket - k), Yb.dtype)], 1)
+        xb = pmtt.block_cgls(Op, D.to_dist(Yp, device=dev),
+                             niter=NITER_21, tol=0.0)[0].asarray()
+        bitwise.append(bool(np.array_equal(xb[:, :k], o.x)))
+    q50, q99 = quantiles([r["queue_s"] for r in res])
+    e50, e99 = quantiles([r["wait_s"] for r in res])
+    out = dict(requests=REQ_21, solves_per_s=REQ_21 / wall, wall_s=wall,
+               captures=captures, traffic_captures=traffic_captures,
+               prewarm_ms={f"{f}/{b}": v * 1e3
+                           for (f, b), v in sorted(pool.prewarm_s.items())},
+               batches=len(batches), fills=[o.k for _, o in batches],
+               queue_p50_ms=q50 * 1e3, queue_p99_ms=q99 * 1e3,
+               latency_p50_ms=e50 * 1e3, latency_p99_ms=e99 * 1e3,
+               failed=st["failed"], bitwise_batches=bitwise,
+               bank_bytes=graphs.bank_bytes())
+    e = (eager21 or {}).get("service", {})
+    print(f"22.7 service, {REQ_21} requests from {THREADS_21} threads with "
+          f"the bank: {out['solves_per_s']:.1f} solves/s (phase 21 eager "
+          f"{e.get('solves_per_s', float('nan')):.1f}); queue wait p50 "
+          f"{q50 * 1e3:.2f} ms p99 {q99 * 1e3:.2f} ms (phase 21: "
+          f"{e.get('queue_p50_ms', float('nan')):.2f} / "
+          f"{e.get('queue_p99_ms', float('nan')):.2f}); end-to-end p50 "
+          f"{e50 * 1e3:.1f} p99 {e99 * 1e3:.1f} ms (phase 21: "
+          f"{e.get('latency_p50_ms', float('nan')):.1f} / "
+          f"{e.get('latency_p99_ms', float('nan')):.1f}); prewarm captures "
+          f"{captures}, ms per bucket "
+          f"{ {k: round(v, 1) for k, v in out['prewarm_ms'].items()} }; "
+          f"batches {out['fills']}, each bitwise equal to eager block_cgls: "
+          f"{bitwise}", flush=True)
+    if st["failed"] or not all(bitwise) or captures < 1 \
+            or traffic_captures:
+        raise RuntimeError(f"22.7 failed: {out}")
+    return out
+
+
+def graphs_phase(torch, pmtt, kernels, here, dev, eager21=None):
+    """Phase 22: every fused loop of this slice through the bank of
+    captured CUDA graphs at full width (module docstring, 22)."""
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    from pylops_mpi_tpu_torch import aot
+    from pylops_mpi_tpu_torch.aot import graphs
+    from pylops_mpi_tpu_torch.ops.local import Conv1D, MatrixMult
+    D = pmtt.DistributedArray
+    f32 = torch.float32
+    res = {}
+    aot.clear_memory()
+    graphs.reset_capture_count()
+
+    def done():
+        aot.clear_memory()
+        torch.cuda.empty_cache()
+
+    # slice 1: normal=True f32 and bf16 storage, classic; block_cgls K=16
+    A, _, y_t = make_problem(torch, dev)
+    y = D.to_dist(y_t)
+    for label, cdt, normal in (("normal_f32", None, True),
+                               ("normal_bf16", torch.bfloat16, True),
+                               ("classic_f32", None, False)):
+        Op = pmtt.MPIBlockDiag([MatrixMult(A[i]) for i in range(NBLK)],
+                               compute_dtype=cdt)
+        res[label] = graph_path(
+            torch, pmtt, kernels, f"cgls {label} 32x4096^2",
+            lambda: pmtt.cgls(Op, y, niter=NITER_22, tol=0.0, normal=normal),
+            2, per_iter=1 if normal else None)
+        del Op
+        done()
+    Op = pmtt.MPIBlockDiag([MatrixMult(A[i]) for i in range(NBLK)])
+    g = torch.Generator(device=dev).manual_seed(221)
+    yb = D.to_dist(torch.randn((NBLK * NBLOCK, K_22), generator=g,
+                               device=dev))
+    res["block_cgls"] = graph_path(
+        torch, pmtt, kernels, f"block_cgls K={K_22}",
+        lambda: pmtt.block_cgls(Op, yb, niter=NITER_22, tol=0.0), 2)
+    del Op, yb
+    done()
+
+    # the Gradient-regularized post-stack CGLS through the tap kernel
+    wav = pmtt.models.ricker(np.arange(31) * 0.004, f0=15)[0]
+    m = layered_model(torch, NX, NT0, dev, seed=4)
+    StackOp, ystack, _ = gradient_poststack(torch, pmtt, m, wav,
+                                            NITER_SLOW_22, f32)
+    del m
+    res["gradient_cgls"] = graph_path(
+        torch, pmtt, kernels, f"gradient-regularized CGLS ({NX}, {NT0})",
+        lambda: pmtt.cgls(StackOp, ystack, niter=NITER_SLOW_22, damp=DAMP,
+                          tol=0.0), 2, match=("taps_kernel<",),
+        counter="stencil")
+    if res["gradient_cgls"]["graph_kernel_events"] <= 0:
+        raise RuntimeError("22 gradient: no tap kernel in the graph run")
+    del StackOp, ystack
+    done()
+
+    # FISTA and ISTA on the reflectivity cube (the step size computed once)
+    dims = (NY_R // NBLK_R, NX_R, NZ_R)
+    wavr = pmtt.models.ricker(np.arange(21) * 0.004, f0=15)[0]
+    Cop = pmtt.MPIBlockDiag([Conv1D(dims, wavr, axis=-1, offset=len(wavr)
+                                    // 2, dtype=f32, device=dev)] * NBLK_R)
+    mr, _ = reflectivity_model(torch, dev, seed=7)
+    d = Cop @ D.to_dist(mr.reshape(-1))
+    x0 = d.zeros_like()
+    alpha = 1.0 / abs(pmtt.power_iteration(Cop.H @ Cop, x0, dtype=f32)[0])
+    for name, solver in (("fista", pmtt.fista), ("ista", pmtt.ista)):
+        res[name] = graph_path(
+            torch, pmtt, kernels, f"{name} ({NY_R}, {NX_R}, {NZ_R})",
+            lambda: solver(Cop, d, x0=x0, niter=NITER_SLOW_22,
+                           eps=EPS_SPARSE, alpha=alpha, tol=0.0), 1)
+    del Cop, mr, d, x0
+    done()
+
+    # V-cycle PCG on the Laplacian (phase 19.5), to its tolerance
+    Lop = lap_op(torch, pmtt, VC_DIMS, VC_EPS, f32)
+    gv = torch.Generator(device=dev).manual_seed(195)
+    yv = Lop.matvec(D.to_dist(torch.randn(VC_DIMS[0] * VC_DIMS[1],
+                                          generator=gv, device=dev)))
+    V = pmtt.VCyclePrecond(lambda dd: lap_op(torch, pmtt, dd, VC_EPS, f32),
+                           VC_DIMS, levels=VC_LEVELS, device=dev)
+    tol = VC_RTOL ** 2 * float(yv.dot(V.matvec(yv)))
+    res["vcycle_pcg"] = graph_path(
+        torch, pmtt, kernels, f"V-cycle PCG {VC_DIMS}",
+        lambda: pmtt.cg(Lop, yv, niter=VC_CAP, tol=tol, M=V), 1)
+    del Lop, yv, V
+    done()
+
+    # the pipelined CGLS under a group of one over NCCL: reductions inside
+    # the graph
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_graphs_")
+    pmtt.parallel.init(backend="nccl", store=dist.FileStore(f"{tmp}/store", 1),
+                       rank=0, world_size=1, device=dev)
+    try:
+        set_ca("pipelined")
+        Op = pmtt.MPIBlockDiag([MatrixMult(A[i]) for i in range(NBLK)])
+        res["pipelined_nccl"] = graph_path(
+            torch, pmtt, kernels, "pipelined CGLS normal=True, group of one "
+            "over NCCL", lambda: pmtt.cgls(Op, y, niter=NITER_22, tol=0.0,
+                                           normal=True), 2)
+        if not res["pipelined_nccl"]["counts"]["collectives"].get(
+                "all_reduce"):
+            raise RuntimeError("22 pipelined: no all_reduce under the group")
+        del Op
+    finally:
+        set_ca("off")
+        done()
+        pmtt.parallel.destroy()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # the service with prewarm capturing (phase 21.2's traffic)
+    res["service"] = _service22(torch, pmtt, dev, A, eager21)
+    del A, y
+    done()
+
+    # two gloo ranks sharing the card: eager with the reason gloo
+    Op, yg = _gloo22_problem(torch, pmtt, dev)
+    set_aot(False)
+    xg = pmtt.cgls(Op, yg, niter=NITER_22, tol=0.0, normal=True)[0].asarray()
+    del Op, yg
+    ranks = spawn_shared_card(GLOO_22, here, _gloo22_cases)
+    gaps = [float(np.linalg.norm(r["x"] - xg) / np.linalg.norm(xg))
+            for r in ranks]
+    reasons = [r["stats"] for r in ranks]
+    res["gloo"] = dict(ranks=GLOO_22, gaps=gaps, stats=reasons)
+    print(f"22.8 {GLOO_22} gloo ranks sharing the card with the bank armed: "
+          f"stats per rank {reasons}; x gap to the no-group solve "
+          f"{max(gaps):.3e} (limit {GLOO_TOL_22:.0e})", flush=True)
+    if not all(r.get("eager.gloo") == 1 and not r.get("captures")
+               for r in reasons) or not max(gaps) <= GLOO_TOL_22:
+        raise RuntimeError(f"22.8 gloo ranks: {res['gloo']}")
+    done()
+    return res
+
+
 def main() -> int:
     here = Path(__file__).resolve().parent
     if not (here / "pylops_mpi_tpu_torch" / "__init__.py").is_file():
@@ -3977,6 +4421,12 @@ def main() -> int:
     slice10 = service_phase(torch, pmtt, here, dev)
     print(f"phase 21 in {time.perf_counter() - t21:.1f} s", flush=True)
 
+    # 22. slice 11: every fused loop through the bank of captured graphs
+    torch.cuda.empty_cache()
+    t22 = time.perf_counter()
+    slice11 = graphs_phase(torch, pmtt, kernel_mods, here, dev, slice10)
+    print(f"phase 22 in {time.perf_counter() - t22:.1f} s", flush=True)
+
     kernels = []
     for name, run in (("float32", "normal_f32"), ("bfloat16", "normal_bf16")):
         s = stats[name]
@@ -3993,7 +4443,12 @@ def main() -> int:
             ms=s["ms"], kernel_ms=s["ms"], kernel_ms_runs=s["kernel_ms_runs"],
             plain_ms=s["plain_ms"], bound_ms=s["bound_ms"],
             bound_by=s["bound_by"], library_ms=s["library_ms"],
-            shape=s["shape"], dtype=name))
+            shape=s["shape"], dtype=name,
+            # phase 22: the same path through the bank of captured graphs
+            # (50 iterations): the kernel's events in the profile of the
+            # graph run, and that run's replays of 8 iterations
+            graph_launches=slice11[run]["graph_kernel_events"],
+            graph_replays=slice11[run]["graph_replays"]))
     # slice 9's paths through the normal kernel (f32 storage): PCGLS
     # normal=True per arm (10 iterations, counts reset just before) and
     # pipelined CGLS normal=True (its setup applies the kernel once)
@@ -4002,7 +4457,7 @@ def main() -> int:
          for k in ("none", "jacobi", "block_jacobi")},
         pipelined_cgls_normal=slice9["ca"]["cgls_normal"]["pipelined"][
             "normal_launches_per_iter"])
-    gr = post["gradient_cgls"]
+    gr, gr22 = post["gradient_cgls"], slice11["gradient_cgls"]
     for name in ("float32", "bfloat16"):
         st = sstats[name]
         kernels.append(dict(
@@ -4017,7 +4472,13 @@ def main() -> int:
             kernel_ms=st["kernel_ms"], kernel_ms_runs=st["kernel_ms_runs"],
             plain_ms=st["plain_ms"], bound_ms=st["bound_ms"],
             bound_by=st["bound_by"], library_ms=st["library_ms"],
-            shape=st["shape"], dtype=name))
+            shape=st["shape"], dtype=name,
+            # phase 22's Gradient CGLS through the bank (NITER_SLOW_22),
+            # counted as for the normal kernel
+            graph_launches=(gr22["graph_kernel_events"]
+                            if name == "float32" else None),
+            graph_replays=(gr22["graph_replays"]
+                           if name == "float32" else None)))
     print(json.dumps({"card": card, "runs": runs,
                       "float16_kernel": stats["float16"],
                       "normal_plans": plans,
@@ -4029,7 +4490,7 @@ def main() -> int:
                       "shared_card": shared, "slice7_ranks": slice7,
                       "slice8": slice8, "slice8_ranks": slice8_ranks,
                       "slice9": slice9, "slice9_ranks": slice9_ranks,
-                      "slice10": slice10}),
+                      "slice10": slice10, "slice11": slice11}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

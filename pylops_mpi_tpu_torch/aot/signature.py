@@ -6,16 +6,17 @@ the shapes and dtypes of the tensors it holds, so two instances built
 alike (a restarted daemon's fresh operator) share one signature;
 :func:`compile_signature` fingerprints what a stored build would depend
 on (the torch and CUDA versions, the device, the world size and the
-knobs that change the solvers' arithmetic). The port has no bank of
-captured executables yet (ROADMAP.md §A.7): the serving pool folds
-:func:`op_signature` into its family signature, and
-:func:`~pylops_mpi_tpu_torch.aot.aot_enabled` is false.
+knobs that change the solvers' arithmetic); :func:`storage_signature`
+adds the addresses of the operator's tensors, which a captured CUDA
+graph bakes in. The bank of captured loops (:mod:`.graphs`) keys on all
+three; the serving pool folds :func:`op_signature` into its family
+signature.
 """
 
 import os
 from typing import Any, Dict, List, Tuple
 
-__all__ = ["compile_signature", "op_signature"]
+__all__ = ["compile_signature", "op_signature", "storage_signature"]
 
 # knobs that change what a solve computes
 _COMPILE_KNOBS = (
@@ -42,24 +43,43 @@ def compile_signature() -> Dict[str, Any]:
     }
 
 
-def _tensors(obj, out: List, seen: set) -> None:
-    """(shape, dtype) of every tensor reachable from ``obj`` through
-    attributes, lists, tuples and dicts, in attribute-name order."""
+def _tensors(obj, out: List, seen: set, leaf=None) -> None:
+    """``leaf(t)`` (default ``(shape, dtype)``) of every tensor reachable
+    from ``obj`` through attributes, lists, tuples and dicts, in
+    attribute-name order."""
     import torch
     if id(obj) in seen:
         return
     seen.add(id(obj))
     if isinstance(obj, torch.Tensor):
-        out.append((tuple(obj.shape), str(obj.dtype)))
+        out.append((tuple(obj.shape), str(obj.dtype)) if leaf is None
+                   else leaf(obj))
     elif isinstance(obj, (list, tuple)):
         for v in obj:
-            _tensors(v, out, seen)
+            _tensors(v, out, seen, leaf)
     elif isinstance(obj, dict):
         for k in sorted(obj, key=str):
-            _tensors(obj[k], out, seen)
+            _tensors(obj[k], out, seen, leaf)
     elif hasattr(obj, "shape") and hasattr(obj, "__dict__"):
         for k in sorted(vars(obj)):
-            _tensors(vars(obj)[k], out, seen)
+            _tensors(vars(obj)[k], out, seen, leaf)
+
+
+def _storage(t) -> Tuple:
+    return (t.data_ptr(), tuple(t.shape), tuple(t.stride()), str(t.dtype),
+            str(t.device))
+
+
+def storage_signature(obj) -> Tuple:
+    """``(data_ptr, shape, stride, dtype, device)`` of every tensor
+    reachable from ``obj`` by :func:`op_signature`'s walk. A captured
+    graph bakes these addresses in, so two operators of one
+    :func:`op_signature` but other tensors never share a graph. A write
+    in place keeps an address: the next replay reads the new values, as
+    the eager loop would, and the key does not change."""
+    out: List = []
+    _tensors(obj, out, set(), _storage)
+    return tuple(out)
 
 
 def op_signature(Op) -> Tuple:

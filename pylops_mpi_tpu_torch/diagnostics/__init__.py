@@ -14,7 +14,7 @@ from .metrics import (metrics_mode, metrics_enabled, inc, set_gauge,
                       write_snapshot, read_snapshot, hist_quantiles)
 from .profiler import (STAGE_BUDGETS, stage_budget, DeadlineRunner,
                        StageRecord, profile_capture)
-from .trace import (trace_mode, trace_enabled, span, event, counter,
+from .trace import (trace_mode, trace_enabled, span, op_span, event, counter,
                     get_events, clear_events, dump, span_tree)
 
 __all__ = [
@@ -22,7 +22,7 @@ __all__ = [
     "metrics_mode", "metrics_enabled", "inc", "set_gauge", "observe",
     "timer", "snapshot", "clear_metrics", "write_snapshot",
     "read_snapshot", "hist_quantiles",
-    "trace_mode", "trace_enabled", "span", "event", "counter",
+    "trace_mode", "trace_enabled", "span", "op_span", "event", "counter",
     "get_events", "clear_events", "dump", "span_tree",
     "STAGE_BUDGETS", "stage_budget", "DeadlineRunner", "StageRecord",
     "profile_capture",

@@ -33,7 +33,8 @@ from typing import Dict, List, Optional, Sequence
 __all__ = ["metrics_mode", "metrics_enabled", "metrics_file",
            "metrics_interval", "inc", "collective_bytes", "set_gauge",
            "observe", "timer", "quantiles", "hist_quantiles", "snapshot",
-           "clear_metrics", "write_snapshot", "read_snapshot",
+           "clear_metrics", "add_counters", "write_snapshot",
+           "read_snapshot",
            "SNAPSHOT_SCHEMA"]
 
 SNAPSHOT_SCHEMA = 1
@@ -225,6 +226,22 @@ def snapshot() -> Dict:
                 "counters": dict(_COUNTERS),
                 "gauges": dict(_GAUGES),
                 "histograms": {k: dict(v) for k, v in _HISTS.items()}}
+
+
+def add_counters(values: Dict[str, float]) -> None:
+    """Add each of ``values`` to its counter and drop a counter that
+    comes to 0: how the graph bank takes back what a capture counted and
+    counts what its replays do (``aot/graphs.py``)."""
+    if metrics_mode() == "off" or not values:
+        return
+    with _LOCK:
+        for k, v in values.items():
+            n = _COUNTERS.get(k, 0) + v
+            if n:
+                _COUNTERS[k] = n
+            else:
+                _COUNTERS.pop(k, None)
+    _maybe_start_writer()
 
 
 def clear_metrics() -> None:

@@ -2,9 +2,11 @@
 
 PyTorch counterpart of ``pylops_mpi_tpu/diagnostics/trace.py:71-459``.
 A context-manager API with nested spans, monotonic timestamps and a
-thread-safe bounded buffer; the serving layer opens a span around every
-packed solve and prewarm, and records instant events for batches,
-drains and recoveries.
+thread-safe bounded buffer. Every operator apply opens an
+:func:`op_span`, every fused solve a ``solver.<name>`` span; the serving
+layer opens a span around every packed solve and prewarm, and records
+instant events for batches, drains and recoveries; the collectives and
+the graph bank record events of their own.
 
 Gating, ``PYLOPS_MPI_TPU_TORCH_TRACE``:
 
@@ -39,8 +41,8 @@ import time
 from collections import deque
 from typing import Dict, List, Optional
 
-__all__ = ["trace_mode", "trace_enabled", "span", "event", "counter",
-           "get_events", "clear_events", "dump", "span_tree",
+__all__ = ["trace_mode", "trace_enabled", "span", "op_span", "event",
+           "counter", "get_events", "clear_events", "dump", "span_tree",
            "open_span_events"]
 
 _MODES = ("off", "spans", "full")
@@ -234,6 +236,25 @@ def span(name: str, cat: str = "span", **tags):
     args = {k: _jsonable(v) for k, v in tags.items()}
     args["cat"] = cat
     return _Span(name, args)
+
+
+def op_span(op, which: str):
+    """The span of one operator apply (JAX ``trace.py:286-304``), opened
+    by ``MPILinearOperator.matvec``/``rmatvec`` as ``<class>.<which>``.
+    Tags: the operator's class, shape and dtype, and its ``overlap``,
+    ``schedule``, ``grid`` and ``compute_dtype`` where it has them. The
+    JAX package's ``mesh_axes`` has no counterpart: the port's operators
+    hold no mesh, the process group stands in for it. With tracing off
+    it returns the shared no-op after one mode lookup."""
+    if trace_mode() == "off":
+        return _NOOP
+    tags = {"op": type(op).__name__, "shape": getattr(op, "shape", None),
+            "dtype": getattr(op, "dtype", None)}
+    for extra in ("overlap", "schedule", "grid", "compute_dtype"):
+        v = getattr(op, extra, None)
+        if v is not None:
+            tags[extra] = v
+    return span(f"{type(op).__name__}.{which}", cat="operator", **tags)
 
 
 def event(name: str, cat: str = "event", **tags) -> None:

@@ -19,6 +19,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from .diagnostics import trace as _trace
 from .distributedarray import DistributedArray
 from .stacked import StackedDistributedArray
 from .ops._precision import as_torch_dtype, result_dtype
@@ -91,17 +92,22 @@ class MPILinearOperator:
     def matvec(self, x: DistributedArray) -> DistributedArray:
         """Forward apply with global-shape check
         (ref ``LinearOperator.py:170-192``); accepts ``(N,)`` or the
-        block form ``(N, K)``."""
-        if self._check(x, self.shape[1]) and not self.accepts_block:
-            return self._apply_columns(x, forward=True)
-        return self._matvec(x)
+        block form ``(N, K)``. Opens a span (``trace.op_span``) tagged
+        with the operator's class, shape and dtype; compositions nest."""
+        block = self._check(x, self.shape[1])
+        with _trace.op_span(self, "matvec"):
+            if block and not self.accepts_block:
+                return self._apply_columns(x, forward=True)
+            return self._matvec(x)
 
     def rmatvec(self, x: DistributedArray) -> DistributedArray:
         """Adjoint apply with global-shape check
-        (ref ``LinearOperator.py:206-230``)."""
-        if self._check(x, self.shape[0]) and not self.accepts_block:
-            return self._apply_columns(x, forward=False)
-        return self._rmatvec(x)
+        (ref ``LinearOperator.py:206-230``); traced like :meth:`matvec`."""
+        block = self._check(x, self.shape[0])
+        with _trace.op_span(self, "rmatvec"):
+            if block and not self.accepts_block:
+                return self._apply_columns(x, forward=False)
+            return self._rmatvec(x)
 
     def _apply_columns(self, x: DistributedArray, forward: bool):
         """Block fallback: apply to each column and stack the results."""

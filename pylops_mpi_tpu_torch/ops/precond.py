@@ -650,7 +650,8 @@ class VCyclePrecond(MPILinearOperator):
         dinv = self._dinv[l].to(b.dtype)
         if b.ndim == 2:
             dinv = dinv[:, None]
-        om = torch.tensor(self.omega, dtype=b.dtype, device=b.device)
+        # a device fill, not a host copy: a captured segment may hold it
+        om = torch.full((), self.omega, dtype=b.dtype, device=b.device)
         x = om * dinv * b  # the first sweep, from x = 0
         for _ in range(self.nu_pre - 1):
             x = x + om * dinv * (b - self._level_apply(l, x))

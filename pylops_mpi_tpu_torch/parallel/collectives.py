@@ -17,10 +17,12 @@ group of one rank on the card the reductions still go through NCCL.
 color group, a row or column of a 2-D grid of ranks); pieces and sizes
 are then listed in the group's rank order.
 Without a process group they return at once and communicate nothing.
-Each call under a group adds one to ``counts[name]`` (the counterpart of
-the JAX package's ``_count_collective``) and the bytes this rank
-receives to ``received[name]`` (padding included), which tests and
-``chip_smoke.py`` read.
+Each call under a group goes through :func:`_count` (the counterpart of
+the JAX package's ``_count_collective``): it adds one to ``counts[name]``
+and the bytes this rank receives to ``received[name]`` (padding
+included), which tests and ``chip_smoke.py`` read, and the same call and
+bytes to the metrics registry as ``collective.<name>.calls`` and
+``collective.<name>.bytes``.
 
 gloo moves CPU tensors only for point-to-point sends and gathers. Under
 a gloo group, CUDA tensors are staged through host copies: this is
@@ -36,6 +38,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..diagnostics import metrics as _metrics
+from ..diagnostics import trace as _trace
 from .mesh import initialized, rank, world_size
 from .partition import padded_shard_size
 
@@ -55,9 +59,26 @@ _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
 _GROUPS: Dict[tuple, object] = {}
 
 
+# per-name sequence numbers of the calls, for the event tags
+_SEQ: Counter = Counter()
+
+
 def reset_counts() -> None:
     counts.clear()
     received.clear()
+
+
+def _count(name: str, nbytes: int) -> int:
+    """One call of collective ``name`` receiving ``nbytes`` on this rank:
+    ``counts``/``received`` and the metrics registry; returns the call's
+    sequence number."""
+    counts[name] += 1
+    received[name] += nbytes
+    _metrics.inc(f"collective.{name}.calls")
+    _metrics.collective_bytes(name, nbytes)
+    seq = _SEQ[name]
+    _SEQ[name] += 1
+    return seq
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -102,10 +123,9 @@ def all_reduce(t: torch.Tensor, op: str = "sum",
     ``t``."""
     if not initialized():
         return t
-    counts["all_reduce"] += 1
     if not t.is_contiguous():
         raise ValueError("all_reduce takes contiguous tensors")
-    received["all_reduce"] += _nbytes(t)
+    _count("all_reduce", _nbytes(t))
     if t.is_cuda and _gloo(group):
         host = t.cpu()
         dist.all_reduce(host, op=_OPS[op], group=group)
@@ -121,7 +141,6 @@ def all_gather(t: torch.Tensor, sizes: Sequence[int], axis: int = 0,
     largest (NCCL moves equal sizes), gathered, and unpadded."""
     if not initialized():
         return t
-    counts["all_gather"] += 1
     pad = padded_shard_size(sizes) - t.shape[axis]
     v = t
     if pad:
@@ -133,7 +152,7 @@ def all_gather(t: torch.Tensor, sizes: Sequence[int], axis: int = 0,
     if stage:
         v = v.cpu()
     parts = [torch.empty_like(v) for _ in sizes]
-    received["all_gather"] += _nbytes(v) * (len(sizes) - 1)
+    _count("all_gather", _nbytes(v) * (len(sizes) - 1))
     dist.all_gather(parts, v, group=group)
     parts = [p.narrow(axis, 0, n) for p, n in zip(parts, sizes)]
     out = torch.cat(parts, dim=axis)
@@ -162,7 +181,6 @@ def reduce_scatter(t: torch.Tensor, sizes: Sequence[int], axis: int = 0,
     reduced and unpadded."""
     if not initialized():
         return t
-    counts["reduce_scatter"] += 1
     me = dist.get_group_rank(group, rank()) if group is not None else rank()
     width = padded_shard_size(sizes)
     pieces = []
@@ -177,7 +195,7 @@ def reduce_scatter(t: torch.Tensor, sizes: Sequence[int], axis: int = 0,
     if stage:
         pieces = [p.cpu() for p in pieces]
     out = torch.empty_like(pieces[me])
-    received["reduce_scatter"] += _nbytes(out) * (len(sizes) - 1)
+    _count("reduce_scatter", _nbytes(out) * (len(sizes) - 1))
     dist.reduce_scatter(out, pieces, op=dist.ReduceOp.SUM, group=group)
     out = out.narrow(axis, 0, int(sizes[me]))
     return out.to(t.device) if stage else out
@@ -194,7 +212,6 @@ def all_to_all(sends: Sequence[torch.Tensor],
     the transfers."""
     if not initialized():
         return [sends[0]]
-    counts["all_to_all"] += 1
     me = dist.get_group_rank(group, rank()) if group is not None else rank()
 
     def peer(q):
@@ -208,7 +225,7 @@ def all_to_all(sends: Sequence[torch.Tensor],
     tx = [(s.contiguous().cpu() if stage else s.contiguous(), peer(q))
           for q, s in enumerate(sends) if q != me]
     rx = [(out[q], peer(q)) for q in range(len(recv_shapes)) if q != me]
-    received["all_to_all"] += sum(_nbytes(t) for t, _ in rx)
+    _count("all_to_all", sum(_nbytes(t) for t, _ in rx))
     _p2p(tx, rx, group)
     out = [o.to(like.device) for o in out] if stage else out
     out[me] = like
@@ -220,14 +237,14 @@ Piece = Union[int, torch.Tensor]
 
 def _exchange(name: str, block: torch.Tensor, axis: int, front: int,
               back: int, prev: Optional[int],
-              nxt: Optional[int]) -> Tuple[Piece, Piece]:
+              nxt: Optional[int]) -> Tuple[Piece, Piece, int]:
     """The neighbour exchange along ``axis`` of ``block``: receive the
     ``prev`` rank's last ``front`` slices and the ``nxt`` rank's first
     ``back`` ones, and send this rank's to them, as one
     ``batch_isend_irecv``. ``prev``/``nxt`` are ``None`` past the ends;
     there the piece is a count of (zero) slices instead of a tensor.
-    Slabs along an axis other than 0 go as contiguous copies."""
-    counts[name] += 1
+    Slabs along an axis other than 0 go as contiguous copies. Returns
+    the pieces and the call's sequence number."""
     shape = list(block.shape)
     stage = block.is_cuda and _gloo(None)
     dev = torch.device("cpu") if stage else block.device
@@ -254,13 +271,13 @@ def _exchange(name: str, block: torch.Tensor, axis: int, front: int,
             sends.append((send(block.narrow(axis, rows - front, front)), nxt))
         if back:
             recvs.append((bottom, nxt))
-    received[name] += sum(_nbytes(t) for t, _ in recvs)
+    seq = _count(name, sum(_nbytes(t) for t, _ in recvs))
     _p2p(sends, recvs, None)
     if stage:
         top = top.to(block.device) if isinstance(top, torch.Tensor) else top
         bottom = (bottom.to(block.device) if isinstance(bottom, torch.Tensor)
                   else bottom)
-    return top, bottom
+    return top, bottom, seq
 
 
 def halo_exchange(block: torch.Tensor, front: int,
@@ -286,7 +303,8 @@ def halo_exchange(block: torch.Tensor, front: int,
         raise ValueError(f"rank {r} holds {rows} rows, fewer than the "
                          f"ghost widths ({front}, {back}) it sends")
     return _exchange("halo_exchange", block, 0, front, back,
-                     r - 1 if r > 0 else None, r + 1 if r < P - 1 else None)
+                     r - 1 if r > 0 else None,
+                     r + 1 if r < P - 1 else None)[:2]
 
 
 def cart_halo_extend(block: torch.Tensor, grid: Sequence[int], ax: int,
@@ -299,7 +317,9 @@ def cart_halo_extend(block: torch.Tensor, grid: Sequence[int], ax: int,
     Called once per axis in turn, each call sends slabs of the block the
     earlier calls extended, which relays the corner values. Along an axis
     of one rank, or without a group, the ghosts are zeros and nothing
-    moves; a call that moves nothing is not counted."""
+    moves; a call that moves nothing is not counted. A call that moves
+    records the ``collective.cart_halo_extend`` event (JAX ``:338``; its
+    ``axis`` tag, a mesh axis name, is ``None`` here)."""
     if not hm and not hp:
         return block
     grid = tuple(int(g) for g in grid)
@@ -311,9 +331,13 @@ def cart_halo_extend(block: torch.Tensor, grid: Sequence[int], ax: int,
         r = rank()
         coord = int(np.unravel_index(r, grid)[ax])
         stride = int(np.prod(grid[ax + 1:]))
-        pieces = _exchange("cart_halo_extend", block, ax, hm, hp,
-                           r - stride if coord > 0 else None,
-                           r + stride if coord < grid[ax] - 1 else None)
+        *pieces, seq = _exchange(
+            "cart_halo_extend", block, ax, hm, hp,
+            r - stride if coord > 0 else None,
+            r + stride if coord < grid[ax] - 1 else None)
+        _trace.event("collective.cart_halo_extend", cat="collective",
+                     shape=tuple(block.shape), dtype=block.dtype, axis=None,
+                     grid=grid, ax=ax, hm=hm, hp=hp, seq=seq)
     parts = []
     for p in (pieces[0], block, pieces[1]):
         if isinstance(p, torch.Tensor):

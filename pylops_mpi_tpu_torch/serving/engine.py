@@ -22,9 +22,18 @@ PyTorch counterpart of ``pylops_mpi_tpu/serving/engine.py``.
   operation of a real solve has been launched once, on the calling
   thread (the daemon prewarms on its dispatcher thread). Buckets come
   from the plan cache's banked block widths
-  (:func:`~..tuning.plan.cached_batch_widths`), else every bucket. There
-  is no bank of captured programs (``aot_enabled()`` is false), so a
-  prewarm never skips a bucket.
+  (:func:`~..tuning.plan.cached_batch_widths`), else every bucket.
+- **The graph bank** (``PYLOPS_MPI_TPU_TORCH_AOT=on``, :mod:`..aot`):
+  the zero-RHS solve would end at its first host check, before any
+  capture, so prewarm captures each (family, bucket) explicitly
+  (:func:`~..aot.graphs.capturing`) and the first request replays it. A
+  (family, bucket) whose solve went through the bank is recorded in the
+  process-wide ``_WARMED_SIGS`` with the bank keys its loop used, and a
+  later prewarm skips it while the bank still holds those keys, as the
+  JAX package's skips a banked one. Unlike the JAX package's, the
+  signature (:meth:`FamilySpec.bank_signature`) names the operator
+  instance and its tensor addresses, which a graph bakes in: a fresh
+  instance of the same operator (a restarted daemon's) captures again.
 
 One tenant must not hurt its batch-mates: columns freeze on their own
 convergence test, and with ``PYLOPS_MPI_TPU_TORCH_GUARDS=on`` a column
@@ -42,12 +51,14 @@ from __future__ import annotations
 import os
 import threading
 import time
+from contextlib import nullcontext
 from dataclasses import dataclass
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..aot import aot_enabled, graphs
 from ..diagnostics import metrics as _metrics
 from ..diagnostics import trace as _trace
 from ..distributedarray import DistributedArray
@@ -55,9 +66,19 @@ from ..ops._precision import as_torch_dtype
 from ..parallel.mesh import default_device
 
 __all__ = ["k_buckets", "bucket_for", "FamilySpec", "BlockOutcome",
-           "WarmPool"]
+           "WarmPool", "clear_warmed_signatures"]
 
 _DEFAULT_BUCKETS = (1, 2, 4, 8, 16)
+
+# (bank signature, bucket) -> the graph bank keys its solve went through
+# in this process, shared across WarmPool instances (JAX
+# ``serving/engine.py:62-67``)
+_WARMED_SIGS: Dict[Tuple, Tuple] = {}
+
+
+def clear_warmed_signatures() -> None:
+    """Drop the process-wide prewarm ledger (test isolation)."""
+    _WARMED_SIGS.clear()
 
 
 def k_buckets() -> Tuple[int, ...]:
@@ -120,6 +141,23 @@ class FamilySpec:
                 float(self.damp), str(as_torch_dtype(self.dtype)),
                 op_signature(self.operator),
                 None if self.M is None else ("M", id(self.M)))
+
+    def bank_signature(self) -> Tuple:
+        """:meth:`signature` with the operator's ``id`` and the storage
+        signatures of the operator and of ``M``: what the graph bank's
+        keys hold of them."""
+        from ..aot import storage_signature
+        return (self.signature(), id(self.operator),
+                storage_signature(self.operator),
+                None if self.M is None else storage_signature(self.M))
+
+
+def _still_banked(sig: Tuple, bucket: int) -> bool:
+    """Whether ``(sig, bucket)``'s solve went through the graph bank and
+    the bank still holds every key it used (not cleared, not evicted)."""
+    from ..aot import store
+    keys = _WARMED_SIGS.get((sig, bucket))
+    return bool(keys) and all(store.mem_get(k) is not None for k in keys)
 
 
 @dataclass
@@ -226,17 +264,20 @@ class WarmPool:
                                      family=name, fill=k, bucket=bucket,
                                      solver=spec.solver):
             t0 = time.perf_counter()
-            if spec.solver == "cg":
-                xb, iiter, cost = block_cg(spec.operator, yb,
-                                           niter=spec.niter, tol=spec.tol,
-                                           M=spec.M)
-                kold = cost[-1] ** 2
-            else:
-                xb, _istop, iiter, kold, _r2, _cost = block_cgls(
-                    spec.operator, yb, niter=spec.niter, damp=spec.damp,
-                    tol=spec.tol, M=spec.M)
+            with graphs.recording_keys() as keys:
+                if spec.solver == "cg":
+                    xb, iiter, cost = block_cg(spec.operator, yb,
+                                               niter=spec.niter,
+                                               tol=spec.tol, M=spec.M)
+                    kold = cost[-1] ** 2
+                else:
+                    xb, _istop, iiter, kold, _r2, _cost = block_cgls(
+                        spec.operator, yb, niter=spec.niter,
+                        damp=spec.damp, tol=spec.tol, M=spec.M)
             x = xb.asarray()[:, :k]  # the host copy waits for the device
             wall = time.perf_counter() - t0
+            if keys:
+                _WARMED_SIGS[(spec.bank_signature(), bucket)] = tuple(keys)
         kold = kold.detach().cpu().numpy()
         self.warmed.add((name, bucket))
         _metrics.inc("serve.pool.solves")
@@ -251,8 +292,11 @@ class WarmPool:
         (module docstring), on the calling thread. Buckets: ``widths``
         rounded up to buckets; else the plan cache's banked widths of the
         operator's class; else every bucket. Returns ``{family: [buckets
-        warmed]}``; the seconds of each land in :attr:`prewarm_s`."""
+        warmed]}``; the seconds of each land in :attr:`prewarm_s`. With
+        the graph bank armed each solve captures its loop, and a bucket
+        whose loop the bank holds is skipped (module docstring)."""
         from ..tuning.plan import cached_batch_widths
+        armed = aot_enabled()
         report: Dict[str, list] = {}
         for name in (names if names is not None else self.families()):
             spec = self.family(name)
@@ -264,10 +308,19 @@ class WarmPool:
                         for w in hist if w <= self.k_max]
                 if not want:
                     want = list(self._buckets)
+            sig = spec.bank_signature() if armed else None
             done = []
             for b in sorted(set(want)):
+                if sig is not None and _still_banked(sig, b):
+                    self.warmed.add((name, b))
+                    done.append(b)
+                    _metrics.inc("serve.pool.prewarm_skipped")
+                    _trace.event("serve.prewarm_skip", cat="serving",
+                                 family=name, bucket=b)
+                    continue
                 with _trace.span("serve.prewarm", cat="serving",
-                                 family=name, bucket=b):
+                                 family=name, bucket=b), \
+                        graphs.capturing() if armed else nullcontext():
                     t0 = time.perf_counter()
                     self.solve(name, np.zeros((spec.nrows, b)))
                     self.prewarm_s[(name, b)] = time.perf_counter() - t0

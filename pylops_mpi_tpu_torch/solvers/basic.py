@@ -24,8 +24,13 @@ loop whose scalars all stay on the device: an ``active = kold > tol``
 mask, computed on the device each iteration, zeroes the step, holds x
 and stops ``iiter`` and the cost buffers once the condition fails, so
 the result equals the while loop's exit exactly (a non-finite ``y``
-returns ``x0`` with ``iiter = 0``). The host reads ``active`` only
-every ``_CHECK_EVERY`` iterations, to leave the loop early. With
+returns ``x0`` with ``iiter = 0``). Each loop is a setup, a step over a
+carry of tensors (the iteration index ``it`` a device tensor too, so
+the histories are written through it), and the host's read of the
+condition every ``SEGMENT`` (8) iterations, to leave the loop early;
+:mod:`..aot.graphs` runs the steps, and with
+``PYLOPS_MPI_TPU_TORCH_AOT=on`` replays each run of 8 between two
+checks as one captured CUDA graph, bit for bit the same. With
 ``guards`` on (JAX ``basic.py:342-400``) the loop also carries a status
 word (:mod:`..resilience.status`) in device tensors; ``cg_guarded`` and
 ``cgls_guarded`` return it.
@@ -59,10 +64,6 @@ from ..stacked import StackedDistributedArray
 __all__ = ["CG", "CGLS", "cg", "cgls", "cg_guarded", "cgls_guarded"]
 
 Vector = Union[DistributedArray, StackedDistributedArray]
-
-# Iterations between the host's reads of the device-side ``active`` flag.
-_CHECK_EVERY = 8
-
 
 def _rdot(u: Vector, v: Vector) -> torch.Tensor:
     """Recurrence dot ``|u·conj(v)|`` at the policy reduction dtype."""
@@ -134,9 +135,32 @@ def _precond_apply(M, r: Vector, xdt: torch.dtype) -> Vector:
     return z
 
 
-def _record(buf: torch.Tensor, i: int, value, active) -> None:
-    """``buf[i] = value`` on the device where ``active`` (no host sync)."""
-    buf[i] = torch.where(active, value, buf[i])
+def _slot(it: torch.Tensor, active, spare: int) -> torch.Tensor:
+    """The history row an iteration records into: ``it`` (a ``(1,)``
+    device index) while the loop is live, else the buffer's ``spare``
+    last row, which no result returns."""
+    return torch.where(active, it, spare)
+
+
+def _record(buf: torch.Tensor, slot: torch.Tensor, value) -> None:
+    """``buf[slot] = value`` on the device (no host sync; a captured
+    segment replays it at any offset)."""
+    buf.index_copy_(0, slot, value.unsqueeze(0).to(buf.dtype))
+
+
+def _history(first: torch.Tensor, niter: int) -> torch.Tensor:
+    """The ``(niter+2, ...)`` history buffer, ``first`` in row 0; rows
+    ``1..niter`` take the iterations, the last is :func:`_slot`'s
+    spare."""
+    buf = torch.zeros((niter + 2,) + tuple(first.shape), dtype=first.dtype,
+                      device=first.device)
+    buf[0] = first
+    return buf
+
+
+def _counter(device) -> torch.Tensor:
+    """The device iteration index ``it`` of a loop's carry."""
+    return torch.zeros(1, dtype=torch.int64, device=device)
 
 
 class _BaseSolver:
@@ -317,7 +341,7 @@ def _use_fused(name: str, callback, show: bool, fused: Optional[bool],
 # finite values: scaling the step to zero would not do, ``NaN * 0`` is
 # ``NaN``) and ends the loop with BREAKDOWN; ``stall_n`` iterations
 # without a new best residual end it with STAGNATION. The loop still
-# reads the device once every ``_CHECK_EVERY`` iterations.
+# reads the device once every ``SEGMENT`` iterations.
 
 def _reject(hold, old: Vector, new: Vector) -> Vector:
     """``old`` where ``hold`` else ``new``, over a (stacked) vector;
@@ -395,29 +419,25 @@ def _live(kold, tol: float, status=None) -> torch.Tensor:
     return torch.any((kold > tol) & (status == RUNNING))
 
 
-def _run_cg(Op, y: Vector, x: Vector, niter: int, tol: float, M,
-            guards: bool):
-    """The fused CG loop from ``x``: ``(x, iiter, cost[:iiter+1], code)``,
-    ``code`` the status word with guards on, else ``None``. Once the
-    loop's condition fails it changes nothing more, so a non-finite
-    ``y`` returns ``x`` as given with ``iiter = 0``, as the JAX
-    package's ``while_loop`` does."""
-    xdt = x.dtype
-    r = y - Op.matvec(x)
-    z = _precond_apply(M, r, xdt)
-    c = z
-    kold = _rdot(r, z)
-    floors = _mp_floor(kold)
-    cost = torch.zeros(niter + 1, dtype=kold.dtype, device=kold.device)
-    cost[0] = torch.sqrt(kold)
-    iiter = torch.zeros((), dtype=torch.int64, device=kold.device)
-    status = _status0(kold.device) if guards else None
-    if guards:
-        from ..resilience.status import stall_window
-        stall_n = stall_window()
-        bestk = kold.clone()
-        stall = torch.zeros((), dtype=torch.int32, device=kold.device)
-    for it in range(niter):
+def _guard_start(kold, guards: bool):
+    """The scalar guard carry's start ``(status, bestk, stall)`` and the
+    stall window, or Nones and 0 with guards off."""
+    if not guards:
+        return (None, None, None), 0
+    from ..resilience.status import stall_window
+    return ((_status0(kold.device), kold.clone(),
+             torch.zeros((), dtype=torch.int32, device=kold.device)),
+            stall_window())
+
+
+def _cg_step(Op, M, tol: float, guards: bool, stall_n: int, niter: int):
+    """One iteration of the fused CG loop over the carry ``(x, r, c,
+    kold, iiter, it, cost, status, bestk, stall)`` and the constant
+    ``(floors,)``."""
+    def step(state, consts):
+        x, r, c, kold, iiter, it, cost, status, bestk, stall = state
+        (floors,) = consts
+        xdt = x.dtype
         active = _live(kold, tol, status)
         done = kold <= floors
         frozen = _or_idle(done, active)
@@ -439,48 +459,54 @@ def _run_cg(Op, y: Vector, x: Vector, niter: int, tol: float, M,
                                                  k, done, stall_n, active)
         else:
             x, r, c = _reject(active, xn, x), rn, cn  # x held once idle
-        kold = k
         iiter = iiter + active.to(iiter.dtype)
-        _record(cost, it + 1, torch.sqrt(k), active)
-        if (it + 1) % _CHECK_EVERY == 0 and not bool(_live(kold, tol,
-                                                           status)):
-            break
+        it = it + 1
+        _record(cost, _slot(it, active, niter + 1), torch.sqrt(k))
+        return x, r, c, k, iiter, it, cost, status, bestk, stall
+    return step
+
+
+def _run_cg(Op, y: Vector, x: Vector, niter: int, tol: float, M,
+            guards: bool):
+    """The fused CG loop from ``x``: ``(x, iiter, cost[:iiter+1], code)``,
+    ``code`` the status word with guards on, else ``None``. Once the
+    loop's condition fails it changes nothing more, so a non-finite
+    ``y`` returns ``x`` as given with ``iiter = 0``, as the JAX
+    package's ``while_loop`` does. The iterations run through
+    :mod:`..aot.graphs` (captured segments when the tier is armed)."""
+    from ..aot import graphs
+    xdt = x.dtype
+    r = y - Op.matvec(x)
+    z = _precond_apply(M, r, xdt)
+    kold = _rdot(r, z)
+    cost = _history(torch.sqrt(kold), niter)
+    guard, stall_n = _guard_start(kold, guards)
+    state = (x, r, z, kold, torch.zeros((), dtype=torch.int64,
+                                        device=kold.device),
+             _counter(kold.device), cost) + guard
+    loop = graphs.Loop("cg", dict(tol=tol, guards=guards, stall=stall_n),
+                       Op, M, y, state, (_mp_floor(kold),),
+                       _cg_step(Op, M, tol, guards, stall_n, niter))
+    x, _, _, kold, iiter, _, cost, status, _, _ = graphs.run_iterations(
+        loop, lambda st: _live(st[3], tol, st[7]), niter)
     iiter = int(iiter)
     code = _resolve_status(status, kold, tol) if guards else None
     return x, iiter, cost[:iiter + 1], code
 
 
-def _run_cgls(Op, y: Vector, x: Vector, niter: int, damp: float, tol: float,
-              normal: bool, M, guards: bool):
-    """The fused CGLS loop from ``x`` in either schedule: ``(x, iiter,
-    cost[:iiter+1], cost1[:iiter+1], kold, code)``; see
-    :func:`_run_cg`."""
+def _cgls_step(Op, M, damp: float, tol: float, normal: bool, guards: bool,
+               stall_n: int, niter: int):
+    """One iteration of the fused CGLS loop in either schedule over the
+    carry ``(x, s, c, rq, kold, iiter, it, cost, cost1, status, bestk,
+    stall)`` (``rq`` the gradient ``r`` with ``normal``, else ``q = Op
+    c``) and the constant ``(floors,)``."""
     damp2 = damp ** 2
-    xdt = x.dtype
-    s = y - Op.matvec(x)
-    rq = Op.rmatvec(s) - x * damp  # the reference's un-squared setup damp
-    z = _precond_apply(M, rq, xdt)
-    c = z
-    if normal:
-        # the recurrence tracks the true gradient Opᴴs − damp²x
-        r = rq + x * (damp - damp2)
-    else:
-        q = Op.matvec(c)
-    kold = _rdot(rq, z)
-    floors = _mp_floor(kold)
-    sn = s.norm()
-    cost = torch.zeros(niter + 1, dtype=sn.dtype, device=sn.device)
-    cost1 = torch.zeros_like(cost)
-    cost[0] = sn
-    cost1[0] = _damped_norm(sn, damp2, x)
-    iiter = torch.zeros((), dtype=torch.int64, device=kold.device)
-    status = _status0(kold.device) if guards else None
-    if guards:
-        from ..resilience.status import stall_window
-        stall_n = stall_window()
-        bestk = kold.clone()
-        stall = torch.zeros((), dtype=torch.int32, device=kold.device)
-    for it in range(niter):
+
+    def step(state, consts):
+        x, s, c, rq, kold, iiter, it, cost, cost1, status, bestk, stall = \
+            state
+        (floors,) = consts
+        xdt = x.dtype
         active = _live(kold, tol, status)
         done = kold <= floors
         frozen = _or_idle(done, active)
@@ -488,48 +514,70 @@ def _run_cgls(Op, y: Vector, x: Vector, niter: int, damp: float, tol: float,
             u, qn = Op.normal_matvec(c)
             qq = _rdot(qn, qn)
         else:
-            qq = _rdot(q, q)
-            qn = q
+            qq = _rdot(rq, rq)
+            qn = rq
         a = torch.abs(kold / (qq + damp2 * _rdot(c, c) if damp2 else qq))
         a = torch.where(frozen, torch.zeros_like(a), a)
         xn = x + c * _step_scalar(a, xdt)
         sn_ = s - qn * _step_scalar(a, xdt)
         if normal:
-            rn = r - (u + c * damp2) * _step_scalar(a, xdt)
+            rn = rq - (u + c * damp2) * _step_scalar(a, xdt)
         else:
             rn = Op.rmatvec(sn_) - xn * damp2
         z = _precond_apply(M, rn, xdt)
         k = torch.where(frozen, kold, _rdot(rn, z))
         b = torch.where(frozen, torch.zeros_like(k), k / kold)
         cn = z + c * _step_scalar(b, xdt)
-        if not normal:
-            qn = Op.matvec(cn)
+        rqn = rn if normal else Op.matvec(cn)
         if guards:
             bad = _nonfinite(a, k, b)
             hold = _or_idle(bad, active)
-            x, s, c = (_reject(hold, x, xn), _reject(hold, s, sn_),
-                       _reject(hold, c, cn))
-            if normal:
-                r = _reject(hold, r, rn)
-            else:
-                q = _reject(hold, q, qn)
+            x, s, c, rq = (_reject(hold, x, xn), _reject(hold, s, sn_),
+                           _reject(hold, c, cn), _reject(hold, rq, rqn))
             k = torch.where(bad, kold, k)
             status, bestk, stall = _guard_update(status, bestk, stall, bad,
                                                  k, done, stall_n, active)
         else:
-            x, s, c = _reject(active, xn, x), sn_, cn  # x held once idle
-            if normal:
-                r = rn
-            else:
-                q = qn
-        kold = k
+            x, s, c, rq = _reject(active, xn, x), sn_, cn, rqn  # x held
         iiter = iiter + active.to(iiter.dtype)
+        it = it + 1
         sn = s.norm()
-        _record(cost, it + 1, sn, active)
-        _record(cost1, it + 1, _damped_norm(sn, damp2, x), active)
-        if (it + 1) % _CHECK_EVERY == 0 and not bool(_live(kold, tol,
-                                                           status)):
-            break
+        slot = _slot(it, active, niter + 1)
+        _record(cost, slot, sn)
+        _record(cost1, slot, _damped_norm(sn, damp2, x))
+        return x, s, c, rq, k, iiter, it, cost, cost1, status, bestk, stall
+    return step
+
+
+def _run_cgls(Op, y: Vector, x: Vector, niter: int, damp: float, tol: float,
+              normal: bool, M, guards: bool):
+    """The fused CGLS loop from ``x`` in either schedule: ``(x, iiter,
+    cost[:iiter+1], cost1, kold, code)``; see :func:`_run_cg`."""
+    from ..aot import graphs
+    damp2 = damp ** 2
+    xdt = x.dtype
+    s = y - Op.matvec(x)
+    rq = Op.rmatvec(s) - x * damp  # the reference's un-squared setup damp
+    z = _precond_apply(M, rq, xdt)
+    # the recurrence tracks the true gradient Opᴴs − damp²x (normal), or
+    # carries q = Op c (classic)
+    carry = rq + x * (damp - damp2) if normal else Op.matvec(z)
+    kold = _rdot(rq, z)
+    sn = s.norm()
+    cost = _history(sn, niter)
+    cost1 = _history(_damped_norm(sn, damp2, x), niter)
+    guard, stall_n = _guard_start(kold, guards)
+    state = (x, s, z, carry, kold,
+             torch.zeros((), dtype=torch.int64, device=kold.device),
+             _counter(kold.device), cost, cost1) + guard
+    loop = graphs.Loop("cgls", dict(damp=damp, tol=tol, normal=normal,
+                                    guards=guards, stall=stall_n),
+                       Op, M, y, state, (_mp_floor(kold),),
+                       _cgls_step(Op, M, damp, tol, normal, guards, stall_n,
+                                  niter))
+    x, _, _, _, kold, iiter, _, cost, cost1, status, _, _ = \
+        graphs.run_iterations(loop, lambda st: _live(st[4], tol, st[9]),
+                              niter)
     iiter = int(iiter)
     code = _resolve_status(status, kold, tol) if guards else None
     return x, iiter, cost[:iiter + 1], cost1[:iiter + 1], kold, code
@@ -557,7 +605,7 @@ def _solve_cg(Op, y, x0, niter, tol, M, guards):
     x = _zero_like_model(Op, y) if x0 is None else x0
     with _trace.span("solver.cg", cat="solver", op=type(Op).__name__,
                      shape=Op.shape, dtype=x.dtype, niter=niter, tol=tol,
-                     fused=True, guards=use_guards), \
+                     fused=True, guards=use_guards, telemetry=False), \
             _metrics.timer("solver.cg"):
         if mode != "off":
             x, iiter, cost = ca.run_cg(Op, y, x, niter, tol, M=M, mode=mode)
@@ -584,7 +632,7 @@ def _solve_cgls(Op, y, x0, niter, damp, tol, normal, M, guards):
     with _trace.span("solver.cgls", cat="solver", op=type(Op).__name__,
                      shape=Op.shape, dtype=x.dtype, niter=niter, damp=damp,
                      tol=tol, fused=True, normal=normal,
-                     guards=use_guards), \
+                     guards=use_guards, telemetry=False), \
             _metrics.timer("solver.cgls"):
         if mode != "off":
             x, iiter, cost, kold = ca.run_cgls(Op, y, x, niter, damp, tol,

@@ -34,12 +34,12 @@ import torch
 from ..diagnostics import metrics as _metrics
 from ..diagnostics import trace as _trace
 from ..distributedarray import DistributedArray, Partition
-from .basic import (_CHECK_EVERY, _guards_on, _live, _mp_floor, _nonfinite,
-                    _or_idle, _precond_apply, _record, _reject,
-                    _resolve_status, _solve_cg, _solve_cgls, _status0,
-                    _step_scalar)
+from .basic import (_counter, _guards_on, _history, _live, _mp_floor,
+                    _nonfinite, _or_idle, _precond_apply, _record, _reject,
+                    _resolve_status, _slot, _solve_cg, _solve_cgls,
+                    _status0, _step_scalar)
 from . import ca
-from .ca import _bdot, _cost0, _tol_floor
+from .ca import _bdot, _tol_floor
 
 __all__ = ["block_cg", "block_cgls", "block_cg_segmented",
            "batched_solve", "BatchedResult", "batched_cache_info"]
@@ -111,31 +111,27 @@ def _bguard_update(status, bestk, stall, bad, k, done, stall_n: int, live):
 
 
 def _guard_carry(kold, guards: bool):
-    """The per-column guard carry's start ``(status, bestk, stall,
-    stall_n)``, or Nones with guards off."""
+    """The per-column guard carry's start ``(status, bestk, stall)`` and
+    the stall window, or Nones and 0 with guards off."""
     if not guards:
-        return None, None, None, 0
+        return (None, None, None), 0
     from ..resilience.status import stall_window
     K = kold.shape[0]
-    return (_status0(kold.device, K), kold.clone(),
-            torch.zeros(K, dtype=torch.int32, device=kold.device),
+    return ((_status0(kold.device, K), kold.clone(),
+             torch.zeros(K, dtype=torch.int32, device=kold.device)),
             stall_window())
 
 
-def _block_cg_loop(Op, y, x, niter: int, tol: float, M, guards: bool):
-    """The block CG loop from ``x``: ``(x, iiter, cost[:iiter+1],
-    codes)``, ``codes`` the columns' status words with guards on."""
+def _block_cg_step(Op, M, tol: float, guards: bool, stall_n: int,
+                   niter: int):
+    """One block CG iteration over the carry ``(x, r, c, kold, iiter, it,
+    cost, status, bestk, stall)`` and the constant ``(stop,)``."""
     from ..resilience.status import RUNNING
-    xdt = x.dtype
-    r = y - Op.matvec(x)
-    z = _precond_apply(M, r, xdt)
-    c = z
-    kold = _bdot(r, z)
-    stop = _tol_floor(_mp_floor(kold), tol)
-    cost = _cost0(torch.sqrt(kold), niter)
-    iiter = torch.zeros((), dtype=torch.int64, device=kold.device)
-    status, bestk, stall, stall_n = _guard_carry(kold, guards)
-    for it in range(niter):
+
+    def step(state, consts):
+        x, r, c, kold, iiter, it, cost, status, bestk, stall = state
+        (stop,) = consts
+        xdt = x.dtype
         active = _live(kold, tol, status)
         done = _or_idle(kold <= stop, active)
         if guards:
@@ -159,37 +155,49 @@ def _block_cg_loop(Op, y, x, niter: int, tol: float, M, guards: bool):
                                                   k, done, stall_n, active)
         else:
             x, r, c = _reject(active, xn, x), rn, cn  # x held once idle
-        kold = k
         iiter = iiter + active.to(iiter.dtype)
-        _record(cost, it + 1, torch.sqrt(k), active)
-        if (it + 1) % _CHECK_EVERY == 0 and not bool(_live(kold, tol,
-                                                           status)):
-            break
+        it = it + 1
+        _record(cost, _slot(it, active, niter + 1), torch.sqrt(k))
+        return x, r, c, k, iiter, it, cost, status, bestk, stall
+    return step
+
+
+def _block_cg_loop(Op, y, x, niter: int, tol: float, M, guards: bool):
+    """The block CG loop from ``x``: ``(x, iiter, cost[:iiter+1],
+    codes)``, ``codes`` the columns' status words with guards on."""
+    from ..aot import graphs
+    xdt = x.dtype
+    r = y - Op.matvec(x)
+    z = _precond_apply(M, r, xdt)
+    kold = _bdot(r, z)
+    guard, stall_n = _guard_carry(kold, guards)
+    state = (x, r, z, kold,
+             torch.zeros((), dtype=torch.int64, device=kold.device),
+             _counter(kold.device), _history(torch.sqrt(kold), niter)) + guard
+    loop = graphs.Loop("block_cg", dict(tol=tol, guards=guards,
+                                        stall=stall_n),
+                       Op, M, y, state, (_tol_floor(_mp_floor(kold), tol),),
+                       _block_cg_step(Op, M, tol, guards, stall_n, niter))
+    x, _, _, kold, iiter, _, cost, status, _, _ = graphs.run_iterations(
+        loop, lambda st: _live(st[3], tol, st[7]), niter)
     iiter = int(iiter)
     codes = _resolve_status(status, kold, tol) if guards else None
     return x, iiter, cost[:iiter + 1], codes
 
 
-def _block_cgls_loop(Op, y, x, niter: int, damp: float, tol: float, M,
-                     guards: bool):
-    """The block CGLS loop (classic two-sweep schedule) from ``x``:
-    ``(x, iiter, cost[:iiter+1], cost1, kold, codes)``."""
+def _block_cgls_step(Op, M, damp: float, tol: float, guards: bool,
+                     stall_n: int, niter: int):
+    """One block CGLS iteration (classic two-sweep schedule) over the
+    carry ``(x, s, c, q, kold, iiter, it, cost, cost1, status, bestk,
+    stall)`` and the constant ``(stop,)``."""
     from ..resilience.status import RUNNING
     damp2 = damp ** 2
-    xdt = x.dtype
-    s = y - Op.matvec(x)
-    rq = Op.rmatvec(s) - x * damp  # the reference's un-squared setup damp
-    z = _precond_apply(M, rq, xdt)
-    c = z
-    q = Op.matvec(c)
-    kold = _bdot(rq, z)
-    stop = _tol_floor(_mp_floor(kold), tol)
-    sn = torch.sqrt(_bdot(s, s))
-    cost = _cost0(sn, niter)
-    cost1 = _cost0(_damped(sn, damp2, x), niter)
-    iiter = torch.zeros((), dtype=torch.int64, device=kold.device)
-    status, bestk, stall, stall_n = _guard_carry(kold, guards)
-    for it in range(niter):
+
+    def step(state, consts):
+        x, s, c, q, kold, iiter, it, cost, cost1, status, bestk, stall = \
+            state
+        (stop,) = consts
+        xdt = x.dtype
         active = _live(kold, tol, status)
         done = _or_idle(kold <= stop, active)
         if guards:
@@ -215,14 +223,42 @@ def _block_cgls_loop(Op, y, x, niter: int, damp: float, tol: float, M,
                                                   k, done, stall_n, active)
         else:
             x, s, c, q = _reject(active, xn, x), sn_, cn, qn  # held idle
-        kold = k
         iiter = iiter + active.to(iiter.dtype)
+        it = it + 1
         sn = torch.sqrt(_bdot(s, s))
-        _record(cost, it + 1, sn, active)
-        _record(cost1, it + 1, _damped(sn, damp2, x), active)
-        if (it + 1) % _CHECK_EVERY == 0 and not bool(_live(kold, tol,
-                                                           status)):
-            break
+        slot = _slot(it, active, niter + 1)
+        _record(cost, slot, sn)
+        _record(cost1, slot, _damped(sn, damp2, x))
+        return x, s, c, q, k, iiter, it, cost, cost1, status, bestk, stall
+    return step
+
+
+def _block_cgls_loop(Op, y, x, niter: int, damp: float, tol: float, M,
+                     guards: bool):
+    """The block CGLS loop (classic two-sweep schedule) from ``x``:
+    ``(x, iiter, cost[:iiter+1], cost1, kold, codes)``."""
+    from ..aot import graphs
+    damp2 = damp ** 2
+    xdt = x.dtype
+    s = y - Op.matvec(x)
+    rq = Op.rmatvec(s) - x * damp  # the reference's un-squared setup damp
+    z = _precond_apply(M, rq, xdt)
+    q = Op.matvec(z)
+    kold = _bdot(rq, z)
+    sn = torch.sqrt(_bdot(s, s))
+    guard, stall_n = _guard_carry(kold, guards)
+    state = (x, s, z, q, kold,
+             torch.zeros((), dtype=torch.int64, device=kold.device),
+             _counter(kold.device), _history(sn, niter),
+             _history(_damped(sn, damp2, x), niter)) + guard
+    loop = graphs.Loop("block_cgls", dict(damp=damp, tol=tol, guards=guards,
+                                          stall=stall_n),
+                       Op, M, y, state, (_tol_floor(_mp_floor(kold), tol),),
+                       _block_cgls_step(Op, M, damp, tol, guards, stall_n,
+                                        niter))
+    x, _, _, _, kold, iiter, _, cost, cost1, status, _, _ = \
+        graphs.run_iterations(loop, lambda st: _live(st[4], tol, st[9]),
+                              niter)
     iiter = int(iiter)
     codes = _resolve_status(status, kold, tol) if guards else None
     return x, iiter, cost[:iiter + 1], cost1, kold, codes
@@ -252,7 +288,7 @@ def block_cg(Op, y: DistributedArray, x0: Optional[DistributedArray] = None,
     use_guards = _guards_on("block_cg", guards, mode)
     with _trace.span("solver.block_cg", cat="solver", op=type(Op).__name__,
                      shape=Op.shape, batch=K, dtype=x.dtype, niter=niter,
-                     tol=tol, guards=use_guards):
+                     tol=tol, guards=use_guards, telemetry=False):
         if mode != "off":
             x, iiter, cost = ca.run_block_cg(Op, y, x, niter, tol, M=M)
             codes = None
@@ -294,7 +330,7 @@ def block_cgls(Op, y: DistributedArray,
     with _trace.span("solver.block_cgls", cat="solver",
                      op=type(Op).__name__, shape=Op.shape, batch=K,
                      dtype=x.dtype, niter=niter, damp=damp, tol=tol,
-                     guards=use_guards):
+                     guards=use_guards, telemetry=False):
         if mode != "off":
             out = ca.run_block_cgls(Op, y, x, niter, damp, tol, M=M)
             iiter, codes = out[2], None

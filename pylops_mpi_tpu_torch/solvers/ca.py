@@ -56,8 +56,8 @@ from ..ops._precision import accum_dtype, reduction_dtype
 from ..parallel import collectives
 from ..resilience.status import BREAKDOWN, RUNNING
 from ..utils import deps
-from .basic import (_CHECK_EVERY, _mp_floor, _or_idle, _precond_apply,
-                    _rdot, _record, _reject, _step_scalar)
+from .basic import (_counter, _history, _mp_floor, _or_idle, _precond_apply,
+                    _rdot, _record, _reject, _slot, _step_scalar)
 
 __all__ = ["resolve_mode", "ca_key", "classic_reductions_per_iter",
            "ca_reductions_per_iter", "last_fallback", "clear_fallback",
@@ -169,23 +169,20 @@ def _stacked(pairs, block: bool) -> torch.Tensor:
 
 
 # ------------------------------------------------------ pipelined engine
-def _pipe_loop(applyA, M, xdt, x, r, u, kold, floors, cost, niter: int,
-               tol: float, block: bool):
-    """The pipelined (P)CG iteration (JAX ``_make_pipe_body``) from the
-    seeded ``x, r, u = M r`` and ``kold``. Returns ``(x, iiter, cost,
-    kold)``. The freeze is per column for block vectors (``kold <=
-    max(floors, tol)``), at the machine floor ``γ <= floors`` otherwise;
-    once ``max(kold) <= tol`` nothing moves any more."""
+def _pipe_step(applyA, M, tol: float, block: bool, niter: int,
+               first: bool = False):
+    """One pipelined (P)CG iteration (JAX ``_make_pipe_body``) over the
+    carry ``(x, r, u, w, z, s, p, q, aold, kold, iiter, it, cost)`` and
+    the constants ``(floors, stop)``; ``first`` is iteration 0, whose
+    momentum is zero. The freeze is per column for block vectors
+    (``kold <= max(floors, tol)``), at the machine floor ``γ <= floors``
+    otherwise; once ``max(kold) <= tol`` nothing moves any more."""
     precond = M is not None
-    w = applyA(u)
-    # the first iteration overwrites every companion (b = 0 there), so
-    # they start as aliases
-    z, s, p = w, w, u
-    q = u if precond else None
-    aold = torch.ones_like(kold)
-    iiter = torch.zeros((), dtype=torch.int64, device=kold.device)
-    stop = _tol_floor(floors, tol)
-    for it in range(niter):
+
+    def step(state, consts):
+        x, r, u, w, z, s, p, q, aold, kold, iiter, it, cost = state
+        floors, stop = consts
+        xdt = x.dtype
         active = torch.max(kold) > tol
         # the single reduction, first: the apply below does not wait on it
         g = _stacked(((r, u), (w, u)), block)
@@ -195,7 +192,7 @@ def _pipe_loop(applyA, M, xdt, x, r, u, kold, floors, cost, niter: int,
         done = (kold <= stop) if block else (gamma <= floors)
         done = _or_idle(done, active)
         zero = torch.zeros_like(gamma)
-        b = zero if it == 0 else torch.where(done, zero, gamma / kold)
+        b = zero if first else torch.where(done, zero, gamma / kold)
         a = torch.where(done, zero, gamma / (delta - b * gamma / aold))
         bs = _step_scalar(b, xdt)
         as_ = _step_scalar(a, xdt)
@@ -215,18 +212,35 @@ def _pipe_loop(applyA, M, xdt, x, r, u, kold, floors, cost, niter: int,
         aold = torch.where(done, aold, a)
         kold = torch.where(active, gamma, kold)
         iiter = iiter + active.to(iiter.dtype)
-        _record(cost, it + 1, torch.sqrt(kold), active)
-        if (it + 1) % _CHECK_EVERY == 0 and not bool(torch.max(kold) > tol):
-            break
+        it = it + 1
+        _record(cost, _slot(it, active, niter + 1), torch.sqrt(kold))
+        return x, r, u, w, z, s, p, q, aold, kold, iiter, it, cost
+    return step
+
+
+def _pipe_loop(solver: str, scalars, Op, M, y, applyA, x, r, u, kold,
+               floors, tol: float, niter: int, block: bool):
+    """The pipelined (P)CG loop from the seeded ``x, r, u = M r`` and
+    ``kold``: iteration 0 (its companions start as aliases, which it
+    overwrites), then the rest through :mod:`..aot.graphs`. Returns
+    ``(x, iiter, cost, kold)``."""
+    from ..aot import graphs
+    w = applyA(u)
+    state = (x, r, u, w, w, w, u, u if M is not None else None,
+             torch.ones_like(kold),
+             kold, torch.zeros((), dtype=torch.int64, device=kold.device),
+             _counter(kold.device), _history(torch.sqrt(kold), niter))
+    consts = (floors, _tol_floor(floors, tol))
+    if niter > 0:
+        state = _pipe_step(applyA, M, tol, block, niter, first=True)(
+            state, consts)
+    loop = graphs.Loop(solver, dict(scalars, tol=tol, mode="pipelined"),
+                       Op, M, y, state, consts,
+                       _pipe_step(applyA, M, tol, block, niter))
+    state = graphs.run_iterations(loop, lambda st: torch.max(st[9]) > tol,
+                                  niter, start=1)
+    x, kold, iiter, cost = state[0], state[9], state[10], state[12]
     return x, int(iiter), cost, kold
-
-
-def _cost0(first: torch.Tensor, niter: int) -> torch.Tensor:
-    """The ``(niter+1, ...)`` history buffer, ``first`` in its row 0."""
-    cost = torch.zeros((niter + 1,) + tuple(first.shape), dtype=first.dtype,
-                       device=first.device)
-    cost[0] = first
-    return cost
 
 
 def _tol_floor(floors: torch.Tensor, tol: float) -> torch.Tensor:
@@ -241,8 +255,8 @@ def _pipe_cg(Op, y, x, niter: int, tol: float, M, block: bool):
     r = y - Op.matvec(x)
     u = _precond_apply(M, r, xdt)
     kold = _bdot(r, u) if block else _rdot(r, u)
-    return _pipe_loop(Op.matvec, M, xdt, x, r, u, kold, _mp_floor(kold),
-                      _cost0(torch.sqrt(kold), niter), niter, tol, block)
+    return _pipe_loop("block_cg" if block else "cg", {}, Op, M, y, Op.matvec,
+                      x, r, u, kold, _mp_floor(kold), tol, niter, block)
 
 
 def _normal_apply(Op, damp2: float, xdt, normal: bool):
@@ -277,8 +291,9 @@ def _pipe_cgls(Op, y, x, niter: int, damp: float, tol: float,
     floors = _mp_floor(kold)
     r = rq + x * _step_scalar(sc - damp2, xdt)
     u = _precond_apply(M, r, xdt)
-    return _pipe_loop(applyA, M, xdt, x, r, u, kold, floors,
-                      _cost0(torch.sqrt(kold), niter), niter, tol, block)
+    return _pipe_loop("block_cgls" if block else "cgls",
+                      dict(damp=damp, normal=normal), Op, M, y, applyA, x, r,
+                      u, kold, floors, tol, niter, block)
 
 
 # ------------------------------------------------------ s-step engine
@@ -311,33 +326,21 @@ def _sstep_maps(s: int):
     return Amap, Smap
 
 
-def _sstep_cg(Op, y, x, niter: int, tol: float, s: int, M):
-    """s-step CA-CG (JAX ``_make_sstep_body``/``_sstep_cg_fused``).
-    Returns ``(x, iiter, cost, status)``; ``status`` is ``BREAKDOWN``
-    when the basis guard rejected an outer step."""
-    xdt = x.dtype
+def _sstep_outer(Op, M, niter: int, s: int):
+    """One outer step of s-step CA-CG (JAX ``_make_sstep_body``) over the
+    carry ``(x, r, z, p, kold, iiter, status, moved, cost)`` and the
+    constants ``(Amap, Smap, tol_floor)``: ``2s - 1`` operator applies,
+    ONE reduction of the Gram tile, then ``s`` CG steps on replicated
+    coordinate vectors."""
     precond = M is not None
-    r = y - Op.matvec(x)
-    r = DistributedArray._wrap(x._coerce_operand(r), x)
-    z = _precond_apply(M, r, xdt)
-    kold = _rdot(r, z)
-    floors = _mp_floor(kold)
-    cost = _cost0(torch.sqrt(kold), niter)
-    p = z
-    dev = kold.device
-    acc = accum_dtype(xdt)
-    Amap, Smap = (torch.as_tensor(t, dtype=acc, device=dev)
-                  for t in _sstep_maps(s))
     nv, nw = 2 * s + 1, 2 * s - 1
-    iiter = torch.zeros((), dtype=torch.int64, device=dev)
-    status = torch.tensor(RUNNING, dtype=torch.int32, device=dev)
-    tol_floor = _tol_floor(floors.to(acc), tol)
-    moved = torch.ones((), dtype=torch.bool, device=dev)
-    # ``moved``: an outer step that ran no inner step (every lane frozen
-    # at the machine floor, tol below it) ends the loop; the JAX
-    # package's while loop would spin there
-    while bool((iiter < niter) & (kold > tol) & (status == RUNNING)
-               & moved):
+
+    def step(state, consts):
+        x, r, z, p, kold, iiter, status, moved, cost = state
+        Amap, Smap, tol_floor = consts
+        xdt = x.dtype
+        acc = Amap.dtype
+        dev = kold.device
         # monomial chains from the direction p and the residual z: all
         # operator applies, no dots
         V, W = [p], []
@@ -392,7 +395,7 @@ def _sstep_cg(Op, y, x, niter: int, tol: float, s: int, M):
             cp = torch.where(live, cz + beta * cp, cp)
             k_run = torch.where(live, torch.abs(gamma_n), k_run)
             iit = iit + live.to(iit.dtype)
-            cost[iit] = torch.sqrt(k_run).to(cost.dtype)
+            _record(cost, iit.reshape(1), torch.sqrt(k_run))
         # recombination against the stored basis, local
         xn = x.array + (e @ Vm).to(x.dtype)
         rn = r.array - (d @ Wm[:nw]).to(r.dtype)
@@ -406,10 +409,41 @@ def _sstep_cg(Op, y, x, niter: int, tol: float, s: int, M):
         else:
             z = r
         kold = torch.where(bad, kold, k_run.to(kold.dtype))
-        status = torch.where(bad, torch.tensor(BREAKDOWN, dtype=torch.int32,
-                                               device=dev), status)
+        status = torch.where(bad, torch.full_like(status, BREAKDOWN), status)
+        # ``moved``: an outer step that ran no inner step (every lane
+        # frozen at the machine floor, tol below it) ends the loop; the
+        # JAX package's while loop would spin there
         moved = (iit > iiter) | bad
-        iiter = iit
+        return x, r, z, p, kold, iit, status, moved, cost
+    return step
+
+
+def _sstep_cg(Op, y, x, niter: int, tol: float, s: int, M):
+    """s-step CA-CG (JAX ``_make_sstep_body``/``_sstep_cg_fused``), its
+    outer steps through :mod:`..aot.graphs` (one outer step a segment).
+    Returns ``(x, iiter, cost, status)``; ``status`` is ``BREAKDOWN``
+    when the basis guard rejected an outer step."""
+    from ..aot import graphs
+    xdt = x.dtype
+    r = y - Op.matvec(x)
+    r = DistributedArray._wrap(x._coerce_operand(r), x)
+    z = _precond_apply(M, r, xdt)
+    kold = _rdot(r, z)
+    floors = _mp_floor(kold)
+    dev = kold.device
+    acc = accum_dtype(xdt)
+    Amap, Smap = (torch.as_tensor(t, dtype=acc, device=dev)
+                  for t in _sstep_maps(s))
+    state = (x, r, z, z, kold, torch.zeros((), dtype=torch.int64, device=dev),
+             torch.tensor(RUNNING, dtype=torch.int32, device=dev),
+             torch.ones((), dtype=torch.bool, device=dev),
+             _history(torch.sqrt(kold), niter))
+    loop = graphs.Loop("cg", dict(tol=tol, mode="sstep", s=s), Op, M, y,
+                       state, (Amap, Smap, _tol_floor(floors.to(acc), tol)),
+                       _sstep_outer(Op, M, niter, s), per_segment=1)
+    x, _, _, _, kold, iiter, status, _, cost = graphs.run_while(
+        loop, lambda st: ((st[5] < niter) & (st[4] > tol)
+                          & (st[6] == RUNNING) & st[7]))
     return x, int(iiter), cost, int(status)
 
 

@@ -9,9 +9,10 @@ change.
 ``fused=True`` keeps the eigenvalue, the stop flag and the iteration
 count on the device: a device ``active`` mask freezes the iterate, the
 eigenvalue and the count at the iteration where the stop triggered,
-and the host reads the flag only every ``_CHECK_EVERY`` iterations, as
-``solvers/basic.py`` does for CG/CGLS. ``fused=False`` reads the
-eigenvalue on the host every iteration. Both return the same result.
+and the host reads the flag only every 8 iterations, as
+``solvers/basic.py`` does for CG/CGLS (through :mod:`..aot.graphs`).
+``fused=False`` reads the eigenvalue on the host every iteration. Both
+return the same result.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ import torch
 from ..distributedarray import DistributedArray
 from ..ops._precision import as_torch_dtype
 from ..stacked import StackedDistributedArray
-from .basic import _CHECK_EVERY, _step_scalar
+from .basic import _step_scalar
 
 __all__ = ["power_iteration"]
 
@@ -96,23 +97,29 @@ def power_iteration(Op, b_k: Vector, niter: int = 10, tol: float = 1e-5,
             maxeig_old = maxeig
         return maxeig, b_k, iiter + 1
 
+    from ..aot import graphs
+
     def one_step(b):
         b1 = Op.matvec(b)
         maxeig = b.dot(b1, vdot=True)
         return b1 * _step_scalar(1.0 / b1.norm(), b1.dtype), maxeig
 
+    def step(state, consts):
+        b_k, maxeig, iiter, active = state
+        b_new, m_new = one_step(b_k)
+        converged = torch.abs(m_new - maxeig) < tol * torch.abs(m_new)
+        return (_where(active, b_new, b_k),
+                torch.where(active, m_new, maxeig),
+                iiter + active.to(iiter.dtype), active & ~converged)
+
     # the first step seeds the eigenvalue (the eager loop's comparison
     # with maxeig_old = 0), as the JAX package's while loop does
     b_k, maxeig = one_step(b_k)
-    active = ~(torch.abs(maxeig) < tol * torch.abs(maxeig))
-    iiter = torch.ones((), dtype=torch.int64, device=maxeig.device)
-    for it in range(1, niter):
-        if it % _CHECK_EVERY == 0 and not bool(active):
-            break
-        b_new, m_new = one_step(b_k)
-        converged = torch.abs(m_new - maxeig) < tol * torch.abs(m_new)
-        b_k = _where(active, b_new, b_k)
-        maxeig = torch.where(active, m_new, maxeig)
-        iiter = iiter + active.to(iiter.dtype)
-        active = active & ~converged
+    state = (b_k, maxeig,
+             torch.ones((), dtype=torch.int64, device=maxeig.device),
+             ~(torch.abs(maxeig) < tol * torch.abs(maxeig)))
+    loop = graphs.Loop("power_iteration", dict(tol=tol), Op, None, b_k,
+                       state, (), step)
+    b_k, maxeig, iiter, _ = graphs.run_iterations(loop, lambda st: st[3],
+                                                  niter, start=1)
     return _scalar(maxeig.item()), b_k, int(iiter)

@@ -34,10 +34,11 @@ from typing import Any, Callable, Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ..diagnostics import trace as _trace
 from ..distributedarray import DistributedArray
 from ..ops._precision import reduction_dtype
 from ..stacked import StackedDistributedArray
-from .basic import _CHECK_EVERY, _record, _step_scalar
+from .basic import _counter, _record, _slot, _step_scalar
 from .eigs import _where, power_iteration
 
 __all__ = ["ISTA", "FISTA", "ista", "fista"]
@@ -264,36 +265,25 @@ class FISTA(ISTA):
 
 
 # --------------------------------------------------------- fused (on-device)
-def _sparse_fused(Op, y: Vector, x0: Vector, alpha: float, eps: float,
-                  tol: float, decay: np.ndarray, *, niter: int,
-                  threshf: Callable, SOp=None, momentum: bool = False):
-    """The JAX package's ``_ista_fused`` loop with device scalars. The
-    step, decay and momentum scalars live at the model's reduction
-    dtype (so a Python float never promotes an f32 model), as do
-    ``xupdate`` and the cost; the step re-enters the update at the
-    model's dtype."""
-    xdt = x0.dtype
-    rdt = reduction_dtype(xdt)
-    dev = x0.device
-    thresh = eps * alpha * 0.5
-    decay_t = torch.as_tensor(np.asarray(decay), dtype=rdt, device=dev)
-    nd = decay_t.shape[0]
-    step = _step_scalar(torch.tensor(alpha, dtype=rdt, device=dev), xdt)
-    x, z = x0, x0.copy()
-    t = torch.tensor(1.0, dtype=rdt, device=dev)
-    cost = torch.zeros(niter, dtype=rdt, device=dev)
-    iiter = torch.zeros((), dtype=torch.int64, device=dev)
-    active = torch.ones((), dtype=torch.bool, device=dev)
-    for it in range(niter):
-        if it and it % _CHECK_EVERY == 0 and not bool(active):
-            break
+def _sparse_step(Op, SOp, threshf: Callable, eps: float, thresh: float,
+                 tol: float, nd: int, niter: int, momentum: bool):
+    """One iteration of the JAX package's ``_ista_fused`` loop over the
+    carry ``(x, z, t, cost, iiter, active, it)`` (``z`` and ``t`` only
+    with ``momentum``) and the constants ``(y, decay_t, step)``; the
+    decay is read through the device index ``it``."""
+    def step(state, consts):
+        x, z, t, cost, iiter, active, it = state
+        y, decay_t, stp = consts
+        xdt = x.dtype
+        rdt = cost.dtype
         xin = z if momentum else x
         res = y - Op.matvec(xin)
-        x_unthresh = xin + Op.rmatvec(res) * step
+        x_unthresh = xin + Op.rmatvec(res) * stp
         if SOp is not None:
             x_unthresh = SOp.rmatvec(x_unthresh)
+        decay = decay_t.index_select(0, torch.clamp(it, max=nd - 1))
         xnew = _apply_thresh(x_unthresh, threshf,
-                             decay_t[min(it, nd - 1)] * thresh)
+                             decay.reshape(()) * thresh)
         if SOp is not None:
             xnew = SOp.matvec(xnew)
         if momentum:
@@ -304,13 +294,49 @@ def _sparse_fused(Op, y: Vector, x0: Vector, alpha: float, eps: float,
             costdata = 0.5 * res.norm() ** 2
         costreg = eps * xnew.norm(1)
         xupdate = (xnew - x).norm().to(rdt)
-        _record(cost, it, (costdata + costreg).to(rdt), active)
+        _record(cost, _slot(it, active, niter), (costdata + costreg).to(rdt))
         if momentum:
             z = _where(active, znew, z)
             t = torch.where(active, tnew, t)
         x = _where(active, xnew, x)
         iiter = iiter + active.to(iiter.dtype)
         active = active & (xupdate > tol)
+        return x, z, t, cost, iiter, active, it + 1
+    return step
+
+
+def _sparse_fused(Op, y: Vector, x0: Vector, alpha: float, eps: float,
+                  tol: float, decay: np.ndarray, *, niter: int,
+                  threshf: Callable, SOp=None, momentum: bool = False):
+    """The JAX package's ``_ista_fused`` loop with device scalars,
+    through :mod:`..aot.graphs`; the host checks ``active`` at the top
+    of iterations 8, 16, …. The step, decay and momentum scalars live
+    at the model's reduction dtype (so a Python float never promotes an
+    f32 model), as do ``xupdate`` and the cost; the step re-enters the
+    update at the model's dtype."""
+    from ..aot import graphs
+    xdt = x0.dtype
+    rdt = reduction_dtype(xdt)
+    dev = x0.device
+    thresh = eps * alpha * 0.5
+    decay = np.asarray(decay)
+    decay_t = torch.as_tensor(decay, dtype=rdt, device=dev)
+    step = _step_scalar(torch.tensor(alpha, dtype=rdt, device=dev), xdt)
+    state = (x0, x0.copy() if momentum else None,
+             torch.tensor(1.0, dtype=rdt, device=dev) if momentum else None,
+             torch.zeros(niter + 1, dtype=rdt, device=dev),
+             torch.zeros((), dtype=torch.int64, device=dev),
+             torch.ones((), dtype=torch.bool, device=dev),
+             _counter(dev))
+    loop = graphs.Loop(
+        "fista" if momentum else "ista",
+        dict(alpha=alpha, eps=eps, tol=tol, decay=tuple(decay.tolist()),
+             threshf=threshf.__name__, sop=SOp is not None),
+        Op, SOp, y, state, (y, decay_t, step),
+        _sparse_step(Op, SOp, threshf, eps, thresh, tol,
+                     decay_t.shape[0], niter, momentum))
+    x, _, _, cost, iiter, _, _ = graphs.run_iterations(
+        loop, lambda st: st[5], niter)
     iiter = int(iiter)
     return x, iiter, cost[:iiter]
 
@@ -318,10 +344,24 @@ def _sparse_fused(Op, y: Vector, x0: Vector, alpha: float, eps: float,
 def _sparse_solve(name, Op, y, x0, niter, SOp, eps, alpha, eigsdict, tol,
                   threshkind, perc, decay, monitorres, show, itershow,
                   callback, fused):
-    """Shared body of :func:`ista` and :func:`fista`."""
-    momentum = name == "fista"
+    """Shared body of :func:`ista` and :func:`fista`, inside the
+    ``solver.<name>`` span (JAX ``sparsity.py:485``, ``:526``; ``guards``
+    and ``telemetry`` are always false here: neither is ported)."""
     use_fused = fused if fused is not None else \
         (callback is None and not show and not monitorres and perc is None)
+    with _trace.span(f"solver.{name}", cat="solver", op=type(Op).__name__,
+                     shape=Op.shape, niter=niter, eps=eps,
+                     threshkind=threshkind, fused=use_fused, guards=False,
+                     telemetry=False):
+        return _sparse_run(name, Op, y, x0, niter, SOp, eps, alpha,
+                           eigsdict, tol, threshkind, perc, decay,
+                           monitorres, show, itershow, callback, use_fused)
+
+
+def _sparse_run(name, Op, y, x0, niter, SOp, eps, alpha, eigsdict, tol,
+                threshkind, perc, decay, monitorres, show, itershow,
+                callback, use_fused):
+    momentum = name == "fista"
     if not use_fused:
         solver = (FISTA if momentum else ISTA)(Op)
         if callback is not None:

@@ -82,6 +82,9 @@ SERVICE_KNOBS = [
      "serving/service.py", "graceful drain bound in seconds"),
     ("PYLOPS_MPI_TPU_TORCH_TUNE_CACHE", "path", "", "tuning/cache.py",
      "plan-cache file (memory only when unset)"),
+    ("PYLOPS_MPI_TPU_TORCH_AOT", "off|on|auto", "off", "aot/store.py",
+     "run the fused solver loops as captured CUDA graphs (auto is off: "
+     "no disk bank)"),
 ]
 
 

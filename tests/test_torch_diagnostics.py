@@ -292,3 +292,96 @@ def test_profile_capture(tmp_path):
     trace = json.loads((tmp_path / "out" / "trace.json").read_text())
     names = {e.get("name") for e in trace["traceEvents"]}
     assert "region" in names
+
+
+# ------------------------------------------ operator, solver, collectives
+def _solver_workload(pkg, conv, tr):
+    """``cgls`` (5 iterations), ``ista`` (5) and one ``matvec`` on one
+    4-block ``MPIBlockDiag``: the operator and solver spans of both
+    packages, as ``(name, cat, tag keys)`` per name and the ``op`` tags."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    blocks = [rng.standard_normal((6, 5)) + 2 * np.eye(6, 5)
+              for _ in range(4)]
+    y = rng.standard_normal(24)
+    op, yy, x0 = conv(blocks, y, np.zeros(20))
+    pkg.cgls(op, yy, niter=5, tol=0.0)
+    pkg.ista(op, yy, x0, niter=5, tol=0.0)
+    op.matvec(x0)
+    seen = {}
+    for e in tr.get_events():
+        keys = set(e["args"]) - {"mesh_axes", "jax_tracing"}
+        seen.setdefault(e["name"], (e["cat"], frozenset(keys),
+                                    e["args"].get("op")))
+    return seen
+
+
+def test_operator_and_solver_spans_match_jax(monkeypatch):
+    import numpy as np
+    import pylops_mpi_tpu as pmt
+    import pylops_mpi_tpu_torch as pmtt
+    from pylops_mpi_tpu.ops.local import MatrixMult as JM
+
+    def jconv(blocks, y, x0):
+        return (pmt.MPIBlockDiag([JM(b) for b in blocks]),
+                pmt.DistributedArray.to_dist(y),
+                pmt.DistributedArray.to_dist(x0))
+
+    def tconv(blocks, y, x0):
+        return (pmtt.convert.blockdiag_from_numpy(blocks, device="cpu"),
+                pmtt.DistributedArray.to_dist(y, device="cpu"),
+                pmtt.DistributedArray.to_dist(x0, device="cpu"))
+
+    # tracing off: the port records nothing, op_span is the shared no-op
+    _solver_workload(pmtt, tconv, ttrace)
+    assert ttrace.get_events() == []
+    assert ttrace.op_span(object(), "matvec") is ttrace.span("x")
+    out = []
+    for pkg, conv, (tr, _, pre) in ((pmt, jconv, PAIRS[0]),
+                                    (pmtt, tconv, PAIRS[1])):
+        monkeypatch.setenv(pre + "TRACE", "spans")
+        out.append(_solver_workload(pkg, conv, tr))
+    j, t = out
+    # names and tags, not counts: the JAX package opens op_span once at
+    # trace time under jit, the port at every apply
+    assert set(t) == set(j) == {
+        "MPIBlockDiag.matvec", "MPIBlockDiag.rmatvec",
+        "_AdjointLinearOperator.matvec", "_ProductLinearOperator.matvec",
+        "solver.cgls", "solver.ista"}
+    assert t == j
+
+
+def test_collectives_count_into_the_registry(monkeypatch, tmp_path):
+    import torch
+    import torch.distributed as dist
+    import pylops_mpi_tpu_torch as pmtt
+    from pylops_mpi_tpu_torch.parallel import collectives as co
+    monkeypatch.setenv("PYLOPS_MPI_TPU_TORCH_METRICS", "on")
+    monkeypatch.setenv("PYLOPS_MPI_TPU_TORCH_TRACE", "spans")
+    co.reset_counts()
+    pmtt.parallel.init(backend="gloo", world_size=1, rank=0, device="cpu",
+                       store=dist.FileStore(str(tmp_path / "store"), 1))
+    try:
+        x = pmtt.DistributedArray.to_dist(torch.arange(6.0), device="cpu")
+        x.dot(x)
+        x.norm()
+        co.all_gather(torch.ones(3), [3])
+        # a Cartesian exchange along an axis of two ranks, its transfer
+        # stubbed: the event of JAX ``collectives.py:338``
+        monkeypatch.setattr(co, "world_size", lambda: 2)
+        monkeypatch.setattr(co, "_p2p", lambda s, r, g: None)
+        co.cart_halo_extend(torch.ones(4, 3), (2, 1), 0, 1, 1)
+    finally:
+        pmtt.parallel.destroy()
+    counters = tmetrics.snapshot()["counters"]
+    for name, n in co.counts.items():
+        assert counters[f"collective.{name}.calls"] == n
+        assert counters[f"collective.{name}.bytes"] == co.received[name]
+    assert co.counts["all_reduce"] == 2 and co.counts["all_gather"] == 1
+    ev = [e for e in ttrace.get_events()
+          if e["name"] == "collective.cart_halo_extend"]
+    assert len(ev) == 1 and ev[0]["cat"] == "collective"
+    assert set(ev[0]["args"]) == {"shape", "dtype", "axis", "grid", "ax",
+                                  "hm", "hp", "seq"}
+    assert ev[0]["args"]["grid"] == [2, 1] and co.counts[
+        "cart_halo_extend"] == 1
