@@ -207,6 +207,31 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    1e-5 of the no-group solve. Run it alone with ``graphs_phase(torch,
    pmtt, (nk, sk), here, dev)``.
 
+23. Slice 12, the resilience tier at phase 3's width. 23.1
+   ``resilient_solve`` of bf16 storage under ``cgls(normal=True)``,
+   ``NITER_23`` iterations with a NaN armed at ``NAN_AT_23``: the bf16
+   rung ends ``breakdown`` within 2 iterations and restarts once at f32
+   from its last finite iterate, to phase 3's error limit; the launch
+   counts by dtype show ``_normal_kernel_stream`` (bf16) then
+   ``_normal_kernel`` (f32); the restart's operator rebuild in ms. 23.2
+   the same through the graph bank, then a clean guarded bf16 solve of
+   the poisoned loop's key: a new capture, bitwise the eager clean
+   solve. 23.3 ``refined_solve`` (bf16 inner, f64 wide) converged at
+   1e-10 with a narrow share of at least 0.8. 23.4 classic
+   ``cgls_segmented`` (48 iterations, epochs of 8, a checkpoint each)
+   bitwise the fused ``cgls``, killed at epoch 3 and resumed bitwise;
+   ms a checkpoint, iters/s against the fused solve in 4 pairs. 23.5
+   ``launch_job`` of two gloo workers on the card (this script with
+   ``--resilience-worker``), an f64 segmented CGLS with the shards
+   backend; worker 0 SIGSTOPped after its first checkpoint, classified
+   ``stale_heartbeat`` within 2 beats + 1 s, the job relaunched at a
+   world of one; x within 1e-6 of the no-group solve; the relaunch
+   wall. 23.6 the pipelined ``cgls(normal=True)`` under a group of one
+   over NCCL and ``fista_guarded`` on phase 9's cube, each with a NaN:
+   ``breakdown``, x bitwise the clean solve's of one iteration fewer;
+   guard-on over guard-off wall in pairs. Run it alone with
+   ``resilience_phase(torch, pmtt, (nk, sk), here, dev)``.
+
 Phases 8, 9, 11-13, 16-18 and 21 (and phase 20's pool case) reach none
 of the hand-written kernels (a block solve of ``MPIBlockDiag`` runs a
 batched GEMM, bucket 1 runs classic ``cgls``): the
@@ -4010,6 +4035,461 @@ def graphs_phase(torch, pmtt, kernels, here, dev, eager21=None):
     return res
 
 
+# ------------------------------------------------------------ phase 23
+NITER_23 = 60        # 23.1/23.2: bf16 to the NaN, then f32 from there
+NAN_AT_23 = 10
+ERR_LIMIT_23 = 1e-4  # phase 3's f32 error limit
+REFINE_TOL_23, NARROW_MIN_23 = 1e-10, 0.8
+SEG_NITER_23, SEG_EPOCH_23, SEG_KILL_23, PAIRS_23 = 48, 8, 3, 4
+HB_23, SLEEP_23 = 1.0, 0.5   # 23.5: beat interval, first attempt's nap
+NITER_CA_23, NITER_FISTA_23, NAN_FISTA_23 = 30, 20, 5
+
+
+class _Kill(Exception):
+    pass
+
+
+def _sync(torch):
+    torch.cuda.synchronize()
+
+
+def _ms_since(torch, t0):
+    _sync(torch)
+    return (time.perf_counter() - t0) * 1e3
+
+
+def resilient_part(torch, pmtt, nk, A, xtrue, y, aot):
+    """23.1 (eager) / 23.2 (through the bank): ``resilient_solve`` of
+    bf16 storage under ``cgls(normal=True)``, NaN at NAN_AT_23, the
+    restart at f32. Returns the record, the factory's operators and x."""
+    from pylops_mpi_tpu_torch.ops import _precision as prec
+    from pylops_mpi_tpu_torch.ops.local import MatrixMult
+    from pylops_mpi_tpu_torch.resilience import faults
+    ops, builds = {}, []
+
+    def make_op(cdt):
+        if str(cdt) not in ops:
+            t0 = time.perf_counter()
+            ops[str(cdt)] = pmtt.MPIBlockDiag(
+                [MatrixMult(A[i]) for i in range(A.shape[0])],
+                compute_dtype=cdt)
+            builds.append(_ms_since(torch, t0))
+        return ops[str(cdt)]
+
+    set_aot(aot)
+    prec.set_precision("bf16")  # the first rung: the policy's bf16
+    try:
+        nk.reset_launches()
+        faults.arm("nan", NAN_AT_23)
+        t0 = time.perf_counter()
+        res = pmtt.resilient_solve(make_op, y, solver="cgls", niter=NITER_23,
+                                   tol=0.0, normal=True)
+        wall = _ms_since(torch, t0)
+        by = dict(nk.launches_by_dtype)
+    finally:
+        prec.set_precision(None)
+        faults.disarm()
+        set_aot(False)
+    att = res.attempts
+    err = rel_norm(res.x.array, xtrue)
+    rec = dict(attempts=att, restarts=res.restarts, status=res.status,
+               iiter=res.iiter, rel_err=err, wall_ms=wall, build_ms=builds,
+               rebuild_ms=builds[1] if len(builds) > 1 else None,
+               launches_by_dtype=by)
+    ok = (res.restarts == 1 and len(att) == 2
+          and att[0]["compute_dtype"] == "bfloat16"
+          and att[0]["status"] == "breakdown"
+          and NAN_AT_23 <= att[0]["iiter"] <= NAN_AT_23 + 2
+          and att[1]["compute_dtype"] == "float32"
+          and by.get("bfloat16", 0) >= att[0]["iiter"] > 0
+          and by.get("float32", 0) >= att[1]["iiter"] > 0
+          and err <= ERR_LIMIT_23)
+    print(f"23.{2 if aot else 1} resilient_solve cgls(normal=True) "
+          f"{'graph bank on' if aot else 'eager'}: attempts {att}, restarts "
+          f"{res.restarts}, rel err {err:.3e} (limit {ERR_LIMIT_23:.0e}), "
+          f"{res.iiter} iterations in {wall:.1f} ms; normal-kernel launches "
+          f"by dtype {by} (bfloat16 = _normal_kernel_stream, float32 = "
+          f"_normal_kernel); operator builds {[round(b, 2) for b in builds]} "
+          f"ms, the restart's rebuild {rec['rebuild_ms']:.2f} ms",
+          flush=True)
+    if not ok:
+        raise RuntimeError(f"23.{2 if aot else 1}: {rec}")
+    return rec, ops, res.x.array.clone()
+
+
+def refined_part(torch, pmtt, nk, A, y):
+    """23.3: ``refined_solve`` of cgls(normal=True), bf16 inner solves and
+    f64 wide applies, to tol 1e-10."""
+    from pylops_mpi_tpu_torch.ops.local import MatrixMult
+    A64 = A.double()
+
+    def make_op(dt):
+        if dt == torch.float64:
+            return pmtt.MPIBlockDiag([MatrixMult(A64[i])
+                                      for i in range(A.shape[0])])
+        return pmtt.MPIBlockDiag([MatrixMult(A[i])
+                                  for i in range(A.shape[0])],
+                                 compute_dtype=dt)
+
+    nk.reset_launches()
+    t0 = time.perf_counter()
+    res = pmtt.resilience.refined_solve(
+        make_op, y, solver="cgls", niter=200, tol=REFINE_TOL_23,
+        inner_dtype=torch.bfloat16, inner_niter=50, inner_tol=1e-4,
+        max_passes=10, normal=True)
+    wall = _ms_since(torch, t0)
+    rec = dict(status=res.status, passes=res.passes, inner_iters=res.iiter,
+               narrow_frac=res.narrow_frac, residuals=res.residuals,
+               attempts=[a["compute_dtype"] for a in res.attempts],
+               wall_ms=wall, launches_by_dtype=dict(nk.launches_by_dtype))
+    print(f"23.3 refined_solve cgls(normal=True), bf16 inner, f64 wide: "
+          f"{res.status} at tol {REFINE_TOL_23:.0e} in {res.passes} passes, "
+          f"{res.iiter} inner iterations, narrow share {res.narrow_frac:.4f} "
+          f"(min {NARROW_MIN_23}), residuals {res.residuals}, inner dtypes "
+          f"{rec['attempts']}, {wall:.1f} ms wall; normal-kernel launches "
+          f"by dtype {rec['launches_by_dtype']}", flush=True)
+    if res.status != "converged" or res.narrow_frac < NARROW_MIN_23:
+        raise RuntimeError(f"23.3: {rec}")
+    del A64
+    return rec
+
+
+def segmented_part(torch, pmtt, A, y):
+    """23.4: classic ``cgls_segmented``, bitwise the fused solve, killed
+    at an epoch and resumed bitwise from its checkpoint; ms per
+    checkpoint and iters/s against the fused solve in pairs."""
+    import shutil
+    import tempfile
+    from pylops_mpi_tpu_torch.ops.local import MatrixMult
+    from pylops_mpi_tpu_torch.utils import checkpoint as ck
+    seg = pmtt.solvers.segmented.cgls_segmented
+    Op = pmtt.MPIBlockDiag([MatrixMult(A[i]) for i in range(A.shape[0])])
+    kw = dict(niter=SEG_NITER_23, tol=0.0)
+    fused = pmtt.cgls(Op, y, **kw)
+    ref = seg(Op, y, epoch=SEG_EPOCH_23, **kw)
+    same = (torch.equal(ref.x.array, fused[0].array)
+            and torch.equal(ref.cost, fused[5]))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_seg_")
+    path = f"{tmp}/carry.ckpt"
+    saves = []
+    orig = ck.save_fused_carry
+
+    def timed_save(*a, **k):
+        t0 = time.perf_counter()
+        orig(*a, **k)
+        saves.append(_ms_since(torch, t0))
+
+    def kill(info):
+        if info["epoch"] == SEG_KILL_23:
+            raise _Kill
+
+    ck.save_fused_carry = timed_save
+    try:
+        try:
+            seg(Op, y, epoch=SEG_EPOCH_23, checkpoint_path=path,
+                on_epoch=kill, **kw)
+        except _Kill:
+            pass
+        res = seg(Op, y, epoch=SEG_EPOCH_23, checkpoint_path=path, **kw)
+    finally:
+        ck.save_fused_carry = orig
+        shutil.rmtree(tmp, ignore_errors=True)
+    resumed = (torch.equal(res.x.array, ref.x.array)
+               and torch.equal(res.cost, ref.cost) and res.iiter == ref.iiter)
+    walls = {"fused": [], "segmented": []}
+    for i in range(PAIRS_23):
+        for name in (("fused", "segmented") if i % 2 == 0
+                     else ("segmented", "fused")):
+            t0 = time.perf_counter()
+            if name == "fused":
+                pmtt.cgls(Op, y, **kw)
+            else:
+                seg(Op, y, epoch=SEG_EPOCH_23, **kw)
+            walls[name].append(_ms_since(torch, t0) / 1e3)
+    ips = {k: [SEG_NITER_23 / w for w in v] for k, v in walls.items()}
+    ratios = [s / f for s, f in zip(ips["segmented"], ips["fused"])]
+    rec = dict(bitwise_fused=same, bitwise_resumed=resumed,
+               resumed_epochs=res.epochs, checkpoint_ms=saves,
+               ms_per_checkpoint=float(np.mean(saves)), iters_per_s=ips,
+               segmented_over_fused=ratios)
+    print(f"23.4 cgls_segmented classic, {SEG_NITER_23} iterations, epoch "
+          f"{SEG_EPOCH_23}: x and cost bitwise the fused solve's: {same}; "
+          f"killed at epoch {SEG_KILL_23}, resumed ({res.epochs} epochs) "
+          f"bitwise: {resumed}; {float(np.mean(saves)):.2f} ms per "
+          f"checkpoint ({[round(v, 2) for v in saves]}); iters/s fused "
+          f"{[round(v, 1) for v in ips['fused']]}, segmented "
+          f"{[round(v, 1) for v in ips['segmented']]}, segmented/fused "
+          f"{[round(v, 4) for v in ratios]}", flush=True)
+    if not (same and resumed):
+        raise RuntimeError(f"23.4: {rec}")
+    del Op
+    return rec
+
+
+def resilience_problem(torch, pmtt, dev, nblk, nblock):
+    """23.5's f64 problem: phase 3's seeded blocks (made on the card in
+    every process alike) widened to f64, this rank's chunk only."""
+    from pylops_mpi_tpu_torch.ops.blockdiag import _chunk_ops
+    from pylops_mpi_tpu_torch.ops.local import MatrixMult, ShapeOnly
+    from pylops_mpi_tpu_torch.parallel.mesh import rank, world_size
+    g = torch.Generator(device=dev).manual_seed(5)
+    A = torch.randn((nblk, nblock, nblock), generator=g, device=dev)
+    A /= math.sqrt(nblock)
+    A.diagonal(dim1=1, dim2=2).add_(4.0)
+    xt = torch.randn((nblk, nblock), generator=g, device=dev)
+    y = torch.bmm(A, xt.unsqueeze(-1)).reshape(-1).double()
+    mine = set(_chunk_ops(list(range(nblk)), world_size())[rank()])
+    ops = [MatrixMult(A[i].double()) if i in mine
+           else ShapeOnly(nblock, nblock, dtype=torch.float64)
+           for i in range(nblk)]
+    del A
+    return pmtt.MPIBlockDiag(ops), pmtt.DistributedArray.to_dist(y)
+
+
+def resilience_worker(args):
+    """23.5's supervised worker (``chip_smoke.py --resilience-worker
+    CKPT OUT MARK DEVICE NBLK NBLOCK``): join the attempt's gloo group
+    on the card, run the segmented f64 CGLS with the shards backend from
+    its checkpoint, write rank 0's x, leave with ``os._exit`` (a group
+    whose peer died would hang its shutdown)."""
+    import os
+    ckpt, out, mark, device = args[:4]
+    nblk, nblock = int(args[4]), int(args[5])
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import torch
+    import pylops_mpi_tpu_torch as pmtt
+    from pylops_mpi_tpu_torch.resilience import elastic
+    cfg = elastic.elastic_initialize(backend="gloo", device=device)
+    Op, y = resilience_problem(torch, pmtt, torch.device(device), nblk,
+                               nblock)
+
+    def on_epoch(info):
+        with open(mark, "w") as f:
+            f.write(str(info["epoch"]))
+        if cfg.attempt == 0:
+            time.sleep(SLEEP_23)
+
+    res = pmtt.cgls_segmented(Op, y, niter=SEG_NITER_23, tol=0.0,
+                              epoch=SEG_EPOCH_23, checkpoint_path=ckpt,
+                              backend="shards", on_epoch=on_epoch)
+    x = res.x.asarray()
+    if pmtt.parallel.rank() == 0:
+        np.save(out, x)
+    print(f"worker attempt {cfg.attempt} world {cfg.num_processes or 1}: "
+          f"{res.iiter} iterations, {res.epochs} epochs here", flush=True)
+    sys.stdout.flush()
+    os._exit(0)
+
+
+def supervised_part(torch, pmtt, here, dev):
+    """23.5: ``launch_job`` of two gloo workers sharing the card; worker 0
+    SIGSTOPped once its first checkpoint lands; the stale heartbeat
+    classified and the job relaunched on a world of one, which resumes
+    from the shards checkpoint; x held against the no-group solve."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+    from pylops_mpi_tpu_torch.resilience.supervisor import launch_job
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sup_")
+    out, mark = f"{tmp}/x.npy", f"{tmp}/mark"
+    stopped, relaunched = {}, {}
+
+    def on_poll(attempt, workers):
+        if attempt == 0 and not stopped and os.path.exists(mark):
+            workers[0].proc.send_signal(signal.SIGSTOP)
+            stopped["t"] = time.monotonic()
+
+    def on_relaunch(attempt, failure):
+        relaunched["t"] = time.monotonic()
+
+    argv = [str(here / "chip_smoke.py"), "--resilience-worker",
+            f"{tmp}/carry", out, mark, str(dev), str(NBLK), str(NBLOCK)]
+    try:
+        t0 = time.monotonic()
+        r = launch_job(argv, 2, heartbeat_interval=HB_23, stale_factor=2.0,
+                       grace_s=300.0, job_timeout_s=900, on_poll=on_poll,
+                       on_relaunch=on_relaunch, logdir=f"{tmp}/logs")
+        t_end = time.monotonic()
+        if not r.ok:
+            raise RuntimeError(f"23.5: the job failed: {r.failures} "
+                               f"{r.outputs}")
+        x = np.load(out)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    f = r.failures[0] if r.failures else None
+    import re
+    m = re.search(r"no heartbeat for ([\d.]+)s", f.detail) if f else None
+    age = float(m.group(1)) if m else None
+    Op, y = resilience_problem(torch, pmtt, dev, NBLK, NBLOCK)
+    ref = pmtt.cgls_segmented(Op, y, niter=SEG_NITER_23, tol=0.0,
+                              epoch=SEG_EPOCH_23)
+    xr = ref.x.array.cpu().numpy()
+    gap = float(np.abs(x - xr).max() / np.abs(xr).max())
+    rec = dict(attempts=r.attempts, world_size=r.world_size,
+               failure=f.as_dict() if f else None, beat_age_s=age,
+               detect_after_stop_s=(relaunched["t"] - stopped["t"]
+                                    if stopped and relaunched else None),
+               relaunch_wall_s=t_end - relaunched.get("t", t_end),
+               job_wall_s=t_end - t0, gap=gap)
+    print(f"23.5 launch_job, 2 gloo workers on the card, f64 "
+          f"cgls_segmented ({NBLK}x{NBLOCK}^2) with the shards backend: "
+          f"worker 0 SIGSTOPped after its first checkpoint; failure "
+          f"{rec['failure']}; beat age {age} s (limit {2 * HB_23 + 1} s); "
+          f"relaunched at world {r.world_size} in attempt {r.attempts}; "
+          f"relaunch wall {rec['relaunch_wall_s']:.2f} s (job "
+          f"{rec['job_wall_s']:.2f} s); resumed x against the no-group "
+          f"solve {gap:.3e} (limit 1e-6)", flush=True)
+    if not (f and f.kind == "stale_heartbeat" and f.slot == 0
+            and age is not None and age <= 2 * HB_23 + 1.0
+            and r.attempts == 2 and r.world_size == 1 and gap <= 1e-6):
+        raise RuntimeError(f"23.5: {rec}")
+    del Op, y, ref
+    return rec
+
+
+def guarded_ca_part(torch, pmtt, A, y, dev):
+    """23.6: pipelined cgls(normal=True) under a group of one over NCCL,
+    and fista_guarded at phase 9's width, each with a NaN: breakdown, x
+    the clean solve's of one iteration fewer, bitwise; guard-on over
+    guard-off wall of the pipelined engine in pairs."""
+    import os
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    from pylops_mpi_tpu_torch.ops.local import Conv1D, MatrixMult
+    from pylops_mpi_tpu_torch.resilience import faults, status
+    out = {}
+    Op = pmtt.MPIBlockDiag([MatrixMult(A[i]) for i in range(A.shape[0])])
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ca23_")
+    set_ca("pipelined")
+    pmtt.parallel.init(backend="nccl", store=dist.FileStore(f"{tmp}/store", 1),
+                       rank=0, world_size=1, device=dev)
+    try:
+        faults.arm("nan", NAN_AT_23)
+        x, iiter, _, _, _, code = pmtt.cgls_guarded(
+            Op, y, niter=NITER_CA_23, tol=0.0, normal=True)
+        clean = pmtt.cgls_guarded(Op, y, niter=iiter - 1, tol=0.0,
+                                  normal=True)[0]
+        held = torch.equal(x.array, clean.array)
+        walls = {True: [], False: []}
+        for i in range(PAIRS_23):
+            for g in ((True, False) if i % 2 == 0 else (False, True)):
+                t0 = time.perf_counter()
+                pmtt.cgls(Op, y, niter=NITER_CA_23, tol=0.0, normal=True,
+                          guards=g)
+                walls[g].append(_ms_since(torch, t0))
+    finally:
+        faults.disarm()
+        set_ca("off")
+        os.environ.pop("PYLOPS_MPI_TPU_TORCH_CA", None)
+        pmtt.parallel.destroy()
+        shutil.rmtree(tmp, ignore_errors=True)
+    ratios = [a / b for a, b in zip(walls[True], walls[False])]
+    out["pipelined_cgls_normal"] = dict(
+        status=status.status_name(code), iiter=iiter, x_held=held,
+        guard_on_ms=walls[True], guard_off_ms=walls[False],
+        on_over_off=ratios)
+    print(f"23.6 pipelined cgls(normal=True), group of one over NCCL, NaN at "
+          f"{NAN_AT_23}: {status.status_name(code)} at iteration {iiter}, x "
+          f"bitwise the clean solve's of {iiter - 1} iterations: {held}; "
+          f"{NITER_CA_23} iterations guard on {[round(v, 2) for v in walls[True]]}"
+          f" ms, off {[round(v, 2) for v in walls[False]]} ms, on/off "
+          f"{[round(v, 4) for v in ratios]}", flush=True)
+    if code != status.BREAKDOWN or not held:
+        raise RuntimeError(f"23.6 pipelined: {out}")
+    del Op
+    torch.cuda.empty_cache()
+    # fista_guarded on phase 9's cube
+    f32 = torch.float32
+    dims = (NY_R // NBLK_R, NX_R, NZ_R)
+    wav = pmtt.models.ricker(np.arange(21) * 0.004, f0=15)[0]
+    Cop = pmtt.MPIBlockDiag([Conv1D(dims, wav, axis=-1, offset=len(wav) // 2,
+                                    dtype=f32, device=dev)] * NBLK_R)
+    m, _ = reflectivity_model(torch, dev, seed=7)
+    d = Cop @ pmtt.DistributedArray.to_dist(m.reshape(-1))
+    x0 = d.zeros_like()
+    kw = dict(eps=EPS_SPARSE, tol=0.0)
+    pmtt.fista(Cop, d, x0=x0, niter=1, **kw)  # the cached step size
+    faults.arm("nan", NAN_FISTA_23)
+    try:
+        x, iiter, _, code = pmtt.solvers.fista_guarded(
+            Cop, d, x0, niter=NITER_FISTA_23, **kw)
+    finally:
+        faults.disarm()
+    clean = pmtt.solvers.fista_guarded(Cop, d, x0, niter=iiter - 1, **kw)[0]
+    held = torch.equal(x.array, clean.array) and \
+        bool(torch.isfinite(x.array).all())
+    out["fista"] = dict(status=status.status_name(code), iiter=iiter,
+                        x_held=held, shape=[NY_R, NX_R, NZ_R])
+    print(f"23.6 fista_guarded ({NY_R}, {NX_R}, {NZ_R}) f32, NaN at "
+          f"{NAN_FISTA_23}: {status.status_name(code)} at iteration {iiter}, "
+          f"x bitwise the clean solve's of {iiter - 1} iterations: {held}",
+          flush=True)
+    if code != status.BREAKDOWN or not held:
+        raise RuntimeError(f"23.6 fista: {out}")
+    del Cop, d, x0, m
+    torch.cuda.empty_cache()
+    return out
+
+
+def resilience_phase(torch, pmtt, kernels, here, dev):
+    """Phase 23: the resilience tier at phase 3's width (23.1-23.6)."""
+    from pylops_mpi_tpu_torch.aot import graphs
+    from pylops_mpi_tpu_torch.resilience import faults
+    nk = kernels[0]
+    A, xtrue, y_t = make_problem(torch, dev)
+    y = pmtt.DistributedArray.to_dist(y_t)
+    res = {}
+    t = time.perf_counter()
+    res["resilient_eager"], _, x_eager = resilient_part(
+        torch, pmtt, nk, A, xtrue, y, aot=False)
+    torch.cuda.empty_cache()
+    graphs.reset_capture_count()
+    res["resilient_graphs"], ops, x_graph = resilient_part(
+        torch, pmtt, nk, A, xtrue, y, aot=True)
+    # a clean solve of the poisoned bf16 loop's key, but for the fault:
+    # it must capture anew and equal the eager clean solve bitwise
+    bf16 = ops["None"]
+    faults.disarm()
+    set_aot(True)
+    try:
+        before = graphs.capture_count()
+        xc = pmtt.cgls_guarded(bf16, y, niter=NITER_23, tol=0.0,
+                               normal=True)[0].array.clone()
+        captured = graphs.capture_count() - before
+    finally:
+        set_aot(False)
+    xe = pmtt.cgls_guarded(bf16, y, niter=NITER_23, tol=0.0,
+                           normal=True)[0].array
+    clean_same = torch.equal(xc, xe)
+    graph_same = torch.equal(x_graph, x_eager)
+    res["resilient_graphs"].update(clean_captures=captured,
+                                   clean_bitwise_eager=clean_same,
+                                   bitwise_eager_resilient=graph_same,
+                                   bank=graphs.stats())
+    print(f"23.2 clean bf16 guarded solve of the poisoned key: "
+          f"{captured} new captures, bitwise the eager clean solve: "
+          f"{clean_same}; the banked resilient_solve bitwise the eager one: "
+          f"{graph_same}; bank stats {graphs.stats()}", flush=True)
+    if captured < 1 or not clean_same or not graph_same:
+        raise RuntimeError("23.2: the clean solve replayed the poisoned graph "
+                           "or differs from the eager one")
+    del ops, bf16, xc, xe
+    pmtt.aot.store.clear_memory()
+    torch.cuda.empty_cache()
+    res["refined"] = refined_part(torch, pmtt, nk, A, y)
+    torch.cuda.empty_cache()
+    res["segmented"] = segmented_part(torch, pmtt, A, y)
+    torch.cuda.empty_cache()
+    res["guarded_ca"] = guarded_ca_part(torch, pmtt, A, y, dev)
+    del A, xtrue, y_t, y
+    torch.cuda.empty_cache()
+    res["supervised"] = supervised_part(torch, pmtt, here, dev)
+    res["wall_s"] = time.perf_counter() - t
+    return res
+
+
 def main() -> int:
     here = Path(__file__).resolve().parent
     if not (here / "pylops_mpi_tpu_torch" / "__init__.py").is_file():
@@ -4427,6 +4907,12 @@ def main() -> int:
     slice11 = graphs_phase(torch, pmtt, kernel_mods, here, dev, slice10)
     print(f"phase 22 in {time.perf_counter() - t22:.1f} s", flush=True)
 
+    # 23. slice 12: the resilience tier at phase 3's width
+    torch.cuda.empty_cache()
+    t23 = time.perf_counter()
+    slice12 = resilience_phase(torch, pmtt, kernel_mods, here, dev)
+    print(f"phase 23 in {time.perf_counter() - t23:.1f} s", flush=True)
+
     kernels = []
     for name, run in (("float32", "normal_f32"), ("bfloat16", "normal_bf16")):
         s = stats[name]
@@ -4448,7 +4934,11 @@ def main() -> int:
             # (50 iterations): the kernel's events in the profile of the
             # graph run, and that run's replays of 8 iterations
             graph_launches=slice11[run]["graph_kernel_events"],
-            graph_replays=slice11[run]["graph_replays"]))
+            graph_replays=slice11[run]["graph_replays"],
+            # phase 23.1: resilient_solve's rung at this dtype (bf16 to
+            # the NaN, f32 after the restart)
+            resilience_launches=slice12["resilient_eager"][
+                "launches_by_dtype"].get(name, 0)))
     # slice 9's paths through the normal kernel (f32 storage): PCGLS
     # normal=True per arm (10 iterations, counts reset just before) and
     # pipelined CGLS normal=True (its setup applies the kernel once)
@@ -4490,7 +4980,8 @@ def main() -> int:
                       "shared_card": shared, "slice7_ranks": slice7,
                       "slice8": slice8, "slice8_ranks": slice8_ranks,
                       "slice9": slice9, "slice9_ranks": slice9_ranks,
-                      "slice10": slice10, "slice11": slice11}),
+                      "slice10": slice10, "slice11": slice11,
+                      "slice12": slice12}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -4500,4 +4991,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) > 1 and sys.argv[1] == "--resilience-worker":
+        resilience_worker(sys.argv[2:])
     sys.exit(main())

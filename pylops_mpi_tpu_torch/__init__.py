@@ -9,8 +9,11 @@ migration pipelines, the CG/CGLS solvers (functions and classes) with
 the preconditioner seam (Jacobi, block-Jacobi, V-cycle), block CG/CGLS
 and the communication-avoiding engines, the sparse matrix product,
 ISTA/FISTA and the power iteration, with the solvers' guard carries,
-and the solve service that packs single-RHS requests into block solves
-(``serving``, on the ``diagnostics`` and ``resilience`` layers), in
+the resilience tier (fault injection, precision-escalating restarts and
+refinement, segmented solves with checkpoints, the watchdog and the
+supervisor), and the solve service that packs single-RHS requests into
+block solves (``serving``, on the ``diagnostics`` and ``resilience``
+layers), in
 PyTorch on NVIDIA Hopper GPUs,
 one rank a card or a world of ranks over ``torch.distributed``. Two
 hand-written CUDA kernels carry the hot loops:
@@ -51,9 +54,11 @@ from .solvers.basic import CG, CGLS, cg, cgls, cg_guarded, cgls_guarded
 from .solvers.block import (block_cg, block_cgls, block_cg_segmented,
                             batched_solve, batched_cache_info)
 from .solvers.sparsity import ISTA, FISTA, ista, fista
+from .solvers.segmented import cg_segmented, cgls_segmented
 from .solvers.eigs import power_iteration
 from .utils.dottest import dottest
 from . import (aot, convert, diagnostics, models, ops, optimization,
                parallel, resilience, serving, solvers, tuning, utils)
+from .resilience import resilient_solve
 
 __version__ = "0.1.0"

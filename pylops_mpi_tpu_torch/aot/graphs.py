@@ -39,7 +39,8 @@ tensor keeps its address: the next replay reads the new values, as the
 eager loop would.
 
 **What a capture records once.** The launch and path counters
-(``normal_kernels.launches``, ``stencil_kernels.launches``,
+(``normal_kernels.launches`` and ``.launches_by_dtype``,
+``stencil_kernels.launches``,
 ``derivatives.paths``, ``collectives.counts``/``received`` and the
 registry's ``collective.*`` counters) move in Python, which a capture
 runs once without computing and a replay does not run. The bank takes
@@ -251,6 +252,7 @@ def _counters() -> Dict[str, Any]:
     from ..parallel import collectives
     reg = _metrics.snapshot()["counters"]
     return {"normal": normal_kernels.launches,
+            "normal_dtype": Counter(normal_kernels.launches_by_dtype),
             "stencil": stencil_kernels.launches,
             "paths": Counter(derivatives.paths),
             "counts": Counter(collectives.counts),
@@ -279,7 +281,8 @@ def _add(delta: Dict[str, Any], times: int) -> None:
     from ..parallel import collectives
     normal_kernels.launches += delta["normal"] * times
     stencil_kernels.launches += delta["stencil"] * times
-    for name, c in (("paths", derivatives.paths),
+    for name, c in (("normal_dtype", normal_kernels.launches_by_dtype),
+                    ("paths", derivatives.paths),
                     ("counts", collectives.counts),
                     ("received", collectives.received)):
         for k, v in delta[name].items():
@@ -497,6 +500,10 @@ class Loop:
         out = self.state
         if self._in_bufs:
             out = _rebuild(out, iter([t.clone() for t in _flat(out)]))
+            # a later run of this loop (the next epoch of a segmented
+            # solve) copies its carry back in: another solve may have
+            # replayed the entry meanwhile
+            self.state, self._in_bufs = out, False
         self._release()
         return out
 

@@ -13,6 +13,11 @@ their arrays: a Jacobi preconditioner's inverted diagonal
 (``np.asarray(jax_M._chol)``); a sparse operator as its triplets
 (``np.asarray(jax_op._rows)``, ``_cols``, ``_data``) and shape.
 
+A segmented solve's checkpoint, written by the JAX package with its
+native backend, comes over through :func:`fused_carry_from_jax`, which
+reads it without running any code the file names (numpy and builtins
+only) and returns the port's carry for ``resume_state``.
+
 Under a process group every rank passes the same global arrays, as the
 JAX package's controller does, and keeps its own shard, its chunk of the
 blocks or rows (the others stand in as :class:`~.ops.local.ShapeOnly`),
@@ -22,6 +27,7 @@ device.
 
 from __future__ import annotations
 
+import pickle
 from typing import Sequence
 
 import numpy as np
@@ -44,7 +50,8 @@ from .parallel.partition import Partition
 __all__ = ["blockdiag_from_numpy", "vstack_from_numpy", "hstack_from_numpy",
            "array_from_numpy", "stacked_from_numpy", "fredholm_from_numpy",
            "mdc_from_numpy", "matrixmult_from_numpy", "jacobi_from_numpy",
-           "block_jacobi_from_numpy", "sparse_from_numpy"]
+           "block_jacobi_from_numpy", "sparse_from_numpy",
+           "fused_carry_from_jax"]
 
 
 def _matrices(blocks: Sequence[np.ndarray], dtype,
@@ -202,3 +209,56 @@ def sparse_from_numpy(rows: np.ndarray, cols: np.ndarray, data: np.ndarray,
     the operator (``compute_dtype``, ``adjoint_mode``)."""
     return MPISparseMatrixMult(rows, cols, _kernel(data, dtype), shape,
                                device=device, **kwargs)
+
+
+# ------------------------------------------------------ JAX checkpoints
+class _NumpyOnly(pickle.Unpickler):
+    """An unpickler that builds numpy arrays, dtypes and scalars and
+    builtins, and refuses every other class by name."""
+
+    _NUMPY = {"_reconstruct", "scalar", "_frombuffer", "ndarray", "dtype"}
+    _BUILTINS = {"complex", "set", "frozenset", "slice", "range",
+                 "bytearray"}
+
+    def find_class(self, module, name):
+        top = module.split(".")[0]
+        if (top == "numpy" and name in self._NUMPY) or \
+                (module == "builtins" and name in self._BUILTINS):
+            return super().find_class(module, name)
+        raise pickle.UnpicklingError(
+            f"the checkpoint holds {module}.{name}, which is neither numpy "
+            "nor a builtin: fused_carry_from_jax reads plain numpy "
+            "checkpoints only and refuses to build it")
+
+
+def fused_carry_from_jax(path: str, solver: str = None,
+                         device: DeviceLike = None) -> dict:
+    """The port's carry of a segmented solve checkpointed by the JAX
+    package (``save_fused_carry`` with its native backend), for
+    ``cg_segmented``/``cgls_segmented``/``block_cg_segmented``'s
+    ``resume_state``: the solve resumes in the port where the JAX
+    package stopped.
+
+    The file is read through a restricted unpickler (numpy and builtins
+    only; anything else refuses, naming it) and its sidecar of blobs
+    with plain reads. ``solver`` (default: the file's) must match the
+    file's loop family. Vectors land on ``device``, split over this
+    world (regridded from the JAX package's device count); the cost
+    histories gain the port's spare row; an unguarded carry's guard
+    words are dropped, as the port's unguarded loops hold none."""
+    from .utils import checkpoint as _ckpt
+    enc = _ckpt._read_native(path, unpickler=_NumpyOnly)
+    kind = enc.get("__fused__")
+    state = _ckpt.check_fused(enc, path, solver or kind)
+    dev = resolve_device(device)
+    out = {k: _ckpt._decode(v, dev) for k, v in state.items()}
+    niter = int(out["niter"])
+    for name in ("cost", "cost1"):
+        c = out.get(name)
+        if isinstance(c, np.ndarray) and c.shape[0] == niter + 1:
+            out[name] = np.concatenate([c, np.zeros_like(c[:1])])
+    out.setdefault("it", np.asarray(out["iiter"]).reshape(1))
+    if not out.get("guards"):
+        for name in ("status", "bestk", "stall"):
+            out[name] = None
+    return out

@@ -30,7 +30,8 @@ import torch
 __all__ = ["PrecisionPolicy", "get_policy", "set_precision",
            "as_torch_dtype", "result_dtype", "default_compute_dtype",
            "reduction_dtype", "accum_dtype", "check_compute_dtype",
-           "matmul_narrow"]
+           "matmul_narrow", "escalate_dtype", "effective_compute_dtype",
+           "dtype_name"]
 
 
 class PrecisionPolicy(NamedTuple):
@@ -134,6 +135,33 @@ def accum_dtype(dtype) -> torch.dtype:
     if dt.is_floating_point and dt.itemsize < 4:
         return torch.float32
     return dt
+
+
+# The one-rung escalation ladder of the resilience tier (JAX
+# ``_precision.py:159-184``): a solve that breaks down under narrow
+# storage restarts one rung wider, bf16/f16 → f32 → f64 and c64 → c128.
+# Torch always has the f64 rung (the JAX package needs x64 for it).
+_ESCALATION = {torch.bfloat16: torch.float32, torch.float16: torch.float32,
+               torch.float32: torch.float64,
+               torch.complex64: torch.complex128}
+
+
+def escalate_dtype(dtype) -> Optional[torch.dtype]:
+    """The next-wider storage dtype, or ``None`` at the top."""
+    return _ESCALATION.get(as_torch_dtype(dtype))
+
+
+def effective_compute_dtype(Op) -> torch.dtype:
+    """The dtype an operator's matrices live at: its resolved
+    ``compute_dtype`` where it has one, else its dtype."""
+    cdt = getattr(Op, "compute_dtype", None)
+    return as_torch_dtype(cdt if cdt is not None else Op.dtype)
+
+
+def dtype_name(dtype) -> str:
+    """numpy's name of a dtype (``"bfloat16"``, ``"float32"``), the one
+    the JAX package's attempt records carry."""
+    return str(as_torch_dtype(dtype)).rsplit(".", 1)[-1]
 
 
 def check_compute_dtype(compute_dtype, op_dtype, where: str) -> None:

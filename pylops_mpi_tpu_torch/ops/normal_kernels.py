@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from collections import Counter
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
@@ -34,11 +35,14 @@ from . import _build
 
 __all__ = ["normal_matvec", "normal_matvec_plain", "supported", "plan",
            "NormalPlan", "device_plan", "kernel_info", "launches",
-           "reset_launches"]
+           "launches_by_dtype", "reset_launches"]
 
 # Kernel launches since the last reset_launches(); a run reads it to show
-# that its solver went through the kernel.
+# that its solver went through the kernel. ``launches_by_dtype`` splits
+# them by the dtype of A: bf16/f16 are the JAX package's
+# ``_normal_kernel_stream``, f32/f64 its ``_normal_kernel``.
 launches = 0
+launches_by_dtype: Counter = Counter()
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
                 torch.float64: 3}
@@ -70,6 +74,7 @@ _FN = None
 def reset_launches() -> None:
     global launches
     launches = 0
+    launches_by_dtype.clear()
 
 
 @dataclass(frozen=True)
@@ -290,4 +295,5 @@ def normal_matvec(A: torch.Tensor, X: torch.Tensor):
                            f"({errstr(err).decode()})")
     global launches
     launches += 1
+    launches_by_dtype[str(A.dtype).rsplit(".", 1)[-1]] += 1
     return U, Q

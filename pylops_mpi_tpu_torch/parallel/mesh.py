@@ -91,6 +91,13 @@ def _local_card() -> int:
     return local % max(torch.cuda.device_count(), 1)
 
 
+# rendezvous failures worth another try (a store not listening yet); a
+# wrong argument raises at once
+_TRANSIENT = (TimeoutError, ConnectionError,
+              getattr(dist, "DistStoreError", TimeoutError),
+              getattr(dist, "DistNetworkError", ConnectionError))
+
+
 def init(backend: Optional[str] = None, store=None, rank: Optional[int] = None,
          world_size: Optional[int] = None, device: DeviceLike = None,
          init_method: Optional[str] = None) -> Mesh:
@@ -101,7 +108,12 @@ def init(backend: Optional[str] = None, store=None, rank: Optional[int] = None,
     a :class:`torch.distributed.FileStore`) or ``init_method``
     (``tcp://localhost:<port>``) rendezvous the ranks; with neither, the
     ``torchrun`` environment does. A CUDA device becomes the current
-    device, so ``"cuda"`` names the rank's card."""
+    device, so ``"cuda"`` names the rank's card. The bring-up runs
+    under :func:`~..resilience.retry.retry_call` (a rendezvous that
+    timed out or was refused is tried again) and
+    :func:`~..resilience.elastic.watched_call` (stage
+    ``multihost_init``), as the JAX package's bring-up does
+    (``parallel/mesh.py:133``)."""
     if backend is None:
         dev = None if device is None else torch.device(device)
         cuda = (dev.type == "cuda") if dev is not None \
@@ -122,7 +134,13 @@ def init(backend: Optional[str] = None, store=None, rank: Optional[int] = None,
             local = int(os.environ.get("LOCAL_RANK", rank or 0))
             dev = torch.device("cuda", local % torch.cuda.device_count())
         kwargs["device_id"] = device = dev
-    dist.init_process_group(backend, **kwargs)
+    # the bring-up waits on every peer: a lost rendezvous is retried
+    # (bounded) and, under a supervisor, the whole wait is watched
+    from ..resilience.elastic import watched_call
+    from ..resilience.retry import retry_call
+    watched_call(retry_call, dist.init_process_group, backend,
+                 exceptions=_TRANSIENT, describe="init_process_group",
+                 stage="multihost_init", **kwargs)
     mesh = make_mesh(device=device)
     if mesh.device.type == "cuda":
         torch.cuda.set_device(mesh.device)

@@ -1,25 +1,58 @@
-"""Solver status words, bounded retry, heartbeats and the drain.
+"""The resilience tier: status words, faults, restarts, supervision.
 
-PyTorch counterpart of part of ``pylops_mpi_tpu/resilience``:
-:mod:`.status` (the guards' status word and gate), :mod:`.retry` and the
-serving half of :mod:`.elastic`. The supervisor (``launch_job``,
-``serve_job``), the fault injection of ``faults.py``, the
-precision-escalating ``resilient_solve`` and the collective watchdog are
-ROADMAP.md §A.7.
+PyTorch counterpart of ``pylops_mpi_tpu/resilience``. In one process,
+over the fused solvers:
+
+- :mod:`.status`: the guards' status word (``converged``/``maxiter``/
+  ``breakdown``/``stagnation``) and the ``PYLOPS_MPI_TPU_TORCH_GUARDS``
+  gate.
+- :mod:`.faults`: the injected NaN and stall, plan-cache corruption and
+  flaky callables that prove each recovery path.
+- :mod:`.driver`: :func:`resilient_solve` (restarts one precision rung
+  wider from the last finite iterate, bf16 → f32 → f64) and
+  :func:`refined_solve` (narrow inner solves, wide corrections).
+- :mod:`.retry`: bounded retry with backoff.
+
+Across processes:
+
+- :mod:`.elastic`: the worker's side: heartbeat, the collective
+  watchdog (:func:`watched_call`), the drain and the bring-up contract
+  (:func:`worker_config`, :func:`elastic_initialize`).
+- :mod:`.supervisor`: :func:`launch_job`: launch N workers, classify a
+  failure (exit, signal, stale heartbeat), kill the attempt and relaunch
+  on the shrunk world, which resumes from a checkpoint
+  (:mod:`..utils.checkpoint` restores it on the new world).
+
+Segmented solves with checkpoints are :mod:`..solvers.segmented`. The
+JAX package's in-place reconfiguration and carry bank
+(``ElasticReconfig``, ``apply_reconfig``, ``reform_mesh``,
+``bank_carry``/``restore_carry``) need the resharding planner and are
+ROADMAP.md §A.7 item 5.
 """
 
-from . import elastic, retry, status
+from . import elastic, faults, retry, status, supervisor
 from .elastic import (HeartbeatWriter, start_heartbeat, stop_heartbeat,
                       maybe_start_heartbeat, read_heartbeat, request_drain,
-                      drain_requested, reset_drain, install_sigterm_drain)
+                      drain_requested, reset_drain, install_sigterm_drain,
+                      WatchdogTimeout, watched_call, watchdog_mode,
+                      watchdog_enabled, worker_config, elastic_initialize,
+                      WorkerConfig)
 from .retry import retry_call
 from .status import (RUNNING, CONVERGED, MAXITER, BREAKDOWN, STAGNATION,
                      status_name, guards_mode, guards_enabled, last_status)
+from .driver import (resilient_solve, refined_solve, ResilientResult,
+                     RefinedResult)
+from .supervisor import launch_job, JobResult, Failure, WorkerHandle
 
-__all__ = ["elastic", "retry", "status",
-           "HeartbeatWriter", "start_heartbeat", "stop_heartbeat",
-           "maybe_start_heartbeat", "read_heartbeat", "request_drain",
-           "drain_requested", "reset_drain", "install_sigterm_drain",
-           "retry_call",
+__all__ = ["elastic", "faults", "retry", "status", "supervisor",
            "RUNNING", "CONVERGED", "MAXITER", "BREAKDOWN", "STAGNATION",
-           "status_name", "guards_mode", "guards_enabled", "last_status"]
+           "status_name", "guards_mode", "guards_enabled", "last_status",
+           "retry_call", "resilient_solve", "refined_solve",
+           "ResilientResult", "RefinedResult",
+           "WatchdogTimeout", "watched_call", "watchdog_mode",
+           "watchdog_enabled", "HeartbeatWriter", "start_heartbeat",
+           "stop_heartbeat", "maybe_start_heartbeat", "read_heartbeat",
+           "worker_config", "elastic_initialize", "WorkerConfig",
+           "request_drain", "drain_requested", "reset_drain",
+           "install_sigterm_drain",
+           "launch_job", "JobResult", "Failure", "WorkerHandle"]

@@ -1,10 +1,11 @@
-"""A serving worker's side of supervision: heartbeats and the drain.
+"""A worker's side of supervision: heartbeats, the watchdog, the drain
+and the bring-up contract.
 
-PyTorch counterpart of the serving half of
-``pylops_mpi_tpu/resilience/elastic.py`` (the heartbeat, ``:76-192``, and
-the drain, ``:318-375``). The collective watchdog, in-place
-reconfiguration and the carry bank are ROADMAP.md §A.7, with the
-supervisor.
+PyTorch counterpart of ``pylops_mpi_tpu/resilience/elastic.py`` (the
+heartbeat ``:76-192``, the watchdog ``:194-312``, the drain
+``:318-375`` and the worker contract ``:376-408``, ``:682-702``). The
+in-place reconfiguration and the carry bank (``:410-680``) need the
+resharding planner and are ROADMAP.md §A.7 item 5.
 
 - **Heartbeats**: a daemon thread writes ``{"pid", "seq", "wall",
   "mono"}`` (and ``"metrics"``, the registry's snapshot, when
@@ -13,25 +14,49 @@ supervisor.
   ``PYLOPS_MPI_TPU_TORCH_HEARTBEAT`` seconds (default 1.0, floored at
   0.05), atomically. The thread beats while the main thread waits on
   the device, so a beat stops only when the process is wedged or dead.
+- **The collective watchdog**: a phase that waits on peers (the
+  process group's bring-up, a checkpoint written by every rank) hangs
+  for ever when a peer is gone, and the stuck worker's own beat goes
+  on. :func:`watched_call` runs such a phase in a thread with a deadline
+  (``PYLOPS_MPI_TPU_TORCH_WATCHDOG_TIMEOUT``, else the stage's row of
+  :data:`~..diagnostics.profiler.STAGE_BUDGETS`) and raises a
+  :class:`WatchdogTimeout` that names the stage; the worker exits and
+  the supervisor relaunches. ``PYLOPS_MPI_TPU_TORCH_WATCHDOG`` is
+  ``auto`` (armed only under a supervisor, where the heartbeat file is
+  set: plain library use starts no thread), ``on`` or ``off``.
 - **The drain**: SIGTERM, or :func:`request_drain`, asks the serving
   loops to finish what they hold, stop claiming and return.
+- **The worker contract** (set by :func:`.supervisor.launch_job`, read
+  by :func:`worker_config`): ``PYLOPS_MPI_TPU_TORCH_COORDINATOR``
+  (``host:port`` of this attempt's rendezvous),
+  ``..._NUM_PROCESSES`` (the attempt's world, shrunk after a failure),
+  ``..._PROCESS_ID`` (the rank), ``..._ATTEMPT`` (0-based),
+  ``..._HEARTBEAT_FILE`` and ``..._HEARTBEAT``.
+  :func:`elastic_initialize` starts the beat and, for a world of more
+  than one, the process group.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import queue
 import threading
 import time
-from typing import Any, Dict, Optional
+from collections import namedtuple
+from typing import Any, Callable, Dict, Optional
 
 from ..diagnostics import metrics as _metrics
 from ..diagnostics import trace as _trace
+from ..diagnostics.profiler import STAGE_BUDGETS
 
 __all__ = ["heartbeat_interval", "heartbeat_file", "HeartbeatWriter",
            "start_heartbeat", "stop_heartbeat", "maybe_start_heartbeat",
-           "read_heartbeat", "request_drain", "drain_requested",
-           "reset_drain", "install_sigterm_drain"]
+           "read_heartbeat", "WatchdogTimeout", "watchdog_mode",
+           "watchdog_enabled", "watchdog_timeout", "watched_call",
+           "request_drain", "drain_requested", "reset_drain",
+           "install_sigterm_drain", "WorkerConfig", "worker_config",
+           "elastic_initialize"]
 
 
 def heartbeat_interval() -> float:
@@ -138,6 +163,111 @@ def read_heartbeat(path: str) -> Optional[Dict[str, Any]]:
         return None
 
 
+# ------------------------------------------------------------- watchdog
+class WatchdogTimeout(RuntimeError):
+    """A watched phase passed its deadline: a hung or lost peer, not a
+    slow computation. ``stage`` and ``timeout_s`` name it."""
+
+    def __init__(self, stage: str, timeout_s: float):
+        self.stage = stage
+        self.timeout_s = float(timeout_s)
+        super().__init__(
+            f"watchdog: stage {stage!r} still blocked after "
+            f"{timeout_s:.0f}s — a peer is likely hung or gone; exiting so "
+            "the supervisor can relaunch on the surviving workers")
+
+
+_WD_MODES = ("auto", "on", "off")
+_warned_wd = False
+
+
+def watchdog_mode() -> str:
+    """``PYLOPS_MPI_TPU_TORCH_WATCHDOG`` resolved to ``auto``/``on``/
+    ``off`` (default ``auto``; an unknown value warns once and counts as
+    ``auto``)."""
+    global _warned_wd
+    m = os.environ.get("PYLOPS_MPI_TPU_TORCH_WATCHDOG",
+                       "auto").strip().lower()
+    if m in ("", "none", "default"):
+        m = "auto"
+    if m not in _WD_MODES:
+        if not _warned_wd:
+            import warnings
+            warnings.warn(f"PYLOPS_MPI_TPU_TORCH_WATCHDOG={m!r} is not one "
+                          f"of {_WD_MODES}; using 'auto'", stacklevel=2)
+            _warned_wd = True
+        m = "auto"
+    return m
+
+
+def watchdog_enabled() -> bool:
+    """``on``: armed; ``off``: not; ``auto``: armed when supervised."""
+    m = watchdog_mode()
+    if m == "on":
+        return True
+    if m == "off":
+        return False
+    return heartbeat_file() is not None
+
+
+def watchdog_timeout(stage: str, default: Optional[float] = None) -> float:
+    """One watched stage's deadline: ``PYLOPS_MPI_TPU_TORCH_WATCHDOG_
+    TIMEOUT`` when set, else the stage's ``tpu`` budget in
+    ``STAGE_BUDGETS`` (the live budget of both packages' table), else
+    ``default`` (300 s)."""
+    raw = os.environ.get("PYLOPS_MPI_TPU_TORCH_WATCHDOG_TIMEOUT")
+    if raw:
+        try:
+            return float(raw)
+        except ValueError:
+            pass
+    row = STAGE_BUDGETS.get(stage)
+    if row and row.get("tpu"):
+        return float(row["tpu"])
+    return 300.0 if default is None else float(default)
+
+
+_wd_tls = threading.local()  # a watched phase inside another runs direct
+
+
+def watched_call(fn: Callable, *args, stage: str,
+                 timeout_s: Optional[float] = None, **kwargs):
+    """``fn(*args, **kwargs)`` under the watchdog. Disarmed, a direct
+    call (no thread, no event). Armed, the call runs in a daemon thread
+    and the caller waits at most the deadline, then gets
+    :class:`WatchdogTimeout` (the stuck thread is left behind: the
+    worker is about to exit). A result or an exception is relayed; a
+    watched phase within another runs direct under the outer
+    deadline."""
+    if not watchdog_enabled() or getattr(_wd_tls, "active", False):
+        return fn(*args, **kwargs)
+    deadline = watchdog_timeout(stage) if timeout_s is None \
+        else float(timeout_s)
+    out: "queue.Queue" = queue.Queue(maxsize=1)
+
+    def runner():
+        _wd_tls.active = True
+        try:
+            out.put((True, fn(*args, **kwargs)))
+        except BaseException as e:  # noqa: BLE001 — relayed to the caller
+            out.put((False, e))
+
+    t = threading.Thread(target=runner, daemon=True,
+                         name=f"pylops-torch-watchdog-{stage}")
+    with _trace.span("resilience.watchdog", cat="resilience", stage=stage,
+                     timeout_s=deadline):
+        t.start()
+        try:
+            ok, payload = out.get(timeout=deadline)
+        except queue.Empty:
+            _trace.event("resilience.watchdog_timeout", cat="resilience",
+                         stage=stage, timeout_s=deadline)
+            raise WatchdogTimeout(stage, deadline) from None
+    if ok:
+        return payload
+    raise payload
+
+
 # A signal handler runs on the main thread only; the serving loops poll
 # this event instead.
 _DRAIN = threading.Event()
@@ -184,3 +314,58 @@ def install_sigterm_drain() -> bool:
     _handler._pylops_drain = True
     _signal.signal(_signal.SIGTERM, _handler)
     return True
+
+
+# ------------------------------------------------------ worker bring-up
+WorkerConfig = namedtuple(
+    "WorkerConfig", ["coordinator", "num_processes", "process_id",
+                     "attempt", "heartbeat_path", "heartbeat_s"])
+WorkerConfig.__doc__ = (
+    "This worker's identity in the current attempt, from the supervisor's "
+    "contract: rendezvous address, world size (shrunk after a failure), "
+    "rank, 0-based attempt and the heartbeat assignment; an unsupervised "
+    "process gets (None, None, None, 0, None, interval).")
+
+
+def _env_int(name: str) -> Optional[int]:
+    raw = os.environ.get(name)
+    if raw is None or raw == "":
+        return None
+    try:
+        return int(raw)
+    except ValueError:
+        return None
+
+
+def worker_config() -> WorkerConfig:
+    """The supervisor's contract (module docstring)."""
+    return WorkerConfig(
+        coordinator=os.environ.get("PYLOPS_MPI_TPU_TORCH_COORDINATOR")
+        or None,
+        num_processes=_env_int("PYLOPS_MPI_TPU_TORCH_NUM_PROCESSES"),
+        process_id=_env_int("PYLOPS_MPI_TPU_TORCH_PROCESS_ID"),
+        attempt=_env_int("PYLOPS_MPI_TPU_TORCH_ATTEMPT") or 0,
+        heartbeat_path=heartbeat_file(),
+        heartbeat_s=heartbeat_interval())
+
+
+def elastic_initialize(backend: Optional[str] = None,
+                       device=None) -> WorkerConfig:
+    """A supervised worker's bring-up: start the heartbeat, then, for an
+    attempt of more than one process, join the process group at the
+    contract's address (``tcp://<coordinator>``) through
+    :func:`~..parallel.mesh.init`, whose bring-up runs under the bounded
+    retry and the watchdog. ``backend``/``device`` go to ``init``
+    (default: NCCL on a card, gloo on the CPU). A world of one starts no
+    group. Returns the :class:`WorkerConfig`."""
+    cfg = worker_config()
+    maybe_start_heartbeat()
+    if cfg.num_processes is not None and cfg.num_processes > 1:
+        from ..parallel.mesh import init
+        init(backend=backend, init_method=f"tcp://{cfg.coordinator}",
+             rank=cfg.process_id, world_size=cfg.num_processes,
+             device=device)
+    _trace.event("resilience.elastic_init", cat="resilience",
+                 attempt=cfg.attempt, world=cfg.num_processes or 1,
+                 rank=cfg.process_id or 0)
+    return cfg

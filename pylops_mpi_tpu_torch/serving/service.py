@@ -18,8 +18,11 @@ PyTorch counterpart of ``pylops_mpi_tpu/serving/service.py``:
 The daemon's batches depend on arrival times, so ranks of a process
 group would form different batches; the daemon and the worker refuse a
 world of more than one rank. Run one worker process a card, each with
-no process group, on a shared spool. :func:`serve_job`, the
-serve-forever fleet under the supervisor, is ROADMAP.md §A.7.
+no process group, on a shared spool. :func:`serve_job` runs such a fleet
+under the supervisor (:func:`~..resilience.supervisor.launch_job`),
+sweeping a dead attempt's claimed requests back to pending before each
+relaunch. A daemon over a process group is the rest of ROADMAP.md §A.7
+item 1.
 """
 
 from __future__ import annotations
@@ -58,7 +61,7 @@ def _single_rank(what: str) -> None:
             f"times, so the {world_size()} ranks of this group would pack "
             "different batches. Run one worker per card with no process "
             "group on a shared spool; a daemon over a group of ranks is "
-            "ROADMAP.md §A.7")
+            "the rest of ROADMAP.md §A.7 item 1")
 
 
 class SolveDaemon:
@@ -183,11 +186,27 @@ def worker_main(spool_dir: str, pool: WarmPool, *,
 
 def serve_job(argv: Sequence[str], num_workers: int, spool_dir: str, *,
               max_relaunches: int = 2, **launch_kwargs):
-    """A supervised serve-forever fleet (JAX ``service.py:170-208``): not
-    ported, raises. It needs the supervisor (``resilience/supervisor.py``,
-    the first item of ROADMAP.md §A.7)."""
-    raise NotImplementedError(
-        "serve_job is not ported: it runs workers under "
-        "resilience/supervisor.py's launch_job, the first item of "
-        "ROADMAP.md §A.7; run worker_main in one process per card on a "
-        "shared spool")
+    """A supervised serve-forever fleet (JAX ``service.py:180-208``).
+
+    ``argv`` is the worker command line (the placeholders of
+    :func:`~..resilience.supervisor.launch_job`); each worker calls
+    :func:`worker_main` on ``spool_dir``. Before each relaunch the
+    supervisor's ``on_relaunch`` hook moves the dead attempt's claimed
+    requests back to pending (``spool.recover_claimed``), and a last
+    sweep runs when the job ends, so a terminal failure still gives its
+    orphans back. Returns the :class:`~..resilience.supervisor.JobResult`
+    (relaunches on the ``supervisor.relaunches`` counter)."""
+    from ..resilience.supervisor import launch_job
+    _spool.init_spool(spool_dir)
+
+    def _recover(next_attempt: int, failure) -> None:
+        requeued, quarantined = _spool.recover_claimed(spool_dir)
+        _trace.event("serve.relaunch_recover", cat="serving",
+                     attempt=next_attempt, requeued=requeued,
+                     quarantined=quarantined,
+                     failure_kind=getattr(failure, "kind", None))
+
+    result = launch_job(argv, num_workers, max_relaunches=max_relaunches,
+                        on_relaunch=_recover, **launch_kwargs)
+    _spool.recover_claimed(spool_dir)
+    return result

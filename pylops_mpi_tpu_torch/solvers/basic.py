@@ -33,7 +33,9 @@ condition every ``SEGMENT`` (8) iterations, to leave the loop early;
 checks as one captured CUDA graph, bit for bit the same. With
 ``guards`` on (JAX ``basic.py:342-400``) the loop also carries a status
 word (:mod:`..resilience.status`) in device tensors; ``cg_guarded`` and
-``cgls_guarded`` return it.
+``cgls_guarded`` return it. A guarded solve consumes the armed fault of
+:mod:`..resilience.faults` (JAX ``basic.py:444``, ``:448``, ``:550``,
+``:561``, ``:599-600``), which then joins its loop's key.
 
 Preserved from the JAX package: the recurrence dots at the policy's
 reduction dtype (``_rdot``), step scalars re-entering vector updates at
@@ -430,10 +432,15 @@ def _guard_start(kold, guards: bool):
             stall_window())
 
 
-def _cg_step(Op, M, tol: float, guards: bool, stall_n: int, niter: int):
+def _cg_step(Op, M, tol: float, guards: bool, stall_n: int, niter: int,
+             fault=None):
     """One iteration of the fused CG loop over the carry ``(x, r, c,
     kold, iiter, it, cost, status, bestk, stall)`` and the constant
-    ``(floors,)``."""
+    ``(floors,)``; ``fault`` (guarded loops only) injects at the first
+    apply and the step scalar."""
+    from ..resilience import faults
+    nan_at, stall_at = faults.fault_sites(fault if guards else None)
+
     def step(state, consts):
         x, r, c, kold, iiter, it, cost, status, bestk, stall = state
         (floors,) = consts
@@ -442,7 +449,11 @@ def _cg_step(Op, M, tol: float, guards: bool, stall_n: int, niter: int):
         done = kold <= floors
         frozen = _or_idle(done, active)
         Opc = Op.matvec(c)
+        if nan_at is not None:
+            Opc = faults.inject_nan(Opc, iiter, nan_at)
         a = torch.where(frozen, torch.zeros_like(kold), kold / _rdot(c, Opc))
+        if stall_at is not None:
+            a = faults.inject_stall(a, iiter, stall_at)
         xn = x + c * _step_scalar(a, xdt)
         rn = r - Opc * _step_scalar(a, xdt)
         zn = _precond_apply(M, rn, xdt)
@@ -466,8 +477,33 @@ def _cg_step(Op, M, tol: float, guards: bool, stall_n: int, niter: int):
     return step
 
 
+def _cg_setup(Op, y: Vector, x: Vector, niter: int, M, guards: bool):
+    """The fused CG loop's first carry, its constants ``(floors,)`` and
+    the stall window (shared with :mod:`.segmented`)."""
+    r = y - Op.matvec(x)
+    z = _precond_apply(M, r, x.dtype)
+    kold = _rdot(r, z)
+    cost = _history(torch.sqrt(kold), niter)
+    guard, stall_n = _guard_start(kold, guards)
+    state = (x, r, z, kold, torch.zeros((), dtype=torch.int64,
+                                        device=kold.device),
+             _counter(kold.device), cost) + guard
+    return state, (_mp_floor(kold),), stall_n
+
+
+def _cg_loop(Op, M, y, state, consts, niter: int, tol: float, guards: bool,
+             stall_n: int, fault=None):
+    """The fused CG loop over ``state`` as an :class:`~..aot.graphs.Loop`
+    (one key for the fused and the segmented solve)."""
+    from ..aot import graphs
+    return graphs.Loop("cg", dict(tol=tol, guards=guards, stall=stall_n,
+                                  **_fault_key(guards, fault)),
+                       Op, M, y, state, consts,
+                       _cg_step(Op, M, tol, guards, stall_n, niter, fault))
+
+
 def _run_cg(Op, y: Vector, x: Vector, niter: int, tol: float, M,
-            guards: bool):
+            guards: bool, fault=None):
     """The fused CG loop from ``x``: ``(x, iiter, cost[:iiter+1], code)``,
     ``code`` the status word with guards on, else ``None``. Once the
     loop's condition fails it changes nothing more, so a non-finite
@@ -475,18 +511,9 @@ def _run_cg(Op, y: Vector, x: Vector, niter: int, tol: float, M,
     package's ``while_loop`` does. The iterations run through
     :mod:`..aot.graphs` (captured segments when the tier is armed)."""
     from ..aot import graphs
-    xdt = x.dtype
-    r = y - Op.matvec(x)
-    z = _precond_apply(M, r, xdt)
-    kold = _rdot(r, z)
-    cost = _history(torch.sqrt(kold), niter)
-    guard, stall_n = _guard_start(kold, guards)
-    state = (x, r, z, kold, torch.zeros((), dtype=torch.int64,
-                                        device=kold.device),
-             _counter(kold.device), cost) + guard
-    loop = graphs.Loop("cg", dict(tol=tol, guards=guards, stall=stall_n),
-                       Op, M, y, state, (_mp_floor(kold),),
-                       _cg_step(Op, M, tol, guards, stall_n, niter))
+    state, consts, stall_n = _cg_setup(Op, y, x, niter, M, guards)
+    loop = _cg_loop(Op, M, y, state, consts, niter, tol, guards, stall_n,
+                    fault)
     x, _, _, kold, iiter, _, cost, status, _, _ = graphs.run_iterations(
         loop, lambda st: _live(st[3], tol, st[7]), niter)
     iiter = int(iiter)
@@ -495,11 +522,15 @@ def _run_cg(Op, y: Vector, x: Vector, niter: int, tol: float, M,
 
 
 def _cgls_step(Op, M, damp: float, tol: float, normal: bool, guards: bool,
-               stall_n: int, niter: int):
+               stall_n: int, niter: int, fault=None):
     """One iteration of the fused CGLS loop in either schedule over the
     carry ``(x, s, c, rq, kold, iiter, it, cost, cost1, status, bestk,
     stall)`` (``rq`` the gradient ``r`` with ``normal``, else ``q = Op
-    c``) and the constant ``(floors,)``."""
+    c``) and the constant ``(floors,)``; ``fault`` (guarded loops only)
+    injects at ``normal_matvec``'s outputs, or the classic schedule's
+    end-of-body ``Op c``, and at the step scalar."""
+    from ..resilience import faults
+    nan_at, stall_at = faults.fault_sites(fault if guards else None)
     damp2 = damp ** 2
 
     def step(state, consts):
@@ -512,12 +543,17 @@ def _cgls_step(Op, M, damp: float, tol: float, normal: bool, guards: bool,
         frozen = _or_idle(done, active)
         if normal:
             u, qn = Op.normal_matvec(c)
+            if nan_at is not None:
+                u = faults.inject_nan(u, iiter, nan_at)
+                qn = faults.inject_nan(qn, iiter, nan_at)
             qq = _rdot(qn, qn)
         else:
             qq = _rdot(rq, rq)
             qn = rq
         a = torch.abs(kold / (qq + damp2 * _rdot(c, c) if damp2 else qq))
         a = torch.where(frozen, torch.zeros_like(a), a)
+        if stall_at is not None:
+            a = faults.inject_stall(a, iiter, stall_at)
         xn = x + c * _step_scalar(a, xdt)
         sn_ = s - qn * _step_scalar(a, xdt)
         if normal:
@@ -529,6 +565,8 @@ def _cgls_step(Op, M, damp: float, tol: float, normal: bool, guards: bool,
         b = torch.where(frozen, torch.zeros_like(k), k / kold)
         cn = z + c * _step_scalar(b, xdt)
         rqn = rn if normal else Op.matvec(cn)
+        if nan_at is not None and not normal:
+            rqn = faults.inject_nan(rqn, iiter, nan_at)
         if guards:
             bad = _nonfinite(a, k, b)
             hold = _or_idle(bad, active)
@@ -549,16 +587,14 @@ def _cgls_step(Op, M, damp: float, tol: float, normal: bool, guards: bool,
     return step
 
 
-def _run_cgls(Op, y: Vector, x: Vector, niter: int, damp: float, tol: float,
-              normal: bool, M, guards: bool):
-    """The fused CGLS loop from ``x`` in either schedule: ``(x, iiter,
-    cost[:iiter+1], cost1, kold, code)``; see :func:`_run_cg`."""
-    from ..aot import graphs
+def _cgls_setup(Op, y: Vector, x: Vector, niter: int, damp: float,
+                normal: bool, M, guards: bool):
+    """The fused CGLS loop's first carry, its constants ``(floors,)``
+    and the stall window (shared with :mod:`.segmented`)."""
     damp2 = damp ** 2
-    xdt = x.dtype
     s = y - Op.matvec(x)
     rq = Op.rmatvec(s) - x * damp  # the reference's un-squared setup damp
-    z = _precond_apply(M, rq, xdt)
+    z = _precond_apply(M, rq, x.dtype)
     # the recurrence tracks the true gradient Opᴴs − damp²x (normal), or
     # carries q = Op c (classic)
     carry = rq + x * (damp - damp2) if normal else Op.matvec(z)
@@ -570,11 +606,31 @@ def _run_cgls(Op, y: Vector, x: Vector, niter: int, damp: float, tol: float,
     state = (x, s, z, carry, kold,
              torch.zeros((), dtype=torch.int64, device=kold.device),
              _counter(kold.device), cost, cost1) + guard
-    loop = graphs.Loop("cgls", dict(damp=damp, tol=tol, normal=normal,
-                                    guards=guards, stall=stall_n),
-                       Op, M, y, state, (_mp_floor(kold),),
+    return state, (_mp_floor(kold),), stall_n
+
+
+def _cgls_loop(Op, M, y, state, consts, niter: int, damp: float, tol: float,
+               normal: bool, guards: bool, stall_n: int, fault=None):
+    """The fused CGLS loop over ``state`` as an
+    :class:`~..aot.graphs.Loop` (see :func:`_cg_loop`)."""
+    from ..aot import graphs
+    return graphs.Loop("cgls", dict(damp=damp, tol=tol, normal=normal,
+                                    guards=guards, stall=stall_n,
+                                    **_fault_key(guards, fault)),
+                       Op, M, y, state, consts,
                        _cgls_step(Op, M, damp, tol, normal, guards, stall_n,
-                                  niter))
+                                  niter, fault))
+
+
+def _run_cgls(Op, y: Vector, x: Vector, niter: int, damp: float, tol: float,
+              normal: bool, M, guards: bool, fault=None):
+    """The fused CGLS loop from ``x`` in either schedule: ``(x, iiter,
+    cost[:iiter+1], cost1, kold, code)``; see :func:`_run_cg`."""
+    from ..aot import graphs
+    state, consts, stall_n = _cgls_setup(Op, y, x, niter, damp, normal, M,
+                                         guards)
+    loop = _cgls_loop(Op, M, y, state, consts, niter, damp, tol, normal,
+                      guards, stall_n, fault)
     x, _, _, _, kold, iiter, _, cost, cost1, status, _, _ = \
         graphs.run_iterations(loop, lambda st: _live(st[4], tol, st[9]),
                               niter)
@@ -583,16 +639,24 @@ def _run_cgls(Op, y: Vector, x: Vector, niter: int, damp: float, tol: float,
     return x, iiter, cost[:iiter + 1], cost1[:iiter + 1], kold, code
 
 
-def _guards_on(name: str, guards, mode: str) -> bool:
-    """``guards`` (or the knob) resolved for a fused solve; guards on a
-    communication-avoiding engine raise (ROADMAP.md §A.7)."""
+def _fault_key(guards: bool, fault) -> dict:
+    """The fault spec's part of a guarded loop's key (JAX
+    ``basic.py:856-864``): a poisoned graph is never replayed for a
+    clean solve. Unguarded loops never inject and keep their keys."""
+    if not guards:
+        return {}
+    from ..resilience.faults import fault_signature
+    return {"fault": fault_signature(fault)}
+
+
+def _guard_fault(guards, injects: bool = True) -> tuple:
+    """``guards`` (or the knob) resolved for a fused solve, and the
+    armed fault a guarded solve of a loop that ``injects`` consumes
+    (once, JAX ``basic.py:855``)."""
+    from ..resilience import faults
     from ..resilience.status import guards_enabled
     on = guards_enabled(guards)
-    if on and mode != "off":
-        raise NotImplementedError(
-            f"{name}(guards=True) under PYLOPS_MPI_TPU_TORCH_CA={mode} is "
-            "not ported: the CA engines' guard carries are ROADMAP.md §A.7")
-    return on
+    return on, (faults.consume() if on and injects else None)
 
 
 def _solve_cg(Op, y, x0, niter, tol, M, guards):
@@ -601,18 +665,19 @@ def _solve_cg(Op, y, x0, niter, tol, M, guards):
     from ..resilience import status as _rstatus
     from . import ca
     mode = ca.resolve_mode(Op, "cg")
-    use_guards = _guards_on("cg", guards, mode)
+    use_guards, fault = _guard_fault(guards)
     x = _zero_like_model(Op, y) if x0 is None else x0
     with _trace.span("solver.cg", cat="solver", op=type(Op).__name__,
                      shape=Op.shape, dtype=x.dtype, niter=niter, tol=tol,
                      fused=True, guards=use_guards, telemetry=False), \
             _metrics.timer("solver.cg"):
         if mode != "off":
-            x, iiter, cost = ca.run_cg(Op, y, x, niter, tol, M=M, mode=mode)
-            code = None
+            x, iiter, cost, code = ca.run_cg(Op, y, x, niter, tol, M=M,
+                                             mode=mode, guards=use_guards,
+                                             fault=fault)
         else:
             x, iiter, cost, code = _run_cg(Op, y, x, niter, tol, M,
-                                           use_guards)
+                                           use_guards, fault)
     if use_guards:
         _rstatus.record("cg", code, iiter)
     _metrics.inc("solver.cg.solves")
@@ -627,7 +692,7 @@ def _solve_cgls(Op, y, x0, niter, damp, tol, normal, M, guards):
     from ..resilience import status as _rstatus
     from . import ca
     mode = ca.resolve_mode(Op, "cgls")
-    use_guards = _guards_on("cgls", guards, mode)
+    use_guards, fault = _guard_fault(guards)
     x = _zero_like_model(Op, y) if x0 is None else x0
     with _trace.span("solver.cgls", cat="solver", op=type(Op).__name__,
                      shape=Op.shape, dtype=x.dtype, niter=niter, damp=damp,
@@ -635,12 +700,13 @@ def _solve_cgls(Op, y, x0, niter, damp, tol, normal, M, guards):
                      guards=use_guards, telemetry=False), \
             _metrics.timer("solver.cgls"):
         if mode != "off":
-            x, iiter, cost, kold = ca.run_cgls(Op, y, x, niter, damp, tol,
-                                               normal, M=M)
-            out = (x, iiter, cost, cost[iiter:iiter + 1], kold, None)
+            x, iiter, cost, kold, code = ca.run_cgls(
+                Op, y, x, niter, damp, tol, normal, M=M, guards=use_guards,
+                fault=fault)
+            out = (x, iiter, cost, cost[iiter:iiter + 1], kold, code)
         else:
             out = _run_cgls(Op, y, x, niter, damp, tol, normal, M,
-                            use_guards)
+                            use_guards, fault)
     if use_guards:
         _rstatus.record("cgls", out[5], out[1])
     _metrics.inc("solver.cgls.solves")

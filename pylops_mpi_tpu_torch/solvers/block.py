@@ -19,9 +19,9 @@ results it returns bit for bit with a trailing unit axis. Under
 ``PYLOPS_MPI_TPU_TORCH_CA`` other than ``off`` a block of several
 columns runs the pipelined engine of :mod:`.ca`.
 
-``block_cg_segmented``, ``batched_solve``, ``BatchedResult`` and
-``batched_cache_info`` are exported with the JAX package's names and
-raise: they need the segmented driver and checkpoints, and a
+``block_cg_segmented`` is :mod:`.segmented`'s, exported here too.
+``batched_solve``, ``BatchedResult`` and ``batched_cache_info`` are
+exported with the JAX package's names and raise: they need a
 stacked-operator design of their own (ROADMAP.md §A.6).
 """
 
@@ -34,7 +34,7 @@ import torch
 from ..diagnostics import metrics as _metrics
 from ..diagnostics import trace as _trace
 from ..distributedarray import DistributedArray, Partition
-from .basic import (_counter, _guards_on, _history, _live, _mp_floor,
+from .basic import (_counter, _guard_fault, _history, _live, _mp_floor,
                     _nonfinite, _or_idle, _precond_apply, _record, _reject,
                     _resolve_status, _slot, _solve_cg, _solve_cgls,
                     _status0, _step_scalar)
@@ -162,22 +162,37 @@ def _block_cg_step(Op, M, tol: float, guards: bool, stall_n: int,
     return step
 
 
-def _block_cg_loop(Op, y, x, niter: int, tol: float, M, guards: bool):
-    """The block CG loop from ``x``: ``(x, iiter, cost[:iiter+1],
-    codes)``, ``codes`` the columns' status words with guards on."""
-    from ..aot import graphs
-    xdt = x.dtype
+def _block_cg_setup(Op, y, x, niter: int, M, guards: bool):
+    """The block CG loop's first carry, its machine floors and the stall
+    window (shared with :func:`block_cg_segmented`)."""
     r = y - Op.matvec(x)
-    z = _precond_apply(M, r, xdt)
+    z = _precond_apply(M, r, x.dtype)
     kold = _bdot(r, z)
     guard, stall_n = _guard_carry(kold, guards)
     state = (x, r, z, kold,
              torch.zeros((), dtype=torch.int64, device=kold.device),
              _counter(kold.device), _history(torch.sqrt(kold), niter)) + guard
-    loop = graphs.Loop("block_cg", dict(tol=tol, guards=guards,
+    return state, _mp_floor(kold), stall_n
+
+
+def _block_cg_graph(Op, M, y, state, floors, niter: int, tol: float,
+                    guards: bool, stall_n: int):
+    """The block CG loop over ``state`` as an
+    :class:`~..aot.graphs.Loop`."""
+    from ..aot import graphs
+    return graphs.Loop("block_cg", dict(tol=tol, guards=guards,
                                         stall=stall_n),
-                       Op, M, y, state, (_tol_floor(_mp_floor(kold), tol),),
+                       Op, M, y, state, (_tol_floor(floors, tol),),
                        _block_cg_step(Op, M, tol, guards, stall_n, niter))
+
+
+def _block_cg_loop(Op, y, x, niter: int, tol: float, M, guards: bool):
+    """The block CG loop from ``x``: ``(x, iiter, cost[:iiter+1],
+    codes)``, ``codes`` the columns' status words with guards on."""
+    from ..aot import graphs
+    state, floors, stall_n = _block_cg_setup(Op, y, x, niter, M, guards)
+    loop = _block_cg_graph(Op, M, y, state, floors, niter, tol, guards,
+                           stall_n)
     x, _, _, kold, iiter, _, cost, status, _, _ = graphs.run_iterations(
         loop, lambda st: _live(st[3], tol, st[7]), niter)
     iiter = int(iiter)
@@ -285,13 +300,14 @@ def block_cg(Op, y: DistributedArray, x0: Optional[DistributedArray] = None,
         return _expand_col(x1), iiter, cost[:, None]
     x = _zero_block_model(Op, y) if x0 is None else x0
     mode = ca.resolve_mode(Op, "block_cg")
-    use_guards = _guards_on("block_cg", guards, mode)
+    # the classic block loops have no fault sites (as in the JAX package)
+    use_guards, fault = _guard_fault(guards, injects=mode != "off")
     with _trace.span("solver.block_cg", cat="solver", op=type(Op).__name__,
                      shape=Op.shape, batch=K, dtype=x.dtype, niter=niter,
                      tol=tol, guards=use_guards, telemetry=False):
         if mode != "off":
-            x, iiter, cost = ca.run_block_cg(Op, y, x, niter, tol, M=M)
-            codes = None
+            x, iiter, cost, codes = ca.run_block_cg(
+                Op, y, x, niter, tol, M=M, guards=use_guards, fault=fault)
         else:
             x, iiter, cost, codes = _block_cg_loop(Op, y, x, niter, tol, M,
                                                    use_guards)
@@ -326,14 +342,16 @@ def block_cgls(Op, y: DistributedArray,
                 cost1[-1].reshape(1), cost[:, None])
     x = _zero_block_model(Op, y) if x0 is None else x0
     mode = ca.resolve_mode(Op, "block_cgls")
-    use_guards = _guards_on("block_cgls", guards, mode)
+    # the classic block loops have no fault sites (as in the JAX package)
+    use_guards, fault = _guard_fault(guards, injects=mode != "off")
     with _trace.span("solver.block_cgls", cat="solver",
                      op=type(Op).__name__, shape=Op.shape, batch=K,
                      dtype=x.dtype, niter=niter, damp=damp, tol=tol,
                      guards=use_guards, telemetry=False):
         if mode != "off":
-            out = ca.run_block_cgls(Op, y, x, niter, damp, tol, M=M)
-            iiter, codes = out[2], None
+            *out, codes = ca.run_block_cgls(Op, y, x, niter, damp, tol, M=M,
+                                            guards=use_guards, fault=fault)
+            out, iiter = tuple(out), out[2]
         else:
             x, iiter, cost, cost1, kold, codes = _block_cgls_loop(
                 Op, y, x, niter, damp, tol, M, use_guards)
@@ -358,14 +376,14 @@ def _damped(sn: torch.Tensor, damp2: float, x) -> torch.Tensor:
 def _waits(name: str):
     raise NotImplementedError(
         f"{name} is not ported: it waits for its own item of ROADMAP.md "
-        "§A.6 (batched_solve and its stacked-operator design; "
-        "block_cg_segmented with segmented.py and checkpoint.py)")
+        "§A.6 (batched_solve and its stacked-operator design)")
 
 
 def block_cg_segmented(*args, **kwargs):
-    """Segmented block CG with checkpoints (JAX ``block.py:560``): not
-    ported, raises."""
-    _waits("block_cg_segmented")
+    """Segmented block CG with checkpoints (JAX ``block.py:583-``); see
+    :func:`.segmented.block_cg_segmented`."""
+    from .segmented import block_cg_segmented as run
+    return run(*args, **kwargs)
 
 
 def batched_solve(*args, **kwargs):

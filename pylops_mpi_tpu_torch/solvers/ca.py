@@ -1,7 +1,9 @@
 """Communication-avoiding CG/CGLS engines (``PYLOPS_MPI_TPU_TORCH_CA``).
 
-PyTorch counterpart of ``pylops_mpi_tpu/solvers/ca.py:82-893`` (its
-segmented builders, ``:895-1048``, wait with ``solvers/segmented.py``).
+PyTorch counterpart of ``pylops_mpi_tpu/solvers/ca.py:82-893``; its
+segmented seams (``:895-1048``) are :func:`seg_fields` and
+:func:`check_resume_ca` here, and the epochs run in
+:mod:`.segmented` through this module's steps.
 A classic fused iteration reduces 2 (CG) to 5 (damped CGLS) scalars,
 each its own ``all_reduce`` whose result the next step waits for. The
 engines here trade a little algebra for fewer collectives:
@@ -31,8 +33,16 @@ engines here trade a little algebra for fewer collectives:
   split, real vectors; CGLS, block solves and other spaces (masked,
   ragged, complex, stacked) take the pipelined engine.
 
+With ``guards`` on (JAX ``ca.py:50-54``) every engine carries the
+classic engines' guard words: a non-finite ``a``, ``b``, ``γ`` or ``δ``
+rejects the update (per column for block vectors) and ends the loop with
+``BREAKDOWN``, a stalled best ``γ`` with ``STAGNATION``; the pipelined
+engines take the armed fault of :mod:`..resilience.faults` at their
+operator apply and step scalar, and an armed fault sends an s-step
+solve to the pipelined engine (the JAX package's rule).
+
 ``off`` never reaches this module. ``auto`` needs the cost model
-(ROADMAP.md §A.7) and raises. The loops follow :mod:`.basic`: a Python
+(ROADMAP.md §A.7 item 4) and raises. The loops follow :mod:`.basic`: a Python
 loop whose scalars stay on the device, an ``active`` mask that stops the
 updates once the tolerance is met, and a host read every few
 iterations to leave early (the s-step loop reads it once per outer
@@ -54,15 +64,24 @@ import torch
 from ..distributedarray import DistributedArray
 from ..ops._precision import accum_dtype, reduction_dtype
 from ..parallel import collectives
+from ..resilience import faults
 from ..resilience.status import BREAKDOWN, RUNNING
 from ..utils import deps
-from .basic import (_counter, _history, _mp_floor, _or_idle, _precond_apply,
-                    _rdot, _record, _reject, _slot, _step_scalar)
+from .basic import (_counter, _fault_key, _guard_update, _history, _live,
+                    _mp_floor, _nonfinite, _or_idle, _precond_apply, _rdot,
+                    _record, _reject, _resolve_status, _slot, _status0,
+                    _step_scalar)
 
 __all__ = ["resolve_mode", "ca_key", "classic_reductions_per_iter",
            "ca_reductions_per_iter", "last_fallback", "clear_fallback",
            "run_cg", "run_cgls", "run_block_cg", "run_block_cgls",
+           "seg_fields", "check_resume_ca", "CA_SCHEMA",
            "RUNNING", "BREAKDOWN"]
+
+# A segmented checkpoint of a CA engine carries another field set than
+# the classic engines' (schema 1): this schema and the engine's name are
+# stamped into it, and a resume under another engine refuses.
+CA_SCHEMA = 2
 
 
 # all_reduce calls per iteration of the classic fused engines (the JAX
@@ -88,12 +107,12 @@ def ca_reductions_per_iter(mode: str, s: int = 1) -> float:
 def resolve_mode(Op=None, solver: str = "cg") -> str:
     """``PYLOPS_MPI_TPU_TORCH_CA`` as the engine of this solve: ``off``,
     ``pipelined`` or ``sstep``. ``auto`` raises: the JAX package picks
-    by its cost model's latency term, which is ROADMAP.md §A.7."""
+    by its cost model's latency term, which is ROADMAP.md §A.7 item 4."""
     mode = deps.ca_mode()
     if mode == "auto":
         raise NotImplementedError(
             "PYLOPS_MPI_TPU_TORCH_CA=auto is not ported: it picks the "
-            "engine by the cost model, ROADMAP.md §A.7; set off, "
+            "engine by the cost model, ROADMAP.md §A.7 item 4; set off, "
             "pipelined or sstep")
     return mode
 
@@ -170,77 +189,166 @@ def _stacked(pairs, block: bool) -> torch.Tensor:
 
 # ------------------------------------------------------ pipelined engine
 def _pipe_step(applyA, M, tol: float, block: bool, niter: int,
-               first: bool = False):
+               first: bool = False, guards: bool = False, stall_n: int = 0,
+               fault=None):
     """One pipelined (P)CG iteration (JAX ``_make_pipe_body``) over the
-    carry ``(x, r, u, w, z, s, p, q, aold, kold, iiter, it, cost)`` and
+    carry ``(x, r, u, w, z, s, p, q, aold, kold, iiter, it, cost,
+    status, bestk, stall)`` (the last three ``None`` without guards) and
     the constants ``(floors, stop)``; ``first`` is iteration 0, whose
     momentum is zero. The freeze is per column for block vectors
     (``kold <= max(floors, tol)``), at the machine floor ``γ <= floors``
-    otherwise; once ``max(kold) <= tol`` nothing moves any more."""
+    otherwise; once the loop's condition fails nothing moves any more.
+    ``fault`` (guarded loops only) injects at the apply ``n = A M w``
+    and the step scalar."""
     precond = M is not None
+    nan_at, stall_at = faults.fault_sites(fault if guards else None)
 
     def step(state, consts):
-        x, r, u, w, z, s, p, q, aold, kold, iiter, it, cost = state
+        (x, r, u, w, z, s, p, q, aold, kold, iiter, it, cost, status, bestk,
+         stall) = state
         floors, stop = consts
         xdt = x.dtype
-        active = torch.max(kold) > tol
+        active = _live(kold, tol, status if guards else None)
         # the single reduction, first: the apply below does not wait on it
         g = _stacked(((r, u), (w, u)), block)
         gamma, delta = g[0], g[1]
         m = _precond_apply(M, w, xdt)
         n = applyA(m)
+        if nan_at is not None:
+            n = faults.inject_nan(n, iiter, nan_at)
         done = (kold <= stop) if block else (gamma <= floors)
+        if block and guards:
+            done = done | (status != RUNNING)
         done = _or_idle(done, active)
         zero = torch.zeros_like(gamma)
         b = zero if first else torch.where(done, zero, gamma / kold)
         a = torch.where(done, zero, gamma / (delta - b * gamma / aold))
+        if stall_at is not None:
+            a = faults.inject_stall(a, iiter, stall_at)
         bs = _step_scalar(b, xdt)
         as_ = _step_scalar(a, xdt)
-        z = n + z * bs
-        s = w + s * bs
-        p = u + p * bs
+        zn = n + z * bs
+        sn = w + s * bs
+        pn = u + p * bs
         if precond:
-            q = m + q * bs
-            u = u - q * as_
-        # nothing moves once the loop's condition failed (a non-finite
-        # lane would otherwise leak into x through p·0)
-        x = _reject(active, x + p * as_, x)
-        r = r - s * as_
-        w = w - z * as_
+            qn = m + q * bs
+            un = u - qn * as_
+        xn = x + pn * as_
+        rn = r - sn * as_
+        wn = w - zn * as_
+        if guards:
+            from .block import _bguard_update
+            bad = _nonfinite(a, b, gamma, delta)
+            hold = _or_idle(bad, active)
+            x, r, w, z, s, p = (_reject(hold, x, xn), _reject(hold, r, rn),
+                                _reject(hold, w, wn), _reject(hold, z, zn),
+                                _reject(hold, s, sn), _reject(hold, p, pn))
+            if precond:
+                u, q = _reject(hold, u, un), _reject(hold, q, qn)
+            k = torch.where(bad, kold, gamma)
+            update = _bguard_update if block else _guard_update
+            status, bestk, stall = update(status, bestk, stall, bad, k, done,
+                                          stall_n, active)
+            aold = torch.where(bad | done, aold, a)
+        else:
+            z, s, p = zn, sn, pn
+            if precond:
+                q, u = qn, un
+            # nothing moves once the loop's condition failed (a
+            # non-finite lane would otherwise leak into x through p·0)
+            x = _reject(active, xn, x)
+            r, w = rn, wn
+            k = gamma
+            aold = torch.where(done, aold, a)
         if not precond:
             u = r
-        aold = torch.where(done, aold, a)
-        kold = torch.where(active, gamma, kold)
+        kold = torch.where(active, k, kold)
         iiter = iiter + active.to(iiter.dtype)
         it = it + 1
         _record(cost, _slot(it, active, niter + 1), torch.sqrt(kold))
-        return x, r, u, w, z, s, p, q, aold, kold, iiter, it, cost
+        return (x, r, u, w, z, s, p, q, aold, kold, iiter, it, cost, status,
+                bestk, stall)
     return step
 
 
-def _pipe_loop(solver: str, scalars, Op, M, y, applyA, x, r, u, kold,
-               floors, tol: float, niter: int, block: bool):
-    """The pipelined (P)CG loop from the seeded ``x, r, u = M r`` and
-    ``kold``: iteration 0 (its companions start as aliases, which it
-    overwrites), then the rest through :mod:`..aot.graphs`. Returns
-    ``(x, iiter, cost, kold)``."""
-    from ..aot import graphs
+def _pipe_guard(kold, block: bool, guards: bool):
+    """The guard carry's start ``(status, bestk, stall)`` (per column
+    for block vectors) and the stall window, or Nones and 0."""
+    if not guards:
+        return (None, None, None), 0
+    from ..resilience.status import stall_window
+    shape = tuple(kold.shape) if block else ()
+    return ((_status0(kold.device, kold.shape[0] if block else None),
+             kold.clone() if block else torch.max(kold),
+             torch.zeros(shape, dtype=torch.int32, device=kold.device)),
+            stall_window())
+
+
+def _pipe_state(M, applyA, x, r, u, kold, niter: int, block: bool,
+                guards: bool):
+    """The pipelined loop's seeded carry before iteration 0 (the
+    companions start as aliases, which iteration 0 overwrites) and the
+    stall window."""
     w = applyA(u)
+    guard, stall_n = _pipe_guard(kold, block, guards)
     state = (x, r, u, w, w, w, u, u if M is not None else None,
              torch.ones_like(kold),
              kold, torch.zeros((), dtype=torch.int64, device=kold.device),
-             _counter(kold.device), _history(torch.sqrt(kold), niter))
+             _counter(kold.device), _history(torch.sqrt(kold), niter)) + guard
+    return state, stall_n
+
+
+def _pipe_graph(Op, M, y, applyA, state, floors, tol: float, niter: int,
+                block: bool, solver: str, scalars, guards: bool,
+                stall_n: int, fault=None):
+    """The pipelined loop (iterations after 0) over ``state`` as an
+    :class:`~..aot.graphs.Loop`, and iteration 0's step."""
+    from ..aot import graphs
     consts = (floors, _tol_floor(floors, tol))
-    if niter > 0:
-        state = _pipe_step(applyA, M, tol, block, niter, first=True)(
-            state, consts)
-    loop = graphs.Loop(solver, dict(scalars, tol=tol, mode="pipelined"),
+    loop = graphs.Loop(solver, dict(scalars, tol=tol, mode="pipelined",
+                                    guards=guards, stall=stall_n,
+                                    **_fault_key(guards, fault)),
                        Op, M, y, state, consts,
-                       _pipe_step(applyA, M, tol, block, niter))
-    state = graphs.run_iterations(loop, lambda st: torch.max(st[9]) > tol,
-                                  niter, start=1)
+                       _pipe_step(applyA, M, tol, block, niter, False,
+                                  guards, stall_n, fault))
+    first = _pipe_step(applyA, M, tol, block, niter, True, guards, stall_n,
+                       fault)
+    return loop, lambda st: first(st, consts)
+
+
+def _pipe_head(Op, M, y, applyA, x, r, u, kold, floors, tol: float,
+               niter: int, block: bool, solver: str, scalars, guards: bool,
+               fault):
+    """The pipelined loop's :class:`~..aot.graphs.Loop` after its peeled
+    iteration 0."""
+    state, stall_n = _pipe_state(M, applyA, x, r, u, kold, niter, block,
+                                 guards)
+    loop, first = _pipe_graph(Op, M, y, applyA, state, floors, tol, niter,
+                              block, solver, scalars, guards, stall_n, fault)
+    if niter > 0:
+        loop.state = first(loop.state)
+    return loop
+
+
+def _pipe_live(tol: float, guards: bool):
+    return lambda st: _live(st[9], tol, st[13] if guards else None)
+
+
+def _pipe_loop(solver: str, scalars, Op, M, y, applyA, x, r, u, kold,
+               floors, tol: float, niter: int, block: bool,
+               guards: bool = False, fault=None):
+    """The pipelined (P)CG loop from the seeded ``x, r, u = M r`` and
+    ``kold``: iteration 0, then the rest through :mod:`..aot.graphs`.
+    Returns ``(x, iiter, cost, kold, code)``, ``code`` the status word
+    (a list for block vectors) with guards, else ``None``."""
+    from ..aot import graphs
+    loop = _pipe_head(Op, M, y, applyA, x, r, u, kold, floors, tol, niter,
+                      block, solver, scalars, guards, fault)
+    state = graphs.run_iterations(loop, _pipe_live(tol, guards), niter,
+                                  start=1)
     x, kold, iiter, cost = state[0], state[9], state[10], state[12]
-    return x, int(iiter), cost, kold
+    code = _resolve_status(state[13], kold, tol) if guards else None
+    return x, int(iiter), cost, kold, code
 
 
 def _tol_floor(floors: torch.Tensor, tol: float) -> torch.Tensor:
@@ -249,14 +357,21 @@ def _tol_floor(floors: torch.Tensor, tol: float) -> torch.Tensor:
                                                  device=floors.device))
 
 
-def _pipe_cg(Op, y, x, niter: int, tol: float, M, block: bool):
-    """Pipelined (P)CG from ``x``: ``(x, iiter, cost, kold)``."""
-    xdt = x.dtype
+def _pipe_cg_seed(Op, y, x, M, block: bool):
+    """Pipelined (P)CG's seed ``(r, u = M r, kold)``."""
     r = y - Op.matvec(x)
-    u = _precond_apply(M, r, xdt)
+    u = _precond_apply(M, r, x.dtype)
     kold = _bdot(r, u) if block else _rdot(r, u)
+    return r, u, kold
+
+
+def _pipe_cg(Op, y, x, niter: int, tol: float, M, block: bool,
+             guards: bool = False, fault=None):
+    """Pipelined (P)CG from ``x``: ``(x, iiter, cost, kold, code)``."""
+    r, u, kold = _pipe_cg_seed(Op, y, x, M, block)
     return _pipe_loop("block_cg" if block else "cg", {}, Op, M, y, Op.matvec,
-                      x, r, u, kold, _mp_floor(kold), tol, niter, block)
+                      x, r, u, kold, _mp_floor(kold), tol, niter, block,
+                      guards, fault)
 
 
 def _normal_apply(Op, damp2: float, xdt, normal: bool):
@@ -274,12 +389,12 @@ def _normal_apply(Op, damp2: float, xdt, normal: bool):
     return applyA
 
 
-def _pipe_cgls(Op, y, x, niter: int, damp: float, tol: float,
-               normal: bool, M, block: bool):
-    """Pipelined (P)CGLS from ``x`` (JAX ``_pipe_cgls_seed``): the seed
-    matches the classic engine's, the reference's un-squared setup damp
-    included, so ``kold``, the floors and ``cost[0]`` agree with it; the
-    carried residual is the true damped normal residual."""
+def _pipe_cgls_seed(Op, y, x, damp: float, normal: bool, M, block: bool):
+    """Pipelined (P)CGLS's seed (JAX ``_pipe_cgls_seed``) ``(applyA, r,
+    u, kold, floors)``: it matches the classic engine's, the reference's
+    un-squared setup damp included, so ``kold``, the floors and
+    ``cost[0]`` agree with it; the carried residual is the true damped
+    normal residual."""
     xdt = x.dtype
     damp2 = damp ** 2
     sc = torch.tensor(damp, dtype=torch.float64)
@@ -291,9 +406,18 @@ def _pipe_cgls(Op, y, x, niter: int, damp: float, tol: float,
     floors = _mp_floor(kold)
     r = rq + x * _step_scalar(sc - damp2, xdt)
     u = _precond_apply(M, r, xdt)
+    return applyA, r, u, kold, floors
+
+
+def _pipe_cgls(Op, y, x, niter: int, damp: float, tol: float,
+               normal: bool, M, block: bool, guards: bool = False,
+               fault=None):
+    """Pipelined (P)CGLS from ``x``: ``(x, iiter, cost, kold, code)``."""
+    applyA, r, u, kold, floors = _pipe_cgls_seed(Op, y, x, damp, normal, M,
+                                                 block)
     return _pipe_loop("block_cgls" if block else "cgls",
                       dict(damp=damp, normal=normal), Op, M, y, applyA, x, r,
-                      u, kold, floors, tol, niter, block)
+                      u, kold, floors, tol, niter, block, guards, fault)
 
 
 # ------------------------------------------------------ s-step engine
@@ -326,18 +450,22 @@ def _sstep_maps(s: int):
     return Amap, Smap
 
 
-def _sstep_outer(Op, M, niter: int, s: int):
+def _sstep_outer(Op, M, niter: int, s: int, tol: float = 0.0,
+                 guards: bool = False, stall_n: int = 0):
     """One outer step of s-step CA-CG (JAX ``_make_sstep_body``) over the
-    carry ``(x, r, z, p, kold, iiter, status, moved, cost)`` and the
-    constants ``(Amap, Smap, tol_floor)``: ``2s - 1`` operator applies,
-    ONE reduction of the Gram tile, then ``s`` CG steps on replicated
-    coordinate vectors."""
+    carry ``(x, r, z, p, kold, iiter, status, moved, cost, bestk,
+    stall)`` (the last two ``None`` without guards) and the constants
+    ``(Amap, Smap, tol_floor)``: ``2s - 1`` operator applies, ONE
+    reduction of the Gram tile, then ``s`` CG steps on replicated
+    coordinate vectors. With ``guards`` the guard carry's stagnation
+    window runs too (JAX ``_guard_update`` with ``stall_n``)."""
     precond = M is not None
     nv, nw = 2 * s + 1, 2 * s - 1
 
     def step(state, consts):
-        x, r, z, p, kold, iiter, status, moved, cost = state
+        x, r, z, p, kold, iiter, status, moved, cost, bestk, stall = state
         Amap, Smap, tol_floor = consts
+        live = (iiter < niter) & (kold > tol) & (status == RUNNING)
         xdt = x.dtype
         acc = Amap.dtype
         dev = kold.device
@@ -409,21 +537,25 @@ def _sstep_outer(Op, M, niter: int, s: int):
         else:
             z = r
         kold = torch.where(bad, kold, k_run.to(kold.dtype))
-        status = torch.where(bad, torch.full_like(status, BREAKDOWN), status)
+        if guards:
+            status, bestk, stall = _guard_update(
+                status, bestk, stall, bad, kold,
+                kold <= tol_floor.to(kold.dtype), stall_n, live)
+        else:
+            status = torch.where(bad, torch.full_like(status, BREAKDOWN),
+                                 status)
         # ``moved``: an outer step that ran no inner step (every lane
         # frozen at the machine floor, tol below it) ends the loop; the
         # JAX package's while loop would spin there
         moved = (iit > iiter) | bad
-        return x, r, z, p, kold, iit, status, moved, cost
+        return x, r, z, p, kold, iit, status, moved, cost, bestk, stall
     return step
 
 
-def _sstep_cg(Op, y, x, niter: int, tol: float, s: int, M):
-    """s-step CA-CG (JAX ``_make_sstep_body``/``_sstep_cg_fused``), its
-    outer steps through :mod:`..aot.graphs` (one outer step a segment).
-    Returns ``(x, iiter, cost, status)``; ``status`` is ``BREAKDOWN``
-    when the basis guard rejected an outer step."""
-    from ..aot import graphs
+def _sstep_seed(Op, y, x, niter: int, tol: float, s: int, M,
+                guards: bool = False):
+    """s-step's seeded carry, constants and stall window (JAX
+    ``_sstep_cg_seed``)."""
     xdt = x.dtype
     r = y - Op.matvec(x)
     r = DistributedArray._wrap(x._coerce_operand(r), x)
@@ -434,64 +566,126 @@ def _sstep_cg(Op, y, x, niter: int, tol: float, s: int, M):
     acc = accum_dtype(xdt)
     Amap, Smap = (torch.as_tensor(t, dtype=acc, device=dev)
                   for t in _sstep_maps(s))
+    stall_n = 0
+    guard = (None, None)
+    if guards:
+        from ..resilience.status import stall_window
+        stall_n = stall_window()
+        guard = (kold.clone(), torch.zeros((), dtype=torch.int32,
+                                           device=dev))
     state = (x, r, z, z, kold, torch.zeros((), dtype=torch.int64, device=dev),
              torch.tensor(RUNNING, dtype=torch.int32, device=dev),
              torch.ones((), dtype=torch.bool, device=dev),
-             _history(torch.sqrt(kold), niter))
-    loop = graphs.Loop("cg", dict(tol=tol, mode="sstep", s=s), Op, M, y,
-                       state, (Amap, Smap, _tol_floor(floors.to(acc), tol)),
-                       _sstep_outer(Op, M, niter, s), per_segment=1)
-    x, _, _, _, kold, iiter, status, _, cost = graphs.run_while(
+             _history(torch.sqrt(kold), niter)) + guard
+    return state, (Amap, Smap, _tol_floor(floors.to(acc), tol)), stall_n
+
+
+def _sstep_cg(Op, y, x, niter: int, tol: float, s: int, M,
+              guards: bool = False):
+    """s-step CA-CG (JAX ``_make_sstep_body``/``_sstep_cg_fused``), its
+    outer steps through :mod:`..aot.graphs` (one outer step a segment).
+    Returns ``(x, iiter, cost, status, kold)``; the status word is
+    ``BREAKDOWN`` when the basis guard rejected an outer step (or, with
+    guards, ``STAGNATION``)."""
+    from ..aot import graphs
+    state, consts, stall_n = _sstep_seed(Op, y, x, niter, tol, s, M, guards)
+    loop = graphs.Loop("cg", dict(tol=tol, mode="sstep", s=s, guards=guards,
+                                  stall=stall_n), Op, M, y,
+                       state, consts,
+                       _sstep_outer(Op, M, niter, s, tol, guards, stall_n),
+                       per_segment=1)
+    x, _, _, _, kold, iiter, status, _, cost, _, _ = graphs.run_while(
         loop, lambda st: ((st[5] < niter) & (st[4] > tol)
                           & (st[6] == RUNNING) & st[7]))
-    return x, int(iiter), cost, int(status)
+    return x, int(iiter), cost, status, kold
 
 
 # ------------------------------------------------------ runners
 def run_cg(Op, y, x0, niter: int, tol: float, M=None,
-           mode: str = "pipelined"):
-    """CA twin of the fused ``cg``: ``(x, iiter, cost[:iiter+1])``.
-    ``sstep`` on an ineligible space runs pipelined; a basis breakdown
-    continues pipelined from the last completed outer iterate."""
-    if mode == "sstep" and not _sstep_eligible(y, x0):
+           mode: str = "pipelined", guards: bool = False, fault=None):
+    """CA twin of the fused ``cg``: ``(x, iiter, cost[:iiter+1], code)``,
+    ``code`` the status word with ``guards``, else ``None``. ``sstep``
+    on an ineligible space, or with a fault armed, runs pipelined; a
+    basis breakdown continues pipelined from the last completed outer
+    iterate."""
+    if mode == "sstep" and (fault is not None
+                            or not _sstep_eligible(y, x0)):
         mode = "pipelined"
     if mode == "sstep":
         s = deps.ca_s_default()
-        x, iiter, cost, status = _sstep_cg(Op, y, x0, niter, tol, s, M)
+        x, iiter, cost, status, kold = _sstep_cg(Op, y, x0, niter, tol, s,
+                                                 M, guards)
         cost = cost[:iiter + 1]
-        if status == BREAKDOWN and iiter < niter:
+        code = _resolve_status(status, kold, tol) if guards else None
+        if int(status) == BREAKDOWN and iiter < niter:
             _record_fallback("cg", s, iiter)
-            x, it2, cost2, _ = _pipe_cg(Op, y, x, niter - iiter, tol, M,
-                                        False)
+            x, it2, cost2, _, code = _pipe_cg(Op, y, x, niter - iiter, tol,
+                                              M, False, guards)
             cost = torch.cat([cost, cost2[1:it2 + 1]])
             iiter += it2
-        return x, iiter, cost
-    x, iiter, cost, _ = _pipe_cg(Op, y, x0, niter, tol, M, False)
-    return x, iiter, cost[:iiter + 1]
+        return x, iiter, cost, code
+    x, iiter, cost, _, code = _pipe_cg(Op, y, x0, niter, tol, M, False,
+                                       guards, fault)
+    return x, iiter, cost[:iiter + 1], code
 
 
 def run_cgls(Op, y, x0, niter: int, damp: float, tol: float,
-             normal: bool, M=None):
-    """CA twin of the fused ``cgls``: ``(x, iiter, cost[:iiter+1],
-    kold)``, ``cost`` the normal-residual norms. s-step requests run
+             normal: bool, M=None, guards: bool = False, fault=None):
+    """CA twin of the fused ``cgls``: ``(x, iiter, cost[:iiter+1], kold,
+    code)``, ``cost`` the normal-residual norms. s-step requests run
     pipelined, which already takes one reduction an iteration."""
-    x, iiter, cost, kold = _pipe_cgls(Op, y, x0, niter, damp, tol, normal,
-                                      M, False)
-    return x, iiter, cost[:iiter + 1], kold
+    x, iiter, cost, kold, code = _pipe_cgls(Op, y, x0, niter, damp, tol,
+                                            normal, M, False, guards, fault)
+    return x, iiter, cost[:iiter + 1], kold, code
 
 
-def run_block_cg(Op, y, x0, niter: int, tol: float, M=None):
+def run_block_cg(Op, y, x0, niter: int, tol: float, M=None,
+                 guards: bool = False, fault=None):
     """Pipelined block CG (K > 1; s-step has no block form):
-    ``(x, iiter, cost[:iiter+1])`` with ``(K,)`` lanes."""
-    x, iiter, cost, _ = _pipe_cg(Op, y, x0, niter, tol, M, True)
-    return x, iiter, cost[:iiter + 1]
+    ``(x, iiter, cost[:iiter+1], codes)`` with ``(K,)`` lanes."""
+    x, iiter, cost, _, codes = _pipe_cg(Op, y, x0, niter, tol, M, True,
+                                        guards, fault)
+    return x, iiter, cost[:iiter + 1], codes
 
 
-def run_block_cgls(Op, y, x0, niter: int, damp: float, tol: float, M=None):
+def run_block_cgls(Op, y, x0, niter: int, damp: float, tol: float, M=None,
+                   guards: bool = False, fault=None):
     """Pipelined block CGLS (K > 1): ``(x, istop, iiter, kold, r2norm,
-    cost)`` as ``block_cgls`` returns, ``cost`` the normal-residual
-    norms."""
-    x, iiter, cost, kold = _pipe_cgls(Op, y, x0, niter, damp, tol, False,
-                                      M, True)
+    cost, codes)``, the first six as ``block_cgls`` returns, ``cost``
+    the normal-residual norms."""
+    x, iiter, cost, kold, codes = _pipe_cgls(Op, y, x0, niter, damp, tol,
+                                             False, M, True, guards, fault)
     istop = torch.where(kold < tol, 1, 2)
-    return x, istop, iiter, kold, cost[iiter], cost[:iiter + 1]
+    return x, istop, iiter, kold, cost[iiter], cost[:iiter + 1], codes
+
+
+# ------------------------------------------------------ segmented seams
+def seg_fields(solver: str, mode: str, M) -> tuple:
+    """Checkpoint field names of a CA segmented carry (JAX
+    ``seg_fields``): the step's carry, ``None`` entries included (a
+    field the engine elides is stored as ``None``)."""
+    if mode == "sstep":
+        return ("x", "r", "z", "p", "kold", "iiter", "status", "moved",
+                "cost", "bestk", "stall")
+    return ("x", "r", "u", "w", "z", "s", "p", "q", "aold", "kold", "iiter",
+            "it", "cost", "status", "bestk", "stall")
+
+
+def check_resume_ca(state: dict, mode: str, s: Optional[int] = None):
+    """Refuse a resume whose checkpoint was written under another CA
+    engine (JAX ``check_resume_ca``): the carries are different. A
+    checkpoint with no ``ca`` stamp counts as ``off``."""
+    got = str(state.get("ca", "off"))
+    if got != mode:
+        raise ValueError(
+            f"fused-carry checkpoint was written with ca={got!r} but this "
+            f"run requests ca={mode!r}: resume must replay the same plan "
+            "(set PYLOPS_MPI_TPU_TORCH_CA to match or restart without "
+            "resume=True)")
+    if mode == "sstep":
+        got_s = int(state.get("ca_s", 0))
+        if s is not None and got_s != int(s):
+            raise ValueError(
+                f"fused-carry checkpoint was written with s={got_s} but "
+                f"this run requests s={int(s)}: resume must replay the "
+                "same plan")

@@ -20,8 +20,14 @@ Two execution paths, as in the JAX package:
   reads the mask every ``_CHECK_EVERY`` iterations to leave early, so
   the result equals the JAX package's ``lax.while_loop`` exactly.
 
-The guarded variants (``ista_guarded``/``fista_guarded``), telemetry
-and fault injection of the JAX package are not ported.
+With ``guards`` on (JAX ``sparsity.py:278-375``; ``ista_guarded``/
+``fista_guarded`` return the word) the fused loop also carries a status
+word: a non-finite cost or update rejects the step (``x``, ``z`` and
+``t`` keep their last finite values) and ends the loop with
+``BREAKDOWN``, a cost that has not improved for ``GUARD_STALL``
+iterations with ``STAGNATION``. A guarded solve consumes the armed fault
+of :mod:`..resilience.faults` (NaN at ``Op x``, stall at the step). The
+JAX package's telemetry is not ported.
 """
 
 from __future__ import annotations
@@ -41,7 +47,8 @@ from ..stacked import StackedDistributedArray
 from .basic import _counter, _record, _slot, _step_scalar
 from .eigs import _where, power_iteration
 
-__all__ = ["ISTA", "FISTA", "ista", "fista"]
+__all__ = ["ISTA", "FISTA", "ista", "fista", "ista_guarded",
+           "fista_guarded"]
 
 Vector = Union[DistributedArray, StackedDistributedArray]
 
@@ -266,18 +273,29 @@ class FISTA(ISTA):
 
 # --------------------------------------------------------- fused (on-device)
 def _sparse_step(Op, SOp, threshf: Callable, eps: float, thresh: float,
-                 tol: float, nd: int, niter: int, momentum: bool):
+                 tol: float, nd: int, niter: int, momentum: bool,
+                 guards: bool = False, stall_n: int = 0, fault=None):
     """One iteration of the JAX package's ``_ista_fused`` loop over the
-    carry ``(x, z, t, cost, iiter, active, it)`` (``z`` and ``t`` only
-    with ``momentum``) and the constants ``(y, decay_t, step)``; the
-    decay is read through the device index ``it``."""
+    carry ``(x, z, t, cost, iiter, active, it, status, bestc, stall,
+    xup)`` (``z`` and ``t`` only with ``momentum``, the last four only
+    with ``guards``) and the constants ``(y, decay_t, step)``; the decay
+    is read through the device index ``it``."""
+    from ..resilience import faults
+    from .basic import _guard_update, _reject
+    nan_at, stall_at = faults.fault_sites(fault if guards else None)
+
     def step(state, consts):
-        x, z, t, cost, iiter, active, it = state
+        x, z, t, cost, iiter, active, it, status, bestc, stall, xup = state
         y, decay_t, stp = consts
         xdt = x.dtype
         rdt = cost.dtype
         xin = z if momentum else x
-        res = y - Op.matvec(xin)
+        mv = Op.matvec(xin)
+        if nan_at is not None:
+            mv = faults.inject_nan(mv, iiter, nan_at)
+        res = y - mv
+        if stall_at is not None:
+            stp = faults.inject_stall(stp, iiter, stall_at)
         x_unthresh = xin + Op.rmatvec(res) * stp
         if SOp is not None:
             x_unthresh = SOp.rmatvec(x_unthresh)
@@ -294,27 +312,49 @@ def _sparse_step(Op, SOp, threshf: Callable, eps: float, thresh: float,
             costdata = 0.5 * res.norm() ** 2
         costreg = eps * xnew.norm(1)
         xupdate = (xnew - x).norm().to(rdt)
-        _record(cost, _slot(it, active, niter), (costdata + costreg).to(rdt))
-        if momentum:
-            z = _where(active, znew, z)
-            t = torch.where(active, tnew, t)
-        x = _where(active, xnew, x)
+        costval = (costdata + costreg).to(rdt)
+        _record(cost, _slot(it, active, niter), costval)
+        if guards:
+            bad = ~torch.isfinite(costval) | ~torch.isfinite(xupdate)
+            hold = ~active | bad
+            if momentum:
+                z = _reject(hold, z, znew)
+                t = torch.where(hold, t, tnew)
+            x = _reject(hold, x, xnew)
+            # a rejected step must not look converged
+            xupdate = torch.where(bad, torch.full_like(xupdate, math.inf),
+                                  xupdate)
+            status, bestc, stall = _guard_update(
+                status, bestc, stall, bad, costval, torch.zeros_like(bad),
+                stall_n, active)
+            xup = torch.where(active, xupdate, xup)
+        else:
+            if momentum:
+                z = _where(active, znew, z)
+                t = torch.where(active, tnew, t)
+            x = _where(active, xnew, x)
         iiter = iiter + active.to(iiter.dtype)
         active = active & (xupdate > tol)
-        return x, z, t, cost, iiter, active, it + 1
+        if guards:
+            from ..resilience.status import RUNNING
+            active = active & (status == RUNNING)
+        return x, z, t, cost, iiter, active, it + 1, status, bestc, stall, xup
     return step
 
 
 def _sparse_fused(Op, y: Vector, x0: Vector, alpha: float, eps: float,
                   tol: float, decay: np.ndarray, *, niter: int,
-                  threshf: Callable, SOp=None, momentum: bool = False):
+                  threshf: Callable, SOp=None, momentum: bool = False,
+                  guards: bool = False, fault=None):
     """The JAX package's ``_ista_fused`` loop with device scalars,
     through :mod:`..aot.graphs`; the host checks ``active`` at the top
     of iterations 8, 16, …. The step, decay and momentum scalars live
     at the model's reduction dtype (so a Python float never promotes an
     f32 model), as do ``xupdate`` and the cost; the step re-enters the
-    update at the model's dtype."""
+    update at the model's dtype. Returns ``(x, iiter, cost[:iiter],
+    code)``, ``code`` the status word with ``guards``, else ``None``."""
     from ..aot import graphs
+    from .basic import _fault_key, _resolve_status, _status0
     xdt = x0.dtype
     rdt = reduction_dtype(xdt)
     dev = x0.device
@@ -322,45 +362,66 @@ def _sparse_fused(Op, y: Vector, x0: Vector, alpha: float, eps: float,
     decay = np.asarray(decay)
     decay_t = torch.as_tensor(decay, dtype=rdt, device=dev)
     step = _step_scalar(torch.tensor(alpha, dtype=rdt, device=dev), xdt)
+    stall_n = 0
+    guard = (None, None, None, None)
+    if guards:
+        from ..resilience.status import stall_window
+        stall_n = stall_window()
+        guard = (_status0(dev), torch.tensor(math.inf, dtype=rdt, device=dev),
+                 torch.zeros((), dtype=torch.int32, device=dev),
+                 torch.tensor(math.inf, dtype=rdt, device=dev))
     state = (x0, x0.copy() if momentum else None,
              torch.tensor(1.0, dtype=rdt, device=dev) if momentum else None,
              torch.zeros(niter + 1, dtype=rdt, device=dev),
              torch.zeros((), dtype=torch.int64, device=dev),
              torch.ones((), dtype=torch.bool, device=dev),
-             _counter(dev))
+             _counter(dev)) + guard
     loop = graphs.Loop(
         "fista" if momentum else "ista",
         dict(alpha=alpha, eps=eps, tol=tol, decay=tuple(decay.tolist()),
-             threshf=threshf.__name__, sop=SOp is not None),
+             threshf=threshf.__name__, sop=SOp is not None,
+             **({"guards": True, "stall": stall_n} if guards else {}),
+             **_fault_key(guards, fault)),
         Op, SOp, y, state, (y, decay_t, step),
         _sparse_step(Op, SOp, threshf, eps, thresh, tol,
-                     decay_t.shape[0], niter, momentum))
-    x, _, _, cost, iiter, _, _ = graphs.run_iterations(
+                     decay_t.shape[0], niter, momentum, guards, stall_n,
+                     fault))
+    x, _, _, cost, iiter, _, _, status, _, _, xup = graphs.run_iterations(
         loop, lambda st: st[5], niter)
     iiter = int(iiter)
-    return x, iiter, cost[:iiter]
+    code = _resolve_status(status, xup, tol) if guards else None
+    return x, iiter, cost[:iiter], code
 
 
 def _sparse_solve(name, Op, y, x0, niter, SOp, eps, alpha, eigsdict, tol,
                   threshkind, perc, decay, monitorres, show, itershow,
-                  callback, fused):
+                  callback, fused, guards=None):
     """Shared body of :func:`ista` and :func:`fista`, inside the
-    ``solver.<name>`` span (JAX ``sparsity.py:485``, ``:526``; ``guards``
-    and ``telemetry`` are always false here: neither is ported)."""
+    ``solver.<name>`` span (JAX ``sparsity.py:485``, ``:526``;
+    ``telemetry`` is always false here: it is not ported). Returns the
+    fused path's ``(x, iiter, cost, code)`` or the class API's
+    ``(x, iiter, cost)``."""
+    from ..resilience.status import guards_enabled
     use_fused = fused if fused is not None else \
         (callback is None and not show and not monitorres and perc is None)
+    use_guards = use_fused and guards_enabled(guards)
     with _trace.span(f"solver.{name}", cat="solver", op=type(Op).__name__,
                      shape=Op.shape, niter=niter, eps=eps,
-                     threshkind=threshkind, fused=use_fused, guards=False,
-                     telemetry=False):
-        return _sparse_run(name, Op, y, x0, niter, SOp, eps, alpha,
-                           eigsdict, tol, threshkind, perc, decay,
-                           monitorres, show, itershow, callback, use_fused)
+                     threshkind=threshkind, fused=use_fused,
+                     guards=use_guards, telemetry=False):
+        out = _sparse_run(name, Op, y, x0, niter, SOp, eps, alpha,
+                          eigsdict, tol, threshkind, perc, decay,
+                          monitorres, show, itershow, callback, use_fused,
+                          use_guards)
+    if use_guards:
+        from ..resilience import status as _rstatus
+        _rstatus.record(name, out[3], out[1])
+    return out
 
 
 def _sparse_run(name, Op, y, x0, niter, SOp, eps, alpha, eigsdict, tol,
                 threshkind, perc, decay, monitorres, show, itershow,
-                callback, use_fused):
+                callback, use_fused, guards=False):
     momentum = name == "fista"
     if not use_fused:
         solver = (FISTA if momentum else ISTA)(Op)
@@ -384,9 +445,13 @@ def _sparse_run(name, Op, y, x0, niter, SOp, eps, alpha, eigsdict, tol,
     if alpha is None:
         alpha = _cached_step_size(Op, x0, eigsdict)
     decay = np.ones(niter) if decay is None else np.asarray(decay)
+    fault = None
+    if guards:
+        from ..resilience import faults
+        fault = faults.consume()
     return _sparse_fused(Op, y, x0, alpha, eps, tol, decay, niter=niter,
                          threshf=_THRESHF[threshkind], SOp=SOp,
-                         momentum=momentum)
+                         momentum=momentum, guards=guards, fault=fault)
 
 
 def ista(Op, y: Vector, x0: Optional[Vector] = None,
@@ -394,15 +459,18 @@ def ista(Op, y: Vector, x0: Optional[Vector] = None,
          alpha: Optional[float] = None, eigsdict=None, tol: float = 1e-10,
          threshkind: str = "soft", perc=None, decay=None,
          monitorres: bool = False, show: bool = False, itershow=(10, 10, 10),
-         callback: Optional[Callable] = None, fused: Optional[bool] = None):
+         callback: Optional[Callable] = None, fused: Optional[bool] = None,
+         guards: Optional[bool] = None):
     """Functional ISTA (ref ``optimization/sparsity.py:11-133``).
     Returns ``(x, iiter, cost)``. Without ``callback``, ``show`` or
     ``monitorres`` it runs the fused path (``cost`` a device tensor);
     with them, or ``fused=False``, the class API (``cost`` a numpy
-    array)."""
+    array). ``guards`` (``None`` defers to
+    ``PYLOPS_MPI_TPU_TORCH_GUARDS``) adds the guard carry to the fused
+    loop; the verdict lands in ``resilience.status.last_status("ista")``."""
     return _sparse_solve("ista", Op, y, x0, niter, SOp, eps, alpha,
                          eigsdict, tol, threshkind, perc, decay, monitorres,
-                         show, itershow, callback, fused)
+                         show, itershow, callback, fused, guards)[:3]
 
 
 def fista(Op, y: Vector, x0: Optional[Vector] = None,
@@ -410,9 +478,33 @@ def fista(Op, y: Vector, x0: Optional[Vector] = None,
           alpha: Optional[float] = None, eigsdict=None, tol: float = 1e-10,
           threshkind: str = "soft", perc=None, decay=None,
           monitorres: bool = False, show: bool = False, itershow=(10, 10, 10),
-          callback: Optional[Callable] = None, fused: Optional[bool] = None):
+          callback: Optional[Callable] = None, fused: Optional[bool] = None,
+          guards: Optional[bool] = None):
     """Functional FISTA (ref ``optimization/sparsity.py:136-257``); see
     :func:`ista`."""
     return _sparse_solve("fista", Op, y, x0, niter, SOp, eps, alpha,
                          eigsdict, tol, threshkind, perc, decay, monitorres,
-                         show, itershow, callback, fused)
+                         show, itershow, callback, fused, guards)[:3]
+
+
+def ista_guarded(Op, y: Vector, x0: Vector, niter: int = 10, SOp=None,
+                 eps: float = 0.1, alpha: Optional[float] = None,
+                 eigsdict=None, tol: float = 1e-10, threshkind: str = "soft",
+                 decay=None):
+    """Guarded fused ISTA (JAX ``sparsity.py:552-566``): ``(x, iiter,
+    cost, status_code)``; on breakdown ``x`` is the last finite
+    iterate."""
+    return _sparse_solve("ista", Op, y, x0, niter, SOp, eps, alpha,
+                         eigsdict, tol, threshkind, None, decay, False,
+                         False, (10, 10, 10), None, True, True)
+
+
+def fista_guarded(Op, y: Vector, x0: Vector, niter: int = 10, SOp=None,
+                  eps: float = 0.1, alpha: Optional[float] = None,
+                  eigsdict=None, tol: float = 1e-10, threshkind: str = "soft",
+                  decay=None):
+    """Guarded fused FISTA (JAX ``sparsity.py:569-581``): ``(x, iiter,
+    cost, status_code)``; see :func:`ista_guarded`."""
+    return _sparse_solve("fista", Op, y, x0, niter, SOp, eps, alpha,
+                         eigsdict, tol, threshkind, None, decay, False,
+                         False, (10, 10, 10), None, True, True)

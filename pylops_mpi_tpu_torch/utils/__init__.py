@@ -1,4 +1,5 @@
-"""Environment knobs, the adjoint test and the distributed fftshifts.
+"""Environment knobs, the adjoint test, the distributed fftshifts and
+the checkpoints.
 
 ``fftshift_nd``/``ifftshift_nd`` load on first access: their module
 imports the array module, which is still loading when the package
@@ -6,7 +7,10 @@ imports ``utils.deps``."""
 
 from importlib import import_module
 
-_EXPORTS = {"fftshift_nd": "fft_helper", "ifftshift_nd": "fft_helper"}
+_EXPORTS = {"fftshift_nd": "fft_helper", "ifftshift_nd": "fft_helper",
+            **{n: "checkpoint" for n in (
+                "save_solver", "load_solver", "save_pytree", "load_pytree",
+                "save_fused_carry", "load_fused_carry")}}
 
 __all__ = sorted(_EXPORTS)
 

@@ -19,8 +19,9 @@ import warnings
 
 import torch
 
-__all__ = ["KNOBS", "SERVICE_KNOBS", "apply_environment", "precond_default",
-           "mg_levels_default", "ca_mode", "ca_s_default"]
+__all__ = ["KNOBS", "SERVICE_KNOBS", "RESILIENCE_KNOBS", "apply_environment",
+           "precond_default", "mg_levels_default", "ca_mode", "ca_s_default",
+           "refine_enabled"]
 
 # (name, values, default, consumer module, one-line purpose)
 KNOBS = [
@@ -86,6 +87,35 @@ SERVICE_KNOBS = [
      "run the fused solver loops as captured CUDA graphs (auto is off: "
      "no disk bank)"),
 ]
+
+
+# the resilience tier's knobs (same tuple layout as KNOBS)
+RESILIENCE_KNOBS = [
+    ("PYLOPS_MPI_TPU_TORCH_RESTARTS", "int >= 0", "2",
+     "resilience/driver.py",
+     "precision-escalation restarts of resilient_solve"),
+    ("PYLOPS_MPI_TPU_TORCH_REFINE", "0|1", "0", "resilience/driver.py",
+     "route resilient_solve with a factory through refined_solve"),
+    ("PYLOPS_MPI_TPU_TORCH_SEGMENT", "int >= 0", "0",
+     "solvers/segmented.py",
+     "iterations an epoch of a segmented solve (0: one epoch)"),
+    ("PYLOPS_MPI_TPU_TORCH_WATCHDOG", "auto|on|off", "auto",
+     "resilience/elastic.py",
+     "collective watchdog (auto: on when supervised)"),
+    ("PYLOPS_MPI_TPU_TORCH_WATCHDOG_TIMEOUT", "float seconds", "",
+     "resilience/elastic.py",
+     "every watched stage's deadline (default: the stage budget)"),
+    ("PYLOPS_MPI_TPU_TORCH_CKPT_BACKEND", "native|shards", "native",
+     "utils/checkpoint.py",
+     "checkpoint backend (shards: one file a rank, no gather)"),
+]
+
+
+def refine_enabled() -> bool:
+    """``PYLOPS_MPI_TPU_TORCH_REFINE=1``: ``resilient_solve`` with an
+    operator factory runs :func:`~..resilience.driver.refined_solve`
+    (narrow inner solves, wide corrections)."""
+    return os.environ.get("PYLOPS_MPI_TPU_TORCH_REFINE", "0") == "1"
 
 
 def apply_environment() -> None:

@@ -220,20 +220,24 @@ def test_refusals_and_waiting_names(problem):
     for fn in (pmtt.block_cg, pmtt.block_cgls):
         with pytest.raises(ValueError, match="2-D"):
             fn(top, y1)
-        # guards are ported; on a communication-avoiding engine they
-        # are not
         with pytest.raises(ValueError, match="guards="):
             fn(top, tarr(problem["Y"]["spd"]), guards="on")
+        # guards run on the communication-avoiding engine: one verdict
+        # a column, x the unguarded engine's bit for bit
         os.environ["PYLOPS_MPI_TPU_TORCH_CA"] = "pipelined"
         try:
-            with pytest.raises(NotImplementedError, match="§A.7"):
-                fn(top, tarr(problem["Y"]["spd"]), guards=True)
+            Y = tarr(problem["Y"]["spd"])
+            xg = fn(top, Y, niter=3, tol=0.0, guards=True)[0]
+            xu = fn(top, Y, niter=3, tol=0.0, guards=False)[0]
+            assert torch.equal(xg.array, xu.array)
+            from pylops_mpi_tpu_torch.resilience import status as tstatus
+            assert tstatus.last_status(fn.__name__)["column_names"] == \
+                ["maxiter"] * Y.global_shape[1]
         finally:
             os.environ.pop("PYLOPS_MPI_TPU_TORCH_CA")
     with pytest.raises(ValueError, match="rows"):
         pmtt.block_cg(top, tarr(np.zeros((10, 2))))
     from pylops_mpi_tpu_torch import solvers
-    for name in ("block_cg_segmented", "batched_solve", "BatchedResult",
-                 "batched_cache_info"):
+    for name in ("batched_solve", "BatchedResult", "batched_cache_info"):
         with pytest.raises(NotImplementedError, match="§A.6"):
             getattr(solvers, name)()

@@ -16,6 +16,7 @@ times they are compared with.
 """
 
 import os
+import sys
 import re
 import threading
 import time
@@ -383,7 +384,7 @@ def test_poisoned_column_isolated(monkeypatch):
         np.testing.assert_array_equal(res[j]["x"], clean.x[:, j])
 
 
-def test_daemon_requires_start_and_drains_clean():
+def test_daemon_requires_start_and_drains_clean(tmp_path):
     pool = WarmPool(buckets=(1,))
     spec = pool.register(family()[0])
     d = SolveDaemon(pool)
@@ -393,8 +394,11 @@ def test_daemon_requires_start_and_drains_clean():
     assert d.drain(timeout=WAIT)
     with pytest.raises(RuntimeError, match="start"):
         d.submit("fam", np.zeros(spec.nrows, dtype=np.float32))
-    with pytest.raises(NotImplementedError, match="supervisor"):
-        serving.serve_job(["python"], 2, "spool")
+    # the supervised fleet runs now: a worker that exits clean ends it
+    r = serving.serve_job([sys.executable, "-c", "pass"], 1,
+                          str(tmp_path / "spool"), heartbeat_interval=0.2,
+                          job_timeout_s=60)
+    assert r.ok and r.attempts == 1
 
 
 # ------------------------------------------------------------- spool
