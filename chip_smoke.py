@@ -156,8 +156,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    within 1e-12 of one CPU process, each rank's all_reduce calls per
    iteration (pipelined 1) and the bytes it receives per preconditioner
    and sparse apply; and the serving pool's packed solve of four
-   requests (bucket 4) against the no-group pool within 1e-5, with
-   ``SolveDaemon`` refusing every world of more than one rank.
+   requests (bucket 4) against the no-group pool within 1e-5 (the daemon
+   over a group is phase 24.5's).
 
 21. slice 10, the solve service at a world of one, full width: a
    ``cgls`` family on phase 3's 32 blocks of 4096x4096 f32 (30
@@ -231,6 +231,32 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    ``breakdown``, x bitwise the clean solve's of one iteration fewer;
    guard-on over guard-off wall in pairs. Run it alone with
    ``resilience_phase(torch, pmtt, (nk, sk), here, dev)``.
+
+24. Slice 13, the training path. 24.1 the tap kernel's autograd rule at
+   slice 2's shape (f32, bf16; a ghost tensor on top, out_pad rows): its
+   gradient against autograd through the plain version, and the backward
+   launch (the same kernel on the transposed taps) against the plain
+   version, one ``conv_transpose2d`` and the byte bound. 24.2
+   ``examples/autodiff.py``'s objective on phase 3's blocks and the
+   axis-0 ``MPIFirstDerivative`` of the whole vector: 20 steps of gradient
+   descent by ``torch.autograd``, each gradient against the hand-written
+   one; the tap kernel's forward and backward launches counted from 0
+   (the phase's main path); then the same on two gloo ranks sharing the
+   card, every gradient against one rank's (the exchange's adjoint sends
+   the ghost cotangents home). 24.3 ``cgls_solve`` on
+   ``[Op; ε·MPIGradient]`` at (65536, 1024) in f64 (ε a 0-d tensor on the
+   card, ``NITER_24`` iterations, damp ``DAMP_24``): the implicit gradient
+   against a central difference (1e-3), the forward and backward solve
+   walls, then 5 Adam steps of ``fit`` eagerly and through the graph bank,
+   whose loss trajectories must agree (ε updated in place under replayed
+   graphs). 24.4 ``batched_solve`` of 4 ``MPIBlockDiag`` members built
+   from phase 3's blocks (CGLS, 30 iterations): each lane against its own
+   ``cgls``, a cache hit on the second call, its wall against the
+   sequential solves. 24.5 ``SolveDaemon`` over two gloo ranks sharing the
+   card on phase 21.2's families, 32 requests from 4 threads: every result
+   within 1e-6 of the one-process daemon's, every batch against the block
+   solvers over the same group, rank 0's stats. Run it alone with
+   ``autodiff_phase(torch, pmtt, (nk, sk), here, dev)``.
 
 Phases 8, 9, 11-13, 16-18 and 21 (and phase 20's pool case) reach none
 of the hand-written kernels (a block solve of ``MPIBlockDiag`` runs a
@@ -3175,11 +3201,6 @@ def _tiers20_rank(torch, pmtt, dev, refdir):
     solves = _tiers20_solves(torch, pmtt, p, dev)
     out = dict(rank=r, gaps={}, all_reduce={}, moved=solves.pop("moved"),
                sstep_fallback=solves.pop("sstep_fallback"))
-    try:
-        pmtt.serving.SolveDaemon(pmtt.serving.WarmPool())
-        out["daemon_refused"] = None
-    except RuntimeError as e:  # the refusal this phase requires
-        out["daemon_refused"] = str(e)
     for name, (x, calls, it) in solves.items():
         want = np.load(f"{refdir}/{name}.npy")
         out["gaps"][name] = float(np.linalg.norm(x - want)
@@ -3230,8 +3251,7 @@ def slice9_ranks_phase(torch, pmtt, here, dev, timeout=600):
                                      all_reduce=o["all_reduce"],
                                      all_reduce_per_iter=per_iter,
                                      moved=o["moved"],
-                                     sstep_fallback=o["sstep_fallback"],
-                                     daemon_refused=o["daemon_refused"]))
+                                     sstep_fallback=o["sstep_fallback"]))
             secs = time.perf_counter() - t0
             summary[n] = dict(f64=f64, ranks=per_rank, seconds=secs)
             print(f"20. {n} ranks on one card (gloo, staged through the "
@@ -3252,9 +3272,6 @@ def slice9_ranks_phase(torch, pmtt, here, dev, timeout=600):
                 if bad:
                     raise RuntimeError(f"phase 20, {n} ranks, rank "
                                        f"{rec['rank']}: gaps {bad}")
-                if not (rec["daemon_refused"] or "").count("ROADMAP"):
-                    raise RuntimeError(f"phase 20: SolveDaemon accepted a "
-                                       f"world of {n} on rank {rec['rank']}")
                 pi = rec["all_reduce_per_iter"]
                 if pi["pipelined_normal"] != 1.0:
                     raise RuntimeError(f"phase 20: rank {rec['rank']} took "
@@ -4490,6 +4507,574 @@ def resilience_phase(torch, pmtt, kernels, here, dev):
     return res
 
 
+# ------------------------------------------------------------ phase 24
+# 24.2: examples/autodiff.py's objective at slice 1's width, gradient
+# descent by torch.autograd (the step is stable below 2/||AᵀA + 0.1DᵀD||,
+# ~0.055 for blocks randn/sqrt(n) + 4I); autograd against the hand-written
+# gradient, and two gloo ranks against one, as relative norms (f32)
+STEPS_24, LR_24, GRAD_TOL_24, RANKS_TOL_24 = 20, 0.02, 1e-5, 1e-5
+# 24.3: the learned regularizer at slice 2's full width in f64: damp 0.1
+# and 100 iterations converge the stacked system (the implicit gradient
+# met the finite difference to 6e-7 at (64, 1024) on the CPU); central
+# difference step, the bound 1e-3 of |fd| (examples/learned_regularization
+# .py:74 bounds by 1e-3·max(1, |fd|), which at this |fd| of ~2e-2 would
+# let a gradient 5% off pass), 5 Adam steps
+EPS_24, DAMP_24, NITER_24, NOISE_24 = 0.1, 0.1, 100, 0.02
+FD_H_24, FD_TOL_24, ADAM_STEPS_24, ADAM_LR_24 = 1e-4, 1e-3, 5, 0.01
+TRAJ_TOL_24 = 1e-12   # eager and graph-bank fit, loss by loss
+# 24.4: a family of 4 members built from slice 1's blocks (A + s I)
+SHIFTS_24, NITER_B24, LANE_TOL_24 = (0.0, 0.5, 1.0, 1.5), 30, 1e-4
+# 24.5: phase 21.2's families on two gloo ranks sharing the card
+REQ_24, THREADS_24, WINDOW_24, GAP_24, BUCKETS_24 = 32, 4, 0.005, 1e-6, \
+    (1, 2, 4, 8, 16)
+
+
+def card_name() -> str:
+    """``name, power.limit`` of the card, as nvidia-smi gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def tap_grad_part(torch, sk, dev, g, card):
+    """24.1: the tap kernel's autograd rule at slice 2's shape against
+    autograd through the plain version (f32, bf16; a ghost tensor on top,
+    zero rows below, out_pad rows), and the backward launch's times: the
+    kernel on the transposed taps, the plain version, one cuDNN
+    ``conv_transpose2d`` and the byte bound."""
+    import torch.nn.functional as F
+    tp, w = TAP_SETS["first_centered3"]
+    taps = sorted(tp.items())
+    flipped = [(-d, c) for d, c in taps]
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[1]
+        slab = torch.randn((NX, NT0), generator=g, device=dev).to(dt)
+        top = torch.randn((w, NT0), generator=g, device=dev).to(dt)
+        slab.requires_grad_(True)
+        top.requires_grad_(True)
+        y = sk.stencil_taps(slab, taps, w, (1, 1), top=top, bottom=w)
+        gy = torch.randn(tuple(y.shape), generator=g, device=dev).to(dt)
+        got = torch.autograd.grad(y, (slab, top), gy)
+        yp = sk.stencil_taps_plain(slab, taps, w, (1, 1), top=top, bottom=w)
+        want = torch.autograd.grad(yp, (slab, top), gy)
+        torch.cuda.synchronize()
+        err = max(max_rel_err(a, b) for a, b in zip(got, want))
+        abs_err = max(float((a.double() - b.double()).abs().max())
+                      for a, b in zip(got, want))
+        if not all(bool(torch.isfinite(a).all()) for a in got):
+            raise RuntimeError(f"24.1 {name}: non-finite gradient")
+        ok = err <= STENCIL_TOL[name]
+        print(f"24.1 tap rule's gradient vs autograd through the plain "
+              f"version {name} ({NX}, {NT0}), ghost on top: max rel err "
+              f"{err:.3e} (tol {STENCIL_TOL[name]:.0e}) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise RuntimeError(f"24.1 stencil backward[{name}]: {err:.3e}")
+        core = gy[1:1 + NX].contiguous()
+        weight = torch.zeros((1, 1, 2 * w + 1, 1), dtype=dt, device=dev)
+        for d, c in taps:
+            weight[0, 0, w + d, 0] = c
+
+        def kernel():
+            return sk._launch(core, flipped, w, (0, 0), 2 * w, 2 * w,
+                              backward=True)
+
+        def library():
+            return F.conv_transpose2d(core.view(1, 1, NX, NT0), weight)
+
+        lib_err = max_rel_err(library().view(NX + 2 * w, NT0), kernel())
+        kms = cuda_ms(kernel)
+        pms = cuda_ms(lambda: sk.stencil_taps_plain(core, flipped, w,
+                                                    top=2 * w, bottom=2 * w))
+        lms = cuda_ms(library)
+        item = core.element_size()
+        t_bytes = (NX + NX + 2 * w) * NT0 * item / HBM_BYTES_PER_S * 1e3
+        t_ops = (2.0 * len(taps) * (NX + 2 * w) * NT0
+                 / (F32_OPS_PER_S / (2 if item == 8 else 1)) * 1e3)
+        bms, bby = ((t_bytes, "bytes") if t_bytes >= t_ops
+                    else (t_ops, "operations"))
+        out[name] = dict(max_err=err, max_abs_err=abs_err,
+                         tol=STENCIL_TOL[name], ms=kms, plain_ms=pms,
+                         library_ms=lms, library_max_err=lib_err,
+                         bound_ms=bms, bound_by=bby,
+                         shape=[NX, NT0], taps="first_centered3 transposed")
+        print(f"  backward launch {name} ({NX} -> {NX + 2 * w}, {NT0}) on "
+              f"{card}: kernel {kms:.4f} ms, plain {pms:.4f} ms, library "
+              f"(conv_transpose2d) {lms:.4f} ms (agrees to {lib_err:.1e}), "
+              f"bound {bms:.4f} ms ({bby})", flush=True)
+        del slab, top, y, gy, got, yp, want, core
+        torch.cuda.empty_cache()
+    return out
+
+
+def ad24_objective(torch, pmtt, dev):
+    """24.2: ``examples/autodiff.py``'s objective ``0.5||Ax − y||² +
+    0.05||Dx||²`` on slice 1's blocks with the axis-0 first derivative of
+    the whole N-vector, ``STEPS_24`` steps of gradient descent by
+    ``torch.autograd``; each gradient against the hand-written ``Aᵀ(Ax −
+    y) + 0.1·DᵀD x`` (``rmatvec``). Returns this rank's shards of the
+    gradients and of the last x, the gaps, the objectives and the wall."""
+    from pylops_mpi_tpu_torch.ops.local import MatrixMult
+    D = pmtt.DistributedArray
+    A, _, y_t = make_problem(torch, dev)
+    Aop = pmtt.MPIBlockDiag([MatrixMult(A[i]) for i in range(NBLK)])
+    del A
+    N = NBLK * NBLOCK
+    Dop = pmtt.MPIFirstDerivative((N,), dtype=torch.float32)
+    r0 = pmtt.parallel.rank()
+    lo = sum(s[0] for s in Aop.local_shapes_n[:r0])
+    dy = D.to_dist(y_t, local_shapes=Aop.local_shapes_n)
+    del y_t
+
+    def objective(x):
+        r = Aop.matvec(x) - dy
+        d = Dop.matvec(x)
+        return 0.5 * r.dot(r) + 0.05 * d.dot(d)
+
+    x = D.to_dist(torch.zeros(N, device=dev), local_shapes=Aop.local_shapes_m)
+    grads, gaps, objs = [], [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(STEPS_24):
+        x.array.requires_grad_(True)
+        obj = objective(x)
+        (gr,) = torch.autograd.grad(obj, x.array)
+        with torch.no_grad():
+            xx = D._wrap(x.array.detach(), x)
+            hand = (Aop.rmatvec(Aop.matvec(xx) - dy).array
+                    + 0.1 * Dop.rmatvec(Dop.matvec(xx)).array)
+            num = torch.linalg.vector_norm((gr - hand).double()) ** 2
+            den = torch.linalg.vector_norm(hand.double()) ** 2
+            num, den = (pmtt.parallel.collectives.all_reduce(v.reshape(1))
+                        for v in (num, den))
+        gaps.append(float(torch.sqrt(num / den)))
+        grads.append(gr.detach().cpu().numpy())
+        objs.append(float(obj.detach()))
+        x = D._wrap((x.array - LR_24 * gr).detach(), x)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return dict(grads=grads, x=x.array.cpu().numpy(), gaps=gaps, objs=objs,
+                wall_s=wall, offset=lo)
+
+
+def _ad24_rank(torch, pmtt, dev):
+    """A gloo rank of 24.2: the objective's gradients over the group,
+    with this rank's stencil launches (forward and backward) and ghost
+    exchanges (forward and adjoint)."""
+    from pylops_mpi_tpu_torch.ops import stencil_kernels as sk
+    from pylops_mpi_tpu_torch.parallel import collectives as co
+    sk.reset_launches()
+    co.reset_counts()
+    out = ad24_objective(torch, pmtt, dev)
+    out.update(rank=pmtt.parallel.rank(), launches=sk.launches,
+               launches_bwd=sk.launches_bwd,
+               halo=co.counts["halo_exchange"],
+               halo_adjoint=co.counts["halo_exchange_adjoint"])
+    return out
+
+
+def learned_reg_part(torch, pmtt, dev, card):
+    """24.3: ``examples/learned_regularization.py``'s seam at slice 2's
+    full width in f64: ``cgls_solve`` on ``[Op; ε·MPIGradient]`` (ε a 0-d
+    tensor on the card), the implicit gradient of a model loss against a
+    central finite difference, then ``fit`` (Adam, in place) eagerly and
+    through the graph bank, whose loss trajectories must agree."""
+    import os
+    from pylops_mpi_tpu_torch.aot import graphs, store
+    from pylops_mpi_tpu_torch.autodiff import cgls_solve, fit
+    f64 = torch.float64
+    D = pmtt.DistributedArray
+    wav = pmtt.models.ricker(np.arange(31) * 0.004, f0=15)[0]
+    m = layered_model(torch, NX, NT0, dev, seed=24)
+    Op = pmtt.models.MPIPoststackLinearModelling(wav, NT0, NX, dtype=f64,
+                                                 device=dev)
+    G = pmtt.MPIGradient((NX, NT0), dtype=f64)
+    d = Op.matvec(D.to_dist(m.reshape(-1), local_shapes=Op.local_shapes_m))
+    gn = torch.Generator(device=dev).manual_seed(2424)
+    noise = torch.randn(d.array.shape, generator=gn, device=dev, dtype=f64)
+    d = D._wrap(d.array + NOISE_24 * torch.linalg.vector_norm(d.array)
+                / math.sqrt(d.array.numel()) * noise, d)
+    zero = pmtt.StackedDistributedArray([
+        D(global_shape=NX * NT0, local_shapes=G.local_shapes_m, dtype=f64,
+          device=dev) for _ in range(2)])
+    y = pmtt.StackedDistributedArray([d, zero])
+    target = (m - m.mean(dim=1, keepdim=True)).reshape(-1)
+    tn = torch.sum(target ** 2)
+    del m, noise
+    eps = torch.tensor(EPS_24, dtype=f64, device=dev, requires_grad=True)
+    S = pmtt.MPIStackedVStack([Op, eps * G])
+
+    def loss(params=None):
+        x = cgls_solve(S, y, niter=NITER_24, damp=DAMP_24, tol=0.0)
+        return torch.sum((x.array - target) ** 2) / tn
+
+    out = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    L = loss()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    (gr,) = torch.autograd.grad(L, eps)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    with torch.no_grad():
+        eps.add_(FD_H_24)
+        lp = float(loss())
+        eps.sub_(2 * FD_H_24)
+        lm = float(loss())
+        eps.fill_(EPS_24)
+    fd = (lp - lm) / (2 * FD_H_24)
+    gv = float(gr)
+    gap = abs(gv - fd)
+    out.update(loss=float(L.detach()), grad=gv, fd=fd, fd_h=FD_H_24,
+               gap_rel=gap / abs(fd), forward_s=t1 - t0,
+               backward_s=t2 - t1, niter=NITER_24, damp=DAMP_24, eps=EPS_24)
+    print(f"24.3 learned regularizer ({NX}, {NT0}) f64, cgls_solve niter "
+          f"{NITER_24}, damp {DAMP_24}, eps {EPS_24} on the card: loss "
+          f"{float(L.detach()):.9e}, implicit dL/deps {gv:+.9e}, central difference "
+          f"(h {FD_H_24:.0e}) {fd:+.9e}, gap {gap:.3e} = {gap / abs(fd):.3e} "
+          f"of |fd| (limit {FD_TOL_24:.0e} of |fd|); wall on {card}: "
+          f"forward "
+          f"solve {1e3 * (t1 - t0):.1f} ms, backward solve "
+          f"{1e3 * (t2 - t1):.1f} ms", flush=True)
+    if not gap <= FD_TOL_24 * abs(fd):
+        raise RuntimeError(f"24.3: implicit gradient {gv} vs finite "
+                           f"difference {fd}")
+    trajectories = {}
+    before = os.environ.get("PYLOPS_MPI_TPU_TORCH_AOT")
+    try:
+        for label, aot in (("eager", "off"), ("graphs", "on")):
+            os.environ["PYLOPS_MPI_TPU_TORCH_AOT"] = aot
+            with torch.no_grad():
+                eps.fill_(EPS_24)
+            graphs.reset_capture_count()
+            s0 = dict(graphs.stats())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, losses = fit(loss, [eps], steps=ADAM_STEPS_24, lr=ADAM_LR_24)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            s1 = graphs.stats()
+            trajectories[label] = dict(
+                losses=losses.tolist(), eps=float(eps.detach()), wall_s=wall,
+                captures=graphs.capture_count(),
+                replays=s1.get("replays", 0) - s0.get("replays", 0))
+            print(f"24.3 fit, {ADAM_STEPS_24} Adam steps (lr {ADAM_LR_24}, "
+                  f"eps updated in place) with PYLOPS_MPI_TPU_TORCH_AOT={aot}:"
+                  f" losses {losses.tolist()}, eps -> {float(eps.detach()):.9f}"
+                  f", {wall:.2f} s on {card}, captures {graphs.capture_count()}, replays "
+                  f"{trajectories[label]['replays']}", flush=True)
+            if not losses[-1] < losses[0]:
+                raise RuntimeError(f"24.3 fit ({label}): the loss did not "
+                                   f"fall: {losses}")
+    finally:
+        if before is None:
+            os.environ.pop("PYLOPS_MPI_TPU_TORCH_AOT", None)
+        else:
+            os.environ["PYLOPS_MPI_TPU_TORCH_AOT"] = before
+        store.clear_memory()
+    le = np.asarray(trajectories["eager"]["losses"])
+    lg = np.asarray(trajectories["graphs"]["losses"])
+    traj = float(np.max(np.abs(le - lg) / np.abs(le)))
+    out.update(fit=trajectories, trajectory_gap=traj,
+               trajectory_bitwise=bool(np.array_equal(le, lg)))
+    print(f"24.3 eager vs graph-bank trajectories: max rel gap {traj:.3e} "
+          f"(limit {TRAJ_TOL_24:.0e}), bitwise {np.array_equal(le, lg)}",
+          flush=True)
+    if not traj <= TRAJ_TOL_24 or trajectories["graphs"]["captures"] < 1:
+        raise RuntimeError("24.3: the graph bank's fit left the eager one "
+                           f"({traj}) or captured nothing")
+    del S, Op, G, y, d, target
+    torch.cuda.empty_cache()
+    return out
+
+
+def batched_part(torch, pmtt, dev, card):
+    """24.4: ``batched_solve`` of a family of MPIBlockDiag members built
+    from slice 1's blocks (``A + s I``, exact data of one model), CGLS f32
+    ``NITER_B24`` iterations, each lane against its own ``cgls``; the
+    second call must hit the family cache; its wall against the members'
+    sequential solves."""
+    import os
+    from pylops_mpi_tpu_torch.diagnostics import metrics
+    from pylops_mpi_tpu_torch.ops.local import MatrixMult
+    from pylops_mpi_tpu_torch.solvers import block as blk
+    D = pmtt.DistributedArray
+    A, xtrue, _ = make_problem(torch, dev)
+    ops, ys = [], []
+    for s in SHIFTS_24:
+        As = A.clone()
+        As.diagonal(dim1=1, dim2=2).add_(s)
+        ops.append(pmtt.MPIBlockDiag([MatrixMult(As[i]) for i in range(NBLK)]))
+        ys.append(ops[-1].matvec(D.to_dist(xtrue)))
+        del As
+    del A
+    torch.cuda.empty_cache()
+    idx = list(range(len(SHIFTS_24)))
+    before = os.environ.get("PYLOPS_MPI_TPU_TORCH_METRICS")
+    os.environ["PYLOPS_MPI_TPU_TORCH_METRICS"] = "on"
+    try:
+        metrics.clear_metrics()
+        walls = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = blk.batched_solve(lambda b: ops[b], idx, ys, solver="cgls",
+                                    niter=NITER_B24, tol=0.0)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        c = metrics.snapshot()["counters"]
+    finally:
+        if before is None:
+            os.environ.pop("PYLOPS_MPI_TPU_TORCH_METRICS", None)
+        else:
+            os.environ["PYLOPS_MPI_TPU_TORCH_METRICS"] = before
+        metrics.clear_metrics()
+    info = blk.batched_cache_info()
+    hit, miss = c.get("solver.batched.cache.hit", 0), \
+        c.get("solver.batched.cache.miss", 0)
+    pmtt.cgls(ops[0], ys[0], niter=2, tol=0.0)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    solo = [pmtt.cgls(op, yv, niter=NITER_B24, tol=0.0)[0].array
+            for op, yv in zip(ops, ys)]
+    torch.cuda.synchronize()
+    seq = time.perf_counter() - t0
+    gaps = [rel_norm(res.xs[b].array, solo[b]) for b in idx]
+    errs = [rel_norm(res.xs[b].array, xtrue) for b in idx]
+    out = dict(members=len(idx), niter=NITER_B24, lane_gaps=gaps,
+               lane_rel_err=errs, iiter=res.iiter.tolist(),
+               walls_s=walls, sequential_s=seq, speedup=seq / walls[1],
+               cache=dict(hit=hit, miss=miss, **info))
+    print(f"24.4 batched_solve of {len(idx)} MPIBlockDiag members "
+          f"({NBLK} x {NBLOCK}^2 f32, shifts {SHIFTS_24}), cgls "
+          f"{NITER_B24} iterations: lanes vs their own cgls {gaps} (limit "
+          f"{LANE_TOL_24:.0e}), rel err to the model {errs}; cache hit "
+          f"{hit}, miss {miss}, {info}; wall on {card} {walls[0]:.3f} s "
+          f"(first), "
+          f"{walls[1]:.3f} s (cached) against {seq:.3f} s for "
+          f"{len(idx)} sequential cgls ({seq / walls[1]:.2f}x)", flush=True)
+    if max(gaps) > LANE_TOL_24 or hit != 1 or miss != 1:
+        raise RuntimeError(f"24.4: lanes {gaps}, cache hit {hit} miss {miss}")
+    del ops, ys, res, solo
+    blk._BATCHED_CACHE.clear()
+    torch.cuda.empty_cache()
+    return out
+
+
+def daemon24_pool(torch, pmtt, dev, log=None):
+    """Phase 21's two families on phase 3's blocks (each rank of a group
+    its chunk), the pool's packed solves recorded in ``log``."""
+    from pylops_mpi_tpu_torch.ops.local import MatrixMult
+    sv = pmtt.serving
+    A, _, _ = make_problem(torch, dev)
+    G = torch.bmm(A.transpose(1, 2), A)
+    G.diagonal(dim1=1, dim2=2).add_(1.0)
+    Op = pmtt.MPIBlockDiag([MatrixMult(A[i]) for i in range(NBLK)])
+    S = pmtt.MPIBlockDiag([MatrixMult(G[i]) for i in range(NBLK)])
+    del A, G
+    torch.cuda.empty_cache()
+    pool = sv.WarmPool(buckets=BUCKETS_24)
+    pool.register(sv.FamilySpec("cgls", Op, solver="cgls", niter=NITER_21))
+    pool.register(sv.FamilySpec("cg", S, solver="cg", niter=NITER_CG_21,
+                                tol=TOL_CG_21))
+    if log is not None:
+        real = pool.solve
+
+        def spy(name, Y):
+            res = real(name, Y)
+            log.append((name, np.array(Y, copy=True), res.x))
+            return res
+
+        pool.solve = spy
+    return pool
+
+
+def daemon24_requests():
+    rng = np.random.default_rng(2450)
+    N = NBLK * NBLOCK
+    return [("cgls" if j % 4 else "cg",
+             rng.standard_normal(N).astype(np.float32))
+            for j in range(REQ_24)]
+
+
+def daemon24_serve(torch, pmtt, pool):
+    """Rank 0 (or one process): ``REQ_24`` requests from ``THREADS_24``
+    threads through ``SolveDaemon``; the results in request order and
+    the stats."""
+    import threading
+    reqs = daemon24_requests()
+    d = pmtt.serving.SolveDaemon(pool, window_s=WINDOW_24).start()
+    results = [None] * len(reqs)
+
+    def client(t):
+        for j in range(t, len(reqs), THREADS_24):
+            fam, y = reqs[j]
+            results[j] = d.submit(fam, y).wait(timeout=600)["x"]
+
+    ths = [threading.Thread(target=client, args=(t,))
+           for t in range(THREADS_24)]
+    t0 = time.perf_counter()
+    for th in ths:
+        th.start()
+    for th in ths:
+        th.join(timeout=600)
+    wall = time.perf_counter() - t0
+    st = d.stats()
+    if not d.drain(timeout=120) or any(r is None for r in results):
+        raise RuntimeError("24.5: the daemon did not resolve every request")
+    st["wall_s"] = wall
+    return results, st
+
+
+def _daemon24_rank(torch, pmtt, dev):
+    """A gloo rank of 24.5: rank 0 serves, rank 1 follows; then every
+    batch the rank solved again by ``block_cgls``/``block_cg`` over the
+    same group."""
+    from pylops_mpi_tpu_torch.solvers.block import block_cg, block_cgls
+    r = pmtt.parallel.rank()
+    log = []
+    pool = daemon24_pool(torch, pmtt, dev, log)
+    out = dict(rank=r)
+    if r == 0:
+        out["results"], out["stats"] = daemon24_serve(torch, pmtt, pool)
+    else:
+        out["followed"] = pmtt.serving.SolveDaemon(pool).follow()
+    gaps = []
+    for name, Y, x in log:
+        spec = pool.family(name)
+        k = Y.shape[1]
+        bucket = min(b for b in BUCKETS_24 if b >= k)
+        Yp = np.concatenate([Y, np.zeros((Y.shape[0], bucket - k),
+                                         Y.dtype)], axis=1)
+        yb = pmtt.DistributedArray.to_dist(
+            Yp, local_shapes=[(s[0], bucket)
+                              for s in spec.operator.local_shapes_n],
+            device=dev)
+        if spec.solver == "cg":
+            xb = block_cg(spec.operator, yb, niter=spec.niter,
+                          tol=spec.tol)[0]
+        else:
+            xb = block_cgls(spec.operator, yb, niter=spec.niter,
+                            tol=spec.tol)[0]
+        gaps.append(float(np.abs(xb.asarray()[:, :k] - x).max()
+                          / np.abs(x).max()))
+    out["batches"] = [(name, Y.shape[1]) for name, Y, _ in log]
+    out["batch_gaps"] = gaps
+    return out
+
+
+def daemon_group_part(torch, pmtt, here, dev, card):
+    """24.5: the daemon over two gloo ranks sharing the card against the
+    one-process daemon here, on phase 21.2's families."""
+    pool = daemon24_pool(torch, pmtt, dev)
+    one, one_st = daemon24_serve(torch, pmtt, pool)
+    del pool
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    r0, r1 = spawn_shared_card(2, here, _daemon24_rank)
+    secs = time.perf_counter() - t0
+    gaps = [_gap(a, b) for a, b in zip(r0["results"], one)]
+    bgap = max(r0["batch_gaps"] + r1["batch_gaps"])
+    out = dict(requests=REQ_24, threads=THREADS_24, one_process=one_st,
+               rank0_stats=r0["stats"], followed=r1["followed"],
+               batches=r0["batches"], max_gap=max(gaps),
+               max_batch_gap=bgap, seconds=secs)
+    print(f"24.5 SolveDaemon over 2 gloo ranks sharing the card, {REQ_24} "
+          f"requests from {THREADS_24} threads on phase 21.2's families: "
+          f"results vs the one-process daemon max rel gap {max(gaps):.3e} "
+          f"(limit {GAP_24:.0e}); every batch vs block_cgls/block_cg over "
+          f"the group max rel gap {bgap:.3e}; rank 1 followed "
+          f"{r1['followed']} batches (rank 0 formed {r0['stats']['batches']});"
+          f" rank 0 stats {r0['stats']}; one-process stats {one_st} (on "
+          f"{card}); {secs:.1f} s with the spawn", flush=True)
+    if (max(gaps) > GAP_24 or bgap > GAP_24
+            or r1["followed"] != r0["stats"]["batches"]
+            or r0["batches"] != r1["batches"]):
+        raise RuntimeError("24.5: the daemon over the group disagrees")
+    return out
+
+
+def autodiff_phase(torch, pmtt, kernels, here, dev):
+    """Phase 24 (module docstring): the training path. 24.2 is its main
+    path: the tap kernel's counts are set to 0 just before it and read
+    just after."""
+    nk, sk = kernels
+    card = card_name() if dev.type == "cuda" else "cpu"
+    out = {"card": card}
+    g = torch.Generator(device=dev).manual_seed(24)
+    t = time.perf_counter()
+    out["tap_grad"] = tap_grad_part(torch, sk, dev, g, card)
+    print(f"24.1 in {time.perf_counter() - t:.1f} s", flush=True)
+
+    t = time.perf_counter()
+    sk.reset_launches()
+    nk.reset_launches()
+    one = ad24_objective(torch, pmtt, dev)
+    launches, launches_bwd = sk.launches, sk.launches_bwd
+    if nk.launches:
+        raise RuntimeError("24.2 launched the normal kernel")
+    if launches_bwd != STEPS_24 or launches != 3 * STEPS_24:
+        raise RuntimeError(f"24.2: {launches} forward and {launches_bwd} "
+                           f"backward stencil launches in {STEPS_24} steps")
+    worst = max(one["gaps"])
+    print(f"24.2 examples/autodiff.py's objective, {NBLK} x {NBLOCK}^2 f32 "
+          f"+ MPIFirstDerivative over {NBLK * NBLOCK}, {STEPS_24} steps of "
+          f"gradient descent (lr {LR_24}) by torch.autograd: objective "
+          f"{one['objs'][0]:.6e} -> {one['objs'][-1]:.6e}; each gradient vs "
+          f"the hand-written one max rel gap {worst:.3e} (limit "
+          f"{GRAD_TOL_24:.0e}); stencil launches {launches} forward, "
+          f"{launches_bwd} backward; {one['wall_s']:.3f} s on {card}",
+          flush=True)
+    if worst > GRAD_TOL_24 or not one["objs"][-1] < one["objs"][0]:
+        raise RuntimeError(f"24.2: gradient gap {worst} or no descent")
+    ranks = spawn_shared_card(2, here, _ad24_rank)
+    rgaps = []
+    for step in range(STEPS_24):
+        got = np.concatenate([o["grads"][step] for o in ranks])
+        rgaps.append(float(np.linalg.norm(got - one["grads"][step])
+                           / np.linalg.norm(one["grads"][step])))
+    xgap = float(np.linalg.norm(np.concatenate([o["x"] for o in ranks])
+                                - one["x"]) / np.linalg.norm(one["x"]))
+    out["objective"] = dict(
+        steps=STEPS_24, lr=LR_24, objs=one["objs"], max_grad_gap=worst,
+        wall_s=one["wall_s"], launches=launches, launches_bwd=launches_bwd,
+        two_ranks=dict(max_grad_gap=max(rgaps), x_gap=xgap,
+                       launches=[o["launches"] for o in ranks],
+                       launches_bwd=[o["launches_bwd"] for o in ranks],
+                       halo=[o["halo"] for o in ranks],
+                       halo_adjoint=[o["halo_adjoint"] for o in ranks],
+                       hand_gap=max(max(o["gaps"]) for o in ranks)))
+    print(f"24.2 on 2 gloo ranks sharing the card: gradients vs one rank "
+          f"max rel gap {max(rgaps):.3e} (limit {RANKS_TOL_24:.0e}), last x "
+          f"{xgap:.3e}; per rank stencil launches "
+          f"{out['objective']['two_ranks']['launches']} forward, "
+          f"{out['objective']['two_ranks']['launches_bwd']} backward, ghost "
+          f"exchanges {out['objective']['two_ranks']['halo']}, their "
+          f"adjoints {out['objective']['two_ranks']['halo_adjoint']}; "
+          f"{time.perf_counter() - t:.1f} s for 24.2", flush=True)
+    if max(rgaps) > RANKS_TOL_24 or any(
+            o["launches_bwd"] != STEPS_24 or o["halo_adjoint"] != STEPS_24
+            for o in ranks):
+        raise RuntimeError("24.2: the two-rank gradients disagree or missed "
+                           "the kernel's backward or the exchange's adjoint")
+    del one, ranks
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    out["learned_regularizer"] = learned_reg_part(torch, pmtt, dev, card)
+    print(f"24.3 in {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    out["batched"] = batched_part(torch, pmtt, dev, card)
+    print(f"24.4 in {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    out["daemon_group"] = daemon_group_part(torch, pmtt, here, dev, card)
+    print(f"24.5 in {time.perf_counter() - t:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     here = Path(__file__).resolve().parent
     if not (here / "pylops_mpi_tpu_torch" / "__init__.py").is_file():
@@ -4913,6 +5498,13 @@ def main() -> int:
     slice12 = resilience_phase(torch, pmtt, kernel_mods, here, dev)
     print(f"phase 23 in {time.perf_counter() - t23:.1f} s", flush=True)
 
+    # 24. slice 13: the training path (24.2 is its main path: the tap
+    # kernel forward and backward through torch.autograd)
+    torch.cuda.empty_cache()
+    t24 = time.perf_counter()
+    slice13 = autodiff_phase(torch, pmtt, kernel_mods, here, dev)
+    print(f"phase 24 in {time.perf_counter() - t24:.1f} s", flush=True)
+
     kernels = []
     for name, run in (("float32", "normal_f32"), ("bfloat16", "normal_bf16")):
         s = stats[name]
@@ -4969,6 +5561,23 @@ def main() -> int:
                             if name == "float32" else None),
             graph_replays=(gr22["graph_replays"]
                            if name == "float32" else None)))
+    # phase 24: the tap kernel on the transposed taps, the backward of its
+    # autograd rule; launches in 24.2's gradient descent (f32)
+    ad = slice13["objective"]
+    for name in ("float32", "bfloat16"):
+        st = slice13["tap_grad"][name]
+        kernels.append(dict(
+            name=f"stencil_taps_backward[{name}]", route="cuda",
+            source=STENCIL_SRC, replaces=STENCIL_REPLACES,
+            launches=ad["launches_bwd"],
+            launches_per_step=ad["launches_bwd"] / ad["steps"],
+            shared_card_launches_per_rank=(ad["two_ranks"]["launches_bwd"]
+                                           if name == "float32" else None),
+            main_path_dtype="float32", max_abs_err=st["max_abs_err"],
+            max_err=st["max_err"], tol=st["tol"], ms=st["ms"],
+            plain_ms=st["plain_ms"], bound_ms=st["bound_ms"],
+            bound_by=st["bound_by"], library_ms=st["library_ms"],
+            shape=st["shape"], dtype=name))
     print(json.dumps({"card": card, "runs": runs,
                       "float16_kernel": stats["float16"],
                       "normal_plans": plans,
@@ -4981,7 +5590,7 @@ def main() -> int:
                       "slice8": slice8, "slice8_ranks": slice8_ranks,
                       "slice9": slice9, "slice9_ranks": slice9_ranks,
                       "slice10": slice10, "slice11": slice11,
-                      "slice12": slice12}),
+                      "slice12": slice12, "slice13": slice13}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

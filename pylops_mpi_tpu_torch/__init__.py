@@ -11,9 +11,11 @@ and the communication-avoiding engines, the sparse matrix product,
 ISTA/FISTA and the power iteration, with the solvers' guard carries,
 the resilience tier (fault injection, precision-escalating restarts and
 refinement, segmented solves with checkpoints, the watchdog and the
-supervisor), and the solve service that packs single-RHS requests into
+supervisor), the solve service that packs single-RHS requests into
 block solves (``serving``, on the ``diagnostics`` and ``resilience``
-layers), in
+layers, one process or a group of ranks), and the training path
+(``autodiff``: adjoint autograd rules, implicit gradients through the
+solves, ``batched_solve`` and ``fit``), in
 PyTorch on NVIDIA Hopper GPUs,
 one rank a card or a world of ranks over ``torch.distributed``. Two
 hand-written CUDA kernels carry the hot loops:
@@ -57,8 +59,9 @@ from .solvers.sparsity import ISTA, FISTA, ista, fista
 from .solvers.segmented import cg_segmented, cgls_segmented
 from .solvers.eigs import power_iteration
 from .utils.dottest import dottest
-from . import (aot, convert, diagnostics, models, ops, optimization,
-               parallel, resilience, serving, solvers, tuning, utils)
+from . import (aot, autodiff, convert, diagnostics, models, ops,
+               optimization, parallel, resilience, serving, solvers, tuning,
+               utils)
 from .resilience import resilient_solve
 
 __version__ = "0.1.0"

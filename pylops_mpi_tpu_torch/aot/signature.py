@@ -66,8 +66,14 @@ def _tensors(obj, out: List, seen: set, leaf=None) -> None:
 
 
 def _storage(t) -> Tuple:
-    return (t.data_ptr(), tuple(t.shape), tuple(t.stride()), str(t.dtype),
-            str(t.device))
+    out = (t.data_ptr(), tuple(t.shape), tuple(t.stride()), str(t.dtype),
+           str(t.device))
+    if t.device.type == "cpu" and t.numel() == 1:
+        # a one-element host tensor reaches a CUDA kernel by value, which
+        # a graph bakes in: its value keys the graph (a scaled operator's
+        # host factor updated in place captures anew, never replays stale)
+        out += (t.item(),)
+    return out
 
 
 def storage_signature(obj) -> Tuple:
@@ -76,7 +82,9 @@ def storage_signature(obj) -> Tuple:
     graph bakes these addresses in, so two operators of one
     :func:`op_signature` but other tensors never share a graph. A write
     in place keeps an address: the next replay reads the new values, as
-    the eager loop would, and the key does not change."""
+    the eager loop would, and the key does not change. A one-element
+    host tensor adds its value: a kernel takes it by value, so a graph
+    bakes the value, not the address."""
     out: List = []
     _tensors(obj, out, set(), _storage)
     return tuple(out)

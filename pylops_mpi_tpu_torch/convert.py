@@ -13,6 +13,15 @@ their arrays: a Jacobi preconditioner's inverted diagonal
 (``np.asarray(jax_M._chol)``); a sparse operator as its triplets
 (``np.asarray(jax_op._rows)``, ``_cols``, ``_data``) and shape.
 
+An operator's parameters come over as the JAX operator pytree's
+inexact leaves, as numpy arrays in ``jax.tree_util.tree_leaves`` order
+(:func:`operator_params_from_jax`), and gradients go back with
+:func:`param_grads_to_jax`/:func:`grad_to_jax`. **The complex
+convention is converted there, and only there:** for a real loss and a
+complex input, ``jax.grad`` gives the conjugate of torch's ``.grad``
+(``jax.grad(|z|²)(1+1j) = 2−2j``, torch's ``(z.abs()**2).backward()``
+gives ``2+2j``); real gradients are the same in both.
+
 A segmented solve's checkpoint, written by the JAX package with its
 native backend, comes over through :func:`fused_carry_from_jax`, which
 reads it without running any code the file names (numpy and builtins
@@ -51,7 +60,8 @@ __all__ = ["blockdiag_from_numpy", "vstack_from_numpy", "hstack_from_numpy",
            "array_from_numpy", "stacked_from_numpy", "fredholm_from_numpy",
            "mdc_from_numpy", "matrixmult_from_numpy", "jacobi_from_numpy",
            "block_jacobi_from_numpy", "sparse_from_numpy",
-           "fused_carry_from_jax"]
+           "fused_carry_from_jax", "operator_params_from_jax",
+           "grad_to_jax", "grad_from_jax", "param_grads_to_jax"]
 
 
 def _matrices(blocks: Sequence[np.ndarray], dtype,
@@ -262,3 +272,61 @@ def fused_carry_from_jax(path: str, solver: str = None,
         for name in ("status", "bestk", "stall"):
             out[name] = None
     return out
+
+
+# ------------------------------------------------ parameters and gradients
+def _inexact(t: torch.Tensor) -> bool:
+    return t.is_floating_point() or t.is_complex()
+
+
+def operator_params_from_jax(Op, leaves: Sequence[np.ndarray]):
+    """``Op`` over the JAX operator's parameter values: ``leaves`` are the
+    JAX operator pytree's inexact leaves as numpy arrays, in
+    ``tree_leaves`` order, matched one to one with the floating and
+    complex tensors of :func:`~.linearoperator.operator_params` ``(Op)``
+    (integer ones, such as sparse indices, are kept). Returns
+    :func:`~.linearoperator.with_params` ``(Op, ...)`` over new tensors
+    on the parameters' devices, at their dtypes."""
+    from .linearoperator import operator_params, with_params
+    params = operator_params(Op)
+    slots = [i for i, t in enumerate(params) if _inexact(t)]
+    leaves = list(leaves)
+    if len(leaves) != len(slots):
+        raise ValueError(f"{type(Op).__name__} has {len(slots)} inexact "
+                         f"parameters, got {len(leaves)} leaves")
+    new = list(params)
+    for i, leaf in zip(slots, leaves):
+        t = params[i]
+        a = np.asarray(leaf)
+        if tuple(a.shape) != tuple(t.shape):
+            raise ValueError(f"parameter {i} of {type(Op).__name__} has "
+                             f"shape {tuple(t.shape)}, the leaf "
+                             f"{tuple(a.shape)}")
+        new[i] = torch.as_tensor(np.array(a)).to(device=t.device,
+                                                 dtype=t.dtype)
+    return with_params(Op, new)
+
+
+def grad_to_jax(g) -> np.ndarray:
+    """A torch gradient as the JAX package's cotangent, on the host: the
+    conjugate for complex tensors, the same values for real ones."""
+    if isinstance(g, torch.Tensor):
+        g = g.detach().cpu().numpy()
+    g = np.asarray(g)
+    return np.conj(g) if np.iscomplexobj(g) else g
+
+
+def grad_from_jax(g, like: torch.Tensor = None) -> torch.Tensor:
+    """A JAX cotangent as torch's gradient (the inverse of
+    :func:`grad_to_jax`), on ``like``'s device and dtype when given."""
+    a = np.asarray(g)
+    t = torch.as_tensor(np.conj(a) if np.iscomplexobj(a) else a)
+    return t if like is None else t.to(device=like.device, dtype=like.dtype)
+
+
+def param_grads_to_jax(grads: Sequence) -> list:
+    """Parameter gradients (in :func:`~.linearoperator.operator_params`
+    order, ``None`` for integer tensors) as the JAX operator's inexact
+    leaf cotangents, in ``tree_leaves`` order: the inverse of
+    :func:`operator_params_from_jax` for cotangents."""
+    return [grad_to_jax(g) for g in grads if g is not None]

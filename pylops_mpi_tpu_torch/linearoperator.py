@@ -10,10 +10,23 @@ mirror ref ``LinearOperator.py:408-580``: ``_AdjointLinearOperator``
 ``_ConjLinearOperator``. Stacked operators (``MPIStackedVStack``,
 ``MPIGradient``) take or return :class:`StackedDistributedArray`, which
 the algebra passes through unchanged.
+
+**Operator parameters** (the counterpart of the JAX package's
+``register_operator_arrays``/``operator_is_jit_arg``,
+``linearoperator.py:562-600``): :func:`register_operator_params` names,
+per class, the attributes holding an operator's tensors or
+sub-operators, in the JAX package's registration order.
+:func:`operator_params` returns an operator's tensors in that order (the
+JAX operator pytree's ``tree_leaves`` order), :func:`with_params` an
+operator of the same structure over other tensors, and
+:func:`params_registered` says whether every node of an operator is
+registered. The autodiff rules, the implicit solves and
+``batched_solve`` stand on these.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Optional, Tuple
 
 import numpy as np
@@ -23,10 +36,12 @@ from .diagnostics import trace as _trace
 from .distributedarray import DistributedArray
 from .stacked import StackedDistributedArray
 from .ops._precision import as_torch_dtype, result_dtype
+from .parallel.collectives import replicated
 from .parallel.mesh import DeviceLike, resolve_device
 
 __all__ = ["MPILinearOperator", "LinearOperator", "aslinearoperator",
-           "asmpilinearoperator"]
+           "asmpilinearoperator", "register_operator_params",
+           "params_registered", "operator_params", "with_params"]
 
 
 def _scalar_like(x) -> bool:
@@ -218,6 +233,22 @@ class MPILinearOperator:
     def __sub__(self, x):
         return self.__add__(-x)
 
+    def checkpointed(self) -> "MPILinearOperator":
+        """The operator with its applies under
+        ``torch.utils.checkpoint`` (``use_reentrant=False``): under
+        autograd its intermediates are recomputed in the backward pass
+        instead of stored (JAX ``linearoperator.py:245-251``). No effect
+        outside autograd."""
+        return _CheckpointedLinearOperator(self)
+
+    def todifferentiable(self, mode: str = "vjp",
+                         params=None) -> "MPILinearOperator":
+        """The operator with the adjoint autograd rules on its applies
+        (JAX ``linearoperator.py:253-263``): see
+        :class:`~pylops_mpi_tpu_torch.autodiff.DifferentiableOperator`."""
+        from .autodiff.rules import make_differentiable
+        return make_differentiable(self, mode=mode, params=params)
+
     def todense(self, device: DeviceLike = None) -> np.ndarray:
         """Dense matrix of the operator on the host, by applying it to
         each identity column (JAX ``linearoperator.py:265``): O(n)
@@ -342,11 +373,19 @@ class _ScaledLinearOperator(MPILinearOperator):
                                       else alpha)
         super().__init__(shape=A.shape, dtype=dtype)
 
+    def _alpha(self):
+        """The factor; a tensor one is held by every rank, so its
+        gradient sums the ranks' parts
+        (:func:`~.parallel.collectives.replicated`)."""
+        alpha = self.args[1]
+        return replicated(alpha) if isinstance(alpha, torch.Tensor) \
+            else alpha
+
     def _matvec(self, x):
-        return self.args[0].matvec(x) * self.args[1]
+        return self.args[0].matvec(x) * self._alpha()
 
     def _rmatvec(self, x):
-        return self.args[0].rmatvec(x) * _conj_scalar(self.args[1])
+        return self.args[0].rmatvec(x) * _conj_scalar(self._alpha())
 
     def _adjoint(self):
         A, alpha = self.args
@@ -429,6 +468,35 @@ class _ConjLinearOperator(MPILinearOperator):
         return _ConjLinearOperator(self.A.H)
 
 
+class _CheckpointedLinearOperator(MPILinearOperator):
+    """Applies under ``torch.utils.checkpoint`` (non-reentrant), which
+    takes the distributed vectors as they are."""
+
+    accepts_block = True
+
+    def __init__(self, A: MPILinearOperator):
+        self.dims, self.dimsd = A.dims, A.dimsd
+        self.local_shapes_m, self.local_shapes_n = (A.local_shapes_m,
+                                                    A.local_shapes_n)
+        super().__init__(shape=A.shape, dtype=A.dtype)
+        self.A = A
+
+    @property
+    def device(self):
+        return getattr(self.A, "device", None)
+
+    def _matvec(self, x):
+        from torch.utils.checkpoint import checkpoint
+        return checkpoint(self.A.matvec, x, use_reentrant=False)
+
+    def _rmatvec(self, x):
+        from torch.utils.checkpoint import checkpoint
+        return checkpoint(self.A.rmatvec, x, use_reentrant=False)
+
+    def _adjoint(self):
+        return _CheckpointedLinearOperator(self.A.H)
+
+
 def aslinearoperator(Op) -> MPILinearOperator:
     """Wrap a local operator as a distributed one
     (ref ``asmpilinearoperator``, ``LinearOperator.py:583-602``)."""
@@ -438,3 +506,92 @@ def aslinearoperator(Op) -> MPILinearOperator:
 
 
 asmpilinearoperator = aslinearoperator
+
+
+# ------------------------------------------------------ operator parameters
+# class -> the attributes holding its tensors or sub-operators, in order
+_PARAMS = {}
+
+
+def register_operator_params(cls, *attrs: str) -> None:
+    """Name the attributes of ``cls`` that hold its parameters: tensors,
+    sub-operators, or lists and tuples of them (JAX
+    ``register_operator_arrays``). A class registered with no attributes
+    holds none; an unregistered class makes :func:`operator_params`
+    refuse the operator."""
+    _PARAMS[cls] = tuple(attrs)
+
+
+def _walk(node, out: list) -> None:
+    if isinstance(node, torch.Tensor):
+        out.append(node)
+    elif isinstance(node, (list, tuple)):
+        for v in node:
+            _walk(v, out)
+    elif node is None or _scalar_like(node) or isinstance(node, str):
+        pass
+    else:
+        attrs = _PARAMS.get(type(node))
+        if attrs is None:
+            raise TypeError(
+                f"{type(node).__name__} is not registered with "
+                "linearoperator.register_operator_params, so its tensors "
+                "are not known as parameters")
+        for a in attrs:
+            _walk(getattr(node, a), out)
+
+
+def params_registered(Op) -> bool:
+    """Every operator node of ``Op`` is of a registered class (JAX
+    ``operator_is_jit_arg``): its parameters are known."""
+    try:
+        _walk(Op, [])
+    except TypeError:
+        return False
+    return True
+
+
+def operator_params(Op) -> list:
+    """The tensors of ``Op``'s registered attributes, depth first in
+    registration order (the JAX operator pytree's leaf order): block
+    stacks, matrices, sparse values and indices, preconditioner factors,
+    and the 0-d tensor factor of a scaled operator. Python scalars are
+    not parameters. Raises ``TypeError`` for an unregistered class."""
+    out: list = []
+    _walk(Op, out)
+    return out
+
+
+def _swap(node, it):
+    if isinstance(node, torch.Tensor):
+        return next(it)
+    if isinstance(node, (list, tuple)):
+        return type(node)(_swap(v, it) for v in node)
+    attrs = _PARAMS.get(type(node))
+    if not attrs:
+        return node
+    new = copy.copy(node)
+    for a in attrs:
+        setattr(new, a, _swap(getattr(node, a), it))
+    return new
+
+
+def with_params(Op, tensors) -> MPILinearOperator:
+    """An operator of ``Op``'s structure over ``tensors`` in place of
+    :func:`operator_params` ``(Op)``: each node holding parameters is
+    copied (shallowly) with them swapped in; the rest is shared."""
+    tensors = list(tensors)
+    want = len(operator_params(Op))
+    if len(tensors) != want:
+        raise ValueError(f"{type(Op).__name__} has {want} parameter "
+                         f"tensors, got {len(tensors)}")
+    return _swap(Op, iter(tensors))
+
+
+register_operator_params(MPILinearOperator)
+for _w in (_AdjointLinearOperator, _TransposedLinearOperator,
+           _ConjLinearOperator, _CheckpointedLinearOperator):
+    register_operator_params(_w, "A")
+for _w in (_ProductLinearOperator, _ScaledLinearOperator,
+           _SumLinearOperator, _PowerLinearOperator):
+    register_operator_params(_w, "args")

@@ -284,3 +284,10 @@ class MPIStackedBlockDiag(MPIStackedLinearOperator):
     def _rmatvec(self, x: StackedDistributedArray) -> StackedDistributedArray:
         return StackedDistributedArray(
             [op.rmatvec(d) for op, d in zip(self.ops, x.distarrays)])
+
+
+# the operator's parameters (JAX ``ops/blockdiag.py`` registrations)
+from ..linearoperator import register_operator_params  # noqa: E402
+
+register_operator_params(MPIBlockDiag, "_batched")
+register_operator_params(MPIStackedBlockDiag, "ops")

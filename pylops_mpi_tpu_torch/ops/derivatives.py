@@ -437,3 +437,12 @@ class MPIGradient(MPILinearOperator):
 
     def _rmatvec(self, x: StackedDistributedArray) -> DistributedArray:
         return self.Op._rmatvec(x)
+
+
+# the operator's parameters (JAX ``ops/derivatives.py`` registrations)
+from ..linearoperator import register_operator_params  # noqa: E402
+
+for _c in (MPIFirstDerivative, MPISecondDerivative, MPILaplacian,
+           _AxisFirstDerivative):
+    register_operator_params(_c)
+register_operator_params(MPIGradient, "Op")

@@ -387,3 +387,10 @@ class MPIFFT2D(_MPIBaseFFTND):
         super().__init__(dims, axes, nffts, sampling, norm, real,
                          ifftshift_before, fftshift_after, mesh, dtype,
                          overlap, comm_chunks, hierarchical)
+
+
+# the operator's parameters (JAX ``ops/fft.py`` registrations)
+from ..linearoperator import register_operator_params  # noqa: E402
+
+register_operator_params(MPIFFTND)
+register_operator_params(MPIFFT2D)

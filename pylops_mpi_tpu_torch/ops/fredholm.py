@@ -197,3 +197,9 @@ class MPIFredholm1(MPILinearOperator):
         GT = self.GT if self.GT is not None else self.G.mH
         return self._product(GT, x, self.dimsd, self.nx, self.ny,
                              self.shape[1])
+
+
+# the operator's parameters (JAX ``ops/fredholm.py`` registrations)
+from ..linearoperator import register_operator_params  # noqa: E402
+
+register_operator_params(MPIFredholm1, "G", "GT")

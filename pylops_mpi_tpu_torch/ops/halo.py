@@ -212,3 +212,9 @@ class MPIHalo(MPILinearOperator):
         return DistributedArray._wrap(
             x.array.reshape(self.extents[r])[sl].reshape(-1), x,
             global_shape=(self.shape[1],), local_shapes=self.local_dim_sizes)
+
+
+# the operator's parameters (JAX ``ops/halo.py`` registrations)
+from ..linearoperator import register_operator_params  # noqa: E402
+
+register_operator_params(MPIHalo)

@@ -827,3 +827,9 @@ class NonStationaryConvolve1D(LocalOperator):
 
     def _rmatvec(self, x):
         return self._apply(x, self._tiles_adj)
+
+
+# the matrix of a MatrixMult block is its parameter
+from ..linearoperator import register_operator_params  # noqa: E402
+
+register_operator_params(MatrixMult, "A")

@@ -568,3 +568,10 @@ def MPIMatrixMult(A, M: int, saveAt: bool = False, mesh=None,
         return _MPIAutoMatrixMult(A, M, mesh, dtype, saveAt, grid,
                                   compute_dtype, device=device)
     raise NotImplementedError("kind must be 'block', 'summa' or 'auto'")
+
+
+# the operator's parameters (JAX ``ops/matrixmult.py`` registrations)
+from ..linearoperator import register_operator_params  # noqa: E402
+
+for _c in (_MPIBlockMatrixMult, _MPISummaMatrixMult, _MPIAutoMatrixMult):
+    register_operator_params(_c, "A", "At")

@@ -260,7 +260,16 @@ def normal_matvec(A: torch.Tensor, X: torch.Tensor):
     """``(u, q) = (AᵀA x, A x)`` per block, reading each block once.
 
     A CUDA tensor launches ``csrc/normal_matvec.cu`` on the current
-    stream; a CPU tensor takes :func:`normal_matvec_plain`."""
+    stream; a CPU tensor takes :func:`normal_matvec_plain`. Under grad
+    mode, inputs that require grad are refused: the product has no
+    backward (the implicit gradients of the solvers take two sweeps, as
+    the JAX package's do, and never reach it)."""
+    if torch.is_grad_enabled() and (A.requires_grad or X.requires_grad):
+        raise NotImplementedError(
+            "normal_matvec has no backward: inputs that require grad are "
+            "refused under grad mode. Differentiate the two-sweep product "
+            "(cgls(normal=False), or rmatvec(matvec(x))) or call it under "
+            "torch.no_grad()")
     if A.device.type == "cpu" and X.device.type == "cpu":
         return normal_matvec_plain(A, X)
     _check(A, X)

@@ -711,3 +711,10 @@ def make_precond(Op, kind: Optional[str] = None, **kw):
     raise ValueError(
         f"unknown preconditioner kind {kind!r}; expected none, jacobi, "
         "block_jacobi or mg")
+
+
+# the operator's parameters (JAX ``ops/precond.py`` registrations)
+from ..linearoperator import register_operator_params  # noqa: E402
+
+register_operator_params(JacobiPrecond, "_dinv")
+register_operator_params(BlockJacobiPrecond, "_chol")

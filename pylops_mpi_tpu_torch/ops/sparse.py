@@ -252,3 +252,9 @@ def auto_sparse_matmult(A, *, mesh=None, dtype=None, compute_dtype=None,
     from .matrixmult import MPIMatrixMult
     return MPIMatrixMult(A, 1, mesh=mesh, dtype=dtype,
                          compute_dtype=compute_dtype, device=device)
+
+
+# the operator's parameters (JAX ``ops/sparse.py`` registrations)
+from ..linearoperator import register_operator_params  # noqa: E402
+
+register_operator_params(MPISparseMatrixMult, "_data", "_rows", "_cols")

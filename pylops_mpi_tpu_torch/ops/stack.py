@@ -255,3 +255,11 @@ class MPIHStack(MPILinearOperator):
 
     def _rmatvec(self, x: DistributedArray) -> DistributedArray:
         return self.vstack._matvec(x)
+
+
+# the operator's parameters (JAX ``ops/stack.py`` registrations)
+from ..linearoperator import register_operator_params  # noqa: E402
+
+register_operator_params(MPIVStack, "_batched")
+register_operator_params(MPIHStack, "vstack")
+register_operator_params(MPIStackedVStack, "ops")

@@ -18,6 +18,17 @@ Dtype rules (both versions): any floating dtype; bf16/f16 slabs
 accumulate in f32 and f32 slabs in f32, f64 slabs in f64; the output is
 rounded once to the slab's dtype. The kernel takes f32, f64, bf16 and
 f16, at most 2 halo rows (``w ≤ 2``) and distinct tap offsets.
+
+Gradients: under grad mode, when the slab or a ghost piece requires
+grad, :func:`stencil_taps` runs as an ``autograd.Function`` whose
+backward is the transposed stencil through the same launch: the
+cotangent's ``rows`` core, with taps ``(-d, c_d)`` and ``2w`` zero rows
+given as the ``top``/``bottom`` counts, is the cotangent of the whole
+``rows + 2w`` slab, sliced back into ``top``, ``slab`` and ``bottom``
+(the ghost pieces' cotangents go home through
+:func:`~..parallel.collectives.halo_exchange`'s backward). On the card
+that is one more launch of ``csrc/stencil_taps.cu``, counted in
+``launches_bwd``; on the CPU both directions take the plain version.
 """
 
 from __future__ import annotations
@@ -32,11 +43,13 @@ from . import _build
 from ._precision import accum_dtype
 
 __all__ = ["stencil_taps", "stencil_taps_plain", "first_derivative_centered",
-           "second_derivative", "launches", "reset_launches"]
+           "second_derivative", "launches", "launches_bwd", "reset_launches"]
 
-# Kernel launches since the last reset_launches(); a run reads it to show
+# Kernel launches since the last reset_launches(), of the forward stencil
+# and of the transposed one in a backward pass; a run reads them to show
 # that its operators went through the kernel.
 launches = 0
+launches_bwd = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
                 torch.float64: 3}
@@ -53,8 +66,8 @@ Piece = Union[int, torch.Tensor]
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    global launches, launches_bwd
+    launches = launches_bwd = 0
 
 
 def _piece_rows(p: Piece) -> int:
@@ -150,7 +163,44 @@ def stencil_taps(slab: torch.Tensor, taps: Sequence[Tuple[int, float]],
     ``|offset| <= w``. ``top``/``bottom`` are ghost-row tensors or counts
     of zero rows (default: none, the JAX package's contract). A CUDA
     slab launches ``csrc/stencil_taps.cu`` on the current stream; a CPU
-    slab takes :func:`stencil_taps_plain`."""
+    slab takes :func:`stencil_taps_plain`. Under grad mode, with a piece
+    that requires grad, the call is differentiable (module docstring)."""
+    if torch.is_grad_enabled() and any(
+            isinstance(p, torch.Tensor) and p.requires_grad
+            for p in (slab, top, bottom)):
+        taps = tuple((int(d), float(c)) for d, c in taps)
+        return _Taps.apply(slab, top, bottom, taps, int(w),
+                           (int(out_pad[0]), int(out_pad[1])))
+    return _launch(slab, taps, w, out_pad, top, bottom)
+
+
+class _Taps(torch.autograd.Function):
+    """The tap stencil with its transposed stencil as the backward, both
+    through :func:`_launch` (module docstring)."""
+
+    @staticmethod
+    def forward(ctx, slab, top, bottom, taps, w, out_pad):
+        ctx.meta = (taps, w, out_pad, _piece_rows(top), int(slab.shape[0]))
+        return _launch(slab, taps, w, out_pad, top, bottom)
+
+    @staticmethod
+    def backward(ctx, g):
+        taps, w, (lo, hi), ntop, nslab = ctx.meta
+        rows = g.shape[0] - lo - hi
+        core = g.narrow(0, lo, rows).contiguous()
+        full = _launch(core, tuple((-d, c) for d, c in taps), w, (0, 0),
+                       2 * w, 2 * w, backward=True)
+        gtop = full[:ntop] if ctx.needs_input_grad[1] else None
+        gslab = full[ntop:ntop + nslab] if ctx.needs_input_grad[0] else None
+        gbot = full[ntop + nslab:] if ctx.needs_input_grad[2] else None
+        return gslab, gtop, gbot, None, None, None
+
+
+def _launch(slab: torch.Tensor, taps, w: int, out_pad, top: Piece,
+            bottom: Piece, backward: bool = False) -> torch.Tensor:
+    """One stencil pass, not differentiated: the kernel for a CUDA slab
+    (counted in ``launches``, or ``launches_bwd`` for a backward pass),
+    the plain version for a CPU one."""
     if slab.device.type == "cpu":
         return stencil_taps_plain(slab, taps, w, out_pad, top=top,
                                   bottom=bottom)
@@ -203,8 +253,11 @@ def stencil_taps(slab: torch.Tensor, taps: Sequence[Tuple[int, float]],
     if err != 0:
         raise RuntimeError(f"stencil_taps kernel launch failed: error {err} "
                            f"({errstr(err).decode()})")
-    global launches
-    launches += 1
+    global launches, launches_bwd
+    if backward:
+        launches_bwd += 1
+    else:
+        launches += 1
     return out
 
 

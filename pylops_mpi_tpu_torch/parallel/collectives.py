@@ -27,6 +27,29 @@ bytes to the metrics registry as ``collective.<name>.calls`` and
 gloo moves CPU tensors only for point-to-point sends and gathers. Under
 a gloo group, CUDA tensors are staged through host copies: this is
 transport, the arithmetic around it stays on the tensors' device.
+
+**Gradients.** Under grad mode, a tensor that requires grad goes through
+an ``autograd.Function`` whose backward is the adjoint collective, with
+the typing of the JAX package's collectives under ``jax.grad``:
+
+- :func:`all_reduce` ``"sum"`` reduces per-rank partials into one value
+  that every rank holds (``psum``, whose output is replicated): the
+  value's cotangent is the same on every rank, and each rank's partial
+  receives it unchanged, so a replicated loss gives the one-rank
+  gradient. ``"max"``/``"min"`` raise, as ``jax.grad`` has no rule for
+  ``pmax``/``pmin``.
+- :func:`all_gather` and :func:`reduce_scatter` are each other's
+  adjoints (``all_gather``'s output is per-rank: each rank goes on with
+  its own use of the whole, as ``_global()`` callers keep their shard).
+- :func:`halo_exchange` sends each received ghost's cotangent back to its
+  owner, which adds it to the edge rows it sent.
+- :func:`replicated` marks a tensor every rank holds the same (a scaled
+  operator's factor) where it enters each rank's own part of a
+  computation: its cotangent is the sum of the ranks' parts.
+
+:func:`all_to_all`, :func:`cart_halo_extend` and :func:`broadcast` have
+no rule yet: given a tensor that requires grad under grad mode they raise
+``NotImplementedError`` rather than cut the gradient.
 """
 
 from __future__ import annotations
@@ -45,7 +68,8 @@ from .partition import padded_shard_size
 
 __all__ = ["counts", "received", "reset_counts", "mask_group",
            "forget_groups", "all_reduce", "all_gather", "reduce_scatter",
-           "all_to_all", "halo_exchange", "cart_halo_extend"]
+           "all_to_all", "halo_exchange", "cart_halo_extend", "broadcast",
+           "replicated"]
 
 # collective calls under a group, and the bytes this rank received in
 # them, since the last reset_counts()
@@ -116,15 +140,84 @@ def _gloo(group) -> bool:
     return dist.get_backend(group) == "gloo"
 
 
+# the ROADMAP item that owes the adjoints still missing
+_ADJOINT_ITEM = "ROADMAP.md §A.7 item 6"
+
+
+def _needs_grad(*ts) -> bool:
+    """Grad mode is on and one of ``ts`` is a tensor that requires grad."""
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in ts)
+
+
+def _refuse_grad(name: str, *ts) -> None:
+    """Raise rather than cut a gradient at a collective without a rule."""
+    if _needs_grad(*ts):
+        raise NotImplementedError(
+            f"{name} has no autograd rule: a gradient cannot cross it yet "
+            f"(its adjoint is owed by {_ADJOINT_ITEM}). Call it outside "
+            "grad mode, or on tensors that do not require grad")
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """``all_reduce(sum)`` whose backward hands the replicated output's
+    cotangent to each rank's partial (module docstring)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        return _all_reduce(t.clone(), "sum", group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Replicated(torch.autograd.Function):
+    """Identity forward; the cotangent summed over the group."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g.contiguous().clone(), "sum", ctx.group), None
+
+
+def replicated(t: torch.Tensor, group: Optional[object] = None):
+    """``t``, which every rank of the group holds the same, as it enters a
+    computation that differs by rank (each rank's shard): under grad mode
+    its cotangent is summed over the group, so that every rank's copy
+    gets the whole gradient. Without a group, or outside grad mode, ``t``
+    itself."""
+    if not initialized() or not _needs_grad(t):
+        return t
+    return _Replicated.apply(t, group)
+
+
 def all_reduce(t: torch.Tensor, op: str = "sum",
                group: Optional[object] = None) -> torch.Tensor:
     """``op`` (``"sum"``, ``"max"``, ``"min"``) of a contiguous tensor
     over the group (the whole world for ``None``), in place; returns
-    ``t``."""
+    ``t``. A tensor that requires grad under grad mode is reduced into a
+    new tensor, differentiably for ``"sum"`` (module docstring); ``"max"``
+    and ``"min"`` then raise."""
     if not initialized():
         return t
     if not t.is_contiguous():
         raise ValueError("all_reduce takes contiguous tensors")
+    if _needs_grad(t):
+        if op != "sum":
+            raise NotImplementedError(
+                f"all_reduce({op!r}) has no gradient, as jax.grad has no "
+                "rule through pmax/pmin: differentiate a 'sum' reduction "
+                "(a 2-norm) instead")
+        return _AllReduceSum.apply(t, group)
+    return _all_reduce(t, op, group)
+
+
+def _all_reduce(t: torch.Tensor, op: str, group) -> torch.Tensor:
     _count("all_reduce", _nbytes(t))
     if t.is_cuda and _gloo(group):
         host = t.cpu()
@@ -134,13 +227,49 @@ def all_reduce(t: torch.Tensor, op: str = "sum",
     return t
 
 
+class _AllGather(torch.autograd.Function):
+    """:func:`all_gather` with :func:`reduce_scatter` as its backward."""
+
+    @staticmethod
+    def forward(ctx, t, sizes, axis, group):
+        ctx.args = (sizes, axis, group)
+        return _all_gather(t, sizes, axis, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_ReduceScatter.apply(g.contiguous(), *ctx.args), None, None,
+                None)
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """:func:`reduce_scatter` with :func:`all_gather` as its backward."""
+
+    @staticmethod
+    def forward(ctx, t, sizes, axis, group):
+        ctx.args = (sizes, axis, group)
+        return _reduce_scatter(t, sizes, axis, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_AllGather.apply(g.contiguous(), *ctx.args), None, None,
+                None)
+
+
 def all_gather(t: torch.Tensor, sizes: Sequence[int], axis: int = 0,
                group: Optional[object] = None) -> torch.Tensor:
     """The shards of every rank joined along ``axis``: rank ``p`` holds
     ``sizes[p]`` entries along ``axis``. Ragged shards are padded to the
-    largest (NCCL moves equal sizes), gathered, and unpadded."""
+    largest (NCCL moves equal sizes), gathered, and unpadded. Under grad
+    mode its backward is :func:`reduce_scatter`."""
     if not initialized():
         return t
+    if _needs_grad(t):
+        return _AllGather.apply(t, tuple(sizes), axis, group)
+    return _all_gather(t, sizes, axis, group)
+
+
+def _all_gather(t: torch.Tensor, sizes: Sequence[int], axis: int,
+                group) -> torch.Tensor:
     pad = padded_shard_size(sizes) - t.shape[axis]
     v = t
     if pad:
@@ -178,9 +307,17 @@ def reduce_scatter(t: torch.Tensor, sizes: Sequence[int], axis: int = 0,
     keeps its piece along ``axis``: the group's rank ``q`` keeps
     ``sizes[q]`` entries, in order (the counterpart of ``psum_scatter``).
     Ragged pieces are padded to the largest (NCCL moves equal sizes),
-    reduced and unpadded."""
+    reduced and unpadded. Under grad mode its backward is
+    :func:`all_gather`."""
     if not initialized():
         return t
+    if _needs_grad(t):
+        return _ReduceScatter.apply(t, tuple(sizes), axis, group)
+    return _reduce_scatter(t, sizes, axis, group)
+
+
+def _reduce_scatter(t: torch.Tensor, sizes: Sequence[int], axis: int,
+                    group) -> torch.Tensor:
     me = dist.get_group_rank(group, rank()) if group is not None else rank()
     width = padded_shard_size(sizes)
     pieces = []
@@ -212,6 +349,7 @@ def all_to_all(sends: Sequence[torch.Tensor],
     the transfers."""
     if not initialized():
         return [sends[0]]
+    _refuse_grad("all_to_all", *sends)
     me = dist.get_group_rank(group, rank()) if group is not None else rank()
 
     def peer(q):
@@ -302,9 +440,68 @@ def halo_exchange(block: torch.Tensor, front: int,
     if rows < max(front if r < P - 1 else 0, back if r > 0 else 0):
         raise ValueError(f"rank {r} holds {rows} rows, fewer than the "
                          f"ghost widths ({front}, {back}) it sends")
-    return _exchange("halo_exchange", block, 0, front, back,
-                     r - 1 if r > 0 else None,
-                     r + 1 if r < P - 1 else None)[:2]
+    prev = r - 1 if r > 0 else None
+    nxt = r + 1 if r < P - 1 else None
+    if not _needs_grad(block):
+        return _exchange("halo_exchange", block, 0, front, back, prev,
+                         nxt)[:2]
+    top, bottom = _HaloExchange.apply(block, front, back, prev, nxt)
+    # absent pieces travel through the Function as empty tensors
+    return (top if prev is not None and front else front,
+            bottom if nxt is not None and back else back)
+
+
+class _HaloExchange(torch.autograd.Function):
+    """:func:`halo_exchange` whose backward sends each received ghost's
+    cotangent back to the rank that owns those rows, which adds it to
+    its edge rows: the previous rank's last ``front`` rows and the next
+    rank's first ``back`` rows. Absent pieces are empty tensors."""
+
+    @staticmethod
+    def forward(ctx, block, front, back, prev, nxt):
+        top, bottom, _ = _exchange("halo_exchange", block, 0, front, back,
+                                   prev, nxt)
+        ctx.meta = (front, back, prev, nxt, tuple(block.shape))
+        empty = block.new_empty((0,) + tuple(block.shape[1:]))
+        return (top if isinstance(top, torch.Tensor) else empty,
+                bottom if isinstance(bottom, torch.Tensor) else empty)
+
+    @staticmethod
+    def backward(ctx, gtop, gbottom):
+        front, back, prev, nxt, shape = ctx.meta
+        stage = gtop.is_cuda and _gloo(None)
+        dev = torch.device("cpu") if stage else gtop.device
+
+        def send(t):
+            t = t.contiguous()
+            return t.cpu() if stage else t
+
+        def recv(n):
+            return torch.empty((n,) + shape[1:], dtype=gtop.dtype,
+                               device=dev)
+
+        sends, recvs = [], []
+        first = last = None
+        if prev is not None:
+            if front:
+                sends.append((send(gtop), prev))
+            if back:
+                first = recv(back)
+                recvs.append((first, prev))
+        if nxt is not None:
+            if back:
+                sends.append((send(gbottom), nxt))
+            if front:
+                last = recv(front)
+                recvs.append((last, nxt))
+        _count("halo_exchange_adjoint", sum(_nbytes(t) for t, _ in recvs))
+        _p2p(sends, recvs, None)
+        grad = gtop.new_zeros(shape)
+        if first is not None:
+            grad[:back] += first.to(grad.device)
+        if last is not None:
+            grad[shape[0] - front:] += last.to(grad.device)
+        return grad, None, None, None, None
 
 
 def cart_halo_extend(block: torch.Tensor, grid: Sequence[int], ax: int,
@@ -323,6 +520,8 @@ def cart_halo_extend(block: torch.Tensor, grid: Sequence[int], ax: int,
     if not hm and not hp:
         return block
     grid = tuple(int(g) for g in grid)
+    if initialized() and grid[ax] > 1:
+        _refuse_grad("cart_halo_extend", block)
     pieces: Tuple[Piece, Piece] = (hm, hp)
     if initialized() and grid[ax] > 1:
         if int(np.prod(grid)) != world_size():
@@ -347,3 +546,20 @@ def cart_halo_extend(block: torch.Tensor, grid: Sequence[int], ax: int,
             shape[ax] = p
             parts.append(block.new_zeros(shape))
     return torch.cat(parts, dim=ax) if len(parts) > 1 else block
+
+
+def broadcast(t: torch.Tensor, src: int = 0,
+              group: Optional[object] = None) -> torch.Tensor:
+    """Rank ``src``'s ``t`` on every rank, in place (the other ranks pass
+    a tensor of the same shape and dtype to fill); returns ``t``. Under a
+    gloo group a CUDA tensor is staged through the host."""
+    if not initialized():
+        return t
+    _refuse_grad("broadcast", t)
+    _count("broadcast", _nbytes(t) if rank() != src else 0)
+    if t.is_cuda and _gloo(group):
+        host = t.cpu()
+        dist.broadcast(host, src=src, group=group)
+        return t.copy_(host)
+    dist.broadcast(t, src=src, group=group)
+    return t

@@ -42,8 +42,9 @@ Without guards a non-finite column ends the loop for the whole batch at
 entry (the block solvers then return ``x0``), so serve with guards on.
 
 Under a process group every rank calls :meth:`WarmPool.solve` with the
-same ``Y`` (SPMD, as every entry point of the port); the daemon, whose
-batches depend on timing, refuses a world of more than one rank.
+same ``Y`` (SPMD, as every entry point of the port). The daemon's
+batches depend on timing, so under a group rank 0 forms them and sends
+each to the other ranks before it solves (``serving/service.py``).
 """
 
 from __future__ import annotations
@@ -118,6 +119,9 @@ class FamilySpec:
     damp: float = 0.0
     dtype: object = torch.float32
     M: object = None
+    # joins signature() only when true, so that every other family keeps
+    # its signature and its prewarm and bank keys (JAX engine.py:118-121)
+    differentiable: bool = False
 
     def __post_init__(self):
         if self.solver not in ("cg", "cgls"):
@@ -135,12 +139,16 @@ class FamilySpec:
     def signature(self) -> Tuple:
         """The family's structure: solver settings and the operator's
         :func:`~..aot.op_signature` (instances built alike share it);
-        a preconditioned family adds ``id(M)``."""
+        a preconditioned family adds ``id(M)``, a differentiable one the
+        tag ``"differentiable"`` at the end."""
         from ..aot import op_signature
-        return (self.solver, int(self.niter), float(self.tol),
-                float(self.damp), str(as_torch_dtype(self.dtype)),
-                op_signature(self.operator),
-                None if self.M is None else ("M", id(self.M)))
+        sig = (self.solver, int(self.niter), float(self.tol),
+               float(self.damp), str(as_torch_dtype(self.dtype)),
+               op_signature(self.operator),
+               None if self.M is None else ("M", id(self.M)))
+        if self.differentiable:
+            sig = sig + ("differentiable",)
+        return sig
 
     def bank_signature(self) -> Tuple:
         """:meth:`signature` with the operator's ``id`` and the storage
@@ -200,6 +208,10 @@ class WarmPool:
         self._buckets = tuple(sorted(set(buckets))) if buckets \
             else k_buckets()
         self._lock = threading.Lock()
+        # under a process group, rank 0's running daemon sends each batch
+        # to the other ranks before it solves (``SolveDaemon.start`` sets
+        # it, its drain clears it); None otherwise
+        self._announce = None
         self.warmed: set = set()
         self.prewarm_s: Dict[Tuple[str, int], float] = {}
 
@@ -263,6 +275,8 @@ class WarmPool:
         with self._lock, _trace.span("serve.pool_solve", cat="serving",
                                      family=name, fill=k, bucket=bucket,
                                      solver=spec.solver):
+            if self._announce is not None:
+                self._announce(name, k, Y)
             t0 = time.perf_counter()
             with graphs.recording_keys() as keys:
                 if spec.solver == "cg":

@@ -15,14 +15,24 @@ PyTorch counterpart of ``pylops_mpi_tpu/serving/service.py``:
   each owns its card and its pool, and they coordinate only through the
   spool.
 
-The daemon's batches depend on arrival times, so ranks of a process
-group would form different batches; the daemon and the worker refuse a
-world of more than one rank. Run one worker process a card, each with
-no process group, on a shared spool. :func:`serve_job` runs such a fleet
-under the supervisor (:func:`~..resilience.supervisor.launch_job`),
-sweeping a dead attempt's claimed requests back to pending before each
-relaunch. A daemon over a process group is the rest of ROADMAP.md §A.7
-item 1.
+Under a process group the daemon runs on every rank (JAX
+``service.py:54-118`` serves from the controller, whose batch every
+device then solves). Rank 0 owns the admission queue and the dispatcher:
+for each batch it packs, its pool first broadcasts a header (the
+family's index, the fill ``k``, the bucket and a stop flag) and then the
+``(n, bucket)`` right-hand sides, and every rank then calls
+:meth:`~.engine.WarmPool.solve` on that batch, the SPMD contract of
+every entry point of the port. The other ranks run
+:meth:`SolveDaemon.follow` until rank 0's :meth:`~SolveDaemon.drain`
+sends the stop flag. Rank 0 resolves the tickets. :func:`worker_main`
+over a group claims from the spool and banks on rank 0 only; the other
+ranks follow. A rank that dies is the watchdog's business
+(:mod:`~..resilience.elastic`).
+
+Without a group, or across cards that share no group, run one worker
+per card on a shared spool. :func:`serve_job` runs such a fleet under
+the supervisor (:func:`~..resilience.supervisor.launch_job`), sweeping a
+dead attempt's claimed requests back to pending before each relaunch.
 """
 
 from __future__ import annotations
@@ -32,10 +42,14 @@ import time
 from typing import Dict, Optional, Sequence
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from ..diagnostics import metrics as _metrics
 from ..diagnostics import trace as _trace
-from ..parallel.mesh import world_size
+from ..ops._precision import as_torch_dtype
+from ..parallel import collectives
+from ..parallel.mesh import initialized, rank, world_size
 from .engine import WarmPool
 from .queue import AdmissionQueue, Dispatcher, Ticket
 from . import spool as _spool
@@ -54,14 +68,26 @@ def drain_timeout_s() -> float:
     return max(0.0, v)
 
 
-def _single_rank(what: str) -> None:
-    if world_size() > 1:
-        raise RuntimeError(
-            f"{what} serves from one process: its batches depend on arrival "
-            f"times, so the {world_size()} ranks of this group would pack "
-            "different batches. Run one worker per card with no process "
-            "group on a shared spool; a daemon over a group of ranks is "
-            "the rest of ROADMAP.md §A.7 item 1")
+# header of one batch sent from rank 0: family index, fill, bucket, stop
+_HEADER = 4
+
+
+def _grouped() -> bool:
+    return initialized() and world_size() > 1
+
+
+def _wire_device():
+    """Where the broadcasts travel: the current card under NCCL, the host
+    under gloo."""
+    if dist.get_backend() == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def _send_header(fam: int, k: int, bucket: int, stop: int):
+    h = torch.tensor([fam, k, bucket, stop], dtype=torch.int64,
+                     device=_wire_device())
+    collectives.broadcast(h, 0)
 
 
 class SolveDaemon:
@@ -73,21 +99,63 @@ class SolveDaemon:
                  window_s: Optional[float] = None,
                  queue_bound: Optional[int] = None,
                  rehearse: bool = False):
-        _single_rank("SolveDaemon")
         self.pool = pool
         self.queue = AdmissionQueue(bound=queue_bound)
         self.dispatcher = Dispatcher(pool, self.queue, window_s=window_s,
                                      rehearse=rehearse)
         self._started = False
+        self.followed = 0
+
+    def _announce(self, name: str, k: int, Y: np.ndarray) -> None:
+        """Rank 0, inside the pool's solve: send the batch to the other
+        ranks (header, then the padded right-hand sides)."""
+        _send_header(self.pool.families().index(name), k, Y.shape[1], 0)
+        collectives.broadcast(torch.as_tensor(Y).to(_wire_device()), 0)
+
+    def follow(self) -> int:
+        """A rank other than 0: solve every batch rank 0 sends, until its
+        drain sends the stop flag. Returns the batches solved."""
+        if not _grouped() or rank() == 0:
+            raise RuntimeError("follow() runs on ranks other than 0 of a "
+                               "process group; rank 0 starts the daemon")
+        names = self.pool.families()
+        while True:
+            h = torch.zeros(_HEADER, dtype=torch.int64, device=_wire_device())
+            fam, k, bucket, stop = (int(v) for v in
+                                    collectives.broadcast(h, 0).cpu())
+            if stop:
+                break
+            spec = self.pool.family(names[fam])
+            Y = torch.zeros((spec.nrows, bucket),
+                            dtype=as_torch_dtype(spec.dtype),
+                            device=_wire_device())
+            Y = collectives.broadcast(Y, 0).cpu().numpy()
+            try:
+                self.pool.solve(names[fam], Y[:, :k])
+            except Exception as e:  # rank 0 fails the batch's tickets
+                _trace.event("serve.follow_error", cat="serving",
+                             family=names[fam], error=repr(e))
+            self.followed += 1
+        _trace.event("serve.follow_stop", cat="serving",
+                     batches=self.followed)
+        return self.followed
 
     def start(self, prewarm: bool = False) -> "SolveDaemon":
         """Start the dispatcher (once), with ``prewarm`` run first on its
-        thread; a prewarm that raised is raised here."""
+        thread; a prewarm that raised is raised here. Under a group only
+        rank 0 starts; the other ranks :meth:`follow`."""
+        if _grouped() and rank() != 0:
+            raise RuntimeError(
+                f"rank {rank()} follows rank 0's daemon: call follow()")
         if not self._started:
+            if _grouped():
+                self.pool._announce = self._announce
             self.dispatcher.prewarm = bool(prewarm)
             self.dispatcher.start()
             self.dispatcher.ready.wait()
             if self.dispatcher.prewarm_error is not None:
+                if _grouped():
+                    self._stop_followers()
                 raise self.dispatcher.prewarm_error
             self._started = True
             _trace.event("serve.daemon_start", cat="serving",
@@ -108,10 +176,23 @@ class SolveDaemon:
     def stats(self) -> Dict:
         return self.dispatcher.stats()
 
+    def _stop_followers(self) -> None:
+        """Rank 0: wait out the dispatcher and the batch it runs (their
+        collectives must end before the stop flag's broadcast), then,
+        holding the pool's lock, send the other ranks the stop flag and
+        give the pool back to direct calls, which every rank makes."""
+        if self.dispatcher.is_alive():
+            self.dispatcher.join()
+        with self.pool._lock:
+            _send_header(0, 0, 0, 1)
+            self.pool._announce = None
+
     def drain(self, timeout: Optional[float] = None) -> bool:
         """Refuse new admissions, wait (up to ``timeout``, default the
         drain knob) for the queue to empty and the batch in flight to
-        resolve, then stop the dispatcher. True when fully drained."""
+        resolve, then stop the dispatcher; under a group, wait for the
+        dispatcher's last batch and send the other ranks the stop flag.
+        True when fully drained."""
         timeout = drain_timeout_s() if timeout is None else timeout
         self.queue.start_drain()
         end = time.monotonic() + timeout
@@ -122,6 +203,8 @@ class SolveDaemon:
                 break
             time.sleep(0.01)
         self.dispatcher.stop()
+        if self._started and _grouped():
+            self._stop_followers()
         self._started = False
         _trace.event("serve.daemon_drain", cat="serving", drained=drained,
                      **self.stats())
@@ -141,11 +224,14 @@ def worker_main(spool_dir: str, pool: WarmPool, *,
     drain is requested (SIGTERM through
     :func:`~..resilience.elastic.install_sigterm_drain`, or the spool's
     DRAIN marker) and nothing is pending; with ``idle_exit_s`` also
-    after that long without work."""
+    after that long without work. Under a process group rank 0 does all
+    of this and the other ranks follow its batches (returning 0)."""
     from ..resilience import elastic
-    _single_rank("worker_main")
-    _spool.init_spool(spool_dir)
     elastic.maybe_start_heartbeat()
+    if _grouped() and rank() != 0:
+        SolveDaemon(pool, window_s=window_s).follow()
+        return 0
+    _spool.init_spool(spool_dir)
     elastic.install_sigterm_drain()
     daemon = SolveDaemon(pool, window_s=window_s).start(prewarm=prewarm)
     solved = 0

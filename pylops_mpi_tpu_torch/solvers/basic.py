@@ -714,6 +714,30 @@ def _solve_cgls(Op, y, x0, niter, damp, tol, normal, M, guards):
     return out
 
 
+def _grad_route(name: str, Op, y, x0, host_only: bool = False,
+                reroutes: bool = True) -> bool:
+    """Whether this call goes through :mod:`..autodiff.implicit`: an input
+    requires grad under grad mode (``implicit.should_intercept``; JAX
+    ``basic.py:911-919``). The host-only options and the entries that do
+    not reroute (``reroutes`` false) raise on such a call instead: a solve
+    never returns an ``x`` cut from the gradient. Any other call returns
+    False and runs as it always has."""
+    from ..autodiff import implicit
+    if not implicit.should_intercept(Op, y, x0):
+        return False
+    if not reroutes:
+        raise RuntimeError(
+            f"{name} has no gradient (guards are excluded from the implicit "
+            "rule): an input requires grad under grad mode. Use "
+            "autodiff.cg_solve/cgls_solve, or detach the inputs")
+    if host_only:
+        raise ValueError(
+            f"{name} with an input that requires grad differentiates the "
+            "fused path only: callback/show/fused=False run the class "
+            "loop, which has no implicit gradient")
+    return True
+
+
 def cg(Op, y: Vector, x0: Optional[Vector] = None,
        niter: int = 10, tol: float = 1e-4, show: bool = False,
        itershow=(10, 10, 10), callback: Optional[Callable] = None,
@@ -730,7 +754,16 @@ def cg(Op, y: Vector, x0: Optional[Vector] = None,
 
     Returns ``(x, iiter, cost)``: the solution, the iterations run and
     the residual-norm history ``cost[:iiter+1]`` (a device tensor; a
-    numpy array from the class)."""
+    numpy array from the class).
+
+    An input that requires grad (``y``, ``x0`` or the operator's
+    parameters, under grad mode) routes the solve through
+    :func:`~..autodiff.implicit.cg_solve`'s rule (fused path only, guards
+    excluded)."""
+    if _grad_route("cg", Op, y, x0,
+                   callback is not None or show or fused is False):
+        from ..autodiff import implicit
+        return implicit.entry_cg(Op, y, x0, niter, tol, M)
     if not _use_fused("cg", callback, show, fused, M):
         solver = CG(Op)
         if callback is not None:
@@ -747,6 +780,7 @@ def cg_guarded(Op, y: Vector, x0: Optional[Vector] = None, niter: int = 10,
     status_code)``, the code one of ``resilience.status.CONVERGED``,
     ``MAXITER``, ``BREAKDOWN``, ``STAGNATION``; on breakdown ``x`` is the
     last finite iterate."""
+    _grad_route("cg_guarded", Op, y, x0, reroutes=False)
     return _solve_cg(Op, y, x0, niter, tol, M, True)
 
 
@@ -775,7 +809,15 @@ def cgls(Op, y: Vector, x0: Optional[Vector] = None,
     package does: ``istop`` 1 when ``kold < tol`` else 2, ``r1norm`` the
     final ``kold``, ``r2norm`` the final damped residual norm and
     ``cost`` the residual-norm history ``cost[:iiter+1]`` (device
-    tensors; ``cost`` a numpy array from the class)."""
+    tensors; ``cost`` a numpy array from the class).
+
+    An input that requires grad routes the solve through
+    :func:`~..autodiff.implicit.cgls_solve`'s rule, in the classic
+    schedule whatever ``normal`` says (see :func:`cg`)."""
+    if _grad_route("cgls", Op, y, x0,
+                   callback is not None or show or fused is False):
+        from ..autodiff import implicit
+        return implicit.entry_cgls(Op, y, x0, niter, damp, tol, M)
     if not _use_fused("cgls", callback, show, fused, M, bool(normal)):
         solver = CGLS(Op)
         if callback is not None:
@@ -794,4 +836,5 @@ def cgls_guarded(Op, y: Vector, x0: Optional[Vector] = None,
                  normal: bool = False, M=None):
     """Guarded fused CGLS (JAX ``basic.py:1088-1106``): ``(x, iiter,
     cost, cost1, kold, status_code)``; see :func:`cg_guarded`."""
+    _grad_route("cgls_guarded", Op, y, x0, reroutes=False)
     return _solve_cgls(Op, y, x0, niter, damp, tol, bool(normal), M, True)

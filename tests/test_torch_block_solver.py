@@ -2,7 +2,8 @@
 through one loop on the same numbers (plain, damped from an ``x0``,
 preconditioned, bf16 storage, ragged blocks), columns freezing on their
 own, K=1 equal bit for bit to ``cg``/``cgls``, an operator without
-block support, the refusals and the names that wait.
+block support, the refusals and the names ported since
+(``batched_solve``).
 
 Tolerances: f64 rtol 1e-9 (relative to the largest entry) over 15
 iterations; bf16 storage at the JAX package's own tolerance for it
@@ -237,7 +238,14 @@ def test_refusals_and_waiting_names(problem):
             os.environ.pop("PYLOPS_MPI_TPU_TORCH_CA")
     with pytest.raises(ValueError, match="rows"):
         pmtt.block_cg(top, tarr(np.zeros((10, 2))))
+    # the names that waited for §A.7 item 2 are ported: batched_solve
+    # refuses a family without parameters as the JAX package does
+    # (tests/test_torch_batched_solve.py holds it against the JAX one)
     from pylops_mpi_tpu_torch import solvers
-    for name in ("batched_solve", "BatchedResult", "batched_cache_info"):
-        with pytest.raises(NotImplementedError, match="§A.6"):
-            getattr(solvers, name)()
+    assert solvers.BatchedResult._fields == ("xs", "iiter", "cost", "cost1",
+                                             "kold")
+    assert set(solvers.batched_cache_info()) == {"size", "max", "families"}
+    with pytest.raises(ValueError, match="no parameter tensors"):
+        solvers.batched_solve(
+            lambda p: pmtt.MPIFirstDerivative(10, dtype=torch.float64),
+            [0, 1], [y1, y1])

@@ -4,7 +4,7 @@ and with block-Jacobi, PCG with block-Jacobi blocks that straddle the
 shards (and the three schedules of a block-Jacobi apply), pipelined
 CGLS (``normal=True`` and on ragged f64 blocks), s-step CG, and the
 sparse product's applies and CGLS, and the serving pool's packed solve
-(with the daemon's refusal of a group). Each world also counts its
+(and the daemon over the group). Each world also counts its
 ``all_reduce`` calls: one an iteration for the pipelined engines, one
 an outer step for s-step, one a stacked block reduction.
 
@@ -147,8 +147,9 @@ def _tiers_rank(d):
                                            o[5].numpy()))(
         pmtt.cgls(Sp, vec(d["y37"]), niter=NITER, damp=0.1, tol=0.0)))
     # the serving pool, SPMD: every rank solves the same three requests
-    # in the 4-bucket; the daemon, whose batches depend on timing,
-    # refuses the group
+    # in the 4-bucket; then the daemon over the group: rank 0 admits the
+    # same three requests one by one and the other ranks follow its
+    # batches
     import torch
     from pylops_mpi_tpu_torch import serving
     pool = serving.WarmPool(buckets=(4,))
@@ -156,11 +157,15 @@ def _tiers_rank(d):
                                      dtype=torch.float64))
     res = pool.solve("fam", d["Ypool"])
     out["pool"] = (res.x, res.iiter, res.bucket)
-    try:
-        serving.SolveDaemon(pool)
-        out["daemon_refused"] = None
-    except RuntimeError as e:
-        out["daemon_refused"] = str(e)
+    daemon = serving.SolveDaemon(pool, window_s=0.2)
+    if pmtt.parallel.rank() == 0:
+        daemon.start()
+        tickets = [daemon.submit("fam", d["Ypool"][:, j]) for j in range(3)]
+        out["daemon"] = np.stack([t.wait(timeout=60)["x"] for t in tickets],
+                                 axis=1)
+        daemon.drain()
+    else:
+        out["daemon"] = daemon.follow()
     return out
 
 
@@ -284,14 +289,19 @@ def test_solves_match_jax(worlds, n, key):
 @pytest.mark.parametrize("n", SIZES)
 def test_warm_pool_matches_jax_and_daemon_refuses(worlds, n):
     """``WarmPool.solve`` under a group (every rank the same requests)
-    against the JAX package's pool on a mesh of ``n`` devices; the
-    daemon refuses a world of more than one rank."""
+    against the JAX package's pool on a mesh of ``n`` devices; the daemon
+    serves over the group (it no longer refuses one): rank 0's results
+    match the pool's, and every other rank followed at least one
+    batch."""
     res, ref = worlds[n]
-    for o in res:
+    for r, o in enumerate(res):
         x, it, bucket = o["pool"]
         assert (it, bucket, x.shape) == (NITER, 4, (64, 3))
         close(x, ref["pool"], RTOL)
-        assert "ROADMAP.md" in o["daemon_refused"]
+        if r == 0:
+            close(o["daemon"], ref["pool"], RTOL)
+        else:
+            assert o["daemon"] >= 1
 
 
 @pytest.mark.parametrize("n", SIZES)
