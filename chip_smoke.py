@@ -258,6 +258,39 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    solvers over the same group, rank 0's stats. Run it alone with
    ``autodiff_phase(torch, pmtt, (nk, sk), here, dev)``.
 
+25. Slice 14, the cost model and the tuner at the main path's width. 25.1
+   ``python -m pylops_mpi_tpu_torch.tuning --family blockdiag --main-path``
+   races the normal kernel (``fused``) against the two sweeps at phase 3's
+   32 blocks of 4096^2, f32 and bf16 storage each into its own cache file
+   (the key carries the operator's dtype): each trial's best_s, the winner
+   must be ``fused``; with ``PYLOPS_MPI_TPU_TORCH_TUNE=on`` and that cache
+   the constructor replays the plan with no ``tuning.trial`` event, the
+   50-iteration ``cgls(normal=True)`` launches the kernel once an
+   iteration (counted from 0 just before it: this slice's main path) and
+   its x is bitwise the untuned solve's; a banked ``two_sweep`` plan makes
+   the same solve launch it 0 times, x within 1e-6. 25.1b phase 7's
+   Gradient-regularized CGLS with its derivatives built under TUNE=on:
+   the tap kernel's launches and x as untuned. 25.2 SUMMA at phase 17's
+   (32768, 16384, 64) f32 under TUNE=auto: the factory's trials, one for
+   each candidate the card lists (grid (1, 1): the default alone), the
+   default banked and replayed with no trial. The tuner warms every
+   candidate, then times them in rounds of alternating order. 25.3
+   ``estimate`` and ``roofline`` against CUDA-event times of the
+   block-diagonal forward and normal applies, the (65536, 1024)
+   ``MPIGradient``, the SUMMA and the 512^3 c64 ``MPIFFTND``: predicted and measured ms, bound, hbm_pct; no
+   block-diagonal or Gradient apply above 1.05 of its roofline. 25.4
+   ``CA=auto``: ``off`` with no group; under an NCCL group of one the
+   measured alpha, the predicted apply and the pick, the auto solve
+   bitwise its named engine's, the two engines in alternating pairs.
+   25.5 the main path with ``TELEMETRY=on``, eagerly and through the graph
+   bank: one record an iteration, ``resid`` bitwise the cost history, the
+   banked history bitwise the eager one; iters/s on over off in pairs.
+   25.6 two gloo ranks sharing the card (rank 1 late) dump their traces;
+   ``python -m pylops_mpi_tpu_torch.diagnostics aggregate`` is ``ok``, every
+   matched collective has ``skew_us``, the late rank is the straggler and
+   the critical path names ``solver.cgls``. Run it alone with
+   ``tuner_phase(torch, pmtt, (nk, sk), here, dev)``.
+
 Phases 8, 9, 11-13, 16-18 and 21 (and phase 20's pool case) reach none
 of the hand-written kernels (a block solve of ``MPIBlockDiag`` runs a
 batched GEMM, bucket 1 runs classic ``cgls``): the
@@ -5075,6 +5108,605 @@ def autodiff_phase(torch, pmtt, kernels, here, dev):
     return out
 
 
+# phase 25 (slice 14): the cost model and the tuner at the main path's
+# width. The tuner's CLI races the normal kernel against the two sweeps
+# at slice 1's 32 blocks of 4096^2 (its --main-path shapes), each storage
+# into a cache file of its own (the key carries the operator's dtype);
+# SUMMA at phase 17's (32768, 16384, 64) f32 under TUNE=auto; the cost
+# model against the card (no share of the roofline above SHARE_25 for
+# the block-diagonal and Gradient applies); CA=auto; telemetry; two gloo
+# ranks' traces aggregated
+NITER_25, PAIRS_25, XTOL_25, SHARE_25 = 50, 4, 1e-6, 1.05
+NITER_AGG_25, LATE_25, REPS_25 = 10, 0.25, 20
+TUNE_ARGS_25 = ["--main-path"]  # the CLI's widths (a rehearsal: --quick)
+_TUNE_KNOBS = ("TUNE", "TUNE_CACHE", "TUNE_BUDGET", "TUNE_TOPK",
+               "TUNE_MARGIN", "TRACE", "TELEMETRY", "CA", "AOT",
+               "REDUCE_STALL")
+
+
+def set_knob(name, value):
+    """``PYLOPS_MPI_TPU_TORCH_<name>`` set (``None``: unset)."""
+    import os
+    key = "PYLOPS_MPI_TPU_TORCH_" + name
+    if value is None:
+        os.environ.pop(key, None)
+    else:
+        os.environ[key] = str(value)
+
+
+def tune_cli(here, dev, storage, out):
+    """``python -m pylops_mpi_tpu_torch.tuning --family blockdiag`` at
+    the main path's width with ``storage``, banked into ``out``: its JSON
+    summary (the last line of its output)."""
+    import os
+    env = {k: v for k, v in os.environ.items()
+           if not any(k == "PYLOPS_MPI_TPU_TORCH_" + n for n in _TUNE_KNOBS)}
+    cmd = [sys.executable, "-m", "pylops_mpi_tpu_torch.tuning", "--family",
+           "blockdiag", *TUNE_ARGS_25, "--storage", storage, "--device",
+           dev.type, "--out", out]
+    r = subprocess.run(cmd, cwd=str(here), env=env, capture_output=True,
+                       text=True, timeout=600)
+    if r.returncode:
+        raise RuntimeError(f"25.1: the tuner's CLI failed ({r.returncode}):"
+                           f" {r.stderr[-2000:]}")
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def _events(trace, name):
+    return [e for e in trace.get_events() if e["name"] == name]
+
+
+def _tuned_op(torch, pmtt, A, cdt):
+    """The main path's operator built under the current knobs, and the
+    tuning events its construction recorded."""
+    from pylops_mpi_tpu_torch.diagnostics import trace
+    from pylops_mpi_tpu_torch.ops.local import MatrixMult
+    from pylops_mpi_tpu_torch.tuning import cache as tcache
+    tcache.clear_memory()  # read the plan from the file
+    set_knob("TRACE", "spans")
+    trace.clear_events()
+    Op = pmtt.MPIBlockDiag([MatrixMult(A[i]) for i in range(A.shape[0])],
+                           compute_dtype=cdt)
+    ev = dict(trials=len(_events(trace, "tuning.trial")),
+              plans=[e["args"] for e in _events(trace, "tuning.plan")])
+    set_knob("TRACE", None)
+    trace.clear_events()
+    return Op, ev
+
+
+def tuner_race_part(torch, pmtt, nk, here, dev, tmp):
+    """25.1 (module docstring): the CLI's race in both storages, the
+    replay with no trial, the tuned solve through the kernel bitwise the
+    untuned one, and a banked two-sweep plan that keeps the kernel out."""
+    from pylops_mpi_tpu_torch.ops.local import MatrixMult
+    from pylops_mpi_tpu_torch.tuning import cache as tcache
+    from pylops_mpi_tpu_torch.tuning import plan as tplan
+    A, xtrue, y_t = make_problem(torch, dev)
+    y = pmtt.DistributedArray.to_dist(y_t)
+    out = {}
+    for storage, cdt in (("f32", None), ("bf16", torch.bfloat16)):
+        name = "float32" if cdt is None else "bfloat16"
+        path = f"{tmp}/plans_{storage}.json"
+        t0 = time.perf_counter()
+        summary = tune_cli(here, dev, storage, path)
+        cli_s = time.perf_counter() - t0
+        plan = summary["plans"][0]
+        trials = {t["params"]["normal_path"]: t
+                  for t in plan.get("trials", ())}
+        if set(trials) != {"fused", "two_sweep"} or not all(
+                t["ok"] for t in trials.values()):
+            raise RuntimeError(f"25.1 {storage}: a trial failed: {plan}")
+        ratio = trials["two_sweep"]["best_s"] / trials["fused"]["best_s"]
+        print(f"25.1 tuner CLI, blockdiag {storage} storage: key "
+              f"{plan['key']}; trials best_s fused "
+              f"{trials['fused']['best_s'] * 1e3:.4f} ms (warm-up "
+              f"{trials['fused']['compile_s'] * 1e3:.1f} ms), two_sweep "
+              f"{trials['two_sweep']['best_s'] * 1e3:.4f} ms (warm-up "
+              f"{trials['two_sweep']['compile_s'] * 1e3:.1f} ms): two_sweep "
+              f"/ fused {ratio:.3f}; banked {plan['params']} "
+              f"[{plan['provenance']}]; CLI {cli_s:.1f} s", flush=True)
+        if plan["params"] != {"normal_path": "fused"}:
+            raise RuntimeError(f"25.1 {storage}: the tuner banked "
+                               f"{plan['params']}, not the kernel")
+        # the untuned solve (tuning off: nothing consulted)
+        set_knob("TUNE", None)
+        Op0 = pmtt.MPIBlockDiag([MatrixMult(A[i]) for i in range(NBLK)],
+                                compute_dtype=cdt)
+        x_off = pmtt.cgls(Op0, y, niter=NITER_25, tol=0.0,
+                          normal=True)[0].array.clone()
+        del Op0
+        # the replay: the constructor reads the banked plan, no trial
+        set_knob("TUNE", "on")
+        set_knob("TUNE_CACHE", path)
+        Op, ev = _tuned_op(torch, pmtt, A, cdt)
+        prov = ev["plans"][-1] if ev["plans"] else {}
+        if ev["trials"] or prov.get("provenance") != "tuned" \
+                or not prov.get("replay") or Op._normal_path != "fused":
+            raise RuntimeError(f"25.1 {storage}: the replay ran {ev}")
+        nk.reset_launches()
+        t0 = time.perf_counter()
+        x, _, iiter, _, _, _ = pmtt.cgls(Op, y, niter=NITER_25, tol=0.0,
+                                         normal=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = nk.launches
+        xt = x.array.clone()
+        bitwise = torch.equal(xt, x_off)
+        err = rel_norm(xt, xtrue)
+        if storage == "f32":
+            out["x10"] = pmtt.cgls(Op, y, niter=NITER_AGG_25, tol=0.0,
+                                   normal=True)[0].array.clone()
+        del Op, x
+        # a banked two_sweep plan for the same key keeps the kernel out
+        path2 = f"{tmp}/two_sweep_{storage}.json"
+        tcache.store(prov["key"], {"params": {"normal_path": "two_sweep"},
+                                   "provenance": "tuned"}, path=path2)
+        set_knob("TUNE_CACHE", path2)
+        Op2, ev2 = _tuned_op(torch, pmtt, A, cdt)
+        nk.reset_launches()
+        x2 = pmtt.cgls(Op2, y, niter=NITER_25, tol=0.0,
+                       normal=True)[0].array.clone()
+        torch.cuda.synchronize()
+        launches2, gap2 = nk.launches, rel_norm(x2, xt)
+        path_two = Op2._normal_path
+        del Op2
+        set_knob("TUNE", None)
+        set_knob("TUNE_CACHE", None)
+        tcache.clear_memory()
+        tplan.reset_applied()
+        out[storage] = dict(
+            key=plan["key"], cli_s=cli_s, trials={
+                k: {f: t.get(f) for f in ("best_s", "mean_s", "compile_s")}
+                for k, t in trials.items()},
+            two_sweep_over_fused=ratio, banked=plan["params"],
+            replay_trials=ev["trials"], replay=prov, iiter=iiter,
+            launches=launches, bitwise_untuned=bitwise, rel_err=err,
+            iters_per_s=iiter / wall, two_sweep_path=path_two,
+            two_sweep_launches=launches2, two_sweep_gap=gap2,
+            two_sweep_trials=ev2["trials"], dtype=name)
+        print(f"25.1 {storage}: TUNE=on replays {prov.get('params')} "
+              f"[{prov.get('provenance')}] with {ev['trials']} trials; "
+              f"{NITER_25}-iteration cgls(normal=True) launches the kernel "
+              f"{launches} times ({iiter} iterations, {iiter / wall:.1f} "
+              f"iters/s), x {'bitwise' if bitwise else 'NOT bitwise'} the "
+              f"untuned solve's, rel_err {err:.3e}; a banked two_sweep "
+              f"plan: path {path_two}, {launches2} launches, x within "
+              f"{gap2:.3e} (limit {XTOL_25:.0e})", flush=True)
+        if launches != iiter or iiter != NITER_25 or not bitwise:
+            raise RuntimeError(f"25.1 {storage}: tuned solve {out[storage]}")
+        if launches2 or path_two != "two_sweep" or gap2 > XTOL_25:
+            raise RuntimeError(f"25.1 {storage}: two_sweep {out[storage]}")
+    del A
+    torch.cuda.empty_cache()
+    return out
+
+
+def gradient_tuned_part(torch, pmtt, sk, dev, tmp):
+    """25.1b: phase 7's Gradient-regularized CGLS with its derivative
+    operators built under TUNE=on (an empty cache: the seed's overlap
+    off, recorded): the tap kernel launches as untuned, x bitwise."""
+    wav = pmtt.models.ricker(np.arange(31) * 0.004, f0=15)[0]
+    m = layered_model(torch, NX, NT0, dev, seed=4)
+    res = {}
+    for mode in ("off", "on"):
+        set_knob("TUNE", None if mode == "off" else "on")
+        set_knob("TUNE_CACHE", f"{tmp}/empty.json" if mode == "on" else None)
+        StackOp, ystack, _ = gradient_poststack(torch, pmtt, m, wav, NITER,
+                                                torch.float32)
+        sk.reset_launches()
+        x = pmtt.cgls(StackOp, ystack, niter=NITER, tol=0.0)[0]
+        torch.cuda.synchronize()
+        derivs = StackOp.ops[1].args[0].Op.ops if hasattr(
+            StackOp.ops[1], "args") else []
+        res[mode] = dict(x=x.array.clone(), launches=sk.launches,
+                         overlap=[getattr(d, "overlap", None)
+                                  for d in derivs])
+        del StackOp, ystack, x
+    set_knob("TUNE", None)
+    set_knob("TUNE_CACHE", None)
+    bitwise = torch.equal(res["on"]["x"], res["off"]["x"])
+    out = dict(launches_tuned=res["on"]["launches"],
+               launches_untuned=res["off"]["launches"], bitwise=bitwise,
+               overlap_recorded=res["on"]["overlap"])
+    print(f"25.1b Gradient-regularized CGLS ({NX}, {NT0}) f32, {NITER} "
+          f"iterations under TUNE=on: the derivatives record overlap "
+          f"{res['on']['overlap']}; tap kernel launches {out['launches_tuned']}"
+          f" (untuned {out['launches_untuned']}); x "
+          f"{'bitwise' if bitwise else 'NOT bitwise'} the untuned solve's",
+          flush=True)
+    if not bitwise or out["launches_tuned"] != out["launches_untuned"] \
+            or not out["launches_tuned"]:
+        raise RuntimeError(f"25.1b: {out}")
+    return out
+
+
+def summa_tuned_part(torch, pmtt, dev, tmp):
+    """25.2: SUMMA at (N_MM, K_MM, M_MM) f32 under TUNE=auto: the
+    factory times each candidate the card lists (on a 1×1 grid the
+    default alone: every schedule runs the same GEMM), the default is
+    banked, and a second construction replays it with no trial."""
+    from pylops_mpi_tpu_torch.diagnostics import trace
+    from pylops_mpi_tpu_torch.tuning import cache as tcache
+    from pylops_mpi_tpu_torch.tuning import plan as tplan
+    from pylops_mpi_tpu_torch.tuning import space as tspace
+    g = torch.Generator(device=dev).manual_seed(25)
+    A = torch.randn((N_MM, K_MM), generator=g, device=dev)
+    A /= math.sqrt(N_MM)
+    set_knob("TUNE", "auto")
+    set_knob("TUNE_CACHE", f"{tmp}/summa.json")
+    set_knob("TRACE", "spans")
+    out = {}
+    try:
+        for run in ("measure", "replay"):
+            tcache.clear_memory()
+            trace.clear_events()
+            t0 = time.perf_counter()
+            op = pmtt.MPIMatrixMult(A, M_MM, kind="summa")
+            build_s = time.perf_counter() - t0
+            trials = [e["args"] for e in _events(trace, "tuning.trial")]
+            plans = [e["args"] for e in _events(trace, "tuning.plan")]
+            out[run] = dict(build_s=build_s, trials=trials, plan=plans[-1],
+                            schedule=op.schedule, overlap=op.overlap,
+                            grid=op.grid)
+            del op
+    finally:
+        for k in ("TUNE", "TUNE_CACHE", "TRACE"):
+            set_knob(k, None)
+        tcache.clear_memory()
+        trace.clear_events()
+    del A
+    torch.cuda.empty_cache()
+    m, r = out["measure"], out["replay"]
+    sp = tspace.space_for("matrixmult")
+    platform, chip = tplan._chip_kind(dev)
+    ctx = {"op": "matrixmult", "shape": (N_MM, K_MM, M_MM),
+           "platform": platform, "chip": chip,
+           "extra": {"grid": tuple(m["grid"])}}
+    cands, dflt = tspace.candidates(sp, ctx), tspace.default_params(sp, ctx)
+    print(f"25.2 the {platform} candidates on grid {m['grid']}: {cands} "
+          f"(default {dflt})", flush=True)
+    for t in m["trials"]:
+        print(f"25.2 SUMMA ({N_MM}, {K_MM}, {M_MM}) f32 grid {m['grid']}: "
+              f"candidate {t['params']} best_s "
+              f"{(t['best_s'] or 0) * 1e3:.4f} ms (warm-up "
+              f"{(t['compile_s'] or 0) * 1e3:.1f} ms) ok {t['ok']}",
+              flush=True)
+    print(f"25.2 banked {m['plan']['params']} [{m['plan']['provenance']}] "
+          f"in {m['build_s']:.2f} s of construction; the replay "
+          f"{r['plan']['params']} [{r['plan']['provenance']}] with "
+          f"{len(r['trials'])} trials in {r['build_s']:.3f} s", flush=True)
+    if not m["trials"] or not all(t["ok"] for t in m["trials"]) \
+            or m["plan"]["provenance"] != "tuned" or r["trials"] \
+            or r["plan"]["provenance"] != "tuned" \
+            or r["plan"]["params"] != m["plan"]["params"] \
+            or r["schedule"] != m["plan"]["params"]["schedule"] \
+            or sorted(map(str, (t["params"] for t in m["trials"]))) \
+            != sorted(map(str, cands)) \
+            or (tuple(m["grid"]) == (1, 1)
+                and m["plan"]["params"] != dflt):
+        raise RuntimeError(f"25.2: {out}")
+    return out
+
+
+def roofline_part(torch, pmtt, dev):
+    """25.3: ``estimate`` and ``roofline`` against CUDA-event times of the
+    main path's applies; the block-diagonal and Gradient applies may not
+    read faster than SHARE_25 of their prediction."""
+    from pylops_mpi_tpu_torch.diagnostics import costmodel as cm
+    from pylops_mpi_tpu_torch.ops.local import MatrixMult
+    peaks = cm.device_peaks(dev)
+    g = torch.Generator(device=dev).manual_seed(26)
+    rows = {}
+
+    def row(label, op, direction, apply, gated):
+        cost = cm.estimate(op, direction)
+        rf = cm.roofline(cost, peaks)
+        ms = cuda_ms(apply, REPS_25)
+        meas = cm.roofline(cost, peaks, measured_s=ms / 1e3)
+        pred = rf["predicted_s"] * 1e3
+        rows[label] = dict(direction=direction, predicted_ms=pred,
+                           measured_ms=ms, bound=rf["bound"],
+                           components_ms={k: v * 1e3 for k, v in
+                                          rf["components_s"].items()},
+                           share=pred / ms, hbm_pct=meas.get("hbm_pct"),
+                           regime=meas.get("regime"), gated=gated,
+                           flops=cost.flops, hbm_bytes=cost.hbm_bytes)
+        print(f"25.3 {label} ({direction}): predicted {pred:.4f} ms "
+              f"({rf['bound']}-bound), measured {ms:.4f} ms, share of the "
+              f"roofline {pred / ms:.3f}{' (gated)' if gated else ''}, "
+              f"hbm_pct {meas.get('hbm_pct')} ({meas.get('regime')})",
+              flush=True)
+
+    A, _, y_t = make_problem(torch, dev)
+    Op = pmtt.MPIBlockDiag([MatrixMult(A[i]) for i in range(NBLK)])
+    del A
+    x = pmtt.DistributedArray.to_dist(torch.randn(NBLK * NBLOCK,
+                                                  generator=g, device=dev))
+    bd = f"MPIBlockDiag {NBLK}x{NBLOCK}^2 f32"
+    row(bd, Op, "forward", lambda: Op.matvec(x), True)
+    row(bd + " normal", Op, "normal", lambda: Op.normal_matvec(x), True)
+    del Op, x
+    G = pmtt.MPIGradient((NX, NT0), dtype=torch.float32)
+    xg = pmtt.DistributedArray.to_dist(torch.randn(NX * NT0, generator=g,
+                                                   device=dev))
+    row(f"MPIGradient ({NX}, {NT0}) f32", G, "forward",
+        lambda: G.matvec(xg), True)
+    del G, xg
+    A = torch.randn((N_MM, K_MM), generator=g, device=dev)
+    S = pmtt.MPIMatrixMult(A, M_MM, kind="summa")
+    xs = pmtt.DistributedArray.to_dist(torch.randn(K_MM * M_MM, generator=g,
+                                                   device=dev))
+    row(f"SUMMA ({N_MM}, {K_MM}, {M_MM}) f32", S, "forward",
+        lambda: S.matvec(xs), False)
+    del S, A, xs
+    torch.cuda.empty_cache()
+    F = pmtt.MPIFFTND(FFT3, axes=(0, 1, 2), dtype=torch.complex64)
+    c = pmtt.DistributedArray.to_dist(torch.randn(
+        int(np.prod(FFT3)), generator=g, device=dev, dtype=torch.complex64))
+    row(f"MPIFFTND {FFT3} c64", F, "forward", lambda: F.matvec(c), False)
+    del F, c
+    torch.cuda.empty_cache()
+    over = {k: r["share"] for k, r in rows.items()
+            if r["gated"] and r["share"] > SHARE_25}
+    if over:
+        raise RuntimeError(f"25.3: applies above {SHARE_25} of their "
+                           f"roofline: {over}")
+    return dict(peaks={k: v for k, v in peaks.items()
+                       if k != "allreduce_latency_s"}, rows=rows)
+
+
+def ca_auto_part(torch, pmtt, dev, tmp):
+    """25.4: CA=auto resolves off with no group (no reduction issued);
+    under an NCCL group of one it reads the measured α against the
+    apply's roofline; the auto solve is bitwise its named engine's, and
+    the pick and the other engine are timed in alternating pairs."""
+    import torch.distributed as dist
+    from pylops_mpi_tpu_torch.diagnostics import costmodel as cm
+    from pylops_mpi_tpu_torch.ops.local import MatrixMult
+    from pylops_mpi_tpu_torch.solvers import ca
+    A, _, y_t = make_problem(torch, dev)
+    Op = pmtt.MPIBlockDiag([MatrixMult(A[i]) for i in range(NBLK)])
+    del A
+    y = pmtt.DistributedArray.to_dist(y_t)
+    set_knob("CA", "auto")
+    nogroup = ca.resolve_mode(Op, "cgls")
+    pmtt.parallel.init(backend="nccl", store=dist.FileStore(
+        f"{tmp}/store25", 1), rank=0, world_size=1, device=dev)
+    try:
+        alpha = cm.measure_allreduce_latency()
+        peaks = cm.device_peaks(dev)
+        pred = cm.roofline(cm.estimate(Op), peaks)["predicted_s"]
+        pick = ca.resolve_mode(Op, "cgls")
+        other = "off" if pick == "pipelined" else "pipelined"
+
+        def solve(mode):
+            set_knob("CA", mode)
+            t0 = time.perf_counter()
+            out = pmtt.cgls(Op, y, niter=NITER_25, tol=0.0, normal=True)
+            torch.cuda.synchronize()
+            return out[0].array.clone(), out[2], time.perf_counter() - t0
+
+        x_auto, it_auto, _ = solve("auto")
+        x_named, _, _ = solve(pick)
+        solve(other)
+        walls = {pick: [], other: []}
+        for i in range(PAIRS_25):
+            for mode in ((pick, other) if i % 2 == 0 else (other, pick)):
+                walls[mode].append(solve(mode)[2])
+    finally:
+        set_knob("CA", None)
+        pmtt.parallel.destroy()
+    del Op
+    torch.cuda.empty_cache()
+    bitwise = torch.equal(x_auto, x_named)
+    ratios = [a / b for a, b in zip(walls[other], walls[pick])]
+    out = dict(nogroup=nogroup, alpha_s=alpha,
+               reductions=ca.classic_reductions_per_iter("cgls"),
+               predicted_apply_s=pred, pick=pick, other=other,
+               bitwise=bitwise, walls_s=walls, other_over_pick=ratios,
+               iters_per_s={k: NITER_25 / float(np.median(v))
+                            for k, v in walls.items()})
+    print(f"25.4 CA=auto: no group -> {nogroup}; NCCL group of one: alpha "
+          f"{alpha * 1e6:.1f} us (measured), {out['reductions']} "
+          f"reductions an iteration = {out['reductions'] * alpha * 1e3:.4f} "
+          f"ms against 0.25 x the predicted apply {pred * 1e3:.4f} ms -> "
+          f"{pick}; the auto solve {'bitwise' if bitwise else 'NOT bitwise'}"
+          f" the {pick} engine's; iters/s {pick} "
+          f"{out['iters_per_s'][pick]:.1f}, {other} "
+          f"{out['iters_per_s'][other]:.1f}; {other}/{pick} wall ratios "
+          f"{[round(r, 4) for r in ratios]}", flush=True)
+    if nogroup != "off" or pick == "sstep" or not bitwise \
+            or it_auto != NITER_25:
+        raise RuntimeError(f"25.4: {out}")
+    return out
+
+
+def telemetry_part(torch, pmtt, dev):
+    """25.5: the main path's CGLS with TELEMETRY=on, eagerly and through
+    the graph bank: one record an iteration, ``resid`` bitwise the cost
+    history, the banked history bitwise the eager one; iters/s with
+    telemetry on over off in alternating pairs (not gated)."""
+    from pylops_mpi_tpu_torch.aot import graphs, store
+    from pylops_mpi_tpu_torch.diagnostics import telemetry
+    from pylops_mpi_tpu_torch.ops.local import MatrixMult
+    A, _, y_t = make_problem(torch, dev)
+    Op = pmtt.MPIBlockDiag([MatrixMult(A[i]) for i in range(NBLK)])
+    del A
+    y = pmtt.DistributedArray.to_dist(y_t)
+
+    def solve(tel, aot):
+        set_knob("TELEMETRY", "on" if tel else "off")
+        set_aot(aot)
+        telemetry.clear_history()
+        t0 = time.perf_counter()
+        out = pmtt.cgls(Op, y, niter=NITER_25, tol=0.0, normal=True)
+        torch.cuda.synchronize()
+        return out, telemetry.history("cgls"), time.perf_counter() - t0
+
+    res = {}
+    try:
+        store.clear_memory()
+        graphs.reset_capture_count()
+        eager, h_eager, _ = solve(True, False)
+        solve(True, True)  # the capture
+        banked, h_banked, _ = solve(True, True)
+        cost = torch.as_tensor(eager[5]).double().cpu().numpy()
+        resid = np.asarray([s["resid"] for s in h_eager])
+        res.update(
+            records=len(h_eager), iiter=[s["iiter"] for s in h_eager][:3],
+            resid_bitwise_cost=bool(np.array_equal(resid, cost[1:])),
+            banked_bitwise_eager=h_banked == h_eager,
+            x_banked_bitwise=torch.equal(banked[0].array, eager[0].array),
+            captures=graphs.stats().get("captures", 0))
+        for aot in (False, True):
+            walls = {True: [], False: []}
+            solve(False, aot)  # with telemetry off: its own capture
+            for i in range(PAIRS_25):
+                for tel in ((True, False) if i % 2 == 0 else (False, True)):
+                    walls[tel].append(solve(tel, aot)[2])
+            res["graphs" if aot else "eager"] = dict(
+                ratios_on_over_off=[
+                    (NITER_25 / a) / (NITER_25 / b)
+                    for a, b in zip(walls[True], walls[False])],
+                iters_per_s_on=NITER_25 / float(np.median(walls[True])),
+                iters_per_s_off=NITER_25 / float(np.median(walls[False])))
+    finally:
+        set_knob("TELEMETRY", None)
+        set_aot(False)
+        store.clear_memory()
+        telemetry.clear_history()
+    del Op
+    torch.cuda.empty_cache()
+    for mode in ("eager", "graphs"):
+        r = res[mode]
+        print(f"25.5 telemetry {mode}: iters/s on {r['iters_per_s_on']:.1f},"
+              f" off {r['iters_per_s_off']:.1f}; on/off in pairs "
+              f"{[round(v, 4) for v in r['ratios_on_over_off']]}", flush=True)
+    print(f"25.5 {res['records']} records for {NITER_25} iterations "
+          f"(iiter {res['iiter']}...), resid bitwise the cost history: "
+          f"{res['resid_bitwise_cost']}; banked history bitwise the eager "
+          f"one: {res['banked_bitwise_eager']} (x bitwise: "
+          f"{res['x_banked_bitwise']}), captures {res['captures']}",
+          flush=True)
+    if res["records"] != NITER_25 or not res["resid_bitwise_cost"] \
+            or not res["banked_bitwise_eager"] \
+            or not res["x_banked_bitwise"]:
+        raise RuntimeError(f"25.5: {res}")
+    return res
+
+
+def _agg25_rank(torch, pmtt, dev, out_dir):
+    """A spawned rank of 25.6: the main path's CGLS (NITER_AGG_25
+    iterations, its chunk of the blocks) with the span tracer and the
+    metrics on; rank 1 late by LATE_25 s; the trace and the metrics
+    snapshot dumped into ``out_dir``."""
+    import os
+    os.environ["PYLOPS_MPI_TPU_TORCH_TRACE"] = "spans"
+    os.environ["PYLOPS_MPI_TPU_TORCH_METRICS"] = "on"
+    from pylops_mpi_tpu_torch.diagnostics import metrics, trace
+    from pylops_mpi_tpu_torch.ops import normal_kernels as nk
+    from pylops_mpi_tpu_torch.ops.local import MatrixMult
+    A, _, y_t = make_problem(torch, dev)
+    Op = pmtt.MPIBlockDiag([MatrixMult(A[i]) for i in range(NBLK)])
+    del A
+    y = pmtt.DistributedArray.to_dist(y_t)
+    y.norm()
+    y.dot(y)
+    r = pmtt.parallel.rank()
+    if r == 1:
+        time.sleep(LATE_25)
+    trace.clear_events()
+    nk.reset_launches()
+    x = pmtt.cgls(Op, y, niter=NITER_AGG_25, tol=0.0, normal=True)[0]
+    torch.cuda.synchronize()
+    trace.dump(f"{out_dir}/trace.rank{r}.jsonl")
+    metrics.write_snapshot(f"{out_dir}/rank{r}.metrics.json")
+    return dict(launches=nk.launches, x=x.asarray())
+
+
+def aggregate_part(torch, here, dev, tmp, x10):
+    """25.6: two gloo ranks sharing the card dump their traces; the
+    aggregator's CLI merges them (``ok``), every matched collective has
+    ``skew_us``, the late rank is the straggler, and the critical path
+    names ``solver.cgls``."""
+    import os
+    out_dir = f"{tmp}/traces25"
+    os.makedirs(out_dir, exist_ok=True)
+    ranks = spawn_shared_card(2, here, _agg25_rank, (out_dir,))
+    gap = max(rel_norm(torch.as_tensor(r["x"]).to(x10.device), x10)
+              for r in ranks)
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("PYLOPS_MPI_TPU")}
+    cmd = [sys.executable, "-m", "pylops_mpi_tpu_torch.diagnostics",
+           "aggregate", out_dir, "--out", f"{tmp}/merged25.json",
+           "--summary-out", f"{tmp}/summary25.json"]
+    r = subprocess.run(cmd, cwd=str(here), env=env, capture_output=True,
+                       text=True, timeout=300)
+    if r.returncode:
+        raise RuntimeError(f"25.6: aggregate failed: {r.stderr[-2000:]}")
+    last = json.loads(r.stdout.strip().splitlines()[-1])
+    with open(f"{tmp}/summary25.json") as f:
+        full = json.load(f)
+    colls = full["collectives"]
+    worst = max(colls, key=lambda c: c["skew_us"]) if colls else {}
+    skewed = sorted(c["skew_us"] for c in colls)
+    out = dict(ok=last["ok"], ranks=last["ranks"],
+               n_collectives_matched=last["n_collectives_matched"],
+               offsets_us=last["offsets_us"], max_skew=worst,
+               median_skew_us=skewed[len(skewed) // 2] if skewed else None,
+               critical_path=[c["solver"] for c in last["critical_path"]],
+               all_skewed=all("skew_us" in c for c in colls),
+               launches=[o["launches"] for o in ranks], x_gap=gap)
+    print(f"25.6 two gloo ranks sharing the card (rank 1 late by "
+          f"{LATE_25} s): aggregate ok {out['ok']}, "
+          f"{out['n_collectives_matched']} collectives matched, offsets "
+          f"{out['offsets_us']} us, max skew {worst.get('skew_us')} us at "
+          f"{worst.get('name')} seq {worst.get('seq')} (straggler rank "
+          f"{worst.get('straggler_rank')}), median skew "
+          f"{out['median_skew_us']} us; critical paths "
+          f"{out['critical_path']}; normal kernel launches per rank "
+          f"{out['launches']}; x within {gap:.3e} of the no-group solve",
+          flush=True)
+    if not (out["ok"] and out["n_collectives_matched"] and out["all_skewed"]
+            and "solver.cgls" in out["critical_path"]
+            and worst.get("straggler_rank") == 1
+            and out["launches"] == [NITER_AGG_25] * 2 and gap <= 1e-5):
+        raise RuntimeError(f"25.6: {out}")
+    return out
+
+
+def tuner_phase(torch, pmtt, kernels, here, dev):
+    """Phase 25 (module docstring): the cost model and the tuner. 25.1 is
+    its main path: the normal kernel's counts are set to 0 just before
+    the tuned solve and read just after."""
+    import shutil
+    import tempfile
+    nk, sk = kernels
+    card = card_name() if dev.type == "cuda" else "cpu"
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    res = {"card": card}
+    try:
+        for name, fn in (
+                ("race", lambda: tuner_race_part(torch, pmtt, nk, here, dev,
+                                                 tmp)),
+                ("gradient", lambda: gradient_tuned_part(torch, pmtt, sk,
+                                                         dev, tmp)),
+                ("summa", lambda: summa_tuned_part(torch, pmtt, dev, tmp)),
+                ("roofline", lambda: roofline_part(torch, pmtt, dev)),
+                ("ca_auto", lambda: ca_auto_part(torch, pmtt, dev, tmp)),
+                ("telemetry", lambda: telemetry_part(torch, pmtt, dev)),
+                ("aggregate", lambda: aggregate_part(
+                    torch, here, dev, tmp, res["race"]["x10"]))):
+            t = time.perf_counter()
+            res[name] = fn()
+            print(f"25 {name} in {time.perf_counter() - t:.1f} s on {card}",
+                  flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    res["race"].pop("x10", None)
+    return res
+
+
 def main() -> int:
     here = Path(__file__).resolve().parent
     if not (here / "pylops_mpi_tpu_torch" / "__init__.py").is_file():
@@ -5505,6 +6137,11 @@ def main() -> int:
     slice13 = autodiff_phase(torch, pmtt, kernel_mods, here, dev)
     print(f"phase 24 in {time.perf_counter() - t24:.1f} s", flush=True)
 
+    # 25. slice 14: the cost model and the tuner at the main path's width
+    t25 = time.perf_counter()
+    slice14 = tuner_phase(torch, pmtt, kernel_mods, here, dev)
+    print(f"phase 25 in {time.perf_counter() - t25:.1f} s", flush=True)
+
     kernels = []
     for name, run in (("float32", "normal_f32"), ("bfloat16", "normal_bf16")):
         s = stats[name]
@@ -5530,7 +6167,15 @@ def main() -> int:
             # phase 23.1: resilient_solve's rung at this dtype (bf16 to
             # the NaN, f32 after the restart)
             resilience_launches=slice12["resilient_eager"][
-                "launches_by_dtype"].get(name, 0)))
+                "launches_by_dtype"].get(name, 0),
+            # phase 25.1: the tuned solve (the banked plan replayed),
+            # counted from 0 just before it, and the same solve under a
+            # banked two_sweep plan (0)
+            tuned_launches=slice14["race"][
+                "f32" if name == "float32" else "bf16"]["launches"],
+            two_sweep_plan_launches=slice14["race"][
+                "f32" if name == "float32" else "bf16"][
+                    "two_sweep_launches"]))
     # slice 9's paths through the normal kernel (f32 storage): PCGLS
     # normal=True per arm (10 iterations, counts reset just before) and
     # pipelined CGLS normal=True (its setup applies the kernel once)
@@ -5560,7 +6205,10 @@ def main() -> int:
             graph_launches=(gr22["graph_kernel_events"]
                             if name == "float32" else None),
             graph_replays=(gr22["graph_replays"]
-                           if name == "float32" else None)))
+                           if name == "float32" else None),
+            # phase 25.1b: the Gradient-regularized CGLS under TUNE=on
+            tuned_launches=(slice14["gradient"]["launches_tuned"]
+                            if name == "float32" else None)))
     # phase 24: the tap kernel on the transposed taps, the backward of its
     # autograd rule; launches in 24.2's gradient descent (f32)
     ad = slice13["objective"]
@@ -5590,7 +6238,8 @@ def main() -> int:
                       "slice8": slice8, "slice8_ranks": slice8_ranks,
                       "slice9": slice9, "slice9_ranks": slice9_ranks,
                       "slice10": slice10, "slice11": slice11,
-                      "slice12": slice12, "slice13": slice13}),
+                      "slice12": slice12, "slice13": slice13,
+                      "slice14": slice14}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

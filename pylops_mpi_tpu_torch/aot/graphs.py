@@ -30,13 +30,22 @@ their methods, with whatever Python scalars they hold: a derivative's
 sampling, kind and edge, a scaled operator's factor), their
 ``op_signature`` and ``storage_signature`` (a graph holds their tensors'
 addresses, and a tensor attribute swapped on the same object changes
-them), ``compile_signature()``, the shapes, dtypes and devices of the
-data and of the carry, the segment length and the process group's size
-and backend. The bank keeps the operator and the preconditioner alive
+them), ``compile_signature()``, the reduction stall
+(``collectives.stall_signature``) and the telemetry state
+(``telemetry.telemetry_signature``), the shapes, dtypes and devices of
+the data and of the carry, the segment length and the process group's
+size and backend. The bank keeps the operator and the preconditioner alive
 (the JAX package's ``keepalive``), so neither an ``id`` nor a freed
 address is reused under an old key. A write in place to an operator's
 tensor keeps its address: the next replay reads the new values, as the
 eager loop would.
+
+**Telemetry.** A loop given a ``record`` :class:`~..diagnostics.
+telemetry.Spec` while telemetry is on carries one more tensor, the
+telemetry buffer its steps write through
+:func:`~..diagnostics.telemetry.iteration`; it rides in the captured
+carry like the cost rows. :meth:`Loop.fold` copies the rows recorded
+since the last fold to the host at each host check and at the end.
 
 **What a capture records once.** The launch and path counters
 (``normal_kernels.launches`` and ``.launches_by_dtype``,
@@ -224,12 +233,15 @@ def _group():
 def key(solver: str, scalars: Dict[str, Any], Op, M, y,
         carry: Sequence[torch.Tensor]) -> tuple:
     """The bank key of one loop (module docstring)."""
+    from ..diagnostics.telemetry import telemetry_signature
+    from ..parallel.collectives import stall_signature
     from .signature import compile_signature, op_signature, storage_signature
     return (solver, _freeze(scalars),
             id(Op), op_signature(Op), storage_signature(Op),
             None if M is None else (id(M), op_signature(M),
                                     storage_signature(M)),
-            _freeze(compile_signature()), _specs(_flat(y)), _specs(carry),
+            _freeze(compile_signature()), stall_signature(),
+            telemetry_signature(), _specs(_flat(y)), _specs(carry),
             SEGMENT, _group())
 
 
@@ -359,19 +371,37 @@ class Loop:
 
     ``step(state, consts)`` runs one iteration and returns the new
     carry; a segment is ``per_segment`` of them. ``solver``,
-    ``scalars``, ``Op``, ``M`` and ``y`` make the key. Drive it with
+    ``scalars``, ``Op``, ``M`` and ``y`` make the key. ``record`` (a
+    telemetry :class:`~..diagnostics.telemetry.Spec`) arms the loop's
+    telemetry buffer when telemetry is on. Drive it with
     :func:`run_iterations` or :func:`run_while`."""
 
     def __init__(self, solver: str, scalars: Dict[str, Any], Op, M, y,
-                 state, consts, step: Callable, per_segment: int = SEGMENT):
+                 state, consts, step: Callable, per_segment: int = SEGMENT,
+                 record=None):
+        from ..diagnostics import telemetry
         self.solver = solver
         self.state = state
         self.consts = consts
-        self._step = step
+        self._spec = record if (record is not None
+                                and telemetry.telemetry_enabled()) else None
+        self._tbuf = None
+        self._folded = 0
+        if self._spec is not None:
+            self._tbuf = self._spec.buffer(_flat(state)[0].device)
+
+            def tstep(carry, cs):
+                st, tb = carry
+                with telemetry.recording(tb):
+                    return step(st, cs), tb
+            self._step = tstep
+        else:
+            self._step = step
+        inner = self._step
 
         def segment(st, cs):
             for _ in range(per_segment):
-                st = step(st, cs)
+                st = inner(st, cs)
             return st
 
         self._segment = segment
@@ -388,14 +418,52 @@ class Loop:
         if not _store.aot_enabled():
             return
         self._key = lambda: key(solver, scalars, Op, M, y,
-                                _flat(self.state) + _flat(self.consts))
+                                _flat(self._carry()) + _flat(self.consts))
         self._keepalive = (Op, M)
-        reason = _ineligible(_flat(state) + _flat(consts))
+        reason = _ineligible(_flat(self._carry()) + _flat(consts))
         if reason is not None:
             _bump("eager", solver=solver, reason=reason)
             _bump(f"eager.{reason}")
             return
         self._armed = True
+
+    # -- the carry: the state, and the telemetry buffer when recording
+    def _carry(self):
+        return self.state if self._tbuf is None else (self.state,
+                                                      self._tbuf)
+
+    def _set_carry(self, carry) -> None:
+        if self._tbuf is None:
+            self.state = carry
+        else:
+            self.state, self._tbuf = carry
+
+    def peel(self, fn: Callable) -> None:
+        """``state = fn(state)`` with the loop's telemetry recording: a
+        step run outside the loop (the pipelined engine's iteration
+        0)."""
+        if self._tbuf is None:
+            self.state = fn(self.state)
+            return
+        from ..diagnostics import telemetry
+        with telemetry.recording(self._tbuf):
+            self.state = fn(self.state)
+
+    def fold(self, upto: Optional[int] = None) -> None:
+        """Hand the telemetry rows recorded since the last fold, up to
+        row ``upto`` (default: the last iteration row), to the history
+        (:func:`~..diagnostics.telemetry.fold`): one small copy to the
+        host, made where the loop reads the device anyway."""
+        if self._tbuf is None:
+            return
+        from ..diagnostics import telemetry
+        last = self._tbuf.shape[0] - 2 if upto is None \
+            else min(int(upto), self._tbuf.shape[0] - 2)
+        if last <= self._folded:
+            return
+        block = self._tbuf[self._folded + 1:last + 1].cpu().numpy()
+        self._folded = last
+        telemetry.fold(self._spec, block)
 
     def _take(self, entry: _Entry, k: tuple) -> None:
         entry.lock.acquire()
@@ -407,7 +475,7 @@ class Loop:
     def eager(self, n: int) -> None:
         """``n`` iterations, eagerly."""
         for _ in range(n):
-            self.state = self._step(self.state, self.consts)
+            self._set_carry(self._step(self._carry(), self.consts))
         self._in_bufs = False
         self._warm = True
 
@@ -424,17 +492,17 @@ class Loop:
             if self._entry is None and self._warm:
                 self._capture()
         if self._entry is None:
-            self.state = self._segment(self.state, self.consts)
+            self._set_carry(self._segment(self._carry(), self.consts))
             self._in_bufs = False
             self._warm = True
             return
         if not self._in_bufs:
             e = self._entry
             for b, t in zip(e.state + e.consts,
-                            _flat(self.state) + _flat(self.consts)):
+                            _flat(self._carry()) + _flat(self.consts)):
                 if b is not t:
                     b.copy_(t)
-            self.state = _rebuild(self.state, iter(e.state))
+            self._set_carry(_rebuild(self._carry(), iter(e.state)))
             self._in_bufs = True
         self._entry.graph.replay()
         _add(self._entry.delta, 1)
@@ -446,11 +514,11 @@ class Loop:
         if entry is not None:
             self._take(entry, k)
             return
-        flat_s, flat_c = _flat(self.state), _flat(self.consts)
+        flat_s, flat_c = _flat(self._carry()), _flat(self.consts)
         device = flat_s[0].device
         bufs_s = [t.clone() for t in flat_s]
         bufs_c = [t.clone() for t in flat_c]
-        tmpl_s, tmpl_c, seg = self.state, self.consts, self._segment
+        tmpl_s, tmpl_c, seg = self._carry(), self.consts, self._segment
 
         def body():
             out = _flat(seg(_rebuild(tmpl_s, iter(bufs_s)),
@@ -482,7 +550,7 @@ class Loop:
         _store.mem_put(k, entry)
         _note(k)
         self._entry = entry
-        self.state = _rebuild(tmpl_s, iter(bufs_s))
+        self._set_carry(_rebuild(tmpl_s, iter(bufs_s)))
         self._in_bufs = True
         _bump("captures", solver=self.solver, ms=ms, bytes=nbytes)
         _metrics.set_gauge("aot.graph.bank_bytes", bank_bytes())
@@ -497,15 +565,17 @@ class Loop:
             reason = "stopped" if self._stopped else "short"
             _bump("eager", solver=self.solver, reason=reason)
             _bump(f"eager.{reason}")
-        out = self.state
+        out = self._carry()
         if self._in_bufs:
             out = _rebuild(out, iter([t.clone() for t in _flat(out)]))
             # a later run of this loop (the next epoch of a segmented
             # solve) copies its carry back in: another solve may have
             # replayed the entry meanwhile
-            self.state, self._in_bufs = out, False
+            self._set_carry(out)
+            self._in_bufs = False
+        self.fold()
         self._release()
-        return out
+        return self.state
 
     def _release(self) -> None:
         if self._entry is not None:
@@ -534,6 +604,8 @@ def run_iterations(loop: Loop, live: Callable, niter: int, start: int = 0):
             if it > start and not bool(live(loop.state)):
                 loop._stopped = True
                 break
+            if it > start:
+                loop.fold(it)
             if end - it == SEGMENT:
                 loop.segment()
             else:

@@ -1,14 +1,17 @@
-"""Runtime observability: spans, metrics, stage budgets.
+"""Runtime observability: spans, metrics, stage budgets, the cost model,
+in-loop telemetry and the fleet trace aggregator.
 
-PyTorch counterpart of ``pylops_mpi_tpu/diagnostics``, three of its
-modules: :mod:`.trace` (the span tracer), :mod:`.metrics` (the
-process-wide registry with its periodic snapshot) and :mod:`.profiler`
-(the stage-budget table, the deadline runner and ``torch.profiler``
-capture). The cost model, the in-loop telemetry and the trace
-aggregator are ROADMAP.md §A.7.
+PyTorch counterpart of ``pylops_mpi_tpu/diagnostics``: :mod:`.trace`
+(the span tracer), :mod:`.metrics` (the process-wide registry with its
+periodic snapshot), :mod:`.profiler` (the stage-budget table, the
+deadline runner and ``torch.profiler`` capture), :mod:`.costmodel` (per
+operator costs, the card's peaks and the roofline), :mod:`.telemetry`
+(per-iteration solver scalars written on the device) and
+:mod:`.aggregate` (per-rank traces merged on one clock; the CLI is
+``python -m pylops_mpi_tpu_torch.diagnostics``).
 """
 
-from . import metrics, profiler, trace
+from . import aggregate, costmodel, metrics, profiler, telemetry, trace
 from .metrics import (metrics_mode, metrics_enabled, inc, set_gauge,
                       observe, timer, snapshot, clear_metrics,
                       write_snapshot, read_snapshot, hist_quantiles)
@@ -18,7 +21,7 @@ from .trace import (trace_mode, trace_enabled, span, op_span, event, counter,
                     get_events, clear_events, dump, span_tree)
 
 __all__ = [
-    "trace", "metrics", "profiler",
+    "trace", "metrics", "profiler", "costmodel", "telemetry", "aggregate",
     "metrics_mode", "metrics_enabled", "inc", "set_gauge", "observe",
     "timer", "snapshot", "clear_metrics", "write_snapshot",
     "read_snapshot", "hist_quantiles",

@@ -1,0 +1,156 @@
+"""Fleet-observability CLI: ``python -m pylops_mpi_tpu_torch.diagnostics``.
+
+PyTorch counterpart of ``python -m pylops_mpi_tpu.diagnostics``; host
+only (it reads files, imports no device code):
+
+``aggregate <dir-or-files...>``
+    Merge per-rank Chrome-trace JSONLs into one clock-aligned trace with
+    ``pid=rank``, every matched collective stamped with ``skew_us`` and
+    ``straggler_rank``, and a critical path per solve (:mod:`.aggregate`);
+    ``--out`` writes the merged trace (``--fmt chrome`` opens in
+    Perfetto, ``jsonl`` keeps one event a line).
+
+``metrics <snapshot-or-logdir...>``
+    Print metrics snapshots (``*.metrics.json`` of :mod:`.metrics`, or a
+    supervisor logdir holding them or ``job_report.json``).
+
+Progress goes to stderr; the last line of stdout is one JSON summary.
+The exit code is nonzero only when no input file was found.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+from typing import List
+
+from . import aggregate as _agg
+from . import metrics as _metrics
+
+
+def _eprint(msg: str) -> None:
+    print(f"[diagnostics] {msg}", file=sys.stderr, flush=True)
+
+
+def _cmd_aggregate(args) -> int:
+    files = _agg.discover_trace_files(args.paths)
+    if not files:
+        _eprint(f"no trace files found under {args.paths}")
+        print(json.dumps({"ok": False, "error": "no trace files"}))
+        return 1
+    _eprint(f"aggregating {len(files)} trace file(s)")
+    result = _agg.aggregate_files(files, ranks=args.ranks)
+    events = result["events"]
+    if args.out:
+        if args.fmt == "chrome":
+            with open(args.out, "w") as f:
+                json.dump({"traceEvents": events}, f)
+        else:
+            with open(args.out, "w") as f:
+                for ev in events:
+                    f.write(json.dumps(ev) + "\n")
+        _eprint(f"merged trace ({len(events)} events, "
+                f"{len(result['ranks'])} ranks) -> {args.out}")
+    worst = max(result["collectives"], key=lambda c: c["skew_us"],
+                default=None)
+    summary = {"ok": True, "ranks": result["ranks"],
+               "n_events": len(events),
+               "n_collectives_matched": len(result["collectives"]),
+               "offsets_us": result["offsets_us"],
+               "max_skew": worst,
+               "critical_path": result["critical_path"],
+               "out": args.out}
+    if args.summary_out:
+        full = dict(summary)
+        full["collectives"] = result["collectives"]
+        full["sources"] = result["sources"]
+        with open(args.summary_out, "w") as f:
+            json.dump(full, f, indent=1)
+    print(json.dumps(summary))
+    return 0
+
+
+def _find_metric_files(paths) -> List[str]:
+    out = []
+    for p in paths:
+        if os.path.isdir(p):
+            for name in sorted(os.listdir(p)):
+                if name.endswith(".metrics.json") \
+                        or name == "job_report.json":
+                    out.append(os.path.join(p, name))
+        elif os.path.exists(p):
+            out.append(p)
+    return out
+
+
+def _cmd_metrics(args) -> int:
+    files = _find_metric_files(args.paths)
+    if not files:
+        _eprint(f"no metrics files found under {args.paths}")
+        print(json.dumps({"ok": False, "error": "no metrics files"}))
+        return 1
+    docs = {}
+    for path in files:
+        name = os.path.basename(path)
+        if name == "job_report.json":
+            try:
+                with open(path) as f:
+                    docs[name] = json.load(f)
+            except (OSError, ValueError):
+                _eprint(f"unreadable job report {path}; skipped")
+        else:
+            snap = _metrics.read_snapshot(path)
+            if snap is None:
+                _eprint(f"unreadable snapshot {path}; skipped")
+            else:
+                docs[name] = snap
+    for name, doc in docs.items():
+        _eprint(f"-- {name}")
+        for line in json.dumps(doc, indent=1,
+                               sort_keys=True).splitlines():
+            _eprint("   " + line)
+    print(json.dumps({"ok": bool(docs), "files": sorted(docs)}))
+    return 0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="python -m pylops_mpi_tpu_torch.diagnostics",
+        description="fleet observability: trace aggregation + metrics")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+
+    agg = sub.add_parser("aggregate",
+                         help="merge per-worker traces, stamp "
+                              "skew/straggler per collective")
+    agg.add_argument("paths", nargs="+",
+                     help="trace JSONL files and/or directories "
+                          "(e.g. a supervisor logdir)")
+    agg.add_argument("--out", default=None,
+                     help="write the merged trace here")
+    agg.add_argument("--fmt", choices=("chrome", "jsonl"),
+                     default="chrome",
+                     help="merged-trace format (default: chrome array, "
+                          "opens in Perfetto)")
+    agg.add_argument("--summary-out", default=None,
+                     help="write the full aggregation summary JSON "
+                          "(all matched collectives) here")
+    agg.add_argument("--ranks", type=int, nargs="*", default=None,
+                     help="explicit rank per input file (default: "
+                          "parse filenames, fall back to order)")
+    agg.set_defaults(fn=_cmd_aggregate)
+
+    met = sub.add_parser("metrics",
+                         help="pretty-print metrics snapshots / a job "
+                              "report")
+    met.add_argument("paths", nargs="+",
+                     help="snapshot files and/or supervisor logdirs")
+    met.set_defaults(fn=_cmd_metrics)
+
+    args = ap.parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -96,7 +96,8 @@ class MPIBlockDiag(MPILinearOperator):
     normal_path : str, optional
         ``"fused"`` or ``None``/``"auto"``: the one-sweep normal kernel
         where it applies; ``"two_sweep"``: always ``matvec`` +
-        ``rmatvec``.
+        ``rmatvec``. Left at ``None``/``"auto"`` under
+        ``PYLOPS_MPI_TPU_TORCH_TUNE=on|auto``, the plan decides.
     """
 
     def __init__(self, ops: Sequence[LocalOperator],
@@ -132,6 +133,22 @@ class MPIBlockDiag(MPILinearOperator):
             self.compute_dtype = default_compute_dtype(self.dtype)
         self._normal_path = None if normal_path == "auto" else normal_path
         self._batched = self._try_batch()
+        # the tuner's seam (JAX ``ops/blockdiag.py:107-125``): a normal
+        # path left at its sentinel comes from the plan under
+        # PYLOPS_MPI_TPU_TORCH_TUNE=on|auto (off: None, nothing changes)
+        if self._normal_path is None and self._batched is not None:
+            from ..tuning import plan as _tuneplan
+            from ..utils.deps import batch_default
+            tplan = _tuneplan.get_plan(
+                "blockdiag", shape=self.shape, dtype=self.dtype,
+                n_dev=self._P, device=self._batched.device,
+                extra={"fused_available": bool(self.has_fused_normal),
+                       "a_bytes": float(np.sum(self.nops * self.mops))
+                       * self._batched.element_size(),
+                       "batch": batch_default()})
+            if tplan is not None \
+                    and tplan.get("normal_path") in ("fused", "two_sweep"):
+                self._normal_path = tplan.get("normal_path")
 
     def _try_batch(self):
         """Homogeneous MatrixMult blocks → one ``(nblk, m, n)`` stack,

@@ -163,6 +163,15 @@ class _StencilOperator(MPILinearOperator):
         self._shard_ops = {}
         super().__init__(shape=(n, n),
                          dtype=as_torch_dtype(dtype) or torch.float64)
+        # the tuner's seam (JAX ``ops/derivatives.py:150-160``): the ghost
+        # strategy is consulted and recorded as ``overlap``; inert in the
+        # port (one exchange an apply, ROADMAP.md §A.3b)
+        self.overlap = None
+        from ..tuning import plan as _tuneplan
+        tplan = _tuneplan.get_plan("derivative", shape=self.dims_nd,
+                                   dtype=self.dtype, n_dev=world_size())
+        if tplan is not None and tplan.get("overlap") in ("on", "off"):
+            self.overlap = tplan.get("overlap")
 
     def _local_op(self):
         raise NotImplementedError

@@ -183,6 +183,23 @@ class _MPIBaseFFTND(MPILinearOperator):
         inner_d = int(np.prod(self.dimsd_nd[1:])) if ndim > 1 else 1
         self._mlocals = flat_outer_shapes(self.dims_nd[0], inner_m, P)
         self._dlocals = flat_outer_shapes(self.dimsd_nd[0], inner_d, P)
+        # the tuner's seam (JAX ``ops/fft.py:170-185``): overlap, chunks
+        # and staging left at None are consulted and recorded; inert in
+        # the port until its transposes are chunked (ROADMAP.md §A.3b)
+        if overlap is None or comm_chunks is None or hierarchical is None:
+            from ..tuning import plan as _tuneplan
+            tplan = _tuneplan.get_plan(
+                "fft", shape=self.dims_nd, dtype=self.cdtype, n_dev=P,
+                extra={"fft_axes": tuple(int(a) for a in self.axes),
+                       "real": self.real})
+            if tplan is not None:
+                if overlap is None and tplan.get("overlap") in ("on", "off"):
+                    self.overlap = tplan.get("overlap")
+                if comm_chunks is None and tplan.get("comm_chunks"):
+                    self.comm_chunks = max(1, int(tplan.get("comm_chunks")))
+                if hierarchical is None and tplan.get("hierarchical") in (
+                        "auto", "on", "off"):
+                    self.hierarchical = tplan.get("hierarchical")
 
     @property
     def model_local_shapes(self):

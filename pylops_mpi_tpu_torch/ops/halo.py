@@ -84,6 +84,15 @@ class MPIHalo(MPILinearOperator):
         self.global_dims = tuple(int(d) for d in np.atleast_1d(dims))
         self.ndim = len(self.global_dims)
         P_ = world_size()
+        # the tuner's seam (JAX ``ops/halo.py:110-120``): an overlap left
+        # at None is consulted and recorded; inert in the port
+        self.overlap = overlap
+        if overlap is None:
+            from ..tuning import plan as _tuneplan
+            tplan = _tuneplan.get_plan("halo", shape=self.global_dims,
+                                       dtype=dtype, n_dev=P_)
+            if tplan is not None and tplan.get("overlap") in ("on", "off"):
+                self.overlap = tplan.get("overlap")
         if proc_grid_shape is None:
             proc_grid_shape = (1,) * (self.ndim - 1) + (P_,)
         self.proc_grid_shape = tuple(int(g) for g in proc_grid_shape)

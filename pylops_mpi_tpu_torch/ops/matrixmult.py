@@ -41,9 +41,11 @@ JAX package leaves it to XLA's ``matmul``; no hand kernel is on this
 path. ``compute_dtype`` (real f32 operators only) stores the tiles
 narrow and widens them for each product; the vector keeps its dtype.
 Not ported: the ring (``overlap``) and two-level (``hierarchical``)
-schedules, accepted with no effect (ROADMAP.md §A.3b), and the tuner
-the JAX package consults for ``schedule="auto"`` (off by default
-there).
+schedules, accepted with no effect (ROADMAP.md §A.3b). SUMMA consults
+the tuner (:mod:`..tuning`) for the knobs left at their sentinels
+(``schedule="auto"``, ``overlap``/``hierarchical=None``) under
+``PYLOPS_MPI_TPU_TORCH_TUNE=on|auto``; the volume model lives in
+:mod:`..diagnostics.costmodel`.
 """
 
 from __future__ import annotations
@@ -54,6 +56,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..diagnostics.costmodel import (summa_comm_volume,
+                                     summa_comm_volume_split)
 from ..distributedarray import DistributedArray
 from ..linearoperator import MPILinearOperator
 from ..parallel import collectives
@@ -115,39 +119,6 @@ def block_gather(blocks, global_shape: Tuple[int, int],
         rs, cs = local_block_split(global_shape, r, grid)
         out[rs, cs] = np.asarray(blk)
     return out
-
-
-def summa_comm_volume_split(N: int, K: int, M: int, grid: Tuple[int, int]
-                            ) -> Dict[str, Dict[str, float]]:
-    """Elements a rank receives per apply of each SUMMA schedule on
-    padded tiles over a ``(pr, pc)`` grid, by grid axis (``r``, ``c``):
-    the JAX package's model (``diagnostics/costmodel.py:282-311``).
-    ``gather``: the A row along ``c``, the X column along ``r``;
-    ``stat_a``: X fully, then the partial products reduce-scattered
-    along ``c``; ``adjoint``: Y along ``c``, then a ring all-reduce over
-    ``r`` (the port's reduce-scatter receives half of that)."""
-    pr, pc = int(grid[0]), int(grid[1])
-    Np = pr * math.ceil(N / pr)
-    Kp_r = pr * math.ceil(K / pr)
-    Kp_c = pc * math.ceil(K / pc)
-    Mp = pc * math.ceil(M / pc)
-    gather = {"c": (Np // pr) * Kp_c * (pc - 1) / pc,
-              "r": Kp_r * (Mp // pc) * (pr - 1) / pr}
-    stat_a = {"r": Kp_r * (Mp // pc) * (pr - 1) / pr,
-              "c": (Kp_r * Mp * (pc - 1) / pc
-                    + (Np // pr) * Mp * (pc - 1) / pc)}
-    adjoint = {"c": (Np // pr) * Mp * (pc - 1) / pc,
-               "r": (Kp_c // pc) * Mp * 2 * (pr - 1) / pr}
-    return {"gather": gather, "stat_a": stat_a, "adjoint": adjoint}
-
-
-def summa_comm_volume(N: int, K: int, M: int,
-                      grid: Tuple[int, int]) -> Dict[str, float]:
-    """:func:`summa_comm_volume_split` summed over the two grid axes
-    (JAX ``diagnostics/costmodel.py:262-279``); ``schedule="auto"``
-    picks ``stat_a`` when it receives fewer elements than ``gather``."""
-    split = summa_comm_volume_split(N, K, M, grid)
-    return {k: v["r"] + v["c"] for k, v in split.items()}
 
 
 def _tile_index(rows: Tuple[int, int], cols: Tuple[int, int],
@@ -391,6 +362,9 @@ class _MPISummaMatrixMult(_MatMulBase):
     for the schedules. No ``At`` is stored, ``saveAt`` or not."""
 
     _uses_At = False
+    # the tuner's seam (the auto kind runs the gather schedule and never
+    # consults it)
+    _consults = True
 
     def __init__(self, A, M: int, mesh=None, dtype=None,
                  saveAt: bool = False,
@@ -404,6 +378,21 @@ class _MPISummaMatrixMult(_MatMulBase):
         self.grid = (tuple(int(g) for g in grid) if grid is not None
                      else best_grid_2d(world_size()))
         self._g2 = make_grid_2d(self.grid)
+        # the tuner's seam (JAX ``ops/matrixmult.py:306-318``): only the
+        # knobs left at their sentinels come from the plan
+        tplan = None
+        if self._consults and (schedule == "auto" or overlap is None
+                               or hierarchical is None):
+            tplan = self._consult_plan(A, M, dtype, compute_dtype, device)
+        if tplan is not None:
+            if overlap is None and tplan.get("overlap") in ("on", "off"):
+                overlap = tplan.get("overlap")
+            if hierarchical is None and tplan.get("hierarchical") in (
+                    "auto", "on", "off"):
+                hierarchical = tplan.get("hierarchical")
+            if schedule == "auto" and tplan.get("schedule") in (
+                    "gather", "stat_a"):
+                schedule = tplan.get("schedule")
         self.overlap = overlap
         self.hierarchical = hierarchical
         N, K = (int(v) for v in np.shape(A))
@@ -417,6 +406,36 @@ class _MPISummaMatrixMult(_MatMulBase):
                 else "gather"
         self.schedule = schedule
         super().__init__(A, M, mesh, dtype, saveAt, compute_dtype, device)
+
+    def _consult_plan(self, A, M, dtype, compute_dtype, device):
+        """``tuning.get_plan`` for this construction (``None`` with
+        ``PYLOPS_MPI_TPU_TORCH_TUNE=off``; JAX ``:386-416``). Under
+        ``auto`` a miss is measured in place: each candidate is built
+        with explicit schedule, overlap and staging (which never consult
+        the tuner) over the same ``A`` and times one forward apply."""
+        from ..tuning import plan as _tuneplan
+        from ..utils.deps import batch_default
+        N_, K_ = (int(v) for v in np.shape(A))
+        dev = A.device if isinstance(A, torch.Tensor) and device is None \
+            else resolve_device(device)
+        op_dtype = as_torch_dtype(dtype) or as_torch_dtype(A.dtype)
+
+        def factory(params):
+            op = _MPISummaMatrixMult(
+                A, M, dtype=dtype, grid=self.grid,
+                compute_dtype=compute_dtype, schedule=params["schedule"],
+                overlap=params["overlap"],
+                hierarchical=params.get("hierarchical"), device=dev)
+            dx = DistributedArray.to_dist(
+                torch.zeros(K_ * int(M), dtype=op.dtype), device=dev)
+            return lambda: op.matvec(dx).array
+
+        return _tuneplan.get_plan(
+            "matrixmult", shape=(N_, K_, int(M)), dtype=op_dtype,
+            n_dev=world_size(), device=dev,
+            extra={"grid": tuple(int(g) for g in self.grid),
+                   "batch": batch_default()},
+            factory=factory)
 
     def _owned(self):
         pr, pc = self.grid
@@ -527,6 +546,8 @@ class _MPIAutoMatrixMult(_MPISummaMatrixMult):
     partitioner derive the schedule. The port runs the SUMMA ``gather``
     schedule over the same tiling, which gives the same numbers; like
     the SUMMA kind it stores no ``At``."""
+
+    _consults = False
 
     def __init__(self, A, M: int, mesh=None, dtype=None,
                  saveAt: bool = False,

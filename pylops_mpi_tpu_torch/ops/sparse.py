@@ -24,9 +24,10 @@ which gives the same numbers up to summation order; the ring schedule
 waits for ``ring_pass`` (ROADMAP.md §A.3b). The JAX package computes
 this tier outside Pallas, so plain PyTorch ops carry it.
 
-:func:`auto_sparse_matmult` returns the dense ``MPIMatrixMult``: the
-tuner that could pick the sparse tier is ROADMAP.md §A.7, and with
-tuning off, the JAX package's default, it does the same.
+:func:`auto_sparse_matmult` picks the tier through the tuner (space
+``sparse_matmult``, ``nnz`` in its context); with tuning off, the
+default, it returns the dense ``MPIMatrixMult``, as the JAX package's
+does.
 """
 
 from __future__ import annotations
@@ -242,13 +243,27 @@ class MPISparseMatrixMult(MPILinearOperator):
 def auto_sparse_matmult(A, *, mesh=None, dtype=None, compute_dtype=None,
                         tol: float = 0.0, nnz: Optional[int] = None,
                         device: DeviceLike = None) -> MPILinearOperator:
-    """Dense-or-sparse tier selection (JAX ``ops/sparse.py:265-298``).
-    The tuner that picks the sparse tier is ROADMAP.md §A.7; with tuning
-    off, the JAX package's default, the dense ``MPIMatrixMult`` comes
-    back, and so it does here."""
+    """Dense-or-sparse tier selection through the tuner (JAX
+    ``ops/sparse.py:265-298``): counts ``A``'s entries above ``tol`` and
+    asks ``tuning.get_plan`` (space ``sparse_matmult``, ``nnz`` in the
+    plan's context) which tier to build. With tuning off, the default,
+    the plan is ``None`` and the dense ``MPIMatrixMult`` comes back."""
     A = np.asarray(A)
     if A.ndim != 2:
         raise ValueError(f"auto_sparse_matmult expects 2-D, got {A.shape}")
+    N, Ncol = A.shape
+    if nnz is None:
+        nnz = int(np.count_nonzero(np.abs(A) > tol))
+    from ..tuning import plan as _tuneplan
+    dt = as_torch_dtype(dtype) or as_torch_dtype(A.dtype)
+    pl = _tuneplan.get_plan(
+        "sparse_matmult", shape=(int(N), int(Ncol)), dtype=dt,
+        n_dev=world_size(), device=resolve_device(device),
+        extra={"nnz": int(nnz), "itemsize": int(dt.itemsize)})
+    if pl is not None and pl.params.get("tier", "dense") == "sparse":
+        return MPISparseMatrixMult.from_dense(
+            A, tol=tol, mesh=mesh, dtype=dtype,
+            compute_dtype=compute_dtype, device=device)
     from .matrixmult import MPIMatrixMult
     return MPIMatrixMult(A, 1, mesh=mesh, dtype=dtype,
                          compute_dtype=compute_dtype, device=device)

@@ -97,6 +97,18 @@ class MPIVStack(MPILinearOperator):
         if self.compute_dtype is None:
             self.compute_dtype = default_compute_dtype(self.dtype)
         self._batched, self._batched_adj = self._try_batch()
+        # the tuner's seam (JAX ``ops/stack.py:83-95``): an overlap left
+        # at None is consulted and recorded; inert in the port
+        self.overlap = overlap
+        if overlap is None:
+            from ..tuning import plan as _tuneplan
+            from ..utils.deps import batch_default
+            tplan = _tuneplan.get_plan("stack", shape=shape,
+                                       dtype=self.dtype, n_dev=self._P,
+                                       device=self.device,
+                                       extra={"batch": batch_default()})
+            if tplan is not None and tplan.get("overlap") in ("on", "off"):
+                self.overlap = tplan.get("overlap")
 
     def _try_batch(self):
         """Homogeneous matrix rows → one ``(nblk, m, n)`` stack and the

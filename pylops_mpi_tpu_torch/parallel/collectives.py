@@ -69,7 +69,7 @@ from .partition import padded_shard_size
 __all__ = ["counts", "received", "reset_counts", "mask_group",
            "forget_groups", "all_reduce", "all_gather", "reduce_scatter",
            "all_to_all", "halo_exchange", "cart_halo_extend", "broadcast",
-           "replicated"]
+           "replicated", "reduce_stall", "stall_signature"]
 
 # collective calls under a group, and the bytes this rank received in
 # them, since the last reset_counts()
@@ -105,8 +105,44 @@ def _count(name: str, nbytes: int) -> int:
     return seq
 
 
+def _span(name: str, nbytes: int):
+    """One call of collective ``name`` counted (:func:`_count`), and the
+    ``collective.<name>`` span of its transfer (module docstring); the
+    shared no-op with tracing off."""
+    seq = _count(name, nbytes)
+    return _trace.span(f"collective.{name}", cat="collective", seq=seq,
+                       bytes=nbytes)
+
+
 def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
+
+
+def reduce_stall(k: torch.Tensor, steps: Optional[int] = None):
+    """``k`` after a chain of ``steps`` serial device ops seeded from it
+    (``None`` reads ``PYLOPS_MPI_TPU_TORCH_REDUCE_STALL``), each waiting
+    on the one before, folded back in as ``+ 0·z``: the value is ``k``
+    bit for bit (finite ``k``), but whatever reads it waits for the
+    chain. ``steps`` 0 returns ``k`` itself (JAX ``:108-126``)."""
+    if steps is None:
+        from ..utils import deps as _deps
+        steps = _deps.reduce_stall_steps()
+    if not steps:
+        return k
+    z = (torch.sum(k.detach()) * 1e-30).to(torch.float32).reshape(1)
+    mul = torch.full((1,), 1.0000001, dtype=torch.float32, device=z.device)
+    add = torch.full((1,), 1e-9, dtype=torch.float32, device=z.device)
+    for _ in range(int(steps)):
+        z = torch.addcmul(add, z, mul)
+    return k + (z * 0.0).to(k.dtype).reshape(())
+
+
+def stall_signature() -> tuple:
+    """:func:`reduce_stall`'s part of a captured loop's key: ``()`` when
+    off, else ``(("stall", n),)`` (JAX ``:128-135``)."""
+    from ..utils import deps as _deps
+    n = _deps.reduce_stall_steps()
+    return (("stall", n),) if n else ()
 
 
 def forget_groups() -> None:
@@ -218,13 +254,14 @@ def all_reduce(t: torch.Tensor, op: str = "sum",
 
 
 def _all_reduce(t: torch.Tensor, op: str, group) -> torch.Tensor:
-    _count("all_reduce", _nbytes(t))
-    if t.is_cuda and _gloo(group):
-        host = t.cpu()
-        dist.all_reduce(host, op=_OPS[op], group=group)
-        return t.copy_(host)
-    dist.all_reduce(t, op=_OPS[op], group=group)
-    return t
+    nb = _nbytes(t)
+    with _span("all_reduce", nb):
+        if t.is_cuda and _gloo(group):
+            host = t.cpu()
+            dist.all_reduce(host, op=_OPS[op], group=group)
+            return t.copy_(host)
+        dist.all_reduce(t, op=_OPS[op], group=group)
+        return t
 
 
 class _AllGather(torch.autograd.Function):
@@ -281,8 +318,9 @@ def _all_gather(t: torch.Tensor, sizes: Sequence[int], axis: int,
     if stage:
         v = v.cpu()
     parts = [torch.empty_like(v) for _ in sizes]
-    _count("all_gather", _nbytes(v) * (len(sizes) - 1))
-    dist.all_gather(parts, v, group=group)
+    nb = _nbytes(v) * (len(sizes) - 1)
+    with _span("all_gather", nb):
+        dist.all_gather(parts, v, group=group)
     parts = [p.narrow(axis, 0, n) for p, n in zip(parts, sizes)]
     out = torch.cat(parts, dim=axis)
     return out.to(t.device) if stage else out
@@ -332,8 +370,9 @@ def _reduce_scatter(t: torch.Tensor, sizes: Sequence[int], axis: int,
     if stage:
         pieces = [p.cpu() for p in pieces]
     out = torch.empty_like(pieces[me])
-    _count("reduce_scatter", _nbytes(out) * (len(sizes) - 1))
-    dist.reduce_scatter(out, pieces, op=dist.ReduceOp.SUM, group=group)
+    nb = _nbytes(out) * (len(sizes) - 1)
+    with _span("reduce_scatter", nb):
+        dist.reduce_scatter(out, pieces, op=dist.ReduceOp.SUM, group=group)
     out = out.narrow(axis, 0, int(sizes[me]))
     return out.to(t.device) if stage else out
 
@@ -363,8 +402,9 @@ def all_to_all(sends: Sequence[torch.Tensor],
     tx = [(s.contiguous().cpu() if stage else s.contiguous(), peer(q))
           for q, s in enumerate(sends) if q != me]
     rx = [(out[q], peer(q)) for q in range(len(recv_shapes)) if q != me]
-    _count("all_to_all", sum(_nbytes(t) for t, _ in rx))
-    _p2p(tx, rx, group)
+    nb = sum(_nbytes(t) for t, _ in rx)
+    with _span("all_to_all", nb):
+        _p2p(tx, rx, group)
     out = [o.to(like.device) for o in out] if stage else out
     out[me] = like
     return out
@@ -382,7 +422,8 @@ def _exchange(name: str, block: torch.Tensor, axis: int, front: int,
     ``batch_isend_irecv``. ``prev``/``nxt`` are ``None`` past the ends;
     there the piece is a count of (zero) slices instead of a tensor.
     Slabs along an axis other than 0 go as contiguous copies. Returns
-    the pieces and the call's sequence number."""
+    the pieces and, for the Cartesian exchange (whose event its caller
+    records), the call's sequence number."""
     shape = list(block.shape)
     stage = block.is_cuda and _gloo(None)
     dev = torch.device("cpu") if stage else block.device
@@ -409,8 +450,14 @@ def _exchange(name: str, block: torch.Tensor, axis: int, front: int,
             sends.append((send(block.narrow(axis, rows - front, front)), nxt))
         if back:
             recvs.append((bottom, nxt))
-    seq = _count(name, sum(_nbytes(t) for t, _ in recvs))
-    _p2p(sends, recvs, None)
+    nb = sum(_nbytes(t) for t, _ in recvs)
+    seq = None
+    if name == "cart_halo_extend":  # its event, recorded by the caller
+        seq = _count(name, nb)
+        _p2p(sends, recvs, None)
+    else:
+        with _span(name, nb):
+            _p2p(sends, recvs, None)
     if stage:
         top = top.to(block.device) if isinstance(top, torch.Tensor) else top
         bottom = (bottom.to(block.device) if isinstance(bottom, torch.Tensor)
@@ -494,8 +541,9 @@ class _HaloExchange(torch.autograd.Function):
             if front:
                 last = recv(front)
                 recvs.append((last, nxt))
-        _count("halo_exchange_adjoint", sum(_nbytes(t) for t, _ in recvs))
-        _p2p(sends, recvs, None)
+        nb = sum(_nbytes(t) for t, _ in recvs)
+        with _span("halo_exchange_adjoint", nb):
+            _p2p(sends, recvs, None)
         grad = gtop.new_zeros(shape)
         if first is not None:
             grad[:back] += first.to(grad.device)
@@ -556,10 +604,11 @@ def broadcast(t: torch.Tensor, src: int = 0,
     if not initialized():
         return t
     _refuse_grad("broadcast", t)
-    _count("broadcast", _nbytes(t) if rank() != src else 0)
-    if t.is_cuda and _gloo(group):
-        host = t.cpu()
-        dist.broadcast(host, src=src, group=group)
-        return t.copy_(host)
-    dist.broadcast(t, src=src, group=group)
-    return t
+    nb = _nbytes(t) if rank() != src else 0
+    with _span("broadcast", nb):
+        if t.is_cuda and _gloo(group):
+            host = t.cpu()
+            dist.broadcast(host, src=src, group=group)
+            return t.copy_(host)
+        dist.broadcast(t, src=src, group=group)
+        return t

@@ -57,6 +57,7 @@ from typing import Callable, Optional, Union
 import torch
 
 from ..diagnostics import metrics as _metrics
+from ..diagnostics import telemetry
 from ..diagnostics import trace as _trace
 from ..distributedarray import DistributedArray, Partition
 from ..ops._precision import reduction_dtype
@@ -67,9 +68,18 @@ __all__ = ["CG", "CGLS", "cg", "cgls", "cg_guarded", "cgls_guarded"]
 
 Vector = Union[DistributedArray, StackedDistributedArray]
 
+# what the CG-family loops record an iteration with telemetry on (JAX
+# ``basic.py:471``, ``:580``, ``:631``): the residual norm of the cost
+# history, the recurrence norm and the step
+_TELEMETRY = ("resid", "k", "alpha")
+
 def _rdot(u: Vector, v: Vector) -> torch.Tensor:
-    """Recurrence dot ``|u·conj(v)|`` at the policy reduction dtype."""
-    return torch.abs(u.dot(v.conj())).to(reduction_dtype(u.dtype))
+    """Recurrence dot ``|u·conj(v)|`` at the policy reduction dtype,
+    through :func:`~..parallel.collectives.reduce_stall` (the latency
+    stand-in, ``k`` itself unless armed; JAX ``basic.py:59-76``)."""
+    from ..parallel.collectives import reduce_stall
+    return reduce_stall(torch.abs(u.dot(v.conj())).to(
+        reduction_dtype(u.dtype)))
 
 
 def _step_scalar(s: torch.Tensor, carry_dtype: torch.dtype) -> torch.Tensor:
@@ -472,7 +482,9 @@ def _cg_step(Op, M, tol: float, guards: bool, stall_n: int, niter: int,
             x, r, c = _reject(active, xn, x), rn, cn  # x held once idle
         iiter = iiter + active.to(iiter.dtype)
         it = it + 1
-        _record(cost, _slot(it, active, niter + 1), torch.sqrt(k))
+        slot = _slot(it, active, niter + 1)
+        _record(cost, slot, torch.sqrt(k))
+        telemetry.iteration(slot, torch.sqrt(k), k, a)
         return x, r, c, k, iiter, it, cost, status, bestk, stall
     return step
 
@@ -499,7 +511,8 @@ def _cg_loop(Op, M, y, state, consts, niter: int, tol: float, guards: bool,
     return graphs.Loop("cg", dict(tol=tol, guards=guards, stall=stall_n,
                                   **_fault_key(guards, fault)),
                        Op, M, y, state, consts,
-                       _cg_step(Op, M, tol, guards, stall_n, niter, fault))
+                       _cg_step(Op, M, tol, guards, stall_n, niter, fault),
+                       record=telemetry.Spec("cg", _TELEMETRY, niter + 2))
 
 
 def _run_cg(Op, y: Vector, x: Vector, niter: int, tol: float, M,
@@ -583,6 +596,7 @@ def _cgls_step(Op, M, damp: float, tol: float, normal: bool, guards: bool,
         slot = _slot(it, active, niter + 1)
         _record(cost, slot, sn)
         _record(cost1, slot, _damped_norm(sn, damp2, x))
+        telemetry.iteration(slot, sn, k, a)
         return x, s, c, rq, k, iiter, it, cost, cost1, status, bestk, stall
     return step
 
@@ -619,7 +633,8 @@ def _cgls_loop(Op, M, y, state, consts, niter: int, damp: float, tol: float,
                                     **_fault_key(guards, fault)),
                        Op, M, y, state, consts,
                        _cgls_step(Op, M, damp, tol, normal, guards, stall_n,
-                                  niter, fault))
+                                  niter, fault),
+                       record=telemetry.Spec("cgls", _TELEMETRY, niter + 2))
 
 
 def _run_cgls(Op, y: Vector, x: Vector, niter: int, damp: float, tol: float,
@@ -669,7 +684,8 @@ def _solve_cg(Op, y, x0, niter, tol, M, guards):
     x = _zero_like_model(Op, y) if x0 is None else x0
     with _trace.span("solver.cg", cat="solver", op=type(Op).__name__,
                      shape=Op.shape, dtype=x.dtype, niter=niter, tol=tol,
-                     fused=True, guards=use_guards, telemetry=False), \
+                     fused=True, guards=use_guards,
+                     telemetry=telemetry.telemetry_enabled()), \
             _metrics.timer("solver.cg"):
         if mode != "off":
             x, iiter, cost, code = ca.run_cg(Op, y, x, niter, tol, M=M,
@@ -697,7 +713,8 @@ def _solve_cgls(Op, y, x0, niter, damp, tol, normal, M, guards):
     with _trace.span("solver.cgls", cat="solver", op=type(Op).__name__,
                      shape=Op.shape, dtype=x.dtype, niter=niter, damp=damp,
                      tol=tol, fused=True, normal=normal,
-                     guards=use_guards, telemetry=False), \
+                     guards=use_guards,
+                     telemetry=telemetry.telemetry_enabled()), \
             _metrics.timer("solver.cgls"):
         if mode != "off":
             x, iiter, cost, kold, code = ca.run_cgls(

@@ -34,6 +34,7 @@ from typing import Optional, Sequence
 import torch
 
 from ..diagnostics import metrics as _metrics
+from ..diagnostics import telemetry
 from ..diagnostics import trace as _trace
 from ..distributedarray import DistributedArray, Partition
 from ..linearoperator import MPILinearOperator, with_params
@@ -132,6 +133,14 @@ def _lane_count(lanes, kold, tol: float, active):
     return lanes + ((kold > tol) & active).to(lanes.dtype)
 
 
+def _spec(solver: str, kold: torch.Tensor, niter: int):
+    """The block loops' telemetry (JAX ``block.py:190``, ``:286``): the
+    per-column ``resid``, ``k`` and ``alpha``."""
+    K = int(kold.shape[0])
+    return telemetry.Spec(solver, ("resid", "k", "alpha"), niter + 2,
+                          (K, K, K))
+
+
 def _block_cg_step(Op, M, tol: float, guards: bool, stall_n: int,
                    niter: int):
     """One block CG iteration over the carry ``(x, r, c, kold, iiter, it,
@@ -170,7 +179,9 @@ def _block_cg_step(Op, M, tol: float, guards: bool, stall_n: int,
         lanes = tuple(_lane_count(n, kold, tol, active) for n in state[10:])
         iiter = iiter + active.to(iiter.dtype)
         it = it + 1
-        _record(cost, _slot(it, active, niter + 1), torch.sqrt(k))
+        slot = _slot(it, active, niter + 1)
+        _record(cost, slot, torch.sqrt(k))
+        telemetry.iteration(slot, torch.sqrt(k), k, a)
         return (x, r, c, k, iiter, it, cost, status, bestk, stall) + lanes
     return step
 
@@ -196,7 +207,8 @@ def _block_cg_graph(Op, M, y, state, floors, niter: int, tol: float,
     return graphs.Loop("block_cg", dict(tol=tol, guards=guards,
                                         stall=stall_n),
                        Op, M, y, state, (_tol_floor(floors, tol),),
-                       _block_cg_step(Op, M, tol, guards, stall_n, niter))
+                       _block_cg_step(Op, M, tol, guards, stall_n, niter),
+                       record=_spec("block_cg", state[3], niter))
 
 
 def _block_cg_loop(Op, y, x, niter: int, tol: float, M, guards: bool):
@@ -259,6 +271,7 @@ def _block_cgls_step(Op, M, damp: float, tol: float, guards: bool,
         slot = _slot(it, active, niter + 1)
         _record(cost, slot, sn)
         _record(cost1, slot, _damped(sn, damp2, x))
+        telemetry.iteration(slot, sn, k, a)
         return (x, s, c, q, k, iiter, it, cost, cost1, status, bestk,
                 stall) + lanes
     return step
@@ -290,7 +303,8 @@ def _block_cgls_graph(Op, M, y, state, floors, niter: int, damp: float,
                                           stall=stall_n),
                        Op, M, y, state, (_tol_floor(floors, tol),),
                        _block_cgls_step(Op, M, damp, tol, guards, stall_n,
-                                        niter))
+                                        niter),
+                       record=_spec("block_cgls", state[4], niter))
 
 
 def _block_cgls_loop(Op, y, x, niter: int, damp: float, tol: float, M,
@@ -342,7 +356,7 @@ def block_cg(Op, y: DistributedArray, x0: Optional[DistributedArray] = None,
     use_guards, fault = _guard_fault(guards, injects=mode != "off")
     with _trace.span("solver.block_cg", cat="solver", op=type(Op).__name__,
                      shape=Op.shape, batch=K, dtype=x.dtype, niter=niter,
-                     tol=tol, guards=use_guards, telemetry=False):
+                     tol=tol, guards=use_guards, telemetry=telemetry.telemetry_enabled()):
         if mode != "off":
             x, iiter, cost, codes = ca.run_block_cg(
                 Op, y, x, niter, tol, M=M, guards=use_guards, fault=fault)
@@ -389,7 +403,7 @@ def block_cgls(Op, y: DistributedArray,
     with _trace.span("solver.block_cgls", cat="solver",
                      op=type(Op).__name__, shape=Op.shape, batch=K,
                      dtype=x.dtype, niter=niter, damp=damp, tol=tol,
-                     guards=use_guards, telemetry=False):
+                     guards=use_guards, telemetry=telemetry.telemetry_enabled()):
         if mode != "off":
             *out, codes = ca.run_block_cgls(Op, y, x, niter, damp, tol, M=M,
                                             guards=use_guards, fault=fault)
@@ -660,7 +674,7 @@ def batched_solve(factory, params: Sequence, ys: Sequence, *,
     with _trace.span(f"solver.batched_{solver}", cat="solver",
                      op=type(op0).__name__, shape=op0.shape, family=B,
                      niter=niter, tol=tol, compiled=compiled,
-                     telemetry=False), torch.no_grad():
+                     telemetry=telemetry.telemetry_enabled()), torch.no_grad():
         x, iiter, cost, cost1, kold = _run_family(fam, solver, Y, X0,
                                                   int(niter), float(damp),
                                                   float(tol))

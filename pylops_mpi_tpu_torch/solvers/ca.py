@@ -41,8 +41,10 @@ engines take the armed fault of :mod:`..resilience.faults` at their
 operator apply and step scalar, and an armed fault sends an s-step
 solve to the pipelined engine (the JAX package's rule).
 
-``off`` never reaches this module. ``auto`` needs the cost model
-(ROADMAP.md §A.7 item 4) and raises. The loops follow :mod:`.basic`: a Python
+``off`` never reaches this module. ``auto`` resolves through the cost
+model's latency term (:func:`_auto_mode`) and never picks s-step. Every
+reduction here passes through ``collectives.reduce_stall`` (the JAX
+sites ``ca.py:228``, ``:254``, ``:619``). The loops follow :mod:`.basic`: a Python
 loop whose scalars stay on the device, an ``active`` mask that stops the
 updates once the tolerance is met, and a host read every few
 iterations to leave early (the s-step loop reads it once per outer
@@ -61,6 +63,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..diagnostics import telemetry
 from ..distributedarray import DistributedArray
 from ..ops._precision import accum_dtype, reduction_dtype
 from ..parallel import collectives
@@ -104,16 +107,48 @@ def ca_reductions_per_iter(mode: str, s: int = 1) -> float:
     return float(_CLASSIC_REDUCTIONS["cg"])
 
 
+def _op_device(Op):
+    """The device an operator's tensors live on (the default device for
+    one that holds none)."""
+    from ..parallel.mesh import default_device
+    dev = getattr(Op, "device", None) if Op is not None else None
+    return dev if dev is not None else default_device()
+
+
+def _auto_mode(Op, solver: str) -> str:
+    """The latency-aware α–β choice (JAX ``_auto_mode``, ``ca.py:119-143``):
+    ``pipelined`` when the classic engine's reductions an iteration cost
+    at least a quarter of the operator apply's roofline time, else
+    ``off``; never ``sstep`` (its basis conditioning is an opt-in risk).
+    α is :func:`~..diagnostics.costmodel.device_peaks`'s for the
+    operator's device: on the CPU the JAX package's ``host`` figure, on
+    the card none without a process group (no reduction is issued), the
+    measured NCCL α under NCCL. Without a roofline (the CPU, an unknown
+    card, no cost model) an armed ``REDUCE_STALL`` says the reductions
+    are latency-bound, anything else stays classic."""
+    from ..diagnostics import costmodel as _cm
+    try:
+        peaks = _cm.device_peaks(_op_device(Op))
+        lat = peaks.get("allreduce_latency_s")
+        if not lat:
+            return "off"
+        alpha_s = classic_reductions_per_iter(solver) * lat
+        cost = _cm.estimate(Op) if Op is not None else None
+        if cost is not None:
+            pred = _cm.roofline(cost, peaks).get("predicted_s")
+            if pred:
+                return "pipelined" if alpha_s >= 0.25 * pred else "off"
+    except Exception:  # no roofline to read: classic (JAX ``:139-140``)
+        return "off"
+    return "pipelined" if deps.reduce_stall_steps() else "off"
+
+
 def resolve_mode(Op=None, solver: str = "cg") -> str:
     """``PYLOPS_MPI_TPU_TORCH_CA`` as the engine of this solve: ``off``,
-    ``pipelined`` or ``sstep``. ``auto`` raises: the JAX package picks
-    by its cost model's latency term, which is ROADMAP.md §A.7 item 4."""
+    ``pipelined`` or ``sstep``; ``auto`` through :func:`_auto_mode`."""
     mode = deps.ca_mode()
     if mode == "auto":
-        raise NotImplementedError(
-            "PYLOPS_MPI_TPU_TORCH_CA=auto is not ported: it picks the "
-            "engine by the cost model, ROADMAP.md §A.7 item 4; set off, "
-            "pipelined or sstep")
+        mode = _auto_mode(Op, solver)
     return mode
 
 
@@ -150,7 +185,8 @@ def clear_fallback() -> None:
 def _bdot(u: DistributedArray, v: DistributedArray) -> torch.Tensor:
     """Per-column recurrence dots ``|conj(u)·v|`` of block vectors at the
     reduction dtype, one ``all_reduce`` (``DistributedArray.col_dot``)."""
-    return torch.abs(u.col_dot(v, vdot=True)).to(reduction_dtype(u.dtype))
+    return collectives.reduce_stall(torch.abs(u.col_dot(v, vdot=True)).to(
+        reduction_dtype(u.dtype)))
 
 
 def _fusable(vs) -> bool:
@@ -184,7 +220,8 @@ def _stacked(pairs, block: bool) -> torch.Tensor:
     k = torch.stack(parts)
     if u0._reduces():
         k = collectives.all_reduce(k, "sum")
-    return torch.abs(k).to(reduction_dtype(u0.dtype))
+    return collectives.reduce_stall(torch.abs(k).to(
+        reduction_dtype(u0.dtype)))
 
 
 # ------------------------------------------------------ pipelined engine
@@ -265,10 +302,20 @@ def _pipe_step(applyA, M, tol: float, block: bool, niter: int,
         kold = torch.where(active, k, kold)
         iiter = iiter + active.to(iiter.dtype)
         it = it + 1
-        _record(cost, _slot(it, active, niter + 1), torch.sqrt(kold))
+        slot = _slot(it, active, niter + 1)
+        _record(cost, slot, torch.sqrt(kold))
+        telemetry.iteration(slot, torch.sqrt(kold), kold, a)
         return (x, r, u, w, z, s, p, q, aold, kold, iiter, it, cost, status,
                 bestk, stall)
     return step
+
+
+def _spec(solver: str, kold: torch.Tensor, niter: int, block: bool):
+    """The CA loops' telemetry (JAX ``ca.py:364``, ``:671``): ``resid``,
+    ``k`` and ``alpha``, per column for block vectors."""
+    w = int(kold.shape[0]) if block else 1
+    return telemetry.Spec(solver, ("resid", "k", "alpha"), niter + 2,
+                          (w, w, w))
 
 
 def _pipe_guard(kold, block: bool, guards: bool):
@@ -310,7 +357,8 @@ def _pipe_graph(Op, M, y, applyA, state, floors, tol: float, niter: int,
                                     **_fault_key(guards, fault)),
                        Op, M, y, state, consts,
                        _pipe_step(applyA, M, tol, block, niter, False,
-                                  guards, stall_n, fault))
+                                  guards, stall_n, fault),
+                       record=_spec(solver, floors, niter, block))
     first = _pipe_step(applyA, M, tol, block, niter, True, guards, stall_n,
                        fault)
     return loop, lambda st: first(st, consts)
@@ -326,7 +374,7 @@ def _pipe_head(Op, M, y, applyA, x, r, u, kold, floors, tol: float,
     loop, first = _pipe_graph(Op, M, y, applyA, state, floors, tol, niter,
                               block, solver, scalars, guards, stall_n, fault)
     if niter > 0:
-        loop.state = first(loop.state)
+        loop.peel(first)
     return loop
 
 
@@ -493,6 +541,7 @@ def _sstep_outer(Op, M, niter: int, s: int, tol: float = 0.0,
         Gall = (Vm @ Wm.T).contiguous()
         if x._reduces():
             Gall = collectives.all_reduce(Gall, "sum")
+        Gall = collectives.reduce_stall(Gall)
         G, g0 = Gall[:, :nw], Gall[:, nw]
         cp = torch.zeros(nv, dtype=acc, device=dev)
         cp[0] = 1.0
@@ -537,6 +586,9 @@ def _sstep_outer(Op, M, niter: int, s: int, tol: float = 0.0,
         else:
             z = r
         kold = torch.where(bad, kold, k_run.to(kold.dtype))
+        # one record an outer step (JAX ``ca.py:671``)
+        telemetry.iteration(iit.reshape(1), torch.sqrt(kold), kold,
+                            torch.zeros_like(kold))
         if guards:
             status, bestk, stall = _guard_update(
                 status, bestk, stall, bad, kold,
@@ -593,7 +645,9 @@ def _sstep_cg(Op, y, x, niter: int, tol: float, s: int, M,
                                   stall=stall_n), Op, M, y,
                        state, consts,
                        _sstep_outer(Op, M, niter, s, tol, guards, stall_n),
-                       per_segment=1)
+                       per_segment=1,
+                       record=telemetry.Spec("cg", ("resid", "k", "alpha"),
+                                             niter + 2))
     x, _, _, _, kold, iiter, status, _, cost, _, _ = graphs.run_while(
         loop, lambda st: ((st[5] < niter) & (st[4] > tol)
                           & (st[6] == RUNNING) & st[7]))

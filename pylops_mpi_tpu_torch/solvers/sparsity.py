@@ -26,8 +26,10 @@ word: a non-finite cost or update rejects the step (``x``, ``z`` and
 ``t`` keep their last finite values) and ends the loop with
 ``BREAKDOWN``, a cost that has not improved for ``GUARD_STALL``
 iterations with ``STAGNATION``. A guarded solve consumes the armed fault
-of :mod:`..resilience.faults` (NaN at ``Op x``, stall at the step). The
-JAX package's telemetry is not ported.
+of :mod:`..resilience.faults` (NaN at ``Op x``, stall at the step).
+With telemetry on (:mod:`..diagnostics.telemetry`) the fused loop
+records each iteration's ``cost`` and ``xupdate`` (JAX
+``sparsity.py:371``).
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from typing import Any, Callable, Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ..diagnostics import telemetry
 from ..diagnostics import trace as _trace
 from ..distributedarray import DistributedArray
 from ..ops._precision import reduction_dtype
@@ -314,6 +317,8 @@ def _sparse_step(Op, SOp, threshf: Callable, eps: float, thresh: float,
         xupdate = (xnew - x).norm().to(rdt)
         costval = (costdata + costreg).to(rdt)
         _record(cost, _slot(it, active, niter), costval)
+        telemetry.iteration(_slot(it + 1, active, niter + 1),
+                            costdata + costreg, xupdate)
         if guards:
             bad = ~torch.isfinite(costval) | ~torch.isfinite(xupdate)
             hold = ~active | bad
@@ -385,7 +390,9 @@ def _sparse_fused(Op, y: Vector, x0: Vector, alpha: float, eps: float,
         Op, SOp, y, state, (y, decay_t, step),
         _sparse_step(Op, SOp, threshf, eps, thresh, tol,
                      decay_t.shape[0], niter, momentum, guards, stall_n,
-                     fault))
+                     fault),
+        record=telemetry.Spec("fista" if momentum else "ista",
+                              ("cost", "xupdate"), niter + 2))
     x, _, _, cost, iiter, _, _, status, _, _, xup = graphs.run_iterations(
         loop, lambda st: st[5], niter)
     iiter = int(iiter)
@@ -397,8 +404,7 @@ def _sparse_solve(name, Op, y, x0, niter, SOp, eps, alpha, eigsdict, tol,
                   threshkind, perc, decay, monitorres, show, itershow,
                   callback, fused, guards=None):
     """Shared body of :func:`ista` and :func:`fista`, inside the
-    ``solver.<name>`` span (JAX ``sparsity.py:485``, ``:526``;
-    ``telemetry`` is always false here: it is not ported). Returns the
+    ``solver.<name>`` span (JAX ``sparsity.py:485``, ``:526``). Returns the
     fused path's ``(x, iiter, cost, code)`` or the class API's
     ``(x, iiter, cost)``."""
     from ..resilience.status import guards_enabled
@@ -408,7 +414,8 @@ def _sparse_solve(name, Op, y, x0, niter, SOp, eps, alpha, eigsdict, tol,
     with _trace.span(f"solver.{name}", cat="solver", op=type(Op).__name__,
                      shape=Op.shape, niter=niter, eps=eps,
                      threshkind=threshkind, fused=use_fused,
-                     guards=use_guards, telemetry=False):
+                     guards=use_guards,
+                     telemetry=telemetry.telemetry_enabled()):
         out = _sparse_run(name, Op, y, x0, niter, SOp, eps, alpha,
                           eigsdict, tol, threshkind, perc, decay,
                           monitorres, show, itershow, callback, use_fused,

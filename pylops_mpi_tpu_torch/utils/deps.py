@@ -21,7 +21,7 @@ import torch
 
 __all__ = ["KNOBS", "SERVICE_KNOBS", "RESILIENCE_KNOBS", "apply_environment",
            "precond_default", "mg_levels_default", "ca_mode", "ca_s_default",
-           "refine_enabled"]
+           "refine_enabled", "reduce_stall_steps", "batch_default"]
 
 # (name, values, default, consumer module, one-line purpose)
 KNOBS = [
@@ -37,9 +37,16 @@ KNOBS = [
     ("PYLOPS_MPI_TPU_TORCH_CA", "off|pipelined|sstep|auto", "off",
      "solvers/ca.py",
      "communication-avoiding engine of the fused cg/cgls and block "
-     "solvers (auto waits for the cost model and raises)"),
+     "solvers (auto: the cost model's latency term, never sstep)"),
     ("PYLOPS_MPI_TPU_TORCH_CA_S", "int >= 2", "4", "solvers/ca.py",
      "s-step depth of the CA Gram mode"),
+    ("PYLOPS_MPI_TPU_TORCH_REDUCE_STALL", "int >= 0", "0",
+     "parallel/collectives.py",
+     "serial device ops chained onto every CA reduction (a latency "
+     "stand-in; 0 off)"),
+    ("PYLOPS_MPI_TPU_TORCH_BATCH", "int >= 1", "1", "tuning/plan.py",
+     "block width of the solves a plan serves (extra['batch'] of the "
+     "plan contexts)"),
 ]
 
 # the solve service's knobs and those of the layers under it, with the
@@ -86,6 +93,19 @@ SERVICE_KNOBS = [
     ("PYLOPS_MPI_TPU_TORCH_AOT", "off|on|auto", "off", "aot/store.py",
      "run the fused solver loops as captured CUDA graphs (auto is off: "
      "no disk bank)"),
+    ("PYLOPS_MPI_TPU_TORCH_TUNE", "off|on|auto", "off", "tuning/plan.py",
+     "plan seam of the operator constructors (on: replay or cost model; "
+     "auto: measure a miss where a factory is given)"),
+    ("PYLOPS_MPI_TPU_TORCH_TUNE_BUDGET", "int seconds", "",
+     "tuning/search.py", "wall budget of one search (default: the "
+     "'tune' stage budget)"),
+    ("PYLOPS_MPI_TPU_TORCH_TUNE_TOPK", "int >= 1", "4", "tuning/search.py",
+     "seed-ranked candidates timed (the default always among them)"),
+    ("PYLOPS_MPI_TPU_TORCH_TUNE_MARGIN", "float >= 0", "0.02",
+     "tuning/search.py", "fraction a candidate must beat the default by"),
+    ("PYLOPS_MPI_TPU_TORCH_TELEMETRY", "auto|on|off", "auto",
+     "diagnostics/telemetry.py",
+     "per-iteration solver scalars (auto: on under TRACE=full)"),
 ]
 
 
@@ -172,3 +192,22 @@ def ca_mode() -> str:
 def ca_s_default() -> int:
     """``PYLOPS_MPI_TPU_TORCH_CA_S``: s-step depth (floored at 2)."""
     return _int_knob("PYLOPS_MPI_TPU_TORCH_CA_S", 4, 2)
+
+
+def reduce_stall_steps() -> int:
+    """``PYLOPS_MPI_TPU_TORCH_REDUCE_STALL``: the serial device ops
+    chained onto every reduction of the CA engines (0, unset or
+    malformed: off; JAX ``utils/deps.py:493-503``)."""
+    try:
+        v = int(os.environ.get("PYLOPS_MPI_TPU_TORCH_REDUCE_STALL", "0"))
+    except ValueError:
+        v = 0
+    return max(0, v)
+
+
+def batch_default() -> int:
+    """``PYLOPS_MPI_TPU_TORCH_BATCH``: the block width of the solves a
+    plan serves, forwarded as ``extra["batch"]`` so that a plan measured
+    at one width never replays at another (floored at 1; JAX
+    ``utils/deps.py:655-665``)."""
+    return _int_knob("PYLOPS_MPI_TPU_TORCH_BATCH", 1, 1)

@@ -256,7 +256,8 @@ def test_knobs_registered_and_parsed(monkeypatch):
         "METRICS", "METRICS_FILE", "METRICS_INTERVAL", "HEARTBEAT",
         "HEARTBEAT_FILE", "RETRIES", "RETRY_BACKOFF", "RETRY_JITTER",
         "SERVE_K_BUCKETS", "SERVE_QUEUE", "SERVE_WINDOW_MS",
-        "SERVE_DRAIN_TIMEOUT", "TUNE_CACHE", "AOT")]
+        "SERVE_DRAIN_TIMEOUT", "TUNE_CACHE", "AOT", "TUNE", "TUNE_BUDGET",
+        "TUNE_TOPK", "TUNE_MARGIN", "TELEMETRY")]
     assert all(len(k) == 5 for k in deps.SERVICE_KNOBS)
     assert batch_window_s() == pytest.approx(0.010)
     monkeypatch.setenv("PYLOPS_MPI_TPU_TORCH_SERVE_WINDOW_MS", "-5")

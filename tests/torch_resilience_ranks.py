@@ -1,5 +1,6 @@
-"""Rank-side and worker-side code of the port's resilience tests
-(``test_torch_segmented.py``, ``test_torch_supervisor.py``): it imports
+"""Rank-side and worker-side code of the port's resilience and trace
+tests (``test_torch_segmented.py``, ``test_torch_supervisor.py``,
+``test_torch_aggregate.py``): it imports
 numpy, torch and the port only, never the JAX package, so a spawned
 rank or a supervised worker starts fast and touches no accelerator
 plugin. Run as a script it is the supervised chaos worker (see
@@ -105,3 +106,28 @@ def chaos_worker(ckpt, out, mark, device="cpu", sleep_s=0.3):
 
 if __name__ == "__main__":
     chaos_worker(*sys.argv[1:4], *sys.argv[4:5])
+
+
+def trace_rank(out_dir, late_rank, late_s):
+    """A CGLS on small blocks with the span tracer and metrics on, whose
+    trace this rank dumps to ``out_dir/trace.rank<r>.jsonl``; rank
+    ``late_rank`` sleeps ``late_s`` seconds before the solve (a
+    straggler for the aggregator to find). For
+    ``test_torch_aggregate.py``."""
+    os.environ["PYLOPS_MPI_TPU_TORCH_TRACE"] = "spans"
+    os.environ["PYLOPS_MPI_TPU_TORCH_METRICS"] = "on"
+    from pylops_mpi_tpu_torch.diagnostics import metrics, trace
+    trace.clear_events()
+    rng = np.random.default_rng(31)
+    blocks = [rng.standard_normal((6, 5)) + np.eye(6, 5) for _ in range(4)]
+    op = pmtt.convert.blockdiag_from_numpy(blocks, device="cpu")
+    y = pmtt.DistributedArray.to_dist(rng.standard_normal(24), device="cpu")
+    y.norm()  # collectives before the straggler's pause
+    y.dot(y)
+    if pmtt.parallel.rank() == late_rank:
+        time.sleep(late_s)
+    x = pmtt.cgls(op, y, niter=12, tol=0.0)[0]
+    r = pmtt.parallel.rank()
+    trace.dump(os.path.join(out_dir, f"trace.rank{r}.jsonl"))
+    metrics.write_snapshot(os.path.join(out_dir, f"rank{r}.metrics.json"))
+    return x.asarray()
