@@ -291,6 +291,43 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    the critical path names ``solver.cgls``. Run it alone with
    ``tuner_phase(torch, pmtt, (nk, sk), here, dev)``.
 
+26. Slice 15, the bounded-memory resharding planner, the host spill tier
+   and the in-place recovery. 26.1 phase 6's (65536, 1024) f32 field on
+   3 gloo ranks sharing the card, moved from a ragged axis-0 split to the
+   balanced one and from axis 0 to axis 1, each under a 16 MiB budget and
+   unbounded: every rank's shard bitwise numpy's cut of the host copy and
+   the same both ways, each rank's peak device scratch above its input
+   and output (``max_memory_allocated`` after a reset, less what stays
+   allocated) within the budget plus ``ROUNDING_26``, the bytes it
+   received the plan's pair bytes, as many exchanges as chunks, and a
+   budget a byte under ``min_budget`` refused naming it; chunks and ms
+   per move.
+   26.2 with no group, the main path's block stack (32 x 4096^2 f32,
+   2 GiB) ``to_host`` under a 256 MiB budget with overlap on and off and
+   back with a host-staged ``to_device``: bitwise, pinned, no device
+   scratch over the budget, ``.bytes_d2h``/``.bytes_h2d`` the plan's;
+   D2H and H2D GB/s in 3 alternating pairs. 26.3 ``launch_job(inplace=
+   True)`` of two gloo workers sharing the card (this script with
+   ``--inplace-worker``) on ``cgls_segmented(normal=True)`` over the 32
+   blocks (16 a rank), 50 iterations, epochs of 8, worker 1 SIGKILLed
+   after its second epoch, in the nap that ends each epoch: the survivor
+   catches ``ElasticReconfig``, re-forms to a world of one, rebuilds the
+   blocks from the seed, takes ``restore_carry`` and resumes at
+   iteration 16, with no checkpoint read, one normal-kernel launch per
+   resumed iteration (counted from 0 just before the resumed solve: this
+   slice's main path) and phase 3's error to the known model; then the
+   same job with ``inplace=False`` (relaunch from the checkpoint); then
+   the in-place job again with no nap, worker 1 dying inside its third
+   all-reduce of epoch 3 (the survivor's collective raises, and it takes
+   the reconfig from there: a ``resilience.peer_lost`` event). The three
+   resume iteration 16's carry on a world of one, so their x must be
+   bitwise equal. Detection, recovery to the resumed solve, job wall and
+   the bank's share of an epoch for each. 26.4 26.3's two-rank
+   checkpoint restored on one rank under a 64 KiB budget (under one
+   512 KiB vector: each is placed in several chunks, each step's staging
+   under the budget), bitwise the unbudgeted restore. Run it alone with
+   ``reshard_phase(torch, pmtt, (nk, sk), here, dev)``.
+
 Phases 8, 9, 11-13, 16-18 and 21 (and phase 20's pool case) reach none
 of the hand-written kernels (a block solve of ``MPIBlockDiag`` runs a
 batched GEMM, bucket 1 runs classic ``cgls``): the
@@ -5707,6 +5744,591 @@ def tuner_phase(torch, pmtt, kernels, here, dev):
     return res
 
 
+# ------------------------------------------------------------ phase 26
+# 26.1: phase 6's field (65536 x 1024 f32, 256 MiB) over 3 gloo ranks
+# sharing the card, moved under a 16 MiB budget and unbounded
+SHAPE_26, RANKS_26, BUDGET_26 = (NX, NT0), 3, 16 << 20
+# the caching allocator counts whole blocks: a large block is not split
+# when less than 1 MiB would be left, so each device tensor live in a
+# chunk (at most 4: its carves and one H2D temporary) may count up to
+# 1 MiB over its bytes
+ROUNDING_26 = 4 << 20
+# 26.2: the main path's block stack (NBLK x NBLOCK^2 f32, 2 GiB)
+SPILL_BUDGET_26, PAIRS_26 = 256 << 20, 3
+# 26.3: cgls_segmented(normal=True) by two gloo workers sharing the card
+NITER_26, EPOCH_26, KILL_AT_26, HB_26, SLEEP_26 = 50, 8, 2, 0.5, 1.5
+ERR_LIMIT_26 = 1e-4                  # phase 3's f32 error limit
+# 26.4: under one vector of the carry (32 x 4096 f32, 512 KiB), so that
+# every vector is placed in several chunks
+RESTORE_BUDGET_26 = "64k"
+
+
+def _ragged_26(n, rows):
+    """26.1's ragged axis-0 split: the last rank holds half the rows."""
+    base = [rows // (2 * (n - 1))] * (n - 1)
+    return base + [rows - sum(base)]
+
+
+def _field_26(torch, dev):
+    g = torch.Generator(device=dev).manual_seed(26)
+    return torch.randn(SHAPE_26, generator=g, device=dev)
+
+
+def _reshard_rank_26(torch, pmtt, dev):
+    """A rank of 26.1: each move under the budget and unbounded, its
+    shard against the host's numpy cut, its peak device scratch, the
+    bytes it received, its wall time."""
+    from pylops_mpi_tpu_torch.parallel import collectives, reshard as rs
+    from pylops_mpi_tpu_torch.parallel.partition import local_split
+    n = pmtt.parallel.world_size()
+    r = pmtt.parallel.rank()
+    full = _field_26(torch, dev)
+    host = full.cpu().numpy()
+    rag = [(k, SHAPE_26[1]) for k in _ragged_26(n, SHAPE_26[0])]
+    srcs = {"ragged_to_balanced": pmtt.DistributedArray.to_dist(
+                full, local_shapes=rag),
+            "axis0_to_axis1": pmtt.DistributedArray.to_dist(full)}
+    del full
+    torch.cuda.empty_cache()
+    out = {}
+    for name, x in srcs.items():
+        axis = 0 if name == "ragged_to_balanced" else 1
+        new = local_split(SHAPE_26, n, pmtt.Partition.SCATTER, axis)
+        off = sum(s[axis] for s in new[:r])
+        sl = [slice(None)] * 2
+        sl[axis] = slice(off, off + new[r][axis])
+        want = host[tuple(sl)]
+        res = {}
+        results = []
+        for label, budget in (("budget", BUDGET_26), ("unbounded", None)):
+            collectives.reset_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            y = rs.reshard(x, axis=axis,
+                           local_shapes=None, budget=budget, spill="off")
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            scratch = torch.cuda.max_memory_allocated() - \
+                torch.cuda.memory_allocated()
+            plan = rs.plan_reshard(SHAPE_26, 4, rs._layout_of(x),
+                                   rs._layout_of(y), budget=budget,
+                                   spill="off")
+            B = rs._pair_bytes(x.size * 4, plan.src, plan.dst,
+                               plan.move_axis, SHAPE_26, 4)
+            B[range(min(B.shape)), range(min(B.shape))] = 0.0
+            res[label] = dict(
+                chunks=plan.chunks, ms=ms, peak_scratch=int(scratch),
+                plan_scratch=plan.peak_scratch, kind=plan.kind,
+                received=int(collectives.received[plan.kind]),
+                plan_received=int(round(B[:, r].sum())),
+                exchanges=int(collectives.counts[plan.kind]),
+                numpy_equal=bool(np.array_equal(y.array.cpu().numpy(),
+                                                want)))
+            results.append(y.array)
+        res["budget_equals_unbounded"] = bool(torch.equal(*results))
+        try:
+            rs.reshard(x, axis=axis, budget=plan.min_budget - 1,
+                       spill="off")
+            res["refused"] = None
+        except rs.ReshardError as e:
+            res["refused"] = [e.min_budget, str(e)]
+        res["min_budget"] = plan.min_budget
+        out[name] = res
+        del results, y
+        torch.cuda.empty_cache()
+    return out
+
+
+def reshard_part(torch, pmtt, here):
+    """26.1 (module docstring)."""
+    t = time.perf_counter()
+    ranks = spawn_shared_card(RANKS_26, here, _reshard_rank_26)
+    rec = {"ranks": ranks, "wall_s": time.perf_counter() - t}
+    for name in ranks[0]:
+        for label in ("budget", "unbounded"):
+            rows = [rk[name][label] for rk in ranks]
+            print(f"26.1 {name} {SHAPE_26} f32 over {RANKS_26} gloo ranks, "
+                  f"{label} ({BUDGET_26 if label == 'budget' else 'none'} "
+                  f"B): {rows[0]['chunks']} chunks of {rows[0]['kind']}, "
+                  f"ms per rank {[round(x['ms'], 1) for x in rows]}, peak "
+                  f"device scratch {[x['peak_scratch'] for x in rows]} B "
+                  f"(plan {rows[0]['plan_scratch']} B), received "
+                  f"{[x['received'] for x in rows]} B (plan "
+                  f"{[x['plan_received'] for x in rows]})", flush=True)
+            for x in rows:
+                ok = (x["numpy_equal"] and x["received"] == x["plan_received"]
+                      and x["exchanges"] == x["chunks"])
+                if label == "budget":
+                    ok = ok and x["peak_scratch"] <= BUDGET_26 + ROUNDING_26
+                if not ok:
+                    raise RuntimeError(f"26.1 {name} {label}: {x}")
+        for rk in ranks:
+            res = rk[name]
+            mb = res["min_budget"]
+            if not (res["budget_equals_unbounded"] and res["refused"]
+                    and res["refused"][0] == mb
+                    and f"at least {mb}" in res["refused"][1]):
+                raise RuntimeError(f"26.1 {name}: {res}")
+        print(f"26.1 {name}: budgeted and unbounded bitwise equal on every "
+              f"rank and to numpy's cut; a budget a byte under min_budget "
+              f"refused naming it ({ranks[0][name]['min_budget']} B)",
+              flush=True)
+    return rec
+
+
+def spill_part(torch, pmtt, dev):
+    """26.2 (module docstring): the block stack to host RAM and back."""
+    import os
+    from pylops_mpi_tpu_torch.diagnostics import metrics
+    from pylops_mpi_tpu_torch.parallel import reshard as rs, spill
+    os.environ["PYLOPS_MPI_TPU_TORCH_METRICS"] = "on"
+    A, _, _ = make_problem(torch, dev)
+    x = pmtt.DistributedArray.to_dist(A)
+    nbytes = A.numel() * A.element_size()
+    lay = rs._layout_of(x)
+    p_out = rs.plan_reshard(x.global_shape, 4, lay, lay,
+                            budget=SPILL_BUDGET_26, spill="on", dst_host=True)
+    p_in = rs.plan_reshard(x.global_shape, 4, rs.Layout.replicated(1), lay,
+                           budget=SPILL_BUDGET_26, spill="on", src_host=True,
+                           dst_host=False)
+    runs = {"on": [], "off": []}
+    order = [ov for _ in range(PAIRS_26) for ov in (("on", "off")
+                                                   if _ % 2 == 0
+                                                   else ("off", "on"))]
+    try:
+        for ov in order:
+            metrics.clear_metrics()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            h = x.to_host(budget=SPILL_BUDGET_26, overlap=ov)
+            t_out = time.perf_counter() - t0
+            s_out = torch.cuda.max_memory_allocated() - base
+            d2h = metrics.snapshot()["counters"].get(
+                "collective.reshard.bytes_d2h", 0)
+            pinned = bool(h.local.is_pinned())
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            back = h.to_device(budget=SPILL_BUDGET_26, spill="on",
+                               overlap=ov)
+            t_in = time.perf_counter() - t0
+            s_in = torch.cuda.max_memory_allocated() - \
+                torch.cuda.memory_allocated()
+            h2d = metrics.snapshot()["counters"].get(
+                "collective.reshard.bytes_h2d", 0)
+            same = bool(torch.equal(back.array, A))
+            pinned = pinned or dev.type != "cuda"  # pinned from a card
+            runs[ov].append(dict(d2h_gbps=nbytes / t_out / 1e9,
+                                 h2d_gbps=nbytes / t_in / 1e9,
+                                 d2h_s=t_out, h2d_s=t_in,
+                                 scratch_out=int(s_out),
+                                 scratch_in=int(s_in), bytes_d2h=d2h,
+                                 bytes_h2d=h2d, bitwise=same,
+                                 pinned=pinned))
+            del h, back
+            if not (same and pinned and s_out <= SPILL_BUDGET_26
+                    and s_in <= SPILL_BUDGET_26
+                    and d2h == p_out.nbytes_d2h
+                    and h2d == p_in.nbytes_h2d):
+                raise RuntimeError(f"26.2 overlap {ov}: {runs[ov][-1]}")
+    finally:
+        os.environ.pop("PYLOPS_MPI_TPU_TORCH_METRICS", None)
+    ratio = [a["d2h_s"] / b["d2h_s"] for a, b in zip(runs["on"], runs["off"])]
+    for ov in ("on", "off"):
+        r = runs[ov]
+        print(f"26.2 block stack {tuple(A.shape)} f32 ({nbytes} B), "
+              f"budget {SPILL_BUDGET_26} B, {p_out.chunks} chunks, overlap "
+              f"{ov}: D2H GB/s {[round(x['d2h_gbps'], 2) for x in r]}, H2D "
+              f"GB/s {[round(x['h2d_gbps'], 2) for x in r]}, peak device "
+              f"scratch {[x['scratch_out'] for x in r]} / "
+              f"{[x['scratch_in'] for x in r]} B, bytes d2h/h2d "
+              f"{r[0]['bytes_d2h']}/{r[0]['bytes_h2d']} (plan "
+              f"{p_out.nbytes_d2h}/{p_in.nbytes_h2d}), round trip bitwise, "
+              f"host buffer pinned", flush=True)
+    print(f"26.2 to_host on/off wall ratio over {PAIRS_26} alternating "
+          f"pairs: {[round(v, 3) for v in ratio]}", flush=True)
+    del x, A
+    torch.cuda.empty_cache()
+    return dict(runs=runs, on_off_ratio=ratio, chunks=p_out.chunks,
+                plan_d2h=p_out.nbytes_d2h, plan_h2d=p_in.nbytes_h2d)
+
+
+def inplace_problem(torch, pmtt, dev, nblk, nblock):
+    """26.3's problem: phase 3's seeded blocks, known model and data
+    (made on the card in every process alike), this rank's chunk of the
+    blocks only."""
+    from pylops_mpi_tpu_torch.ops.blockdiag import _chunk_ops
+    from pylops_mpi_tpu_torch.ops.local import MatrixMult, ShapeOnly
+    from pylops_mpi_tpu_torch.parallel.mesh import rank, world_size
+    global NBLK, NBLOCK
+    NBLK, NBLOCK = nblk, nblock
+    A, xtrue, y = make_problem(torch, dev)
+    mine = set(_chunk_ops(list(range(nblk)), world_size())[rank()])
+    ops = [MatrixMult(A[i].clone()) if i in mine
+           else ShapeOnly(nblock, nblock, dtype=torch.float32)
+           for i in range(nblk)]
+    del A
+    torch.cuda.empty_cache()
+    return pmtt.MPIBlockDiag(ops), pmtt.DistributedArray.to_dist(y), xtrue
+
+
+def inplace_worker(args):
+    """26.3's supervised worker (``chip_smoke.py --inplace-worker CKPT OUT
+    MARK DEVICE NBLK NBLOCK KILL``): join the attempt's gloo group on the
+    card; run ``cgls_segmented(normal=True)`` with the shards backend
+    (resuming from CKPT when it exists), timing each epoch and each
+    carry bank; on ``ElasticReconfig`` recover in place (re-form to a
+    world of one, rebuild the blocks, ``restore_carry``, resume). KILL
+    ``nap``: every epoch ends in a nap of SLEEP_26 s, in which the
+    supervisor's hook kills worker 1; ``mid``: no nap, and worker 1 of
+    the first attempt SIGKILLs itself as it enters its third all-reduce
+    after epoch KILL_AT_26 (MARK.killed holds the time). The resumed
+    solve is this slice's main path: the normal kernel's count is set to
+    0 just before it and read just after. The last process writes OUT
+    (JSON) and its x (OUT.x.npy); every process leaves with
+    ``os._exit``."""
+    import os
+    import signal
+    ckpt, out, mark, device = args[:4]
+    nblk, nblock, kill = int(args[4]), int(args[5]), args[6]
+    t_start = time.time()
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import torch
+    import pylops_mpi_tpu_torch as pmtt
+    from pylops_mpi_tpu_torch.diagnostics import trace
+    from pylops_mpi_tpu_torch.ops import normal_kernels as nk
+    from pylops_mpi_tpu_torch.resilience import elastic
+    dev = torch.device(device)
+    cfg = elastic.elastic_initialize(backend="gloo", device=dev)
+    rec = {"t_start": t_start, "attempt": cfg.attempt, "bank_ms": [],
+           "epoch_end": []}
+    bank = elastic.bank_carry
+
+    def timed_bank(tag, carry):
+        t0 = time.perf_counter()
+        bank(tag, carry)
+        rec["bank_ms"].append((time.perf_counter() - t0) * 1e3)
+
+    elastic.bank_carry = timed_bank
+    from pylops_mpi_tpu_torch.utils import checkpoint as ckpt_mod
+    load = ckpt_mod.load_fused_carry
+
+    def timed_load(*a, **k):
+        out = load(*a, **k)
+        rec["t_resume"] = time.time()  # the relaunch's state in place
+        rec["resumed_from"] = int(out["iiter"])
+        return out
+
+    ckpt_mod.load_fused_carry = timed_load
+    Op, y, xtrue = inplace_problem(torch, pmtt, dev, nblk, nblock)
+    box = {"s": SLEEP_26 if (cfg.num_processes or 1) > 1
+           and kill == "nap" else 0.0}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def die_in_third_all_reduce():
+        import torch.distributed as dist
+        real, calls = dist.all_reduce, [0]
+
+        def all_reduce(*a, **k):
+            calls[0] += 1
+            if calls[0] >= 3:
+                with open(mark + ".killed", "w") as f:
+                    f.write(repr(time.time()))
+                os.kill(os.getpid(), signal.SIGKILL)
+            return real(*a, **k)
+
+        dist.all_reduce = all_reduce
+
+    def on_epoch(info):
+        sync()
+        rec["epoch_end"].append(time.time())
+        with open(mark, "w") as f:
+            f.write(str(info["epoch"]))
+        if (kill == "mid" and info["epoch"] == KILL_AT_26
+                and cfg.attempt == 0 and pmtt.parallel.rank() == 1):
+            die_in_third_all_reduce()
+        time.sleep(box["s"])
+
+    solve = dict(niter=NITER_26, tol=0.0, epoch=EPOCH_26, normal=True,
+                 checkpoint_path=ckpt, backend="shards", on_epoch=on_epoch)
+    how = "relaunch" if cfg.attempt else "fresh"
+    nk.reset_launches()
+    try:
+        res = pmtt.cgls_segmented(Op, y, **solve)
+    except elastic.ElasticReconfig as rc:
+        rec["t_catch"] = time.time()
+        rec["epochs_before"] = len(rec["epoch_end"])
+        rec["bank_ms_before"], rec["bank_ms"] = rec["bank_ms"], []
+        rec["epoch_end"] = []
+        cfg = elastic.apply_reconfig(rc.config)
+        box["s"] = 0.0
+        try:
+            mesh = elastic.reform_mesh(cfg, device=dev)
+            del Op, y
+            torch.cuda.empty_cache()
+            Op, y, xtrue = inplace_problem(torch, pmtt, dev, nblk, nblock)
+            state = elastic.restore_carry("cgls", mesh)
+            rec["resumed_from"] = int(state["iiter"])
+            solve.update(checkpoint_path=ckpt + ".inplace")
+            rec["t_resume"] = time.time()
+            nk.reset_launches()
+            res = pmtt.cgls_segmented(Op, y, resume=False,
+                                      resume_state=state, **solve)
+            sync()
+            how = "inplace"
+        except Exception as exc:  # a refusal: the relaunch ladder
+            print(f"ELASTIC INPLACE FALLBACK: {type(exc).__name__}: {exc}",
+                  flush=True)
+            trace.event("resilience.inplace_fallback", cat="resilience",
+                        error=type(exc).__name__, detail=str(exc))
+            sys.stdout.flush()
+            os._exit(5)
+    launches = nk.launches
+    x = res.x.array
+    if pmtt.parallel.rank() == 0:
+        err = float(torch.linalg.vector_norm(x - xtrue)
+                    / torch.linalg.vector_norm(xtrue))
+        loads = sum(1 for e in trace.get_events()
+                    if e["name"] == "checkpoint.load")
+        rec.update(how=how, iiter=int(res.iiter), launches=int(launches),
+                   epochs=int(res.epochs), rel_err=err,
+                   finite=bool(torch.isfinite(x).all()),
+                   checkpoint_loads=loads,
+                   peer_lost=sum(1 for e in trace.get_events()
+                                 if e["name"] == "resilience.peer_lost"),
+                   t_end=time.time())
+        np.save(out + ".x.npy", x.cpu().numpy())
+        with open(out, "w") as f:
+            json.dump(rec, f)
+    print(f"INPLACE WORKER {how} attempt {cfg.attempt}: {res.iiter} "
+          f"iterations, {launches} normal-kernel launches", flush=True)
+    sys.stdout.flush()
+    os._exit(0)
+
+
+def _inplace_job(torch, here, dev, tmp, inplace, kill="nap"):
+    """One 26.3 job: two gloo workers; worker 1 SIGKILLed once its
+    KILL_AT_26-th epoch is saved (``nap``: by the supervisor's hook, in
+    the worker's nap; ``mid``: by itself, inside a collective of the next
+    epoch); the record of the process that finished, its x, and the
+    supervisor's times (wall clock)."""
+    import os
+    import signal
+    from pylops_mpi_tpu_torch.resilience.supervisor import launch_job
+    tag = ("inplace" if inplace else "relaunch") + (
+        "_mid" if kill == "mid" else "")
+    out, mark = f"{tmp}/{tag}.json", f"{tmp}/{tag}.mark"
+    times = {}
+
+    def on_poll(attempt, workers):
+        if kill == "mid" and "kill" not in times \
+                and os.path.exists(mark + ".killed"):
+            try:
+                with open(mark + ".killed") as f:
+                    times["kill"] = float(f.read())
+            except (OSError, ValueError):
+                pass  # a torn write: the next poll reads it whole
+        if kill == "nap" and "kill" not in times and os.path.exists(mark):
+            try:
+                with open(mark) as f:
+                    epoch = int(f.read() or 0)
+            except (OSError, ValueError):
+                epoch = 0
+            if epoch >= KILL_AT_26:
+                for w in workers:
+                    if w.slot == 1 and w.alive():
+                        w.proc.send_signal(signal.SIGKILL)
+                        times["kill"] = time.time()
+        if ("kill" in times and "detect" not in times and inplace
+                and any(os.path.exists(w.reconfig_path) for w in workers
+                        if w.reconfig_path)):
+            times["detect"] = time.time()
+
+    def on_relaunch(attempt, failure):
+        times.setdefault("detect", time.time())
+
+    argv = [str(here / "chip_smoke.py"), "--inplace-worker",
+            f"{tmp}/{tag}.carry", out, mark, str(dev), str(NBLK),
+            str(NBLOCK), kill]
+    t0 = time.time()
+    r = launch_job(argv, 2, heartbeat_interval=HB_26, stale_factor=4.0,
+                   grace_s=300.0, job_timeout_s=600, on_poll=on_poll,
+                   on_relaunch=on_relaunch, inplace=inplace,
+                   logdir=f"{tmp}/{tag}.logs",
+                   env={"PYLOPS_MPI_TPU_TORCH_TRACE": "spans"})
+    t_end = time.time()
+    if not r.ok or not os.path.exists(out):
+        raise RuntimeError(f"26.3 {tag}: the job failed: {r.failures} "
+                           f"{r.outputs}")
+    with open(out) as f:
+        w = json.load(f)
+    x = np.load(out + ".x.npy")
+    ends = w["epoch_end"]
+    back = times["detect"]
+    t_resume = w.get("t_resume", w["t_start"])
+    # the resumed epochs' lengths (the first from the state in place)
+    epoch_s = [b - a for a, b in zip([t_resume] + ends[:-1], ends)]
+    bank = w["bank_ms"]
+    share = (float(np.mean(bank)) / (1e3 * float(np.mean(epoch_s)))
+             if bank and epoch_s else 0.0)
+    rec = dict(how=w["how"], attempts=r.attempts, world_size=r.world_size,
+               failures=[f.as_dict() for f in r.failures],
+               detection_s=times["detect"] - times["kill"],
+               to_resume_start_s=t_resume - back,
+               to_first_resumed_epoch_s=(ends[0] - back) if ends else None,
+               job_wall_s=t_end - t0, rel_err=w["rel_err"],
+               finite=w["finite"], iiter=w["iiter"], launches=w["launches"],
+               resumed_from=w.get("resumed_from", 0),
+               checkpoint_loads=w["checkpoint_loads"],
+               peer_lost=w["peer_lost"], x=x, bank_ms=bank,
+               bank_ms_two_ranks=w.get("bank_ms_before", []),
+               epoch_s=epoch_s, bank_share=share, epochs_after=w["epochs"],
+               outputs_tail=r.outputs.get(0, "")[-400:])
+    return rec
+
+
+def inplace_part(torch, pmtt, here, dev, tmp):
+    """26.3 (module docstring): the in-place recovery on the main path
+    with the kill in the worker's nap, the same job with the checkpoint
+    relaunch, and the in-place recovery with worker 1 dying inside a
+    collective mid-epoch. All three resume the carry of iteration 16 on a
+    world of one, so their x must be bitwise equal."""
+    res = {}
+    for tag, inplace, kill in (("inplace", True, "nap"),
+                               ("relaunch", False, "nap"),
+                               ("inplace_mid", True, "mid")):
+        res[tag] = _inplace_job(torch, here, dev, tmp, inplace, kill)
+    ip, rl, mid = res["inplace"], res["relaunch"], res["inplace_mid"]
+    xs = {tag: r.pop("x") for tag, r in res.items()}
+    same = {tag: bool(np.array_equal(xs[tag], xs["relaunch"]))
+            for tag in ("inplace", "inplace_mid")}
+    diff = {tag: float(np.max(np.abs(xs[tag] - xs["relaunch"])))
+            for tag in same}
+    resume_at = KILL_AT_26 * EPOCH_26
+    print(f"26.3 launch_job, 2 gloo workers on the card, cgls_segmented("
+          f"normal=True) {NBLK}x{NBLOCK}^2 f32, {NITER_26} iterations, epochs "
+          f"of {EPOCH_26}, worker 1 SIGKILLed after epoch {KILL_AT_26} (in "
+          f"its {SLEEP_26} s nap; inplace_mid: inside its third all-reduce "
+          f"of the next epoch, no nap):", flush=True)
+    for tag, r in res.items():
+        det = r["detection_s"]
+        print(f"  {tag}: finished by '{r['how']}' in {r['attempts']} "
+              f"attempts at world {r['world_size']}; detection "
+              f"{det:.3f} s; to the resumed solve's start "
+              f"{r['to_resume_start_s']:.3f} s, to its first epoch "
+              f"{r['to_first_resumed_epoch_s']} s; job wall "
+              f"{r['job_wall_s']:.2f} s; rel_err {r['rel_err']:.3e} (limit "
+              f"{ERR_LIMIT_26:.0e}); checkpoint reads {r['checkpoint_loads']}"
+              f"; peer-lost events {r['peer_lost']}; resumed at iteration "
+              f"{r['resumed_from']}, {r['launches']} normal-kernel launches "
+              f"after; bank ms per epoch "
+              f"{[round(v, 2) for v in r['bank_ms']]} (two ranks: "
+              f"{[round(v, 2) for v in r['bank_ms_two_ranks']]}), "
+              f"{r['bank_share']:.2%} of an epoch", flush=True)
+    print(f"26.3 x bitwise the relaunch's: {same} (max abs diff {diff})",
+          flush=True)
+    for tag, r, want_lost in (("in place", ip, 0), ("mid-epoch", mid, 1)):
+        resumed = r["iiter"] - r["resumed_from"]
+        if not (r["how"] == "inplace" and r["attempts"] == 2
+                and r["world_size"] == 1 and r["checkpoint_loads"] == 0
+                and r["resumed_from"] == resume_at
+                and r["launches"] == resumed and resumed > 0
+                and (r["peer_lost"] >= 1) == bool(want_lost)
+                and r["rel_err"] <= ERR_LIMIT_26 and r["finite"]):
+            raise RuntimeError(f"26.3 {tag}: {r}")
+    if not (rl["how"] == "relaunch" and rl["attempts"] == 2
+            and rl["checkpoint_loads"] >= 1
+            and rl["resumed_from"] == resume_at
+            and rl["rel_err"] <= ERR_LIMIT_26 and rl["finite"]):
+        raise RuntimeError(f"26.3 relaunch: {rl}")
+    if not all(same.values()):
+        raise RuntimeError(f"26.3: x not bitwise the relaunch's: {diff}")
+    res["bitwise_relaunch"] = same
+    return res
+
+
+def restore_part(torch, pmtt, tmp, dev):
+    """26.4: 26.3's two-rank checkpoint restored on one rank under
+    ``PYLOPS_MPI_TPU_TORCH_RESHARD_BUDGET``, bitwise the unbudgeted
+    restore."""
+    import os
+    from pylops_mpi_tpu_torch.utils import checkpoint as ckpt
+    path = f"{tmp}/inplace.carry"
+    t0 = time.perf_counter()
+    plain = ckpt.load_fused_carry(path, "cgls", device=dev)
+    t_plain = time.perf_counter() - t0
+    from pylops_mpi_tpu_torch.diagnostics import trace
+    env = {"PYLOPS_MPI_TPU_TORCH_RESHARD_BUDGET": RESTORE_BUDGET_26,
+           "PYLOPS_MPI_TPU_TORCH_TRACE": "spans"}
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    trace.clear_events()
+    try:
+        budget = pmtt.parallel.reshard.reshard_budget()
+        t0 = time.perf_counter()
+        got = ckpt.load_fused_carry(path, "cgls", device=dev)
+        t_budget = time.perf_counter() - t0
+        steps = [e["args"] for e in trace.get_events()
+                 if e["name"] == "collective.reshard.step"]
+        spans = [e["args"] for e in trace.get_events()
+                 if e["name"] == "collective.reshard"]
+    finally:
+        for k, v in old.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
+        trace.clear_events()
+    same = {}
+    for k, v in plain.items():
+        if isinstance(v, pmtt.DistributedArray):
+            same[k] = bool(torch.equal(v.array, got[k].array)
+                           and v.local_shapes == got[k].local_shapes)
+    chunks = [int(a.get("chunks", 0)) for a in spans]
+    print(f"26.4 26.3's 2-rank checkpoint on one rank: budgeted "
+          f"({RESTORE_BUDGET_26}) restore bitwise the unbudgeted: {same}; "
+          f"{len(spans)} placements in {chunks} chunks ({len(steps)} steps, "
+          f"largest staging {max([a.get('scratch_bytes', 0) for a in steps], default=0)}"
+          f" B); {t_budget * 1e3:.1f} ms against {t_plain * 1e3:.1f} ms",
+          flush=True)
+    if not same or not all(same.values()):
+        raise RuntimeError(f"26.4: {same}")
+    # every vector streamed in several chunks, each under the budget
+    if not (len(spans) == len(same) and chunks and min(chunks) > 1
+            and all(a.get("scratch_bytes", 0) <= budget for a in steps)):
+        raise RuntimeError(f"26.4: placements {spans}")
+    return dict(bitwise=same, ms=t_budget * 1e3, plain_ms=t_plain * 1e3,
+                chunks=chunks, steps=len(steps))
+
+
+def reshard_phase(torch, pmtt, kernels, here, dev):
+    """Phase 26 (module docstring): slice 15 on the card. 26.3 is its main
+    path, in the survivor's process."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_reshard_")
+    res = {}
+    try:
+        for name, fn in (
+                ("reshard", lambda: reshard_part(torch, pmtt, here)),
+                ("spill", lambda: spill_part(torch, pmtt, dev)),
+                ("inplace", lambda: inplace_part(torch, pmtt, here, dev,
+                                                 tmp)),
+                ("restore", lambda: restore_part(torch, pmtt, tmp, dev))):
+            t = time.perf_counter()
+            res[name] = fn()
+            res[name + "_s"] = time.perf_counter() - t
+            print(f"26 {name} in {res[name + '_s']:.1f} s", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return res
+
+
 def main() -> int:
     here = Path(__file__).resolve().parent
     if not (here / "pylops_mpi_tpu_torch" / "__init__.py").is_file():
@@ -6142,6 +6764,13 @@ def main() -> int:
     slice14 = tuner_phase(torch, pmtt, kernel_mods, here, dev)
     print(f"phase 25 in {time.perf_counter() - t25:.1f} s", flush=True)
 
+    # 26. slice 15: the resharding planner, the spill tier and the
+    # in-place recovery (26.3 is its main path, in the survivor)
+    torch.cuda.empty_cache()
+    t26 = time.perf_counter()
+    slice15 = reshard_phase(torch, pmtt, kernel_mods, here, dev)
+    print(f"phase 26 in {time.perf_counter() - t26:.1f} s", flush=True)
+
     kernels = []
     for name, run in (("float32", "normal_f32"), ("bfloat16", "normal_bf16")):
         s = stats[name]
@@ -6175,7 +6804,16 @@ def main() -> int:
                 "f32" if name == "float32" else "bf16"]["launches"],
             two_sweep_plan_launches=slice14["race"][
                 "f32" if name == "float32" else "bf16"][
-                    "two_sweep_launches"]))
+                    "two_sweep_launches"],
+            # phase 26.3: the survivor's resumed cgls_segmented(normal=
+            # True) after the in-place recovery (f32), counted from 0 just
+            # before it, and the iterations it ran
+            inplace_launches=(slice15["inplace"]["inplace"]["launches"]
+                              if name == "float32" else None),
+            inplace_resumed_iters=(
+                slice15["inplace"]["inplace"]["iiter"]
+                - slice15["inplace"]["inplace"]["resumed_from"]
+                if name == "float32" else None)))
     # slice 9's paths through the normal kernel (f32 storage): PCGLS
     # normal=True per arm (10 iterations, counts reset just before) and
     # pipelined CGLS normal=True (its setup applies the kernel once)
@@ -6239,7 +6877,7 @@ def main() -> int:
                       "slice9": slice9, "slice9_ranks": slice9_ranks,
                       "slice10": slice10, "slice11": slice11,
                       "slice12": slice12, "slice13": slice13,
-                      "slice14": slice14}),
+                      "slice14": slice14, "slice15": slice15}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -6251,4 +6889,6 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) > 1 and sys.argv[1] == "--resilience-worker":
         resilience_worker(sys.argv[2:])
+    if len(sys.argv) > 1 and sys.argv[1] == "--inplace-worker":
+        inplace_worker(sys.argv[2:])
     sys.exit(main())

@@ -33,7 +33,8 @@ from .utils.deps import apply_environment as _apply_environment
 _apply_environment()
 
 from .parallel.partition import Partition, local_split
-from .parallel.mesh import default_device, set_default_device
+from .parallel.mesh import (default_device, set_default_device,
+                            make_mesh_hybrid, sub_mesh)
 from .distributedarray import DistributedArray
 from .stacked import StackedDistributedArray
 from .linearoperator import (MPILinearOperator, LinearOperator,

@@ -32,6 +32,7 @@ def compile_signature() -> Dict[str, Any]:
     """The environment's fingerprint, JSON scalars only."""
     import torch
     from ..parallel.mesh import world_size
+    from ..parallel.topology import world_key
     cuda = torch.cuda.is_available()
     return {
         "torch": torch.__version__,
@@ -39,6 +40,9 @@ def compile_signature() -> Dict[str, Any]:
         "platform": "cuda" if cuda else "cpu",
         "device_name": torch.cuda.get_device_name(0) if cuda else "cpu",
         "world_size": world_size(),
+        # the host layout (parallel/topology.py; JAX ``signature.py:
+        # 50-62``): empty on a flat world
+        "topology": world_key(),
         "knobs": {k: os.environ.get(k, "") for k in _COMPILE_KNOBS},
     }
 

@@ -32,7 +32,13 @@ of its axes), which the JAX registry leaves unknown.
 
 **Peaks.** ``PEAK_TFLOPS``, ``PEAK_HBM_GBPS`` and ``PEAK_NVLINK_GBPS``
 are NVIDIA's data-sheet figures for the H100 (dense tensor-core rates:
-the sheet's sparsity figures halved). The port pins TF32 off
+the sheet's sparsity figures halved); ``PEAK_DCN_GBPS`` is an assumed
+InfiniBand NIC rate (JAX ``:99-236``). On a world spanning hosts with
+several ranks a host (``parallel/topology.py``) the SUMMA and FFT models
+charge their bytes to ``dcn_bytes`` as the JAX package charges a
+topology-blind schedule (``:288-345``, ``:458-464``, ``:582-583``), and
+``device_peaks`` gives the IB rate; on one host every model reads as
+before. The port pins TF32 off
 (``utils/deps.apply_environment``), so f32 products run at the FP32
 rate outside the tensor cores: :func:`device_peaks` defaults to
 ``mode="f32"``. An unknown card gets ``None``, never a guess.
@@ -55,12 +61,15 @@ from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 
+from ..parallel import topology as _topo
+
 __all__ = ["OpCost", "estimate", "register_cost", "roofline",
            "summa_comm_volume", "summa_comm_volume_split",
            "pencil_transpose_cost", "peak_flops", "peak_hbm_gbps",
-           "peak_nvlink_gbps", "allreduce_latency_s",
+           "peak_nvlink_gbps", "peak_dcn_gbps", "allreduce_latency_s",
            "measure_allreduce_latency", "device_peaks", "L2_BYTES",
            "PEAK_TFLOPS", "PEAK_HBM_GBPS", "PEAK_NVLINK_GBPS",
+           "PEAK_DCN_GBPS",
            "ALLREDUCE_LATENCY_S"]
 
 
@@ -92,6 +101,15 @@ PEAK_NVLINK_GBPS = [
     ("h100 pcie", 300.0),
     ("h100 80gb hbm3", 450.0),
     ("h100 sxm", 450.0),
+]
+
+# The second fabric between hosts, GB/s per card and direction (JAX
+# ``PEAK_DCN_GBPS``, the TPU's DCN): an ASSUMED 400 Gb/s NDR InfiniBand
+# NIC per card, 50 GB/s, the common H100 cluster build. Not measured: the
+# port has run on one host only. It enters a roofline only through
+# ``dcn_bytes``, which only a world spanning hosts produces.
+PEAK_DCN_GBPS = [
+    ("h100", 50.0),
 ]
 
 # The card's L2 (H100 SXM and PCIe: 50 MB): an apply whose implied
@@ -142,6 +160,12 @@ def peak_flops(device_kind: str, mode: str = "f32") -> Optional[float]:
 def peak_hbm_gbps(device_kind: str) -> Optional[float]:
     """The card's device-memory bandwidth, GB/s (``None``: unknown)."""
     return _lookup(PEAK_HBM_GBPS, device_kind)
+
+
+def peak_dcn_gbps(device_kind: str) -> Optional[float]:
+    """The assumed InfiniBand rate per card and direction, GB/s (see the
+    table); ``None`` for an unknown card."""
+    return _lookup(PEAK_DCN_GBPS, device_kind)
 
 
 def peak_nvlink_gbps(device_kind: str) -> Optional[float]:
@@ -227,7 +251,8 @@ def device_peaks(device=None, mode: str = "f32") -> Dict:
     return {"flops": peak_flops(kind, mode),
             "hbm_gbps": peak_hbm_gbps(kind),
             "ici_gbps": peak_nvlink_gbps(kind),
-            "dcn_gbps": None,
+            "dcn_gbps": (peak_dcn_gbps(kind)
+                         if _topo.world_shape() is not None else None),
             "allreduce_latency_s": _latency_on_card(),
             "device_kind": kind, "platform": "cuda"}
 
@@ -424,9 +449,21 @@ def _cost_block_matmul(op, direction: str) -> Optional[OpCost]:
     return OpCost(flops, a_bytes + vec, ici, ("block.adjoint+psum",))
 
 
+def _summa_fabric_split(bytes_r: float, bytes_c: float
+                        ) -> Tuple[float, float, str]:
+    """``(ici_bytes, dcn_bytes, note)`` of SUMMA's per-axis bytes (JAX
+    ``:447-469``): on a flat world all on the links; on a world spanning
+    hosts the port's grid has no host-aligned schedule yet (ROADMAP.md
+    §A.3b), so, as the JAX package charges a topology-blind schedule,
+    every byte may cross hosts and is charged to the slow fabric."""
+    if _topo.world_shape() is None:
+        return bytes_r + bytes_c, 0.0, ""
+    return 0.0, bytes_r + bytes_c, "+fabric[blind:ib]"
+
+
 def _cost_summa_matmul(op, direction: str) -> Optional[OpCost]:
-    """SUMMA (JAX ``:472-501``). The port's grids are flat (one fabric),
-    so every received byte is ``ici_bytes``."""
+    """SUMMA (JAX ``:472-501``), its bytes split by
+    :func:`_summa_fabric_split`."""
     if direction == "normal":
         return None
     pr, pc = op.grid
@@ -447,13 +484,15 @@ def _cost_summa_matmul(op, direction: str) -> Optional[OpCost]:
         else:
             bytes_c = sp["c"] * it_v
         bytes_r = sp["r"] * it_v
+        ici, dcn, fnote = _summa_fabric_split(bytes_r, bytes_c)
         vec = (op.Kp_r * Mp / P + op.Np * Mp / P) * it_v
-        return OpCost(flops, a_bytes + vec, bytes_r + bytes_c,
-                      (f"summa.forward[{sched}]",), 0.0)
+        return OpCost(flops, a_bytes + vec, ici,
+                      (f"summa.forward[{sched}]{fnote}",), dcn)
     sp = split["adjoint"]
+    ici, dcn, fnote = _summa_fabric_split(sp["r"] * it_v, sp["c"] * it_v)
     vec = (op.Np * Mp / P + op.Kp_c * Mp / pc) * it_v
-    return OpCost(flops, a_bytes + vec, sp["r"] * it_v + sp["c"] * it_v,
-                  ("summa.adjoint",), 0.0)
+    return OpCost(flops, a_bytes + vec, ici, (f"summa.adjoint{fnote}",),
+                  dcn)
 
 
 def _cost_blockdiag(op, direction: str) -> OpCost:
@@ -549,7 +588,10 @@ def _cost_fft(op, direction: str) -> Optional[OpCost]:
     flops = sum(5.0 * n_total * math.log2(max(2, dims[ax]))
                 for ax in axes) / P
     n_t = max(0, len(axes) - 1)
-    cost = pencil_transpose_cost(dims, P, itemsize=8, n_transposes=n_t)
+    # on a world spanning hosts: the flat all-to-all's gather (JAX
+    # ``:582-583``; the port has no two-level schedule yet)
+    cost = pencil_transpose_cost(dims, P, itemsize=8, n_transposes=n_t,
+                                 fabric_shape=_topo.world_shape())
     return OpCost(flops, cost.hbm_bytes + 2 * n_total * 8 / P,
                   cost.ici_bytes, ("fft.pencil",) + cost.notes,
                   cost.dcn_bytes)

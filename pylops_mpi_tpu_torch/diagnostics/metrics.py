@@ -109,17 +109,23 @@ def inc(name: str, value: float = 1) -> None:
 
 def collective_bytes(name: str, nbytes: float,
                      fabric: Optional[str] = None) -> None:
-    """Bytes moved by collective ``name``: ``collective.{name}.bytes``,
-    and also ``.bytes_ici``/``.bytes_dcn`` when a fabric is named;
-    host↔device staging (``fabric="h2d"``/``"d2h"``) lands only in
-    ``.bytes_h2d``/``.bytes_d2h``."""
+    """Bytes moved by collective ``name`` (JAX ``metrics.py:141-160``):
+    ``collective.{name}.bytes`` keeps every byte, and when a fabric is
+    named (``parallel/topology.py``: ``"nvlink"`` within a host, ``"ib"``
+    across hosts, the JAX package's ``ici``/``dcn``) the same bytes also
+    land in ``.bytes_nvlink``/``.bytes_ib``; a flat world names none and
+    adds no counter (the JAX names ``"ici"``/``"dcn"`` are counted under
+    their own names, as the JAX registry counts them). Host↔device
+    staging (``fabric="h2d"``/``"d2h"``, the spill tier's copies) lands
+    only in ``.bytes_h2d``/``.bytes_d2h``: it is not payload between
+    devices."""
     if metrics_mode() == "off":
         return
     if fabric in ("h2d", "d2h"):
         inc(f"collective.{name}.bytes_{fabric}", nbytes)
         return
     inc(f"collective.{name}.bytes", nbytes)
-    if fabric in ("ici", "dcn"):
+    if fabric in ("nvlink", "ib", "ici", "dcn"):
         inc(f"collective.{name}.bytes_{fabric}", nbytes)
 
 

@@ -23,6 +23,14 @@ array's device, so a solver loop never waits for the host.
 With a ``mask``, ``dot`` and ``norm`` reduce within the rank's color
 group, and each rank gets its own group's scalar, as in the reference;
 the JAX package returns the vector of every group's scalars instead.
+
+An array may live on a :class:`~.parallel.mesh.Mesh` over a sub-group
+of the world (``mesh=``, from :func:`~.parallel.mesh.sub_mesh`): shard
+``i`` sits on the mesh's ``i``-th rank, reductions and gathers run over
+the sub-group, and a rank outside it holds an empty tensor (zero rows)
+with the same metadata. :meth:`reshard` moves an array between layouts
+and worlds, :meth:`to_host` parks it in host RAM
+(``parallel/reshard.py``, ``parallel/spill.py``).
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ from .ops._precision import accum_dtype, as_torch_dtype
 from .parallel import collectives
 from .parallel.mesh import DeviceLike, rank, resolve_device, world_size
 from .parallel.partition import Partition, local_split, shard_offsets
+from .parallel.reshard import _UNSET
 
 __all__ = ["DistributedArray", "Partition", "local_split"]
 
@@ -61,23 +70,29 @@ class DistributedArray:
         Defaults to ``torch.get_default_dtype()``.
     device : str or torch.device, optional
         Defaults to :func:`~.parallel.mesh.default_device` (``"cuda"``).
+    mesh : Mesh, optional
+        A sub-group's mesh (:func:`~.parallel.mesh.sub_mesh`); default
+        the whole world.
     """
+
+    # a sub-group's Mesh, or None for the whole world
+    _mesh = None
 
     def __init__(self, global_shape, partition: Partition = Partition.SCATTER,
                  axis: int = 0,
                  local_shapes: Optional[Sequence[Tuple[int, ...]]] = None,
                  mask: Optional[Sequence] = None,
-                 dtype=None, device: DeviceLike = None):
+                 dtype=None, device: DeviceLike = None, *, mesh=None):
         if isinstance(global_shape, (int, np.integer)):
             global_shape = (int(global_shape),)
         self._set_layout(tuple(int(s) for s in global_shape), partition,
-                         axis, local_shapes, mask)
+                         axis, local_shapes, mask, mesh)
         dtype = as_torch_dtype(dtype) or torch.get_default_dtype()
         self._arr = torch.zeros(self.local_shape, dtype=dtype,
                                 device=resolve_device(device))
 
     def _set_layout(self, global_shape, partition, axis, local_shapes,
-                    mask=None):
+                    mask=None, mesh=None):
         """Validate and store the layout metadata."""
         if partition not in Partition:
             raise ValueError(f"Should be one of {[p for p in Partition]}")
@@ -85,7 +100,9 @@ class DistributedArray:
             axis += len(global_shape)
         if partition == Partition.SCATTER and not (0 <= axis < len(global_shape)):
             raise IndexError(f"axis {axis} out of range for shape {global_shape}")
-        n_shards = world_size()
+        self._mesh = mesh if mesh is not None and mesh.ranks is not None \
+            else None
+        n_shards = mesh.size if mesh is not None else world_size()
         if local_shapes is None:
             local_shapes = local_split(global_shape, n_shards, partition, axis)
         else:
@@ -125,6 +142,7 @@ class DistributedArray:
                              if local_shapes is not None else like._local_shapes)
         out._mask = like._mask if mask is cls._KEEP else (
             None if mask is None else tuple(mask))
+        out._mesh = like._mesh
         out._arr = arr
         return out
 
@@ -139,8 +157,26 @@ class DistributedArray:
 
     @property
     def local_shape(self) -> Tuple[int, ...]:
-        """This rank's shard shape."""
-        return self._local_shapes[rank()]
+        """This rank's shard shape (zero rows off the array's mesh)."""
+        me = self._me()
+        if me < 0:
+            shp = list(self._global_shape)
+            shp[self._axis if self._partition == Partition.SCATTER else 0] = 0
+            return tuple(shp)
+        return self._local_shapes[me]
+
+    def _me(self) -> int:
+        """This rank's shard index: its rank in the array's mesh, -1 off
+        it."""
+        return self._mesh.rank if self._mesh is not None else rank()
+
+    @property
+    def mesh(self):
+        """The :class:`~.parallel.mesh.Mesh` the array lives on."""
+        if self._mesh is not None:
+            return self._mesh
+        from .parallel.mesh import default_mesh
+        return default_mesh()
 
     @property
     def partition(self) -> Partition:
@@ -201,7 +237,10 @@ class DistributedArray:
         array ``g`` (a tensor or a numpy array)."""
         if not self._scattered():
             return g
-        r = rank()
+        r = self._me()
+        if r < 0:
+            sl = [slice(0, 0)] + [slice(None)] * (len(self._global_shape) - 1)
+            return g[tuple(sl)]
         sl = [slice(None)] * len(self._global_shape)
         off = shard_offsets(self._axis_sizes())[r]
         sl[self._axis] = slice(off, off + self._local_shapes[r][self._axis])
@@ -213,10 +252,18 @@ class DistributedArray:
         a mask groups only the reductions."""
         if self._partition != Partition.SCATTER:
             return self._arr
+        if self._mesh is not None:
+            if self._me() < 0:
+                raise RuntimeError("this rank holds no shard of the array's "
+                                   "mesh: only its members gather it")
+            return collectives.all_gather(self._arr, self._axis_sizes(),
+                                          self._axis, self._mesh.group)
         return collectives.all_gather(self._arr, self._axis_sizes(),
                                       self._axis)
 
     def _group(self):
+        if self._mask is None and self._mesh is not None:
+            return self._mesh.group
         return collectives.mask_group(self._mask)
 
     def _relayout(self, local_shapes) -> "DistributedArray":
@@ -234,14 +281,15 @@ class DistributedArray:
     @classmethod
     def to_dist(cls, x, partition: Partition = Partition.SCATTER,
                 axis: int = 0, local_shapes=None, mask=None,
-                device: DeviceLike = None) -> "DistributedArray":
+                device: DeviceLike = None, *, mesh=None) -> "DistributedArray":
         """Place a global array (ref ``DistributedArray.py:408-461``):
         every rank passes the whole ``x`` and keeps its shard. A numpy
         array goes to ``device`` (default ``"cuda"``); a tensor stays on
-        its own device unless ``device`` is given."""
+        its own device unless ``device`` is given. ``mesh``: a
+        sub-group's (module docstring)."""
         out = cls.__new__(cls)
         out._set_layout(tuple(np.shape(x)), partition, axis, local_shapes,
-                        mask)
+                        mask, mesh)
         if isinstance(x, torch.Tensor):
             dev = x.device if device is None else resolve_device(device)
             t = out._shard_of(x)
@@ -461,30 +509,50 @@ class DistributedArray:
             local_shapes=tuple((int(np.prod(s)),) for s in self._local_shapes))
 
     def redistribute(self, axis: int) -> "DistributedArray":
-        """Change the sharded axis (ref ``DistributedArray.py:463-522``):
-        one all-to-all, rank ``p`` sending rank ``q`` its rows cut to
-        ``q``'s new slice."""
+        """Change the sharded axis (ref ``DistributedArray.py:463-522``)
+        through the bounded-memory planner (``parallel/reshard.py``): with
+        no budget set, one all-to-all, rank ``p`` sending rank ``q`` its
+        rows cut to ``q``'s new slice; under
+        ``PYLOPS_MPI_TPU_TORCH_RESHARD_BUDGET``, that exchange in chunks."""
         if self._partition != Partition.SCATTER:
             raise ValueError("redistribute only applies to SCATTER arrays")
         if axis < 0:
             axis += self.ndim
         if axis == self._axis:
             return self.copy()
-        new = local_split(self._global_shape, self.n_shards,
-                          Partition.SCATTER, axis)
-        new_sizes = [s[axis] for s in new]
-        offs = shard_offsets(new_sizes)
-        me = rank()
-        sends = [self._arr.narrow(axis, o, n) for o, n in zip(offs, new_sizes)]
-        recv = []
-        for s in self._local_shapes:
-            shp = list(self._global_shape)
-            shp[self._axis] = s[self._axis]
-            shp[axis] = new_sizes[me]
-            recv.append(tuple(shp))
-        parts = collectives.all_to_all(sends, recv)
-        return DistributedArray._wrap(torch.cat(parts, dim=self._axis), self,
-                                      axis=axis, local_shapes=new)
+        from .parallel import reshard as _reshard
+        return _reshard.reshard(self, axis=axis)
+
+    def to_partition(self, partition: Partition,
+                     axis: Optional[int] = None) -> "DistributedArray":
+        """Convert between BROADCAST and SCATTER placements (JAX
+        ``distributedarray.py:670``) through the planner."""
+        from .parallel import reshard as _reshard
+        return _reshard.reshard(self, partition=partition,
+                                axis=self._axis if axis is None else axis)
+
+    def reshard(self, *, mesh=None, partition: Optional[Partition] = None,
+                axis: Optional[int] = None, local_shapes=None, budget=_UNSET,
+                chunks: Optional[int] = None) -> "DistributedArray":
+        """Move to any layout (partition, axis, ragged split) and/or
+        another world (``mesh``) with each rank's scratch under
+        ``budget`` (default ``PYLOPS_MPI_TPU_TORCH_RESHARD_BUDGET``); see
+        :func:`~.parallel.reshard.reshard`. Collective over the world."""
+        from .parallel import reshard as _reshard
+        return _reshard.reshard(
+            self, mesh=mesh, partition=partition, axis=axis,
+            local_shapes=local_shapes,
+            budget=budget, chunks=chunks)
+
+    def to_host(self, *, budget=_UNSET, chunks: Optional[int] = None,
+                overlap: Optional[str] = None):
+        """Park this array in host RAM as a
+        :class:`~.parallel.spill.HostArray` (each rank its shard, pinned
+        from a card), chunk by chunk under ``budget``;
+        ``HostArray.to_device()`` is the inverse."""
+        from .parallel import spill as _spill
+        return _spill.to_host(self, budget=budget, chunks=chunks,
+                              overlap=overlap)
 
     def add_ghost_cells(self, cells_front: Optional[int] = None,
                         cells_back: Optional[int] = None) -> torch.Tensor:

@@ -22,7 +22,11 @@ the JAX package's ``_count_collective``): it adds one to ``counts[name]``
 and the bytes this rank receives to ``received[name]`` (padding
 included), which tests and ``chip_smoke.py`` read, and the same call and
 bytes to the metrics registry as ``collective.<name>.calls`` and
-``collective.<name>.bytes``.
+``collective.<name>.bytes``. On a world that spans hosts with several
+ranks a host (``parallel/topology.py``), the same bytes also land in
+``collective.<name>.bytes_nvlink`` when the call's group stays on one
+host and ``.bytes_ib`` when it crosses hosts (the world group does); a
+flat world adds no counter.
 
 gloo moves CPU tensors only for point-to-point sends and gathers. Under
 a gloo group, CUDA tensors are staged through host copies: this is
@@ -63,13 +67,15 @@ import torch.distributed as dist
 
 from ..diagnostics import metrics as _metrics
 from ..diagnostics import trace as _trace
+from . import topology as _topo
 from .mesh import initialized, rank, world_size
 from .partition import padded_shard_size
 
 __all__ = ["counts", "received", "reset_counts", "mask_group",
-           "forget_groups", "all_reduce", "all_gather", "reduce_scatter",
-           "all_to_all", "halo_exchange", "cart_halo_extend", "broadcast",
-           "replicated", "reduce_stall", "stall_signature"]
+           "rank_group", "forget_groups", "all_reduce", "all_gather",
+           "reduce_scatter", "all_to_all", "exchange", "count_metrics",
+           "halo_exchange", "cart_halo_extend", "broadcast", "replicated",
+           "reduce_stall", "stall_signature"]
 
 # collective calls under a group, and the bytes this rank received in
 # them, since the last reset_counts()
@@ -92,24 +98,39 @@ def reset_counts() -> None:
     received.clear()
 
 
-def _count(name: str, nbytes: int) -> int:
-    """One call of collective ``name`` receiving ``nbytes`` on this rank:
-    ``counts``/``received`` and the metrics registry; returns the call's
-    sequence number."""
+def _count(name: str, nbytes: int, group=None) -> int:
+    """One call of collective ``name`` over ``group`` receiving ``nbytes``
+    on this rank: ``counts``/``received`` and the metrics registry (with
+    the fabric split, module docstring); returns the call's sequence
+    number."""
     counts[name] += 1
     received[name] += nbytes
+    return count_metrics(name, [(nbytes, _topo.group_fabric(group))])
+
+
+def count_metrics(name: str,
+                  shares: Sequence[Tuple[int, Optional[str]]]) -> int:
+    """The metrics half of :func:`_count` (JAX ``_count_collective``,
+    ``collectives.py:160-185``), without ``counts``/``received``: one
+    ``collective.<name>.calls``, and each ``(nbytes, fabric)`` share
+    through :func:`~..diagnostics.metrics.collective_bytes` (a fabric of
+    ``None`` counts ``.bytes`` only; ``"h2d"``/``"d2h"`` count host
+    staging only). Returns the call's sequence number. The resharding
+    planner's span uses it alone: its chunks' exchanges are counted as
+    collectives of their own."""
     _metrics.inc(f"collective.{name}.calls")
-    _metrics.collective_bytes(name, nbytes)
+    for nbytes, fabric in shares:
+        _metrics.collective_bytes(name, int(nbytes), fabric)
     seq = _SEQ[name]
     _SEQ[name] += 1
     return seq
 
 
-def _span(name: str, nbytes: int):
+def _span(name: str, nbytes: int, group=None):
     """One call of collective ``name`` counted (:func:`_count`), and the
     ``collective.<name>`` span of its transfer (module docstring); the
     shared no-op with tracing off."""
-    seq = _count(name, nbytes)
+    seq = _count(name, nbytes, group)
     return _trace.span(f"collective.{name}", cat="collective", seq=seq,
                        bytes=nbytes)
 
@@ -146,8 +167,23 @@ def stall_signature() -> tuple:
 
 
 def forget_groups() -> None:
-    """Drop the cached mask sub-groups (their default group ended)."""
+    """Drop the cached mask and rank sub-groups (their default group
+    ended)."""
     _GROUPS.clear()
+    _topo.forget()
+
+
+def rank_group(ranks: Sequence[int]) -> Optional[object]:
+    """The sub-group of the world ranks ``ranks`` (``dist.new_group``,
+    which every rank of the world calls in the same order; cached, and
+    the same object on members and non-members, as ``new_group`` returns
+    a placeholder outside the group). ``None`` without a group."""
+    if not initialized():
+        return None
+    key = ("ranks",) + tuple(int(r) for r in ranks)
+    if key not in _GROUPS:
+        _GROUPS[key] = dist.new_group(list(key[1:]))
+    return _GROUPS[key]
 
 
 def mask_group(mask: Optional[Sequence]) -> Optional[object]:
@@ -255,7 +291,7 @@ def all_reduce(t: torch.Tensor, op: str = "sum",
 
 def _all_reduce(t: torch.Tensor, op: str, group) -> torch.Tensor:
     nb = _nbytes(t)
-    with _span("all_reduce", nb):
+    with _span("all_reduce", nb, group):
         if t.is_cuda and _gloo(group):
             host = t.cpu()
             dist.all_reduce(host, op=_OPS[op], group=group)
@@ -319,7 +355,7 @@ def _all_gather(t: torch.Tensor, sizes: Sequence[int], axis: int,
         v = v.cpu()
     parts = [torch.empty_like(v) for _ in sizes]
     nb = _nbytes(v) * (len(sizes) - 1)
-    with _span("all_gather", nb):
+    with _span("all_gather", nb, group):
         dist.all_gather(parts, v, group=group)
     parts = [p.narrow(axis, 0, n) for p, n in zip(parts, sizes)]
     out = torch.cat(parts, dim=axis)
@@ -337,6 +373,35 @@ def _p2p(sends: List[Tuple[torch.Tensor, int]],
     if ops:
         for req in dist.batch_isend_irecv(ops):
             req.wait()
+
+
+def exchange(name: str, sends: Sequence[Tuple[torch.Tensor, int]],
+             recvs: Sequence[Tuple[Tuple[int, ...], int]],
+             dtype: torch.dtype) -> List[torch.Tensor]:
+    """One step of point-to-point transfers between world ranks: send
+    each ``(tensor, peer)`` and receive a tensor of each ``(shape,
+    peer)``, as one ``batch_isend_irecv``. Tensors travel on the
+    backend's device (the host under gloo, the rank's card under NCCL;
+    a tensor elsewhere is copied there, as :func:`all_to_all` stages),
+    and the received ones are returned there, in order. Counted as one
+    call of ``name`` receiving their bytes (every rank counts the step,
+    as every rank counts an :func:`all_to_all`). Without a group there
+    are no peers: nothing moves and nothing is counted."""
+    if not initialized():
+        return []
+    _refuse_grad(name, *(t for t, _ in sends))
+    if _gloo(None):
+        dev = torch.device("cpu")
+    else:
+        from .mesh import default_mesh
+        dev = default_mesh().device
+    tx = [(t.contiguous().to(dev), peer) for t, peer in sends]
+    rx = [torch.empty(tuple(shape), dtype=dtype, device=dev)
+          for shape, _ in recvs]
+    nb = sum(_nbytes(b) for b in rx)
+    with _span(name, nb):
+        _p2p(tx, [(b, peer) for b, (_, peer) in zip(rx, recvs)], None)
+    return rx
 
 
 def reduce_scatter(t: torch.Tensor, sizes: Sequence[int], axis: int = 0,
@@ -371,7 +436,7 @@ def _reduce_scatter(t: torch.Tensor, sizes: Sequence[int], axis: int,
         pieces = [p.cpu() for p in pieces]
     out = torch.empty_like(pieces[me])
     nb = _nbytes(out) * (len(sizes) - 1)
-    with _span("reduce_scatter", nb):
+    with _span("reduce_scatter", nb, group):
         dist.reduce_scatter(out, pieces, op=dist.ReduceOp.SUM, group=group)
     out = out.narrow(axis, 0, int(sizes[me]))
     return out.to(t.device) if stage else out
@@ -403,7 +468,7 @@ def all_to_all(sends: Sequence[torch.Tensor],
           for q, s in enumerate(sends) if q != me]
     rx = [(out[q], peer(q)) for q in range(len(recv_shapes)) if q != me]
     nb = sum(_nbytes(t) for t, _ in rx)
-    with _span("all_to_all", nb):
+    with _span("all_to_all", nb, group):
         _p2p(tx, rx, group)
     out = [o.to(like.device) for o in out] if stage else out
     out[me] = like
@@ -605,7 +670,7 @@ def broadcast(t: torch.Tensor, src: int = 0,
         return t
     _refuse_grad("broadcast", t)
     nb = _nbytes(t) if rank() != src else 0
-    with _span("broadcast", nb):
+    with _span("broadcast", nb, group):
         if t.is_cuda and _gloo(group):
             host = t.cpu()
             dist.broadcast(host, src=src, group=group)

@@ -12,7 +12,12 @@ and nothing communicates, which matches the reference run without
 ``mpiexec``. :func:`init` starts a group; :func:`default_mesh` describes
 it as a :class:`Mesh` (group, rank, size, the rank's device).
 :func:`make_grid_2d` lays the ranks row-major on a 2-D grid and gives a
-rank its row and column sub-groups (the JAX package's ``make_mesh_2d``).
+rank its row and column sub-groups (the JAX package's ``make_mesh_2d``);
+:func:`make_mesh_hybrid` lays them hosts × ranks-per-host
+(``parallel/topology.py``). :func:`sub_mesh` describes a sub-group of
+the world as a :class:`Mesh` (a move to a smaller world names one), and
+:func:`detach` lets a survivor whose peers died go on as a world of one
+without the group's shutdown, which would wait on the dead.
 
 Entry points run on the card unless the caller asks for the CPU: the
 default device is ``"cuda"``, and asking for it on a machine without a
@@ -32,7 +37,7 @@ import torch.distributed as dist
 __all__ = ["Mesh", "make_mesh", "default_mesh", "init", "destroy",
            "default_device", "set_default_device", "resolve_device",
            "world_size", "rank", "check_mesh", "best_grid_2d", "Grid2D",
-           "make_grid_2d"]
+           "make_grid_2d", "make_mesh_hybrid", "sub_mesh", "detach"]
 
 DeviceLike = Union[str, torch.device, None]
 
@@ -44,21 +49,38 @@ class Mesh:
     """The process group as an operator sees it: the group handle
     (``None`` without a group), this process's rank, the number of
     ranks, the device that holds this rank's shards, and the backend
-    (``"nccl"``, ``"gloo"``, or ``None`` without a group)."""
+    (``"nccl"``, ``"gloo"``, or ``None`` without a group). ``ranks``
+    lists the world ranks of a sub-group's members in order (``None``:
+    the whole world); on a rank outside the sub-group ``rank`` is -1."""
 
     group: Optional[object]
     rank: int
     size: int
     device: torch.device
     backend: Optional[str] = None
+    ranks: Optional[Tuple[int, ...]] = None
+
+    @property
+    def member(self) -> bool:
+        """This process holds a rank of the mesh."""
+        return self.rank >= 0
+
+    def world_ranks(self) -> Tuple[int, ...]:
+        """The world rank of each of the mesh's ranks, in order."""
+        return tuple(range(self.size)) if self.ranks is None \
+            else tuple(self.ranks)
 
 
 _MESH: Optional[Mesh] = None
+# set by detach(): the group object lives on, but this process acts as a
+# world of one
+_DETACHED = False
 
 
 def initialized() -> bool:
-    """A default process group exists."""
-    return dist.is_available() and dist.is_initialized()
+    """A default process group exists (and this process was not
+    :func:`detach` ed from it)."""
+    return dist.is_available() and dist.is_initialized() and not _DETACHED
 
 
 def world_size() -> int:
@@ -141,22 +163,55 @@ def init(backend: Optional[str] = None, store=None, rank: Optional[int] = None,
     watched_call(retry_call, dist.init_process_group, backend,
                  exceptions=_TRANSIENT, describe="init_process_group",
                  stage="multihost_init", **kwargs)
+    global _MESH, _DETACHED
+    _DETACHED = False
     mesh = make_mesh(device=device)
     if mesh.device.type == "cuda":
         torch.cuda.set_device(mesh.device)
-    global _MESH
     _MESH = mesh
+    _gather_hosts()
     return mesh
+
+
+def _gather_hosts() -> None:
+    """Each world rank's host name, gathered once here, where every rank
+    calls (``parallel/topology.py``)."""
+    import socket
+    from . import topology
+    n = world_size()
+    names = [None] * n
+    if n > 1:
+        dist.all_gather_object(names, socket.gethostname())
+    else:
+        names = [socket.gethostname()]
+    topology.set_world_hosts(names)
 
 
 def destroy() -> None:
     """End the default process group (and forget its sub-groups)."""
-    global _MESH
-    from . import collectives
+    global _MESH, _DETACHED
+    from . import collectives, topology
     collectives.forget_groups()
+    topology.set_world_hosts(None)
     _MESH = None
     if initialized():
         dist.destroy_process_group()
+    _DETACHED = False
+
+
+def detach() -> None:
+    """Go on as a world of one without ending the process group: forget
+    the mesh and the sub-groups, and make :func:`initialized` false. No
+    call waits on a peer (``destroy_process_group`` would, on a dead one,
+    for ever); the group object is left to the process's exit, which
+    must be ``os._exit`` for the same reason. The in-place recovery's
+    :func:`~..resilience.elastic.reform_mesh` calls it."""
+    global _MESH, _DETACHED
+    from . import collectives, topology
+    collectives.forget_groups()
+    topology.set_world_hosts(None)
+    _MESH = None
+    _DETACHED = True
 
 
 def make_mesh(device: DeviceLike = None) -> Mesh:
@@ -203,6 +258,30 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
+def sub_mesh(ranks, device: DeviceLike = None) -> Mesh:
+    """A :class:`Mesh` over the world ranks ``ranks`` (in that order):
+    its group is ``dist.new_group(ranks)``, which every rank of the world
+    must call, in the same order (cached per rank list, like the mask
+    groups). On a rank outside it the mesh's ``rank`` is -1. The world's
+    own rank list gives the default mesh; without a process group only
+    ``[0]`` is valid and gives the world of one."""
+    ranks = tuple(int(r) for r in ranks)
+    n = world_size()
+    if not ranks or len(set(ranks)) != len(ranks) \
+            or any(not 0 <= r < n for r in ranks):
+        raise ValueError(f"sub_mesh: {ranks} is not a list of distinct "
+                         f"ranks of the world of {n}")
+    if ranks == tuple(range(n)):
+        return default_mesh() if device is None else make_mesh(device)
+    from . import collectives
+    group = collectives.rank_group(ranks)
+    me = rank()
+    base = default_mesh()
+    dev = base.device if device is None else resolve_device(device)
+    return Mesh(group, ranks.index(me) if me in ranks else -1, len(ranks),
+                dev, base.backend, ranks)
+
+
 def check_mesh(mesh: Optional[Mesh]) -> None:
     """Refuse a ``mesh`` (the JAX package's argument, kept in its slot
     of every constructor) that does not describe the default process
@@ -236,6 +315,7 @@ class Grid2D:
     coords: Tuple[int, int]
     c: Optional[object]
     r: Optional[object]
+    axis_names: Tuple[str, str] = ("r", "c")
 
 
 def make_grid_2d(grid: Optional[Tuple[int, int]] = None) -> Grid2D:
@@ -255,3 +335,31 @@ def make_grid_2d(grid: Optional[Tuple[int, int]] = None) -> Grid2D:
     c = collectives.mask_group([q // pc for q in range(n)])
     r = collectives.mask_group([q % pc for q in range(n)])
     return Grid2D((pr, pc), (i, j), c, r)
+
+
+def make_mesh_hybrid(ici_axis: str = "nvlink", dcn_axis: str = "ib",
+                     dcn_size: Optional[int] = None) -> Grid2D:
+    """The world as a 2-D grid whose outer axis (``dcn_axis``, IB)
+    crosses hosts and whose inner axis (``ici_axis``, NVLink) stays on
+    one (JAX ``make_mesh_hybrid``, ``parallel/mesh.py:142-173``): ranks
+    row-major, so a row is one host's ranks (rank-major launches, as
+    ``torchrun`` assigns them). ``dcn_size`` defaults to the number of
+    hosts (``parallel/topology.py``); it must divide the world, and the
+    error lists the sizes that do. With one host the grid is one row.
+    The row and column sub-groups are :func:`make_grid_2d`'s: ``c`` the
+    ranks of this rank's host, ``r`` its peers on the other hosts."""
+    from . import topology
+    topology.refresh()
+    n = world_size()
+    if dcn_size is None:
+        dcn_size = len({topology._slice_of(r) for r in range(n)})
+    dcn_size = int(dcn_size)
+    if dcn_size > 1 and n % dcn_size:
+        divisors = [d for d in range(1, n + 1) if n % d == 0]
+        raise ValueError(
+            f"make_mesh_hybrid: dcn_size={dcn_size} does not divide the "
+            f"rank count {n}; every host must hold the same number of "
+            f"ranks. Valid dcn_size values here: {divisors}")
+    d = max(dcn_size, 1)
+    g = make_grid_2d((d, n // d))
+    return Grid2D(g.shape, g.coords, g.c, g.r, (dcn_axis, ici_axis))

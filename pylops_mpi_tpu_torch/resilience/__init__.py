@@ -21,13 +21,13 @@ Across processes:
 - :mod:`.supervisor`: :func:`launch_job`: launch N workers, classify a
   failure (exit, signal, stale heartbeat), kill the attempt and relaunch
   on the shrunk world, which resumes from a checkpoint
-  (:mod:`..utils.checkpoint` restores it on the new world).
+  (:mod:`..utils.checkpoint` restores it on the new world); or, with
+  ``inplace=True`` and one survivor, keep the survivor alive and hand it
+  the shrunk world, which it re-forms and resumes from its banked carry
+  (:class:`ElasticReconfig`, :func:`apply_reconfig`,
+  :func:`reform_mesh`, :func:`bank_carry`/:func:`restore_carry`).
 
-Segmented solves with checkpoints are :mod:`..solvers.segmented`. The
-JAX package's in-place reconfiguration and carry bank
-(``ElasticReconfig``, ``apply_reconfig``, ``reform_mesh``,
-``bank_carry``/``restore_carry``) need the resharding planner and are
-ROADMAP.md §A.7 item 5.
+Segmented solves with checkpoints are :mod:`..solvers.segmented`.
 """
 
 from . import elastic, faults, retry, status, supervisor
@@ -36,7 +36,9 @@ from .elastic import (HeartbeatWriter, start_heartbeat, stop_heartbeat,
                       drain_requested, reset_drain, install_sigterm_drain,
                       WatchdogTimeout, watched_call, watchdog_mode,
                       watchdog_enabled, worker_config, elastic_initialize,
-                      WorkerConfig)
+                      WorkerConfig, ElasticReconfig, inplace_mode,
+                      inplace_armed, pending_reconfig, apply_reconfig,
+                      reform_mesh, bank_carry, restore_carry)
 from .retry import retry_call
 from .status import (RUNNING, CONVERGED, MAXITER, BREAKDOWN, STAGNATION,
                      status_name, guards_mode, guards_enabled, last_status)
@@ -54,5 +56,7 @@ __all__ = ["elastic", "faults", "retry", "status", "supervisor",
            "stop_heartbeat", "maybe_start_heartbeat", "read_heartbeat",
            "worker_config", "elastic_initialize", "WorkerConfig",
            "request_drain", "drain_requested", "reset_drain",
-           "install_sigterm_drain",
+           "install_sigterm_drain", "ElasticReconfig", "inplace_mode",
+           "inplace_armed", "pending_reconfig", "apply_reconfig",
+           "reform_mesh", "bank_carry", "restore_carry",
            "launch_job", "JobResult", "Failure", "WorkerHandle"]

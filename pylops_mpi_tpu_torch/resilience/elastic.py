@@ -3,9 +3,8 @@ and the bring-up contract.
 
 PyTorch counterpart of ``pylops_mpi_tpu/resilience/elastic.py`` (the
 heartbeat ``:76-192``, the watchdog ``:194-312``, the drain
-``:318-375`` and the worker contract ``:376-408``, ``:682-702``). The
-in-place reconfiguration and the carry bank (``:410-680``) need the
-resharding planner and are ROADMAP.md §A.7 item 5.
+``:318-375``, the worker contract ``:376-408``, ``:682-702``, and the
+in-place reconfiguration with its carry bank ``:395-680``).
 
 - **Heartbeats**: a daemon thread writes ``{"pid", "seq", "wall",
   "mono"}`` (and ``"metrics"``, the registry's snapshot, when
@@ -34,6 +33,27 @@ resharding planner and are ROADMAP.md §A.7 item 5.
   ``..._HEARTBEAT_FILE`` and ``..._HEARTBEAT``.
   :func:`elastic_initialize` starts the beat and, for a world of more
   than one, the process group.
+- **In-place reconfiguration** (``launch_job(inplace=True)``): the
+  classic recovery kills the whole attempt and relaunches it shrunk,
+  and the new workers read the checkpoint back. In place, a survivor
+  stays alive. While ``..._RECONFIG_FILE`` is assigned, a segmented
+  solve banks its carry at every epoch boundary (:func:`bank_carry`,
+  every vector gathered to the host: a collective) and polls the file
+  (:func:`pending_reconfig`); when the supervisor writes it a shrunk
+  world, the solve raises :class:`ElasticReconfig` at the next boundary,
+  or at once when a collective of the epoch raised because the peer
+  died inside it (:func:`await_reconfig`). The catcher adopts the new
+  identity (:func:`apply_reconfig`, whose beat tells the supervisor it
+  resumed), re-forms its mesh
+  (:func:`reform_mesh`: only a world of one is re-formed in place; two
+  or more survivors raise and take the checkpoint relaunch, since a
+  group's shutdown waits on the dead peer) and replants the banked
+  carry (:func:`restore_carry`, through ``parallel/reshard.
+  place_replica``), then resumes the solve from it: no checkpoint read
+  on that path. ``..._INPLACE`` (:func:`inplace_mode`) and ``..._QUORUM``
+  (default 0.5, :func:`quorum_fraction`) are the supervisor's defaults
+  for whether to try it and for the share of the world that must
+  survive.
 """
 
 from __future__ import annotations
@@ -56,7 +76,11 @@ __all__ = ["heartbeat_interval", "heartbeat_file", "HeartbeatWriter",
            "watchdog_enabled", "watchdog_timeout", "watched_call",
            "request_drain", "drain_requested", "reset_drain",
            "install_sigterm_drain", "WorkerConfig", "worker_config",
-           "elastic_initialize"]
+           "elastic_initialize", "ElasticReconfig", "inplace_mode",
+           "reconfig_file", "inplace_armed", "quorum_fraction",
+           "pending_reconfig", "apply_reconfig", "await_reconfig",
+           "reform_mesh", "bank_carry", "banked_carry", "clear_carry",
+           "restore_carry"]
 
 
 def heartbeat_interval() -> float:
@@ -86,23 +110,30 @@ class HeartbeatWriter(threading.Thread):
         self.seq = 0
         # not _stop: Thread.join calls a private self._stop()
         self._halt = threading.Event()
+        self._lock = threading.Lock()  # apply_reconfig beats too
 
     def beat(self) -> None:
-        self.seq += 1
-        doc = {"pid": os.getpid(), "seq": self.seq,
-               "wall": time.time(), "mono": time.monotonic()}
-        if _metrics.metrics_enabled():
+        """One beat: pid, sequence, clocks, the attempt this process
+        runs (an in-place survivor's beat after :func:`apply_reconfig`
+        names the new one, which the supervisor waits for) and, under
+        metrics, the registry."""
+        with self._lock:
+            self.seq += 1
+            doc = {"pid": os.getpid(), "seq": self.seq,
+                   "wall": time.time(), "mono": time.monotonic(),
+                   "attempt": _env_int("PYLOPS_MPI_TPU_TORCH_ATTEMPT") or 0}
+            if _metrics.metrics_enabled():
+                try:
+                    doc["metrics"] = _metrics.snapshot()
+                except Exception:
+                    pass  # a metrics fault must not stop the beat
+            tmp = self.path + f".tmp{os.getpid()}"
             try:
-                doc["metrics"] = _metrics.snapshot()
-            except Exception:
-                pass  # a metrics fault must not stop the beat
-        tmp = self.path + f".tmp{os.getpid()}"
-        try:
-            with open(tmp, "w") as f:
-                f.write(json.dumps(doc))
-            os.replace(tmp, self.path)
-        except OSError:
-            pass  # a full disk must not kill the worker through its beat
+                with open(tmp, "w") as f:
+                    f.write(json.dumps(doc))
+                os.replace(tmp, self.path)
+            except OSError:
+                pass  # a full disk must not kill the worker through its beat
 
     def run(self) -> None:
         os.makedirs(os.path.dirname(self.path) or ".", exist_ok=True)
@@ -369,3 +400,275 @@ def elastic_initialize(backend: Optional[str] = None,
                  attempt=cfg.attempt, world=cfg.num_processes or 1,
                  rank=cfg.process_id or 0)
     return cfg
+
+
+# ----------------------------------------- in-place reconfiguration
+INPLACE_ENV = "PYLOPS_MPI_TPU_TORCH_INPLACE"
+QUORUM_ENV = "PYLOPS_MPI_TPU_TORCH_QUORUM"
+RECONFIG_ENV = "PYLOPS_MPI_TPU_TORCH_RECONFIG_FILE"
+
+_IP_MODES = ("auto", "on", "off")
+_warned_ip = False
+
+
+class ElasticReconfig(RuntimeError):
+    """The supervisor moved this worker to a shrunk world while a solve
+    ran; raised at the next epoch boundary with the parsed reconfig
+    ``config``, for the catcher to :func:`apply_reconfig`,
+    :func:`reform_mesh` and resume from :func:`restore_carry`, or fall
+    back to the checkpoint when one of them refuses."""
+
+    def __init__(self, config: Dict[str, Any]):
+        self.config = dict(config)
+        super().__init__(
+            f"elastic reconfig: attempt {config.get('attempt')} world "
+            f"{config.get('num_processes')} rank "
+            f"{config.get('process_id')} (in-place shrink; resume from "
+            "the banked carry or fall back to the checkpoint)")
+
+
+def inplace_mode() -> str:
+    """``PYLOPS_MPI_TPU_TORCH_INPLACE`` resolved to ``auto``/``on``/
+    ``off`` (default ``auto``; an unknown value warns once and counts as
+    ``auto``): the supervisor's switch. ``on`` takes the in-place path
+    when ``launch_job`` is not told otherwise, ``off`` never takes it,
+    ``auto`` follows ``launch_job(inplace=)`` (default: not)."""
+    global _warned_ip
+    m = os.environ.get(INPLACE_ENV, "auto").strip().lower()
+    if m in ("", "none", "default"):
+        m = "auto"
+    if m not in _IP_MODES:
+        if not _warned_ip:
+            import warnings
+            warnings.warn(f"{INPLACE_ENV}={m!r} is not one of "
+                          f"{_IP_MODES}; using 'auto'", stacklevel=2)
+            _warned_ip = True
+        m = "auto"
+    return m
+
+
+def reconfig_file() -> Optional[str]:
+    """The reconfig path the supervisor assigned this worker
+    (``launch_job(inplace=True)``), or ``None``."""
+    return os.environ.get(RECONFIG_ENV) or None
+
+
+def inplace_armed() -> bool:
+    """A segmented solve banks and polls when the supervisor assigned
+    this worker a reconfig file, which it does only on its in-place
+    path (plain library use never banks or polls)."""
+    return reconfig_file() is not None
+
+
+def quorum_fraction() -> float:
+    """``PYLOPS_MPI_TPU_TORCH_QUORUM``: the share of the world that must
+    survive a failure for the in-place path (default 0.5, clamped to
+    (0, 1]; malformed: the default), read by ``launch_job(quorum=None)``."""
+    try:
+        v = float(os.environ.get(QUORUM_ENV, "0.5"))
+    except ValueError:
+        v = 0.5
+    return min(1.0, max(1e-9, v))
+
+
+def pending_reconfig() -> Optional[Dict[str, Any]]:
+    """The supervisor's reconfig for this worker, parsed, when it names
+    an attempt newer than this process's (applying it bumps
+    ``..._ATTEMPT``, which consumes it), else ``None``; a torn write
+    reads as ``None`` until the next poll."""
+    path = reconfig_file()
+    if path is None or not os.path.exists(path):
+        return None
+    try:
+        with open(path) as f:
+            doc = json.loads(f.read())
+    except (OSError, ValueError):
+        return None
+    if not isinstance(doc, dict) or "attempt" not in doc:
+        return None
+    cur = _env_int("PYLOPS_MPI_TPU_TORCH_ATTEMPT") or 0
+    if int(doc["attempt"]) <= cur:
+        return None
+    return doc
+
+
+def apply_reconfig(config: Dict[str, Any]) -> WorkerConfig:
+    """Adopt a reconfig: rewrite the worker contract (world, rank,
+    attempt, rendezvous) so :func:`worker_config` and
+    :func:`pending_reconfig` see the shrunk world; returns the new
+    config."""
+    os.environ["PYLOPS_MPI_TPU_TORCH_NUM_PROCESSES"] = \
+        str(int(config["num_processes"]))
+    os.environ["PYLOPS_MPI_TPU_TORCH_PROCESS_ID"] = \
+        str(int(config["process_id"]))
+    os.environ["PYLOPS_MPI_TPU_TORCH_ATTEMPT"] = str(int(config["attempt"]))
+    if config.get("coordinator"):
+        os.environ["PYLOPS_MPI_TPU_TORCH_COORDINATOR"] = \
+            str(config["coordinator"])
+    _trace.event("resilience.reconfig_applied", cat="resilience",
+                 attempt=int(config["attempt"]),
+                 world=int(config["num_processes"]),
+                 rank=int(config["process_id"]))
+    with _HB_LOCK:
+        writer = _WRITER
+    if writer is not None:
+        writer.beat()  # the supervisor's sign that this survivor resumed
+    return worker_config()
+
+
+def await_reconfig(exc: BaseException) -> None:
+    """An armed solve's collective raised ``exc`` (a gloo peer that died
+    inside a collective resets its connections, and the survivor's call
+    raises): wait up to 10 heartbeat intervals (at least 2 s) for the
+    supervisor's reconfig and raise :class:`ElasticReconfig` from
+    ``exc``, for the catcher's in-place recovery from the last banked
+    epoch. Returns when none came (the caller re-raises ``exc``) or when
+    the solve is not armed."""
+    if not inplace_armed():
+        return
+    deadline = time.monotonic() + max(2.0, 10.0 * heartbeat_interval())
+    while True:
+        rc = pending_reconfig()
+        if rc is not None:
+            _trace.event("resilience.peer_lost", cat="resilience",
+                         error=type(exc).__name__,
+                         attempt=int(rc["attempt"]))
+            raise ElasticReconfig(rc) from exc
+        if time.monotonic() >= deadline:
+            return
+        time.sleep(0.05)
+
+
+def reform_mesh(cfg: WorkerConfig, device=None):
+    """Re-form this survivor's mesh for the shrunk world without a
+    restart. A world of one detaches from the old group
+    (``parallel.mesh.detach``: the mesh and sub-groups forgotten, no
+    ``destroy_process_group``, whose shutdown would wait on the dead
+    peer) and gets the world-of-one :class:`~..parallel.mesh.Mesh` on
+    ``device`` (default: the old mesh's). Two or more survivors would
+    need a new group, and the old one cannot be ended while a peer is
+    dead: that raises, and the worker takes the checkpoint relaunch."""
+    world = cfg.num_processes or 1
+    if world > 1:
+        raise RuntimeError(
+            "reform_mesh: re-forming a world of several ranks in place "
+            "needs a new process group, and ending the old one waits on "
+            "the dead peer; fall back to the checkpoint relaunch path")
+    from ..parallel import mesh as _mesh
+    dev = _mesh.default_mesh().device if device is None \
+        else _mesh.resolve_device(device)
+    _mesh.detach()
+    out = _mesh.make_mesh(device=dev)
+    _trace.event("resilience.mesh_reformed", cat="resilience", world=world,
+                 device=str(dev))
+    return out
+
+
+# The bank: one host snapshot of a segmented solve's carry per tag
+# ("cg"/"cgls"), refreshed at every epoch boundary while armed. Vector
+# fields are gathered to the host on every rank (a collective), so any
+# survivor holds the whole value and can replant it alone.
+_BANK_LOCK = threading.Lock()
+_BANK: Dict[str, Dict[str, Any]] = {}
+
+
+def _host_tensor(t):
+    return t.detach().to("cpu", copy=True)
+
+
+def bank_carry(tag: str, carry: Dict[str, Any]) -> None:
+    """Bank one epoch boundary's carry under ``tag``: each
+    :class:`~..distributedarray.DistributedArray` as its gathered global
+    value on the host with its layout (partition, axis, shard count,
+    mask, dtype, device); each tensor as a host copy with its device;
+    Python scalars as they are. A stacked vector refuses (``TypeError``:
+    in-place banking takes flat vectors; the checkpoint path remains).
+    Collective: every rank calls it."""
+    import torch
+    from ..distributedarray import DistributedArray
+    rec: Dict[str, Any] = {}
+    for name, val in carry.items():
+        if isinstance(val, DistributedArray):
+            rec[name] = {"kind": "dist", "partition": val.partition.name,
+                         "axis": int(val.axis),
+                         "n_shards": int(val.n_shards),
+                         "mask": (tuple(val.mask) if val.mask is not None
+                                  else None),
+                         "device": str(val.device),
+                         "value": _host_tensor(val._global())}
+        elif hasattr(val, "distarrays"):
+            raise TypeError(
+                f"bank_carry: field {name!r} is a stacked vector; "
+                "in-place banking supports flat DistributedArray "
+                "carries only — run with the checkpoint fallback")
+        elif isinstance(val, torch.Tensor):
+            rec[name] = {"kind": "array", "device": str(val.device),
+                         "value": _host_tensor(val)}
+        else:
+            rec[name] = {"kind": "raw", "value": val}
+    with _BANK_LOCK:
+        _BANK[tag] = {"wall": time.time(), "fields": rec}
+    _trace.event("resilience.carry_banked", cat="resilience", tag=tag,
+                 n_fields=len(rec))
+
+
+def banked_carry(tag: str) -> Optional[Dict[str, Any]]:
+    """The raw banked record of ``tag`` (or ``None``), for inspection;
+    a resume uses :func:`restore_carry`."""
+    with _BANK_LOCK:
+        return _BANK.get(tag)
+
+
+def clear_carry(tag: Optional[str] = None) -> None:
+    with _BANK_LOCK:
+        if tag is None:
+            _BANK.clear()
+        else:
+            _BANK.pop(tag, None)
+
+
+def restore_carry(tag: str, mesh=None, budget=None, chunks=None,
+                  device=None) -> Dict[str, Any]:
+    """Replant the banked carry of ``tag`` onto ``mesh`` (the re-formed
+    world; default the current one): each vector through
+    :func:`~..parallel.reshard.place_replica` with the balanced split of
+    the new world, each tensor back on ``device`` (default: the mesh's),
+    ready for a segmented solve's ``resume_state``. ``KeyError`` when
+    nothing is banked; a planner refusal (budget, a mask across worlds)
+    propagates, and the caller falls back to the checkpoint. No
+    checkpoint is read."""
+    from ..parallel import reshard as _reshard
+    from ..parallel.mesh import default_mesh
+    from ..parallel.partition import Partition
+    with _BANK_LOCK:
+        bank = _BANK.get(tag)
+    if bank is None:
+        raise KeyError(f"restore_carry: no banked carry for tag {tag!r}")
+    mesh = default_mesh() if mesh is None else mesh
+    dev = mesh.device if device is None else device
+    n_new = int(mesh.size)
+    state: Dict[str, Any] = {}
+    for name, rec in bank["fields"].items():
+        kind = rec["kind"]
+        if kind == "dist":
+            if rec["mask"] is not None and rec["n_shards"] != n_new:
+                raise _reshard.ReshardError(
+                    f"restore_carry: field {name!r} carries a mask and "
+                    f"the world changed {rec['n_shards']} -> {n_new}; "
+                    "masks are per-shard group colors — fall back to "
+                    "the checkpoint path", 0)
+            state[name] = _reshard.place_replica(
+                rec["value"], mesh, Partition[rec["partition"]],
+                rec["axis"],
+                mask=(rec["mask"] if rec["n_shards"] == n_new else None),
+                budget=(budget if budget is not None
+                        else _reshard._UNSET),
+                chunks=chunks, device=dev)
+        elif kind == "raw":
+            state[name] = rec["value"]
+        else:
+            state[name] = rec["value"].to(dev)
+    _trace.event("resilience.inplace_recovery", cat="resilience",
+                 tag=tag, n_fields=len(state), world=n_new)
+    _metrics.inc("resilience.inplace_recoveries")
+    return state

@@ -1,6 +1,6 @@
 """Fault injection: the controlled way to break things.
 
-PyTorch counterpart of ``pylops_mpi_tpu/resilience/faults.py:133-266``.
+PyTorch counterpart of ``pylops_mpi_tpu/resilience/faults.py:55-266``.
 Every recovery path of the resilience tier is only as real as the fault
 that exercises it:
 
@@ -20,6 +20,13 @@ that exercises it:
   treat as a logged miss.
 - **Flaky callables** (:func:`flaky`): raise for the first N calls, the
   probe of :mod:`.retry`.
+- **A worker killed mid-move** (:func:`maybe_kill_reshard`,
+  :func:`maybe_kill_spill`): the resharding executor calls the first
+  before every plan step and the spill executor both before every
+  staged chunk; with ``PYLOPS_MPI_TPU_TORCH_FAULT_KILL_RESHARD=N`` (or
+  ``..._FAULT_KILL_SPILL=N``) the process SIGKILLs itself at the Nth
+  step, with no tidy-up, which the in-place recovery must survive by
+  falling back to the checkpoint relaunch.
 
 A fault is armed per process and, by default, once: the first guarded
 solve consumes it (:func:`consume`), so a restart after the injected
@@ -35,11 +42,64 @@ from typing import Callable, Dict, Optional
 
 __all__ = ["arm", "disarm", "armed", "consume", "fault_signature",
            "fault_sites", "inject_nan", "inject_stall", "host_stall",
-           "corrupt_plan_cache", "flaky"]
+           "corrupt_plan_cache", "flaky", "maybe_kill_reshard",
+           "reset_reshard_steps", "reshard_steps", "maybe_kill_spill",
+           "reset_spill_steps", "spill_steps"]
 
 _LOCK = threading.Lock()
 _ARMED: Optional[Dict] = None
 _KINDS = ("nan", "stall")
+
+KILL_RESHARD_ENV = "PYLOPS_MPI_TPU_TORCH_FAULT_KILL_RESHARD"
+KILL_SPILL_ENV = "PYLOPS_MPI_TPU_TORCH_FAULT_KILL_SPILL"
+_STEPS = {"reshard": 0, "spill": 0}
+
+
+def reset_reshard_steps() -> None:
+    with _LOCK:
+        _STEPS["reshard"] = 0
+
+
+def reshard_steps() -> int:
+    """Reshard plan steps run in this process since the last reset."""
+    with _LOCK:
+        return _STEPS["reshard"]
+
+
+def reset_spill_steps() -> None:
+    with _LOCK:
+        _STEPS["spill"] = 0
+
+
+def spill_steps() -> int:
+    """Host-staged chunks run in this process since the last reset."""
+    with _LOCK:
+        return _STEPS["spill"]
+
+
+def _step_and_maybe_kill(kind: str, env: str) -> None:
+    with _LOCK:
+        _STEPS[kind] += 1
+        count = _STEPS[kind]
+    import os
+    raw = os.environ.get(env, "").strip()
+    if raw and count >= int(raw):
+        import signal
+        os.kill(os.getpid(), signal.SIGKILL)
+
+
+def maybe_kill_reshard() -> None:
+    """Count one reshard step; SIGKILL this process at the step
+    ``PYLOPS_MPI_TPU_TORCH_FAULT_KILL_RESHARD`` names (1-based). A
+    SIGKILL, not an exception: the fault is a dead worker, and nothing
+    (atexit, ``finally``, a checkpoint flush) may tidy up."""
+    _step_and_maybe_kill("reshard", KILL_RESHARD_ENV)
+
+
+def maybe_kill_spill() -> None:
+    """Count one host-staged chunk; SIGKILL this process at the chunk
+    ``PYLOPS_MPI_TPU_TORCH_FAULT_KILL_SPILL`` names (1-based)."""
+    _step_and_maybe_kill("spill", KILL_SPILL_ENV)
 
 
 def arm(kind: str, iteration: int, once: bool = True) -> None:

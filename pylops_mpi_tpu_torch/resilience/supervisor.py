@@ -16,6 +16,8 @@ PyTorch counterpart of ``pylops_mpi_tpu/resilience/supervisor.py:62-540``.
    ``stale_heartbeat``  alive, but its beat file is older than
                         ``stale_factor`` × the beat interval (wedged:
                         SIGSTOPped, deadlocked in a collective)
+   ``reconfig_timeout`` an in-place survivor that did not beat its new
+                        attempt by the deadline (below)
    ===================  =============================================
 
 4. **Kill and relaunch**: the first failure of an attempt kills all its
@@ -25,13 +27,30 @@ PyTorch counterpart of ``pylops_mpi_tpu/resilience/supervisor.py:62-540``.
    ``job_timeout_s``. The workers resume from their checkpoint, which
    :mod:`..utils.checkpoint` restores on the new world.
 
+**In place** (``inplace=True``, JAX ``supervisor.py:400-459``): each
+worker also gets a reconfig file (``..._RECONFIG_FILE``). When a failure
+leaves exactly one live survivor, the survivors meet ``quorum`` of the
+attempt's world and a relaunch is left in the budget, the supervisor
+kills only the failed worker and writes the survivor a reconfig naming
+the world of one; the survivor re-forms and resumes from its banked
+carry (:mod:`.elastic`) with no checkpoint read, and the result counts
+one attempt more. A peer that died inside a collective makes the
+survivor's call raise (gloo resets the connections), and the survivor
+takes the reconfig from there. The survivor must beat its new attempt
+(``apply_reconfig``) within ``reconfig_deadline_s`` (default
+``grace_s``; keep it above an epoch's length), else it is a
+``reconfig_timeout``. Any other case (two or more survivors, whose
+group cannot be re-formed while a peer is dead; below quorum; no
+budget; a timeout) takes the kill-and-relaunch ladder above, and so
+does a survivor that fails to recover in place (it exits non-zero) or
+misses its deadline: its slot is kept, and the relaunch reads the
+checkpoint.
+
 The supervisor's own code calls no torch and none of the workers' code:
 it watches processes and files, so it stays responsive while workers
 build, solve or die. Worker output goes to log files, whose tails the result keeps.
 A worker whose peer died must leave without ``destroy()`` (the group's
 shutdown waits on the dead peer): ``os._exit`` after its last write.
-The JAX package's in-place reconfiguration (``inplace=True``) needs the
-resharding planner and raises, naming ROADMAP.md §A.7 item 5;
 ``aot_cache`` accepts only ``None``, because a captured CUDA graph
 cannot leave its process.
 """
@@ -39,6 +58,7 @@ cannot leave its process.
 from __future__ import annotations
 
 import json
+import math
 import os
 import signal
 import socket
@@ -51,7 +71,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 from ..diagnostics import metrics as _metrics
 from ..diagnostics import trace as _trace
-from .elastic import read_heartbeat
+from .elastic import inplace_mode, quorum_fraction, read_heartbeat
 
 __all__ = ["WorkerHandle", "Failure", "JobResult", "JOB_REPORT_SCHEMA",
            "free_port", "launch_job", "write_job_report"]
@@ -78,6 +98,7 @@ class WorkerHandle:
     log_path: str
     launched_at: float        # monotonic; bring-up grace reference
     metrics_path: str = ""    # worker's assigned snapshot file
+    reconfig_path: str = ""   # its in-place reconfig file (inplace=True)
 
     def alive(self) -> bool:
         return self.proc.poll() is None
@@ -249,6 +270,61 @@ def _classify(w: WorkerHandle, *, stale_s: float,
     return None
 
 
+def _reconfigure(result: JobResult, failure: Failure,
+                 workers: Sequence[WorkerHandle],
+                 survivors: Sequence[WorkerHandle], attempt: int) -> int:
+    """The in-place path: record the failure, kill only the failed
+    worker, write each survivor its reconfig (the next attempt, the
+    shrunk world, its new rank), atomically; returns the new world."""
+    result.failures.append(failure)
+    _trace.event("supervisor.failure", cat="resilience",
+                 **failure.as_dict())
+    _kill_all([w for w in workers if w.slot == failure.slot])
+    for new_rank, w in enumerate(survivors):
+        doc = {"attempt": attempt + 1, "num_processes": len(survivors),
+               "process_id": new_rank, "coordinator": None,
+               "lost_slot": failure.slot}
+        tmp = w.reconfig_path + f".tmp{os.getpid()}"
+        with open(tmp, "w") as f:
+            json.dump(doc, f)
+        os.replace(tmp, w.reconfig_path)
+        w.rank = new_rank
+    result.attempts += 1
+    result.world_size = len(survivors)
+    _metrics.inc("supervisor.inplace_reconfigs")
+    _trace.event("supervisor.inplace_reconfig", cat="resilience",
+                 attempt=attempt + 1, world=len(survivors),
+                 lost_slot=failure.slot)
+    return len(survivors)
+
+
+def _check_resumed(resumed: Dict[int, tuple],
+                   workers: Sequence[WorkerHandle], now: float,
+                   deadline_s: float, attempt: int) -> Optional[Failure]:
+    """Each survivor of an in-place reconfig must beat the new attempt
+    (``apply_reconfig``) by its deadline: one that did is dropped from
+    ``resumed``; one past its deadline (wedged in a collective with the
+    dead peer, or not polling) is a ``reconfig_timeout`` failure, which
+    takes the relaunch ladder."""
+    for w in workers:
+        if w.slot not in resumed or not w.alive():
+            continue
+        want, deadline = resumed[w.slot]
+        beat = read_heartbeat(w.heartbeat_path) or {}
+        if int(beat.get("attempt", -1)) >= want:
+            del resumed[w.slot]
+            _trace.event("supervisor.inplace_resumed", cat="resilience",
+                         attempt=want, slot=w.slot)
+        elif now > deadline:
+            return Failure(
+                attempt=attempt, rank=w.rank, slot=w.slot,
+                kind="reconfig_timeout", returncode=None,
+                detail=(f"no beat of attempt {want} within {deadline_s}s "
+                        "of its reconfig"),
+                detected_after_s=now - w.launched_at)
+    return None
+
+
 def launch_job(argv: Sequence[str], num_workers: int, *,
                max_relaunches: int = 1,
                shrink: bool = True,
@@ -264,8 +340,9 @@ def launch_job(argv: Sequence[str], num_workers: int, *,
                on_relaunch: Optional[Callable[[int, Failure],
                                               None]] = None,
                python: Optional[str] = None,
-               inplace: bool = False,
-               quorum: float = 0.5,
+               inplace: Optional[bool] = None,
+               quorum: Optional[float] = None,
+               reconfig_deadline_s: Optional[float] = None,
                aot_cache: Optional[str] = None) -> JobResult:
     """Launch ``num_workers`` supervised workers and see them to the end,
     relaunching after failures (module docstring).
@@ -281,21 +358,16 @@ def launch_job(argv: Sequence[str], num_workers: int, *,
     runs every poll; ``on_relaunch(next_attempt, failure)`` after a
     failed attempt was killed and before its relaunch (a raising hook is
     swallowed). The worker's environment is ``os.environ``, then
-    ``env``, then the contract. ``inplace``/``quorum`` are the JAX
-    package's in-place reconfiguration (ROADMAP.md §A.7 item 5:
-    ``inplace=True`` raises); ``aot_cache`` must be ``None``."""
-    if inplace:
-        raise NotImplementedError(
-            "launch_job(inplace=True) is not ported: the in-place "
-            "reconfiguration replants the carry through the resharding "
-            "planner, ROADMAP.md §A.7 item 5; the checkpoint relaunch "
-            "(inplace=False) recovers the same job")
+    ``env``, then the contract. ``inplace``/``quorum``/
+    ``reconfig_deadline_s``: the in-place recovery (module docstring;
+    ``None``: ``PYLOPS_MPI_TPU_TORCH_INPLACE``, where ``off`` overrides
+    even ``inplace=True``, ``..._QUORUM`` and ``grace_s``);
+    ``aot_cache`` must be ``None``."""
     if aot_cache is not None:
         raise ValueError(
             "aot_cache must be None: a captured CUDA graph lives in its "
             "process and cannot be banked for a relaunched worker; each "
             "attempt captures its own (PYLOPS_MPI_TPU_TORCH_AOT)")
-    del quorum  # the in-place path's only
     if num_workers < 1:
         raise ValueError(f"num_workers must be >= 1, got {num_workers}")
     argv = [str(a) for a in argv]
@@ -305,6 +377,12 @@ def launch_job(argv: Sequence[str], num_workers: int, *,
     if grace_s is None:
         grace_s = 10.0 * heartbeat_interval
     stale_s = stale_factor * heartbeat_interval
+    mode = inplace_mode()
+    inplace = (mode == "on" if inplace is None else bool(inplace)) \
+        and mode != "off"
+    quorum = quorum_fraction() if quorum is None else float(quorum)
+    if reconfig_deadline_s is None:
+        reconfig_deadline_s = grace_s
 
     result = JobResult(ok=False, world_size=num_workers, attempts=0,
                        logdir=logdir)
@@ -325,6 +403,9 @@ def launch_job(argv: Sequence[str], num_workers: int, *,
             log = os.path.join(logdir, f"worker{slot}.attempt{attempt}.log")
             met = os.path.join(
                 logdir, f"worker{slot}.attempt{attempt}.metrics.json")
+            rcf = os.path.join(
+                logdir, f"worker{slot}.attempt{attempt}.reconfig.json") \
+                if inplace else ""
             wenv = dict(os.environ)
             if env:
                 wenv.update(env)
@@ -338,6 +419,11 @@ def launch_job(argv: Sequence[str], num_workers: int, *,
                 # the registry writes it only under METRICS=on
                 "PYLOPS_MPI_TPU_TORCH_METRICS_FILE": met,
             })
+            if inplace:
+                wenv["PYLOPS_MPI_TPU_TORCH_RECONFIG_FILE"] = rcf
+            else:
+                # an outer job's assignment must not arm this one's workers
+                wenv.pop("PYLOPS_MPI_TPU_TORCH_RECONFIG_FILE", None)
             # relaunched peers must not dial the rendezvous in lockstep;
             # an explicit caller value wins
             wenv.setdefault("PYLOPS_MPI_TPU_TORCH_RETRY_JITTER", "0.25")
@@ -354,9 +440,15 @@ def launch_job(argv: Sequence[str], num_workers: int, *,
             workers.append(WorkerHandle(rank=rank, slot=slot, proc=proc,
                                         heartbeat_path=hb, log_path=log,
                                         launched_at=time.monotonic(),
-                                        metrics_path=met))
+                                        metrics_path=met,
+                                        reconfig_path=rcf))
 
         failure: Optional[Failure] = None
+        # slot -> (attempt its resumed beat must name, monotonic deadline)
+        resumed: Dict[int, tuple] = {}
+        # slots a reconfig kept alive in this attempt: their own failure
+        # is no reason to drop them (the lost slot is gone already)
+        kept: set = set()
         while True:
             now = time.monotonic()
             if job_timeout_s is not None and now - t_job > job_timeout_s:
@@ -386,7 +478,27 @@ def launch_job(argv: Sequence[str], num_workers: int, *,
                                       detected_after_s=now - w.launched_at,
                                       **cls)
                     break
+            if failure is None and resumed:
+                failure = _check_resumed(resumed, workers, now,
+                                         reconfig_deadline_s, attempt)
+                if failure is not None:
+                    break
             if failure is not None:
+                survivors = [w for w in workers
+                             if w.slot != failure.slot and w.alive()]
+                need = max(1, math.ceil(quorum * world))
+                if (inplace and attempt < max_relaunches
+                        and len(survivors) == 1 and len(survivors) >= need):
+                    world = _reconfigure(result, failure, workers,
+                                         survivors, attempt)
+                    slots = [s for s in slots if s != failure.slot]
+                    workers = survivors
+                    for w in survivors:
+                        kept.add(w.slot)
+                        resumed[w.slot] = (attempt + 1,
+                                           now + reconfig_deadline_s)
+                    failure = None
+                    continue
                 break
             if all(w.proc.poll() == 0 for w in workers):
                 result.ok = True
@@ -411,7 +523,7 @@ def launch_job(argv: Sequence[str], num_workers: int, *,
                                        if w.proc.poll() is not None
                                        else -9)
                               for w in workers}
-        if shrink and failure.slot in slots:
+        if shrink and failure.slot in slots and failure.slot not in kept:
             slots = [s for s in slots if s != failure.slot]
         if not slots or attempt >= max_relaunches:
             write_job_report(result)

@@ -24,13 +24,32 @@ communication-avoiding engine its name and :data:`~.ca.CA_SCHEMA`); a
 resume under another plan refuses (``resume must replay the same
 plan``). ``resume_state`` resumes from a carry held in memory instead,
 for example one converted from a JAX checkpoint by
-:func:`~..convert.fused_carry_from_jax`. A guarded solve ends its epoch
-early on a verdict and stops with it, the last finite iterate in the
-final checkpoint. Under a supervisor the heartbeat starts with the solve.
+:func:`~..convert.fused_carry_from_jax` or banked in memory by the
+in-place recovery (:func:`~..resilience.elastic.restore_carry`). A
+guarded solve ends its epoch early on a verdict and stops with it, the
+last finite iterate in the final checkpoint. Under a supervisor the
+heartbeat starts with the solve.
+
+**In-place recovery** (JAX ``solvers/segmented.py:397-435``): while
+:func:`~..resilience.elastic.inplace_armed`, each epoch boundary first
+polls :func:`~..resilience.elastic.pending_reconfig` and raises
+:class:`~..resilience.elastic.ElasticReconfig` when the supervisor has
+shrunk the world (as does an epoch whose collective raised because the
+peer died inside it, once the reconfig lands), and after each epoch
+banks the carry
+(:func:`~..resilience.elastic.bank_carry`) **before** the checkpoint is
+written, so that an epoch the supervisor can see saved is also banked.
+
+``cgls_segmented(normal=True)`` runs the one-sweep schedule of the
+fused ``cgls(normal=True)`` (the normal kernel once an iteration on
+``MPIBlockDiag``), a port extension: the JAX package's segmented CGLS
+is the classic schedule only. The checkpoint then banks ``normal``, and
+a resume under the other schedule refuses.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 from collections import namedtuple
 from typing import Callable, Optional
@@ -168,7 +187,7 @@ def cg_segmented(Op, y, x0=None, niter: int = 100, tol: float = 1e-4,
     a resume under another preconditioner refuses."""
     return _segmented(Op, y, x0, "cg", niter, 0.0, tol, epoch,
                       checkpoint_path, resume, backend, guards, on_epoch,
-                      resume_state, M)
+                      resume_state, M, False)
 
 
 def cgls_segmented(Op, y, x0=None, niter: int = 100, damp: float = 0.0,
@@ -177,15 +196,17 @@ def cgls_segmented(Op, y, x0=None, niter: int = 100, damp: float = 0.0,
                    resume: bool = True, backend: Optional[str] = None,
                    guards: Optional[bool] = None,
                    on_epoch: Optional[Callable] = None,
-                   resume_state: Optional[dict] = None, M=None
-                   ) -> SegmentedResult:
-    """Segmented fused CGLS (the classic two-sweep schedule); see
-    :func:`cg_segmented`. A killed process called again with the same
-    ``checkpoint_path`` and plan resumes from the last saved epoch and
-    ends bit for bit where the uninterrupted solve ends."""
+                   resume_state: Optional[dict] = None, M=None,
+                   normal: bool = False) -> SegmentedResult:
+    """Segmented fused CGLS; see :func:`cg_segmented`. The classic
+    two-sweep schedule, or with ``normal=True`` the one-sweep schedule
+    of ``cgls(normal=True)`` (module docstring). A killed process called
+    again with the same ``checkpoint_path`` and plan resumes from the
+    last saved epoch and ends bit for bit where the uninterrupted solve
+    ends."""
     return _segmented(Op, y, x0, "cgls", niter, damp, tol, epoch,
                       checkpoint_path, resume, backend, guards, on_epoch,
-                      resume_state, M)
+                      resume_state, M, normal)
 
 
 class _Engine:
@@ -194,10 +215,11 @@ class _Engine:
     advances it."""
 
     def __init__(self, Op, y, x0, solver, mode, niter, damp, tol,
-                 guards, M, ca_s):
+                 guards, M, ca_s, normal=False):
         self.Op, self.y, self.solver, self.mode = Op, y, solver, mode
         self.niter, self.damp, self.tol = niter, damp, tol
         self.guards, self.M, self.ca_s = guards, M, ca_s
+        self.normal = bool(normal)
         self.x0 = x0
         cgls = solver == "cgls"
         if mode == "off":
@@ -218,8 +240,8 @@ class _Engine:
             state, _ = _ca._pipe_state(M, applyA, x, r, u, kold, n, False,
                                        g)
         elif self.solver == "cgls":
-            state, (floors,), _ = _cgls_setup(Op, y, x, n, self.damp, False,
-                                              M, g)
+            state, (floors,), _ = _cgls_setup(Op, y, x, n, self.damp,
+                                              self.normal, M, g)
         else:
             state, (floors,), _ = _cg_setup(Op, y, x, n, M, g)
         out = dict(zip(self.fields, state))
@@ -229,7 +251,7 @@ class _Engine:
     def _pipe_seed(self):
         if self.solver == "cgls":
             return _ca._pipe_cgls_seed(self.Op, self.y, self.x0, self.damp,
-                                       False, self.M, False)
+                                       self.normal, self.M, False)
         r, u, kold = _ca._pipe_cg_seed(self.Op, self.y, self.x0, self.M,
                                        False)
         return self.Op.matvec, r, u, kold, _mp_floor(kold)
@@ -258,8 +280,8 @@ class _Engine:
         elif self.mode == "pipelined":
             if self.solver == "cgls":
                 applyA = _ca._normal_apply(Op, self.damp ** 2,
-                                           carry[0].dtype, False)
-                scalars = dict(damp=self.damp, normal=False)
+                                           carry[0].dtype, self.normal)
+                scalars = dict(damp=self.damp, normal=self.normal)
             else:
                 applyA, scalars = Op.matvec, {}
             self.loop, self.first = _ca._pipe_graph(
@@ -267,7 +289,7 @@ class _Engine:
                 scalars, g, stall_n)
         elif self.solver == "cgls":
             self.loop = _cgls_loop(Op, M, y, carry, (floors,), n, self.damp,
-                                   tol, False, g, stall_n)
+                                   tol, self.normal, g, stall_n)
         else:
             self.loop = _cg_loop(Op, M, y, carry, (floors,), n, tol, g,
                                  stall_n)
@@ -295,7 +317,7 @@ class _Engine:
 
 
 def _segmented(Op, y, x0, solver, niter, damp, tol, epoch, checkpoint_path,
-               resume, backend, guards, on_epoch, resume_state, M):
+               resume, backend, guards, on_epoch, resume_state, M, normal):
     from ..resilience.elastic import maybe_start_heartbeat
     from ..resilience.status import guards_enabled
     from ..utils import deps as _deps
@@ -315,6 +337,8 @@ def _segmented(Op, y, x0, solver, niter, damp, tol, epoch, checkpoint_path,
             "precond": precond_signature(M)}
     if is_cgls:
         meta["damp"] = float(damp)
+    if normal:
+        meta["normal"] = True
     if resume_state is not None:
         state = _check_plan(resume_state, meta, "resume_state")
     else:
@@ -322,9 +346,14 @@ def _segmented(Op, y, x0, solver, niter, damp, tol, epoch, checkpoint_path,
                  if resume else None)
     if state is not None:
         _ca.check_resume_ca(state, mode, ca_s)
+        if bool(state.get("normal", False)) != bool(normal):
+            raise ValueError(
+                f"the carry was saved with normal={bool(state.get('normal'))}"
+                f", resume requested normal={bool(normal)}; resume must "
+                "replay the same plan")
     resumed = state is not None
     eng = _Engine(Op, y, x0, solver, mode, niter, damp, tol, guards_on, M,
-                  ca_s)
+                  ca_s, normal)
     with _trace.span(f"solver.{solver}_segmented", cat="solver",
                      op=type(Op).__name__, shape=Op.shape, niter=niter,
                      epoch=E, guards=guards_on, resumed=resumed,
@@ -361,11 +390,14 @@ def _segmented(Op, y, x0, solver, niter, damp, tol, epoch, checkpoint_path,
 
 def _run_epochs(eng, floors, solver, niter, tol, E, meta, mode, ca_s,
                 checkpoint_path, backend, on_epoch) -> int:
-    """The epochs, each checkpointed and reported; returns their
-    count."""
+    """The epochs, each banked (in-place recovery armed), checkpointed
+    and reported; returns their count."""
+    from ..resilience import elastic as _elastic
     from ..utils import checkpoint as _ckpt
+    ip_armed = _elastic.inplace_armed()
     epochs = 0
     while True:
+        _poll_reconfig(ip_armed)
         st = dict(zip(eng.fields, eng.loop.state))
         iiter = int(st["iiter"])
         code = (_rstatus.RUNNING if st["status"] is None
@@ -377,24 +409,31 @@ def _run_epochs(eng, floors, solver, niter, tol, E, meta, mode, ca_s,
         if (iiter >= niter or kmax <= tol or code != _rstatus.RUNNING
                 or not np.isfinite(kmax) or stuck):
             return epochs
-        out = eng.epoch(min(iiter + E, niter))
-        st = dict(zip(eng.fields, out))
-        epochs += 1
-        if checkpoint_path:
-            carry = {**meta, "epoch": E,
-                     "schema": (_FUSED_SCHEMA if mode == "off"
-                                else _ca.CA_SCHEMA)}
-            if mode != "off":
-                carry["ca"] = mode
-                if mode == "sstep":
-                    carry["ca_s"] = int(ca_s)
-            carry.update(st)
-            carry["floors"] = floors
-            _ckpt.save_fused_carry(checkpoint_path, solver, carry,
-                                   backend=backend)
-            _trace.event("solver.checkpoint", cat="resilience",
-                         solver=solver, iiter=int(st["iiter"]),
-                         epoch=epochs, path=checkpoint_path)
+        with _on_peer_loss(ip_armed):
+            out = eng.epoch(min(iiter + E, niter))
+            st = dict(zip(eng.fields, out))
+            epochs += 1
+            if ip_armed or checkpoint_path:
+                carry = {**meta, "epoch": E,
+                         "schema": (_FUSED_SCHEMA if mode == "off"
+                                    else _ca.CA_SCHEMA)}
+                if mode != "off":
+                    carry["ca"] = mode
+                    if mode == "sstep":
+                        carry["ca_s"] = int(ca_s)
+                carry.update(st)
+                carry["floors"] = floors
+            if ip_armed:
+                # banked before the checkpoint: an epoch the supervisor
+                # can see saved is also banked, so an in-place resume is
+                # never behind the disk
+                _elastic.bank_carry(solver, carry)
+            if checkpoint_path:
+                _ckpt.save_fused_carry(checkpoint_path, solver, carry,
+                                       backend=backend)
+                _trace.event("solver.checkpoint", cat="resilience",
+                             solver=solver, iiter=int(st["iiter"]),
+                             epoch=epochs, path=checkpoint_path)
         if on_epoch is not None:
             it = int(st["iiter"])
             on_epoch({"epoch": epochs, "iiter": it,
@@ -402,6 +441,35 @@ def _run_epochs(eng, floors, solver, niter, tol, E, meta, mode, ca_s,
                       "status": _rstatus.status_name(
                           _rstatus.RUNNING if st["status"] is None
                           else int(torch.max(st["status"])))})
+
+
+@contextlib.contextmanager
+def _on_peer_loss(armed: bool):
+    """An armed epoch whose collective raised (the peer died inside it)
+    becomes :class:`~..resilience.elastic.ElasticReconfig` once the
+    supervisor's reconfig lands (:func:`~..resilience.elastic.
+    await_reconfig`); the survivor resumes from the last banked epoch.
+    Anything else, or no reconfig in time, propagates as it was."""
+    try:
+        yield
+    except RuntimeError as exc:
+        if armed:
+            from ..resilience import elastic as _elastic
+            if not isinstance(exc, _elastic.ElasticReconfig):
+                _elastic.await_reconfig(exc)
+        raise
+
+
+def _poll_reconfig(armed: bool) -> None:
+    """At an epoch boundary of an armed solve: raise
+    :class:`~..resilience.elastic.ElasticReconfig` when the supervisor
+    has written this worker a shrunk world."""
+    if not armed:
+        return
+    from ..resilience import elastic as _elastic
+    rc = _elastic.pending_reconfig()
+    if rc is not None:
+        raise _elastic.ElasticReconfig(rc)
 
 
 # ------------------------------------------------------ block CG
@@ -416,6 +484,7 @@ def block_cg_segmented(Op, y: DistributedArray,
     loop with its whole ``(n, K)`` carry checkpointed between them.
     Returns ``(x, iiter, cost, status)``, ``status`` a list of the
     columns' codes."""
+    from ..resilience import elastic as _elastic
     from ..resilience.elastic import maybe_start_heartbeat
     from ..resilience.status import guards_enabled, stall_window
     from ..utils import checkpoint as _ckpt
@@ -453,8 +522,10 @@ def block_cg_segmented(Op, y: DistributedArray,
         def live(st):
             return _live(st[3], tol, st[7] if guards_on else None)
 
+        ip_armed = _elastic.inplace_armed()
         epochs = 0
         while True:
+            _poll_reconfig(ip_armed)
             st = dict(zip(fields, loop.state))
             iiter = int(st["iiter"])
             kold = st["kold"]
@@ -463,18 +534,22 @@ def block_cg_segmented(Op, y: DistributedArray,
                 lanes = lanes & (st["status"] == _rstatus.RUNNING)
             if iiter >= niter or not bool(lanes.any()):
                 break
-            out = graphs.run_iterations(loop, live, min(iiter + E, niter),
-                                        start=int(st["it"]))
-            st = dict(zip(fields, out))
-            epochs += 1
-            if checkpoint_path:
+            with _on_peer_loss(ip_armed):
+                out = graphs.run_iterations(loop, live,
+                                            min(iiter + E, niter),
+                                            start=int(st["it"]))
+                st = dict(zip(fields, out))
+                epochs += 1
                 c = {**meta, "epoch": E, "schema": _FUSED_SCHEMA, **st,
                      "floors": floors}
-                _ckpt.save_fused_carry(checkpoint_path, "block_cg", c,
-                                       backend=backend)
-                _trace.event("solver.checkpoint", cat="resilience",
-                             solver="block_cg", iiter=int(st["iiter"]),
-                             epoch=epochs, path=checkpoint_path)
+                if ip_armed:
+                    _elastic.bank_carry("block_cg", c)
+                if checkpoint_path:
+                    _ckpt.save_fused_carry(checkpoint_path, "block_cg", c,
+                                           backend=backend)
+                    _trace.event("solver.checkpoint", cat="resilience",
+                                 solver="block_cg", iiter=int(st["iiter"]),
+                                 epoch=epochs, path=checkpoint_path)
             if on_epoch is not None:
                 it = int(st["iiter"])
                 on_epoch({"epoch": epochs, "iiter": it,

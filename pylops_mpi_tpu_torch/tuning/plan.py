@@ -241,10 +241,20 @@ def get_plan(op: str, *, shape, dtype=None, mesh=None,
         return None
     if n_dev is None:
         if mesh is not None:
-            n_dev = int(mesh.size)
+            n_dev = int(np.prod(mesh.shape)) if hasattr(mesh, "coords") \
+                else int(mesh.size)
         else:
             from ..parallel.mesh import world_size
             n_dev = world_size()
+    if not (extra or {}).get("topology"):
+        # a plan measured on one host layout never replays on another
+        # (JAX ``plan.py:248-249``); empty on a flat world, so every
+        # banked key stays as it was
+        from ..parallel import topology as _topo
+        tk = (_topo.topology_key(mesh) if hasattr(mesh, "coords")
+              else _topo.world_key())
+        if tk:
+            extra = dict(extra or {}, topology=tk)
     key = plan_key(op, shape, dtype, n_dev, axes, extra, device)
     ctx = _context(op, shape, dtype, n_dev, axes, extra, device)
 
@@ -287,8 +297,9 @@ def chunk_hint(where: str, width: int, n_shards: int, *,
                op: str = "pencil_transpose") -> Optional[int]:
     """A banked chunk count for one streamed collective of ``width``
     over ``n_shards``, or ``None``: cache only (no seed moves off the
-    default without a measurement). The port's transposes are not
-    chunked yet, so nothing calls it until ROADMAP.md §A.3b."""
+    default without a measurement). The resharding planner asks it for
+    op ``"reshard"`` (``parallel/reshard.py``); the port's transposes are
+    not chunked yet (ROADMAP.md §A.3b)."""
     if tune_mode() == "off" or getattr(_tls, "active", False):
         return None
     key = plan_key(op, (int(width),), None, int(n_shards), None)

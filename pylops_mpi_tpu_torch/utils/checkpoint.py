@@ -1,8 +1,7 @@
 """Solver-state checkpoints: save, resume, and restore on another world.
 
-PyTorch counterpart of ``pylops_mpi_tpu/utils/checkpoint.py:57-610``
-(without the budgeted restore, ``:101-113`` and ``:164``, which needs
-the resharding planner of ROADMAP.md §A.7 item 5). Two backends:
+PyTorch counterpart of ``pylops_mpi_tpu/utils/checkpoint.py:57-610``.
+Two backends:
 
 - **native** (the default): the JAX package's layout, a pickle of plain
   numpy and Python values, with every array of 1 MiB or more in a raw
@@ -32,6 +31,11 @@ split), as the JAX package's ``_check_elastic``/``_decode`` do
 (``:122-180``). Two regrids refuse with their reason: a masked array
 (its colors describe the old world) and a split axis shorter than the
 new world. The same world keeps the saved local shapes bit for bit.
+When ``PYLOPS_MPI_TPU_TORCH_RESHARD_BUDGET`` is set, a restore on
+another world streams each vector onto its ranks through
+``parallel/reshard.place_replica`` (host-staged when the budget demands
+it, JAX ``:101-113``, ``:164``, ``:362``); unset, the one-shot placement
+stays as it was, bit for bit.
 
 Saves and loads wait on every rank, so they run under the collective
 watchdog (stage ``checkpoint_io``): under a supervisor, a save blocked
@@ -153,9 +157,25 @@ def _check_elastic(partition: Partition, axis: int,
             "a longer axis")
 
 
+def _budgeted_restore() -> bool:
+    """``PYLOPS_MPI_TPU_TORCH_RESHARD_BUDGET`` is set: a restore on
+    another world then streams through the planner. A malformed value
+    raises, as every reader of the budget does (a typo must not become
+    an unbounded restore)."""
+    from ..parallel.reshard import reshard_budget
+    return reshard_budget() is not None
+
+
 def _place(value: np.ndarray, partition: Partition, axis: int,
            local_shapes, mask, dtype: Optional[str],
            device: DeviceLike) -> DistributedArray:
+    if local_shapes is None and _budgeted_restore():
+        # another world under a budget: each rank streams its own rows
+        from ..parallel import reshard as _reshard
+        return _reshard.place_replica(
+            value, None, partition, axis, mask=mask,
+            dtype=as_torch_dtype(dtype) if dtype else None,
+            device=resolve_device(device))
     out = DistributedArray.to_dist(value, partition=partition, axis=axis,
                                    local_shapes=local_shapes, mask=mask,
                                    device=device)
@@ -435,6 +455,9 @@ def _load_shards(path: str, device: DeviceLike) -> Dict[str, Any]:
                 value = np.concatenate(pieces, axis=axis)
             else:
                 value = pieces[0]
+            if _budgeted_restore():
+                return _place(value, partition, axis, None, None,
+                              m.get("dtype"), device)
             out = DistributedArray.to_dist(value, partition=partition,
                                            axis=axis, device=device)
         if dt is not None:

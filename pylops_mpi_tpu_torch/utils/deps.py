@@ -19,7 +19,8 @@ import warnings
 
 import torch
 
-__all__ = ["KNOBS", "SERVICE_KNOBS", "RESILIENCE_KNOBS", "apply_environment",
+__all__ = ["KNOBS", "SERVICE_KNOBS", "RESILIENCE_KNOBS", "spill_mode",
+           "apply_environment",
            "precond_default", "mg_levels_default", "ca_mode", "ca_s_default",
            "refine_enabled", "reduce_stall_steps", "batch_default"]
 
@@ -128,6 +129,29 @@ RESILIENCE_KNOBS = [
     ("PYLOPS_MPI_TPU_TORCH_CKPT_BACKEND", "native|shards", "native",
      "utils/checkpoint.py",
      "checkpoint backend (shards: one file a rank, no gather)"),
+    # the bounded-memory resharding tier and in-place recovery
+    ("PYLOPS_MPI_TPU_TORCH_RESHARD_BUDGET", "bytes, k/m/g suffix", "",
+     "parallel/reshard.py",
+     "peak scratch of a move (unset: unbounded, one chunk)"),
+    ("PYLOPS_MPI_TPU_TORCH_SPILL", "auto|on|off", "auto",
+     "parallel/spill.py",
+     "host staging of moves the budget refuses (on: every move)"),
+    ("PYLOPS_MPI_TPU_TORCH_FABRIC", "DxI", "", "parallel/topology.py",
+     "declare D hosts of I ranks (default: the ranks' host names)"),
+    ("PYLOPS_MPI_TPU_TORCH_INPLACE", "auto|on|off", "auto",
+     "resilience/elastic.py (resilience/supervisor.py)",
+     "launch_job's in-place recovery (on: by default, off: never, "
+     "auto: as its inplace= says)"),
+    ("PYLOPS_MPI_TPU_TORCH_QUORUM", "float in (0, 1]", "0.5",
+     "resilience/elastic.py (resilience/supervisor.py)",
+     "share of the world that must survive for the in-place path "
+     "(launch_job's quorum=None)"),
+    ("PYLOPS_MPI_TPU_TORCH_RECONFIG_FILE", "path", "",
+     "resilience/elastic.py", "set by launch_job(inplace=True)"),
+    ("PYLOPS_MPI_TPU_TORCH_FAULT_KILL_RESHARD", "int >= 1", "",
+     "resilience/faults.py", "SIGKILL at the Nth reshard step"),
+    ("PYLOPS_MPI_TPU_TORCH_FAULT_KILL_SPILL", "int >= 1", "",
+     "resilience/faults.py", "SIGKILL at the Nth host-staged chunk"),
 ]
 
 
@@ -211,3 +235,28 @@ def batch_default() -> int:
     at one width never replays at another (floored at 1; JAX
     ``utils/deps.py:655-665``)."""
     return _int_knob("PYLOPS_MPI_TPU_TORCH_BATCH", 1, 1)
+
+
+_warned_spill = False
+
+
+def spill_mode() -> str:
+    """``PYLOPS_MPI_TPU_TORCH_SPILL`` resolved to ``auto``/``on``/``off``
+    (JAX ``utils/deps.py:563``; an unknown value warns once and counts
+    as ``auto``). ``off`` keeps the planner's refusal of a move whose
+    budget cannot hold one row; ``auto`` (the default) stages through
+    host RAM only the moves the device planner would refuse, so every
+    move that succeeds keeps its device plan; ``on`` stages every
+    move."""
+    global _warned_spill
+    m = os.environ.get("PYLOPS_MPI_TPU_TORCH_SPILL", "auto").strip().lower()
+    if m in ("", "none", "default"):
+        m = "auto"
+    if m not in ("auto", "on", "off"):
+        if not _warned_spill:
+            import warnings
+            warnings.warn(f"PYLOPS_MPI_TPU_TORCH_SPILL={m!r} is not one of "
+                          "['auto', 'on', 'off']; using 'auto'", stacklevel=2)
+            _warned_spill = True
+        m = "auto"
+    return m

@@ -5,7 +5,8 @@ timeout, an exhausted budget, kept logs, the collective watchdog, the
 process group's watched and retried bring-up, ``serve_job``'s requeue of
 a dead worker's claims, and one chaos run: a SIGSTOPped gloo worker
 classified ``stale_heartbeat`` and the job finished on a world of one
-from the checkpoint.
+from the checkpoint. ``inplace=True`` is accepted and arms its workers;
+the in-place recovery itself is ``test_torch_inplace.py``'s.
 
 The launch tests run tiny ``python -c`` workers that import nothing of
 torch, so the classify/relaunch loop runs in milliseconds; the chaos run
@@ -165,10 +166,22 @@ def test_logs_and_report_kept(tmp_path):
 
 
 def test_inplace_and_aot_cache_refused():
-    with pytest.raises(NotImplementedError, match="item 5"):
-        launch_job([sys.executable, "-c", "pass"], 1, inplace=True)
+    # aot_cache stays refused; inplace=True is accepted (next test)
     with pytest.raises(ValueError, match="aot_cache"):
         launch_job([sys.executable, "-c", "pass"], 1, aot_cache="/bank")
+
+
+def test_inplace_accepted_writes_reconfig_path_and_arms(tmp_path,
+                                                        monkeypatch):
+    code = ("import os; print('RCF', os.environ['"
+            "PYLOPS_MPI_TPU_TORCH_RECONFIG_FILE'])")
+    r = _job([sys.executable, "-c", code], 1, inplace=True,
+             logdir=str(tmp_path))
+    assert r.ok and r.attempts == 1
+    rcf = r.outputs[0].split("RCF ", 1)[1].strip()
+    assert rcf == str(tmp_path / "worker0.attempt0.reconfig.json")
+    monkeypatch.setenv("PYLOPS_MPI_TPU_TORCH_RECONFIG_FILE", rcf)
+    assert elastic.inplace_armed()
 
 
 # ------------------------------------------------------ the watchdog

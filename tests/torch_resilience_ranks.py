@@ -104,8 +104,89 @@ def chaos_worker(ckpt, out, mark, device="cpu", sleep_s=0.3):
     os._exit(0)
 
 
+def die_in_collective(nth):
+    """SIGKILL this process as it enters its ``nth`` all-reduce from now:
+    its peers are then inside that collective, mid-epoch."""
+    import signal
+    import torch.distributed as dist
+    real, box = dist.all_reduce, {"n": 0}
+
+    def all_reduce(*a, **k):
+        box["n"] += 1
+        if box["n"] >= nth:
+            os.kill(os.getpid(), signal.SIGKILL)
+        return real(*a, **k)
+
+    dist.all_reduce = all_reduce
+
+
+def inplace_worker(ckpt, out, mark, trace_out, device="cpu", sleep_s="1.0"):
+    """A worker of ``launch_job(inplace=True)``: :func:`chaos_worker`'s
+    solve (shards checkpoints, ``PYLOPS_MPI_TPU_TORCH_TRACE=spans``), and
+    on :class:`~pylops_mpi_tpu_torch.resilience.elastic.ElasticReconfig`
+    the survivor's in-place recovery: adopt the world of one, re-form,
+    rebuild the problem, replant the banked carry and resume from it,
+    checkpointing beside ``ckpt``. A refusal prints ``ELASTIC INPLACE
+    FALLBACK`` and exits 5, for the supervisor's relaunch. With
+    ``sleep_s="mid"`` there is no nap, and rank 1 of the first attempt
+    dies inside its third all-reduce after epoch 2
+    (:func:`die_in_collective`). Each process dumps its trace to
+    ``trace_out`` and leaves with ``os._exit``."""
+    from pylops_mpi_tpu_torch.diagnostics import trace
+    from pylops_mpi_tpu_torch.resilience import elastic
+    cfg = elastic.elastic_initialize(backend="gloo", device=device)
+    Op, y = chaos_problem(device)
+    mid = sleep_s == "mid"
+    box = {"s": float(sleep_s) if (cfg.num_processes or 1) > 1 and not mid
+           else 0.0}
+
+    def on_epoch(info):
+        with open(mark, "w") as f:
+            f.write(str(info["epoch"]))
+        if (mid and info["epoch"] == 2 and cfg.attempt == 0
+                and pmtt.parallel.rank() == 1):
+            die_in_collective(3)
+        time.sleep(box["s"])
+
+    solve = dict(niter=60, tol=0.0, epoch=5, checkpoint_path=ckpt,
+                 backend="shards", on_epoch=on_epoch)
+    how = "relaunch" if cfg.attempt else "fresh"
+    try:
+        res = cgls_segmented(Op, y, **solve)
+    except elastic.ElasticReconfig as rc:
+        cfg = elastic.apply_reconfig(rc.config)
+        box["s"] = 0.0
+        try:
+            mesh = elastic.reform_mesh(cfg, device=device)
+            Op, y = chaos_problem(device)
+            state = elastic.restore_carry("cgls", mesh)
+            solve.update(checkpoint_path=ckpt + ".inplace")
+            res = cgls_segmented(Op, y, resume=False, resume_state=state,
+                                 **solve)
+            how = "inplace"
+        except Exception as exc:  # a refusal: the relaunch ladder
+            print(f"ELASTIC INPLACE FALLBACK: {type(exc).__name__}: {exc}",
+                  flush=True)
+            trace.event("resilience.inplace_fallback", cat="resilience",
+                        error=type(exc).__name__, detail=str(exc))
+            trace.dump(trace_out)
+            sys.stdout.flush()
+            os._exit(5)
+    x = res.x.asarray()
+    if pmtt.parallel.rank() == 0:
+        np.save(out, x)
+    print(f"INPLACE OK how={how} attempt={cfg.attempt} "
+          f"world={cfg.num_processes or 1} iiter={res.iiter}", flush=True)
+    trace.dump(trace_out)
+    sys.stdout.flush()
+    os._exit(0)
+
+
 if __name__ == "__main__":
-    chaos_worker(*sys.argv[1:4], *sys.argv[4:5])
+    if sys.argv[1] == "--inplace":
+        inplace_worker(*sys.argv[2:])
+    else:
+        chaos_worker(*sys.argv[1:4], *sys.argv[4:5])
 
 
 def trace_rank(out_dir, late_rank, late_s):
