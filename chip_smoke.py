@@ -328,7 +328,28 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    under the budget), bitwise the unbudgeted restore. Run it alone with
    ``reshard_phase(torch, pmtt, (nk, sk), here, dev)``.
 
-Phases 8, 9, 11-13, 16-18 and 21 (and phase 20's pool case) reach none
+27. Slice 16, gradients across ranks through ``all_to_all``, ``exchange``
+   and ``cart_halo_extend``. 27.1 an NCCL group of one: phase 17's SUMMA
+   ``MPIMatrixMult`` (32768, 16384, 64) f32, the gradient of
+   ``0.5‖Ax − y‖²`` by autograd straight through ``matvec`` against
+   ``Op.rmatvec(r)`` and A's cotangent through ``make_differentiable(...,
+   params=True)`` against the outer product ``r xᵀ``; then x's gradient
+   through the 512^3 c64 ``MPIFFTND`` against ``F.rmatvec(r)``; each
+   within ``GRAD_TOL_27``, with the forward's and backward's ms (CUDA
+   events) and the ``all_to_all``/``all_to_all_adjoint`` counts. 27.2 two
+   gloo ranks sharing the card: phase 18's SUMMA (x and A) and ``FFT_18``,
+   an ``MPIHalo`` and an ``MPINonStationaryConvolve1D`` on a (2, 1) grid,
+   each rank's gradient shard against the same problem's gradient in one
+   process on the card within ``GRAD_TOL_27`` (the halo's by autograd
+   through :func:`halo_windows`' index map); 26.1's (65536, 1024) field
+   redistributed from axis 0 to axis 1 under ``BUDGET_26``, its gradient
+   bitwise the weights' cut, and ``ghosted(1, 1)`` against autograd
+   through the plain windows; each rank's adjoint calls as many as the
+   forward's, and the bytes it received in a backward the bytes its peer
+   received in the forward, which it sent. Run it alone with
+   ``gradients_phase(torch, pmtt, (nk, sk), here, dev)``.
+
+Phases 8, 9, 11-13, 16-18, 21 and 27 (and phase 20's pool case) reach none
 of the hand-written kernels (a block solve of ``MPIBlockDiag`` runs a
 batched GEMM, bucket 1 runs classic ``cgls``): the
 JAX package runs their FFTs, products, thresholds, convolutions, sprays
@@ -1844,6 +1865,16 @@ def lsm_model():
     refl[ROWS_L[0]] = -1.0
     refl[ROWS_L[1]] = 0.5
     return refl
+
+
+def halo_index(dims, halo, grid):
+    """Where each entry of :func:`halo_windows`' output comes from in its
+    input, ``-1`` where it is a zero: ``out = f[idx]`` as a gather, which
+    autograd differentiates."""
+    n = int(np.prod(dims))
+    src = halo_windows(np.arange(1, n + 1, dtype=np.float64), dims, halo,
+                       grid)
+    return src.astype(np.int64) - 1
 
 
 def halo_windows(f, dims, halo, grid):
@@ -6329,6 +6360,355 @@ def reshard_phase(torch, pmtt, kernels, here, dev):
     return res
 
 
+# ------------------------------------------------------------ phase 27
+# gradients against their references, relative to the largest entry: f32
+# sums in other orders (tiles, pencils, windows) over up to 16384 terms
+GRAD_TOL_27 = 1e-5
+# 27.2: an MPIHalo on a (2, 1) grid with per-axis halos, and the
+# non-stationary convolution of phase 12's filters on 1024 of its traces
+HALO_27, HALO_W_27, GRID_27 = (1024, 1024), (2, 3), (2, 1)
+NS_27 = (NT_NS, 1024)
+# the forward collective of each 27.2 case, whose calls and bytes its
+# adjoint's pair up with
+PAIRS_27 = dict(summa_x="all_to_all", fft_x="all_to_all",
+                halo_x="cart_halo_extend", nonstat_x="cart_halo_extend",
+                redistribute="all_to_all", ghosted="halo_exchange")
+
+
+def _half_sq(r):
+    """``0.5‖r‖²`` of a distributed residual, a real 0-d tensor that
+    every rank holds."""
+    return 0.5 * (r.dot(r, vdot=True).real if r.dtype.is_complex
+                  else r.dot(r))
+
+
+def _grad_of(torch, loss, x, reps=0):
+    """The gradient of ``loss(x)`` with respect to x's local tensor by
+    autograd, with the collective calls and bytes of the forward and of
+    the backward; with ``reps``, the forward's and backward's ms (CUDA
+    events), the fastest of ``reps`` runs after one warm-up."""
+    from pylops_mpi_tpu_torch.parallel import collectives as co
+    x.array.requires_grad_(True)
+    fwd_ms, bwd_ms = [], []
+    for i in range(reps + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        torch.cuda.synchronize()
+        co.reset_counts()
+        ev[0].record()
+        val = loss(x)
+        ev[1].record()
+        fwd = (dict(co.counts), dict(co.received))
+        co.reset_counts()
+        (g,) = torch.autograd.grad(val, x.array)
+        ev[2].record()
+        torch.cuda.synchronize()
+        bwd = (dict(co.counts), dict(co.received))
+        if i:
+            fwd_ms.append(ev[0].elapsed_time(ev[1]))
+            bwd_ms.append(ev[1].elapsed_time(ev[2]))
+        del val
+    x.array.requires_grad_(False)
+    out = dict(grad=g, fwd=fwd, bwd=bwd)
+    if reps:
+        out.update(forward_ms=min(fwd_ms), backward_ms=min(bwd_ms),
+                   forward_ms_runs=fwd_ms, backward_ms_runs=bwd_ms)
+    return out
+
+
+def _param_grad(torch, pmtt, Op, loss, x):
+    """The cotangent of ``loss(A(θ) x)`` with respect to ``Op``'s one
+    parameter tensor (this rank's rows or tile of A), through
+    ``make_differentiable(Op, params=True)``, and the calls of it."""
+    from pylops_mpi_tpu_torch.autodiff import make_differentiable
+    from pylops_mpi_tpu_torch.linearoperator import operator_params
+    from pylops_mpi_tpu_torch.parallel import collectives as co
+    (P,) = operator_params(Op)
+    P.requires_grad_(True)
+    co.reset_counts()
+    (g,) = torch.autograd.grad(
+        loss(make_differentiable(Op, params=True).matvec(x)), P)
+    P.requires_grad_(False)
+    return dict(grad=g, calls=dict(co.counts))
+
+
+def grad27_group_of_one(torch, pmtt, dev, tmp):
+    """27.1 (module docstring)."""
+    import torch.distributed as dist
+    D = pmtt.DistributedArray
+    out = {}
+    pmtt.parallel.init(backend="nccl", store=dist.FileStore(
+        f"{tmp}/store27", 1), rank=0, world_size=1, device=dev)
+    try:
+        g = torch.Generator(device=dev).manual_seed(27)
+        A = torch.randn((N_MM, K_MM), generator=g, device=dev)
+        A /= math.sqrt(N_MM)
+        Op = pmtt.MPIMatrixMult(A, M_MM, kind="summa")
+        del A
+        x = D.to_dist(torch.randn(K_MM * M_MM, generator=g, device=dev))
+        y = D.to_dist(torch.randn(N_MM * M_MM, generator=g, device=dev))
+
+        def loss(ax):
+            return _half_sq(ax - y)
+        mm = _grad_of(torch, lambda xx: loss(Op.matvec(xx)), x, reps=3)
+        with torch.no_grad():
+            r = Op.matvec(x) - y
+            mm["x_err"] = max_rel_err(mm.pop("grad"), Op.rmatvec(r).array)
+        ga = _param_grad(torch, pmtt, Op, loss, x)
+        outer = r.array.view(N_MM, M_MM) @ x.array.view(K_MM, M_MM).mT
+        mm.update(A_err=max_rel_err(ga["grad"], outer),
+                  A_calls=ga["calls"], shape=(N_MM, K_MM, M_MM))
+        out["summa"] = mm
+        del Op, ga, outer, r, x, y
+        torch.cuda.empty_cache()
+        F = pmtt.MPIFFTND(FFT3, axes=(0, 1, 2), dtype=torch.complex64)
+        n3 = int(np.prod(FFT3))
+        x = D.to_dist(torch.randn(n3, generator=g, device=dev,
+                                  dtype=torch.complex64))
+        v = D.to_dist(torch.randn(n3, generator=g, device=dev,
+                                  dtype=torch.complex64))
+        ff = _grad_of(torch, lambda xx: _half_sq(F.matvec(xx) - v), x,
+                      reps=3)
+        with torch.no_grad():
+            ff["x_err"] = max_rel_err(ff.pop("grad"),
+                                      F.rmatvec(F.matvec(x) - v).array)
+        ff["dims"] = FFT3
+        out["fftnd"] = ff
+        del F, x, v
+        torch.cuda.empty_cache()
+    finally:
+        pmtt.parallel.destroy()
+    for name, r in out.items():
+        c = r["fwd"][0], r["bwd"][0]
+        print(f"27.1 {name} on an NCCL group of one: x's gradient by "
+              f"autograd vs the adjoint apply {r['x_err']:.3e}"
+              + (f", A's cotangent vs r x^T {r['A_err']:.3e}"
+                 if "A_err" in r else "")
+              + f" (tol {GRAD_TOL_27:.0e}); forward {r['forward_ms']:.3f} "
+              f"ms, backward {r['backward_ms']:.3f} ms (CUDA events, best "
+              f"of 3); all_to_all {c[0].get('all_to_all', 0)}, "
+              f"all_to_all_adjoint {c[1].get('all_to_all_adjoint', 0)}",
+              flush=True)
+        bad = [v for v in (r["x_err"], r.get("A_err", 0.0))
+               if not v <= GRAD_TOL_27]
+        # a world of one moves nothing: its flat<->tile moves and pencil
+        # transposes are skipped, in the forward and so in the backward
+        if bad or c[1].get("all_to_all_adjoint", 0) != \
+                c[0].get("all_to_all", 0):
+            raise RuntimeError(f"27.1 {name}: {r}")
+    return out
+
+
+def grad27_cases(torch, pmtt, dev):
+    """27.2's operator cases at this world (every shard at a world of
+    one): each gradient's local tensor on the host with the calls and
+    bytes of its forward and backward; the SUMMA's grid, and A's
+    cotangent through ``make_differentiable``."""
+    D = pmtt.DistributedArray
+    rng = np.random.default_rng(27)
+    out = {}
+
+    def host(rec):
+        rec["grad"] = rec["grad"].detach().cpu().numpy()
+        return rec
+    A, xs = summa_problem()
+    Op = pmtt.MPIMatrixMult(A, M_18, kind="summa", device=dev)
+    x = D.to_dist(xs, device=dev)
+    y = D.to_dist(rng.standard_normal(N_18 * M_18).astype(np.float32),
+                  device=dev)
+
+    def loss(ax):
+        return _half_sq(ax - y)
+    out["summa_x"] = host(_grad_of(torch, lambda xx: loss(Op.matvec(xx)),
+                                   x))
+    out["summa_A"] = host(_param_grad(torch, pmtt, Op, loss, x))
+    out["grid"] = Op.grid
+    c, w = fft18_inputs()
+    F = pmtt.MPIFFTND(FFT_18, axes=(0, 1, 2), dtype=torch.complex64)
+    x = D.to_dist(c, local_shapes=F.model_local_shapes, device=dev)
+    v = D.to_dist(w, local_shapes=F.data_local_shapes, device=dev)
+    out["fft_x"] = host(_grad_of(torch, lambda xx: _half_sq(
+        F.matvec(xx) - v), x))
+    hs, ih = nonstat_filters(pmtt)
+    Ns = pmtt.MPINonStationaryConvolve1D(NS_27, hs, ih, 0, None,
+                                         torch.float32, device=dev)
+    n = int(np.prod(NS_27))
+    x = D.to_dist(rng.standard_normal(n).astype(np.float32), device=dev)
+    v = D.to_dist(rng.standard_normal(n).astype(np.float32), device=dev)
+    out["nonstat_x"] = host(_grad_of(torch, lambda xx: _half_sq(
+        Ns.matvec(xx) - v), x))
+    return out
+
+
+def _halo27_data():
+    """27.2's halo field (the ranks' blocks one after the other) and the
+    data its windows are held to."""
+    rng = np.random.default_rng(272)
+    f = rng.standard_normal(int(np.prod(HALO_27))).astype(np.float32)
+    m = halo_index(HALO_27, HALO_W_27, GRID_27).size
+    return f, rng.standard_normal(m).astype(np.float32)
+
+
+def _plain_windows_grad(torch, full, rows, wg):
+    """The gradient of ``Σ wg·ghosted(1, 1)`` with respect to ``full``,
+    by autograd through the plain windows: each shard of the axis-0
+    split ``rows`` widened by a row on each inner side."""
+    from pylops_mpi_tpu_torch.parallel.partition import shard_offsets
+    f = full.detach().clone().requires_grad_(True)
+    last = len(rows) - 1
+    wins = []
+    for i, (o, k) in enumerate(zip(shard_offsets(rows), rows)):
+        wins.append(f[o - (1 if i else 0):o + k + (1 if i < last else 0)])
+    (g,) = torch.autograd.grad(torch.sum(wg * torch.cat(wins)), f)
+    return g
+
+
+def _grad27_rank(torch, pmtt, dev):
+    """A rank of 27.2 (module docstring): the operator cases' shards for
+    the parent, the halo's shard, and the two moves' gradients held here
+    against their plain versions."""
+    from pylops_mpi_tpu_torch.parallel import collectives as co
+    from pylops_mpi_tpu_torch.parallel import reshard as rs
+    D = pmtt.DistributedArray
+    n, r = pmtt.parallel.world_size(), pmtt.parallel.rank()
+    out = grad27_cases(torch, pmtt, dev)
+    f, w = _halo27_data()
+    H = pmtt.MPIHalo(HALO_27, HALO_W_27, GRID_27, None, torch.float32)
+    x = D.to_dist(f, local_shapes=H.local_dim_sizes, device=dev)
+    wd = D.to_dist(w, local_shapes=H.local_extent_sizes, device=dev)
+    rec = _grad_of(torch, lambda xx: _half_sq(H.matvec(xx) - wd), x)
+    rec["grad"] = rec["grad"].cpu().numpy()
+    out["halo_x"] = rec
+    # the moves on 26.1's field: Σ W·y through each, W seeded on the card
+    full = _field_26(torch, dev)
+    g = torch.Generator(device=dev).manual_seed(273)
+    x = D.to_dist(full)
+    rows = [s[0] for s in x.local_shapes]
+    lo = sum(rows[:r])
+    mine = slice(lo, lo + rows[r])
+    W = torch.randn(SHAPE_26, generator=g, device=dev)
+    cols = [s[1] for s in pmtt.parallel.local_split(
+        SHAPE_26, n, pmtt.Partition.SCATTER, 1)]
+    c0 = sum(cols[:r])
+
+    def moved(xx):
+        y = rs.reshard(xx, axis=1, budget=BUDGET_26)
+        part = torch.sum(W[:, c0:c0 + cols[r]] * y.array).reshape(1)
+        return co.all_reduce(part).sum()
+    rec = _grad_of(torch, moved, x)
+    rec["bitwise"] = bool(torch.equal(rec.pop("grad"), W[mine]))
+    out["redistribute"] = rec
+    Wg = torch.randn((SHAPE_26[0] + 2 * (n - 1), SHAPE_26[1]), generator=g,
+                     device=dev)
+    ghost_rows = [k + (1 if i else 0) + (1 if i < n - 1 else 0)
+                  for i, k in enumerate(rows)]
+    glo = sum(ghost_rows[:r])
+
+    def ghosted(xx):
+        z = xx.ghosted(1, 1)
+        part = torch.sum(Wg[glo:glo + ghost_rows[r]] * z.array).reshape(1)
+        return co.all_reduce(part).sum()
+    rec = _grad_of(torch, ghosted, x)
+    want = _plain_windows_grad(torch, full, rows, Wg)[mine]
+    rec.update(err=max_rel_err(rec["grad"], want),
+               bitwise=bool(torch.equal(rec.pop("grad"), want)))
+    out["ghosted"] = rec
+    return out
+
+
+def grad27_ranks(torch, pmtt, here, dev):
+    """27.2 (module docstring): the one-process gradients on the card,
+    then the two ranks', held to them."""
+    from pylops_mpi_tpu_torch.ops.matrixmult import local_block_split
+    one = grad27_cases(torch, pmtt, dev)
+    f, w = _halo27_data()
+    idx = torch.as_tensor(halo_index(HALO_27, HALO_W_27, GRID_27),
+                          device=dev)
+    xf = torch.as_tensor(f, device=dev).requires_grad_(True)
+    win = torch.where(idx >= 0, xf[idx.clamp(min=0)], 0.0)
+    (gh,) = torch.autograd.grad(
+        0.5 * torch.sum((win - torch.as_tensor(w, device=dev)) ** 2), xf)
+    one["halo_x"] = dict(grad=gh.cpu().numpy())
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    ranks = spawn_shared_card(2, here, _grad27_rank)
+    res = dict(wall_s=time.perf_counter() - t, errs={})
+    for name in ("summa_x", "fft_x", "nonstat_x", "halo_x"):
+        got = np.concatenate([rk[name]["grad"] for rk in ranks])
+        res["errs"][name] = float(np.abs(got - one[name]["grad"]).max()
+                                  / np.abs(one[name]["grad"]).max())
+    gA = one["summa_A"]["grad"]
+    res["errs"]["summa_A"] = max(
+        float(np.abs(rk["summa_A"]["grad"] - gA[local_block_split(
+            gA.shape, r, rk["grid"])]).max() / np.abs(gA).max())
+        for r, rk in enumerate(ranks))
+    res["errs"]["ghosted"] = max(rk["ghosted"]["err"] for rk in ranks)
+    res["bitwise"] = {k: [rk[k]["bitwise"] for rk in ranks]
+                      for k in ("redistribute", "ghosted")}
+    res["calls"] = {}
+    for name, fwd_name in PAIRS_27.items():
+        adj = fwd_name + "_adjoint"
+        rows = []
+        for r, rk in enumerate(ranks):
+            (fc, fb), (bc, bb) = rk[name]["fwd"], rk[name]["bwd"]
+            peer = ranks[1 - r][name]["fwd"][1]
+            rows.append(dict(forward=fc.get(fwd_name, 0),
+                             adjoint=bc.get(adj, 0),
+                             received_backward=bb.get(adj, 0),
+                             peer_received_forward=peer.get(fwd_name, 0)))
+        res["calls"][name] = rows
+    res["A_calls"] = [rk["summa_A"]["calls"] for rk in ranks]
+    print(f"27.2 two gloo ranks sharing the card, each rank's gradient "
+          f"against the one-process gradient on the card: max rel gaps "
+          f"{ {k: float(f'{v:.3e}') for k, v in res['errs'].items()} } "
+          f"(tol {GRAD_TOL_27:.0e}); redistribute bitwise "
+          f"{res['bitwise']['redistribute']}, ghosted bitwise "
+          f"{res['bitwise']['ghosted']}; calls (forward, adjoint) and "
+          f"bytes (received in the backward, the peer's in the forward): "
+          + "; ".join(f"{k} " + ", ".join(
+              f"({c['forward']}, {c['adjoint']}) {c['received_backward']}/"
+              f"{c['peer_received_forward']} B" for c in v)
+              for k, v in res["calls"].items())
+          + f"; {res['wall_s']:.1f} s", flush=True)
+    bad = {k: v for k, v in res["errs"].items() if not v <= GRAD_TOL_27}
+    if bad or not all(res["bitwise"]["redistribute"]):
+        raise RuntimeError(f"27.2: gaps {bad}, {res['bitwise']}")
+    for name, rows in res["calls"].items():
+        for c in rows:
+            # a move's backward runs the inverse plan, in its own chunks
+            ok = (c["adjoint"] >= 1 if name == "redistribute"
+                  else c["adjoint"] == c["forward"] >= 1)
+            if not ok or c["received_backward"] != \
+                    c["peer_received_forward"]:
+                raise RuntimeError(f"27.2 {name}: calls {rows}")
+    return res
+
+
+def gradients_phase(torch, pmtt, kernels, here, dev):
+    """Phase 27 (module docstring): slice 16 on the card. Its operators
+    reach no hand-written kernel; the kernels' counts are read all the
+    same."""
+    import shutil
+    import tempfile
+    for k in kernels:
+        k.reset_launches()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_grad_")
+    res = {}
+    try:
+        for name, fn in (
+                ("group_of_one", lambda: grad27_group_of_one(
+                    torch, pmtt, dev, tmp)),
+                ("two_ranks", lambda: grad27_ranks(torch, pmtt, here,
+                                                   dev))):
+            t = time.perf_counter()
+            res[name] = fn()
+            res[name + "_s"] = time.perf_counter() - t
+            print(f"27 {name} in {res[name + '_s']:.1f} s", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    res["kernel_launches"] = [k.launches for k in kernels]
+    return res
+
+
 def main() -> int:
     here = Path(__file__).resolve().parent
     if not (here / "pylops_mpi_tpu_torch" / "__init__.py").is_file():
@@ -6771,6 +7151,12 @@ def main() -> int:
     slice15 = reshard_phase(torch, pmtt, kernel_mods, here, dev)
     print(f"phase 26 in {time.perf_counter() - t26:.1f} s", flush=True)
 
+    # 27. slice 16: gradients across ranks through the collectives' rules
+    torch.cuda.empty_cache()
+    t27 = time.perf_counter()
+    slice16 = gradients_phase(torch, pmtt, kernel_mods, here, dev)
+    print(f"phase 27 in {time.perf_counter() - t27:.1f} s", flush=True)
+
     kernels = []
     for name, run in (("float32", "normal_f32"), ("bfloat16", "normal_bf16")):
         s = stats[name]
@@ -6877,7 +7263,8 @@ def main() -> int:
                       "slice9": slice9, "slice9_ranks": slice9_ranks,
                       "slice10": slice10, "slice11": slice11,
                       "slice12": slice12, "slice13": slice13,
-                      "slice14": slice14, "slice15": slice15}),
+                      "slice14": slice14, "slice15": slice15,
+                      "slice16": slice16}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -34,13 +34,15 @@ _apply_environment()
 
 from .parallel.partition import Partition, local_split
 from .parallel.mesh import (default_device, set_default_device,
-                            make_mesh_hybrid, sub_mesh)
+                            make_mesh_hybrid, sub_mesh, make_mesh,
+                            make_mesh_2d, initialize_multihost, default_mesh,
+                            set_default_mesh, best_grid_2d)
 from .distributedarray import DistributedArray
 from .stacked import StackedDistributedArray
 from .linearoperator import (MPILinearOperator, LinearOperator,
                              aslinearoperator, asmpilinearoperator)
 from .stackedlinearoperator import MPIStackedLinearOperator
-from .ops.blockdiag import MPIBlockDiag
+from .ops.blockdiag import MPIBlockDiag, MPIStackedBlockDiag
 from .ops.stack import MPIVStack, MPIStackedVStack, MPIHStack
 from .ops.derivatives import (MPIFirstDerivative, MPISecondDerivative,
                               MPILaplacian, MPIGradient)
@@ -54,15 +56,20 @@ from .ops.precond import (JacobiPrecond, BlockJacobiPrecond, VCyclePrecond,
                           make_precond)
 from .ops.sparse import MPISparseMatrixMult, auto_sparse_matmult
 from .solvers.basic import CG, CGLS, cg, cgls, cg_guarded, cgls_guarded
+from .solvers import clear_fused_cache
 from .solvers.block import (block_cg, block_cgls, block_cg_segmented,
                             batched_solve, batched_cache_info)
 from .solvers.sparsity import ISTA, FISTA, ista, fista
 from .solvers.segmented import cg_segmented, cgls_segmented
 from .solvers.eigs import power_iteration
+from .parallel.reshard import (Layout, ReshardError, plan_reshard,
+                               reshard_budget)
+from .parallel.spill import HostArray
 from .utils.dottest import dottest
-from . import (aot, autodiff, convert, diagnostics, models, ops,
-               optimization, parallel, resilience, serving, solvers, tuning,
-               utils)
+from .plotting import plot_distributed_array, plot_local_arrays
+from . import (aot, autodiff, basicoperators, convert, diagnostics, models,
+               ops, optimization, parallel, plotting, resilience, serving,
+               signalprocessing, solvers, tuning, utils, waveeqprocessing)
 from .resilience import resilient_solve
 
 __version__ = "0.1.0"

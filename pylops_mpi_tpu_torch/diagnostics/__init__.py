@@ -19,6 +19,18 @@ from .profiler import (STAGE_BUDGETS, stage_budget, DeadlineRunner,
                        StageRecord, profile_capture)
 from .trace import (trace_mode, trace_enabled, span, op_span, event, counter,
                     get_events, clear_events, dump, span_tree)
+from .aggregate import (load_events, merge_traces, aggregate_files,
+                        critical_path)
+from .costmodel import (OpCost, estimate, register_cost, roofline,
+                        summa_comm_volume, pencil_transpose_cost,
+                        peak_flops, peak_hbm_gbps, peak_nvlink_gbps,
+                        device_peaks)
+from .telemetry import (telemetry_enabled, iteration, history,
+                        clear_history, telemetry_signature)
+
+# the JAX package's name for the fabric inside a host (ICI there, NVLink
+# here)
+peak_ici_gbps = peak_nvlink_gbps
 
 __all__ = [
     "trace", "metrics", "profiler", "costmodel", "telemetry", "aggregate",
@@ -29,4 +41,10 @@ __all__ = [
     "get_events", "clear_events", "dump", "span_tree",
     "STAGE_BUDGETS", "stage_budget", "DeadlineRunner", "StageRecord",
     "profile_capture",
+    "load_events", "merge_traces", "aggregate_files", "critical_path",
+    "OpCost", "estimate", "register_cost", "roofline",
+    "summa_comm_volume", "pencil_transpose_cost", "peak_flops",
+    "peak_hbm_gbps", "peak_nvlink_gbps", "peak_ici_gbps", "device_peaks",
+    "telemetry_enabled", "iteration", "history", "clear_history",
+    "telemetry_signature",
 ]

@@ -554,12 +554,10 @@ class DistributedArray:
         return _spill.to_host(self, budget=budget, chunks=chunks,
                               overlap=overlap)
 
-    def add_ghost_cells(self, cells_front: Optional[int] = None,
-                        cells_back: Optional[int] = None) -> torch.Tensor:
-        """This rank's shard extended with the previous rank's last
-        ``cells_front`` and the next rank's first ``cells_back`` entries
-        along the sharded axis (ref ``DistributedArray.py:877-954``); the
-        first and last ranks get none on their outer side."""
+    def _ghost_widths(self, cells_front, cells_back) -> Tuple[int, int]:
+        """Validated ``(front, back)`` widths, with the reference's error
+        text (ref ``DistributedArray.py:891-906``): a ghost may not be
+        wider than the shard it is read from."""
         front = int(cells_front) if cells_front else 0
         back = int(cells_back) if cells_back else 0
         sizes = self._axis_sizes()
@@ -573,12 +571,54 @@ class DistributedArray:
                 raise ValueError(
                     f"Local shape {sizes[i + 1]} along axis={self._axis} "
                     f"must be >= ghost width {back}")
+        return front, back
+
+    def add_ghost_cells(self, cells_front: Optional[int] = None,
+                        cells_back: Optional[int] = None) -> torch.Tensor:
+        """This rank's shard extended with the previous rank's last
+        ``cells_front`` and the next rank's first ``cells_back`` entries
+        along the sharded axis (ref ``DistributedArray.py:877-954``); the
+        first and last ranks get none on their outer side."""
+        front, back = self._ghost_widths(cells_front, cells_back)
         if self._partition != Partition.SCATTER:
             return self._arr
         b = torch.movedim(self._arr, self._axis, 0).contiguous()
         top, bottom = collectives.halo_exchange(b, front, back)
         parts = [p for p in (top, b, bottom) if isinstance(p, torch.Tensor)]
         return torch.movedim(torch.cat(parts), 0, self._axis)
+
+    def ghosted(self, cells_front: Optional[int] = None,
+                cells_back: Optional[int] = None) -> "DistributedArray":
+        """Every shard extended with its neighbours' boundary rows (JAX
+        ``distributedarray.py:737``): the SCATTER array whose shard ``i``
+        is :meth:`add_ghost_cells` of shard ``i``, of global length
+        ``n + (P-1)·(front+back)`` along the axis. Shard 0 gets no front
+        ghost and shard P-1 no back ghost. Built on
+        :func:`~.parallel.collectives.halo_exchange` over the world, so
+        its gradient sends each ghost's cotangent home: a row's gradient
+        counts the shards that hold it."""
+        front, back = self._ghost_widths(cells_front, cells_back)
+        if self._partition != Partition.SCATTER:
+            raise ValueError("ghost cells apply to SCATTER arrays")
+        P, ax = self.n_shards, self._axis
+        if P == 1 or (front == 0 and back == 0):
+            return self.copy()
+        if self._mesh is not None:
+            raise ValueError("ghosted exchanges with the world's neighbours: "
+                             "reshard the array onto the world's mesh first")
+        sizes = self._axis_sizes()
+        out_sizes = [(front if i > 0 else 0) + sizes[i]
+                     + (back if i < P - 1 else 0) for i in range(P)]
+        shapes = []
+        for s, n in zip(self._local_shapes, out_sizes):
+            s = list(s)
+            s[ax] = n
+            shapes.append(tuple(s))
+        gshape = list(self._global_shape)
+        gshape[ax] = sum(out_sizes)
+        return DistributedArray._wrap(self.add_ghost_cells(front, back), self,
+                                      global_shape=tuple(gshape),
+                                      local_shapes=tuple(shapes))
 
     def __repr__(self):
         return (f"<DistributedArray global_shape={self._global_shape}, "

@@ -13,7 +13,7 @@ package itself is still loading."""
 from importlib import import_module
 
 _EXPORTS = {
-    "MPIBlockDiag": "blockdiag",
+    "MPIBlockDiag": "blockdiag", "MPIStackedBlockDiag": "blockdiag",
     "MPIVStack": "stack", "MPIStackedVStack": "stack", "MPIHStack": "stack",
     "MPIFirstDerivative": "derivatives", "MPISecondDerivative": "derivatives",
     "MPILaplacian": "derivatives", "MPIGradient": "derivatives",

@@ -4,10 +4,11 @@ from .partition import (Partition, local_split, shard_offsets,
 from .mesh import (Mesh, make_mesh, default_mesh, init, destroy,
                    default_device, set_default_device, resolve_device,
                    world_size, rank, best_grid_2d, Grid2D, make_grid_2d,
-                   make_mesh_hybrid, sub_mesh, detach)
+                   make_mesh_hybrid, sub_mesh, detach, make_mesh_2d,
+                   initialize_multihost, set_default_mesh)
 from . import collectives, topology, reshard, spill
-from .reshard import (Layout, ReshardPlan, ReshardError, plan_reshard,
-                      place_replica)
+from .reshard import (Layout, ReshardStep, ReshardPlan, ReshardError,
+                      plan_reshard, reshard_budget, place_replica)
 from .spill import HostArray
 
 __all__ = ["Partition", "local_split", "shard_offsets", "padded_shard_size",
@@ -15,6 +16,7 @@ __all__ = ["Partition", "local_split", "shard_offsets", "padded_shard_size",
            "make_mesh", "default_mesh", "init", "destroy", "default_device",
            "set_default_device", "resolve_device", "world_size", "rank",
            "best_grid_2d", "Grid2D", "make_grid_2d", "make_mesh_hybrid",
-           "sub_mesh", "detach", "collectives", "topology", "reshard",
-           "spill", "Layout", "ReshardPlan", "ReshardError", "plan_reshard",
-           "place_replica", "HostArray"]
+           "sub_mesh", "detach", "make_mesh_2d", "initialize_multihost",
+           "set_default_mesh", "collectives", "topology", "reshard",
+           "spill", "Layout", "ReshardStep", "ReshardPlan", "ReshardError",
+           "plan_reshard", "reshard_budget", "place_replica", "HostArray"]

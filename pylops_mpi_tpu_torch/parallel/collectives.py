@@ -45,14 +45,25 @@ the typing of the JAX package's collectives under ``jax.grad``:
 - :func:`all_gather` and :func:`reduce_scatter` are each other's
   adjoints (``all_gather``'s output is per-rank: each rank goes on with
   its own use of the whole, as ``_global()`` callers keep their shard).
-- :func:`halo_exchange` sends each received ghost's cotangent back to its
-  owner, which adds it to the edge rows it sent.
+- :func:`all_to_all`'s backward is an ``all_to_all`` of the cotangent
+  pieces with the send and receive shapes swapped (counted as
+  ``all_to_all_adjoint``); this rank's own piece passes through.
+- :func:`exchange`'s backward sends each received buffer's cotangent
+  back to its sender and receives the cotangents of what this rank sent
+  (counted as ``<name>_adjoint``).
+- :func:`halo_exchange` and :func:`cart_halo_extend` send each received
+  ghost's cotangent back to its owner, which adds it to the edge slices
+  it sent (``halo_exchange_adjoint``, ``cart_halo_extend_adjoint``). On
+  a 2-D grid the Cartesian calls run one axis at a time, so a corner's
+  cotangent travels back through both.
 - :func:`replicated` marks a tensor every rank holds the same (a scaled
   operator's factor) where it enters each rank's own part of a
   computation: its cotangent is the sum of the ranks' parts.
 
-:func:`all_to_all`, :func:`cart_halo_extend` and :func:`broadcast` have
-no rule yet: given a tensor that requires grad under grad mode they raise
+Every backward is collective: every rank runs it, which a loss that
+depends on every rank's outputs (a sum reduced with :func:`all_reduce`)
+ensures. :func:`broadcast` has no rule: the JAX package has no broadcast
+collective. Given a tensor that requires grad under grad mode it raises
 ``NotImplementedError`` rather than cut the gradient.
 """
 
@@ -212,23 +223,19 @@ def _gloo(group) -> bool:
     return dist.get_backend(group) == "gloo"
 
 
-# the ROADMAP item that owes the adjoints still missing
-_ADJOINT_ITEM = "ROADMAP.md §A.7 item 6"
-
-
 def _needs_grad(*ts) -> bool:
     """Grad mode is on and one of ``ts`` is a tensor that requires grad."""
     return torch.is_grad_enabled() and any(
         isinstance(t, torch.Tensor) and t.requires_grad for t in ts)
 
 
-def _refuse_grad(name: str, *ts) -> None:
-    """Raise rather than cut a gradient at a collective without a rule."""
+def _refuse_grad(name: str, why: str, *ts) -> None:
+    """Raise rather than cut a gradient at a call that has no rule,
+    saying ``why``."""
     if _needs_grad(*ts):
         raise NotImplementedError(
-            f"{name} has no autograd rule: a gradient cannot cross it yet "
-            f"(its adjoint is owed by {_ADJOINT_ITEM}). Call it outside "
-            "grad mode, or on tensors that do not require grad")
+            f"{name} has no gradient: {why}. Call it outside grad mode, or "
+            "on tensors that do not require grad")
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -375,6 +382,15 @@ def _p2p(sends: List[Tuple[torch.Tensor, int]],
             req.wait()
 
 
+def _comm_device() -> torch.device:
+    """Where point-to-point tensors travel: the host under gloo, the
+    rank's card under NCCL."""
+    if _gloo(None):
+        return torch.device("cpu")
+    from .mesh import default_mesh
+    return default_mesh().device
+
+
 def exchange(name: str, sends: Sequence[Tuple[torch.Tensor, int]],
              recvs: Sequence[Tuple[Tuple[int, ...], int]],
              dtype: torch.dtype) -> List[torch.Tensor]:
@@ -386,22 +402,55 @@ def exchange(name: str, sends: Sequence[Tuple[torch.Tensor, int]],
     and the received ones are returned there, in order. Counted as one
     call of ``name`` receiving their bytes (every rank counts the step,
     as every rank counts an :func:`all_to_all`). Without a group there
-    are no peers: nothing moves and nothing is counted."""
+    are no peers: nothing moves and nothing is counted. Under grad mode
+    its backward is the same step reversed (module docstring)."""
     if not initialized():
         return []
-    _refuse_grad(name, *(t for t, _ in sends))
-    if _gloo(None):
-        dev = torch.device("cpu")
-    else:
-        from .mesh import default_mesh
-        dev = default_mesh().device
+    recvs = tuple((tuple(int(v) for v in shape), int(peer))
+                  for shape, peer in recvs)
+    if _needs_grad(*(t for t, _ in sends)):
+        out = _Exchange.apply(name, tuple(int(p) for _, p in sends), recvs,
+                              dtype, *(t for t, _ in sends))
+        return list(out[:len(recvs)])
+    return _p2p_step(name, sends, recvs, dtype)
+
+
+def _p2p_step(name: str, sends, recvs, dtype) -> List[torch.Tensor]:
+    """:func:`exchange`'s transfer, counted as ``name``."""
+    dev = _comm_device()
     tx = [(t.contiguous().to(dev), peer) for t, peer in sends]
-    rx = [torch.empty(tuple(shape), dtype=dtype, device=dev)
-          for shape, _ in recvs]
+    rx = [torch.empty(shape, dtype=dtype, device=dev) for shape, _ in recvs]
     nb = sum(_nbytes(b) for b in rx)
     with _span(name, nb):
         _p2p(tx, [(b, peer) for b, (_, peer) in zip(rx, recvs)], None)
     return rx
+
+
+class _Exchange(torch.autograd.Function):
+    """:func:`exchange` whose backward sends each received buffer's
+    cotangent back to its sender and receives, from each peer this rank
+    sent to, the cotangent of what it sent: the same pairs in the same
+    order, so messages between two ranks match as in the forward. A rank
+    that receives nothing returns one empty tensor, which
+    :func:`exchange` drops."""
+
+    @staticmethod
+    def forward(ctx, name, peers, recvs, dtype, *tensors):
+        ctx.meta = (name, peers, recvs,
+                    [(tuple(t.shape), t.dtype, t.device) for t in tensors])
+        out = _p2p_step(name, list(zip(tensors, peers)), recvs, dtype)
+        return tuple(out) if out else (torch.empty(0, dtype=dtype),)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        name, peers, recvs, sent = ctx.meta
+        back = _p2p_step(f"{name}_adjoint",
+                         [(g, p) for g, (_, p) in zip(gs, recvs)],
+                         [(shape, p) for (shape, _, _), p in zip(sent, peers)],
+                         gs[0].dtype)
+        return (None, None, None, None,
+                *(b.to(device=dev, dtype=dt)
+                  for b, (_, dt, dev) in zip(back, sent)))
 
 
 def reduce_scatter(t: torch.Tensor, sizes: Sequence[int], axis: int = 0,
@@ -442,6 +491,11 @@ def _reduce_scatter(t: torch.Tensor, sizes: Sequence[int], axis: int,
     return out.to(t.device) if stage else out
 
 
+def _group_rank(group) -> int:
+    return dist.get_group_rank(group, rank()) if group is not None \
+        else rank()
+
+
 def all_to_all(sends: Sequence[torch.Tensor],
                recv_shapes: Sequence[Tuple[int, ...]],
                group: Optional[object] = None) -> List[torch.Tensor]:
@@ -450,11 +504,18 @@ def all_to_all(sends: Sequence[torch.Tensor],
     gloo's own ``all_to_all`` refuses): point-to-point pairs in one
     batch, this rank's own piece copied locally. On a sub-group, ``p``
     and ``q`` are ranks of the group, mapped to their global ranks for
-    the transfers."""
+    the transfers. Under grad mode its backward is the same call on the
+    cotangents with the shapes swapped (module docstring)."""
     if not initialized():
         return [sends[0]]
-    _refuse_grad("all_to_all", *sends)
-    me = dist.get_group_rank(group, rank()) if group is not None else rank()
+    recv_shapes = tuple(tuple(int(v) for v in s) for s in recv_shapes)
+    if _needs_grad(*sends):
+        return list(_AllToAll.apply(group, recv_shapes, *sends))
+    return _all_to_all("all_to_all", sends, recv_shapes, group)
+
+
+def _all_to_all(name: str, sends, recv_shapes, group) -> List[torch.Tensor]:
+    me = _group_rank(group)
 
     def peer(q):
         return dist.get_global_rank(group, q) if group is not None else q
@@ -468,27 +529,44 @@ def all_to_all(sends: Sequence[torch.Tensor],
           for q, s in enumerate(sends) if q != me]
     rx = [(out[q], peer(q)) for q in range(len(recv_shapes)) if q != me]
     nb = sum(_nbytes(t) for t, _ in rx)
-    with _span("all_to_all", nb, group):
+    with _span(name, nb, group):
         _p2p(tx, rx, group)
     out = [o.to(like.device) for o in out] if stage else out
     out[me] = like
     return out
 
 
+class _AllToAll(torch.autograd.Function):
+    """:func:`all_to_all` whose backward is an ``all_to_all`` of the
+    cotangents back to the ranks that sent the pieces, counted as
+    ``all_to_all_adjoint``."""
+
+    @staticmethod
+    def forward(ctx, group, recv_shapes, *sends):
+        ctx.meta = (group, tuple(tuple(t.shape) for t in sends))
+        return tuple(_all_to_all("all_to_all", sends, recv_shapes, group))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        group, send_shapes = ctx.meta
+        back = _all_to_all("all_to_all_adjoint", gs, send_shapes, group)
+        return (None, None, *back)
+
+
 Piece = Union[int, torch.Tensor]
 
 
 def _exchange(name: str, block: torch.Tensor, axis: int, front: int,
-              back: int, prev: Optional[int],
-              nxt: Optional[int]) -> Tuple[Piece, Piece, int]:
+              back: int, prev: Optional[int], nxt: Optional[int],
+              event: Optional[dict] = None) -> Tuple[Piece, Piece]:
     """The neighbour exchange along ``axis`` of ``block``: receive the
     ``prev`` rank's last ``front`` slices and the ``nxt`` rank's first
     ``back`` ones, and send this rank's to them, as one
     ``batch_isend_irecv``. ``prev``/``nxt`` are ``None`` past the ends;
     there the piece is a count of (zero) slices instead of a tensor.
-    Slabs along an axis other than 0 go as contiguous copies. Returns
-    the pieces and, for the Cartesian exchange (whose event its caller
-    records), the call's sequence number."""
+    Slabs along an axis other than 0 go as contiguous copies. The call
+    is counted as ``name``, under a span, or, given ``event`` (the
+    Cartesian exchange's tags), with a ``collective.<name>`` event."""
     shape = list(block.shape)
     stage = block.is_cuda and _gloo(None)
     dev = torch.device("cpu") if stage else block.device
@@ -515,19 +593,25 @@ def _exchange(name: str, block: torch.Tensor, axis: int, front: int,
             sends.append((send(block.narrow(axis, rows - front, front)), nxt))
         if back:
             recvs.append((bottom, nxt))
-    nb = sum(_nbytes(t) for t, _ in recvs)
-    seq = None
-    if name == "cart_halo_extend":  # its event, recorded by the caller
-        seq = _count(name, nb)
-        _p2p(sends, recvs, None)
-    else:
-        with _span(name, nb):
-            _p2p(sends, recvs, None)
+    _transfer(name, sends, recvs, event)
     if stage:
         top = top.to(block.device) if isinstance(top, torch.Tensor) else top
         bottom = (bottom.to(block.device) if isinstance(bottom, torch.Tensor)
                   else bottom)
-    return top, bottom, seq
+    return top, bottom
+
+
+def _transfer(name: str, sends, recvs, event: Optional[dict]) -> None:
+    """One counted neighbour step: under the ``collective.<name>`` span,
+    or counted and recorded as an event with ``event``'s tags."""
+    nb = sum(_nbytes(t) for t, _ in recvs)
+    if event is None:
+        with _span(name, nb):
+            _p2p(sends, recvs, None)
+        return
+    seq = _count(name, nb)
+    _p2p(sends, recvs, None)
+    _trace.event(f"collective.{name}", cat="collective", seq=seq, **event)
 
 
 def halo_exchange(block: torch.Tensor, front: int,
@@ -554,67 +638,60 @@ def halo_exchange(block: torch.Tensor, front: int,
                          f"ghost widths ({front}, {back}) it sends")
     prev = r - 1 if r > 0 else None
     nxt = r + 1 if r < P - 1 else None
+    return _neighbours("halo_exchange", block, 0, front, back, prev, nxt)
+
+
+def _neighbours(name: str, block: torch.Tensor, axis: int, front: int,
+                back: int, prev: Optional[int], nxt: Optional[int],
+                event: Optional[dict] = None) -> Tuple[Piece, Piece]:
+    """:func:`_exchange`, through :class:`_NeighbourExchange` under grad
+    mode."""
     if not _needs_grad(block):
-        return _exchange("halo_exchange", block, 0, front, back, prev,
-                         nxt)[:2]
-    top, bottom = _HaloExchange.apply(block, front, back, prev, nxt)
+        return _exchange(name, block, axis, front, back, prev, nxt, event)
+    top, bottom = _NeighbourExchange.apply(block, name, axis, front, back,
+                                           prev, nxt, event)
     # absent pieces travel through the Function as empty tensors
     return (top if prev is not None and front else front,
             bottom if nxt is not None and back else back)
 
 
-class _HaloExchange(torch.autograd.Function):
-    """:func:`halo_exchange` whose backward sends each received ghost's
-    cotangent back to the rank that owns those rows, which adds it to
-    its edge rows: the previous rank's last ``front`` rows and the next
-    rank's first ``back`` rows. Absent pieces are empty tensors."""
+class _NeighbourExchange(torch.autograd.Function):
+    """The neighbour exchange of :func:`_exchange` whose backward sends
+    each received ghost's cotangent back to the rank that owns those
+    slices, which adds it to its edge slices: the previous rank's last
+    ``front`` and the next rank's first ``back`` along ``axis``. Counted
+    as ``<name>_adjoint`` (with its event for the Cartesian exchange).
+    Absent pieces are empty tensors."""
 
     @staticmethod
-    def forward(ctx, block, front, back, prev, nxt):
-        top, bottom, _ = _exchange("halo_exchange", block, 0, front, back,
-                                   prev, nxt)
-        ctx.meta = (front, back, prev, nxt, tuple(block.shape))
-        empty = block.new_empty((0,) + tuple(block.shape[1:]))
-        return (top if isinstance(top, torch.Tensor) else empty,
-                bottom if isinstance(bottom, torch.Tensor) else empty)
+    def forward(ctx, block, name, axis, front, back, prev, nxt, event):
+        top, bottom = _exchange(name, block, axis, front, back, prev, nxt,
+                                event)
+        ctx.meta = (name, axis, front, back, prev, nxt, event,
+                    tuple(block.shape))
+
+        def piece(p):
+            if isinstance(p, torch.Tensor):
+                return p
+            return block.new_empty(block.shape[:axis] + (0,)
+                                   + block.shape[axis + 1:])
+        return piece(top), piece(bottom)
 
     @staticmethod
     def backward(ctx, gtop, gbottom):
-        front, back, prev, nxt, shape = ctx.meta
-        stage = gtop.is_cuda and _gloo(None)
-        dev = torch.device("cpu") if stage else gtop.device
-
-        def send(t):
-            t = t.contiguous()
-            return t.cpu() if stage else t
-
-        def recv(n):
-            return torch.empty((n,) + shape[1:], dtype=gtop.dtype,
-                               device=dev)
-
-        sends, recvs = [], []
-        first = last = None
-        if prev is not None:
-            if front:
-                sends.append((send(gtop), prev))
-            if back:
-                first = recv(back)
-                recvs.append((first, prev))
-        if nxt is not None:
-            if back:
-                sends.append((send(gbottom), nxt))
-            if front:
-                last = recv(front)
-                recvs.append((last, nxt))
-        nb = sum(_nbytes(t) for t, _ in recvs)
-        with _span("halo_exchange_adjoint", nb):
-            _p2p(sends, recvs, None)
+        # the forward's exchange reversed: the ghosts' cotangents, joined,
+        # leave as a block's edge slices (gtop to prev, gbottom to nxt),
+        # and the cotangents of this rank's own edges arrive in their place
+        name, axis, front, back, prev, nxt, event, shape = ctx.meta
+        first, last = _exchange(f"{name}_adjoint",
+                                torch.cat([gtop, gbottom], dim=axis), axis,
+                                back, front, prev, nxt, event)
         grad = gtop.new_zeros(shape)
-        if first is not None:
-            grad[:back] += first.to(grad.device)
-        if last is not None:
-            grad[shape[0] - front:] += last.to(grad.device)
-        return grad, None, None, None, None
+        if isinstance(first, torch.Tensor):
+            grad.narrow(axis, 0, back).add_(first)
+        if isinstance(last, torch.Tensor):
+            grad.narrow(axis, shape[axis] - front, front).add_(last)
+        return grad, None, None, None, None, None, None, None
 
 
 def cart_halo_extend(block: torch.Tensor, grid: Sequence[int], ax: int,
@@ -629,12 +706,11 @@ def cart_halo_extend(block: torch.Tensor, grid: Sequence[int], ax: int,
     of one rank, or without a group, the ghosts are zeros and nothing
     moves; a call that moves nothing is not counted. A call that moves
     records the ``collective.cart_halo_extend`` event (JAX ``:338``; its
-    ``axis`` tag, a mesh axis name, is ``None`` here)."""
+    ``axis`` tag, a mesh axis name, is ``None`` here). Under grad mode
+    the ghosts' cotangents go back to their owners (module docstring)."""
     if not hm and not hp:
         return block
     grid = tuple(int(g) for g in grid)
-    if initialized() and grid[ax] > 1:
-        _refuse_grad("cart_halo_extend", block)
     pieces: Tuple[Piece, Piece] = (hm, hp)
     if initialized() and grid[ax] > 1:
         if int(np.prod(grid)) != world_size():
@@ -643,13 +719,12 @@ def cart_halo_extend(block: torch.Tensor, grid: Sequence[int], ax: int,
         r = rank()
         coord = int(np.unravel_index(r, grid)[ax])
         stride = int(np.prod(grid[ax + 1:]))
-        *pieces, seq = _exchange(
+        pieces = _neighbours(
             "cart_halo_extend", block, ax, hm, hp,
             r - stride if coord > 0 else None,
-            r + stride if coord < grid[ax] - 1 else None)
-        _trace.event("collective.cart_halo_extend", cat="collective",
-                     shape=tuple(block.shape), dtype=block.dtype, axis=None,
-                     grid=grid, ax=ax, hm=hm, hp=hp, seq=seq)
+            r + stride if coord < grid[ax] - 1 else None,
+            dict(shape=tuple(block.shape), dtype=block.dtype, axis=None,
+                 grid=grid, ax=ax, hm=hm, hp=hp))
     parts = []
     for p in (pieces[0], block, pieces[1]):
         if isinstance(p, torch.Tensor):
@@ -665,10 +740,13 @@ def broadcast(t: torch.Tensor, src: int = 0,
               group: Optional[object] = None) -> torch.Tensor:
     """Rank ``src``'s ``t`` on every rank, in place (the other ranks pass
     a tensor of the same shape and dtype to fill); returns ``t``. Under a
-    gloo group a CUDA tensor is staged through the host."""
+    gloo group a CUDA tensor is staged through the host. It has no
+    gradient: the JAX package has no broadcast collective (the port's
+    carries the solve service's host data)."""
     if not initialized():
         return t
-    _refuse_grad("broadcast", t)
+    _refuse_grad("broadcast", "the JAX package has no broadcast collective, "
+                 "so there is no rule to port", t)
     nb = _nbytes(t) if rank() != src else 0
     with _span("broadcast", nb, group):
         if t.is_cuda and _gloo(group):

@@ -337,6 +337,45 @@ def make_grid_2d(grid: Optional[Tuple[int, int]] = None) -> Grid2D:
     return Grid2D((pr, pc), (i, j), c, r)
 
 
+def make_mesh_2d(n_devices: Optional[int] = None,
+                 axis_names: Tuple[str, str] = ("r", "c"),
+                 grid: Optional[Tuple[int, int]] = None) -> Grid2D:
+    """The JAX package's ``make_mesh_2d`` under its name:
+    :func:`make_grid_2d` of ``grid``. The port's grid spans the process
+    group, so ``n_devices`` must be its size, and its sub-groups are the
+    axes ``r`` and ``c``."""
+    n = world_size()
+    if n_devices is not None and int(n_devices) != n:
+        raise ValueError(f"make_mesh_2d: the grid spans the process group "
+                         f"of {n} ranks, not {n_devices} (make_grid_2d)")
+    if tuple(axis_names) != ("r", "c"):
+        raise ValueError(f"make_mesh_2d: the grid's axes are ('r', 'c'), "
+                         f"not {tuple(axis_names)} (make_grid_2d)")
+    return make_grid_2d(grid)
+
+
+def initialize_multihost(*args, **kwargs) -> None:
+    """The JAX package's bring-up of a multi-host job. Its counterpart is
+    :func:`init`, which takes the rendezvous itself: this raises, naming
+    it."""
+    raise NotImplementedError(
+        "initialize_multihost joins a multi-host JAX job; the port's "
+        "counterpart is pylops_mpi_tpu_torch.parallel.init(backend, "
+        "store= or init_method='tcp://<host>:<port>', rank=, world_size=)")
+
+
+def set_default_mesh(mesh: Optional[Mesh]) -> None:
+    """The JAX package's ``set_default_mesh``: arrays and operators here
+    live on the process group's world unless given ``mesh=``, so the
+    world's mesh sets only the default device (:func:`set_default_device`;
+    ``None`` restores ``"cuda"``). A sub-group's mesh is refused."""
+    if mesh is not None and mesh.ranks is not None:
+        raise ValueError("set_default_mesh takes the world's mesh: pass a "
+                         "sub-group's mesh as mesh= to the arrays and "
+                         "operators that live on it")
+    set_default_device(None if mesh is None else mesh.device)
+
+
 def make_mesh_hybrid(ici_axis: str = "nvlink", dcn_axis: str = "ib",
                      dcn_size: Optional[int] = None) -> Grid2D:
     """The world as a 2-D grid whose outer axis (``dcn_axis``, IB)

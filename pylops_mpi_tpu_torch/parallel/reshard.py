@@ -57,6 +57,20 @@ metadata, so each computes the same plan and the same routing:
   shard ``i`` stays on the ``i``-th rank of both worlds, which holds for
   sub-groups that list the world's first ranks, as a shrink does.
 
+**Gradients.** Under grad mode a move within one world is one
+``autograd.Function`` (:class:`_Move`) whose backward runs the inverse
+plan (the destination layout back to the source's, planned when the
+move is, under the same budget) through the same executor, each of its
+exchanges counted as the forward's name with ``_adjoint`` appended. A
+BROADCAST side follows the port's typing of replicated values: a
+replicated destination's cotangent is the same on every rank and each
+rank takes its own rows of it (the inverse of a gather is a local cut);
+a replicated source's cotangent is the whole gradient on every rank
+(the inverse of a local cut is a gather). As the JAX package plans a
+traced move, such a move never spills. A move onto another world
+refuses a tensor that requires grad: ``jax.grad`` does not pass through
+the JAX package's move between device sets either.
+
 With no budget the plan is one chunk, and an axis change issues the one
 ``all_to_all`` :meth:`~..distributedarray.DistributedArray.redistribute`
 always issued, with the same pieces and bytes. The whole move runs under
@@ -537,18 +551,24 @@ def _nbytes_of(global_shape, reg, itemsize) -> int:
     return int(np.prod(_shape(global_shape, reg), dtype=np.int64)) * itemsize
 
 
+def _exchange_name(plan: ReshardPlan) -> str:
+    """The name a plan's chunk exchanges are counted under."""
+    return plan.kind if plan.kind != "local" else "ppermute"
+
+
 def _run_plan(plan: ReshardPlan, src: _Side, dst: _Side,
-              dtype: torch.dtype) -> None:
+              dtype: torch.dtype, name: Optional[str] = None) -> None:
     """Run a device plan into ``dst.local`` (this rank's output shard,
     allocated by the caller), chunk by chunk; ``dtype`` is the move's
-    (every rank's buffers agree on it, members or not)."""
+    (every rank's buffers agree on it, members or not). The chunks'
+    exchanges are counted as ``name`` (default the plan's)."""
     from ..resilience import faults as _faults
     from .mesh import rank
     me = rank()
     g = plan.global_shape
     s_org = src.region(src.shard_of(me)) if src.local is not None else {}
     d_org = dst.region(dst.shard_of(me)) if dst.local is not None else {}
-    name = plan.kind if plan.kind != "local" else "ppermute"
+    name = name or _exchange_name(plan)
     per_chunk = 2 if plan.nbytes > 0 else 1
     for c in range(len(plan.steps) // per_chunk):  # none for an empty array
         st = plan.steps[c * per_chunk]
@@ -631,10 +651,11 @@ def _span_tags(plan: ReshardPlan, op: str) -> dict:
 
 def _span_and_run(plan: ReshardPlan, src: _Side, dst: _Side, mesh,
                   dtype: torch.dtype, *, op: str = "reshard",
-                  overlap=None) -> None:
+                  overlap=None, name: Optional[str] = None) -> None:
     """Count the move in the metrics registry and run it under the
     ``collective.reshard`` span: spilled plans through
-    :func:`~.spill.run_spilled`, device plans here."""
+    :func:`~.spill.run_spilled`, device plans here, their exchanges
+    counted as ``name`` (default the plan's)."""
     tags = _span_tags(plan, op)
     if plan.spilled:
         from . import spill as _spill
@@ -656,7 +677,65 @@ def _span_and_run(plan: ReshardPlan, src: _Side, dst: _Side, mesh,
             "reshard", [(plan.nbytes, _topo.collective_fabric(mesh, None))])
         tags.update(nbytes=plan.nbytes)
     with _trace.span("collective.reshard", seq=seq, **tags):
-        _run_plan(plan, src, dst, dtype)
+        _run_plan(plan, src, dst, dtype, name)
+
+
+class _Move(torch.autograd.Function):
+    """A move within one world (module docstring, **Gradients**): the
+    forward runs ``plan`` from this rank's source shard into a new
+    destination shard, the backward runs ``inverse`` from the
+    destination's cotangent into the source's."""
+
+    @staticmethod
+    def forward(ctx, local, plan, inverse, src_layout, dst_layout, ranks,
+                shapes, mesh):
+        src_shape, dst_shape = shapes
+        member = dst_shape is not None
+        out = torch.zeros(dst_shape if member else (0,), dtype=local.dtype,
+                          device=local.device)
+        _span_and_run(plan, _Side(src_layout, ranks,
+                                  local if member else None),
+                      _Side(dst_layout, ranks, out if member else None),
+                      mesh, local.dtype)
+        ctx.meta = (plan, inverse, src_layout, dst_layout, ranks, src_shape,
+                    member, mesh, local.shape)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        (plan, inverse, src_layout, dst_layout, ranks, src_shape, member,
+         mesh, in_shape) = ctx.meta
+        grad = g.new_zeros(src_shape if member else in_shape)
+        _span_and_run(inverse, _Side(dst_layout, ranks,
+                                     g.contiguous() if member else None),
+                      _Side(src_layout, ranks, grad if member else None),
+                      mesh, g.dtype, op="reshard_adjoint",
+                      name=_exchange_name(plan) + "_adjoint")
+        return grad, None, None, None, None, None, None, None
+
+
+def _differentiable_move(x, plan, dst_l, axis, lsh, mesh, budget, chunks):
+    """:class:`_Move` of ``x`` by ``plan`` to ``dst_l``, with its
+    inverse planned now under the same budget: an inverse the budget
+    cannot hold refuses here, before any graph is built."""
+    from ..distributedarray import DistributedArray
+    src_l = _layout_of(x)
+    try:
+        inverse = plan_reshard(x.global_shape, plan.itemsize, dst_l, src_l,
+                               budget=budget, chunks=chunks,
+                               slice_ids=_topo.slice_map(mesh), spill="off",
+                               topo_key=_topo.topology_key(mesh))
+    except ReshardError as e:
+        raise ReshardError(f"reshard: the gradient's inverse move: {e}",
+                           e.min_budget) from None
+    me = mesh.rank if mesh.member else -1
+    shapes = ((tuple(x.local_shape), tuple(lsh[me])) if me >= 0
+              else (None, None))
+    arr = _Move.apply(x.array, plan, inverse, src_l, dst_l,
+                      mesh.world_ranks(), shapes, mesh)
+    return DistributedArray._wrap(
+        arr, x, global_shape=x.global_shape, local_shapes=lsh,
+        partition=dst_l.partition, axis=axis)
 
 
 def _world_mesh(mesh):
@@ -711,16 +790,24 @@ def reshard(x, *, mesh=None, partition: Optional[Partition] = None,
                  or (ax_n == x.axis and dst_l.sizes == tuple(
                      x._axis_sizes())))):
         return x.copy()
-    if _coll.initialized():
-        # received pieces arrive detached: raise rather than cut the
-        # gradient (a world of one copies its own rows, which keep it)
-        _coll._refuse_grad("reshard", x.array)
+    grad = _coll._needs_grad(x.array)
+    if grad:
+        if not same:
+            _coll._refuse_grad(
+                "reshard onto another world", "jax.grad does not pass "
+                "through the JAX package's move between device sets either "
+                "(a concrete transfer, which cannot run under a trace)",
+                x.array)
+        spill = "off"   # as the JAX package plans a traced move
     itemsize = x.array.element_size()
     plan = plan_reshard(x.global_shape, itemsize, _layout_of(x), dst_l,
                         budget=budget, chunks=chunks,
                         slice_ids=_topo.slice_map(tgt_mesh), spill=spill,
                         dst_host=host_dst,
                         topo_key=_topo.topology_key(tgt_mesh))
+    if grad:
+        return _differentiable_move(x, plan, dst_l, ax_n, lsh, tgt_mesh,
+                                    budget, chunks)
     src = _Side(_layout_of(x), src_mesh.world_ranks(),
                 x.array if src_mesh.member else None)
     me_dst = tgt_mesh.member
@@ -758,8 +845,8 @@ def place_replica(value, mesh=None, partition: Partition = Partition.SCATTER,
     checkpoint read."""
     from ..distributedarray import DistributedArray
     from ..ops._precision import as_torch_dtype
-    # the value is staged on the host, detached: raise rather than cut
-    _coll._refuse_grad("place_replica", value)
+    _coll._refuse_grad("place_replica", "the JAX package stages the value "
+                       "through numpy, which keeps no graph", value)
     if isinstance(value, torch.Tensor):
         host = value.detach().cpu()
     else:

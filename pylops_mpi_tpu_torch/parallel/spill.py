@@ -398,7 +398,8 @@ def to_host(x, *, budget=_rs._UNSET, chunks: Optional[int] = None,
     chunk by chunk under the budget, keeping its layout (the explicit
     spill; each rank stages its own shard). The inverse is
     :meth:`HostArray.to_device`."""
-    _rs._coll._refuse_grad("to_host", x.array)  # host RAM keeps no graph
+    _rs._coll._refuse_grad("to_host", "the JAX package stages it through "
+                           "numpy, which keeps no graph", x.array)
     lay = _rs._layout_of(x)
     mesh = x.mesh
     plan = _rs.plan_reshard(x.global_shape, x.array.element_size(), lay, lay,

@@ -3,10 +3,12 @@
 - The collectives' autograd rules pass the dot-product adjoint test:
   ``all_reduce("sum")`` (a replicated output: its cotangent is the same
   on every rank and counted once), ``all_gather`` and ``reduce_scatter``
-  (per-rank on both sides, summed over the ranks) and ``halo_exchange``
-  (each ghost's cotangent sent home). ``all_reduce`` ``max``/``min``,
-  ``all_to_all``, ``cart_halo_extend`` and ``broadcast`` refuse a tensor
-  that requires grad under grad mode.
+  (per-rank on both sides, summed over the ranks), ``halo_exchange`` and
+  ``cart_halo_extend`` (each ghost's cotangent sent home), ``all_to_all``
+  (the cotangents sent back with the shapes swapped) and ``exchange``
+  (a ring: each received buffer's cotangent back to its sender).
+  ``all_reduce`` ``max``/``min`` and ``broadcast`` refuse a tensor that
+  requires grad under grad mode, naming why.
 - ``examples/autodiff.py``'s objective (``MPIBlockDiag`` and the axis-0
   ``MPIFirstDerivative``, whose tap rule sends its ghost cotangents home)
   gives every rank its shard of the one-rank gradient, and 20 steps of
@@ -149,19 +151,41 @@ def _ad_rank(d):
     out["halo"] = (ranks_sum(sum(torch.sum(p.detach() * c)
                                  for p, c in zip(pieces, cots))),
                    ranks_sum(torch.sum(block.detach() * gb)))
-    for name, call in (
-            ("all_to_all", lambda: co.all_to_all(
-                [xs] * n, [tuple(xs.shape)] * n)),
-            ("cart_halo_extend", lambda: co.cart_halo_extend(
-                block, (n,), 0, 1, 1)),
-            ("broadcast", lambda: co.broadcast(xs, 0))):
-        try:
-            call()
-        except NotImplementedError as e:
-            refused.append(str(e))
+    # all_to_all: ragged pieces, rank r sends q a (q + 1, r + 2) block
+    sends = [rand(q + 1, r + 2, grad=True) for q in range(n)]
+    got = co.all_to_all(sends, [(r + 1, p + 2) for p in range(n)])
+    cots = [rand(*g.shape) for g in got]
+    gsend = torch.autograd.grad(got, sends, cots)
+    out["all_to_all"] = (
+        ranks_sum(sum(torch.sum(g.detach() * c) for g, c in zip(got, cots))),
+        ranks_sum(sum(torch.sum(t.detach() * g)
+                      for t, g in zip(sends, gsend))))
+    # exchange: a ring, each rank sending to the next
+    ring = rand(3, 2, grad=True)
+    (rx,) = co.exchange("ring", [(ring, (r + 1) % n)],
+                        [((3, 2), (r - 1) % n)], ring.dtype)
+    cot = rand(3, 2)
+    (gring,) = torch.autograd.grad(rx, ring, cot)
+    out["exchange"] = (ranks_sum(torch.sum(rx.detach() * cot)),
+                       ranks_sum(torch.sum(ring.detach() * gring)))
+    # cart_halo_extend along axis 0 on an (n,) grid, then along axis 1 of
+    # the extended block on a (1, n) grid: ghosts of 1 and 2 slices each
+    slab = rand(3, 4, grad=True)
+    ext = co.cart_halo_extend(slab, (n,), 0, 1, 2)
+    ext = co.cart_halo_extend(ext.movedim(0, 1).contiguous(), (1, n), 1,
+                              1, 2).movedim(1, 0)
+    cot = rand(*ext.shape)
+    (gslab,) = torch.autograd.grad(ext, slab, cot)
+    out["cart_halo_extend"] = (ranks_sum(torch.sum(ext.detach() * cot)),
+                               ranks_sum(torch.sum(slab.detach() * gslab)))
+    try:
+        co.broadcast(xs, 0)
+    except NotImplementedError as e:
+        refused.append(str(e))
     out["refused"] = refused
     with torch.no_grad():   # outside grad mode nothing is refused
         co.broadcast(xs.detach().clone(), 0)
+    out["first_counts"] = dict(co.counts)
     co.reset_counts()
     out["objective"] = _objective_grads(d)
     out["counts"] = dict(co.counts)
@@ -191,7 +215,8 @@ def worlds(tmp_path_factory):
 def test_collective_rules_pass_adjoint_test(worlds, n):
     _, _, out = worlds
     for o in out[n]:
-        for key in ("all_reduce", "all_gather", "reduce_scatter", "halo"):
+        for key in ("all_reduce", "all_gather", "reduce_scatter", "halo",
+                    "all_to_all", "exchange", "cart_halo_extend"):
             lhs, rhs = o[key]
             assert rhs == pytest.approx(lhs, rel=1e-12, abs=1e-12), key
         assert o["x_untouched"]
@@ -199,12 +224,20 @@ def test_collective_rules_pass_adjoint_test(worlds, n):
 
 @pytest.mark.parametrize("n", WORLDS)
 def test_collectives_without_rule_refuse(worlds, n):
+    """``all_reduce`` ``max``/``min`` and ``broadcast`` still refuse, each
+    naming the JAX package's reason; ``all_to_all`` and
+    ``cart_halo_extend``, which refused before their rules were ported,
+    now carry the gradient (their adjoint tests above) and were counted
+    as adjoint calls."""
     _, _, out = worlds
     for o in out[n]:
         msgs = o["refused"]
-        assert len(msgs) == 5
-        assert all("pmax" in m for m in msgs[:2])
-        assert all("§A.7 item 6" in m for m in msgs[2:])
+        assert len(msgs) == 3
+        assert all("pmax/pmin" in m for m in msgs[:2])
+        assert "JAX package has no broadcast collective" in msgs[2]
+        assert not any("item 6" in m for m in msgs)
+        for name in ("all_to_all", "ring", "cart_halo_extend"):
+            assert o["first_counts"][name + "_adjoint"] >= 1, name
 
 
 @pytest.mark.parametrize("n", WORLDS)

@@ -12,6 +12,12 @@ default split on the generic one), the collectives of an apply (two
 ``all_to_all`` transposes on the aligned path, and the bytes each
 receives), an input in the default split, and the adjoint identity.
 
+Gradients: of ``0.5‖F x − v‖²`` with respect to x, by autograd straight
+through ``matvec`` (the transposes' ``all_to_all`` rule, one adjoint call
+for each), complex and real, against ``jax.grad`` through the JAX
+operator (torch's gradient of a complex input conjugated to JAX's
+convention), at rtol 1e-10.
+
 Tolerance: rtol 1e-12 of the largest reference entry (f64, complex128).
 """
 
@@ -31,6 +37,9 @@ CASES = [
     ("one_d", dict(dims=(30,), axes=(0,), fftshift_after=True)),
     ("no_axis0", dict(dims=(9, 7, 5), axes=(1, 2), fftshift_after=True)),
 ]
+
+
+GRADS = ("cube", "real_shift")
 
 
 def _aligned(kw):
@@ -84,6 +93,32 @@ def _fft_rank(d, vs):
     g = D.to_dist(d["g"], device="cpu")
     out["shift"] = (pmtt.utils.fftshift_nd(g, axes=(0, 2)).asarray(),
                     pmtt.utils.ifftshift_nd(g).asarray())
+    out["grads"] = _grad_rank(d, vs)
+    return out
+
+
+def _grad_rank(d, vs):
+    """GRADS' gradients of 0.5‖F x − v‖² (this rank's shard, in JAX's
+    convention) and the collective calls of the forward and backward."""
+    import torch
+    import pylops_mpi_tpu_torch as pmtt
+    from pylops_mpi_tpu_torch.parallel import collectives as co
+    D = pmtt.DistributedArray
+    out = {}
+    for label, kw in CASES:
+        if label not in GRADS:
+            continue
+        Op = pmtt.MPIFFTND(**kw)
+        x = D.to_dist(d["x_" + label], local_shapes=Op.model_local_shapes,
+                      device="cpu")
+        v = D.to_dist(vs[label], local_shapes=Op.data_local_shapes,
+                      device="cpu")
+        x.array.requires_grad_(True)
+        co.reset_counts()
+        r = Op.matvec(x) - v
+        (g,) = torch.autograd.grad(0.5 * r.dot(r, vdot=True).real, x.array)
+        out[label] = dict(grad=pmtt.convert.grad_to_jax(g),
+                          calls=dict(co.counts))
     return out
 
 
@@ -107,6 +142,30 @@ def _reference(n, d, vs):
     g = J.to_dist(d["g"], mesh=mesh)
     ref["shift"] = (fft_helper.fftshift_nd(g, axes=(0, 2)).asarray(),
                     fft_helper.ifftshift_nd(g).asarray())
+    ref["grads"] = _grad_reference(mesh, d, vs)
+    return ref
+
+
+def _grad_reference(mesh, d, vs):
+    """``jax.grad`` of GRADS' losses through the JAX operator, gathered."""
+    import jax
+    import jax.numpy as jnp
+    import pylops_mpi_tpu as pmt
+    J = pmt.DistributedArray
+    ref = {}
+    for label, kw in CASES:
+        if label not in GRADS:
+            continue
+        Op = pmt.MPIFFTND(mesh=mesh, **kw)
+        x = J.to_dist(d["x_" + label], mesh=mesh,
+                      local_shapes=Op.model_local_shapes)
+        v = J.to_dist(vs[label], mesh=mesh,
+                      local_shapes=Op.data_local_shapes)
+
+        def loss(a, Op=Op, x=x, v=v):
+            r = Op.matvec(J._wrap(a, x)) - v
+            return 0.5 * jnp.real(r.dot(r, vdot=True))
+        ref[label] = J._wrap(jax.jit(jax.grad(loss))(x._arr), x).asarray()
     return ref
 
 
@@ -205,3 +264,17 @@ def test_adjoint_identity(worlds):
             if kw.get("real"):
                 lhs, rhs = lhs.real, rhs.real
             np.testing.assert_allclose(lhs, rhs, rtol=1e-11)
+
+
+@pytest.mark.parametrize("label", GRADS)
+def test_gradients_match_jax(worlds, label):
+    """x's gradient, each rank's shard of ``jax.grad``'s; a backward
+    transpose for each forward one."""
+    d, vs, out = worlds
+    for n, (res, ref) in out.items():
+        close(np.concatenate([o["grads"][label]["grad"] for o in res]),
+              ref["grads"][label], 1e-10)
+        for o in res:
+            calls = o["grads"][label]["calls"]
+            assert calls.get("all_to_all_adjoint", 0) == \
+                calls.get("all_to_all", 0) == (0 if n == 1 else 2)

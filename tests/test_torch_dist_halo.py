@@ -12,6 +12,13 @@ reference runs in this process meanwhile (each of its halo applies
 compiles a shard_map kernel, 1-3 s on the CPU mesh, so every apply
 below is one that the port is held to). Tolerance: rtol 1e-12 in f64
 (the halo moves values and adds nothing, so the outputs are equal).
+
+Gradients: of ``0.5‖H x − w‖²`` with respect to x through the
+``2d_tuple`` halo (on the 2x2 grid at four ranks, where a corner's
+cotangent travels back through both axes' exchanges), by autograd
+straight through ``matvec`` (``cart_halo_extend``'s rule, one adjoint
+call for each exchanging axis), against ``jax.grad`` through the JAX
+operator, each rank's shard at rtol 1e-10.
 """
 
 import numpy as np
@@ -29,6 +36,14 @@ def _cases(n):
         "2d_pairs": ((9, 8), (1, 0, 2, 1), sq or (1, n), True),
         "2d_scalar": ((16, 12), 1, sq or (n, 1), False),  # plot_halo, 2-D
     }
+
+
+GRAD = "2d_tuple"
+
+
+def _grad_target(H):
+    """The data ``w`` of the gradient case's loss, sized from ``H``."""
+    return np.random.default_rng(12).standard_normal(H.shape[0])
 
 
 def _data(n):
@@ -99,6 +114,17 @@ def _halo_rank(d):
     y = Sand.matvec(xd)
     out["sandwich"] = dict(y=y.array.numpy(), dot=pmtt.dottest(
         Sand, xd, y.copy(), rtol=1e-12))
+    # the gradient of 0.5‖H x − w‖² through the exchanges' rule
+    dims, halo, grid, _ = _cases(n)[GRAD]
+    H = pmtt.MPIHalo(dims, halo, grid, None, np.float64)
+    x = D.to_dist(d[GRAD], local_shapes=H.local_dim_sizes, device="cpu")
+    w = D.to_dist(_grad_target(H), local_shapes=H.local_extent_sizes,
+                  device="cpu")
+    x.array.requires_grad_(True)
+    co.reset_counts()
+    r = H.matvec(x) - w
+    (g,) = torch.autograd.grad(0.5 * r.dot(r), x.array)
+    out["grad"] = dict(grad=g.numpy(), calls=dict(co.counts))
     return out
 
 
@@ -137,7 +163,26 @@ def _reference(n, d):
     ref["sandwich"] = Sand.matvec(J.to_dist(
         np.arange(32.0), mesh=mesh, local_shapes=H.local_dim_sizes)
     ).local_arrays()
+    ref["grad"] = _grad_reference(n, d, mesh) if n > 1 else None
     return ref
+
+
+def _grad_reference(n, d, mesh):
+    """``jax.grad`` of the gradient case's loss, as each rank's shard."""
+    import jax
+    import pylops_mpi_tpu as pmt
+    J = pmt.DistributedArray
+    dims, halo, grid, _ = _cases(n)[GRAD]
+    H = pmt.MPIHalo(dims, halo, proc_grid_shape=grid, mesh=mesh,
+                    dtype=np.float64)
+    x = J.to_dist(d[GRAD], mesh=mesh, local_shapes=H.local_dim_sizes)
+    w = J.to_dist(_grad_target(H), mesh=mesh,
+                  local_shapes=H.local_extent_sizes)
+
+    def loss(a):
+        r = H.matvec(J._wrap(a, x)) - w
+        return 0.5 * r.dot(r)
+    return J._wrap(jax.jit(jax.grad(loss))(x._arr), x).local_arrays()
 
 
 @pytest.fixture(scope="module")
@@ -184,6 +229,23 @@ def test_example_plot_halo_sandwich(worlds):
             close(o["sandwich"]["y"], ref["sandwich"][r])
             assert o["sandwich"]["dot"]
             assert o["1d_scalar"]["recovers"] and o["2d_scalar"]["recovers"]
+
+
+def test_gradient_matches_jax(worlds):
+    """Each rank's gradient is its shard of ``jax.grad``'s; the backward
+    sent the ghosts' cotangents home once for each exchanging axis."""
+    for n, (d, res, ref) in worlds.items():
+        if n == 1:
+            continue
+        dims, halo, grid, _ = _cases(n)[GRAD]
+        k = _exchanging_axes(dims, halo, grid)
+        for r, o in enumerate(res):
+            close(o["grad"]["grad"], ref["grad"][r], 1e-10)
+            calls = o["grad"]["calls"]
+            assert calls["cart_halo_extend"] == \
+                calls["cart_halo_extend_adjoint"] == k
+        if n == 4:
+            assert grid == (2, 2) and k == 2
 
 
 def test_halo_positional_order():

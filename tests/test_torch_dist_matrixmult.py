@@ -14,8 +14,16 @@ each rank's tile of A, collective calls per apply, the bytes the SUMMA
 collectives receive against the volume model, ``dottest`` and 5
 iterations of CGLS.
 
+Gradients (block and SUMMA): of ``0.5‖A x − y‖²`` with respect to x, by
+autograd straight through ``matvec`` (the flat↔tile moves' ``all_to_all``
+rule), and with respect to each rank's rows or tile of A, through
+``make_differentiable(..., params=True)``, against ``jax.grad`` through
+the JAX operator (for A, through its construction: the JAX SUMMA's
+kernels read a padded copy of A that is not one of its pytree leaves,
+so ``jax.grad`` by the leaf gives zero).
+
 Tolerances: rtol 1e-12 of the largest reference entry (f64,
-complex128); 1e-10 for CGLS.
+complex128); 1e-10 for CGLS and the gradients.
 """
 
 import numpy as np
@@ -39,6 +47,7 @@ CASES = [("f64_block", "A", 10, None, "block", "auto", None),
          ("ncol_gather", "Ab", 5, 3, "summa", "gather", None),
          ("ncol_stat_a", "Ab", 5, 3, "summa", "stat_a", None)]
 CGLS = ("f64_block", "f64_auto", "c128_auto")
+GRADS = ("f64_block", "f64_auto")
 
 
 def _data():
@@ -161,6 +170,44 @@ def _mm_rank(d):
     out["mask"] = (ym.mask, ym.asarray())
     out["broadcast"] = (yb.asarray(), dict(co.counts).get("all_to_all", 0))
     out["collectives"] = _collectives_rank()
+    out["grads"] = _grad_rank(d)
+    return out
+
+
+def _grad_rank(d):
+    """GRADS' gradients of 0.5‖A x − y‖²: x's shard (autograd through
+    ``matvec``) with the forward's and backward's collective calls, and
+    A's rows or tile (``make_differentiable(..., params=True)``)."""
+    import torch
+    import pylops_mpi_tpu_torch as pmtt
+    from pylops_mpi_tpu_torch.autodiff import make_differentiable
+    from pylops_mpi_tpu_torch.linearoperator import operator_params
+    from pylops_mpi_tpu_torch.parallel import collectives as co
+    n = pmtt.parallel.world_size()
+    D = pmtt.DistributedArray
+    out = {}
+    for label, key, M, ncol, kind, schedule, grid in CASES:
+        if label not in GRADS:
+            continue
+        Op = pmtt.MPIMatrixMult(d[key], M, kind=kind, schedule=schedule,
+                                grid=_grid(grid, n), device="cpu")
+        y = D.to_dist(d["y_" + label], device="cpu")
+
+        def loss(ax):
+            r = ax - y
+            return 0.5 * r.dot(r)
+        x = D.to_dist(d["x_" + label], device="cpu")
+        x.array.requires_grad_(True)
+        co.reset_counts()
+        (gx,) = torch.autograd.grad(loss(Op.matvec(x)), x.array)
+        x.array.requires_grad_(False)
+        calls = dict(co.counts)
+        (A,) = operator_params(Op)
+        A.requires_grad_(True)
+        (gA,) = torch.autograd.grad(
+            loss(make_differentiable(Op, params=True).matvec(x)), A)
+        A.requires_grad_(False)
+        out[label] = dict(gx=gx.numpy(), gA=gA.numpy(), calls=calls)
     return out
 
 
@@ -188,6 +235,32 @@ def _reference(n, d):
                 np.zeros(Op.shape[1], dtype=d[key].dtype), mesh=mesh)
             o["cgls"] = pmt.cgls(Op, y, x0=x0, niter=5, tol=0.0)[0].asarray()
         ref[label] = o
+    ref["grads"] = _grad_reference(mesh, d)
+    return ref
+
+
+def _grad_reference(mesh, d):
+    """``jax.grad`` of GRADS' losses with respect to x and to A, the A
+    the JAX operator is built from (module docstring)."""
+    import jax
+    import jax.numpy as jnp
+    import pylops_mpi_tpu as pmt
+    J = pmt.DistributedArray
+    ref = {}
+    for label, key, M, ncol, kind, schedule, grid in CASES:
+        if label not in GRADS:
+            continue
+        kw = dict(schedule=schedule) if kind == "summa" else {}
+        x = J.to_dist(d["x_" + label], mesh=mesh)
+        y = J.to_dist(d["y_" + label], mesh=mesh)
+
+        def loss(A, a, kw=kw, kind=kind, M=M, x=x, y=y):
+            Op = pmt.MPIMatrixMult(A, M, kind=kind, mesh=mesh, **kw)
+            r = Op.matvec(J._wrap(a, x)) - y
+            return 0.5 * r.dot(r)
+        gA, gx = jax.jit(jax.grad(loss, argnums=(0, 1)))(
+            jnp.asarray(d[key]), x._arr)
+        ref[label] = dict(gx=J._wrap(gx, x).asarray(), gA=np.asarray(gA))
     return ref
 
 
@@ -231,26 +304,51 @@ def test_matches_jax(worlds, label):
         assert v["dot"]
 
 
+def _rank_piece(A, kind, grid, n, r):
+    """What rank ``r`` of ``n`` keeps of ``A``: a block rank its balanced
+    split of the rows, a SUMMA rank its tile of ``A`` zero-padded to the
+    ``grid`` (``local_block_split``)."""
+    from pylops_mpi_tpu_torch.ops.matrixmult import local_block_split
+    if kind == "block":
+        return A[np.array_split(np.arange(A.shape[0]), n)[r]]
+    pr, pc = grid
+    Np = pr * -(-A.shape[0] // pr)
+    Kp = pc * -(-A.shape[1] // pc)
+    Ap = np.zeros((Np, Kp), dtype=A.dtype)
+    Ap[:A.shape[0], :A.shape[1]] = A
+    return Ap[local_block_split((Np, Kp), r, (pr, pc))]
+
+
 def test_each_rank_keeps_its_tile(worlds):
     """A block rank keeps its balanced split of A's rows; a SUMMA rank
     its zero-padded tile (``local_block_split`` of the padded matrix)."""
-    from pylops_mpi_tpu_torch.ops.matrixmult import local_block_split
     d = worlds[0]
     for n, r, o, ref in _each(worlds):
         for label, key, M, ncol, kind, schedule, grid in CASES:
-            A = d[key]
-            got = o[label]["A"]
-            if kind == "block":
-                rows = np.array_split(np.arange(A.shape[0]), n)[r]
-                np.testing.assert_array_equal(got, A[rows])
-                continue
-            pr, pc = o[label]["grid"]
-            Np = pr * -(-A.shape[0] // pr)
-            Kp = pc * -(-A.shape[1] // pc)
-            Ap = np.zeros((Np, Kp), dtype=A.dtype)
-            Ap[:A.shape[0], :A.shape[1]] = A
             np.testing.assert_array_equal(
-                got, Ap[local_block_split((Np, Kp), r, (pr, pc))])
+                o[label]["A"], _rank_piece(d[key], kind, o[label]["grid"],
+                                           n, r))
+
+
+@pytest.mark.parametrize("label", GRADS)
+def test_gradients_match_jax(worlds, label):
+    """x's gradient, each rank's shard of ``jax.grad``'s, through the
+    moves' ``all_to_all`` rule (one adjoint call for each forward move);
+    each rank's rows or tile of A's gradient."""
+    _, out = worlds
+    kind = dict((c[0], c[4]) for c in CASES)[label]
+    for n, (res, ref) in out.items():
+        want = ref["grads"][label]
+        close(np.concatenate([o["grads"][label]["gx"] for o in res]),
+              want["gx"], 1e-10)
+        for r, o in enumerate(res):
+            got = o["grads"][label]
+            close(got["gA"], _rank_piece(want["gA"], kind, o[label]["grid"],
+                                         n, r), 1e-10)
+            calls = got["calls"]
+            assert calls.get("all_to_all_adjoint", 0) == \
+                calls.get("all_to_all", 0) == (0 if n == 1 else
+                                               1 + (kind != "block"))
 
 
 def test_collective_counts(worlds):

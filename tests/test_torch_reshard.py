@@ -18,20 +18,37 @@ to the plan's pair bytes (its column), as many exchanges as the plan has
 chunks (with no budget: the one all_to_all ``redistribute`` always
 issued), the largest staging a step recorded under the budget, and the
 host-staged move's bytes summed over the ranks equal to the plan's.
+
+Gradients (the same worlds): the gradient of ``Σ W·y`` (seeded weights)
+through each move of an array that requires grad, through ``ghosted`` on
+even and ragged splits and through a custom operator decorated with
+``reshaped`` (with and without ``stacking``), equal to ``jax.grad``
+through the JAX package's on a mesh of as many devices (1e-12: a move's
+sums add at most three terms), the adjoint test of each at 1e-12, and
+the backward of a redistribute an ``all_to_all_adjoint`` per chunk of
+the inverse plan that receives what the forward sent.
+``place_replica``, ``to_host`` and a move onto a smaller world still
+refuse. ``ghosted`` and ``reshaped`` values and local shapes, and the
+plots of ``plotting`` (image arrays and titles, Agg backend), equal the
+JAX package's.
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import pylops_mpi_tpu as pmt
 import pylops_mpi_tpu.parallel.reshard as jrs
+from pylops_mpi_tpu.utils import decorators as jdecorators
 from pylops_mpi_tpu.parallel.partition import Partition as JPart
 import pylops_mpi_tpu_torch as pmtt
 from pylops_mpi_tpu_torch.parallel import reshard as trs
 from pylops_mpi_tpu_torch.parallel.partition import Partition as TPart
 
-from test_torch_process_group import jax_mesh, run_world
-from torch_reshard_ranks import field, ragged, reshard_rank
+from test_torch_process_group import close, jax_mesh, run_world
+from torch_reshard_ranks import (field, ragged, reshard_rank,
+                                 stacking_shapes, weights)
 
 BUDGET = 320  # bytes: a few 56-byte rows of the (13, 7) f64 field
 WORLDS = (2, 3, 4)
@@ -182,13 +199,140 @@ def _jax_moves(n):
     return out
 
 
+class JRowSum(pmt.MPILinearOperator):
+    """``torch_reshard_ranks.RowSum`` in the JAX package."""
+
+    def __init__(self, dims):
+        self.dims = self.dimsd = tuple(dims)
+        n = int(np.prod(dims))
+        super().__init__(shape=(n, n), dtype=np.float64)
+
+    @jdecorators.reshaped
+    def _matvec(self, x):
+        return pmt.DistributedArray._wrap(jnp.cumsum(x._arr, axis=1), x)
+
+    @jdecorators.reshaped
+    def _rmatvec(self, x):
+        rev = jnp.flip(jnp.cumsum(jnp.flip(x._arr, 1), axis=1), 1)
+        return pmt.DistributedArray._wrap(rev, x)
+
+
+class JRowScale(pmt.MPILinearOperator):
+    """``torch_reshard_ranks.RowScale`` in the JAX package."""
+
+    def __init__(self, size, n):
+        self.local_shapes_m = self.local_shapes_n = tuple(
+            stacking_shapes(size, n))
+        super().__init__(shape=(size, size), dtype=np.float64)
+
+    def _scale(self, x):
+        w = np.arange(1.0, x.global_shape[0] + 1)
+        return x * pmt.DistributedArray.to_dist(
+            w, mesh=x.mesh, local_shapes=x.local_shapes)
+
+    @jdecorators.reshaped(stacking=True)
+    def _matvec(self, x):
+        return self._scale(x)
+
+    @jdecorators.reshaped(stacking=True)
+    def _rmatvec(self, x):
+        return self._scale(x)
+
+
+def _jax_grads(n):
+    """``jax.grad`` of ``Σ W·y`` through the JAX package's counterpart of
+    every gradient case of ``torch_reshard_ranks.grad_rank``, each
+    gradient as its shards; ``ghosted``'s and ``reshaped``'s values."""
+    import jax
+    J = pmt.DistributedArray
+    mesh = jax_mesh(n)
+    g = field()
+    rag = [(r, 7) for r in ragged(n)]
+
+    def grad(x, fn):
+        """The gradient's shards, and ``fn(x)`` (one compile of both)."""
+        seen = []
+
+        def loss(a):
+            y = fn(J._wrap(a, x))
+            seen.append(y)
+            w = jnp.asarray(weights(y.global_shape))
+            return jnp.sum(w * y.array), y._arr
+        (_, arr), g = jax.jit(jax.value_and_grad(loss, has_aux=True))(
+            x._arr)
+        return J._wrap(g, x).local_arrays(), J._wrap(arr, seen[0])
+
+    out = {}
+    for name, x, fn in (
+            ("redistribute", J.to_dist(g, mesh=mesh),
+             lambda x: x.redistribute(1)),
+            ("axis_budget", J.to_dist(g, mesh=mesh),
+             lambda x: x.reshard(axis=1, budget=BUDGET)),
+            ("ragged_budget", J.to_dist(g, mesh=mesh, local_shapes=rag),
+             lambda x: x.reshard(budget=BUDGET)),
+            ("to_bcast", J.to_dist(g, mesh=mesh),
+             lambda x: x.to_partition(JPart.BROADCAST)),
+            ("from_bcast", J.to_dist(g, mesh=mesh,
+                                     partition=JPart.BROADCAST),
+             lambda x: x.to_partition(JPart.SCATTER, 1)),
+            ("short", J.to_dist(g[:2], mesh=mesh),
+             lambda x: x.redistribute(1).redistribute(0)),
+            ("ghosted", J.to_dist(g, mesh=mesh), lambda x: x.ghosted(2, 1)),
+            ("ghosted_ragged", J.to_dist(g, mesh=mesh, local_shapes=rag),
+             lambda x: x.ghosted(1, 1)),
+            ("reshaped", J.to_dist(g.ravel(), mesh=mesh),
+             lambda x: JRowSum(g.shape).matvec(x)),
+            ("reshaped_stacking", J.to_dist(g.ravel(), mesh=mesh),
+             lambda x: JRowScale(g.size, n).matvec(x))):
+        gx, y = grad(x, fn)
+        out[name] = dict(grad=gx)
+        if name.startswith("ghosted"):
+            out[name].update(value=y.local_arrays(),
+                             local_shapes=y.local_shapes,
+                             global_shape=y.global_shape)
+    for name, op in (("reshaped", JRowSum(g.shape)),
+                     ("reshaped_stacking", JRowScale(g.size, n))):
+        x = J.to_dist(g.ravel(), mesh=mesh)
+        y, xa = op.matvec(x), op.rmatvec(x)
+        out[name].update(value=y.asarray(), adjoint_value=xa.asarray(),
+                         local_shapes=(y.local_shapes, xa.local_shapes))
+    return out
+
+
+def _jax_plots(n):
+    """``_plot_rank``'s plots of the JAX package's arrays."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    from pylops_mpi_tpu import plotting
+    mesh = jax_mesh(n)
+    g = field()
+    out = {}
+    for name, arr in (("2d", pmt.DistributedArray.to_dist(g, mesh=mesh)),
+                      ("1d", pmt.DistributedArray.to_dist(
+                          g.ravel(), mesh=mesh,
+                          local_shapes=[(7 * r,) for r in ragged(n)]))):
+        for kind, fn in (("layout", plotting.plot_distributed_array),
+                         ("locals", plotting.plot_local_arrays)):
+            fig, axs = fn(arr)
+            out[f"{kind}_{name}"] = [
+                (np.asarray(ax.images[0].get_array()), ax.get_title())
+                for ax in np.atleast_1d(axs)]
+            plt.close(fig)
+    return out
+
+
+def _jax_reference(n):
+    return dict(_jax_moves(n), grads=_jax_grads(n), plots=_jax_plots(n))
+
+
 @pytest.fixture(scope="module")
 def worlds(tmp_path_factory):
     out = {}
     for n in WORLDS:
         tmp = tmp_path_factory.mktemp(f"reshard{n}")
         out[n] = run_world(reshard_rank, n, tmp, BUDGET,
-                           during=lambda n=n: _jax_moves(n))
+                           during=lambda n=n: _jax_reference(n))
     return out
 
 
@@ -299,19 +443,98 @@ def test_refusal_in_world_names_minimum(worlds, n):
         assert mb == want and f"at least {want}" in msg
 
 
+GRAD_CASES = ("redistribute", "axis_budget", "ragged_budget", "to_bcast",
+              "from_bcast", "short", "ghosted", "ghosted_ragged", "reshaped",
+              "reshaped_stacking")
+
+
 @pytest.mark.parametrize("n", WORLDS)
 def test_moves_refuse_a_gradient(worlds, n):
-    """Under grad mode, a move of an array that requires grad raises
-    rather than hand back pieces cut from the graph, naming the ROADMAP
-    item that owes the adjoint, as ``collectives.all_to_all`` does;
-    outside grad mode the move runs."""
+    """Moves that the JAX package differentiates carry the gradient now
+    (their rule ported): each rank's gradient is its shard of
+    ``jax.grad``'s (the whole of it for a BROADCAST source), and each
+    passes the adjoint test. Those it stages through numpy, and a move
+    between device sets, which ``jax.grad`` refuses under its trace,
+    still refuse, saying so."""
+    ranks, ref = worlds[n]
+    for r, out in enumerate(ranks):
+        res = out["grad"]
+        for name in GRAD_CASES:
+            close(res[name]["grad"], ref["grads"][name]["grad"][r], 1e-12)
+            lhs, rhs = res[name]["adjoint"]
+            assert rhs == pytest.approx(lhs, rel=1e-12), name
+        msgs = res["refused"]
+        assert "JAX package stages it through numpy" in msgs["to_host"]
+        assert "JAX package stages the value through numpy" in \
+            msgs["place_replica"]
+        if n > 1:
+            assert "between device sets" in msgs["shrink"]
+        assert not any("item 6" in m for m in msgs.values() if m)
+
+
+@pytest.mark.parametrize("name", ("redistribute", "axis_budget"))
+@pytest.mark.parametrize("n", WORLDS)
+def test_move_gradient_runs_the_inverse_plan(worlds, n, name):
+    """The backward of an axis change is the inverse plan's chunks, each
+    an ``all_to_all_adjoint`` exchange, and every rank receives in it
+    the bytes it sent in the forward."""
     ranks, _ = worlds[n]
+    plan = _plan(n, name)
+    inverse = trs.plan_reshard(field().shape, 8, plan.dst, plan.src,
+                               budget=plan.budget, spill="off")
+    B = trs._pair_bytes(field().size * 8, plan.src, plan.dst,
+                        plan.move_axis, field().shape, 8)
+    np.fill_diagonal(B, 0.0)
+    for r, out in enumerate(ranks):
+        fwd, bwd = (out["grad"][name][k] for k in ("fwd", "bwd"))
+        assert fwd[0]["all_to_all"] == plan.chunks
+        assert bwd[0] == {"all_to_all_adjoint": inverse.chunks}
+        assert bwd[1]["all_to_all_adjoint"] == int(round(B[r, :].sum()))
+
+
+@pytest.mark.parametrize("n", WORLDS)
+def test_ghosted_matches_jax(worlds, n):
+    """``ghosted`` on the balanced and a ragged split: each shard, the
+    local shapes and the global shape are the JAX package's."""
+    ranks, ref = worlds[n]
+    for name in ("ghosted", "ghosted_ragged"):
+        want = ref["grads"][name]
+        for r, out in enumerate(ranks):
+            got = out["grad"][name]
+            assert got["local_shapes"] == want["local_shapes"]
+            assert got["global_shape"] == want["global_shape"]
+            np.testing.assert_array_equal(got["value"], want["value"][r])
+
+
+@pytest.mark.parametrize("n", WORLDS)
+def test_reshaped_matches_jax(worlds, n):
+    """A custom operator decorated with ``reshaped`` in each package,
+    with and without ``stacking``: forward and adjoint values and the
+    output splits."""
+    ranks, ref = worlds[n]
+    for name in ("reshaped", "reshaped_stacking"):
+        want = ref["grads"][name]
+        for out in ranks:
+            got = out["grad"][name]
+            close(got["value"], want["value"])
+            close(got["adjoint_value"], want["adjoint_value"])
+            assert got["local_shapes"] == want["local_shapes"]
+
+
+@pytest.mark.parametrize("n", WORLDS)
+def test_plots_match_jax(worlds, n):
+    """Every rank draws the JAX package's figures: the same images and
+    titles, every shard's panel on every rank."""
+    ranks, ref = worlds[n]
+    want = ref["plots"]
     for out in ranks:
-        res = dict(out["grad"])
-        assert res.pop("no_grad") is True
-        for name, msg in res.items():
-            assert msg is not None, name
-            assert "no autograd rule" in msg and "item 6" in msg, msg
+        got = out["plots"]
+        assert sorted(got) == sorted(want)
+        for key, panels in want.items():
+            assert len(got[key]) == len(panels), key
+            for (gi, gt), (wi, wt) in zip(got[key], panels):
+                assert gt == wt
+                np.testing.assert_array_equal(gi, wi)
 
 
 def test_world_of_one_move_keeps_the_gradient():

@@ -14,6 +14,7 @@ import pylops_mpi_tpu_torch as pmtt
 from pylops_mpi_tpu_torch.diagnostics import metrics, trace
 from pylops_mpi_tpu_torch.parallel import collectives, reshard as rs
 from pylops_mpi_tpu_torch.parallel.partition import Partition
+from pylops_mpi_tpu_torch.utils.decorators import reshaped
 
 P = "PYLOPS_MPI_TPU_TORCH_"
 
@@ -98,39 +99,191 @@ def reshard_rank(budget):
         out["refused"] = None
     except rs.ReshardError as e:
         out["refused"] = (e.min_budget, str(e))
-    out["grad"] = _grad_refusals(g, budget)
+    out["grad"] = grad_rank(g, budget)
+    out["plots"] = plot_rank()
     out["n"] = n
     return out
 
 
-def _grad_refusals(g, budget):
-    """Each move of an array that requires grad, under grad mode: the
-    error's text, or ``None`` when it went through (received pieces
-    arrive detached, so every move between ranks must raise); and
-    outside grad mode, whether the redistribute ran."""
-    xg = pmtt.DistributedArray.to_dist(g, device="cpu")
+def weights(shape, seed=3):
+    """The seeded weights of the gradient cases' losses ``Σ W·y``."""
+    return field(shape, seed)
+
+
+def _weighted(y):
+    """``Σ W·y`` over the whole of ``y`` with ``W`` :func:`weights` of its
+    global shape: a SCATTER array's per-rank terms summed with
+    ``all_reduce`` (its gradient, the move's adjoint applied to ``W``);
+    a replicated one's, which every rank holds, counted once."""
+    w = torch.as_tensor(weights(y.global_shape))
+    if y.partition != Partition.SCATTER:
+        return torch.sum(w * y.array)
+    part = torch.sum(w[_cut(y)] * y.array).reshape(1)
+    return collectives.all_reduce(part).sum()
+
+
+def _cut(y):
+    """This rank's index into ``y``'s global array."""
+    from pylops_mpi_tpu_torch.parallel.partition import shard_offsets
+    sl = [slice(None)] * y.ndim
+    off = shard_offsets(y._axis_sizes())[y._me()]
+    sl[y.axis] = slice(off, off + y.local_shape[y.axis])
+    return tuple(sl)
+
+
+def _grad_case(x, fn, out, name):
+    """The gradient of ``Σ W·fn(x)`` with respect to this rank's shard of
+    ``x``, the adjoint test's two sides (``Σ W·fn(x)`` against
+    ``Σ_ranks ⟨x, gx⟩``, which agree as the move is linear), and the
+    counts and bytes of the forward and the backward."""
+    x.array.requires_grad_(True)
+    collectives.reset_counts()
+    loss = _weighted(fn(x))
+    fwd = (dict(collectives.counts), dict(collectives.received))
+    collectives.reset_counts()
+    (gx,) = torch.autograd.grad(loss, x.array)
+    bwd = (dict(collectives.counts), dict(collectives.received))
+    x.array.requires_grad_(False)
+    ip = torch.sum(x.array * gx).reshape(1)
+    if x.partition == Partition.SCATTER:
+        ip = collectives.all_reduce(ip)
+    out[name] = dict(grad=gx.numpy(), fwd=fwd, bwd=bwd,
+                     adjoint=(float(loss.detach()), float(ip.sum())))
+
+
+def grad_rank(g, budget):
+    """The moves, ``ghosted`` and ``reshaped`` of an array that requires
+    grad (``test_torch_reshard.py``): each gradient and its adjoint test;
+    ``place_replica``, ``to_host`` and a move onto a smaller world still
+    refuse, saying why."""
+    n = pmtt.parallel.world_size()
+    D = pmtt.DistributedArray
+    rag = [(r, 7) for r in ragged(n)]
+    out = {}
+    cases = (
+        ("redistribute", D.to_dist(g, device="cpu"),
+         lambda x: x.redistribute(1)),
+        ("axis_budget", D.to_dist(g, device="cpu"),
+         lambda x: x.reshard(axis=1, budget=budget)),
+        ("ragged_budget", D.to_dist(g, local_shapes=rag, device="cpu"),
+         lambda x: x.reshard(budget=budget)),
+        ("to_bcast", D.to_dist(g, device="cpu"),
+         lambda x: x.to_partition(Partition.BROADCAST)),
+        ("from_bcast", D.to_dist(g, Partition.BROADCAST, device="cpu"),
+         lambda x: x.to_partition(Partition.SCATTER, 1)),
+        ("short", D.to_dist(g[:2], device="cpu"),
+         lambda x: x.redistribute(1).redistribute(0)),
+        ("ghosted", D.to_dist(g, device="cpu"), lambda x: x.ghosted(2, 1)),
+        ("ghosted_ragged", D.to_dist(g, local_shapes=rag, device="cpu"),
+         lambda x: x.ghosted(1, 1)),
+        ("reshaped", D.to_dist(g.ravel(), device="cpu"),
+         lambda x: RowSum(g.shape).matvec(x)),
+        ("reshaped_stacking", D.to_dist(g.ravel(), device="cpu"),
+         lambda x: RowScale(g.size, n).matvec(x)))
+    for name, x, fn in cases:
+        _grad_case(x, fn, out, name)
+    for name, x in (("ghosted", D.to_dist(g, device="cpu")),
+                    ("ghosted_ragged", D.to_dist(g, local_shapes=rag,
+                                                 device="cpu"))):
+        y = x.ghosted(2 if name == "ghosted" else 1, 1)
+        out[name].update(value=y.array.numpy(), local_shapes=y.local_shapes,
+                         global_shape=y.global_shape)
+    for name, op in (("reshaped", RowSum(g.shape)),
+                     ("reshaped_stacking", RowScale(g.size, n))):
+        x = D.to_dist(g.ravel(), device="cpu")
+        y, xa = op.matvec(x), op.rmatvec(x)
+        out[name].update(value=y.asarray(), adjoint_value=xa.asarray(),
+                         local_shapes=(y.local_shapes, xa.local_shapes))
+    xg = D.to_dist(g, device="cpu")
     xg.array.requires_grad_(True)
     tg = torch.tensor(g, requires_grad=True)
-    peer = (pmtt.parallel.rank() + 1) % pmtt.parallel.world_size()
-    res = {}
+    small = pmtt.parallel.sub_mesh(range(max(1, n // 2)))
+    refused = {}
     for name, call in (
-            ("redistribute", lambda: xg.redistribute(1)),
-            ("reshard", lambda: xg.reshard(axis=1, budget=budget)),
-            ("to_partition", lambda: xg.to_partition(Partition.BROADCAST)),
             ("to_host", lambda: xg.to_host()),
             ("place_replica", lambda: rs.place_replica(tg, device="cpu")),
-            ("exchange", lambda: collectives.exchange(
-                "exchange", [(tg, peer)], [(tuple(g.shape), peer)],
-                tg.dtype))):
+            ("shrink", lambda: xg.reshard(mesh=small, budget=budget))):
         try:
             call()
-            res[name] = None
+            refused[name] = None
         except NotImplementedError as e:
-            res[name] = str(e)
-    with torch.no_grad():
-        res["no_grad"] = bool(np.array_equal(xg.redistribute(1).asarray(),
-                                             g))
-    return res
+            refused[name] = str(e)
+    out["refused"] = refused
+    return out
+
+
+class RowSum(pmtt.MPILinearOperator):
+    """A custom operator on an ``(nx, ny)`` field through ``@reshaped``:
+    each row's running sum, the adjoint the running sum from the row's
+    end. Its applies see the field sharded on axis 0."""
+
+    def __init__(self, dims):
+        self.dims = self.dimsd = tuple(dims)
+        n = int(np.prod(dims))
+        super().__init__(shape=(n, n), dtype=torch.float64)
+
+    @reshaped
+    def _matvec(self, x):
+        return pmtt.DistributedArray._wrap(torch.cumsum(x.array, 1), x)
+
+    @reshaped
+    def _rmatvec(self, x):
+        rev = torch.flip(torch.cumsum(torch.flip(x.array, (1,)), 1), (1,))
+        return pmtt.DistributedArray._wrap(rev, x)
+
+
+def stacking_shapes(size, n):
+    """``RowScale``'s split: ragged, so that a vector in the default
+    split is moved to it."""
+    return [(s,) for s in ragged(n, size)]
+
+
+class RowScale(pmtt.MPILinearOperator):
+    """A custom operator through ``@reshaped(stacking=True)``: entry
+    ``i`` of a flat vector split as its ``local_shapes_m`` scaled by
+    ``i + 1`` (self-adjoint)."""
+
+    def __init__(self, size, n):
+        self.local_shapes_m = self.local_shapes_n = tuple(
+            stacking_shapes(size, n))
+        super().__init__(shape=(size, size), dtype=torch.float64)
+
+    def _scale(self, x):
+        w = np.arange(1.0, x.global_shape[0] + 1)
+        return x * pmtt.DistributedArray.to_dist(
+            w, local_shapes=x.local_shapes, device="cpu")
+
+    @reshaped(stacking=True)
+    def _matvec(self, x):
+        return self._scale(x)
+
+    @reshaped(stacking=True)
+    def _rmatvec(self, x):
+        return self._scale(x)
+
+
+def plot_rank():
+    """``plot_distributed_array`` and ``plot_local_arrays`` of the seeded
+    field, 2-D and raveled, under the Agg backend: each axes' image and
+    title."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    from pylops_mpi_tpu_torch import plotting
+    g = field()
+    out = {}
+    for name, arr in (("2d", pmtt.DistributedArray.to_dist(
+            g, device="cpu")), ("1d", pmtt.DistributedArray.to_dist(
+                g.ravel(), local_shapes=[(7 * r,) for r in ragged(
+                    pmtt.parallel.world_size())], device="cpu"))):
+        for kind, fn in (("layout", plotting.plot_distributed_array),
+                         ("locals", plotting.plot_local_arrays)):
+            fig, axs = fn(arr)
+            out[f"{kind}_{name}"] = [
+                (np.asarray(ax.images[0].get_array()), ax.get_title())
+                for ax in np.atleast_1d(axs)]
+            plt.close(fig)
+    return out
 
 
 def spill_rank(budget):
