@@ -349,6 +349,35 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    received in the forward, which it sent. Run it alone with
    ``gradients_phase(torch, pmtt, (nk, sk), here, dev)``.
 
+28. Slice 17, the pipelined collectives (``PYLOPS_MPI_TPU_TORCH_OVERLAP``).
+   28.1 an NCCL group of one, each path built with the knob unset (auto:
+   off there) and ``on``: the main path's ``cgls(normal=True)`` on the 32
+   blocks, phase 7's Gradient CGLS, phase 17's SUMMA (32768, 16384, 64)
+   and the 512^3 c64 ``MPIFFTND`` (``NITER_28`` iterations, one forward
+   and one adjoint apply): bitwise equal, no ring hop or chunk, the same
+   kernel launches (the normal kernel once an iteration). 28.2 two gloo
+   ranks sharing the card: phase 15's Gradient-regularized post-stack
+   CGLS at (65536, 1024) f32, 10 iterations, with overlap off and on
+   (each operator built under the knob): x within ``TOL_28``, every
+   axis-0 derivative apply on the overlap path (ghosts posted through
+   ``ring_halo_ghosts``, the tap kernel on the interior slab with zero
+   ghosts, the boundary rows patched after the wait) with as many tap
+   kernel launches as with overlap off (counted from 0 just before the
+   overlap solve: this slice's main path), the ghosts' bytes those of
+   ``halo_exchange``, one interior call against the plain version, and
+   the walls both ways (host-staged ranks sharing a card: not a
+   card-to-card rate). 28.3 the same two ranks at slice 8's smaller
+   shapes, overlap on against off: SUMMA ``gather`` and ``stat_a``
+   forward and the adjoint at (4096, 2048, 64) on a (1, 2) grid, the
+   stack's ring adjoint on 8 blocks of 1024^2, the (256, 256, 128) c64
+   FFT with 4 chunks forward and adjoint, the sparse ring adjoint on
+   2^20 banded rows, ``MPIHalo`` and ``ghosted(overlap="on")`` (copies:
+   bitwise), each within ``TOL_28`` with ``P - 1`` hops or ``K`` chunks;
+   and the gradient of ``0.5|D x|^2`` through the derivative's overlap
+   path within ``TOL_28``, its ``ring_halo_ghosts_adjoint`` calls those of
+   the forward. Run it alone with ``overlap_phase(torch, pmtt, (nk, sk),
+   here, dev)``.
+
 Phases 8, 9, 11-13, 16-18, 21 and 27 (and phase 20's pool case) reach none
 of the hand-written kernels (a block solve of ``MPIBlockDiag`` runs a
 batched GEMM, bucket 1 runs classic ``cgls``): the
@@ -6709,6 +6738,391 @@ def gradients_phase(torch, pmtt, kernels, here, dev):
     return res
 
 
+# ------------------------------------------------------------ phase 28
+# the pipelined collectives (PYLOPS_MPI_TPU_TORCH_OVERLAP). 28.1: an NCCL
+# group of one, where overlap on must change nothing, bit for bit, over
+# NITER_28 iterations of the two main paths and one SUMMA and FFT apply
+# each way; 28.2: phase 15's Gradient-regularized post-stack CGLS (10
+# iterations at (NX, NT0) f32) on two gloo ranks sharing the card, the
+# derivative's ghosts posted while the tap kernel runs on the interior;
+# 28.3: slice 8's smaller shapes on the same two ranks
+NITER_28 = 10
+TOL_28 = 1e-5   # f32 sums in other orders (rings, chunks, patched rows)
+# 28.3: the stack's blocks, the sparse matrix's rows, the halo's field,
+# the ghosted field and the derivative whose gradient is taken
+NBLK_28, NBLOCK_28 = 8, 1024
+N_SP_28 = 1 << 20
+HALO_28, HALO_W_28 = (2048, 1024), (2, 3)
+GHOST_28 = (8192, 1024)
+CHUNKS_28 = 4
+
+
+def set_overlap(mode):
+    """``PYLOPS_MPI_TPU_TORCH_OVERLAP`` set to ``mode``, or unset (None)."""
+    import os
+    if mode is None:
+        os.environ.pop("PYLOPS_MPI_TPU_TORCH_OVERLAP", None)
+    else:
+        os.environ["PYLOPS_MPI_TPU_TORCH_OVERLAP"] = mode
+
+
+def _bitwise28(torch, a, b):
+    return bool(torch.equal(a, b))
+
+
+def overlap28_group_of_one(torch, pmtt, kernels, dev, tmp):
+    """28.1 (module docstring): each path built and run with the knob
+    unset (``auto``: off in a group of one) and with it ``on``."""
+    import torch.distributed as dist
+    from pylops_mpi_tpu_torch.ops import derivatives
+    from pylops_mpi_tpu_torch.ops.local import MatrixMult
+    from pylops_mpi_tpu_torch.parallel import collectives as co
+    nk, sk = kernels
+    D = pmtt.DistributedArray
+    out = {}
+    pmtt.parallel.init(backend="nccl", store=dist.FileStore(
+        f"{tmp}/store28", 1), rank=0, world_size=1, device=dev)
+    try:
+        def run(label, build, solve):
+            res = {}
+            for mode in (None, "on"):
+                set_overlap(mode)
+                op = build()
+                set_overlap(None)
+                for k in kernels:
+                    k.reset_launches()
+                derivatives.paths.clear()
+                co.reset_counts()
+                got = solve(op)
+                torch.cuda.synchronize()
+                res[mode] = dict(x=got, launches=[k.launches for k in kernels],
+                                 steps=dict(co.steps),
+                                 overlap=derivatives.paths.get("overlap", 0),
+                                 resolved=getattr(op, "_overlap", None))
+                del op
+            equal = all(_bitwise28(torch, a, b) for a, b in
+                        zip(res[None]["x"], res["on"]["x"]))
+            rec = dict(bitwise=equal, launches=res["on"]["launches"],
+                       launches_off=res[None]["launches"],
+                       steps=res["on"]["steps"],
+                       overlap_applies=res["on"]["overlap"])
+            out[label] = rec
+            print(f"28.1 {label} on an NCCL group of one, overlap on vs the "
+                  f"knob unset: bitwise {equal}; kernel launches (normal, "
+                  f"tap) {rec['launches']} vs {rec['launches_off']}; ring "
+                  f"and chunk steps {rec['steps']}", flush=True)
+            if not equal or rec["steps"] or rec["overlap_applies"] \
+                    or rec["launches"] != rec["launches_off"]:
+                raise RuntimeError(f"28.1 {label}: overlap on changed a "
+                                   f"world of one: {rec}")
+            return rec
+
+        A, _, y_t = make_problem(torch, dev)
+        y = D.to_dist(y_t)
+        rec = run("main_path", lambda: pmtt.MPIBlockDiag(
+            [MatrixMult(A[i]) for i in range(NBLK)]),
+            lambda op: [pmtt.cgls(op, y, niter=NITER_28, tol=0.0,
+                                  normal=True)[0].array])
+        if rec["launches"][0] != NITER_28:
+            raise RuntimeError(f"28.1: the normal kernel launched "
+                               f"{rec['launches'][0]} times in {NITER_28} "
+                               "iterations")
+        del A, y, y_t
+        torch.cuda.empty_cache()
+        wav = pmtt.models.ricker(np.arange(31) * 0.004, f0=15)[0]
+        m = layered_model(torch, NX, NT0, dev, seed=4)
+
+        def gradient_op():
+            return gradient_poststack(torch, pmtt, m, wav, NITER_28,
+                                      torch.float32)
+        rec = run("gradient_cgls", gradient_op, lambda s: [pmtt.cgls(
+            s[0], s[1], niter=NITER_28, damp=DAMP, tol=0.0)[0].array])
+        if rec["launches"][1] < 2 * NITER_28:
+            raise RuntimeError(f"28.1: the tap kernel launched "
+                               f"{rec['launches'][1]} times")
+        del m
+        torch.cuda.empty_cache()
+        g = torch.Generator(device=dev).manual_seed(28)
+        A = torch.randn((N_MM, K_MM), generator=g, device=dev)
+        A /= math.sqrt(N_MM)
+        x = D.to_dist(torch.randn(K_MM * M_MM, generator=g, device=dev))
+        v = D.to_dist(torch.randn(N_MM * M_MM, generator=g, device=dev))
+        run("summa", lambda: pmtt.MPIMatrixMult(A, M_MM, kind="summa"),
+            lambda op: [op.matvec(x).array, op.rmatvec(v).array])
+        del A, x, v
+        torch.cuda.empty_cache()
+        n3 = int(np.prod(FFT3))
+        x = D.to_dist(torch.randn(n3, generator=g, device=dev,
+                                  dtype=torch.complex64))
+        run("fftnd", lambda: pmtt.MPIFFTND(FFT3, axes=(0, 1, 2),
+                                           dtype=torch.complex64),
+            lambda op: [op.matvec(x).array, op.rmatvec(x).array])
+        del x
+        torch.cuda.empty_cache()
+    finally:
+        set_overlap(None)
+        pmtt.parallel.destroy()
+    return out
+
+
+def _overlap28_post_rank(torch, pmtt, dev):
+    """28.2 on each rank: the post-stack CGLS with overlap off, then on
+    (each operator built under the knob), this rank's tap-kernel launches
+    and overlap applies, the bytes its ghosts brought, the walls, and one
+    interior call of the overlap path held against the plain version."""
+    from pylops_mpi_tpu_torch.ops import derivatives
+    from pylops_mpi_tpu_torch.ops import stencil_kernels as sk
+    from pylops_mpi_tpu_torch.parallel import collectives as co
+    r = pmtt.parallel.rank()
+    wav = pmtt.models.ricker(np.arange(31) * 0.004, f0=15)[0]
+    m = layered_model(torch, NX, NT0, dev, seed=4)
+    real = sk.stencil_taps
+    interior = []
+
+    def capture(slab, taps, w, out_pad=(0, 0), *, top=0, bottom=0):
+        # the overlap path's interior pass: zero ghosts on both sides; the
+        # last one is kept (the first runs on CGLS's zero start)
+        if not isinstance(top, torch.Tensor) \
+                and not isinstance(bottom, torch.Tensor) and slab.ndim == 2 \
+                and slab.shape[1] == NT0 and slab.shape[0] > NX // 4:
+            interior[:] = [(slab, tuple(taps), w, tuple(out_pad), top,
+                            bottom)]
+        return real(slab, taps, w, out_pad, top=top, bottom=bottom)
+
+    out = dict(rank=r)
+    for mode in ("off", "on"):
+        set_overlap(mode)
+        StackOp, ystack, _ = gradient_poststack(torch, pmtt, m, wav, 10,
+                                                torch.float32)
+        set_overlap(None)
+        pmtt.cgls(StackOp, ystack, niter=1, damp=DAMP, tol=0.0)  # warm-up
+        sk.stencil_taps = capture if mode == "on" else real
+        sk.reset_launches()
+        derivatives.paths.clear()
+        co.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            x = pmtt.cgls(StackOp, ystack, niter=10, damp=DAMP, tol=0.0)[0]
+            torch.cuda.synchronize()
+        finally:
+            sk.stencil_taps = real
+        wall = time.perf_counter() - t0
+        out[mode] = dict(launches=sk.launches, paths=dict(derivatives.paths),
+                         calls=dict(co.counts), received=dict(co.received),
+                         wall_s=wall)
+        xg = x.asarray()
+        out[mode]["x"] = xg if r == 0 else None
+        del StackOp, ystack, x
+        torch.cuda.empty_cache()
+    slab, taps, w, out_pad, top, bottom = interior[0]
+    got = real(slab, taps, w, out_pad, top=top, bottom=bottom)
+    want = sk.stencil_taps_plain(slab, taps, w, out_pad, top=top,
+                                 bottom=bottom)
+    out["interior"] = dict(shape=tuple(slab.shape), top=top, bottom=bottom,
+                           max_err=max_rel_err(got, want))
+    return out
+
+
+def _overlap28_cases_rank(torch, pmtt, dev):
+    """28.3 on each rank: every case with overlap off and on, this rank's
+    relative gap (gathered results), and the ring hops and chunks of the
+    overlap apply."""
+    from pylops_mpi_tpu_torch.ops import stencil_kernels as sk
+    from pylops_mpi_tpu_torch.ops.local import MatrixMult
+    from pylops_mpi_tpu_torch.parallel import collectives as co
+    D = pmtt.DistributedArray
+    n, r = pmtt.parallel.world_size(), pmtt.parallel.rank()
+    out = dict(rank=r)
+
+    def case(label, build, apply, copy=False):
+        res = {}
+        for mode in ("off", "on"):
+            op = build(mode)
+            co.reset_counts()
+            y = apply(op)
+            torch.cuda.synchronize()
+            res[mode] = (y, dict(co.counts), dict(co.steps))
+        a, b = (t.asarray() if hasattr(t, "asarray") else t
+                for t in (res["on"][0], res["off"][0]))
+        a, b = torch.as_tensor(a), torch.as_tensor(b)
+        out[label] = dict(
+            err=0.0 if copy and torch.equal(a, b) else
+            (float("inf") if copy else max_rel_err(a, b)),
+            calls=res["on"][1], steps=res["on"][2], copy=copy)
+
+    A, xm = summa_problem()
+    xs = D.to_dist(torch.from_numpy(xm).to(dev))
+    ys = D.to_dist(torch.from_numpy(np.random.default_rng(28).standard_normal(
+        N_18 * M_18).astype(np.float32)).to(dev))
+    for sch in ("gather", "stat_a"):
+        case(f"summa_{sch}", lambda mode, sch=sch: pmtt.MPIMatrixMult(
+            A, M_18, kind="summa", grid=(1, n), schedule=sch, overlap=mode,
+            device=dev), lambda op: op.matvec(xs))
+    case("summa_adjoint", lambda mode: pmtt.MPIMatrixMult(
+        A, M_18, kind="summa", grid=(1, n), schedule="gather", overlap=mode,
+        device=dev), lambda op: op.rmatvec(ys))
+    g = torch.Generator(device=dev).manual_seed(280)
+    blocks = torch.randn((NBLK_28, NBLOCK_28, NBLOCK_28), generator=g,
+                         device=dev) / math.sqrt(NBLOCK_28)
+    yv = torch.randn(NBLK_28 * NBLOCK_28, generator=g, device=dev)
+
+    def vstack(mode):
+        return pmtt.MPIVStack([MatrixMult(blocks[i]) for i in range(NBLK_28)],
+                              overlap=mode)
+    case("stack_adjoint", vstack, lambda op: op.rmatvec(D.to_dist(
+        yv, local_shapes=op.local_shapes_n)))
+    c, _ = fft18_inputs()
+
+    def fft(mode):
+        return pmtt.MPIFFTND(FFT_18, axes=(0, 1, 2), dtype=torch.complex64,
+                             overlap=mode, comm_chunks=CHUNKS_28)
+
+    def fft_apply(op):
+        xf = D.to_dist(torch.from_numpy(c).to(dev),
+                       local_shapes=op.model_local_shapes)
+        return op.matvec(xf)
+    case("fft_forward", fft, fft_apply)
+    case("fft_adjoint", fft, lambda op: op.rmatvec(fft_apply(op)))
+    offsets, bands = banded(N_SP_28, 28)
+    yp = torch.from_numpy(np.random.default_rng(281).standard_normal(
+        N_SP_28).astype(np.float32)).to(dev)
+
+    def sparse(mode):
+        return pmtt.MPISparseMatrixMult.from_banded(
+            offsets, bands, (N_SP_28, N_SP_28),
+            adjoint_mode="ring" if mode == "on" else "scatter", device=dev)
+    case("sparse_adjoint", sparse, lambda op: op.rmatvec(D.to_dist(
+        yp, local_shapes=op.local_shapes_n)))
+    field = torch.randn(HALO_28, generator=g, device=dev)
+    grid = (n, 1)
+
+    def halo(mode):
+        return pmtt.MPIHalo(HALO_28, HALO_W_28, grid, overlap=mode)
+
+    def halo_apply(op):
+        from pylops_mpi_tpu_torch.ops.halo import halo_block_split
+        xh = D.to_dist(torch.cat([
+            field[halo_block_split(HALO_28, q, grid)].reshape(-1)
+            for q in range(n)]), local_shapes=op.local_dim_sizes)
+        return op.matvec(xh)
+    case("halo", halo, halo_apply, copy=True)
+    gf = D.to_dist(torch.randn(GHOST_28, generator=g, device=dev))
+    case("ghosted", lambda mode: mode,
+         lambda mode: gf.ghosted(2, 3, overlap=mode), copy=True)
+    # one gradient: 0.5‖D x‖² through the derivative's overlap path
+    xd = torch.randn(GHOST_28, generator=g, device=dev).reshape(-1)
+    grads = {}
+    for mode in ("off", "on"):
+        op = pmtt.MPIFirstDerivative(GHOST_28, kind="centered", order=5,
+                                     edge=True, dtype=torch.float32,
+                                     overlap=mode)
+        x = D.to_dist(xd, local_shapes=op.local_shapes_m)
+        sk.reset_launches()
+        gr = _grad_of(torch, lambda v: _half_sq(op.matvec(v)), x)
+        grads[mode] = dict(g=gr["grad"], fwd=gr["fwd"][0], bwd=gr["bwd"][0],
+                           launches=(sk.launches, sk.launches_bwd))
+    out["gradient"] = dict(
+        err=max_rel_err(grads["on"]["g"], grads["off"]["g"]),
+        fwd=grads["on"]["fwd"], bwd=grads["on"]["bwd"],
+        launches=grads["on"]["launches"])
+    return out
+
+
+def overlap_phase(torch, pmtt, kernels, here, dev):
+    """Phase 28 (module docstring): slice 17, the pipelined collectives.
+    28.1 and 28.2 run the tap kernel (28.2 on the overlap path's interior
+    slab, the slice's main path: its counts are set to 0 just before the
+    overlap solve and read just after, in each rank); 28.3 reaches the
+    tap kernel only through the derivative's gradient."""
+    import shutil
+    import tempfile
+    card = card_name()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_overlap_")
+    res = {}
+    try:
+        t = time.perf_counter()
+        res["group_of_one"] = overlap28_group_of_one(torch, pmtt, kernels,
+                                                     dev, tmp)
+        res["group_of_one_s"] = time.perf_counter() - t
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    ranks = spawn_shared_card(2, here, _overlap28_post_rank)
+    want = ranks[0]["off"]["x"]
+    err = float(np.abs(ranks[0]["on"]["x"] - want).max()
+                / np.abs(want).max())
+    per_rank = []
+    for o in ranks:
+        on, off = o["on"], o["off"]
+        per_rank.append(dict(
+            rank=o["rank"], launches=on["launches"],
+            launches_off=off["launches"], paths=on["paths"],
+            ghost_bytes=on["received"].get("ring_halo_ghosts", 0),
+            halo_bytes_off=off["received"].get("halo_exchange", 0),
+            ring_halo_ghosts=on["calls"].get("ring_halo_ghosts", 0),
+            halo_exchange_on=on["calls"].get("halo_exchange", 0),
+            wall_on_s=on["wall_s"], wall_off_s=off["wall_s"],
+            interior=o["interior"]))
+    res["post"] = dict(x_rel_err=err, ranks=per_rank,
+                       seconds=time.perf_counter() - t)
+    print(f"28.2 two gloo ranks on one card ({card}), post-stack CGLS "
+          f"({NX}, {NT0}) f32, 10 iterations, overlap on vs off: x "
+          f"{err:.3e} (limit {TOL_28:.0e}); per rank {per_rank} (walls are "
+          "host-staged gloo ranks sharing one card, not a card-to-card "
+          "rate)", flush=True)
+    if not err <= TOL_28:
+        raise RuntimeError(f"28.2: overlap on moved x by {err:.3e}")
+    for o in per_rank:
+        p = o["paths"]
+        if (o["launches"] != o["launches_off"] or not p.get("overlap")
+                or p.get("overlap") != p.get("explicit") or p.get("gather")
+                or o["halo_exchange_on"]
+                or o["ghost_bytes"] != o["halo_bytes_off"]
+                or not o["interior"]["max_err"] <= STENCIL_TOL["float32"]):
+            raise RuntimeError(f"28.2: rank {o['rank']} did not run the "
+                               f"overlap path through the tap kernel: {o}")
+    t = time.perf_counter()
+    ranks = spawn_shared_card(2, here, _overlap28_cases_rank)
+    res["cases"] = ranks[0]
+    n = 2
+    want_steps = {"summa_gather": {"ring_pass": n - 1},
+                  "summa_stat_a": {"ring_reduce_scatter": n - 1},
+                  "summa_adjoint": {"ring_pass": n - 1},
+                  "stack_adjoint": {"ring_reduce_scatter": n - 1},
+                  "fft_forward": {"chunked_pencil_transpose": CHUNKS_28},
+                  "fft_adjoint": {"chunked_pencil_transpose":
+                                  2 * CHUNKS_28},
+                  "sparse_adjoint": {"ring_pass": n - 1},
+                  "halo": {}, "ghosted": {}}
+    for o in ranks:
+        for label, steps in want_steps.items():
+            c = o[label]
+            print(f"28.3 rank {o['rank']} {label}: overlap on vs off "
+                  f"{c['err']:.3e} ({'bitwise' if c['copy'] else 'limit'}"
+                  f" {0.0 if c['copy'] else TOL_28:.0e}); calls "
+                  f"{c['calls']}; steps {c['steps']}", flush=True)
+            if not c["err"] <= (0.0 if c["copy"] else TOL_28) \
+                    or c["steps"] != steps:
+                raise RuntimeError(f"28.3 rank {o['rank']} {label}: {c}")
+        gr = o["gradient"]
+        adj = {k[:-len("_adjoint")]: v for k, v in gr["bwd"].items()
+               if k.endswith("_adjoint")}
+        fwd = {k: v for k, v in gr["fwd"].items()
+               if k in ("ring_halo_ghosts", "all_to_all")}
+        print(f"28.3 rank {o['rank']} gradient of 0.5|D x|^2 through the "
+              f"overlap path: vs overlap off {gr['err']:.3e} (limit "
+              f"{TOL_28:.0e}); forward calls {gr['fwd']}, backward "
+              f"{gr['bwd']}; tap kernel (forward, backward) launches "
+              f"{gr['launches']}", flush=True)
+        if not gr["err"] <= TOL_28 or adj != fwd \
+                or fwd.get("ring_halo_ghosts") != 1:
+            raise RuntimeError(f"28.3 rank {o['rank']} gradient: {gr}")
+    res["cases_s"] = time.perf_counter() - t
+    return res
+
+
 def main() -> int:
     here = Path(__file__).resolve().parent
     if not (here / "pylops_mpi_tpu_torch" / "__init__.py").is_file():
@@ -7157,6 +7571,14 @@ def main() -> int:
     slice16 = gradients_phase(torch, pmtt, kernel_mods, here, dev)
     print(f"phase 27 in {time.perf_counter() - t27:.1f} s", flush=True)
 
+    # 28. slice 17: the pipelined collectives (28.2 is its main path: the
+    # tap kernel on the overlap path's interior slab, in each rank)
+    torch.cuda.empty_cache()
+    t28 = time.perf_counter()
+    slice17 = overlap_phase(torch, pmtt, kernel_mods, here, dev)
+    slice17["seconds"] = time.perf_counter() - t28
+    print(f"phase 28 in {slice17['seconds']:.1f} s", flush=True)
+
     kernels = []
     for name, run in (("float32", "normal_f32"), ("bfloat16", "normal_bf16")):
         s = stats[name]
@@ -7232,7 +7654,18 @@ def main() -> int:
                            if name == "float32" else None),
             # phase 25.1b: the Gradient-regularized CGLS under TUNE=on
             tuned_launches=(slice14["gradient"]["launches_tuned"]
-                            if name == "float32" else None)))
+                            if name == "float32" else None),
+            # phase 28.2: the overlap path's interior passes on each of two
+            # gloo ranks (10 iterations, counted from 0 just before the
+            # overlap solve), and one interior call against the plain
+            # version
+            overlap_launches_per_rank=(
+                [o["launches"] for o in slice17["post"]["ranks"]]
+                if name == "float32" else None),
+            overlap_interior_max_err=(
+                max(o["interior"]["max_err"]
+                    for o in slice17["post"]["ranks"])
+                if name == "float32" else None)))
     # phase 24: the tap kernel on the transposed taps, the backward of its
     # autograd rule; launches in 24.2's gradient descent (f32)
     ad = slice13["objective"]
@@ -7264,7 +7697,8 @@ def main() -> int:
                       "slice10": slice10, "slice11": slice11,
                       "slice12": slice12, "slice13": slice13,
                       "slice14": slice14, "slice15": slice15,
-                      "slice16": slice16}),
+                      "slice16": slice16, "slice17": slice17},
+                     default=str),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -30,7 +30,8 @@ their methods, with whatever Python scalars they hold: a derivative's
 sampling, kind and edge, a scaled operator's factor), their
 ``op_signature`` and ``storage_signature`` (a graph holds their tensors'
 addresses, and a tensor attribute swapped on the same object changes
-them), ``compile_signature()``, the reduction stall
+them), the operator's ``schedule_signature`` (its resolved overlap and
+chunk count), ``compile_signature()``, the reduction stall
 (``collectives.stall_signature``) and the telemetry state
 (``telemetry.telemetry_signature``), the shapes, dtypes and devices of
 the data and of the carry, the segment length and the process group's
@@ -235,9 +236,11 @@ def key(solver: str, scalars: Dict[str, Any], Op, M, y,
     """The bank key of one loop (module docstring)."""
     from ..diagnostics.telemetry import telemetry_signature
     from ..parallel.collectives import stall_signature
-    from .signature import compile_signature, op_signature, storage_signature
+    from .signature import (compile_signature, op_signature,
+                            schedule_signature, storage_signature)
     return (solver, _freeze(scalars),
             id(Op), op_signature(Op), storage_signature(Op),
+            schedule_signature(Op),
             None if M is None else (id(M), op_signature(M),
                                     storage_signature(M)),
             _freeze(compile_signature()), stall_signature(),

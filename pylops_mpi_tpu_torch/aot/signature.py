@@ -8,15 +8,17 @@ alike (a restarted daemon's fresh operator) share one signature;
 on (the torch and CUDA versions, the device, the world size and the
 knobs that change the solvers' arithmetic); :func:`storage_signature`
 adds the addresses of the operator's tensors, which a captured CUDA
-graph bakes in. The bank of captured loops (:mod:`.graphs`) keys on all
-three; the serving pool folds :func:`op_signature` into its family
-signature.
+graph bakes in; :func:`schedule_signature` adds the operators' resolved
+overlap and chunk count. The bank of captured loops (:mod:`.graphs`)
+keys on all four; the serving pool folds :func:`op_signature` into its
+family signature.
 """
 
 import os
 from typing import Any, Dict, List, Tuple
 
-__all__ = ["compile_signature", "op_signature", "storage_signature"]
+__all__ = ["compile_signature", "op_signature", "storage_signature",
+           "schedule_signature"]
 
 # knobs that change what a solve computes
 _COMPILE_KNOBS = (
@@ -91,6 +93,36 @@ def storage_signature(obj) -> Tuple:
     bakes the value, not the address."""
     out: List = []
     _tensors(obj, out, set(), _storage)
+    return tuple(out)
+
+
+def schedule_signature(obj) -> Tuple:
+    """The resolved pipelined-collective schedule of every operator
+    reachable from ``obj`` (by :func:`op_signature`'s walk): ``(class
+    name, overlap, chunks)`` for each that resolves ``overlap``, so that a
+    loop captured with overlap off is never replayed for an operator with
+    overlap on, nor one of one chunk count for another."""
+    out: List = []
+
+    def walk(o, seen):
+        if id(o) in seen:
+            return
+        seen.add(id(o))
+        if isinstance(o, (list, tuple)):
+            for v in o:
+                walk(v, seen)
+        elif isinstance(o, dict):
+            for k in sorted(o, key=str):
+                walk(o[k], seen)
+        elif hasattr(o, "shape") and hasattr(o, "__dict__"):
+            d = vars(o)
+            if "_overlap" in d:
+                out.append((type(o).__name__, bool(d["_overlap"]),
+                            d.get("_comm_chunks")))
+            for k in sorted(d):
+                walk(d[k], seen)
+
+    walk(obj, set())
     return tuple(out)
 
 

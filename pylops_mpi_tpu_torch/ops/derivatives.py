@@ -21,6 +21,18 @@ kernel's ``out_pad`` (forward) or absent input rows (adjoint) on the
 first and last ranks, and the sparse ``edge=True`` matrix ``E`` is added
 in place on its O(1) rows there.
 
+With overlap on (``overlap=``, ``PYLOPS_MPI_TPU_TORCH_OVERLAP``; the
+JAX package's ``:297-347``), across ranks whose every shard holds at
+least ``2w`` rows, the ghost rows are posted first
+(:func:`~..parallel.collectives.ring_halo_ghosts`), the tap kernel runs
+on the shard with zero ghosts (the interior, exact everywhere but the
+first and last ``w`` rows) while they are in flight, and after the wait
+those ``w`` rows on each side that has a neighbour are recomputed from
+the received ghosts by the plain tap sum, as the JAX package patches
+them outside Pallas. The masked ``Z`` rows and the ``edge`` triples are
+the bulk path's. Shorter shards keep the bulk exchange. ``paths``
+counts the overlap path as ``"overlap"`` beside ``"explicit"``.
+
 A rank whose shard is shorter than the span the stencil reads (``w``
 rows, or 3 with ``edge``), or a non-floating field, takes the gather
 path: the field is gathered, the stencil applied whole, and the rank
@@ -55,7 +67,8 @@ __all__ = ["MPIFirstDerivative", "MPISecondDerivative", "MPILaplacian",
            "MPIGradient", "paths"]
 
 # applies by path since the last paths.clear(): "explicit" (the tap
-# kernel, ghost rows exchanged), "gather" (a short shard or a
+# kernel, ghost rows exchanged), "overlap" (those of the explicit applies
+# whose ghosts flew while the kernel ran), "gather" (a short shard or a
 # non-floating field), "local" (the local operator on the rank's shard
 # or, with one rank, on the whole field)
 paths: Counter = Counter()
@@ -153,7 +166,7 @@ class _StencilOperator(MPILinearOperator):
     """Flat vector in → N-D stencil → flat vector out, SCATTER along
     axis 0 by rows, with the explicit kernel path for axis-0 stencils."""
 
-    def __init__(self, dims, dtype=None):
+    def __init__(self, dims, dtype=None, overlap=None):
         self.dims_nd = _tuplize(dims)
         n = int(np.prod(self.dims_nd))
         self.dims = self.dimsd = self.dims_nd
@@ -163,15 +176,19 @@ class _StencilOperator(MPILinearOperator):
         self._shard_ops = {}
         super().__init__(shape=(n, n),
                          dtype=as_torch_dtype(dtype) or torch.float64)
-        # the tuner's seam (JAX ``ops/derivatives.py:150-160``): the ghost
-        # strategy is consulted and recorded as ``overlap``; inert in the
-        # port (one exchange an apply, ROADMAP.md §A.3b)
-        self.overlap = None
-        from ..tuning import plan as _tuneplan
-        tplan = _tuneplan.get_plan("derivative", shape=self.dims_nd,
-                                   dtype=self.dtype, n_dev=world_size())
-        if tplan is not None and tplan.get("overlap") in ("on", "off"):
-            self.overlap = tplan.get("overlap")
+        # the tuner's seam (JAX ``ops/derivatives.py:150-160``): an
+        # overlap left at None, and not pinned by the environment, comes
+        # from the plan; ``overlap`` keeps the setting, ``_overlap`` the
+        # schedule it resolves to
+        from ..utils.deps import overlap_enabled, overlap_env_pinned
+        if overlap is None and not overlap_env_pinned():
+            from ..tuning import plan as _tuneplan
+            tplan = _tuneplan.get_plan("derivative", shape=self.dims_nd,
+                                       dtype=self.dtype, n_dev=world_size())
+            if tplan is not None and tplan.get("overlap") in ("on", "off"):
+                overlap = tplan.get("overlap")
+        self.overlap = overlap
+        self._overlap = overlap_enabled(overlap)
 
     def _local_op(self):
         raise NotImplementedError
@@ -224,8 +241,11 @@ class _StencilOperator(MPILinearOperator):
         if min(rows) >= min_rows and v.dtype.is_floating_point:
             base = shard_offsets(rows)[r]
             paths["explicit"] += 1
-            return self._apply_explicit(v, forward, base, rows[r],
-                                        True).reshape(-1)
+            # the JAX gate (``:297``): every shard holds the 2w rows each
+            # patch reads locally
+            overlap = self._overlap and min(rows) >= 2 * spec["w"] > 0
+            return self._apply_explicit(v, forward, base, rows[r], True,
+                                        overlap).reshape(-1)
         paths["gather"] += 1
         g = collectives.all_gather(v, [s[0] for s in self.local_shapes_m])
         y = self._apply_explicit(g, forward, 0, self.dims_nd[0], False)
@@ -235,14 +255,18 @@ class _StencilOperator(MPILinearOperator):
         return y.reshape(-1)[off:off + self.local_shapes_n[r][0]]
 
     def _apply_explicit(self, v: torch.Tensor, forward: bool, base: int,
-                        nrows: int, exchange: bool) -> Optional[torch.Tensor]:
+                        nrows: int, exchange: bool,
+                        overlap: bool = False) -> Optional[torch.Tensor]:
         """The axis-0 stencil on the ``nrows`` rows from global row
         ``base`` held in ``v``, as one tap-kernel pass with the ghost
         rows (exchanged with the neighbouring ranks when ``exchange``,
         zeros otherwise) plus the O(1) ``edge`` rows (JAX package
         ``ops/derivatives.py:202-381``); ``None`` (local operator) for
         non-axis-0 stencils, or a whole field that is non-floating or
-        shorter than the stencil's span."""
+        shorter than the stencil's span. With ``overlap`` the ghosts are
+        posted, the kernel runs with zero ghosts, and the ``w`` rows next
+        to each neighbour are patched after the wait (module
+        docstring)."""
         op = self._local_op()
         if op.axis != 0:
             return None
@@ -253,8 +277,15 @@ class _StencilOperator(MPILinearOperator):
         if nrows == n0 and (n0 < min_rows or not v.dtype.is_floating_point):
             return None
         b = v.reshape((nrows,) + self.dims_nd[1:])
-        top, bottom = (collectives.halo_exchange(b, w, w) if exchange
-                       else (w, w))
+        ghosts = None
+        if overlap:
+            # ghosts first; the interior pass below takes zero ghosts
+            paths["overlap"] += 1
+            ghosts = collectives.ring_halo_ghosts(b, w, w)
+            top, bottom = w, w
+        else:
+            top, bottom = (collectives.halo_exchange(b, w, w) if exchange
+                           else (w, w))
         lo_z, hi_z = spec["lo_z"], spec["hi_z"]
         # Z's zero rows on this shard: global rows [0, lo_z) and
         # [n0 - hi_z, n0), clipped to the shard (the end ranks only)
@@ -292,6 +323,9 @@ class _StencilOperator(MPILinearOperator):
             y = stencil_kernels.stencil_taps(b[lo:nrows - hi], taps, w,
                                              top=tp, bottom=bp)
             triples = [(i, o, c) for (o, i, c) in spec["edge"]]
+        if ghosts is not None:
+            y = self._patch(y, b, ghosts.wait(), taps, w, forward, base,
+                            nrows, lo, hi, spec)
         for (oside, oi), (_, ii), coef in triples:
             # every triple pairs rows of one side: the first rank's first
             # rows or the last rank's last rows
@@ -300,6 +334,45 @@ class _StencilOperator(MPILinearOperator):
             elif oside == "hi" and base + nrows == n0:
                 y[nrows - 1 - oi] += coef * b[nrows - 1 - ii]
         return y
+
+    def _patch(self, y: torch.Tensor, b: torch.Tensor, ghosts, taps, w: int,
+               forward: bool, base: int, nrows: int, lo: int, hi: int,
+               spec: dict) -> torch.Tensor:
+        """``y`` of the interior pass with its first ``w`` rows (below a
+        previous rank) and last ``w`` rows (above a next rank) recomputed
+        from the received ghosts: the plain tap sum over the ``3w``-row
+        window ``[ghost; 2w rows]`` (or ``[2w rows; ghost]``), as the JAX
+        package's ``tap_rows`` (``:326-347``). The forward's masked rows
+        are never among them (a rank with a neighbour on that side has
+        no ``Z`` row there); the adjoint zeroes the masked input rows of
+        the window and of the ghosts, as the bulk path does."""
+        gf, gb = ghosts
+        n0 = self.dims_nd[0]
+        taps_sum = stencil_kernels.stencil_taps_plain
+
+        def keep(part, first, last):
+            # part with its rows outside [first, last) zeroed (the
+            # adjoint's masked input rows); the forward masks no input
+            if forward or (first <= 0 and last >= part.shape[0]):
+                return part
+            mask = torch.zeros(part.shape[0], dtype=torch.bool,
+                               device=part.device)
+            mask[max(first, 0):max(last, 0)] = True
+            return torch.where(mask.reshape((-1,) + (1,) * (part.ndim - 1)),
+                               part, part.new_zeros(()))
+
+        parts = [y]
+        if base > 0:  # ghost t is global row base - w + t: masked < lo_z
+            head = torch.cat([keep(gf, spec["lo_z"] - (base - w), w),
+                              keep(b[:2 * w], lo, nrows - hi)])
+            parts = [taps_sum(head, taps, w), y[w:]]
+        if base + nrows < n0:  # ghost t is global base + nrows + t
+            tail = torch.cat([keep(b[nrows - 2 * w:], lo - (nrows - 2 * w),
+                                   nrows - hi - (nrows - 2 * w)),
+                              keep(gb, 0, n0 - spec["hi_z"] - base - nrows)])
+            parts[-1] = parts[-1][:parts[-1].shape[0] - w]
+            parts.append(taps_sum(tail, taps, w))
+        return torch.cat(parts) if len(parts) > 1 else y
 
     def _matvec(self, x: DistributedArray) -> DistributedArray:
         return self._apply(x, True)
@@ -312,11 +385,14 @@ class MPIFirstDerivative(_StencilOperator):
     """First derivative along axis 0
     (ref ``basicoperators/FirstDerivative.py:18-318``): forward /
     backward / centered stencils of order 3 or 5, with ``edge`` handling
-    at the domain boundary."""
+    at the domain boundary. ``overlap`` selects the overlap path across
+    ranks (module docstring); ``hierarchical`` (the two-level schedules)
+    is accepted with no effect (ROADMAP.md §A.3b)."""
 
     def __init__(self, dims, sampling: float = 1.0, kind: str = "centered",
-                 edge: bool = False, order: int = 3, dtype=torch.float64):
-        super().__init__(dims, dtype=dtype)
+                 edge: bool = False, order: int = 3, dtype=torch.float64,
+                 overlap=None, hierarchical=None):
+        super().__init__(dims, dtype=dtype, overlap=overlap)
         self.sampling = sampling
         self.kind = kind
         self.edge = edge
@@ -335,11 +411,13 @@ class MPISecondDerivative(_StencilOperator):
     """Second derivative along axis 0
     (ref ``basicoperators/SecondDerivative.py:13-256``): forward /
     backward / centered 3-point stencils; ``edge`` adds the one-sided
-    boundary rows for centered."""
+    boundary rows for centered. ``overlap`` and ``hierarchical`` as
+    :class:`MPIFirstDerivative`'s."""
 
     def __init__(self, dims, sampling: float = 1.0, kind: str = "centered",
-                 edge: bool = False, dtype=torch.float64):
-        super().__init__(dims, dtype=dtype)
+                 edge: bool = False, dtype=torch.float64, overlap=None,
+                 hierarchical=None):
+        super().__init__(dims, dtype=dtype, overlap=overlap)
         self.sampling = sampling
         self.kind = kind
         self.edge = edge
@@ -355,13 +433,14 @@ class MPILaplacian(_StencilOperator):
     (ref ``basicoperators/Laplacian.py:15-126``). With one rank it
     applies the local second derivatives to the whole field and does not
     run the tap kernel, as the JAX package does; across ranks the axis-0
-    term goes through the ghost exchange and the tap kernel, and the
+    term goes through the ghost exchange and the tap kernel (the bulk
+    exchange: the JAX package's Laplacian has no overlap path), and the
     other axes apply to each rank's shard."""
 
     def __init__(self, dims, axes=(-2, -1), weights=(1, 1), sampling=(1, 1),
                  kind: str = "centered", edge: bool = False,
                  dtype=torch.float64):
-        super().__init__(dims, dtype=dtype)
+        super().__init__(dims, dtype=dtype, overlap="off")
         axes = tuple(ax % len(self.dims_nd) for ax in axes)
         if not (len(axes) == len(weights) == len(sampling)):
             raise ValueError("axes, weights, and sampling have different size")
@@ -371,7 +450,8 @@ class MPILaplacian(_StencilOperator):
         self._ops = [_LocalSecond(self.dims_nd, axis=ax, sampling=s,
                                   kind=kind, edge=edge, dtype=dtype)
                      for ax, s in zip(axes, sampling)]
-        self._terms = [_AxisStencil(self.dims_nd, op) for op in self._ops]
+        self._terms = [_AxisStencil(self.dims_nd, op, "off")
+                       for op in self._ops]
 
     def _apply(self, x: DistributedArray, forward: bool) -> DistributedArray:
         x = _model_layout(x, self.local_shapes_m)
@@ -396,8 +476,8 @@ class _AxisStencil(_StencilOperator):
     layout (the reference runs non-0 axes as rank-local pylops operators
     inside MPIBlockDiag, ref ``Gradient.py:88-97``)."""
 
-    def __init__(self, dims, op):
-        super().__init__(dims, dtype=op.dtype)
+    def __init__(self, dims, op, overlap=None):
+        super().__init__(dims, dtype=op.dtype, overlap=overlap)
         self._op = op
 
     def _local_op(self):
@@ -407,19 +487,23 @@ class _AxisStencil(_StencilOperator):
 class _AxisFirstDerivative(_AxisStencil):
     """First derivative along any axis of the axis-0-sharded layout."""
 
-    def __init__(self, dims, axis, sampling, kind, edge, dtype=torch.float64):
+    def __init__(self, dims, axis, sampling, kind, edge, dtype=torch.float64,
+                 overlap=None):
         super().__init__(dims, _LocalFirst(_tuplize(dims), axis=axis,
                                            sampling=sampling, kind=kind,
-                                           edge=edge, dtype=dtype))
+                                           edge=edge, dtype=dtype), overlap)
 
 
 class MPIGradient(MPILinearOperator):
     """Gradient: vertical stack of first derivatives along every axis
     (ref ``basicoperators/Gradient.py:21-118``). The output is a
-    :class:`StackedDistributedArray` with one component per axis."""
+    :class:`StackedDistributedArray` with one component per axis.
+    ``overlap`` goes to every component (the axis-0 one acts on it);
+    ``hierarchical`` is accepted with no effect."""
 
     def __init__(self, dims, sampling=1, kind: str = "centered",
-                 edge: bool = False, dtype=torch.float64):
+                 edge: bool = False, dtype=torch.float64, overlap=None,
+                 hierarchical=None):
         self.dims_nd = _tuplize(dims)
         ndims = len(self.dims_nd)
         # a float spacing: an int cast would truncate e.g. 0.5 to 0
@@ -434,7 +518,8 @@ class MPIGradient(MPILinearOperator):
         self.edge = edge
         stack = MPIStackedVStack([
             _AxisFirstDerivative(self.dims_nd, axis=ax, sampling=sampling[ax],
-                                 kind=kind, edge=edge, dtype=dtype)
+                                 kind=kind, edge=edge, dtype=dtype,
+                                 overlap=overlap)
             for ax in range(ndims)])
         super().__init__(shape=stack.shape, dtype=dtype)
         self.Op = stack  # after super().__init__, which resets self.Op

@@ -37,11 +37,21 @@ real transform runs the complex inverse over the other axes first and
 ``nfft``'s Nyquist bin zeroed before it: what numpy's ``irfft`` does
 implicitly, and what cuFFT's leaves undefined.
 
+With overlap on (``overlap=``, ``PYLOPS_MPI_TPU_TORCH_OVERLAP``) the
+aligned path streams its two transposes in ``comm_chunks`` chunks
+(``PYLOPS_MPI_TPU_TORCH_COMM_CHUNKS``, default 4; JAX ``ops/fft.py:
+256-266``, ``:519-548``, ``:627-643``): each chunk of the out-axis goes
+through its ``all_to_all``, the axis-0 transform and its ``all_to_all``
+back, the next chunk's transfer in flight meanwhile
+(:func:`~..parallel.collectives.chunked_pencil_transpose`). A count that
+does not fit the axis falls back with a logged note
+(:func:`~..parallel.collectives.resolve_chunks`); a default count may
+come from the tuner's chunk plan.
+
 Not ported: the planar engine (``matvec_planes``/``rmatvec_planes``,
 ``ops/dft.py``), the TPU's workaround for its missing complex lowering;
-the chunked (``overlap``, ``comm_chunks``) and two-level
-(``hierarchical``) transposes, accepted with no effect (ROADMAP.md
-§A.3b, §A.5).
+the two-level (``hierarchical``) transposes, accepted with no effect
+(ROADMAP.md §A.3b, §A.5).
 """
 
 from __future__ import annotations
@@ -183,23 +193,33 @@ class _MPIBaseFFTND(MPILinearOperator):
         inner_d = int(np.prod(self.dimsd_nd[1:])) if ndim > 1 else 1
         self._mlocals = flat_outer_shapes(self.dims_nd[0], inner_m, P)
         self._dlocals = flat_outer_shapes(self.dimsd_nd[0], inner_d, P)
-        # the tuner's seam (JAX ``ops/fft.py:170-185``): overlap, chunks
-        # and staging left at None are consulted and recorded; inert in
-        # the port until its transposes are chunked (ROADMAP.md §A.3b)
-        if overlap is None or comm_chunks is None or hierarchical is None:
+        # the tuner's seam (JAX ``ops/fft.py:165-193``): overlap, chunks
+        # and staging left at None, and not pinned by the environment,
+        # come from the plan; ``_overlap`` and ``_comm_chunks`` are what
+        # they resolve to
+        from ..utils.deps import (comm_chunks_default, comm_chunks_env_pinned,
+                                  overlap_enabled, overlap_env_pinned)
+        want_overlap = overlap is None and not overlap_env_pinned()
+        want_chunks = comm_chunks is None and not comm_chunks_env_pinned()
+        self._chunks_from_user = not want_chunks
+        if want_overlap or want_chunks or hierarchical is None:
             from ..tuning import plan as _tuneplan
             tplan = _tuneplan.get_plan(
                 "fft", shape=self.dims_nd, dtype=self.cdtype, n_dev=P,
                 extra={"fft_axes": tuple(int(a) for a in self.axes),
                        "real": self.real})
             if tplan is not None:
-                if overlap is None and tplan.get("overlap") in ("on", "off"):
+                if want_overlap and tplan.get("overlap") in ("on", "off"):
                     self.overlap = tplan.get("overlap")
-                if comm_chunks is None and tplan.get("comm_chunks"):
+                if want_chunks and tplan.get("comm_chunks"):
                     self.comm_chunks = max(1, int(tplan.get("comm_chunks")))
                 if hierarchical is None and tplan.get("hierarchical") in (
                         "auto", "on", "off"):
                     self.hierarchical = tplan.get("hierarchical")
+        self._overlap = overlap_enabled(self.overlap)
+        self._comm_chunks = (int(self.comm_chunks)
+                             if self.comm_chunks is not None
+                             else comm_chunks_default())
 
     @property
     def model_local_shapes(self):
@@ -274,6 +294,30 @@ class _MPIBaseFFTND(MPILinearOperator):
             b = torch.fft.irfft(b, n=n, dim=last, norm=self._inv_norm)
         return b
 
+    def _pencil_chunks(self, width: int) -> int:
+        """The chunk count of the streamed transposes at this operator's
+        settings (1: the bulk transposes; JAX ``:256-266``)."""
+        if not self._overlap or self._P <= 1:
+            return 1
+        return collectives.resolve_chunks(
+            width, self._P, self._comm_chunks,
+            allow_plan=not self._chunks_from_user)
+
+    def _transposed(self, b: torch.Tensor, mid, rows_in, rows_out):
+        """``b``'s out-axis pencils through the transpose, ``mid`` (the
+        axis-0 section) and the transpose back: two bulk ``all_to_all``
+        calls, or the chunked stream (module docstring)."""
+        out_ax, P = self._out_axis, self._P
+        K = self._pencil_chunks(b.shape[out_ax])
+        if K > 1:
+            return collectives.chunked_pencil_transpose(
+                b, out_ax, K, mid, rows_in, rows_out)
+        chunks = [s[0] for s in local_split((b.shape[out_ax],), P,
+                                            Partition.SCATTER, 0)]
+        b = _pencil_transpose(b, out_ax, 0, chunks, rows_in)
+        b = mid(b)
+        return _pencil_transpose(b, 0, out_ax, rows_out, chunks)
+
     # --------------------------------------------------------------- apply
     def _split(self) -> bool:
         """The aligned path with pencils to transpose."""
@@ -296,16 +340,15 @@ class _MPIBaseFFTND(MPILinearOperator):
         if self.real:
             b = self._scale_real(b, inverse=False)
         if mid:
-            out_ax, P = self._out_axis, self._P
-            chunks = [s[0] for s in local_split((b.shape[out_ax],), P,
-                                                Partition.SCATTER, 0)]
-            b = _pencil_transpose(b, out_ax, 0, chunks, self._rows_m)
-            if 0 in before:
-                b = torch.fft.ifftshift(b, dim=0)
-            b = torch.fft.fft(b, n=self._nfft(0), dim=0, norm=self._fwd_norm)
-            if 0 in after:
-                b = torch.fft.fftshift(b, dim=0)
-            b = _pencil_transpose(b, 0, out_ax, self._rows_d, chunks)
+            def axis0(t):
+                if 0 in before:
+                    t = torch.fft.ifftshift(t, dim=0)
+                t = torch.fft.fft(t, n=self._nfft(0), dim=0,
+                                  norm=self._fwd_norm)
+                if 0 in after:
+                    t = torch.fft.fftshift(t, dim=0)
+                return t
+            b = self._transposed(b, axis0, self._rows_m, self._rows_d)
         post = [a for a in after if not (mid and a == 0)]
         if post:
             b = torch.fft.fftshift(b, dim=post)
@@ -322,17 +365,15 @@ class _MPIBaseFFTND(MPILinearOperator):
         if self.real:
             b = self._scale_real(b, inverse=True)
         if mid:
-            out_ax, P = self._out_axis, self._P
-            chunks = [s[0] for s in local_split((b.shape[out_ax],), P,
-                                                Partition.SCATTER, 0)]
-            b = _pencil_transpose(b, out_ax, 0, chunks, self._rows_d)
-            if 0 in after:
-                b = torch.fft.ifftshift(b, dim=0)
-            b = torch.fft.ifft(b, n=self._nfft(0), dim=0,
-                               norm=self._inv_norm)[:self.dims_nd[0]]
-            if 0 in before:
-                b = torch.fft.fftshift(b, dim=0)
-            b = _pencil_transpose(b, 0, out_ax, self._rows_m, chunks)
+            def axis0(t):
+                if 0 in after:
+                    t = torch.fft.ifftshift(t, dim=0)
+                t = torch.fft.ifft(t, n=self._nfft(0), dim=0,
+                                   norm=self._inv_norm)[:self.dims_nd[0]]
+                if 0 in before:
+                    t = torch.fft.fftshift(t, dim=0)
+                return t
+            b = self._transposed(b, axis0, self._rows_d, self._rows_m)
         b = self._inverse(b, [a for a in axes if not (mid and a == 0)])
         b = b[(slice(None),) * (1 if split else 0)
               + tuple(slice(0, d) for d in self.dims_nd[1 if split else 0:])]

@@ -72,10 +72,14 @@ class MPIHalo(MPILinearOperator):
 
     ``proc_grid_shape`` must multiply to the number of ranks. ``mesh``
     keeps the JAX package's argument order and must describe the
-    process group. ``overlap`` and ``hierarchical`` select, in the JAX
-    package, how the exchange overlaps the repack and which mesh axes
-    it runs over; they are accepted and have no effect (ROADMAP.md
-    §A.3b): the plain exchange gives the same numbers.
+    process group. ``overlap`` (``PYLOPS_MPI_TPU_TORCH_OVERLAP``) selects
+    the JAX package's overlap select (``ops/halo.py:296-349``): the first
+    exchanging axis's ghosts are posted, the rank's own block is copied
+    into its place in the haloed window from the block before the
+    exchange while they are in flight, and only the ghost shell is
+    copied from the extended block after the wait; the numbers are the
+    bulk path's, bit for bit (a copy either way). ``hierarchical`` (the
+    two-level schedules) is accepted with no effect (ROADMAP.md §A.3b).
     """
 
     def __init__(self, dims, halo, proc_grid_shape=None, mesh=None,
@@ -85,14 +89,16 @@ class MPIHalo(MPILinearOperator):
         self.ndim = len(self.global_dims)
         P_ = world_size()
         # the tuner's seam (JAX ``ops/halo.py:110-120``): an overlap left
-        # at None is consulted and recorded; inert in the port
-        self.overlap = overlap
-        if overlap is None:
+        # at None, and not pinned by the environment, comes from the plan
+        from ..utils.deps import overlap_enabled, overlap_env_pinned
+        if overlap is None and not overlap_env_pinned():
             from ..tuning import plan as _tuneplan
             tplan = _tuneplan.get_plan("halo", shape=self.global_dims,
                                        dtype=dtype, n_dev=P_)
             if tplan is not None and tplan.get("overlap") in ("on", "off"):
-                self.overlap = tplan.get("overlap")
+                overlap = tplan.get("overlap")
+        self.overlap = overlap
+        self._overlap = overlap_enabled(overlap)
         if proc_grid_shape is None:
             proc_grid_shape = (1,) * (self.ndim - 1) + (P_,)
         self.proc_grid_shape = tuple(int(g) for g in proc_grid_shape)
@@ -196,16 +202,59 @@ class MPIHalo(MPILinearOperator):
                            "not match the Cartesian block decomposition")
         r, base = rank(), self._base_halo
         blk = x.array.reshape(self.local_dims_all[r])
-        for ax in range(self.ndim):
-            blk = collectives.cart_halo_extend(
-                blk, self.proc_grid_shape, ax, base[2 * ax], base[2 * ax + 1])
         # the rank's window in the block extended by the untrimmed widths
         win = tuple(slice(base[2 * ax] - h, base[2 * ax] - h + e)
                     for ax, (h, e) in enumerate(zip(self.halos[r][::2],
                                                     self.extents[r])))
-        return DistributedArray._wrap(blk[win].reshape(-1), x,
+        # overlap only where an exchange happens (JAX ``:296-303``: a
+        # distributed axis with a nonzero halo)
+        exchanging = [ax for ax in range(self.ndim)
+                      if self.proc_grid_shape[ax] > 1
+                      and (base[2 * ax] or base[2 * ax + 1])]
+        if self._overlap and exchanging and world_size() > 1:
+            out = self._overlap_window(blk, win, exchanging[0])
+        else:
+            for ax in range(self.ndim):
+                blk = collectives.cart_halo_extend(
+                    blk, self.proc_grid_shape, ax, base[2 * ax],
+                    base[2 * ax + 1])
+            out = blk[win]
+        return DistributedArray._wrap(out.reshape(-1), x,
                                       global_shape=(self.shape[0],),
                                       local_shapes=self.local_extent_sizes)
+
+    def _overlap_window(self, blk, win, first: int):
+        """The haloed window of the overlap select (class docstring): axis
+        ``first``'s exchange posted, the block copied into the window's
+        interior meanwhile, the later axes' exchanges relaying the corners
+        as in the bulk path, and the ghost shell copied last."""
+        r, base = rank(), self._base_halo
+        h = self.halos[r]
+        ld = self.local_dims_all[r]
+        ext = blk  # axes before ``first`` move nothing (zero ghosts)
+        for ax in range(first):
+            ext = collectives.cart_halo_extend(
+                ext, self.proc_grid_shape, ax, base[2 * ax], base[2 * ax + 1])
+        pending = collectives.post_cart_halo(
+            ext, self.proc_grid_shape, first, base[2 * first],
+            base[2 * first + 1])
+        out = blk.new_empty(self.extents[r])
+        out[tuple(slice(h[2 * ax], h[2 * ax] + ld[ax])
+                  for ax in range(self.ndim))] = blk
+        ext = pending.wait()
+        for ax in range(first + 1, self.ndim):
+            ext = collectives.cart_halo_extend(
+                ext, self.proc_grid_shape, ax, base[2 * ax], base[2 * ax + 1])
+        ext = ext[win]
+        # the ghost shell: the slabs before and after the interior along
+        # each axis, whole along the others (corners twice, harmless)
+        for ax in range(self.ndim):
+            for sl in (slice(0, h[2 * ax]),
+                       slice(h[2 * ax] + ld[ax], self.extents[r][ax])):
+                if sl.stop > sl.start:
+                    idx = (slice(None),) * ax + (sl,)
+                    out[idx] = ext[idx]
+        return out
 
     def _rmatvec(self, x: DistributedArray) -> DistributedArray:
         """Crop the halo zones (ref ``Halo.py:400-423``): ghost

@@ -40,8 +40,20 @@ Each GEMM is one ``torch.matmul`` (cuBLAS on the card, TF32 off), as the
 JAX package leaves it to XLA's ``matmul``; no hand kernel is on this
 path. ``compute_dtype`` (real f32 operators only) stores the tiles
 narrow and widens them for each product; the vector keeps its dtype.
-Not ported: the ring (``overlap``) and two-level (``hierarchical``)
-schedules, accepted with no effect (ROADMAP.md §A.3b). SUMMA consults
+
+With overlap on (``overlap=``, ``PYLOPS_MPI_TPU_TORCH_OVERLAP``) and more
+than one rank along ``c``, the SUMMA kinds run the JAX package's ring
+schedules (``ops/matrixmult.py:450-548``), each collective along ``c``
+decomposed into ``pc - 1`` hops interleaved with ``pc`` GEMMs
+(:func:`~..parallel.collectives.ring_pass`,
+:func:`~..parallel.collectives.ring_reduce_scatter`): ``gather`` rotates
+the A tiles, each step multiplying the resident tile by its k-slice of
+the gathered X column; ``stat_a`` reduce-scatters as a ring whose chunk
+GEMMs are computed just in time; the adjoint rotates the Y tiles, each
+step filling its owner's columns, un-rotated with one roll, the ``r``
+reduction unchanged. They reorder the sums. The two-level
+(``hierarchical``) schedules are accepted with no effect (ROADMAP.md
+§A.3b). SUMMA consults
 the tuner (:mod:`..tuning`) for the knobs left at their sentinels
 (``schedule="auto"``, ``overlap``/``hierarchical=None``) under
 ``PYLOPS_MPI_TPU_TORCH_TUNE=on|auto``; the volume model lives in
@@ -380,12 +392,14 @@ class _MPISummaMatrixMult(_MatMulBase):
         self._g2 = make_grid_2d(self.grid)
         # the tuner's seam (JAX ``ops/matrixmult.py:306-318``): only the
         # knobs left at their sentinels come from the plan
+        from ..utils.deps import overlap_enabled, overlap_env_pinned
+        want_overlap = overlap is None and not overlap_env_pinned()
         tplan = None
-        if self._consults and (schedule == "auto" or overlap is None
+        if self._consults and (schedule == "auto" or want_overlap
                                or hierarchical is None):
             tplan = self._consult_plan(A, M, dtype, compute_dtype, device)
         if tplan is not None:
-            if overlap is None and tplan.get("overlap") in ("on", "off"):
+            if want_overlap and tplan.get("overlap") in ("on", "off"):
                 overlap = tplan.get("overlap")
             if hierarchical is None and tplan.get("hierarchical") in (
                     "auto", "on", "off"):
@@ -406,6 +420,7 @@ class _MPISummaMatrixMult(_MatMulBase):
                 else "gather"
         self.schedule = schedule
         super().__init__(A, M, mesh, dtype, saveAt, compute_dtype, device)
+        self._overlap = overlap_enabled(overlap, self.device)
 
     def _consult_plan(self, A, M, dtype, compute_dtype, device):
         """``tuning.get_plan`` for this construction (``None`` with
@@ -487,7 +502,10 @@ class _MPISummaMatrixMult(_MatMulBase):
         j = self._g2.coords[1]
         bkr, bk = self.Kp_r // pr, self.Kp_c // pc
         Xt, inner, ncol, Me = self._to_tile(x, self.K, bkr, "flat→tile X")
-        if self.schedule == "gather":
+        if self._overlap and pc > 1:
+            Yt = (self._fwd_ring(Xt) if self.schedule == "gather"
+                  else self._fwd_stat_a_ring(Xt))
+        elif self.schedule == "gather":
             Arow = self._gather(self.A, 1, self._g2.c, pc)  # (bn, Kp_c)
             Xcol = self._gather(Xt, 0, self._g2.r, pr)      # (Kp_r, bm)
             Yt = self._gemm(Arow[:, :self.K], Xcol[:self.K])
@@ -501,6 +519,61 @@ class _MPISummaMatrixMult(_MatMulBase):
             Yt = part if pc == 1 else collectives.reduce_scatter(
                 part, [Xt.shape[1]] * pc, 1, self._g2.c)
         return self._from_tile(Yt, x, inner, ncol, Me)
+
+    def _padded_x(self, X: torch.Tensor) -> torch.Tensor:
+        """X's ``Kp_r`` rows padded with zeros to ``Kp_c`` (the A tiles'
+        contraction), where that is longer."""
+        if self.Kp_c > self.Kp_r:
+            X = torch.nn.functional.pad(X, (0, 0, 0, self.Kp_c - self.Kp_r))
+        return X
+
+    def _fwd_ring(self, Xt: torch.Tensor) -> torch.Tensor:
+        """``gather`` as a ring (JAX ``_kernel_fwd_ring``, ``:450-473``): X
+        gathers along ``r`` as in the bulk schedule, the A row's gather
+        along ``c`` becomes ``pc - 1`` hops, each step multiplying the
+        resident tile by its owner's k-slice of X (padding meets zeros)."""
+        pr, pc = self.grid
+        Xcol = self._padded_x(self._gather(Xt, 0, self._g2.r, pr))
+        kb = self.Kp_c // pc
+
+        def body(acc, Ares, owner, _s):
+            part = self._gemm(Ares, Xcol[owner * kb:(owner + 1) * kb])
+            return part if acc is None else acc + part
+
+        return collectives.ring_pass(self.A, body, group=self._g2.c)
+
+    def _fwd_stat_a_ring(self, Xt: torch.Tensor) -> torch.Tensor:
+        """``stat_a`` as a ring (JAX ``_kernel_fwd_stat_a_ring``,
+        ``:475-508``): A never moves, the reduce-scatter along ``c`` is
+        a ring whose partial for each output chunk of columns is
+        computed just in time."""
+        pr, pc = self.grid
+        j = self._g2.coords[1]
+        Xf = self._padded_x(self._gather(self._gather(Xt, 0, self._g2.r, pr),
+                                         1, self._g2.c, pc))
+        kb, mb = self.Kp_c // pc, Xt.shape[1]
+        Xk = Xf[j * kb:(j + 1) * kb]
+        return collectives.ring_reduce_scatter(
+            lambda q: self._gemm(self.A, Xk[:, q * mb:(q + 1) * mb]),
+            self._g2.c)
+
+    def _adj_ring(self, Yt: torch.Tensor) -> torch.Tensor:
+        """The adjoint's gather along ``c`` as a ring (JAX
+        ``_kernel_adj_ring``, ``:510-548``): the Y tiles rotate, each
+        step multiplying ``Aᴴ`` by the resident tile into its owner's
+        columns, collected in rotation order and un-rotated with one
+        roll."""
+        pc = self.grid[1]
+        j = self._g2.coords[1]
+        At = self.A.mH
+        parts = []
+
+        def body(acc, Yres, _owner, _s):
+            parts.append(self._gemm(At, Yres))
+            return acc
+
+        collectives.ring_pass(Yt, body, group=self._g2.c)
+        return torch.roll(torch.cat(parts, dim=1), j * Yt.shape[1], dims=1)
 
     def _from_tile(self, Yt: torch.Tensor, x: DistributedArray, inner: int,
                    ncol: Optional[int], Me: int) -> DistributedArray:
@@ -520,8 +593,11 @@ class _MPISummaMatrixMult(_MatMulBase):
         i, j = self._g2.coords
         bn, bk = self.Np // pr, self.Kp_c // pc
         Yt, inner, ncol, Me = self._to_tile(x, self.N, bn, "flat→tile Y")
-        Yrow = self._gather(Yt, 1, self._g2.c, pc)            # (bn, Mp)
-        part = self._gemm(self.A.mH, Yrow)                    # (bk, Mp)
+        if self._overlap and pc > 1:
+            part = self._adj_ring(Yt)                         # (bk, Mp)
+        else:
+            Yrow = self._gather(Yt, 1, self._g2.c, pc)        # (bn, Mp)
+            part = self._gemm(self.A.mH, Yrow)                # (bk, Mp)
         sizes = [s[0] for s in local_split((bk,), pr, Partition.SCATTER, 0)]
         Xp = part if pr == 1 else collectives.reduce_scatter(
             part, sizes, 0, self._g2.r)
@@ -553,8 +629,9 @@ class _MPIAutoMatrixMult(_MPISummaMatrixMult):
                  saveAt: bool = False,
                  grid: Optional[Tuple[int, int]] = None, compute_dtype=None,
                  *, device: DeviceLike = None):
+        # the partitioner's schedule has no ring form: overlap stays off
         super().__init__(A, M, mesh, dtype, saveAt, grid, compute_dtype,
-                         "gather", device=device)
+                         "gather", "off", device=device)
 
 
 def MPIMatrixMult(A, M: int, saveAt: bool = False, mesh=None,
@@ -576,8 +653,9 @@ def MPIMatrixMult(A, M: int, saveAt: bool = False, mesh=None,
     SUMMA kinds (default :func:`~..parallel.mesh.best_grid_2d`).
     ``compute_dtype`` (real f32 operators only; ``None`` takes the
     precision policy) stores A narrow. ``schedule`` (summa):
-    ``"gather"``, ``"stat_a"`` or ``"auto"``. ``overlap`` and
-    ``hierarchical`` are accepted with no effect."""
+    ``"gather"``, ``"stat_a"`` or ``"auto"``. ``overlap`` (summa) selects
+    the ring schedules (module docstring); ``hierarchical`` is accepted
+    with no effect."""
     if kind == "block":
         return _MPIBlockMatrixMult(A, M, mesh, dtype, saveAt, compute_dtype,
                                    device)

@@ -19,10 +19,15 @@ instead of ``N·Ncol``. Each rank keeps the triplets of its own rows of
   whose order, and so the last bits of an f32 sum, changes from run to
   run.
 
-``adjoint_mode="ring"`` is accepted and runs the scatter schedule,
-which gives the same numbers up to summation order; the ring schedule
-waits for ``ring_pass`` (ROADMAP.md §A.3b). The JAX package computes
-this tier outside Pallas, so plain PyTorch ops carry it.
+``adjoint_mode="ring"`` (JAX ``ops/sparse.py:210-260``) runs the adjoint
+of a vector across ranks as a ring instead: each rank's (products,
+columns) bundle, padded to the largest rank's nonzeros, travels round
+the ranks (:func:`~..parallel.collectives.ring_pass`), and each rank
+folds the resident bundle's entries that fall in its own shard of the
+model into it, so no full-length vector is reduced; a block ``(N, K)``
+input, or a world of one, keeps the scatter schedule, as there. The
+JAX package computes this tier outside Pallas, so plain PyTorch ops
+carry it.
 
 :func:`auto_sparse_matmult` picks the tier through the tuner (space
 ``sparse_matmult``, ``nnz`` in its context); with tuning off, the
@@ -68,7 +73,7 @@ class MPISparseMatrixMult(MPILinearOperator):
         Operator dtype (default the values') and the dtype the products
         are formed in.
     adjoint_mode : {"scatter", "ring"}
-        ``"ring"`` runs the scatter schedule (see the module doc).
+        The adjoint's schedule across ranks (see the module doc).
     device : str or torch.device, keyword-only
         Where the rank's triplets live (default ``"cuda"``).
     """
@@ -107,6 +112,10 @@ class MPISparseMatrixMult(MPILinearOperator):
         r0 = shard_offsets(sizes)[rank()]
         self._row0, self._nrows = r0, sizes[rank()]
         lo, hi = np.searchsorted(rows, [r0, r0 + self._nrows], side="left")
+        # every rank's nonzero count: the ring's bundles are padded to the
+        # largest
+        ends = np.searchsorted(rows, np.cumsum(sizes), side="left")
+        self._nnz_max = int(np.max(np.diff(np.concatenate([[0], ends]))))
         lrows = rows[lo:hi] - r0
         self.nnz_local = int(hi - lo)
         # int32 indices: 4 bytes a nonzero each for rows and columns
@@ -231,6 +240,9 @@ class MPISparseMatrixMult(MPILinearOperator):
         yg = yl.index_select(0, self._rows).to(wdt)
         vals = self._data.conj().to(wdt)
         prod = vals[:, None] * yg if yl.ndim == 2 else vals * yg
+        if self.adjoint_mode == "ring" and yl.ndim == 1 and self._scattered():
+            return self._out(self._rmatvec_ring(prod), x, self.Ncol,
+                             self.local_shapes_m)
         out = torch.zeros((self.Ncol,) + tuple(yl.shape[1:]), dtype=wdt,
                           device=yl.device)
         out.index_add_(0, self._cols, prod)
@@ -238,6 +250,27 @@ class MPISparseMatrixMult(MPILinearOperator):
             out = collectives.reduce_scatter(
                 out, [s[0] for s in self.local_shapes_m])
         return self._out(out, x, self.Ncol, self.local_shapes_m)
+
+    def _rmatvec_ring(self, prod: torch.Tensor) -> torch.Tensor:
+        """This rank's shard of the adjoint by the ring (module docstring;
+        JAX ``_rmatvec_ring``): the (products, columns) bundles, padded
+        with zero products at column -1, pass every rank, and each folds
+        the entries of its own columns into its shard."""
+        sizes = [s[0] for s in self.local_shapes_m]
+        r = rank()
+        lo, n = shard_offsets(sizes)[r], sizes[r]
+        pad = self._nnz_max - self.nnz_local
+        vals = torch.cat([prod, prod.new_zeros(pad)])
+        cols = torch.cat([self._cols, self._cols.new_full((pad,), -1)])
+
+        def body(acc, resident, _owner, _s):
+            v, c = resident
+            loc = c.long() - lo
+            sel = (loc >= 0) & (loc < n)
+            return acc.index_add(0, loc[sel], v[sel])
+
+        return collectives.ring_pass((vals, cols), body,
+                                     init=prod.new_zeros(n))
 
 
 def auto_sparse_matmult(A, *, mesh=None, dtype=None, compute_dtype=None,

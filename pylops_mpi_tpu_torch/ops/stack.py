@@ -14,8 +14,10 @@ rule ``MPIBlockDiag`` follows (``_chunk_ops``). The forward applies the
 rank's rows to the whole model and communicates nothing (a SCATTER
 model is gathered first, as the JAX package's arrays are global); the
 adjoint sums the rank's partials ``Lᵢᴴ yᵢ`` and reduces them over the
-group with one ``all_reduce``. :class:`MPIStackedVStack`'s components
-share the model's split, so it needs no collective of its own.
+group with one ``all_reduce``, or, with overlap on and batched rows on
+every rank, as a ring (:meth:`MPIVStack._rmatvec_ring`).
+:class:`MPIStackedVStack`'s components share the model's split, so it
+needs no collective of its own.
 """
 
 from __future__ import annotations
@@ -65,10 +67,13 @@ class MPIVStack(MPILinearOperator):
     reduce within the rank's color group; the adjoint still sums every
     rank's partial, as the JAX package's does. ``mesh`` keeps the JAX
     package's argument order and must describe the process group.
-    ``overlap`` and ``hierarchical`` select, in the JAX package, the
-    ring and two-level forms of the adjoint's reduction; they are
-    accepted and have no effect (ROADMAP.md §A.3b): the plain reduction
-    gives the same numbers.
+    ``overlap`` (``PYLOPS_MPI_TPU_TORCH_OVERLAP``) selects the ring form
+    of the adjoint's reduction (JAX ``ops/stack.py:177-233``, taken where
+    the JAX package takes it: more than one rank, and the blocks batched
+    on every rank, their count a multiple of the ranks); it reorders the
+    sums. Deciding that the other ranks' rows batch too takes one
+    ``all_reduce`` at construction, when overlap is on. ``hierarchical``
+    (the two-level form) is accepted with no effect (ROADMAP.md §A.3b).
     """
 
     def __init__(self, ops: Sequence[LocalOperator],
@@ -98,9 +103,9 @@ class MPIVStack(MPILinearOperator):
             self.compute_dtype = default_compute_dtype(self.dtype)
         self._batched, self._batched_adj = self._try_batch()
         # the tuner's seam (JAX ``ops/stack.py:83-95``): an overlap left
-        # at None is consulted and recorded; inert in the port
-        self.overlap = overlap
-        if overlap is None:
+        # at None, and not pinned by the environment, comes from the plan
+        from ..utils.deps import overlap_enabled, overlap_env_pinned
+        if overlap is None and not overlap_env_pinned():
             from ..tuning import plan as _tuneplan
             from ..utils.deps import batch_default
             tplan = _tuneplan.get_plan("stack", shape=shape,
@@ -108,7 +113,18 @@ class MPIVStack(MPILinearOperator):
                                        device=self.device,
                                        extra={"batch": batch_default()})
             if tplan is not None and tplan.get("overlap") in ("on", "off"):
-                self.overlap = tplan.get("overlap")
+                overlap = tplan.get("overlap")
+        self.overlap = overlap
+        self._overlap = overlap_enabled(overlap, self.device)
+        self._ring = (self._overlap and self._P > 1
+                      and len(ops) % self._P == 0 and self._all_batched())
+
+    def _all_batched(self) -> bool:
+        """Every rank's rows batch (one ``all_reduce`` of the flags: a
+        rank sees only its own rows' types)."""
+        flag = torch.tensor([float(self._batched is not None)],
+                            device=collectives._comm_device())
+        return bool(collectives.all_reduce(flag, "min").item())
 
     def _try_batch(self):
         """Homogeneous matrix rows → one ``(nblk, m, n)`` stack and the
@@ -198,11 +214,48 @@ class MPIVStack(MPILinearOperator):
             partition=Partition.SCATTER, axis=0, mask=self.mask,
             local_shapes=tuple(tuple(s) + tail for s in self.local_shapes_n))
 
+    def _rmatvec_ring(self, y: torch.Tensor) -> torch.Tensor:
+        """The batched adjoint as a ring reduce-scatter (JAX
+        ``ops/stack.py:177-233``): the output, padded to ``P·ceil(out/P)``
+        rows, is cut into ``P`` chunks; each rank's partial of a chunk is
+        one GEMM on the columns (rows, for adjoint rows) of its stack
+        that make that chunk, computed while the hop before it is in
+        flight (:func:`~..parallel.collectives.ring_reduce_scatter`:
+        ``P`` chunk GEMMs, ``P - 1`` hops), and one ``all_gather``
+        restores the whole (BROADCAST) result."""
+        A, adj = self._batched, self._batched_adj
+        nblk, m, n = A.shape
+        out_len = m if adj else n
+        cw = -(-out_len // self._P)
+        cd, dt = self.compute_dtype, self.dtype
+        odt = torch.promote_types(self.dtype, y.dtype)
+        tail = tuple(y.shape[1:])
+
+        def chunk(j):
+            lo, hi = min(j * cw, out_len), min((j + 1) * cw, out_len)
+            if adj:  # Σ_b A_b[lo:hi] y_b
+                part = matmul_narrow(A[:, lo:hi], y.reshape(nblk, n, -1),
+                                     cd, dt).sum(0).reshape((hi - lo,) + tail)
+            else:  # Σ_b A_b[:, lo:hi]ᴴ y_b
+                part = matmul_narrow(A.view(nblk * m, n)[:, lo:hi].mH, y,
+                                     cd, dt)
+            part = part.to(odt)
+            if hi - lo < cw:
+                part = torch.cat([part, part.new_zeros((cw - hi + lo,)
+                                                       + tail)])
+            return part
+
+        red = collectives.ring_reduce_scatter(chunk)
+        return collectives.all_gather(red, [cw] * self._P)[:out_len]
+
     def _rmatvec(self, x: DistributedArray) -> DistributedArray:
         tail = tuple(x.global_shape[1:])
-        arr = self._apply(_chunk_rows(x, [s[0] for s in self.local_shapes_n]),
-                          forward=False)
-        if self._P > 1:
+        y = _chunk_rows(x, [s[0] for s in self.local_shapes_n])
+        if self._ring:
+            arr = self._rmatvec_ring(y)
+        else:
+            arr = self._apply(y, forward=False)
+        if self._P > 1 and not self._ring:
             arr = collectives.all_reduce(arr.contiguous(), "sum")
         n = (self.shape[1],) + tail
         return DistributedArray._wrap(

@@ -9,7 +9,12 @@ all-to-all of a change of sharded axis or of a pencil transpose
 neighbour exchange of stencil ghost rows (:func:`halo_exchange`, the
 counterpart of ``halo_slab``) and its Cartesian form, one grid axis at a
 time (:func:`cart_halo_extend`, the counterpart of ``cart_halo_extend``'s
-plain path).
+plain path), and the pipelined layer of the overlap schedules
+(:func:`ring_pass`, :func:`ring_reduce_scatter`, :func:`ring_halo_ghosts`,
+:func:`post_cart_halo`, :func:`resolve_chunks`,
+:func:`chunked_pencil_transpose`: transfers posted before the compute
+that does not need them, waited on where their data is read; their
+steps, ring hops and pencil chunks, land in :data:`steps`).
 
 Every function is called at every world size, one included: under a
 group of one rank on the card the reductions still go through NCCL.
@@ -56,6 +61,10 @@ the typing of the JAX package's collectives under ``jax.grad``:
   it sent (``halo_exchange_adjoint``, ``cart_halo_extend_adjoint``). On
   a 2-D grid the Cartesian calls run one axis at a time, so a corner's
   cotangent travels back through both.
+- A posted hop of :func:`ring_pass` or :func:`ring_reduce_scatter` is
+  waited on through an ``autograd.Function`` whose backward is the hop
+  reversed (``<name>_adjoint``); :func:`ring_halo_ghosts` and
+  :func:`post_cart_halo` have :func:`halo_exchange`'s rule.
 - :func:`replicated` marks a tensor every rank holds the same (a scaled
   operator's factor) where it enters each rank's own part of a
   computation: its cotangent is the sum of the ranks' parts.
@@ -69,8 +78,9 @@ collective. Given a tensor that requires grad under grad mode it raises
 
 from __future__ import annotations
 
+import logging
 from collections import Counter
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -80,18 +90,26 @@ from ..diagnostics import metrics as _metrics
 from ..diagnostics import trace as _trace
 from . import topology as _topo
 from .mesh import initialized, rank, world_size
-from .partition import padded_shard_size
+from .partition import Partition, local_split, padded_shard_size
 
-__all__ = ["counts", "received", "reset_counts", "mask_group",
+_logger = logging.getLogger(__name__)
+
+__all__ = ["counts", "received", "steps", "reset_counts", "mask_group",
            "rank_group", "forget_groups", "all_reduce", "all_gather",
            "reduce_scatter", "all_to_all", "exchange", "count_metrics",
            "halo_exchange", "cart_halo_extend", "broadcast", "replicated",
-           "reduce_stall", "stall_signature"]
+           "reduce_stall", "stall_signature", "ring_pass",
+           "ring_reduce_scatter", "ring_halo_ghosts", "ring_halo_extend",
+           "post_cart_halo", "resolve_chunks", "chunked_pencil_transpose"]
 
 # collective calls under a group, and the bytes this rank received in
 # them, since the last reset_counts()
 counts: Counter = Counter()
 received: Counter = Counter()
+# the pipelined collectives' steps since the last reset_counts(): the
+# hops of ring_pass and ring_reduce_scatter (and of their backwards, as
+# "<name>_adjoint"), the chunks of chunked_pencil_transpose
+steps: Counter = Counter()
 
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
         "min": dist.ReduceOp.MIN}
@@ -107,6 +125,7 @@ _SEQ: Counter = Counter()
 def reset_counts() -> None:
     counts.clear()
     received.clear()
+    steps.clear()
 
 
 def _count(name: str, nbytes: int, group=None) -> int:
@@ -372,14 +391,9 @@ def _all_gather(t: torch.Tensor, sizes: Sequence[int], axis: int,
 def _p2p(sends: List[Tuple[torch.Tensor, int]],
          recvs: List[Tuple[torch.Tensor, int]], group) -> None:
     """One ``batch_isend_irecv`` of the given (tensor, peer) pairs, peers
-    as ranks of the default group; empty tensors travel nowhere."""
-    ops = [dist.P2POp(dist.isend, t, peer, group)
-           for t, peer in sends if t.numel()]
-    ops += [dist.P2POp(dist.irecv, t, peer, group)
-            for t, peer in recvs if t.numel()]
-    if ops:
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
+    as ranks of the default group, waited on; empty tensors travel
+    nowhere."""
+    _Posted(sends, recvs, group).wait()
 
 
 def _comm_device() -> torch.device:
@@ -514,26 +528,40 @@ def all_to_all(sends: Sequence[torch.Tensor],
     return _all_to_all("all_to_all", sends, recv_shapes, group)
 
 
-def _all_to_all(name: str, sends, recv_shapes, group) -> List[torch.Tensor]:
+def _a2a_buffers(sends, recv_shapes, group):
+    """An all-to-all's transfers: ``(out, tx, rx, stage)``, the receive
+    buffers in group rank order (on the host for CUDA tensors under
+    gloo), the (tensor, global peer) sends and receives, and whether the
+    pieces are staged."""
     me = _group_rank(group)
-
-    def peer(q):
-        return dist.get_global_rank(group, q) if group is not None else q
-
     like = sends[me]
     stage = like.is_cuda and _gloo(group)
     dev = torch.device("cpu") if stage else like.device
     out = [torch.empty(tuple(s), dtype=like.dtype, device=dev)
            for s in recv_shapes]
-    tx = [(s.contiguous().cpu() if stage else s.contiguous(), peer(q))
-          for q, s in enumerate(sends) if q != me]
-    rx = [(out[q], peer(q)) for q in range(len(recv_shapes)) if q != me]
+    tx = [(t.contiguous().cpu() if stage else t.contiguous(),
+           _global(group, q)) for q, t in enumerate(sends) if q != me]
+    rx = [(out[q], _global(group, q))
+          for q in range(len(recv_shapes)) if q != me]
+    return out, tx, rx, stage
+
+
+def _a2a_result(out, sends, group, stage) -> List[torch.Tensor]:
+    """The received pieces on the senders' device, this rank's own the
+    piece it kept."""
+    me = _group_rank(group)
+    like = sends[me]
+    out = [o.to(like.device) for o in out] if stage else list(out)
+    out[me] = like
+    return out
+
+
+def _all_to_all(name: str, sends, recv_shapes, group) -> List[torch.Tensor]:
+    out, tx, rx, stage = _a2a_buffers(sends, recv_shapes, group)
     nb = sum(_nbytes(t) for t, _ in rx)
     with _span(name, nb, group):
         _p2p(tx, rx, group)
-    out = [o.to(like.device) for o in out] if stage else out
-    out[me] = like
-    return out
+    return _a2a_result(out, sends, group, stage)
 
 
 class _AllToAll(torch.autograd.Function):
@@ -556,17 +584,12 @@ class _AllToAll(torch.autograd.Function):
 Piece = Union[int, torch.Tensor]
 
 
-def _exchange(name: str, block: torch.Tensor, axis: int, front: int,
-              back: int, prev: Optional[int], nxt: Optional[int],
-              event: Optional[dict] = None) -> Tuple[Piece, Piece]:
-    """The neighbour exchange along ``axis`` of ``block``: receive the
-    ``prev`` rank's last ``front`` slices and the ``nxt`` rank's first
-    ``back`` ones, and send this rank's to them, as one
-    ``batch_isend_irecv``. ``prev``/``nxt`` are ``None`` past the ends;
-    there the piece is a count of (zero) slices instead of a tensor.
-    Slabs along an axis other than 0 go as contiguous copies. The call
-    is counted as ``name``, under a span, or, given ``event`` (the
-    Cartesian exchange's tags), with a ``collective.<name>`` event."""
+def _neighbour_buffers(block: torch.Tensor, axis: int, front: int,
+                      back: int, prev: Optional[int], nxt: Optional[int]):
+    """A neighbour exchange's transfers: ``(top, bottom, sends, recvs,
+    stage)``, the receive pieces (buffers, or counts of zero slices past
+    the ends), the (tensor, peer) sends and receives, and whether they
+    are staged through the host (CUDA tensors under gloo)."""
     shape = list(block.shape)
     stage = block.is_cuda and _gloo(None)
     dev = torch.device("cpu") if stage else block.device
@@ -576,7 +599,7 @@ def _exchange(name: str, block: torch.Tensor, axis: int, front: int,
         return torch.empty(shape, dtype=block.dtype, device=dev)
 
     def send(t):
-        t = t.contiguous()
+        t = t.detach().contiguous()
         return t.cpu() if stage else t
 
     rows = int(block.shape[axis])
@@ -593,12 +616,29 @@ def _exchange(name: str, block: torch.Tensor, axis: int, front: int,
             sends.append((send(block.narrow(axis, rows - front, front)), nxt))
         if back:
             recvs.append((bottom, nxt))
+    return top, bottom, sends, recvs, stage
+
+
+def _unstage(pieces, device) -> Tuple[Piece, Piece]:
+    return tuple(p.to(device) if isinstance(p, torch.Tensor) else p
+                 for p in pieces)
+
+
+def _exchange(name: str, block: torch.Tensor, axis: int, front: int,
+              back: int, prev: Optional[int], nxt: Optional[int],
+              event: Optional[dict] = None) -> Tuple[Piece, Piece]:
+    """The neighbour exchange along ``axis`` of ``block``: receive the
+    ``prev`` rank's last ``front`` slices and the ``nxt`` rank's first
+    ``back`` ones, and send this rank's to them, as one
+    ``batch_isend_irecv``. ``prev``/``nxt`` are ``None`` past the ends;
+    there the piece is a count of (zero) slices instead of a tensor.
+    Slabs along an axis other than 0 go as contiguous copies. The call
+    is counted as ``name``, under a span, or, given ``event`` (the
+    Cartesian exchange's tags), with a ``collective.<name>`` event."""
+    top, bottom, sends, recvs, stage = _neighbour_buffers(
+        block, axis, front, back, prev, nxt)
     _transfer(name, sends, recvs, event)
-    if stage:
-        top = top.to(block.device) if isinstance(top, torch.Tensor) else top
-        bottom = (bottom.to(block.device) if isinstance(bottom, torch.Tensor)
-                  else bottom)
-    return top, bottom
+    return _unstage((top, bottom), block.device) if stage else (top, bottom)
 
 
 def _transfer(name: str, sends, recvs, event: Optional[dict]) -> None:
@@ -679,19 +719,25 @@ class _NeighbourExchange(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gtop, gbottom):
-        # the forward's exchange reversed: the ghosts' cotangents, joined,
-        # leave as a block's edge slices (gtop to prev, gbottom to nxt),
-        # and the cotangents of this rank's own edges arrive in their place
-        name, axis, front, back, prev, nxt, event, shape = ctx.meta
-        first, last = _exchange(f"{name}_adjoint",
-                                torch.cat([gtop, gbottom], dim=axis), axis,
-                                back, front, prev, nxt, event)
-        grad = gtop.new_zeros(shape)
-        if isinstance(first, torch.Tensor):
-            grad.narrow(axis, 0, back).add_(first)
-        if isinstance(last, torch.Tensor):
-            grad.narrow(axis, shape[axis] - front, front).add_(last)
-        return grad, None, None, None, None, None, None, None
+        return (_neighbour_backward(ctx.meta, gtop, gbottom),
+                None, None, None, None, None, None, None)
+
+
+def _neighbour_backward(meta, gtop, gbottom) -> torch.Tensor:
+    """The cotangent of a neighbour exchange's block: the forward's
+    exchange reversed, the ghosts' cotangents, joined, leaving as a block's
+    edge slices (``gtop`` to prev, ``gbottom`` to nxt), and the cotangents
+    of this rank's own edges arriving in their place."""
+    name, axis, front, back, prev, nxt, event, shape = meta
+    first, last = _exchange(f"{name}_adjoint",
+                            torch.cat([gtop, gbottom], dim=axis), axis,
+                            back, front, prev, nxt, event)
+    grad = gtop.new_zeros(shape)
+    if isinstance(first, torch.Tensor):
+        grad.narrow(axis, 0, back).add_(first)
+    if isinstance(last, torch.Tensor):
+        grad.narrow(axis, shape[axis] - front, front).add_(last)
+    return grad
 
 
 def cart_halo_extend(block: torch.Tensor, grid: Sequence[int], ax: int,
@@ -725,6 +771,13 @@ def cart_halo_extend(block: torch.Tensor, grid: Sequence[int], ax: int,
             r + stride if coord < grid[ax] - 1 else None,
             dict(shape=tuple(block.shape), dtype=block.dtype, axis=None,
                  grid=grid, ax=ax, hm=hm, hp=hp))
+    return _stitch(pieces, block, ax)
+
+
+def _stitch(pieces: Tuple[Piece, Piece], block: torch.Tensor,
+            ax: int) -> torch.Tensor:
+    """``block`` between its two ghost pieces along ``ax`` (a count is
+    that many zero slices)."""
     parts = []
     for p in (pieces[0], block, pieces[1]):
         if isinstance(p, torch.Tensor):
@@ -755,3 +808,500 @@ def broadcast(t: torch.Tensor, src: int = 0,
             return t.copy_(host)
         dist.broadcast(t, src=src, group=group)
         return t
+
+
+# --------------------------------------------------------------------------
+# The pipelined layer (JAX ``parallel/collectives.py:394-653``): collectives
+# decomposed into steps whose transfers are posted before the compute that
+# does not need them and waited on only where their data is read. The bulk
+# collectives above lay out the same buffers and wait at once (``_p2p``);
+# an operator with overlap off calls only those.
+
+
+def _group_size(group) -> int:
+    return dist.get_world_size(group) if group is not None else world_size()
+
+
+def _global(group, q: int) -> int:
+    return dist.get_global_rank(group, q) if group is not None else q
+
+
+class _Posted:
+    """Point-to-point transfers posted as one ``batch_isend_irecv`` and not
+    yet waited on. Every send and receive buffer is held until
+    :meth:`wait`, so none is freed or reused while its transfer is in
+    flight. Under NCCL the transfers run on NCCL's stream, and ``wait``
+    makes the current stream wait for them before anything reads a
+    received buffer; under gloo they run on gloo's threads while the host
+    goes on."""
+
+    def __init__(self, sends, recvs, group=None):
+        ops = [dist.P2POp(dist.isend, t, peer, group)
+               for t, peer in sends if t.numel()]
+        ops += [dist.P2POp(dist.irecv, t, peer, group)
+                for t, peer in recvs if t.numel()]
+        self._works = dist.batch_isend_irecv(ops) if ops else []
+        self._held = (sends, recvs)
+
+    def wait(self) -> None:
+        for w in self._works:
+            w.wait()
+        self._works, self._held = [], None
+
+
+def _differentiable(t: torch.Tensor) -> bool:
+    return t.is_floating_point() or t.is_complex()
+
+
+class _Hop:
+    """One ring hop, posted at construction: the tensors ``wire`` (on the
+    transport device) go to ``to`` and tensors of their shapes come from
+    ``frm`` (global ranks). :meth:`finish` waits and returns the received
+    tensors on the devices of ``inputs`` (what this rank sent, as its
+    caller holds them), through :class:`_HopWait` when one of those
+    requires grad. ``rx`` stays on the transport device, ready to be sent
+    on by the next hop without another copy."""
+
+    def __init__(self, name: str, wire, to: int, frm: int, group,
+                 last: bool, hops: int):
+        self.name, self.to, self.frm, self.group = name, to, frm, group
+        self.last, self.hops = last, hops
+        self.rx = tuple(torch.empty_like(t) for t in wire)
+        self._posted = _Posted([(t, to) for t in wire],
+                               [(b, frm) for b in self.rx], group)
+        steps[name] += 1
+
+    def _arrive(self, devices) -> Tuple[torch.Tensor, ...]:
+        self._posted.wait()
+        return tuple(b.to(d) for b, d in zip(self.rx, devices))
+
+    def finish(self, inputs) -> Tuple[torch.Tensor, ...]:
+        if _needs_grad(*inputs):
+            return tuple(_HopWait.apply(self, *inputs))
+        return self._arrive([t.device for t in inputs])
+
+
+class _HopWait(torch.autograd.Function):
+    """The wait of a posted :class:`_Hop`; its backward is the hop
+    reversed: each received tensor's cotangent goes back to the rank it
+    came from, and the cotangents of what this rank sent come from the
+    rank it went to. Counted as ``<name>_adjoint``: one call a ring (at
+    the backward of its last hop, which runs first), one step a hop.
+    Integer tensors (the sparse ring's columns) carry no cotangent."""
+
+    @staticmethod
+    def forward(ctx, hop, *inputs):
+        ctx.hop = hop
+        ctx.meta = [(tuple(t.shape), t.dtype, t.device) for t in inputs]
+        out = hop._arrive([t.device for t in inputs])
+        ctx.mark_non_differentiable(
+            *[o for o in out if not _differentiable(o)])
+        return out
+
+    @staticmethod
+    def backward(ctx, *gs):
+        hop = ctx.hop
+        dev = _comm_device()
+        diff = [k for k, (_, dt, _) in enumerate(ctx.meta)
+                if dt.is_floating_point or dt.is_complex]
+        tx = [(gs[k].contiguous().to(dev), hop.frm) for k in diff]
+        rx = [torch.empty(ctx.meta[k][0], dtype=ctx.meta[k][1], device=dev)
+              for k in diff]
+        name = f"{hop.name}_adjoint"
+        if hop.last:
+            _count(name, sum(_nbytes(b) for b in rx) * hop.hops, hop.group)
+        steps[name] += 1
+        _Posted(tx, [(b, hop.to) for b in rx], hop.group).wait()
+        grads: List[Optional[torch.Tensor]] = [None] * len(ctx.meta)
+        for k, b in zip(diff, rx):
+            grads[k] = b.to(ctx.meta[k][2])
+        return (None, *grads)
+
+
+def _ring_peers(group, shift: int) -> Tuple[int, int, int, int]:
+    """``(n, i, to, frm)``: the group's size, this rank's place in it, and
+    the global ranks it sends to (``i - shift``) and receives from
+    (``i + shift``) on the ring; ``(1, 0, 0, 0)`` without a group."""
+    if not initialized():
+        return 1, 0, 0, 0
+    n, i = _group_size(group), _group_rank(group)
+    return (n, i, _global(group, (i - shift) % n),
+            _global(group, (i + shift) % n))
+
+
+def ring_pass(block, body: Callable, init=None, shift: int = 1,
+              group: Optional[object] = None):
+    """Double-buffered ring pipeline over ``group`` (JAX ``:402-456``): the
+    resident buffer starts as this rank's ``block`` (a tensor or a tuple
+    of tensors) and moves ``shift`` places down the ring at each step, so
+    that after ``n`` steps every rank has seen every rank's block. At step
+    ``s`` the resident is the block of owner ``(i + s·shift) mod n``, and
+    ``body(acc, resident, owner, s)`` folds it into the accumulator
+    (``init`` at the first step); the result is the last ``acc``.
+
+    Hop ``s + 1`` is posted BEFORE ``body`` runs step ``s`` and waited on
+    only at the next step, so the transfer carries no dependence on the
+    compute: ``n - 1`` hops interleaved with ``n`` calls of ``body``. The
+    body must not write the resident it is given (the next hop may be
+    sending it). Under gloo, CUDA tensors are staged through the host once,
+    at the first hop; a received block is sent on from the host buffer it
+    arrived in, and copied to the card for the body.
+
+    Counted as one call of ``ring_pass`` receiving the ``n - 1`` blocks,
+    its hops in :data:`steps`. Under grad mode each hop's backward sends
+    the cotangents back down the ring (``ring_pass_adjoint``). Without a
+    group, or in a group of one, ``body(init, block, i, 0)`` runs once
+    and nothing moves or is counted."""
+    tup = isinstance(block, (tuple, list))
+    blocks = tuple(block) if tup else (block,)
+    n, i, to, frm = _ring_peers(group, shift)
+    if n == 1:
+        return body(init, block, i, 0)
+    dev = _comm_device()
+    nb = sum(_nbytes(t) for t in blocks) * (n - 1)
+    with _span("ring_pass", nb, group):
+        resident = blocks
+        wire = tuple(t.detach().contiguous().to(dev) for t in blocks)
+        acc = init
+        for s in range(n):
+            hop = (_Hop("ring_pass", wire, to, frm, group, s == n - 2, n - 1)
+                   if s < n - 1 else None)
+            acc = body(acc, resident if tup else resident[0],
+                       (i + s * shift) % n, s)
+            if hop is not None:
+                resident, wire = hop.finish(resident), hop.rx
+    return acc
+
+
+def ring_reduce_scatter(chunk: Callable[[int], torch.Tensor],
+                        group: Optional[object] = None) -> torch.Tensor:
+    """Reduce-scatter as a ring (JAX ``ops/stack.py:177-233``,
+    ``ops/matrixmult.py:475-508``): ``chunk(j)`` is this rank's partial of
+    output chunk ``j`` (one shape for every ``j``), and the group's rank
+    ``i`` ends with the sum over the group of ``chunk(i)``. An accumulator
+    moves down the ring ``n - 1`` times; at each step the next partial is
+    computed while the hop is in flight and added when it lands
+    (``received + chunk(j)``). Counted as one call of
+    ``ring_reduce_scatter``, its hops in :data:`steps`; differentiable as
+    :func:`ring_pass`. Without a group, or in a group of one,
+    ``chunk(i)``."""
+    n, i, to, frm = _ring_peers(group, 1)
+    if n == 1:
+        return chunk(i)
+    dev = _comm_device()
+    buf = chunk((i + 1) % n)
+    with _span("ring_reduce_scatter", _nbytes(buf) * (n - 1), group):
+        for s in range(n - 1):
+            hop = _Hop("ring_reduce_scatter",
+                       (buf.detach().contiguous().to(dev),), to, frm, group,
+                       s == n - 2, n - 1)
+            c = chunk((i + s + 2) % n)
+            buf = hop.finish((buf,))[0] + c
+    return buf
+
+
+class _PostedNeighbours:
+    """The neighbour exchange of :func:`_exchange` split at its wait: the
+    transfers are posted, and counted as ``name`` (with the Cartesian
+    exchange's event when ``event`` is given), at construction;
+    :meth:`wait` returns the pieces (under the ``collective.<name>`` span
+    when there is no event), through :class:`_NeighbourWait` when
+    ``block`` requires grad."""
+
+    def __init__(self, name: str, block: torch.Tensor, axis: int, front: int,
+                 back: int, prev: Optional[int], nxt: Optional[int],
+                 event: Optional[dict] = None):
+        self.top, self.bottom, sends, recvs, self.stage = \
+            _neighbour_buffers(block, axis, front, back, prev, nxt)
+        self.nbytes = sum(_nbytes(t) for t, _ in recvs)
+        self.seq = _count(name, self.nbytes)
+        if event is not None:
+            _trace.event(f"collective.{name}", cat="collective", seq=self.seq,
+                         **event)
+        self._posted = _Posted(sends, recvs, None)
+        self.name, self.block, self.device = name, block, block.device
+        self.event = event
+        self.meta = (name, axis, front, back, prev, nxt, event,
+                     tuple(block.shape))
+
+    def _arrive(self) -> Tuple[Piece, Piece]:
+        if self.event is None:
+            with _trace.span(f"collective.{self.name}", cat="collective",
+                             seq=self.seq, bytes=self.nbytes):
+                self._posted.wait()
+        else:
+            self._posted.wait()
+        pieces = (self.top, self.bottom)
+        return _unstage(pieces, self.device) if self.stage else pieces
+
+    def wait(self) -> Tuple[Piece, Piece]:
+        if not _needs_grad(self.block):
+            return self._arrive()
+        top, bottom = _NeighbourWait.apply(self.block, self)
+        return (top if isinstance(self.top, torch.Tensor) else self.top,
+                bottom if isinstance(self.bottom, torch.Tensor)
+                else self.bottom)
+
+
+class _NeighbourWait(torch.autograd.Function):
+    """The wait of a :class:`_PostedNeighbours`, with the backward of
+    :class:`_NeighbourExchange` (absent pieces are empty tensors)."""
+
+    @staticmethod
+    def forward(ctx, block, pending):
+        ctx.meta = pending.meta
+        axis = pending.meta[1]
+
+        def piece(p):
+            if isinstance(p, torch.Tensor):
+                return p
+            return block.new_empty(block.shape[:axis] + (0,)
+                                   + block.shape[axis + 1:])
+        top, bottom = pending._arrive()
+        return piece(top), piece(bottom)
+
+    @staticmethod
+    def backward(ctx, gtop, gbottom):
+        return _neighbour_backward(ctx.meta, gtop, gbottom), None
+
+
+class _Ghosts:
+    """The pending ghosts of :func:`ring_halo_ghosts`."""
+
+    def __init__(self, block: torch.Tensor, front: int, back: int,
+                 pending: Optional[_PostedNeighbours]):
+        self.block, self.front, self.back = block, front, back
+        self._pending = pending
+
+    def wait(self) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+        """``(front_ghost, back_ghost)``: the received slabs, zeros past
+        the domain's edges, ``None`` for a zero-width side."""
+        pieces = (self._pending.wait() if self._pending is not None
+                  else (self.front, self.back))
+        tail = tuple(self.block.shape[1:])
+        return tuple(
+            None if not width else
+            p if isinstance(p, torch.Tensor) else
+            self.block.new_zeros((width,) + tail)
+            for p, width in zip(pieces, (self.front, self.back)))
+
+
+def ring_halo_ghosts(block: torch.Tensor, front: int, back: int) -> _Ghosts:
+    """The 1-D ring halo exchange's two ghost slabs along axis 0, NOT
+    stitched onto the block (JAX ``:504-560``): the previous rank's last
+    ``front`` rows and the next rank's first ``back`` rows. The sends and
+    receives are posted here; the caller computes what needs no ghost and
+    then calls ``.wait()``, which returns ``(front_ghost, back_ghost)``,
+    zero at the domain's edges and ``None`` for a zero-width side.
+    Counted as ``ring_halo_ghosts``, with the bytes :func:`halo_exchange`
+    receives for the same widths; under grad mode the ghosts' cotangents
+    go home as :func:`halo_exchange`'s do (``ring_halo_ghosts_adjoint``).
+    The two ranks of a pair post their messages in the same order, so at
+    two ranks, where both directions join the same peer, they match."""
+    if not initialized():
+        return _Ghosts(block, front, back, None)
+    P, r = world_size(), rank()
+    rows = int(block.shape[0])
+    if rows < max(front if r < P - 1 else 0, back if r > 0 else 0):
+        raise ValueError(f"rank {r} holds {rows} rows, fewer than the "
+                         f"ghost widths ({front}, {back}) it sends")
+    pending = _PostedNeighbours("ring_halo_ghosts", block, 0, front, back,
+                                r - 1 if r > 0 else None,
+                                r + 1 if r < P - 1 else None)
+    return _Ghosts(block, front, back, pending)
+
+
+def ring_halo_extend(block: torch.Tensor, front: int = 0,
+                     back: int = 0) -> torch.Tensor:
+    """``block`` extended along axis 0 with the previous rank's last
+    ``front`` rows and the next rank's first ``back`` rows, zeros at the
+    domain's edges (JAX ``:946-959``), through :func:`ring_halo_ghosts`."""
+    gf, gb = ring_halo_ghosts(block, front, back).wait()
+    parts = [p for p in (gf, block, gb) if p is not None]
+    return torch.cat(parts) if len(parts) > 1 else block
+
+
+class _CartPending:
+    """The pending result of :func:`post_cart_halo`."""
+
+    def __init__(self, block, ax, pieces, pending):
+        self.block, self.ax = block, ax
+        self._pieces, self._pending = pieces, pending
+
+    def wait(self) -> torch.Tensor:
+        pieces = (self._pending.wait() if self._pending is not None
+                  else self._pieces)
+        return _stitch(pieces, self.block, self.ax)
+
+
+def post_cart_halo(block: torch.Tensor, grid: Sequence[int], ax: int,
+                   hm: int, hp: int) -> _CartPending:
+    """:func:`cart_halo_extend` split at its wait: the exchange along
+    ``ax`` is posted (and counted, with its event) here, and ``.wait()``
+    returns what :func:`cart_halo_extend` returns, so that the caller can
+    work on what needs no ghost meanwhile (the overlap path of
+    ``MPIHalo``)."""
+    grid = tuple(int(g) for g in grid)
+    if (hm or hp) and initialized() and grid[ax] > 1:
+        if int(np.prod(grid)) != world_size():
+            raise ValueError(f"grid {grid} does not match the world of "
+                             f"{world_size()} ranks")
+        r = rank()
+        coord = int(np.unravel_index(r, grid)[ax])
+        stride = int(np.prod(grid[ax + 1:]))
+        pending = _PostedNeighbours(
+            "cart_halo_extend", block, ax, hm, hp,
+            r - stride if coord > 0 else None,
+            r + stride if coord < grid[ax] - 1 else None,
+            dict(shape=tuple(block.shape), dtype=block.dtype, axis=None,
+                 grid=grid, ax=ax, hm=hm, hp=hp))
+        return _CartPending(block, ax, None, pending)
+    return _CartPending(block, ax, (hm, hp), None)
+
+
+def resolve_chunks(width: int, n_shards: int, chunks: int,
+                   where: str = "pencil transpose",
+                   allow_plan: bool = False) -> int:
+    """The usable chunk count for streaming an axis of ``width`` through
+    chunked all-to-alls over ``n_shards`` ranks (JAX ``:563-604``): every
+    chunk must carry at least one column per rank, so the count is capped
+    at ``width // n_shards``; a request past the cap falls back to it (1
+    is the bulk schedule) with a logged note and a
+    ``collective.resolve_chunks_fallback`` event, never an error.
+
+    ``allow_plan``: a ``chunks`` that came from the default, not from the
+    user (the caller says so), may be replaced by the tuner's banked chunk
+    plan (:func:`~..tuning.plan.chunk_hint`, inert with tuning off); an
+    explicit ``comm_chunks=`` never passes ``True``, so a pinned count
+    always wins."""
+    chunks = int(chunks)
+    if allow_plan:
+        from ..tuning.plan import chunk_hint
+        hint = chunk_hint(where, int(width), int(n_shards))
+        if hint is not None and hint != chunks:
+            _trace.event("tuning.chunk_plan", cat="tuning", where=where,
+                         width=int(width), n_shards=int(n_shards),
+                         requested=chunks, planned=int(hint))
+            chunks = int(hint)
+    if chunks <= 1 or n_shards <= 1:
+        return 1
+    cap = max(1, int(width) // int(n_shards))
+    if chunks > cap:
+        _logger.info(
+            "%s: comm_chunks=%d does not fit an axis of length %d over %d "
+            "shards; falling back to %d chunk(s)", where, chunks, width,
+            n_shards, cap)
+        _trace.event("collective.resolve_chunks_fallback", cat="fallback",
+                     where=where, requested=chunks, width=int(width),
+                     n_shards=int(n_shards), resolved=cap)
+        return cap
+    return chunks
+
+
+def _split_sizes(n: int, parts: int) -> List[int]:
+    return [s[0] for s in local_split((int(n),), int(parts),
+                                      Partition.SCATTER, 0)]
+
+
+def _a2a_shapes(like: torch.Tensor, ax: int, n_ax: int, other: int,
+                sizes: Sequence[int]) -> List[Tuple[int, ...]]:
+    """Receive shapes: ``like``'s shape with ``n_ax`` along ``ax`` and each
+    of ``sizes`` along ``other``."""
+    out = []
+    for k in sizes:
+        shp = list(like.shape)
+        shp[ax], shp[other] = n_ax, k
+        out.append(tuple(shp))
+    return out
+
+
+class _PostedA2A:
+    """An all-to-all of exact-size pieces over ``group`` posted as one
+    batch (:func:`all_to_all`'s transfer, not counted: the chunked
+    transpose counts itself); :meth:`wait` returns the pieces in group
+    rank order, this rank's own the piece it kept."""
+
+    def __init__(self, sends, recv_shapes, group):
+        self.out, tx, rx, self.stage = _a2a_buffers(sends, recv_shapes,
+                                                    group)
+        self.nbytes = sum(_nbytes(t) for t, _ in rx)
+        self._posted = _Posted(tx, rx, group)
+        self.sends, self.group = sends, group
+
+    def wait(self) -> List[torch.Tensor]:
+        self._posted.wait()
+        return _a2a_result(self.out, self.sends, self.group, self.stage)
+
+
+def chunked_pencil_transpose(b: torch.Tensor, out_ax: int, chunks: int,
+                             mid: Callable[[torch.Tensor], torch.Tensor],
+                             rows_in: Sequence[int],
+                             rows_out: Sequence[int],
+                             group: Optional[object] = None) -> torch.Tensor:
+    """The streamed double pencil transpose (JAX ``:615-653``): ``b`` holds
+    this rank's ``rows_in[me]`` rows (axis 0) of the whole ``out_ax``
+    width, which is cut into ``chunks`` contiguous chunks, each cut again
+    over the ranks. Each chunk goes through ``all_to_all`` (this rank gets
+    every row, ``sum(rows_in)``, of its columns of the chunk), ``mid`` (the
+    axis-0 work, returning ``sum(rows_out)`` rows) and ``all_to_all`` back
+    (``rows_out[me]`` rows, the whole chunk), and the chunks are joined
+    along ``out_ax``: what the bulk transpose, ``mid`` and the transpose
+    back give, pieces at their exact sizes as there.
+
+    Chunk ``k + 1``'s transfer is posted before ``mid`` runs on chunk
+    ``k``, and each chunk's way back is posted as soon as ``mid`` is done
+    and waited on at the end, so transfers fly while the transforms run.
+    Counted as one call of ``chunked_pencil_transpose`` receiving both
+    directions' bytes, its chunks in :data:`steps`. Under grad mode, with
+    a ``b`` or a ``mid`` output that requires grad, each chunk's exchanges
+    are the differentiable :func:`all_to_all` (counted as such) and are not
+    posted ahead. ``chunks`` must fit (:func:`resolve_chunks`)."""
+    K = int(chunks)
+    n = _group_size(group) if initialized() else 1
+    me = _group_rank(group) if initialized() else 0
+    widths = _split_sizes(b.shape[out_ax], K)
+    if min(widths) < n:
+        raise ValueError(f"chunked_pencil_transpose: {K} chunks of an axis "
+                         f"of {b.shape[out_ax]} leave a chunk narrower than "
+                         f"the {n} ranks (resolve_chunks caps the count)")
+    chunk_in = torch.split(b, widths, dim=out_ax)
+    cols = [_split_sizes(w, n) for w in widths]
+    grad = _needs_grad(b)
+    nb = 0
+
+    def forward(k):
+        sends = list(torch.split(chunk_in[k], cols[k], dim=out_ax))
+        shapes = _a2a_shapes(chunk_in[k], out_ax, cols[k][me], 0, rows_in)
+        if grad or n == 1:
+            return all_to_all(sends, shapes, group)
+        return _PostedA2A(sends, shapes, group)
+
+    def backward(k, t):
+        sends = list(torch.split(t, list(rows_out), dim=0))
+        shapes = _a2a_shapes(t, 0, rows_out[me], out_ax, cols[k])
+        if grad or _needs_grad(t) or n == 1:
+            return all_to_all(sends, shapes, group)
+        return _PostedA2A(sends, shapes, group)
+
+    def done(p):
+        nonlocal nb
+        if isinstance(p, _PostedA2A):
+            nb += p.nbytes
+            return p.wait()
+        return p
+
+    with _trace.span("collective.chunked_pencil_transpose", cat="collective",
+                     shape=tuple(b.shape), out_ax=out_ax, chunks=K,
+                     n_shards=n):
+        ahead = forward(0)
+        backs = []
+        for k in range(K):
+            tile = torch.cat(done(ahead), dim=0)
+            if k + 1 < K:
+                ahead = forward(k + 1)
+            backs.append(backward(k, mid(tile)))
+        out = [torch.cat(done(p), dim=out_ax) for p in backs]
+    if n > 1:
+        _count("chunked_pencil_transpose", nb, group)
+        steps["chunked_pencil_transpose"] += K
+    return torch.cat(out, dim=out_ax) if K > 1 else out[0]

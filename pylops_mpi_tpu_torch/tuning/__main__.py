@@ -150,10 +150,10 @@ def _derivative_case(dims, dev):
     x = torch.linspace(-1.0, 1.0, n, dtype=torch.float64, device=dev)
 
     def factory(params):
-        # the ghost strategy is inert in the port: on the card the space
-        # lists one candidate and the case is skipped; the CPU rehearsal
-        # races the JAX package's list
-        op = MPIFirstDerivative(dims)
+        # the ghost strategy: in a world of one both candidates run the
+        # bulk exchange (the card lists one and skips the case); across
+        # ranks overlap="on" posts the ghosts before the interior pass
+        op = MPIFirstDerivative(dims, overlap=params["overlap"])
         dx = DistributedArray.to_dist(x)
         return lambda: op.matvec(dx).array
 

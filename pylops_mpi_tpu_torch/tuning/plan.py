@@ -35,8 +35,8 @@ storage's (as in the JAX package), so two storages of one operator share
 a key: bank them in separate cache files.
 
 :func:`chunk_hint` and :func:`record_chunk_plan` bank and read the
-transposes' chunk counts; the offline CLI banks them, and nothing in the
-port consumes them until its transposes are chunked (ROADMAP.md §A.3b).
+transposes' chunk counts; the offline CLI banks them, and the FFT's
+chunked transposes read them (``collectives.resolve_chunks``).
 """
 
 from __future__ import annotations
@@ -298,8 +298,9 @@ def chunk_hint(where: str, width: int, n_shards: int, *,
     """A banked chunk count for one streamed collective of ``width``
     over ``n_shards``, or ``None``: cache only (no seed moves off the
     default without a measurement). The resharding planner asks it for
-    op ``"reshard"`` (``parallel/reshard.py``); the port's transposes are
-    not chunked yet (ROADMAP.md §A.3b)."""
+    op ``"reshard"`` (``parallel/reshard.py``), the FFT's chunked
+    transposes for ``"pencil_transpose"``
+    (``collectives.resolve_chunks``)."""
     if tune_mode() == "off" or getattr(_tls, "active", False):
         return None
     key = plan_key(op, (int(width),), None, int(n_shards), None)

@@ -8,15 +8,20 @@ candidates, enumerations, defaults and cost functions), so that
 - **The cost-model pick equals today's defaults** on every platform:
   ``PYLOPS_MPI_TPU_TORCH_TUNE=on`` without a measured plan behaves as
   the untuned constructors (schedule by communication volume, the fused
-  normal path where it applies, overlap off). The port accepts
-  ``overlap=`` with no effect (ROADMAP.md §A.3b), so the seed and
-  :func:`default_params` resolve overlap off.
+  normal path where it applies). :func:`default_params` resolves
+  ``overlap=auto`` as the constructors do: on for a card under an NCCL
+  group of more than one rank, off otherwise; the seed assumes no
+  transfer hidden behind compute (none is measured across cards yet),
+  so it ranks overlap off first.
 - **On the card only what changes the run is a candidate**
-  (:func:`candidates`): the ``overlap`` axis (and the chunk ladder it
-  carries) stays off, and SUMMA on a 1×1 grid, where every schedule
-  runs the same GEMM, lists its default alone. A family left with one
-  candidate has nothing to measure there. On the CPU the lists stay the
-  JAX package's, for the parity tests.
+  (:func:`candidates`): in a world of one the pipelined collectives'
+  ``overlap="on"`` candidates (and the chunk ladder they carry) are left
+  out, as every ring and chunked schedule there runs the bulk one; SUMMA
+  on a 1×1 grid, where every schedule runs the same GEMM, lists its
+  default alone. In worlds of more than one rank the overlap candidates
+  change what runs, and are listed. A family left with one candidate has
+  nothing to measure. On the CPU the lists stay the JAX package's, for
+  the parity tests.
 - The port has no TPU and no hybrid (multi-slice) mesh: the JAX seeds'
   branches for them are not carried over.
 - **Peaks.** On the card (``platform="cuda"``) the seeds read
@@ -41,19 +46,13 @@ __all__ = ["Axis", "TuningSpace", "space_for", "register_space",
 
 # per-collective dispatch overhead used by the seeds: the JAX package's
 # figure for the CPU, and for the card a host launch of the order of ten
-# microseconds (a placement figure: nothing hides an extra launch behind
-# device work when the port's overlap is inert)
+# microseconds (a placement figure: no transfer is assumed hidden behind
+# device work until one is measured across cards)
 _DISPATCH_S = {"cpu": 50e-6, "cuda": 10e-6}
 
-# the families whose ``overlap``/``comm_chunks`` the port accepts and
-# does not act on yet (ROADMAP.md §A.3b)
-_INERT_OVERLAP = ("matrixmult", "fft", "stack", "derivative", "halo")
-
-# the JAX package's default chunk count of the streamed transposes
-# (PYLOPS_MPI_TPU_COMM_CHUNKS, default 4): the port's transposes are not
-# chunked (ROADMAP.md §A.3b) and it has no such knob, so the FFT space
-# enumerates the JAX default ladder
-_COMM_CHUNKS_DEFAULT = 4
+# the families whose ``overlap`` (and ``comm_chunks``) select the
+# pipelined collectives: in a world of one they run the bulk schedules
+_COLLECTIVE_OVERLAP = ("matrixmult", "fft", "stack", "derivative", "halo")
 
 
 @dataclass(frozen=True)
@@ -267,9 +266,10 @@ def _enum_fft(context: Dict) -> List[Dict]:
     """Overlap off makes the chunk count moot — one canonical bulk
     candidate plus the chunked ladder, instead of a product full of
     aliases that would waste measurement trials."""
+    from ..utils.deps import comm_chunks_default
     ladder = []
     seen = set()
-    for k in (_COMM_CHUNKS_DEFAULT, 2, 4, 8):
+    for k in (comm_chunks_default(), 2, 4, 8):
         if k > 1 and k not in seen:
             seen.add(k)
             ladder.append({"overlap": "on", "comm_chunks": int(k)})
@@ -300,8 +300,9 @@ def candidates(space: TuningSpace, context: Optional[Dict] = None) \
         -> List[Dict]:
     """Searchable candidate param dicts (fixed axes excluded), in
     declaration order — index 0 is today's default configuration. On
-    the card a candidate with ``overlap="on"`` is left out: the port
-    runs it as ``off`` (ROADMAP.md §A.3b), so timing it would race an
+    the card in a world of one a pipelined collective's
+    ``overlap="on"`` candidate is left out: every ring and chunked
+    schedule runs the bulk one there, so timing it would race an
     alias."""
     context = context or {}
     if space.enumerate_fn is not None:
@@ -313,9 +314,21 @@ def candidates(space: TuningSpace, context: Optional[Dict] = None) \
                 continue
             out = [dict(p, **{ax.name: c}) for p in out
                    for c in ax.candidates]
-    if context.get("platform") == "cuda" and space.op in _INERT_OVERLAP:
+    if (context.get("platform") == "cuda" and space.op in _COLLECTIVE_OVERLAP
+            and int(context.get("n_dev") or 1) <= 1):
         out = [p for p in out if p.get("overlap", "off") == "off"]
     return out
+
+
+def _overlap_auto(context: Dict) -> bool:
+    """``overlap=auto`` as the constructors resolve it for this context
+    (``utils.deps.overlap_enabled``): a card, more than one rank, and the
+    live group NCCL (the context does not carry the backend)."""
+    if context.get("platform") != "cuda" \
+            or int(context.get("n_dev") or 1) <= 1:
+        return False
+    from ..utils.deps import _overlap_auto as live
+    return live()
 
 
 def default_params(space: TuningSpace, context: Optional[Dict] = None) \
@@ -323,12 +336,20 @@ def default_params(space: TuningSpace, context: Optional[Dict] = None) \
     """The candidate matching current (pre-tuner) behavior — the race
     baseline the acceptance bar compares against. ``default_fn`` wins
     when declared (matrixmult: ``schedule="auto"`` IS the comm-volume
-    pick, not a fixed value); otherwise first in declaration order
-    (``overlap=auto`` resolves off in the port)."""
+    pick, not a fixed value); otherwise first in declaration order, with
+    ``overlap=auto`` resolved as the constructors resolve it (on for a
+    card under an NCCL group of several ranks: the first candidate that
+    carries it; JAX ``:360-380``)."""
     context = context or {}
     if space.default_fn is not None:
         return dict(space.default_fn(context))
-    return dict(candidates(space, context)[0])
+    cands = candidates(space, context)
+    if "overlap" in cands[0] and space.op in _COLLECTIVE_OVERLAP \
+            and _overlap_auto(context):
+        for c in cands:
+            if c.get("overlap") == "on":
+                return dict(c)
+    return dict(cands[0])
 
 
 def rank(space: TuningSpace, context: Dict) -> List[Dict]:
@@ -358,7 +379,7 @@ def _default_matrixmult(context: Dict) -> Dict:
                              int(shape[2]), grid)
     return {"schedule": ("stat_a" if vols["stat_a"] < vols["gather"]
                          else "gather"),
-            "overlap": "off"}
+            "overlap": "on" if _overlap_auto(context) else "off"}
 
 
 register_space(TuningSpace(

@@ -19,8 +19,10 @@ import warnings
 
 import torch
 
-__all__ = ["KNOBS", "SERVICE_KNOBS", "RESILIENCE_KNOBS", "spill_mode",
-           "apply_environment",
+__all__ = ["KNOBS", "SERVICE_KNOBS", "RESILIENCE_KNOBS", "COLLECTIVE_KNOBS",
+           "spill_mode", "apply_environment", "overlap_mode",
+           "overlap_enabled", "overlap_env_pinned", "comm_chunks_default",
+           "comm_chunks_env_pinned",
            "precond_default", "mg_levels_default", "ca_mode", "ca_s_default",
            "refine_enabled", "reduce_stall_steps", "batch_default"]
 
@@ -155,6 +157,17 @@ RESILIENCE_KNOBS = [
 ]
 
 
+# the pipelined collectives' knobs (same tuple layout as KNOBS)
+COLLECTIVE_KNOBS = [
+    ("PYLOPS_MPI_TPU_TORCH_OVERLAP", "auto|on|off", "auto",
+     "parallel/collectives.py (ops/*.py)",
+     "ring and chunked schedules of the operators' collectives (auto: on "
+     "for CUDA tensors under an NCCL group of more than one rank)"),
+    ("PYLOPS_MPI_TPU_TORCH_COMM_CHUNKS", "int >= 1", "4", "ops/fft.py",
+     "chunks of each streamed pencil transpose when overlap is on"),
+]
+
+
 def refine_enabled() -> bool:
     """``PYLOPS_MPI_TPU_TORCH_REFINE=1``: ``resilient_solve`` with an
     operator factory runs :func:`~..resilience.driver.refined_solve`
@@ -260,3 +273,81 @@ def spill_mode() -> str:
             _warned_spill = True
         m = "auto"
     return m
+
+
+_warned_overlap = False
+
+
+def overlap_mode() -> str:
+    """``PYLOPS_MPI_TPU_TORCH_OVERLAP`` resolved to ``auto``/``on``/``off``
+    (JAX ``utils/deps.py:506-525``; an unknown value warns once and counts
+    as ``auto``: a typo must not silently flip schedules)."""
+    global _warned_overlap
+    m = os.environ.get("PYLOPS_MPI_TPU_TORCH_OVERLAP", "auto").strip().lower()
+    if m in ("", "none", "default"):
+        m = "auto"
+    if m not in ("auto", "on", "off"):
+        if not _warned_overlap:
+            warnings.warn(f"PYLOPS_MPI_TPU_TORCH_OVERLAP={m!r} is not one of "
+                          "['auto', 'on', 'off']; using 'auto'", stacklevel=2)
+            _warned_overlap = True
+        m = "auto"
+    return m
+
+
+def _overlap_auto(device=None) -> bool:
+    """``auto``'s rule (JAX: on for a TPU backend): on only for CUDA
+    tensors under an NCCL group of more than one rank, where a posted
+    transfer runs on NCCL's stream beside the compute. On the CPU, under
+    gloo (whose transfers the host stages) and in a world of one, off:
+    every schedule stays the bulk one, bit for bit."""
+    from ..parallel.mesh import initialized, world_size
+    if not initialized() or world_size() < 2:
+        return False
+    import torch.distributed as dist
+    if dist.get_backend() != "nccl":
+        return False
+    return device is None or torch.device(device).type == "cuda"
+
+
+def overlap_enabled(user=None, device=None) -> bool:
+    """The pipelined-collectives tri-state as a bool (JAX
+    ``utils/deps.py:528-552``). ``user`` is an operator's ``overlap=``
+    (``True``/``False``/``"on"``/``"off"``/``"auto"``; ``None`` defers to
+    the environment); ``device`` is where the operator's tensors live
+    (``None``: the group's), which ``auto`` reads (:func:`_overlap_auto`).
+    """
+    if isinstance(user, bool):
+        return user
+    if user is None:
+        mode = overlap_mode()
+    else:
+        mode = str(user).strip().lower()
+        if mode not in ("auto", "on", "off"):
+            raise ValueError(f"overlap={user!r}: expected 'auto', 'on', "
+                             "'off', True or False")
+    if mode == "on":
+        return True
+    if mode == "off":
+        return False
+    return _overlap_auto(device)
+
+
+def overlap_env_pinned() -> bool:
+    """``PYLOPS_MPI_TPU_TORCH_OVERLAP`` is explicitly ``on`` or ``off``: a
+    user's pin, which beats the tuner's plan as an explicit ``overlap=``
+    does (``auto`` or unset leaves the plan free; JAX ``:555-560``)."""
+    return overlap_mode() in ("on", "off")
+
+
+def comm_chunks_default() -> int:
+    """``PYLOPS_MPI_TPU_TORCH_COMM_CHUNKS``: the chunk count of the
+    streamed pencil transposes (default 4, floored at 1; JAX
+    ``:667-675``)."""
+    return _int_knob("PYLOPS_MPI_TPU_TORCH_COMM_CHUNKS", 4, 1)
+
+
+def comm_chunks_env_pinned() -> bool:
+    """``PYLOPS_MPI_TPU_TORCH_COMM_CHUNKS`` is set (even to its default):
+    it beats the tuner's chunk plan (JAX ``:648-653``)."""
+    return "PYLOPS_MPI_TPU_TORCH_COMM_CHUNKS" in os.environ

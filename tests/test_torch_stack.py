@@ -195,7 +195,9 @@ def test_complex_guard_and_deferred_keywords(rng):
     with pytest.raises(ValueError, match="column size mismatch"):
         pmtt.MPIVStack([tl.MatrixMult(np.ones((2, 3)), device=CPU),
                         tl.MatrixMult(np.ones((2, 4)), device=CPU)])
-    # overlap / hierarchical select multi-device reductions: no effect here
+    # overlap / hierarchical select multi-rank reductions (the ring form
+    # of the adjoint, tests/test_torch_overlap.py): in a world of one the
+    # bulk product runs either way
     x = pmtt.DistributedArray.to_dist(_vec(rng, 3, True), device=CPU,
                                       partition=pmtt.Partition.BROADCAST)
     ref = pmtt.MPIVStack(rows)

@@ -122,9 +122,12 @@ def test_spaces_equal_jax():
                 (name, ctx)
 
 
-def test_card_seed_keeps_overlap_off():
-    # the port's overlap is inert: on the card, as on the CPU, the seed
-    # and the default resolve it off (the JAX TPU default is on)
+def test_card_seed_keeps_overlap_off(monkeypatch):
+    # on the card the default resolves overlap=auto as the constructors
+    # do: off in a world of one, and off across ranks unless the live
+    # group is NCCL (the CPU has none); the seed assumes no transfer
+    # hidden behind compute, so it ranks overlap off first everywhere
+    # (the JAX TPU default is on)
     for ctx in _contexts():
         cctx = dict(ctx, platform="cuda", chip="NVIDIA H100 80GB HBM3")
         sp = tspace.SPACES[ctx["op"]]
@@ -132,6 +135,19 @@ def test_card_seed_keeps_overlap_off():
         assert dflt.get("overlap", "off") == "off"
         top = tspace.rank(sp, cctx)[0]
         assert top.get("overlap", "off") == "off", (ctx["op"], top)
+    # under an NCCL group of several ranks the default carries overlap on
+    from pylops_mpi_tpu_torch.utils import deps
+    monkeypatch.setattr(deps, "_overlap_auto", lambda device=None: True)
+    for ctx in _contexts():
+        cctx = dict(ctx, platform="cuda", chip="NVIDIA H100 80GB HBM3")
+        sp = tspace.SPACES[ctx["op"]]
+        dflt = tspace.default_params(sp, cctx)
+        if "overlap" not in dflt:
+            continue
+        multi = ctx["n_dev"] > 1 and not (ctx["op"] == "matrixmult"
+                                          and ctx["extra"]["grid"] == (1, 1))
+        assert dflt["overlap"] == ("on" if multi else "off"), (ctx, dflt)
+        assert dflt in tspace.candidates(sp, cctx)
     # the blockdiag seed orders the kernel first on the card
     ctx = dict(_contexts()[3], platform="cuda", chip="NVIDIA H100 80GB HBM3")
     assert tspace.rank(tspace.SPACES["blockdiag"], ctx)[0] == \
@@ -140,7 +156,10 @@ def test_card_seed_keeps_overlap_off():
 
 def test_card_lists_only_live_candidates():
     # on the card a candidate differs from the default only in what the
-    # port runs: no overlap="on" alias, one SUMMA schedule on one tile
+    # port runs: in a world of one no overlap="on" alias (the rings and
+    # chunked transposes run the bulk schedules there) and one SUMMA
+    # schedule on one tile; across ranks the overlap candidates (and the
+    # FFT's chunk ladder) change what runs, and are listed
     card = {"platform": "cuda", "chip": "NVIDIA H100 80GB HBM3"}
     got = {}
     for ctx in _contexts():
@@ -148,10 +167,14 @@ def test_card_lists_only_live_candidates():
         sp = tspace.SPACES[ctx["op"]]
         cands = tspace.candidates(sp, cctx)
         assert tspace.default_params(sp, cctx) in cands, ctx
-        assert all(p.get("overlap", "off") == "off" for p in cands)
+        on = [p for p in cands if p.get("overlap") == "on"]
+        if ctx["n_dev"] == 1:
+            assert not on
+        elif "overlap" in cands[0]:
+            assert on, ctx
         got.setdefault(ctx["op"], set()).add(len(cands))
-    assert got == {"matrixmult": {1, 2}, "fft": {1}, "blockdiag": {1, 2},
-                   "stack": {1}, "derivative": {1}, "halo": {1},
+    assert got == {"matrixmult": {1, 4}, "fft": {1, 4}, "blockdiag": {1, 2},
+                   "stack": {1, 2}, "derivative": {1, 2}, "halo": {1, 2},
                    "sparse_matmult": {2}, "ca": {5}}
     one_tile = dict(_contexts()[0], **card)
     assert one_tile["extra"]["grid"] == (1, 1)
