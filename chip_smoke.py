@@ -371,8 +371,7 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    forward and the adjoint at (4096, 2048, 64) on a (1, 2) grid, the
    stack's ring adjoint on 8 blocks of 1024^2, the (256, 256, 128) c64
    FFT with 4 chunks forward and adjoint, the sparse ring adjoint on
-   2^20 banded rows, ``MPIHalo`` and ``ghosted(overlap="on")`` (copies:
-   bitwise), each within ``TOL_28`` with ``P - 1`` hops or ``K`` chunks;
+   2^20 banded rows and ``MPIHalo`` (a copy: bitwise), each within ``TOL_28`` with ``P - 1`` hops or ``K`` chunks;
    and the gradient of ``0.5|D x|^2`` through the derivative's overlap
    path within ``TOL_28``, its ``ring_halo_ghosts_adjoint`` calls those of
    the forward. Run it alone with ``overlap_phase(torch, pmtt, (nk, sk),
@@ -1772,16 +1771,18 @@ def _shared_card_cases(torch, pmtt, dev):
     return out
 
 
-def _shared_card_rank(r, n, store_path, out_dir, here, cases, args):
+def _shared_card_rank(r, n, store_path, out_dir, here, cases, args,
+                      backend="gloo"):
     """A spawned rank of phases 15 and 16: gloo, every rank on card 0,
-    running ``cases(torch, pmtt, dev, *args)``."""
+    running ``cases(torch, pmtt, dev, *args)`` (under NCCL, rank ``r`` on
+    card ``r``)."""
     import pickle
     sys.path.insert(0, here)
     import torch
     import torch.distributed as dist
     import pylops_mpi_tpu_torch as pmtt
-    dev = torch.device("cuda", 0)
-    pmtt.parallel.init(backend="gloo", store=dist.FileStore(store_path, n),
+    dev = torch.device("cuda", 0 if backend == "gloo" else r)
+    pmtt.parallel.init(backend=backend, store=dist.FileStore(store_path, n),
                        rank=r, world_size=n, device=dev)
     try:
         res = cases(torch, pmtt, dev, *args)
@@ -1791,10 +1792,12 @@ def _shared_card_rank(r, n, store_path, out_dir, here, cases, args):
         pickle.dump(res, f)
 
 
-def spawn_shared_card(n, here, cases, args=(), timeout=600):
+def spawn_shared_card(n, here, cases, args=(), timeout=600,
+                      backend="gloo"):
     """``n`` gloo ranks sharing the card, each running ``cases``; returns
     their records in rank order. A rank that raises, or a world that
-    outlives ``timeout`` seconds (its processes are killed), raises."""
+    outlives ``timeout`` seconds (its processes are killed), raises.
+    ``backend="nccl"`` puts rank ``r`` on card ``r`` instead."""
     import pickle
     import shutil
     import tempfile
@@ -1802,14 +1805,15 @@ def spawn_shared_card(n, here, cases, args=(), timeout=600):
     tmp = tempfile.mkdtemp(prefix="chip_smoke_gloo_")
     try:
         ctx = mp.spawn(_shared_card_rank,
-                       args=(n, f"{tmp}/store", tmp, str(here), cases, args),
+                       args=(n, f"{tmp}/store", tmp, str(here), cases, args,
+                             backend),
                        nprocs=n, join=False)
         deadline = time.monotonic() + timeout
         while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
             if time.monotonic() > deadline:
                 for proc in ctx.processes:
                     proc.kill()
-                raise RuntimeError(f"{n} gloo ranks did not finish in "
+                raise RuntimeError(f"{n} {backend} ranks did not finish in "
                                    f"{timeout} s")
         ranks = []
         for r in range(n):
@@ -6749,7 +6753,7 @@ def gradients_phase(torch, pmtt, kernels, here, dev):
 NITER_28 = 10
 TOL_28 = 1e-5   # f32 sums in other orders (rings, chunks, patched rows)
 # 28.3: the stack's blocks, the sparse matrix's rows, the halo's field,
-# the ghosted field and the derivative whose gradient is taken
+# the field of the derivative whose gradient is taken
 NBLK_28, NBLOCK_28 = 8, 1024
 N_SP_28 = 1 << 20
 HALO_28, HALO_W_28 = (2048, 1024), (2, 3)
@@ -7007,9 +7011,6 @@ def _overlap28_cases_rank(torch, pmtt, dev):
             for q in range(n)]), local_shapes=op.local_dim_sizes)
         return op.matvec(xh)
     case("halo", halo, halo_apply, copy=True)
-    gf = D.to_dist(torch.randn(GHOST_28, generator=g, device=dev))
-    case("ghosted", lambda mode: mode,
-         lambda mode: gf.ghosted(2, 3, overlap=mode), copy=True)
     # one gradient: 0.5‖D x‖² through the derivative's overlap path
     xd = torch.randn(GHOST_28, generator=g, device=dev).reshape(-1)
     grads = {}
@@ -7037,7 +7038,6 @@ def overlap_phase(torch, pmtt, kernels, here, dev):
     tap kernel only through the derivative's gradient."""
     import shutil
     import tempfile
-    card = card_name()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_overlap_")
     res = {}
     try:
@@ -7048,8 +7048,21 @@ def overlap_phase(torch, pmtt, kernels, here, dev):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
+    res["post"] = overlap28_post(here)
     t = time.perf_counter()
-    ranks = spawn_shared_card(2, here, _overlap28_post_rank)
+    res["cases"] = overlap28_cases(here)
+    res["cases_s"] = time.perf_counter() - t
+    return res
+
+
+def overlap28_post(here, backend="gloo"):
+    """28.2: the post-stack CGLS on two ranks, overlap on against off,
+    checked (module docstring); gloo ranks share card 0, NCCL ranks take
+    a card each. Returns the record."""
+    card = card_name()
+    t = time.perf_counter()
+    ranks = spawn_shared_card(2, here, _overlap28_post_rank,
+                              backend=backend)
     want = ranks[0]["off"]["x"]
     err = float(np.abs(ranks[0]["on"]["x"] - want).max()
                 / np.abs(want).max())
@@ -7065,13 +7078,13 @@ def overlap_phase(torch, pmtt, kernels, here, dev):
             halo_exchange_on=on["calls"].get("halo_exchange", 0),
             wall_on_s=on["wall_s"], wall_off_s=off["wall_s"],
             interior=o["interior"]))
-    res["post"] = dict(x_rel_err=err, ranks=per_rank,
-                       seconds=time.perf_counter() - t)
-    print(f"28.2 two gloo ranks on one card ({card}), post-stack CGLS "
-          f"({NX}, {NT0}) f32, 10 iterations, overlap on vs off: x "
-          f"{err:.3e} (limit {TOL_28:.0e}); per rank {per_rank} (walls are "
-          "host-staged gloo ranks sharing one card, not a card-to-card "
-          "rate)", flush=True)
+    where = ("two gloo ranks on one card" if backend == "gloo"
+             else "two NCCL ranks, one card each")
+    walls = ("host-staged gloo ranks sharing one card, not a card-to-card "
+             "rate" if backend == "gloo" else "one solve each way")
+    print(f"28.2 {where} ({card}), post-stack CGLS ({NX}, {NT0}) f32, 10 "
+          f"iterations, overlap on vs off: x {err:.3e} (limit "
+          f"{TOL_28:.0e}); per rank {per_rank} (walls: {walls})", flush=True)
     if not err <= TOL_28:
         raise RuntimeError(f"28.2: overlap on moved x by {err:.3e}")
     for o in per_rank:
@@ -7083,9 +7096,15 @@ def overlap_phase(torch, pmtt, kernels, here, dev):
                 or not o["interior"]["max_err"] <= STENCIL_TOL["float32"]):
             raise RuntimeError(f"28.2: rank {o['rank']} did not run the "
                                f"overlap path through the tap kernel: {o}")
-    t = time.perf_counter()
-    ranks = spawn_shared_card(2, here, _overlap28_cases_rank)
-    res["cases"] = ranks[0]
+    return dict(x_rel_err=err, ranks=per_rank,
+                seconds=time.perf_counter() - t)
+
+
+def overlap28_cases(here, backend="gloo"):
+    """28.3: every case on two ranks, overlap on against off, checked
+    (module docstring); returns rank 0's record."""
+    ranks = spawn_shared_card(2, here, _overlap28_cases_rank,
+                              backend=backend)
     n = 2
     want_steps = {"summa_gather": {"ring_pass": n - 1},
                   "summa_stat_a": {"ring_reduce_scatter": n - 1},
@@ -7095,12 +7114,13 @@ def overlap_phase(torch, pmtt, kernels, here, dev):
                   "fft_adjoint": {"chunked_pencil_transpose":
                                   2 * CHUNKS_28},
                   "sparse_adjoint": {"ring_pass": n - 1},
-                  "halo": {}, "ghosted": {}}
+                  "halo": {}}
     for o in ranks:
         for label, steps in want_steps.items():
             c = o[label]
-            print(f"28.3 rank {o['rank']} {label}: overlap on vs off "
-                  f"{c['err']:.3e} ({'bitwise' if c['copy'] else 'limit'}"
+            print(f"28.3 {backend} rank {o['rank']} {label}: overlap on vs "
+                  f"off {c['err']:.3e} "
+                  f"({'bitwise' if c['copy'] else 'limit'}"
                   f" {0.0 if c['copy'] else TOL_28:.0e}); calls "
                   f"{c['calls']}; steps {c['steps']}", flush=True)
             if not c["err"] <= (0.0 if c["copy"] else TOL_28) \
@@ -7111,16 +7131,15 @@ def overlap_phase(torch, pmtt, kernels, here, dev):
                if k.endswith("_adjoint")}
         fwd = {k: v for k, v in gr["fwd"].items()
                if k in ("ring_halo_ghosts", "all_to_all")}
-        print(f"28.3 rank {o['rank']} gradient of 0.5|D x|^2 through the "
-              f"overlap path: vs overlap off {gr['err']:.3e} (limit "
-              f"{TOL_28:.0e}); forward calls {gr['fwd']}, backward "
+        print(f"28.3 {backend} rank {o['rank']} gradient of 0.5|D x|^2 "
+              f"through the overlap path: vs overlap off {gr['err']:.3e} "
+              f"(limit {TOL_28:.0e}); forward calls {gr['fwd']}, backward "
               f"{gr['bwd']}; tap kernel (forward, backward) launches "
               f"{gr['launches']}", flush=True)
         if not gr["err"] <= TOL_28 or adj != fwd \
                 or fwd.get("ring_halo_ghosts") != 1:
             raise RuntimeError(f"28.3 rank {o['rank']} gradient: {gr}")
-    res["cases_s"] = time.perf_counter() - t
-    return res
+    return ranks[0]
 
 
 def main() -> int:

@@ -49,26 +49,31 @@ def compile_signature() -> Dict[str, Any]:
     }
 
 
-def _tensors(obj, out: List, seen: set, leaf=None) -> None:
+def _tensors(obj, out: List, seen: set, leaf=None, node=None) -> None:
     """``leaf(t)`` (default ``(shape, dtype)``) of every tensor reachable
     from ``obj`` through attributes, lists, tuples and dicts, in
-    attribute-name order."""
+    attribute-name order, and ``node(o)`` of every object walked through
+    its attributes (one with ``shape``); a ``None`` is not kept."""
     import torch
     if id(obj) in seen:
         return
     seen.add(id(obj))
     if isinstance(obj, torch.Tensor):
-        out.append((tuple(obj.shape), str(obj.dtype)) if leaf is None
-                   else leaf(obj))
+        v = (tuple(obj.shape), str(obj.dtype)) if leaf is None else leaf(obj)
+        if v is not None:
+            out.append(v)
     elif isinstance(obj, (list, tuple)):
         for v in obj:
-            _tensors(v, out, seen, leaf)
+            _tensors(v, out, seen, leaf, node)
     elif isinstance(obj, dict):
         for k in sorted(obj, key=str):
-            _tensors(obj[k], out, seen, leaf)
+            _tensors(obj[k], out, seen, leaf, node)
     elif hasattr(obj, "shape") and hasattr(obj, "__dict__"):
+        v = node(obj) if node is not None else None
+        if v is not None:
+            out.append(v)
         for k in sorted(vars(obj)):
-            _tensors(vars(obj)[k], out, seen, leaf)
+            _tensors(vars(obj)[k], out, seen, leaf, node)
 
 
 def _storage(t) -> Tuple:
@@ -103,27 +108,15 @@ def schedule_signature(obj) -> Tuple:
     loop captured with overlap off is never replayed for an operator with
     overlap on, nor one of one chunk count for another."""
     out: List = []
-
-    def walk(o, seen):
-        if id(o) in seen:
-            return
-        seen.add(id(o))
-        if isinstance(o, (list, tuple)):
-            for v in o:
-                walk(v, seen)
-        elif isinstance(o, dict):
-            for k in sorted(o, key=str):
-                walk(o[k], seen)
-        elif hasattr(o, "shape") and hasattr(o, "__dict__"):
-            d = vars(o)
-            if "_overlap" in d:
-                out.append((type(o).__name__, bool(d["_overlap"]),
-                            d.get("_comm_chunks")))
-            for k in sorted(d):
-                walk(d[k], seen)
-
-    walk(obj, set())
+    _tensors(obj, out, set(), lambda t: None, _schedule)
     return tuple(out)
+
+
+def _schedule(o):
+    d = vars(o)
+    if "_overlap" not in d:
+        return None
+    return (type(o).__name__, bool(d["_overlap"]), d.get("_comm_chunks"))
 
 
 def op_signature(Op) -> Tuple:

@@ -588,8 +588,7 @@ class DistributedArray:
         return torch.movedim(torch.cat(parts), 0, self._axis)
 
     def ghosted(self, cells_front: Optional[int] = None,
-                cells_back: Optional[int] = None,
-                overlap=None) -> "DistributedArray":
+                cells_back: Optional[int] = None) -> "DistributedArray":
         """Every shard extended with its neighbours' boundary rows (JAX
         ``distributedarray.py:737``): the SCATTER array whose shard ``i``
         is :meth:`add_ghost_cells` of shard ``i``, of global length
@@ -597,16 +596,7 @@ class DistributedArray:
         ghost and shard P-1 no back ghost. Built on
         :func:`~.parallel.collectives.halo_exchange` over the world, so
         its gradient sends each ghost's cotangent home: a row's gradient
-        counts the shards that hold it.
-
-        ``overlap`` (``PYLOPS_MPI_TPU_TORCH_OVERLAP`` when ``None``;
-        ``auto`` is on only under an NCCL group of several ranks) takes
-        the pipelined exchange instead: the ghosts are posted
-        (:func:`~.parallel.collectives.ring_halo_ghosts`), the shard is
-        copied into the ghosted shard while they are in flight, and the
-        ghosts land last. The result is the same, bit for bit. The JAX
-        package's ``ghosted`` has no such argument: its one kernel leaves
-        the order to XLA's scheduler."""
+        counts the shards that hold it."""
         front, back = self._ghost_widths(cells_front, cells_back)
         if self._partition != Partition.SCATTER:
             raise ValueError("ghost cells apply to SCATTER arrays")
@@ -619,11 +609,6 @@ class DistributedArray:
         sizes = self._axis_sizes()
         out_sizes = [(front if i > 0 else 0) + sizes[i]
                      + (back if i < P - 1 else 0) for i in range(P)]
-        from .utils.deps import overlap_enabled
-        if overlap_enabled(overlap, self.device):
-            arr = self._ghosted_overlap(front, back)
-        else:
-            arr = self.add_ghost_cells(front, back)
         shapes = []
         for s, n in zip(self._local_shapes, out_sizes):
             s = list(s)
@@ -631,25 +616,9 @@ class DistributedArray:
             shapes.append(tuple(s))
         gshape = list(self._global_shape)
         gshape[ax] = sum(out_sizes)
-        return DistributedArray._wrap(arr, self, global_shape=tuple(gshape),
+        return DistributedArray._wrap(self.add_ghost_cells(front, back), self,
+                                      global_shape=tuple(gshape),
                                       local_shapes=tuple(shapes))
-
-    def _ghosted_overlap(self, front: int, back: int) -> torch.Tensor:
-        """This rank's ghosted shard through the posted ghosts (see
-        :meth:`ghosted`)."""
-        P, r = self.n_shards, rank()
-        b = torch.movedim(self._arr, self._axis, 0).contiguous()
-        ghosts = collectives.ring_halo_ghosts(b, front, back)
-        f = front if r > 0 else 0
-        k = back if r < P - 1 else 0
-        out = b.new_empty((f + b.shape[0] + k,) + tuple(b.shape[1:]))
-        out[f:f + b.shape[0]] = b
-        gf, gb = ghosts.wait()
-        if f:
-            out[:f] = gf
-        if k:
-            out[f + b.shape[0]:] = gb
-        return torch.movedim(out, 0, self._axis)
 
     def __repr__(self):
         return (f"<DistributedArray global_shape={self._global_shape}, "

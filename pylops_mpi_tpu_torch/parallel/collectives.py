@@ -624,103 +624,40 @@ def _unstage(pieces, device) -> Tuple[Piece, Piece]:
                  for p in pieces)
 
 
-def _exchange(name: str, block: torch.Tensor, axis: int, front: int,
-              back: int, prev: Optional[int], nxt: Optional[int],
-              event: Optional[dict] = None) -> Tuple[Piece, Piece]:
-    """The neighbour exchange along ``axis`` of ``block``: receive the
-    ``prev`` rank's last ``front`` slices and the ``nxt`` rank's first
-    ``back`` ones, and send this rank's to them, as one
-    ``batch_isend_irecv``. ``prev``/``nxt`` are ``None`` past the ends;
-    there the piece is a count of (zero) slices instead of a tensor.
-    Slabs along an axis other than 0 go as contiguous copies. The call
-    is counted as ``name``, under a span, or, given ``event`` (the
-    Cartesian exchange's tags), with a ``collective.<name>`` event."""
-    top, bottom, sends, recvs, stage = _neighbour_buffers(
-        block, axis, front, back, prev, nxt)
-    _transfer(name, sends, recvs, event)
-    return _unstage((top, bottom), block.device) if stage else (top, bottom)
-
-
-def _transfer(name: str, sends, recvs, event: Optional[dict]) -> None:
-    """One counted neighbour step: under the ``collective.<name>`` span,
-    or counted and recorded as an event with ``event``'s tags."""
-    nb = sum(_nbytes(t) for t, _ in recvs)
-    if event is None:
-        with _span(name, nb):
-            _p2p(sends, recvs, None)
-        return
-    seq = _count(name, nb)
-    _p2p(sends, recvs, None)
-    _trace.event(f"collective.{name}", cat="collective", seq=seq, **event)
-
-
 def halo_exchange(block: torch.Tensor, front: int,
                   back: int) -> Tuple[Piece, Piece]:
     """Ghost rows of ``block`` (axis 0) from the neighbouring ranks: the
     previous rank's last ``front`` rows and the next rank's first
     ``back`` rows, posted as one ``batch_isend_irecv`` with both
-    neighbours. Returns the pieces ``(top, bottom)``: contiguous received
-    tensors, or row counts (of zeros) at the ends of the world. No
-    concatenated slab is built; the tap kernel takes the pieces as they
-    are.
+    neighbours and waited on at once (:func:`ring_halo_ghosts` is the
+    same exchange left pending). Returns the pieces ``(top, bottom)``:
+    contiguous received tensors, or row counts (of zeros) at the ends of
+    the world. No concatenated slab is built; the tap kernel takes the
+    pieces as they are.
 
     The counterpart of the JAX package's ``halo_slab``. Its relocation
     of the back ghost after a ragged shard's last valid row has nothing
     to do here: a rank's shard is a tensor of its exact size, not a
     padded block. A rank sends its last ``front`` rows forward and its
     first ``back`` rows back, so it must hold that many."""
+    pending = _post_ring("halo_exchange", block, front, back)
+    return pending.wait() if pending is not None else (front, back)
+
+
+def _post_ring(name: str, block: torch.Tensor, front: int,
+               back: int) -> Optional["_PostedNeighbours"]:
+    """The 1-D ring's neighbour exchange along axis 0, posted and counted
+    as ``name``; ``None`` without a group."""
     if not initialized():
-        return front, back
+        return None
     P, r = world_size(), rank()
     rows = int(block.shape[0])
     if rows < max(front if r < P - 1 else 0, back if r > 0 else 0):
         raise ValueError(f"rank {r} holds {rows} rows, fewer than the "
                          f"ghost widths ({front}, {back}) it sends")
-    prev = r - 1 if r > 0 else None
-    nxt = r + 1 if r < P - 1 else None
-    return _neighbours("halo_exchange", block, 0, front, back, prev, nxt)
-
-
-def _neighbours(name: str, block: torch.Tensor, axis: int, front: int,
-                back: int, prev: Optional[int], nxt: Optional[int],
-                event: Optional[dict] = None) -> Tuple[Piece, Piece]:
-    """:func:`_exchange`, through :class:`_NeighbourExchange` under grad
-    mode."""
-    if not _needs_grad(block):
-        return _exchange(name, block, axis, front, back, prev, nxt, event)
-    top, bottom = _NeighbourExchange.apply(block, name, axis, front, back,
-                                           prev, nxt, event)
-    # absent pieces travel through the Function as empty tensors
-    return (top if prev is not None and front else front,
-            bottom if nxt is not None and back else back)
-
-
-class _NeighbourExchange(torch.autograd.Function):
-    """The neighbour exchange of :func:`_exchange` whose backward sends
-    each received ghost's cotangent back to the rank that owns those
-    slices, which adds it to its edge slices: the previous rank's last
-    ``front`` and the next rank's first ``back`` along ``axis``. Counted
-    as ``<name>_adjoint`` (with its event for the Cartesian exchange).
-    Absent pieces are empty tensors."""
-
-    @staticmethod
-    def forward(ctx, block, name, axis, front, back, prev, nxt, event):
-        top, bottom = _exchange(name, block, axis, front, back, prev, nxt,
-                                event)
-        ctx.meta = (name, axis, front, back, prev, nxt, event,
-                    tuple(block.shape))
-
-        def piece(p):
-            if isinstance(p, torch.Tensor):
-                return p
-            return block.new_empty(block.shape[:axis] + (0,)
-                                   + block.shape[axis + 1:])
-        return piece(top), piece(bottom)
-
-    @staticmethod
-    def backward(ctx, gtop, gbottom):
-        return (_neighbour_backward(ctx.meta, gtop, gbottom),
-                None, None, None, None, None, None, None)
+    return _PostedNeighbours(name, block, 0, front, back,
+                             r - 1 if r > 0 else None,
+                             r + 1 if r < P - 1 else None)
 
 
 def _neighbour_backward(meta, gtop, gbottom) -> torch.Tensor:
@@ -729,9 +666,9 @@ def _neighbour_backward(meta, gtop, gbottom) -> torch.Tensor:
     edge slices (``gtop`` to prev, ``gbottom`` to nxt), and the cotangents
     of this rank's own edges arriving in their place."""
     name, axis, front, back, prev, nxt, event, shape = meta
-    first, last = _exchange(f"{name}_adjoint",
-                            torch.cat([gtop, gbottom], dim=axis), axis,
-                            back, front, prev, nxt, event)
+    first, last = _PostedNeighbours(
+        f"{name}_adjoint", torch.cat([gtop, gbottom], dim=axis), axis,
+        back, front, prev, nxt, event)._arrive()
     grad = gtop.new_zeros(shape)
     if isinstance(first, torch.Tensor):
         grad.narrow(axis, 0, back).add_(first)
@@ -745,7 +682,8 @@ def cart_halo_extend(block: torch.Tensor, grid: Sequence[int], ax: int,
     """``block`` extended along axis ``ax`` with ``hm`` ghost slices from
     its minus neighbour on the Cartesian ``grid`` and ``hp`` from its plus
     neighbour, zeros past the grid's ends (the plain path of the JAX
-    package's ``cart_halo_extend``). The ranks map onto ``grid`` row-major,
+    package's ``cart_halo_extend``): :func:`post_cart_halo` waited on at
+    once. The ranks map onto ``grid`` row-major,
     so the neighbours along ``ax`` are ``rank ∓ prod(grid[ax + 1:])``.
     Called once per axis in turn, each call sends slabs of the block the
     earlier calls extended, which relays the corner values. Along an axis
@@ -754,24 +692,7 @@ def cart_halo_extend(block: torch.Tensor, grid: Sequence[int], ax: int,
     records the ``collective.cart_halo_extend`` event (JAX ``:338``; its
     ``axis`` tag, a mesh axis name, is ``None`` here). Under grad mode
     the ghosts' cotangents go back to their owners (module docstring)."""
-    if not hm and not hp:
-        return block
-    grid = tuple(int(g) for g in grid)
-    pieces: Tuple[Piece, Piece] = (hm, hp)
-    if initialized() and grid[ax] > 1:
-        if int(np.prod(grid)) != world_size():
-            raise ValueError(f"grid {grid} does not match the world of "
-                             f"{world_size()} ranks")
-        r = rank()
-        coord = int(np.unravel_index(r, grid)[ax])
-        stride = int(np.prod(grid[ax + 1:]))
-        pieces = _neighbours(
-            "cart_halo_extend", block, ax, hm, hp,
-            r - stride if coord > 0 else None,
-            r + stride if coord < grid[ax] - 1 else None,
-            dict(shape=tuple(block.shape), dtype=block.dtype, axis=None,
-                 grid=grid, ax=ax, hm=hm, hp=hp))
-    return _stitch(pieces, block, ax)
+    return post_cart_halo(block, grid, ax, hm, hp).wait()
 
 
 def _stitch(pieces: Tuple[Piece, Piece], block: torch.Tensor,
@@ -814,8 +735,9 @@ def broadcast(t: torch.Tensor, src: int = 0,
 # The pipelined layer (JAX ``parallel/collectives.py:394-653``): collectives
 # decomposed into steps whose transfers are posted before the compute that
 # does not need them and waited on only where their data is read. The bulk
-# collectives above lay out the same buffers and wait at once (``_p2p``);
-# an operator with overlap off calls only those.
+# collectives above lay out the same buffers and wait at once (``_p2p``;
+# the neighbour exchanges are :class:`_PostedNeighbours` waited on at
+# once); an operator with overlap off calls only those.
 
 
 def _group_size(group) -> int:
@@ -1001,12 +923,19 @@ def ring_reduce_scatter(chunk: Callable[[int], torch.Tensor],
 
 
 class _PostedNeighbours:
-    """The neighbour exchange of :func:`_exchange` split at its wait: the
-    transfers are posted, and counted as ``name`` (with the Cartesian
-    exchange's event when ``event`` is given), at construction;
-    :meth:`wait` returns the pieces (under the ``collective.<name>`` span
-    when there is no event), through :class:`_NeighbourWait` when
-    ``block`` requires grad."""
+    """A neighbour exchange along ``axis`` of ``block``, split at its
+    wait: this rank receives the ``prev`` rank's last ``front`` slices and
+    the ``nxt`` rank's first ``back`` ones, and sends its own to them, as
+    one ``batch_isend_irecv``. ``prev``/``nxt`` are ``None`` past the
+    ends; there the piece is a count of (zero) slices instead of a
+    tensor. Slabs along an axis other than 0 go as contiguous copies.
+    The transfers are posted, and counted as ``name`` (with the
+    Cartesian exchange's event when ``event`` is given), at
+    construction; :meth:`wait` returns the pieces (under the
+    ``collective.<name>`` span when there is no event), through
+    :class:`_NeighbourWait` when ``block`` requires grad. The bulk
+    exchanges (:func:`halo_exchange`, :func:`cart_halo_extend`) wait at
+    once."""
 
     def __init__(self, name: str, block: torch.Tensor, axis: int, front: int,
                  back: int, prev: Optional[int], nxt: Optional[int],
@@ -1044,8 +973,11 @@ class _PostedNeighbours:
 
 
 class _NeighbourWait(torch.autograd.Function):
-    """The wait of a :class:`_PostedNeighbours`, with the backward of
-    :class:`_NeighbourExchange` (absent pieces are empty tensors)."""
+    """The wait of a :class:`_PostedNeighbours`. Its backward sends each
+    received ghost's cotangent back to the rank that owns those slices,
+    which adds it to its edge slices (:func:`_neighbour_backward`),
+    counted as ``<name>_adjoint`` (with its event for the Cartesian
+    exchange). Absent pieces are empty tensors."""
 
     @staticmethod
     def forward(ctx, block, pending):
@@ -1098,17 +1030,8 @@ def ring_halo_ghosts(block: torch.Tensor, front: int, back: int) -> _Ghosts:
     go home as :func:`halo_exchange`'s do (``ring_halo_ghosts_adjoint``).
     The two ranks of a pair post their messages in the same order, so at
     two ranks, where both directions join the same peer, they match."""
-    if not initialized():
-        return _Ghosts(block, front, back, None)
-    P, r = world_size(), rank()
-    rows = int(block.shape[0])
-    if rows < max(front if r < P - 1 else 0, back if r > 0 else 0):
-        raise ValueError(f"rank {r} holds {rows} rows, fewer than the "
-                         f"ghost widths ({front}, {back}) it sends")
-    pending = _PostedNeighbours("ring_halo_ghosts", block, 0, front, back,
-                                r - 1 if r > 0 else None,
-                                r + 1 if r < P - 1 else None)
-    return _Ghosts(block, front, back, pending)
+    return _Ghosts(block, front, back,
+                   _post_ring("ring_halo_ghosts", block, front, back))
 
 
 def ring_halo_extend(block: torch.Tensor, front: int = 0,

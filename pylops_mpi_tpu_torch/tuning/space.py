@@ -10,9 +10,11 @@ candidates, enumerations, defaults and cost functions), so that
   the untuned constructors (schedule by communication volume, the fused
   normal path where it applies). :func:`default_params` resolves
   ``overlap=auto`` as the constructors do: on for a card under an NCCL
-  group of more than one rank, off otherwise; the seed assumes no
+  group of more than one rank, off otherwise. The seed assumes no
   transfer hidden behind compute (none is measured across cards yet),
-  so it ranks overlap off first.
+  so its costs favour overlap off; where ``auto`` resolves on,
+  :func:`rank` therefore keeps ``auto``'s overlap and chunk count first
+  and lets the costs order only the other axes.
 - **On the card only what changes the run is a candidate**
   (:func:`candidates`): in a world of one the pipelined collectives'
   ``overlap="on"`` candidates (and the chunk ladder they carry) are left
@@ -135,9 +137,11 @@ def _itemsize(context: Dict) -> int:
 def _overlap_seed(context: Dict, params: Dict, ici_bytes: float,
                   steps: int, base_s: float = 0.0) -> float:
     """Shared seed for the binary bulk-vs-pipelined choice: nothing is
-    hidden behind compute (the JAX package hides half on the TPU alone)
-    and each extra hop costs a dispatch — the ``overlap=auto`` policy
-    (off) the seed must not diverge from."""
+    hidden behind compute (the JAX package hides half on the TPU alone;
+    nothing is measured across cards) and each extra hop costs a
+    dispatch, so ``on`` never ranks first on its cost. Where
+    ``overlap=auto`` resolves on, :func:`rank` keeps it first all the
+    same, so the seed's pick stays the constructors' default."""
     pk = _peaks(context)
     t_ici = (ici_bytes / (pk["ici_gbps"] * 1e9)
              if pk.get("ici_gbps") and ici_bytes else 0.0)
@@ -320,15 +324,15 @@ def candidates(space: TuningSpace, context: Optional[Dict] = None) \
     return out
 
 
-def _overlap_auto(context: Dict) -> bool:
+def _auto_on(context: Dict) -> bool:
     """``overlap=auto`` as the constructors resolve it for this context
     (``utils.deps.overlap_enabled``): a card, more than one rank, and the
     live group NCCL (the context does not carry the backend)."""
     if context.get("platform") != "cuda" \
             or int(context.get("n_dev") or 1) <= 1:
         return False
-    from ..utils.deps import _overlap_auto as live
-    return live()
+    from ..utils import deps
+    return deps.overlap_auto()
 
 
 def default_params(space: TuningSpace, context: Optional[Dict] = None) \
@@ -345,7 +349,7 @@ def default_params(space: TuningSpace, context: Optional[Dict] = None) \
         return dict(space.default_fn(context))
     cands = candidates(space, context)
     if "overlap" in cands[0] and space.op in _COLLECTIVE_OVERLAP \
-            and _overlap_auto(context):
+            and _auto_on(context):
         for c in cands:
             if c.get("overlap") == "on":
                 return dict(c)
@@ -354,19 +358,28 @@ def default_params(space: TuningSpace, context: Optional[Dict] = None) \
 
 def rank(space: TuningSpace, context: Dict) -> List[Dict]:
     """Candidates ordered by the cost seed (stable sort: ties keep
-    declaration order, i.e. the default first)."""
+    declaration order, i.e. the default first). Where ``overlap=auto``
+    resolves on (a card under an NCCL group of several ranks), the
+    candidates with the default's ``overlap`` and ``comm_chunks`` come
+    first: the seed prices no hidden transfer, so on its costs alone it
+    would rank off first against the constructors' default."""
     cands = candidates(space, context)
     if space.cost is None:
         return cands
+    keep = {}
+    if space.op in _COLLECTIVE_OVERLAP and _auto_on(context):
+        d = default_params(space, context)
+        keep = {k: d[k] for k in ("overlap", "comm_chunks") if k in d}
     scored = []
     for i, p in enumerate(cands):
         try:
             c = space.cost(context, p)
         except Exception:
             c = None
-        scored.append((c if c is not None else float("inf"), i, p))
-    scored.sort(key=lambda t: (t[0], t[1]))
-    return [p for _, _, p in scored]
+        other = any(p.get(k) != v for k, v in keep.items())
+        scored.append((other, c if c is not None else float("inf"), i, p))
+    scored.sort(key=lambda t: t[:3])
+    return [t[3] for t in scored]
 
 
 def _default_matrixmult(context: Dict) -> Dict:
@@ -379,7 +392,7 @@ def _default_matrixmult(context: Dict) -> Dict:
                              int(shape[2]), grid)
     return {"schedule": ("stat_a" if vols["stat_a"] < vols["gather"]
                          else "gather"),
-            "overlap": "on" if _overlap_auto(context) else "off"}
+            "overlap": "on" if _auto_on(context) else "off"}
 
 
 register_space(TuningSpace(

@@ -21,7 +21,7 @@ import torch
 
 __all__ = ["KNOBS", "SERVICE_KNOBS", "RESILIENCE_KNOBS", "COLLECTIVE_KNOBS",
            "spill_mode", "apply_environment", "overlap_mode",
-           "overlap_enabled", "overlap_env_pinned", "comm_chunks_default",
+           "overlap_auto", "overlap_enabled", "overlap_env_pinned", "comm_chunks_default",
            "comm_chunks_env_pinned",
            "precond_default", "mg_levels_default", "ca_mode", "ca_s_default",
            "refine_enabled", "reduce_stall_steps", "batch_default"]
@@ -295,7 +295,7 @@ def overlap_mode() -> str:
     return m
 
 
-def _overlap_auto(device=None) -> bool:
+def overlap_auto(device=None) -> bool:
     """``auto``'s rule (JAX: on for a TPU backend): on only for CUDA
     tensors under an NCCL group of more than one rank, where a posted
     transfer runs on NCCL's stream beside the compute. On the CPU, under
@@ -315,7 +315,7 @@ def overlap_enabled(user=None, device=None) -> bool:
     ``utils/deps.py:528-552``). ``user`` is an operator's ``overlap=``
     (``True``/``False``/``"on"``/``"off"``/``"auto"``; ``None`` defers to
     the environment); ``device`` is where the operator's tensors live
-    (``None``: the group's), which ``auto`` reads (:func:`_overlap_auto`).
+    (``None``: the group's), which ``auto`` reads (:func:`overlap_auto`).
     """
     if isinstance(user, bool):
         return user
@@ -330,7 +330,7 @@ def overlap_enabled(user=None, device=None) -> bool:
         return True
     if mode == "off":
         return False
-    return _overlap_auto(device)
+    return overlap_auto(device)
 
 
 def overlap_env_pinned() -> bool:

@@ -351,6 +351,16 @@ def test_operator_and_solver_spans_match_jax(monkeypatch):
     assert t == j
 
 
+class _NoTransfer:
+    """A stand-in for posted point-to-point transfers that moves nothing."""
+
+    def __init__(self, sends, recvs, group=None):
+        pass
+
+    def wait(self):
+        pass
+
+
 def test_collectives_count_into_the_registry(monkeypatch, tmp_path):
     import torch
     import torch.distributed as dist
@@ -369,7 +379,7 @@ def test_collectives_count_into_the_registry(monkeypatch, tmp_path):
         # a Cartesian exchange along an axis of two ranks, its transfer
         # stubbed: the event of JAX ``collectives.py:338``
         monkeypatch.setattr(co, "world_size", lambda: 2)
-        monkeypatch.setattr(co, "_p2p", lambda s, r, g: None)
+        monkeypatch.setattr(co, "_Posted", _NoTransfer)
         co.cart_halo_extend(torch.ones(4, 3), (2, 1), 0, 1, 1)
     finally:
         pmtt.parallel.destroy()

@@ -4,10 +4,11 @@ held against the JAX package with overlap on, on a mesh of the same size:
 against the bulk exchange, ``resolve_chunks``'s fallback and its log, the
 overlap path of the first and second derivatives over kinds, orders and
 edges (a ragged world among them) and its ``2w`` gate, ``MPIHalo``'s
-overlap select, ``ghosted(overlap="on")``, the stack's ring adjoint and the
-``MPIHStack`` forward over it, SUMMA's three rings with a padded
-``(N, K, M)``, the FFT's chunked transposes (and a chunk count that falls
-back), the sparse ring adjoint, CGLS through the ring stack, gradients
+overlap select, ``ghosted`` (which has no overlap argument, as in JAX),
+the stack's ring adjoint and the ``MPIHStack`` forward over it, SUMMA's
+three rings with a padded ``(N, K, M)``, the FFT's chunked transposes (and
+a chunk count that falls back), the sparse ring adjoint, CGLS through the
+ring stack, gradients
 through the derivative's ghosts and SUMMA's rings against ``jax.grad``,
 and the knobs' resolution; with no group, overlap on gives the bulk
 result bit for bit.
@@ -92,7 +93,8 @@ def _overlap_rank(d):
         return res, dict(co.counts), dict(co.steps)
 
     # ring_pass: every owner's block once, a tuple of mixed dtypes
-    blk = (torch.full((2,), float(10 * r)), torch.tensor([r], dtype=torch.int32))
+    blk = (torch.full((2,), float(10 * r)),
+           torch.tensor([r], dtype=torch.int32))
     out["ring"] = counted(lambda: co.ring_pass(
         blk, lambda acc, res, owner, s: acc + [
             (float(res[0][0]), int(res[1][0]), owner, s)], init=[]))
@@ -140,7 +142,7 @@ def _overlap_rank(d):
     out["gate"] = dict(y=y, xa=xa, paths=dict(derivatives.paths), calls=calls,
                        bulk=(bulk.matvec(xd).asarray(),
                              bulk.rmatvec(xd).asarray()))
-    # MPIHalo and ghosted: copies, bitwise the bulk path
+    # MPIHalo: a copy, bitwise the bulk path
     grid = (n, 1)
     f = d["field"]
     H = pmtt.MPIHalo(f.shape, (1, 2), grid, overlap="on")
@@ -152,9 +154,7 @@ def _overlap_rank(d):
     out["halo"] = dict(y=yh.asarray(), bulk=Hb.matvec(xh).asarray(),
                        calls=calls)
     g = vec(d["g"])
-    out["ghosted"] = dict(y=g.ghosted(1, 2, overlap="on").asarray(),
-                          bulk=g.ghosted(1, 2).asarray(),
-                          lsh=g.ghosted(1, 2, overlap="on").local_shapes)
+    out["ghosted"] = g.ghosted(1, 2).asarray()
     # the stack's ring adjoint and MPIHStack's forward over it
     V = pmtt.MPIVStack([tl.MatrixMult(torch.from_numpy(m))
                         for m in d["blocks"]], overlap="on")
@@ -477,8 +477,7 @@ def test_halo_overlap_matches_jax(worlds):
 
 def test_ghosted_overlap_matches_jax(worlds):
     for n, r, o, ref in _each(worlds):
-        np.testing.assert_array_equal(o["ghosted"]["y"], ref["ghosted"])
-        np.testing.assert_array_equal(o["ghosted"]["y"], o["ghosted"]["bulk"])
+        np.testing.assert_array_equal(o["ghosted"], ref["ghosted"])
 
 
 def test_stack_ring_adjoint_matches_jax(worlds):

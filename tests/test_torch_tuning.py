@@ -125,8 +125,7 @@ def test_spaces_equal_jax():
 def test_card_seed_keeps_overlap_off(monkeypatch):
     # on the card the default resolves overlap=auto as the constructors
     # do: off in a world of one, and off across ranks unless the live
-    # group is NCCL (the CPU has none); the seed assumes no transfer
-    # hidden behind compute, so it ranks overlap off first everywhere
+    # group is NCCL (the CPU has none); the seed's pick is the default
     # (the JAX TPU default is on)
     for ctx in _contexts():
         cctx = dict(ctx, platform="cuda", chip="NVIDIA H100 80GB HBM3")
@@ -135,9 +134,11 @@ def test_card_seed_keeps_overlap_off(monkeypatch):
         assert dflt.get("overlap", "off") == "off"
         top = tspace.rank(sp, cctx)[0]
         assert top.get("overlap", "off") == "off", (ctx["op"], top)
-    # under an NCCL group of several ranks the default carries overlap on
+    # under an NCCL group of several ranks the default carries overlap
+    # on, and the seed (which prices no hidden transfer) still ranks the
+    # default's overlap and chunk count first
     from pylops_mpi_tpu_torch.utils import deps
-    monkeypatch.setattr(deps, "_overlap_auto", lambda device=None: True)
+    monkeypatch.setattr(deps, "overlap_auto", lambda device=None: True)
     for ctx in _contexts():
         cctx = dict(ctx, platform="cuda", chip="NVIDIA H100 80GB HBM3")
         sp = tspace.SPACES[ctx["op"]]
@@ -148,6 +149,9 @@ def test_card_seed_keeps_overlap_off(monkeypatch):
                                           and ctx["extra"]["grid"] == (1, 1))
         assert dflt["overlap"] == ("on" if multi else "off"), (ctx, dflt)
         assert dflt in tspace.candidates(sp, cctx)
+        top = tspace.rank(sp, cctx)[0]
+        for k in ("overlap", "comm_chunks"):
+            assert top.get(k) == dflt.get(k), (ctx["op"], top, dflt)
     # the blockdiag seed orders the kernel first on the card
     ctx = dict(_contexts()[3], platform="cuda", chip="NVIDIA H100 80GB HBM3")
     assert tspace.rank(tspace.SPACES["blockdiag"], ctx)[0] == \
