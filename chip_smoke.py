@@ -377,6 +377,34 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    the forward. Run it alone with ``overlap_phase(torch, pmtt, (nk, sk),
    here, dev)``.
 
+29. Slice 18, the two-level collectives
+   (``PYLOPS_MPI_TPU_TORCH_HIERARCHICAL``). 29.1 an NCCL group of one, each
+   path built with the knob unset and ``on``: phase 28.1's four paths
+   bitwise, no two-level call, the same kernel launches (the normal kernel
+   once an iteration). 29.2 four gloo ranks sharing the card, declared 2
+   hosts of 2 (``PYLOPS_MPI_TPU_TORCH_FABRIC=2x2`` before they start):
+   phase 15's Gradient-regularized post-stack CGLS at (65536, 1024) f32,
+   ``NITER_29`` iterations, the knob on against off: x bitwise (the
+   derivatives' exchange is the same either way; the knob only records)
+   and within ``XTOL_29`` of the same solve in one process, the tap
+   kernel as many launches a rank both ways (counted from 0 just before
+   the solve with the knob on: this slice's main path) and its last call
+   there on the rank's slab with ghost rows within ``STENCIL_TOL`` of the
+   plain version on the same pieces, each rank's ghost
+   bytes split by the fabric of their sender (ranks 0 and 3 NVLink only,
+   ranks 1 and 2 equal NVLink and IB shares, the sum the total), summed
+   over the ranks the JAX package's per-device formula times 4. 29.3 the
+   same ranks: the host-blocked ``ring_pass`` visits every owner once in
+   its order; ``hier_pencil_transpose`` (and back) and
+   ``hier_all_gather`` bitwise the flat collectives, ``hier_reduce_
+   scatter`` within ``TOL_29``; at phase 28.3's shapes the stack's
+   adjoint (overlap on) and SUMMA's gather and adjoint rings on a (1, 4)
+   grid within ``TOL_29``, the (256, 256, 128) c64 FFT bitwise unchunked
+   and with 4 chunks, its two-level transposes' IB bytes the cost model's
+   and below the flat all-to-all's. Walls are host-staged gloo ranks, not
+   a card-to-card rate. Run it alone with ``hier_phase(torch, pmtt, (nk,
+   sk), here, dev)``.
+
 Phases 8, 9, 11-13, 16-18, 21 and 27 (and phase 20's pool case) reach none
 of the hand-written kernels (a block solve of ``MPIBlockDiag`` runs a
 batched GEMM, bucket 1 runs classic ``cgls``): the
@@ -7142,6 +7170,513 @@ def overlap28_cases(here, backend="gloo"):
     return ranks[0]
 
 
+# ------------------------------------------------------------ phase 29
+# the two-level collectives (PYLOPS_MPI_TPU_TORCH_HIERARCHICAL). 29.1: an
+# NCCL group of one, where the knob on must change nothing, bit for bit;
+# 29.2 and 29.3 on four gloo ranks sharing the card, declared 2 hosts of 2
+# (PYLOPS_MPI_TPU_TORCH_FABRIC=2x2 in their environment before they
+# start): 29.2 phase 15's Gradient-regularized post-stack CGLS at full
+# width, the tap kernel fed ghosts whose bytes split by fabric; 29.3 the
+# primitives and the other consumers at phase 28.3's shapes
+NITER_29 = 10
+TOL_29 = 1e-6   # f32 sums in other orders (two-level reductions, rings)
+XTOL_29 = 1e-5  # 29.2's x on four ranks against one process (as phase 15)
+FABRIC_29 = "2x2"
+RANKS_29 = 4
+CHUNKS_29 = 4
+
+
+def set_hier(mode):
+    """``PYLOPS_MPI_TPU_TORCH_HIERARCHICAL`` set to ``mode``, or unset
+    (None)."""
+    import os
+    if mode is None:
+        os.environ.pop("PYLOPS_MPI_TPU_TORCH_HIERARCHICAL", None)
+    else:
+        os.environ["PYLOPS_MPI_TPU_TORCH_HIERARCHICAL"] = mode
+
+
+def _two_level_calls(counts):
+    """The two-level calls among ``collectives.counts``."""
+    return {k: v for k, v in counts.items() if k.startswith("hier_")}
+
+
+def hier29_group_of_one(torch, pmtt, kernels, dev, tmp):
+    """29.1 (section comment): each path built and run with the knob
+    unset and with it ``on``; no two-level call, the same launches."""
+    import torch.distributed as dist
+    from pylops_mpi_tpu_torch.ops.local import MatrixMult
+    from pylops_mpi_tpu_torch.parallel import collectives as co
+    D = pmtt.DistributedArray
+    out = {}
+    pmtt.parallel.init(backend="nccl", store=dist.FileStore(
+        f"{tmp}/store29", 1), rank=0, world_size=1, device=dev)
+    try:
+        def run(label, build, solve):
+            res = {}
+            for mode in (None, "on"):
+                set_hier(mode)
+                op = build()
+                set_hier(None)
+                for k in kernels:
+                    k.reset_launches()
+                co.reset_counts()
+                got = solve(op)
+                torch.cuda.synchronize()
+                res[mode] = dict(x=got, launches=[k.launches for k in kernels],
+                                 hier=_two_level_calls(co.counts),
+                                 steps=dict(co.steps))
+                del op
+            equal = all(bool(torch.equal(a, b)) for a, b in
+                        zip(res[None]["x"], res["on"]["x"]))
+            rec = dict(bitwise=equal, launches=res["on"]["launches"],
+                       launches_off=res[None]["launches"],
+                       two_level_calls=res["on"]["hier"],
+                       steps=res["on"]["steps"])
+            out[label] = rec
+            print(f"29.1 {label} on an NCCL group of one, hierarchical on "
+                  f"vs the knob unset: bitwise {equal}; kernel launches "
+                  f"(normal, tap) {rec['launches']} vs {rec['launches_off']};"
+                  f" two-level calls {rec['two_level_calls']}", flush=True)
+            if not equal or rec["two_level_calls"] or rec["steps"] \
+                    or rec["launches"] != rec["launches_off"]:
+                raise RuntimeError(f"29.1 {label}: hierarchical on changed "
+                                   f"a world of one: {rec}")
+            return rec
+
+        A, _, y_t = make_problem(torch, dev)
+        y = D.to_dist(y_t)
+        rec = run("main_path", lambda: pmtt.MPIBlockDiag(
+            [MatrixMult(A[i]) for i in range(NBLK)]),
+            lambda op: [pmtt.cgls(op, y, niter=NITER_29, tol=0.0,
+                                  normal=True)[0].array])
+        if rec["launches"][0] != NITER_29:
+            raise RuntimeError(f"29.1: the normal kernel launched "
+                               f"{rec['launches'][0]} times in {NITER_29} "
+                               "iterations")
+        del A, y, y_t
+        torch.cuda.empty_cache()
+        wav = pmtt.models.ricker(np.arange(31) * 0.004, f0=15)[0]
+        m = layered_model(torch, NX, NT0, dev, seed=4)
+        rec = run("gradient_cgls", lambda: gradient_poststack(
+            torch, pmtt, m, wav, NITER_29, torch.float32),
+            lambda s: [pmtt.cgls(s[0], s[1], niter=NITER_29, damp=DAMP,
+                                 tol=0.0)[0].array])
+        if rec["launches"][1] < 2 * NITER_29:
+            raise RuntimeError(f"29.1: the tap kernel launched "
+                               f"{rec['launches'][1]} times")
+        del m
+        torch.cuda.empty_cache()
+        g = torch.Generator(device=dev).manual_seed(29)
+        A = torch.randn((N_MM, K_MM), generator=g, device=dev)
+        A /= math.sqrt(N_MM)
+        x = D.to_dist(torch.randn(K_MM * M_MM, generator=g, device=dev))
+        v = D.to_dist(torch.randn(N_MM * M_MM, generator=g, device=dev))
+        run("summa", lambda: pmtt.MPIMatrixMult(A, M_MM, kind="summa"),
+            lambda op: [op.matvec(x).array, op.rmatvec(v).array])
+        del A, x, v
+        torch.cuda.empty_cache()
+        x = D.to_dist(torch.randn(int(np.prod(FFT3)), generator=g,
+                                  device=dev, dtype=torch.complex64))
+        run("fftnd", lambda: pmtt.MPIFFTND(FFT3, axes=(0, 1, 2),
+                                           dtype=torch.complex64),
+            lambda op: [op.matvec(x).array, op.rmatvec(x).array])
+        del x
+        torch.cuda.empty_cache()
+    finally:
+        set_hier(None)
+        pmtt.parallel.destroy()
+    return out
+
+
+def _fabric_counters(prefix):
+    from pylops_mpi_tpu_torch.diagnostics import metrics
+    c = metrics.snapshot()["counters"]
+    return {k[len(prefix) + 1:]: v for k, v in c.items()
+            if k.startswith(prefix + ".bytes")}
+
+
+def _hier29_post(torch, pmtt, dev):
+    """29.2 on each rank: the post-stack CGLS with the knob off, then on
+    (each operator built under it), this rank's tap-kernel launches and
+    the ghost bytes of its exchanges by fabric, and the last tap-kernel
+    call of the solve with the knob on that read its neighbours' ghost
+    rows, held against the plain version on the same pieces."""
+    import os
+    from pylops_mpi_tpu_torch.diagnostics import metrics
+    from pylops_mpi_tpu_torch.ops import stencil_kernels as sk
+    from pylops_mpi_tpu_torch.parallel import collectives as co
+    os.environ["PYLOPS_MPI_TPU_TORCH_METRICS"] = "on"
+    r = pmtt.parallel.rank()
+    wav = pmtt.models.ricker(np.arange(31) * 0.004, f0=15)[0]
+    m = layered_model(torch, NX, NT0, dev, seed=4)
+    real = sk.stencil_taps
+    seen = []
+
+    def capture(slab, taps, w, out_pad=(0, 0), *, top=0, bottom=0):
+        # a call on this rank's slab of the model that reads ghost rows
+        if slab.ndim == 2 and slab.shape[1] == NT0 \
+                and slab.shape[0] > NX // (2 * RANKS_29) \
+                and (isinstance(top, torch.Tensor)
+                     or isinstance(bottom, torch.Tensor)):
+            seen[:] = [(slab, tuple(taps), w, tuple(out_pad), top, bottom)]
+        return real(slab, taps, w, out_pad, top=top, bottom=bottom)
+
+    out = {}
+    for mode in ("off", "on"):
+        set_hier(mode)
+        StackOp, ystack, _ = gradient_poststack(torch, pmtt, m, wav,
+                                                NITER_29, torch.float32)
+        set_hier(None)
+        G = StackOp.ops[1].args[0]
+        pmtt.cgls(StackOp, ystack, niter=1, damp=DAMP, tol=0.0)  # warm-up
+        sk.stencil_taps = capture if mode == "on" else real
+        sk.reset_launches()
+        co.reset_counts()
+        metrics.clear_metrics()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            x = pmtt.cgls(StackOp, ystack, niter=NITER_29, damp=DAMP,
+                          tol=0.0)[0]
+            torch.cuda.synchronize()
+        finally:
+            sk.stencil_taps = real
+        wall = time.perf_counter() - t0
+        xg = x.asarray()
+        out[mode] = dict(launches=sk.launches, calls=dict(co.counts),
+                         ghost=_fabric_counters(
+                             "collective.halo_exchange"),
+                         hier=(G.hierarchical, G._hier), wall_s=wall,
+                         x=xg if r == 0 else None)
+        del StackOp, ystack, x
+        torch.cuda.empty_cache()
+    out["tap"] = None
+    if seen:
+        slab, taps, w, out_pad, top, bottom = seen[0]
+        got = real(slab, taps, w, out_pad, top=top, bottom=bottom)
+        want = sk.stencil_taps_plain(slab, taps, w, out_pad, top=top,
+                                     bottom=bottom)
+        rows = [p.shape[0] if isinstance(p, torch.Tensor) else p
+                for p in (top, slab, bottom)]
+        out["tap"] = dict(rows=rows, cols=slab.shape[1],
+                          max_err=max_rel_err(got, want))
+    return out
+
+
+def _hier29_cases(torch, pmtt, dev):
+    """29.3 on each rank (section comment): each case with the knob off
+    and on, this rank's relative gap, calls, steps and IB bytes."""
+    from pylops_mpi_tpu_torch.diagnostics import metrics
+    from pylops_mpi_tpu_torch.ops.fft import _pencil_transpose
+    from pylops_mpi_tpu_torch.ops.local import MatrixMult
+    from pylops_mpi_tpu_torch.parallel import collectives as co
+    D = pmtt.DistributedArray
+    n, r = pmtt.parallel.world_size(), pmtt.parallel.rank()
+    out = {}
+
+    def counted(fn):
+        co.reset_counts()
+        metrics.clear_metrics()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, dict(co.counts), dict(co.steps)
+
+    def case(label, build, apply, bitwise=False):
+        res = {}
+        for mode in ("off", "on"):
+            op = build(mode)
+            ys, calls, steps = counted(lambda: apply(op))
+            cnt = {k: v for k, v in metrics.snapshot()["counters"].items()
+                   if ".bytes" in k}
+            ys = ys if isinstance(ys, tuple) else (ys,)
+            y = torch.cat([torch.as_tensor(t.asarray()).reshape(-1)
+                           for t in ys])
+            res[mode] = (y, calls, steps, getattr(op, "_hier", None), cnt)
+            del op
+        a, b = res["on"][0], res["off"][0]
+        out[label] = dict(
+            err=(0.0 if torch.equal(a, b) else float("inf")) if bitwise
+            else max_rel_err(a, b), bitwise=bitwise, calls=res["on"][1],
+            steps=res["on"][2], hier=(res["on"][3], res["off"][3]),
+            bytes_on=res["on"][4], bytes_off=res["off"][4])
+
+    # the primitives against the flat collectives
+    g = torch.Generator(device=dev).manual_seed(290 + r)
+    owners = []
+
+    def body(acc, res, owner, s):
+        owners.append((owner, int(res[0].item())))
+        return res if acc is None else acc + res
+    blk = torch.full((4,), float(r), device=dev)
+    _, calls, steps = counted(lambda: co.ring_pass(blk, body, slice_size=2))
+    out["ring"] = dict(owners=owners, calls=calls, steps=steps)
+    part = torch.randn((NBLK_28 * 64, 128), generator=g, device=dev)
+    flat = co.reduce_scatter(part, [NBLK_28 * 16] * n)
+    red, calls, _ = counted(lambda: co.hier_reduce_scatter(
+        part, [NBLK_28 * 16] * n))
+    out["reduce_scatter"] = dict(err=max_rel_err(red, flat), calls=calls)
+    flat = co.all_gather(red, [NBLK_28 * 16] * n)
+    gat, calls, _ = counted(lambda: co.hier_all_gather(
+        red, [NBLK_28 * 16] * n))
+    out["all_gather"] = dict(bitwise=bool(torch.equal(gat, flat)),
+                             calls=calls)
+    b = torch.randn((64, 256, 128), generator=g, device=dev,
+                    dtype=torch.complex64)
+    sizes = [64] * n
+    flat = _pencil_transpose(b, 1, 0, sizes, sizes)
+    t, calls, _ = counted(lambda: co.hier_pencil_transpose(b, 1, 0, sizes,
+                                                           sizes))
+    back = co.hier_pencil_transpose(t, 0, 1, sizes, sizes, forward=False)
+    out["transpose"] = dict(bitwise=bool(torch.equal(t, flat)),
+                            back_bitwise=bool(torch.equal(back, b)),
+                            calls=calls)
+    del part, red, gat, flat, b, t, back
+    # the consumers, off against on
+    A, xm = summa_problem()
+    xs = D.to_dist(torch.from_numpy(xm).to(dev))
+    ys = D.to_dist(torch.from_numpy(np.random.default_rng(29).standard_normal(
+        N_18 * M_18).astype(np.float32)).to(dev))
+
+    def summa(mode):
+        return pmtt.MPIMatrixMult(A, M_18, kind="summa", grid=(1, n),
+                                  schedule="gather", overlap="on",
+                                  hierarchical=mode, device=dev)
+    case("summa_gather", summa, lambda op: op.matvec(xs))
+    case("summa_adjoint", summa, lambda op: op.rmatvec(ys))
+    gb = torch.Generator(device=dev).manual_seed(280)
+    blocks = torch.randn((NBLK_28, NBLOCK_28, NBLOCK_28), generator=gb,
+                         device=dev) / math.sqrt(NBLOCK_28)
+    yv = torch.randn(NBLK_28 * NBLOCK_28, generator=gb, device=dev)
+
+    def vstack(mode):
+        return pmtt.MPIVStack([MatrixMult(blocks[i]) for i in range(NBLK_28)],
+                              overlap="on", hierarchical=mode)
+    case("stack_adjoint", vstack, lambda op: op.rmatvec(D.to_dist(
+        yv, local_shapes=op.local_shapes_n)))
+    c, _ = fft18_inputs()
+    c = torch.from_numpy(c).to(dev)
+    for chunks in (1, CHUNKS_29):
+        def fft(mode, chunks=chunks):
+            return pmtt.MPIFFTND(FFT_18, axes=(0, 1, 2),
+                                 dtype=torch.complex64,
+                                 overlap="on" if chunks > 1 else "off",
+                                 comm_chunks=chunks, hierarchical=mode)
+
+        def both(op):
+            y = op.matvec(D.to_dist(c, local_shapes=op.model_local_shapes))
+            return y, op.rmatvec(y)
+        # one forward and one adjoint apply: four transposes
+        case(f"fft_{chunks}", fft, both, bitwise=True)
+    return out
+
+
+def _hier29_rank(torch, pmtt, dev):
+    """A rank of phase 29's world: 29.2, then 29.3."""
+    from pylops_mpi_tpu_torch.parallel import topology
+    out = dict(rank=pmtt.parallel.rank(), world_shape=topology.world_shape())
+    out["post"] = _hier29_post(torch, pmtt, dev)
+    torch.cuda.empty_cache()
+    out["cases"] = _hier29_cases(torch, pmtt, dev)
+    return out
+
+
+def hier_phase(torch, pmtt, kernels, here, dev):
+    """Phase 29 (module docstring): slice 18, the two-level collectives.
+    29.2 runs the tap kernel on the Gradient CGLS across the declared
+    2 x 2 world (the slice's main path: its counts are set to 0 just
+    before the solve with the knob on and read just after, in each
+    rank)."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_hier_")
+    res = {}
+    try:
+        t = time.perf_counter()
+        res["group_of_one"] = hier29_group_of_one(torch, pmtt, kernels, dev,
+                                                  tmp)
+        res["group_of_one_s"] = time.perf_counter() - t
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    x_one = hier29_one_process(torch, pmtt, dev)
+    res["one_process_s"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    ranks = hier29_world(here)
+    res["world_s"] = time.perf_counter() - t
+    res["post"] = hier29_post_check(ranks, x_one)
+    res["cases"] = hier29_cases_check(ranks)
+    return res
+
+
+def hier29_one_process(torch, pmtt, dev):
+    """29.2's solve in this process, with no process group: the x the
+    four ranks' solve is held against."""
+    wav = pmtt.models.ricker(np.arange(31) * 0.004, f0=15)[0]
+    m = layered_model(torch, NX, NT0, dev, seed=4)
+    StackOp, ystack, _ = gradient_poststack(torch, pmtt, m, wav, NITER_29,
+                                            torch.float32)
+    x = pmtt.cgls(StackOp, ystack, niter=NITER_29, damp=DAMP, tol=0.0)[0]
+    out = x.asarray()
+    del StackOp, ystack, x, m
+    torch.cuda.empty_cache()
+    return out
+
+
+def hier29_world(here, backend="gloo"):
+    """Phase 29's four ranks, declared 2 hosts of 2 before they start;
+    returns their records."""
+    import os
+    key = "PYLOPS_MPI_TPU_TORCH_FABRIC"
+    saved = os.environ.get(key)
+    os.environ[key] = FABRIC_29
+    try:
+        return spawn_shared_card(RANKS_29, here, _hier29_rank,
+                                 backend=backend)
+    finally:
+        if saved is None:
+            os.environ.pop(key, None)
+        else:
+            os.environ[key] = saved
+
+
+def hier29_post_check(ranks, x_one, backend="gloo"):
+    """29.2's gates (section comment), rank 0's x against ``x_one`` (the
+    solve with no process group); returns the record."""
+    where, walls = (("four gloo ranks on one card", "host-staged gloo ranks "
+                     "sharing one card, not a card-to-card rate")
+                    if backend == "gloo" else
+                    ("four NCCL ranks, a card each", "one solve each way"))
+    card = card_name()
+    x_on = ranks[0]["post"]["on"]["x"]
+    bitwise = bool(np.array_equal(x_on, ranks[0]["post"]["off"]["x"]))
+    x_err = float(np.abs(x_on.astype(np.float64) - x_one).max()
+                  / np.abs(x_one).max())
+    per_rank = []
+    for o in ranks:
+        on, off = o["post"]["on"], o["post"]["off"]
+        gh = on["ghost"]
+        per_rank.append(dict(
+            rank=o["rank"], world_shape=o["world_shape"],
+            launches=on["launches"], launches_off=off["launches"],
+            resolved=(on["hier"][1], off["hier"][1]),
+            ghost_bytes=gh.get("bytes", 0), nvlink=gh.get("bytes_nvlink", 0),
+            ib=gh.get("bytes_ib", 0), same_off=off["ghost"] == gh,
+            tap=o["post"]["tap"], wall_on_s=on["wall_s"],
+            wall_off_s=off["wall_s"]))
+    tot = {k: sum(p[k] for p in per_rank)
+           for k in ("ghost_bytes", "nvlink", "ib")}
+    # the JAX package's per-device counters of the same exchanges
+    # (``parallel/collectives.py:310-336``): of the 2 front and 2 back
+    # pairs on a host and the 1 and 1 across, averaged over the 4 ranks;
+    # rank 0 receives only back rows and rank 3 only front rows
+    row = NT0 * 4
+    back_rows = per_rank[0]["ghost_bytes"] // row
+    front_rows = per_rank[-1]["ghost_bytes"] // row
+    jax_ici = -(-row * 2 * (front_rows + back_rows) // RANKS_29)
+    jax_dcn = -(-row * (front_rows + back_rows) // RANKS_29)
+    print(f"29.2 {where} ({card}) declared {FABRIC_29}, post-stack CGLS "
+          f"({NX}, {NT0}) f32, {NITER_29} iterations, hierarchical on vs "
+          f"off: x bitwise {bitwise}, against one process {x_err:.3e} "
+          f"(limit {XTOL_29:.0e}); per rank {per_rank}; summed ghost "
+          f"bytes {tot} vs the JAX per-device counters x {RANKS_29}: "
+          f"nvlink {RANKS_29 * jax_ici}, ib {RANKS_29 * jax_dcn} (walls: "
+          f"{walls})", flush=True)
+    if not bitwise:
+        raise RuntimeError("29.2: hierarchical on moved x")
+    if not x_err <= XTOL_29:
+        raise RuntimeError(f"29.2: the four ranks' x is {x_err:.3e} from "
+                           "the solve in one process")
+    for p in per_rank:
+        r = p["rank"]
+        tap = p["tap"]
+        ok = (p["world_shape"] == (2, 2) and p["resolved"] == (True, False)
+              and p["launches"] == p["launches_off"] and p["launches"] > 0
+              and tap is not None
+              and tap["max_err"] <= STENCIL_TOL["float32"]
+              and p["nvlink"] + p["ib"] == p["ghost_bytes"] > 0
+              and p["same_off"])
+        if r in (0, RANKS_29 - 1):
+            ok = ok and p["ib"] == 0 and p["nvlink"] > 0
+        else:
+            ok = ok and p["ib"] == p["nvlink"] > 0
+        if not ok:
+            raise RuntimeError(f"29.2: rank {r}'s tap kernel or ghost split "
+                               f"is off: {p}")
+    if not (RANKS_29 * jax_ici - RANKS_29 < tot["nvlink"] <= RANKS_29 * jax_ici
+            and RANKS_29 * jax_dcn - RANKS_29 < tot["ib"]
+            <= RANKS_29 * jax_dcn):
+        raise RuntimeError(f"29.2: the summed ghost split {tot} is not the "
+                           f"JAX formula's ({jax_ici}, {jax_dcn}) x 4")
+    return dict(x_bitwise=bitwise, x_vs_one_process=x_err, ranks=per_rank,
+                summed=tot,
+                jax_per_device=dict(nvlink=jax_ici, ib=jax_dcn))
+
+
+def hier29_cases_check(ranks, backend="gloo"):
+    """29.3's gates (section comment); returns rank 0's record."""
+    from pylops_mpi_tpu_torch.diagnostics.costmodel import \
+        pencil_transpose_cost
+    n = RANKS_29
+    model = pencil_transpose_cost(FFT_18, n, itemsize=8, n_transposes=2,
+                                  fabric_shape=(2, 2), hierarchical=True)
+    want = {"summa_gather": ({"ring_pass": n - 1}, "all_to_all"),
+            "summa_adjoint": ({"ring_pass": n - 1}, "all_to_all"),
+            "stack_adjoint": ({}, "hier_psum_scatter"),
+            "fft_1": ({}, "hier_pencil_transpose"),
+            f"fft_{CHUNKS_29}": (
+                {"hier_chunked_pencil_transpose": 2 * CHUNKS_29},
+                "hier_chunked_pencil_transpose")}
+    for o in ranks:
+        c = o["cases"]
+        r = o["rank"]
+        ring = c["ring"]
+        owners = [ow for ow, _ in ring["owners"]]
+        dd, ll = divmod(r, 2)
+        print(f"29.3 {backend} rank {r} primitives: host-blocked ring owners "
+              f"{owners} ({ring['steps']}); reduce_scatter vs flat "
+              f"{c['reduce_scatter']['err']:.3e}; all_gather bitwise "
+              f"{c['all_gather']['bitwise']}; transpose bitwise "
+              f"{c['transpose']['bitwise']}, back {c['transpose']['back_bitwise']}",
+              flush=True)
+        if (owners != [((dd + t // 2) % 2) * 2 + (ll + t - t // 2) % 2
+                       for t in range(n)]
+                or any(ow != v for ow, v in ring["owners"])
+                or ring["steps"] != {"ring_pass": n - 1}
+                or not c["reduce_scatter"]["err"] <= TOL_29
+                or c["reduce_scatter"]["calls"] != {"hier_psum_scatter": 1}
+                or not c["all_gather"]["bitwise"]
+                or c["all_gather"]["calls"] != {"hier_all_gather": 1}
+                or not c["transpose"]["bitwise"]
+                or not c["transpose"]["back_bitwise"]):
+            raise RuntimeError(f"29.3 rank {r} primitives: {c}")
+        for label, (steps, name) in want.items():
+            k = c[label]
+            print(f"29.3 {backend} rank {r} {label}: hierarchical on vs off "
+                  f"{k['err']:.3e} ({'bitwise' if k['bitwise'] else 'limit'}"
+                  f" {0.0 if k['bitwise'] else TOL_29:.0e}); calls "
+                  f"{k['calls']}; steps {k['steps']}", flush=True)
+            if not k["err"] <= (0.0 if k["bitwise"] else TOL_29) \
+                    or k["steps"] != steps or name not in k["calls"] \
+                    or k["hier"] != (True, False):
+                raise RuntimeError(f"29.3 rank {r} {label}: {k}")
+        # one forward and one adjoint apply: twice the model's two
+        # transposes an apply
+        k = c["fft_1"]
+        on = k["bytes_on"].get("collective.hier_pencil_transpose.bytes_ib")
+        off = k["bytes_off"].get("collective.all_to_all.bytes_ib", 0)
+        print(f"29.3 {backend} rank {r} FFT {FFT_18} c64 forward and "
+              f"adjoint: IB bytes two-level {on} vs flat {off}; model "
+              f"2 x {model.dcn_bytes:.0f}", flush=True)
+        if not (on == 2 * model.dcn_bytes and on < off):
+            raise RuntimeError(f"29.3 rank {r}: the FFT's IB bytes {on} "
+                               f"(flat {off}) vs the model's 2 x "
+                               f"{model.dcn_bytes}")
+    return ranks[0]["cases"]
+
+
 def main() -> int:
     here = Path(__file__).resolve().parent
     if not (here / "pylops_mpi_tpu_torch" / "__init__.py").is_file():
@@ -7598,6 +8133,14 @@ def main() -> int:
     slice17["seconds"] = time.perf_counter() - t28
     print(f"phase 28 in {slice17['seconds']:.1f} s", flush=True)
 
+    # 29. slice 18: the two-level collectives (29.2 is its main path: the
+    # tap kernel on the Gradient CGLS across a declared 2 x 2 world)
+    torch.cuda.empty_cache()
+    t29 = time.perf_counter()
+    slice18 = hier_phase(torch, pmtt, kernel_mods, here, dev)
+    slice18["seconds"] = time.perf_counter() - t29
+    print(f"phase 29 in {slice18['seconds']:.1f} s", flush=True)
+
     kernels = []
     for name, run in (("float32", "normal_f32"), ("bfloat16", "normal_bf16")):
         s = stats[name]
@@ -7684,6 +8227,17 @@ def main() -> int:
             overlap_interior_max_err=(
                 max(o["interior"]["max_err"]
                     for o in slice17["post"]["ranks"])
+                if name == "float32" else None),
+            # phase 29.2: the Gradient CGLS on four gloo ranks declared
+            # 2 hosts of 2 with the knob on (10 iterations, counted from
+            # 0 just before that solve), as many as with it off
+            hier_launches_per_rank=(
+                [o["launches"] for o in slice18["post"]["ranks"]]
+                if name == "float32" else None),
+            # and its last call on each rank's slab with ghost rows
+            # against the plain version
+            hier_tap_max_err=(
+                max(o["tap"]["max_err"] for o in slice18["post"]["ranks"])
                 if name == "float32" else None)))
     # phase 24: the tap kernel on the transposed taps, the backward of its
     # autograd rule; launches in 24.2's gradient descent (f32)
@@ -7716,7 +8270,8 @@ def main() -> int:
                       "slice10": slice10, "slice11": slice11,
                       "slice12": slice12, "slice13": slice13,
                       "slice14": slice14, "slice15": slice15,
-                      "slice16": slice16, "slice17": slice17},
+                      "slice16": slice16, "slice17": slice17,
+                      "slice18": slice18},
                      default=str),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -106,7 +106,12 @@ def schedule_signature(obj) -> Tuple:
     reachable from ``obj`` (by :func:`op_signature`'s walk): ``(class
     name, overlap, chunks)`` for each that resolves ``overlap``, so that a
     loop captured with overlap off is never replayed for an operator with
-    overlap on, nor one of one chunk count for another."""
+    overlap on, nor one of one chunk count for another; an operator that
+    runs a two-level schedule (its ``_two_level``: the FFT's transposes,
+    the stack's batched adjoint, SUMMA's host-blocked rings) adds
+    ``("hier", ring_slice)``, so neither is one captured without it. An
+    operator whose ``hierarchical`` changes no schedule (the derivatives,
+    ``MPIHalo``), and every flat one, keeps the entry it had."""
     out: List = []
     _tensors(obj, out, set(), lambda t: None, _schedule)
     return tuple(out)
@@ -116,7 +121,10 @@ def _schedule(o):
     d = vars(o)
     if "_overlap" not in d:
         return None
-    return (type(o).__name__, bool(d["_overlap"]), d.get("_comm_chunks"))
+    out = (type(o).__name__, bool(d["_overlap"]), d.get("_comm_chunks"))
+    if getattr(o, "_two_level", False):
+        out += ("hier", d.get("_ring_slice"))
+    return out
 
 
 def op_signature(Op) -> Tuple:

@@ -35,10 +35,13 @@ are NVIDIA's data-sheet figures for the H100 (dense tensor-core rates:
 the sheet's sparsity figures halved); ``PEAK_DCN_GBPS`` is an assumed
 InfiniBand NIC rate (JAX ``:99-236``). On a world spanning hosts with
 several ranks a host (``parallel/topology.py``) the SUMMA and FFT models
-charge their bytes to ``dcn_bytes`` as the JAX package charges a
-topology-blind schedule (``:288-345``, ``:458-464``, ``:582-583``), and
-``device_peaks`` gives the IB rate; on one host every model reads as
-before. The port pins TF32 off
+split their bytes by fabric as the JAX package does (``:288-345``,
+``:445-469``, ``:580-590``): an operator whose two-level schedules are
+on (``op._hier``) has each SUMMA grid axis charged to the fabric it spans
+and its pencil transposes priced in two levels; with them off every
+SUMMA byte is charged to IB (``blind:ib``) and the FFT's flat
+all-to-all pays the gather's IB share. ``device_peaks`` gives the IB
+rate; on one host every model reads as before. The port pins TF32 off
 (``utils/deps.apply_environment``), so f32 products run at the FP32
 rate outside the tensor cores: :func:`device_peaks` defaults to
 ``mode="f32"``. An unknown card gets ``None``, never a guess.
@@ -449,16 +452,26 @@ def _cost_block_matmul(op, direction: str) -> Optional[OpCost]:
     return OpCost(flops, a_bytes + vec, ici, ("block.adjoint+psum",))
 
 
-def _summa_fabric_split(bytes_r: float, bytes_c: float
+def _summa_fabric_split(op, bytes_r: float, bytes_c: float
                         ) -> Tuple[float, float, str]:
     """``(ici_bytes, dcn_bytes, note)`` of SUMMA's per-axis bytes (JAX
-    ``:447-469``): on a flat world all on the links; on a world spanning
-    hosts the port's grid has no host-aligned schedule yet (ROADMAP.md
-    §A.3b), so, as the JAX package charges a topology-blind schedule,
-    every byte may cross hosts and is charged to the slow fabric."""
+    ``:445-469``): on a flat world all on the links; on a world laid out
+    hosts × ranks with the two-level schedules on (``op._hier``), each
+    grid axis charged to the fabric it spans (``r`` across hosts and
+    ``c`` within one on the aligned grid); with them off, as the JAX
+    package charges a topology-blind schedule, every byte may cross
+    hosts and is charged to the slow fabric (``blind:ib``)."""
     if _topo.world_shape() is None:
         return bytes_r + bytes_c, 0.0, ""
-    return 0.0, bytes_r + bytes_c, "+fabric[blind:ib]"
+    if not getattr(op, "_hier", False):
+        return 0.0, bytes_r + bytes_c, "+fabric[blind:ib]"
+    fr = _topo.axis_fabric(op._g2, "r")
+    fc = _topo.axis_fabric(op._g2, "c")
+    ici = ((bytes_r if fr == "nvlink" else 0.0)
+           + (bytes_c if fc == "nvlink" else 0.0))
+    dcn = ((bytes_r if fr == "ib" else 0.0)
+           + (bytes_c if fc == "ib" else 0.0))
+    return ici, dcn, f"+fabric[r={fr},c={fc}]"
 
 
 def _cost_summa_matmul(op, direction: str) -> Optional[OpCost]:
@@ -484,12 +497,13 @@ def _cost_summa_matmul(op, direction: str) -> Optional[OpCost]:
         else:
             bytes_c = sp["c"] * it_v
         bytes_r = sp["r"] * it_v
-        ici, dcn, fnote = _summa_fabric_split(bytes_r, bytes_c)
+        ici, dcn, fnote = _summa_fabric_split(op, bytes_r, bytes_c)
         vec = (op.Kp_r * Mp / P + op.Np * Mp / P) * it_v
         return OpCost(flops, a_bytes + vec, ici,
                       (f"summa.forward[{sched}]{fnote}",), dcn)
     sp = split["adjoint"]
-    ici, dcn, fnote = _summa_fabric_split(sp["r"] * it_v, sp["c"] * it_v)
+    ici, dcn, fnote = _summa_fabric_split(op, sp["r"] * it_v,
+                                          sp["c"] * it_v)
     vec = (op.Np * Mp / P + op.Kp_c * Mp / pc) * it_v
     return OpCost(flops, a_bytes + vec, ici, (f"summa.adjoint{fnote}",),
                   dcn)
@@ -588,10 +602,13 @@ def _cost_fft(op, direction: str) -> Optional[OpCost]:
     flops = sum(5.0 * n_total * math.log2(max(2, dims[ax]))
                 for ax in axes) / P
     n_t = max(0, len(axes) - 1)
-    # on a world spanning hosts: the flat all-to-all's gather (JAX
-    # ``:582-583``; the port has no two-level schedule yet)
+    # on a world laid out hosts × ranks: the two-level transposes under
+    # ``op._hier``, the flat all-to-all's gather otherwise (JAX
+    # ``:580-590``)
     cost = pencil_transpose_cost(dims, P, itemsize=8, n_transposes=n_t,
-                                 fabric_shape=_topo.world_shape())
+                                 fabric_shape=_topo.world_shape(),
+                                 hierarchical=bool(getattr(op, "_hier",
+                                                           False)))
     return OpCost(flops, cost.hbm_bytes + 2 * n_total * 8 / P,
                   cost.ici_bytes, ("fft.pencil",) + cost.notes,
                   cost.dcn_bytes)

@@ -381,18 +381,31 @@ class _StencilOperator(MPILinearOperator):
         return self._apply(x, False)
 
 
+def _record_hier(op, hierarchical) -> None:
+    """``op.hierarchical`` (the setting) and ``op._hier`` (what it
+    resolves to on this world); the exchange does not change with them."""
+    from ..utils.deps import hierarchical_active
+    op.hierarchical = hierarchical
+    op._hier = hierarchical_active(hierarchical)
+
+
 class MPIFirstDerivative(_StencilOperator):
     """First derivative along axis 0
     (ref ``basicoperators/FirstDerivative.py:18-318``): forward /
     backward / centered stencils of order 3 or 5, with ``edge`` handling
     at the domain boundary. ``overlap`` selects the overlap path across
-    ranks (module docstring); ``hierarchical`` (the two-level schedules)
-    is accepted with no effect (ROADMAP.md §A.3b)."""
+    ranks (module docstring). ``hierarchical`` is recorded
+    (``.hierarchical``, and ``._hier`` what it resolves to on this world):
+    the ghost exchange between neighbours is the same on a world laid
+    out hosts × ranks, as the JAX package's hybrid stencil kernels are
+    bit for bit its flat ones, and its bytes split by fabric pair by pair
+    whatever the setting; ``off`` changes nothing."""
 
     def __init__(self, dims, sampling: float = 1.0, kind: str = "centered",
                  edge: bool = False, order: int = 3, dtype=torch.float64,
                  overlap=None, hierarchical=None):
         super().__init__(dims, dtype=dtype, overlap=overlap)
+        _record_hier(self, hierarchical)
         self.sampling = sampling
         self.kind = kind
         self.edge = edge
@@ -418,6 +431,7 @@ class MPISecondDerivative(_StencilOperator):
                  edge: bool = False, dtype=torch.float64, overlap=None,
                  hierarchical=None):
         super().__init__(dims, dtype=dtype, overlap=overlap)
+        _record_hier(self, hierarchical)
         self.sampling = sampling
         self.kind = kind
         self.edge = edge
@@ -499,7 +513,7 @@ class MPIGradient(MPILinearOperator):
     (ref ``basicoperators/Gradient.py:21-118``). The output is a
     :class:`StackedDistributedArray` with one component per axis.
     ``overlap`` goes to every component (the axis-0 one acts on it);
-    ``hierarchical`` is accepted with no effect."""
+    ``hierarchical`` is recorded as :class:`MPIFirstDerivative`'s."""
 
     def __init__(self, dims, sampling=1, kind: str = "centered",
                  edge: bool = False, dtype=torch.float64, overlap=None,
@@ -523,6 +537,7 @@ class MPIGradient(MPILinearOperator):
             for ax in range(ndims)])
         super().__init__(shape=stack.shape, dtype=dtype)
         self.Op = stack  # after super().__init__, which resets self.Op
+        _record_hier(self, hierarchical)
         self.local_shapes_m = stack.ops[0].local_shapes_m
         self.dims = self.dimsd = self.dims_nd
 

@@ -48,10 +48,23 @@ does not fit the axis falls back with a logged note
 (:func:`~..parallel.collectives.resolve_chunks`); a default count may
 come from the tuner's chunk plan.
 
+With ``hierarchical`` (``PYLOPS_MPI_TPU_TORCH_HIERARCHICAL``; JAX
+``ops/fft.py:195-208``, ``:533-543``, ``:628-638``) on a world laid out
+hosts × ranks, each transpose runs in two levels
+(:func:`~..parallel.collectives.hier_pencil_transpose`: an all-to-all
+over the ranks of a host, then one across hosts; the transpose back in
+reverse order), and with overlap on and more than one chunk the chunked
+stream does so tile by tile
+(:func:`~..parallel.collectives.chunked_pencil_transpose`'s
+``two_level``, counted ``hier_chunked_pencil_transpose``): bit for
+bit the flat transposes, with less traffic across hosts. ``._hier`` is
+what the setting resolved to on this world; a flat world, a world of one
+and ``off`` keep the flat transposes.
+
 Not ported: the planar engine (``matvec_planes``/``rmatvec_planes``,
-``ops/dft.py``), the TPU's workaround for its missing complex lowering;
-the two-level (``hierarchical``) transposes, accepted with no effect
-(ROADMAP.md §A.3b, §A.5).
+``ops/dft.py``), the TPU's workaround for its missing complex lowering,
+and with it the two-level transposes' ``_planes`` variants (ROADMAP.md
+§A.5).
 """
 
 from __future__ import annotations
@@ -198,11 +211,14 @@ class _MPIBaseFFTND(MPILinearOperator):
         # come from the plan; ``_overlap`` and ``_comm_chunks`` are what
         # they resolve to
         from ..utils.deps import (comm_chunks_default, comm_chunks_env_pinned,
-                                  overlap_enabled, overlap_env_pinned)
+                                  hierarchical_active,
+                                  hierarchical_env_pinned, overlap_enabled,
+                                  overlap_env_pinned)
         want_overlap = overlap is None and not overlap_env_pinned()
         want_chunks = comm_chunks is None and not comm_chunks_env_pinned()
+        want_hier = hierarchical is None and not hierarchical_env_pinned()
         self._chunks_from_user = not want_chunks
-        if want_overlap or want_chunks or hierarchical is None:
+        if want_overlap or want_chunks or want_hier:
             from ..tuning import plan as _tuneplan
             tplan = _tuneplan.get_plan(
                 "fft", shape=self.dims_nd, dtype=self.cdtype, n_dev=P,
@@ -213,10 +229,11 @@ class _MPIBaseFFTND(MPILinearOperator):
                     self.overlap = tplan.get("overlap")
                 if want_chunks and tplan.get("comm_chunks"):
                     self.comm_chunks = max(1, int(tplan.get("comm_chunks")))
-                if hierarchical is None and tplan.get("hierarchical") in (
+                if want_hier and tplan.get("hierarchical") in (
                         "auto", "on", "off"):
                     self.hierarchical = tplan.get("hierarchical")
         self._overlap = overlap_enabled(self.overlap)
+        self._hier = hierarchical_active(self.hierarchical)
         self._comm_chunks = (int(self.comm_chunks)
                              if self.comm_chunks is not None
                              else comm_chunks_default())
@@ -294,6 +311,12 @@ class _MPIBaseFFTND(MPILinearOperator):
             b = torch.fft.irfft(b, n=n, dim=last, norm=self._inv_norm)
         return b
 
+    @property
+    def _two_level(self) -> bool:
+        """Whether a two-level schedule runs (the graph bank's key,
+        :func:`~..aot.signature.schedule_signature`): every transpose."""
+        return self._hier
+
     def _pencil_chunks(self, width: int) -> int:
         """The chunk count of the streamed transposes at this operator's
         settings (1: the bulk transposes; JAX ``:256-266``)."""
@@ -306,14 +329,21 @@ class _MPIBaseFFTND(MPILinearOperator):
     def _transposed(self, b: torch.Tensor, mid, rows_in, rows_out):
         """``b``'s out-axis pencils through the transpose, ``mid`` (the
         axis-0 section) and the transpose back: two bulk ``all_to_all``
-        calls, or the chunked stream (module docstring)."""
+        calls, or the chunked stream, each in two levels under ``_hier``
+        (module docstring)."""
         out_ax, P = self._out_axis, self._P
         K = self._pencil_chunks(b.shape[out_ax])
         if K > 1:
             return collectives.chunked_pencil_transpose(
-                b, out_ax, K, mid, rows_in, rows_out)
+                b, out_ax, K, mid, rows_in, rows_out, two_level=self._hier)
         chunks = [s[0] for s in local_split((b.shape[out_ax],), P,
                                             Partition.SCATTER, 0)]
+        if self._hier:
+            b = collectives.hier_pencil_transpose(b, out_ax, 0, chunks,
+                                                  rows_in)
+            b = mid(b)
+            return collectives.hier_pencil_transpose(b, 0, out_ax, rows_out,
+                                                     chunks, forward=False)
         b = _pencil_transpose(b, out_ax, 0, chunks, rows_in)
         b = mid(b)
         return _pencil_transpose(b, 0, out_ax, rows_out, chunks)

@@ -78,8 +78,12 @@ class MPIHalo(MPILinearOperator):
     into its place in the haloed window from the block before the
     exchange while they are in flight, and only the ghost shell is
     copied from the extended block after the wait; the numbers are the
-    bulk path's, bit for bit (a copy either way). ``hierarchical`` (the
-    two-level schedules) is accepted with no effect (ROADMAP.md §A.3b).
+    bulk path's, bit for bit (a copy either way). ``hierarchical`` is
+    recorded (``.hierarchical``, and ``._hier`` what it resolves to on this
+    world): the Cartesian exchange is the same on a world laid out hosts
+    × ranks, as the JAX package's hybrid halo kernels are bit for bit its
+    flat ones, and its bytes split by fabric pair by pair whatever the
+    setting; ``off`` changes nothing.
     """
 
     def __init__(self, dims, halo, proc_grid_shape=None, mesh=None,
@@ -99,6 +103,9 @@ class MPIHalo(MPILinearOperator):
                 overlap = tplan.get("overlap")
         self.overlap = overlap
         self._overlap = overlap_enabled(overlap)
+        from ..utils.deps import hierarchical_active
+        self.hierarchical = hierarchical
+        self._hier = hierarchical_active(hierarchical)
         if proc_grid_shape is None:
             proc_grid_shape = (1,) * (self.ndim - 1) + (P_,)
         self.proc_grid_shape = tuple(int(g) for g in proc_grid_shape)

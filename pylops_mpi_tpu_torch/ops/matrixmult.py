@@ -51,9 +51,20 @@ the A tiles, each step multiplying the resident tile by its k-slice of
 the gathered X column; ``stat_a`` reduce-scatters as a ring whose chunk
 GEMMs are computed just in time; the adjoint rotates the Y tiles, each
 step filling its owner's columns, un-rotated with one roll, the ``r``
-reduction unchanged. They reorder the sums. The two-level
-(``hierarchical``) schedules are accepted with no effect (ROADMAP.md
-§A.3b). SUMMA consults
+reduction unchanged. They reorder the sums.
+
+``hierarchical`` (``PYLOPS_MPI_TPU_TORCH_HIERARCHICAL``; JAX
+``ops/matrixmult.py:319-337``): on a world laid out hosts × ranks the
+SUMMA kinds resolve ``_hier`` (the cost model then charges each grid
+axis to the fabric it spans), and where the ring axis ``c`` spans hosts
+in equal runs (``topology.slice_run``, e.g. a ``(1, 4)`` grid on two
+hosts of two) the gather ring and the adjoint ring take the
+host-blocked hop order (``ring_pass(slice_size=)``: one IB crossing a
+lap of the run). That order visits the owners out of rotation order, so
+the adjoint places each tile's product at its owner's columns directly
+instead of rolling; the ``stat_a`` ring stays flat, as in the JAX
+package (every hop is a neighbour shift). A flat world, a world of one
+and ``off`` keep every schedule bit for bit. SUMMA consults
 the tuner (:mod:`..tuning`) for the knobs left at their sentinels
 (``schedule="auto"``, ``overlap``/``hierarchical=None``) under
 ``PYLOPS_MPI_TPU_TORCH_TUNE=on|auto``; the volume model lives in
@@ -391,17 +402,21 @@ class _MPISummaMatrixMult(_MatMulBase):
                      else best_grid_2d(world_size()))
         self._g2 = make_grid_2d(self.grid)
         # the tuner's seam (JAX ``ops/matrixmult.py:306-318``): only the
-        # knobs left at their sentinels come from the plan
-        from ..utils.deps import overlap_enabled, overlap_env_pinned
+        # knobs left at their sentinels, and not pinned by the
+        # environment, come from the plan
+        from ..utils.deps import (hierarchical_active,
+                                  hierarchical_env_pinned, overlap_enabled,
+                                  overlap_env_pinned)
         want_overlap = overlap is None and not overlap_env_pinned()
+        want_hier = hierarchical is None and not hierarchical_env_pinned()
         tplan = None
         if self._consults and (schedule == "auto" or want_overlap
-                               or hierarchical is None):
+                               or want_hier):
             tplan = self._consult_plan(A, M, dtype, compute_dtype, device)
         if tplan is not None:
             if want_overlap and tplan.get("overlap") in ("on", "off"):
                 overlap = tplan.get("overlap")
-            if hierarchical is None and tplan.get("hierarchical") in (
+            if want_hier and tplan.get("hierarchical") in (
                     "auto", "on", "off"):
                 hierarchical = tplan.get("hierarchical")
             if schedule == "auto" and tplan.get("schedule") in (
@@ -409,6 +424,14 @@ class _MPISummaMatrixMult(_MatMulBase):
                 schedule = tplan.get("schedule")
         self.overlap = overlap
         self.hierarchical = hierarchical
+        # on a world laid out hosts × ranks: ``_hier`` the fabric-aligned
+        # attribution, ``_ring_slice`` the host run of a ring axis ``c``
+        # that spans hosts (the host-blocked hop order), else None
+        from ..parallel import topology as _topo
+        self._hier = hierarchical_active(hierarchical)
+        self._ring_slice = (_topo.slice_run(self._g2, "c")
+                            if self._hier and _topo.axis_fabric(
+                                self._g2, "c") == "ib" else None)
         N, K = (int(v) for v in np.shape(A))
         pr, pc = self.grid
         self.Np = pr * -(-N // pr)
@@ -497,6 +520,13 @@ class _MPISummaMatrixMult(_MatMulBase):
         return collectives.all_gather(t.contiguous(), [t.shape[axis]] * n,
                                       axis, group)
 
+    @property
+    def _two_level(self) -> bool:
+        """Whether a two-level schedule runs (the graph bank's key,
+        :func:`~..aot.signature.schedule_signature`): the rings in the
+        host-blocked order."""
+        return bool(self._overlap and self._ring_slice)
+
     def _matvec(self, x: DistributedArray) -> DistributedArray:
         pr, pc = self.grid
         j = self._g2.coords[1]
@@ -540,7 +570,8 @@ class _MPISummaMatrixMult(_MatMulBase):
             part = self._gemm(Ares, Xcol[owner * kb:(owner + 1) * kb])
             return part if acc is None else acc + part
 
-        return collectives.ring_pass(self.A, body, group=self._g2.c)
+        return collectives.ring_pass(self.A, body, group=self._g2.c,
+                                     slice_size=self._ring_slice)
 
     def _fwd_stat_a_ring(self, Xt: torch.Tensor) -> torch.Tensor:
         """``stat_a`` as a ring (JAX ``_kernel_fwd_stat_a_ring``,
@@ -562,10 +593,23 @@ class _MPISummaMatrixMult(_MatMulBase):
         ``_kernel_adj_ring``, ``:510-548``): the Y tiles rotate, each
         step multiplying ``Aᴴ`` by the resident tile into its owner's
         columns, collected in rotation order and un-rotated with one
-        roll."""
+        roll; in the host-blocked order each product is written at its
+        owner's columns (JAX ``:520-538``)."""
         pc = self.grid[1]
         j = self._g2.coords[1]
         At = self.A.mH
+        if self._ring_slice:
+            mb = Yt.shape[1]
+
+            def place(acc, Yres, owner, _s):
+                part = self._gemm(At, Yres)
+                if acc is None:
+                    acc = part.new_zeros((part.shape[0], mb * pc))
+                acc[:, owner * mb:(owner + 1) * mb] = part
+                return acc
+
+            return collectives.ring_pass(Yt, place, group=self._g2.c,
+                                         slice_size=self._ring_slice)
         parts = []
 
         def body(acc, Yres, _owner, _s):
@@ -654,8 +698,8 @@ def MPIMatrixMult(A, M: int, saveAt: bool = False, mesh=None,
     ``compute_dtype`` (real f32 operators only; ``None`` takes the
     precision policy) stores A narrow. ``schedule`` (summa):
     ``"gather"``, ``"stat_a"`` or ``"auto"``. ``overlap`` (summa) selects
-    the ring schedules (module docstring); ``hierarchical`` is accepted
-    with no effect."""
+    the ring schedules and ``hierarchical`` (summa) their host-blocked
+    hop order on a world laid out hosts × ranks (module docstring)."""
     if kind == "block":
         return _MPIBlockMatrixMult(A, M, mesh, dtype, saveAt, compute_dtype,
                                    device)

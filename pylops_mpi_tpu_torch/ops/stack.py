@@ -15,7 +15,9 @@ rank's rows to the whole model and communicates nothing (a SCATTER
 model is gathered first, as the JAX package's arrays are global); the
 adjoint sums the rank's partials ``Lᵢᴴ yᵢ`` and reduces them over the
 group with one ``all_reduce``, or, with overlap on and batched rows on
-every rank, as a ring (:meth:`MPIVStack._rmatvec_ring`).
+every rank, as a ring (:meth:`MPIVStack._rmatvec_ring`), or on a world
+laid out hosts × ranks as a two-level reduce-scatter and gather
+(:meth:`MPIVStack._rmatvec_hier`).
 :class:`MPIStackedVStack`'s components share the model's split, so it
 needs no collective of its own.
 """
@@ -73,7 +75,15 @@ class MPIVStack(MPILinearOperator):
     on every rank, their count a multiple of the ranks); it reorders the
     sums. Deciding that the other ranks' rows batch too takes one
     ``all_reduce`` at construction, when overlap is on. ``hierarchical``
-    (the two-level form) is accepted with no effect (ROADMAP.md §A.3b).
+    (``PYLOPS_MPI_TPU_TORCH_HIERARCHICAL``) selects, in place of the ring,
+    the two-level form of the same reduction on a world laid out hosts ×
+    ranks (JAX ``ops/stack.py:240-301``): one GEMM gives the rank's whole
+    partial, then ``hier_reduce_scatter`` (over the ranks of its host,
+    then across hosts on partials ``1/I`` the size) and
+    ``hier_all_gather``; it reorders the sums. ``.hierarchical`` keeps
+    the setting and ``._hier`` what it resolved to on this world
+    (``utils.deps.hierarchical_active``); a flat world, a world of one
+    or ``off`` keep the ring or bulk reduction bit for bit.
     """
 
     def __init__(self, ops: Sequence[LocalOperator],
@@ -116,6 +126,9 @@ class MPIVStack(MPILinearOperator):
                 overlap = tplan.get("overlap")
         self.overlap = overlap
         self._overlap = overlap_enabled(overlap, self.device)
+        from ..utils.deps import hierarchical_active
+        self.hierarchical = hierarchical
+        self._hier = hierarchical_active(hierarchical)
         self._ring = (self._overlap and self._P > 1
                       and len(ops) % self._P == 0 and self._all_batched())
 
@@ -248,10 +261,35 @@ class MPIVStack(MPILinearOperator):
         red = collectives.ring_reduce_scatter(chunk)
         return collectives.all_gather(red, [cw] * self._P)[:out_len]
 
+    @property
+    def _two_level(self) -> bool:
+        """Whether a two-level schedule runs (the graph bank's key,
+        :func:`~..aot.signature.schedule_signature`): the batched
+        adjoint's."""
+        return self._ring and self._hier
+
+    def _rmatvec_hier(self, y: torch.Tensor) -> torch.Tensor:
+        """The batched adjoint's two-level form (JAX
+        ``_rmatvec_batched_hier``, ``ops/stack.py:240-283``): the rank's
+        whole partial from one GEMM, padded to ``P·ceil(out/P)`` rows,
+        reduced by ``hier_reduce_scatter`` and made whole again by
+        ``hier_all_gather``."""
+        part = self._apply(y, forward=False)
+        out_len = part.shape[0]
+        cw = -(-out_len // self._P)
+        if cw * self._P != out_len:
+            part = torch.cat([part, part.new_zeros(
+                (cw * self._P - out_len,) + tuple(part.shape[1:]))])
+        sizes = [cw] * self._P
+        red = collectives.hier_reduce_scatter(part.contiguous(), sizes)
+        return collectives.hier_all_gather(red, sizes)[:out_len]
+
     def _rmatvec(self, x: DistributedArray) -> DistributedArray:
         tail = tuple(x.global_shape[1:])
         y = _chunk_rows(x, [s[0] for s in self.local_shapes_n])
-        if self._ring:
+        if self._ring and self._hier:
+            arr = self._rmatvec_hier(y)
+        elif self._ring:
             arr = self._rmatvec_ring(y)
         else:
             arr = self._apply(y, forward=False)

@@ -9,12 +9,16 @@ all-to-all of a change of sharded axis or of a pencil transpose
 neighbour exchange of stencil ghost rows (:func:`halo_exchange`, the
 counterpart of ``halo_slab``) and its Cartesian form, one grid axis at a
 time (:func:`cart_halo_extend`, the counterpart of ``cart_halo_extend``'s
-plain path), and the pipelined layer of the overlap schedules
+plain path), the pipelined layer of the overlap schedules
 (:func:`ring_pass`, :func:`ring_reduce_scatter`, :func:`ring_halo_ghosts`,
 :func:`post_cart_halo`, :func:`resolve_chunks`,
 :func:`chunked_pencil_transpose`: transfers posted before the compute
 that does not need them, waited on where their data is read; their
-steps, ring hops and pencil chunks, land in :data:`steps`).
+steps, ring hops and pencil chunks, land in :data:`steps`), and the
+two-level layer of a world laid out hosts × ranks (``ring_pass``'s
+``slice_size``, :func:`hier_reduce_scatter`, :func:`hier_all_gather`,
+:func:`hier_pencil_transpose` and :func:`chunked_pencil_transpose`'s
+``two_level``: one phase over the ranks of a host, one across hosts).
 
 Every function is called at every world size, one included: under a
 group of one rank on the card the reductions still go through NCCL.
@@ -30,8 +34,11 @@ bytes to the metrics registry as ``collective.<name>.calls`` and
 ``collective.<name>.bytes``. On a world that spans hosts with several
 ranks a host (``parallel/topology.py``), the same bytes also land in
 ``collective.<name>.bytes_nvlink`` when the call's group stays on one
-host and ``.bytes_ib`` when it crosses hosts (the world group does); a
-flat world adds no counter.
+host and ``.bytes_ib`` when it crosses hosts (the world group does); the
+neighbour exchanges (:func:`halo_exchange`, :func:`ring_halo_ghosts`,
+:func:`cart_halo_extend` and their adjoints) charge each received piece
+to the fabric between this rank and its sender, and a two-level call
+each phase to its own; a flat world adds no counter.
 
 gloo moves CPU tensors only for point-to-point sends and gathers. Under
 a gloo group, CUDA tensors are staged through host copies: this is
@@ -80,6 +87,7 @@ from __future__ import annotations
 
 import logging
 from collections import Counter
+from contextlib import nullcontext
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -100,7 +108,8 @@ __all__ = ["counts", "received", "steps", "reset_counts", "mask_group",
            "halo_exchange", "cart_halo_extend", "broadcast", "replicated",
            "reduce_stall", "stall_signature", "ring_pass",
            "ring_reduce_scatter", "ring_halo_ghosts", "ring_halo_extend",
-           "post_cart_halo", "resolve_chunks", "chunked_pencil_transpose"]
+           "post_cart_halo", "resolve_chunks", "chunked_pencil_transpose",
+           "hier_reduce_scatter", "hier_all_gather", "hier_pencil_transpose"]
 
 # collective calls under a group, and the bytes this rank received in
 # them, since the last reset_counts()
@@ -133,9 +142,34 @@ def _count(name: str, nbytes: int, group=None) -> int:
     on this rank: ``counts``/``received`` and the metrics registry (with
     the fabric split, module docstring); returns the call's sequence
     number."""
+    return _count_shares(name, [(nbytes, _topo.group_fabric(group))])
+
+
+def _count_shares(name: str,
+                  shares: Sequence[Tuple[int, Optional[str]]]) -> int:
+    """One call of collective ``name`` whose bytes arrived over several
+    fabrics, ``(nbytes, fabric)`` each: ``counts``/``received`` take the
+    call and the sum, :func:`count_metrics` each share."""
     counts[name] += 1
-    received[name] += nbytes
-    return count_metrics(name, [(nbytes, _topo.group_fabric(group))])
+    received[name] += sum(int(nb) for nb, _ in shares)
+    return count_metrics(name, shares)
+
+
+def _peer_shares(nbytes_by_peer: Sequence[Tuple[int, int]]
+                 ) -> List[Tuple[int, Optional[str]]]:
+    """The shares of bytes received from world ranks, ``(nbytes, peer)``
+    each, by the fabric between this rank and the peer
+    (:func:`~.topology.peer_fabric`): ``[(total, None)]`` on a world
+    that is not laid out hosts × ranks."""
+    total = sum(int(nb) for nb, _ in nbytes_by_peer)
+    by: Dict[str, int] = {}
+    for nb, peer in nbytes_by_peer:
+        fab = _topo.peer_fabric(peer)
+        if fab is None:
+            return [(total, None)]
+        by[fab] = by.get(fab, 0) + int(nb)
+    return [(nb, fab) for fab, nb in sorted(by.items(), reverse=True)] \
+        or [(0, None)]
 
 
 def count_metrics(name: str,
@@ -368,7 +402,9 @@ def all_gather(t: torch.Tensor, sizes: Sequence[int], axis: int = 0,
 
 
 def _all_gather(t: torch.Tensor, sizes: Sequence[int], axis: int,
-                group) -> torch.Tensor:
+                group, name: Optional[str] = "all_gather") -> torch.Tensor:
+    """The gather, counted as ``name`` (``None``: not counted, a phase of
+    a two-level gather)."""
     pad = padded_shard_size(sizes) - t.shape[axis]
     v = t
     if pad:
@@ -381,7 +417,7 @@ def _all_gather(t: torch.Tensor, sizes: Sequence[int], axis: int,
         v = v.cpu()
     parts = [torch.empty_like(v) for _ in sizes]
     nb = _nbytes(v) * (len(sizes) - 1)
-    with _span("all_gather", nb, group):
+    with _span(name, nb, group) if name else nullcontext():
         dist.all_gather(parts, v, group=group)
     parts = [p.narrow(axis, 0, n) for p, n in zip(parts, sizes)]
     out = torch.cat(parts, dim=axis)
@@ -483,7 +519,10 @@ def reduce_scatter(t: torch.Tensor, sizes: Sequence[int], axis: int = 0,
 
 
 def _reduce_scatter(t: torch.Tensor, sizes: Sequence[int], axis: int,
-                    group) -> torch.Tensor:
+                    group, name: Optional[str] = "reduce_scatter"
+                    ) -> torch.Tensor:
+    """The reduction, counted as ``name`` (``None``: not counted, a phase
+    of a two-level reduce-scatter)."""
     me = dist.get_group_rank(group, rank()) if group is not None else rank()
     width = padded_shard_size(sizes)
     pieces = []
@@ -499,7 +538,7 @@ def _reduce_scatter(t: torch.Tensor, sizes: Sequence[int], axis: int,
         pieces = [p.cpu() for p in pieces]
     out = torch.empty_like(pieces[me])
     nb = _nbytes(out) * (len(sizes) - 1)
-    with _span("reduce_scatter", nb, group):
+    with _span(name, nb, group) if name else nullcontext():
         dist.reduce_scatter(out, pieces, op=dist.ReduceOp.SUM, group=group)
     out = out.narrow(axis, 0, int(sizes[me]))
     return out.to(t.device) if stage else out
@@ -785,9 +824,9 @@ class _Hop:
     on by the next hop without another copy."""
 
     def __init__(self, name: str, wire, to: int, frm: int, group,
-                 last: bool, hops: int):
+                 last: bool, hops: int, split: Optional[Tuple[int, int]] = None):
         self.name, self.to, self.frm, self.group = name, to, frm, group
-        self.last, self.hops = last, hops
+        self.last, self.hops, self.split = last, hops, split
         self.rx = tuple(torch.empty_like(t) for t in wire)
         self._posted = _Posted([(t, to) for t in wire],
                                [(b, frm) for b in self.rx], group)
@@ -831,7 +870,11 @@ class _HopWait(torch.autograd.Function):
               for k in diff]
         name = f"{hop.name}_adjoint"
         if hop.last:
-            _count(name, sum(_nbytes(b) for b in rx) * hop.hops, hop.group)
+            blk = sum(_nbytes(b) for b in rx)
+            if hop.split is None:
+                _count(name, blk * hop.hops, hop.group)
+            else:
+                _count_shares(name, _ring_shares(blk, *hop.split, hop.group))
         steps[name] += 1
         _Posted(tx, [(b, hop.to) for b in rx], hop.group).wait()
         grads: List[Optional[torch.Tensor]] = [None] * len(ctx.meta)
@@ -851,8 +894,20 @@ def _ring_peers(group, shift: int) -> Tuple[int, int, int, int]:
             _global(group, (i + shift) % n))
 
 
+def _ring_shares(blk: int, D: int, L: int, group
+                 ) -> List[Tuple[int, Optional[str]]]:
+    """The host-blocked ring's bytes on this rank, ``blk`` a hop:
+    ``D·(L - 1)`` inner hops on NVLink and ``D - 1`` outer hops on IB
+    (JAX ``:470-478``); one share of them all where the world is not
+    laid out hosts × ranks."""
+    if _topo.group_fabric(group) is None:
+        return [(blk * (D * L - 1), None)]
+    return [(blk * D * (L - 1), "nvlink"), (blk * (D - 1), "ib")]
+
+
 def ring_pass(block, body: Callable, init=None, shift: int = 1,
-              group: Optional[object] = None):
+              group: Optional[object] = None,
+              slice_size: Optional[int] = None):
     """Double-buffered ring pipeline over ``group`` (JAX ``:402-456``): the
     resident buffer starts as this rank's ``block`` (a tensor or a tuple
     of tensors) and moves ``shift`` places down the ring at each step, so
@@ -873,12 +928,32 @@ def ring_pass(block, body: Callable, init=None, shift: int = 1,
     its hops in :data:`steps`. Under grad mode each hop's backward sends
     the cotangents back down the ring (``ring_pass_adjoint``). Without a
     group, or in a group of one, ``body(init, block, i, 0)`` runs once
-    and nothing moves or is counted."""
+    and nothing moves or is counted.
+
+    ``slice_size`` ``L`` (JAX ``:402-503``): the group's ranks lie on
+    hosts in runs of ``L`` (``topology.slice_run``), and the hops follow
+    the host-blocked order: inner hops rotate the resident within this
+    rank's run (NVLink), and after each lap of ``L - 1`` inner hops one
+    outer hop moves every resident one run down (IB): ``n/L - 1`` host
+    crossings a ring, not up to one a hop. At step ``t``, with ``k = t //
+    L`` outer hops made, rank ``(d, l)`` (its run, its place in it) holds
+    the block of owner ``((d + k) % D)·L + (l + t - k) % L``: every owner
+    once, in another order than the flat ring's, so a body that depends
+    on the order must place by ``owner``. The same hop count, double
+    buffering, ``steps`` and gradient (each hop's backward reverses that
+    hop); counted as one ``ring_pass`` call with ``blk·D·(L - 1)`` bytes
+    on NVLink and ``blk·(D - 1)`` on IB. It engages only for ``1 < L <
+    n``, ``n % L == 0`` and ``shift == 1``; otherwise the flat ring
+    runs."""
     tup = isinstance(block, (tuple, list))
     blocks = tuple(block) if tup else (block,)
     n, i, to, frm = _ring_peers(group, shift)
     if n == 1:
         return body(init, block, i, 0)
+    L = int(slice_size) if slice_size else 0
+    if 1 < L < n and n % L == 0 and shift == 1:
+        return _ring_pass_hier(block, blocks, tup, body, init, group, n, i,
+                               L)
     dev = _comm_device()
     nb = sum(_nbytes(t) for t in blocks) * (n - 1)
     with _span("ring_pass", nb, group):
@@ -890,6 +965,39 @@ def ring_pass(block, body: Callable, init=None, shift: int = 1,
                    if s < n - 1 else None)
             acc = body(acc, resident if tup else resident[0],
                        (i + s * shift) % n, s)
+            if hop is not None:
+                resident, wire = hop.finish(resident), hop.rx
+    return acc
+
+
+def _ring_pass_hier(block, blocks, tup, body, init, group, n: int, i: int,
+                    L: int):
+    """:func:`ring_pass`'s host-blocked hop order (JAX ``_ring_pass_hier``,
+    ``:459-503``), rank ``i = d·L + l`` of ``n = D·L``."""
+    D, d, l = n // L, i // L, i % L
+    dev = _comm_device()
+    blk = sum(_nbytes(t) for t in blocks)
+    # an inner hop sends to the previous place of the run and receives
+    # from the next; an outer hop to the same place of the previous run
+    inner = (_global(group, d * L + (l - 1) % L),
+             _global(group, d * L + (l + 1) % L))
+    outer = (_global(group, (i - L) % n), _global(group, (i + L) % n))
+    shares = _ring_shares(blk, D, L, group)
+    seq = _count_shares("ring_pass", shares)
+    with _trace.span("collective.ring_pass", cat="collective", seq=seq,
+                     bytes=blk * (n - 1), slice_size=L):
+        resident = blocks
+        wire = tuple(t.detach().contiguous().to(dev) for t in blocks)
+        acc = init
+        for t in range(n):
+            hop = None
+            if t < n - 1:
+                to, frm = outer if (t + 1) % L == 0 else inner
+                hop = _Hop("ring_pass", wire, to, frm, group, t == n - 2,
+                           n - 1, (D, L))
+            k = t // L
+            owner = ((d + k) % D) * L + (l + t - k) % L
+            acc = body(acc, resident if tup else resident[0], owner, t)
             if hop is not None:
                 resident, wire = hop.finish(resident), hop.rx
     return acc
@@ -943,7 +1051,10 @@ class _PostedNeighbours:
         self.top, self.bottom, sends, recvs, self.stage = \
             _neighbour_buffers(block, axis, front, back, prev, nxt)
         self.nbytes = sum(_nbytes(t) for t, _ in recvs)
-        self.seq = _count(name, self.nbytes)
+        # each piece is charged to the fabric between this rank and its
+        # sender (JAX ``parallel/collectives.py:310-336``, ``:520-540``)
+        self.seq = _count_shares(name, _peer_shares(
+            [(_nbytes(t), peer) for t, peer in recvs]))
         if event is not None:
             _trace.event(f"collective.{name}", cat="collective", seq=self.seq,
                          **event)
@@ -1142,25 +1253,32 @@ class _PostedA2A:
     """An all-to-all of exact-size pieces over ``group`` posted as one
     batch (:func:`all_to_all`'s transfer, not counted: the chunked
     transpose counts itself); :meth:`wait` returns the pieces in group
-    rank order, this rank's own the piece it kept."""
+    rank order, this rank's own the piece it kept, or them joined along
+    ``join``; :attr:`shares` its bytes by fabric."""
 
-    def __init__(self, sends, recv_shapes, group):
+    def __init__(self, sends, recv_shapes, group, join=None):
         self.out, tx, rx, self.stage = _a2a_buffers(sends, recv_shapes,
                                                     group)
         self.nbytes = sum(_nbytes(t) for t, _ in rx)
         self._posted = _Posted(tx, rx, group)
-        self.sends, self.group = sends, group
+        self.sends, self.group, self.join = sends, group, join
 
-    def wait(self) -> List[torch.Tensor]:
+    @property
+    def shares(self) -> List[Tuple[int, Optional[str]]]:
+        return [(self.nbytes, _topo.group_fabric(self.group))]
+
+    def wait(self):
         self._posted.wait()
-        return _a2a_result(self.out, self.sends, self.group, self.stage)
+        got = _a2a_result(self.out, self.sends, self.group, self.stage)
+        return got if self.join is None else torch.cat(got, dim=self.join)
 
 
 def chunked_pencil_transpose(b: torch.Tensor, out_ax: int, chunks: int,
                              mid: Callable[[torch.Tensor], torch.Tensor],
                              rows_in: Sequence[int],
                              rows_out: Sequence[int],
-                             group: Optional[object] = None) -> torch.Tensor:
+                             group: Optional[object] = None,
+                             two_level: bool = False) -> torch.Tensor:
     """The streamed double pencil transpose (JAX ``:615-653``): ``b`` holds
     this rank's ``rows_in[me]`` rows (axis 0) of the whole ``out_ax``
     width, which is cut into ``chunks`` contiguous chunks, each cut again
@@ -1178,53 +1296,346 @@ def chunked_pencil_transpose(b: torch.Tensor, out_ax: int, chunks: int,
     directions' bytes, its chunks in :data:`steps`. Under grad mode, with
     a ``b`` or a ``mid`` output that requires grad, each chunk's exchanges
     are the differentiable :func:`all_to_all` (counted as such) and are not
-    posted ahead. ``chunks`` must fit (:func:`resolve_chunks`)."""
+    posted ahead. ``chunks`` must fit (:func:`resolve_chunks`).
+
+    ``two_level`` (JAX ``hier_chunked_pencil_transpose``, ``:803-839``;
+    over the world, on a world laid out hosts × ranks) sends each chunk
+    through the two-level transpose (:func:`hier_pencil_transpose`:
+    NVLink, then IB; back IB, then NVLink), posted ahead as above, bit
+    for bit the flat stream; counted as ``hier_chunked_pencil_transpose``
+    with both directions' bytes by fabric, and under grad mode each
+    chunk runs the differentiable :func:`hier_pencil_transpose`. Without
+    a process group it is the flat stream."""
     K = int(chunks)
+    groups = _hier(None) if two_level and initialized() else None
+    name = ("hier_chunked_pencil_transpose" if groups is not None
+            else "chunked_pencil_transpose")
     n = _group_size(group) if initialized() else 1
     me = _group_rank(group) if initialized() else 0
     widths = _split_sizes(b.shape[out_ax], K)
     if min(widths) < n:
-        raise ValueError(f"chunked_pencil_transpose: {K} chunks of an axis "
-                         f"of {b.shape[out_ax]} leave a chunk narrower than "
+        raise ValueError(f"{name}: {K} chunks of an axis of "
+                         f"{b.shape[out_ax]} leave a chunk narrower than "
                          f"the {n} ranks (resolve_chunks caps the count)")
     chunk_in = torch.split(b, widths, dim=out_ax)
     cols = [_split_sizes(w, n) for w in widths]
     grad = _needs_grad(b)
-    nb = 0
+    by: Dict[Optional[str], int] = {}
 
-    def forward(k):
-        sends = list(torch.split(chunk_in[k], cols[k], dim=out_ax))
-        shapes = _a2a_shapes(chunk_in[k], out_ax, cols[k][me], 0, rows_in)
+    def move(t, send_ax, recv_ax, send_sizes, recv_sizes, forward, grad):
+        """One chunk's transfer: posted, or done at once under grad mode
+        (and in a world of one)."""
+        if groups is not None:
+            if grad:
+                return hier_pencil_transpose(t, send_ax, recv_ax, send_sizes,
+                                             recv_sizes, forward, groups)
+            return _TwoLevelA2A(t, send_ax, recv_ax, send_sizes, recv_sizes,
+                                groups, forward)
+        sends = list(torch.split(t, list(send_sizes), dim=send_ax))
+        shapes = _a2a_shapes(t, send_ax, send_sizes[me], recv_ax,
+                             recv_sizes)
         if grad or n == 1:
-            return all_to_all(sends, shapes, group)
-        return _PostedA2A(sends, shapes, group)
-
-    def backward(k, t):
-        sends = list(torch.split(t, list(rows_out), dim=0))
-        shapes = _a2a_shapes(t, 0, rows_out[me], out_ax, cols[k])
-        if grad or _needs_grad(t) or n == 1:
-            return all_to_all(sends, shapes, group)
-        return _PostedA2A(sends, shapes, group)
+            return torch.cat(all_to_all(sends, shapes, group), dim=recv_ax)
+        return _PostedA2A(sends, shapes, group, join=recv_ax)
 
     def done(p):
-        nonlocal nb
-        if isinstance(p, _PostedA2A):
-            nb += p.nbytes
-            return p.wait()
-        return p
+        if isinstance(p, torch.Tensor):
+            return p
+        out = p.wait()
+        for nb, fab in p.shares:
+            by[fab] = by.get(fab, 0) + nb
+        return out
 
-    with _trace.span("collective.chunked_pencil_transpose", cat="collective",
+    def ahead_of(k):
+        return move(chunk_in[k], out_ax, 0, cols[k], rows_in, True, grad)
+
+    with _trace.span(f"collective.{name}", cat="collective",
                      shape=tuple(b.shape), out_ax=out_ax, chunks=K,
                      n_shards=n):
-        ahead = forward(0)
+        ahead = ahead_of(0)
         backs = []
         for k in range(K):
-            tile = torch.cat(done(ahead), dim=0)
+            tile = done(ahead)
             if k + 1 < K:
-                ahead = forward(k + 1)
-            backs.append(backward(k, mid(tile)))
-        out = [torch.cat(done(p), dim=out_ax) for p in backs]
+                ahead = ahead_of(k + 1)
+            t = mid(tile)
+            backs.append(move(t, 0, out_ax, rows_out, cols[k], False,
+                              grad or _needs_grad(t)))
+        out = [done(p) for p in backs]
     if n > 1:
-        _count("chunked_pencil_transpose", nb, group)
-        steps["chunked_pencil_transpose"] += K
+        none = ([(0, "nvlink"), (0, "ib")] if groups is not None
+                else [(0, _topo.group_fabric(group))])
+        _count_shares(name, [(nb, f) for f, nb in by.items()] or none)
+        steps[name] += K
     return torch.cat(out, dim=out_ax) if K > 1 else out[0]
+
+
+# --------------------------------------------------------------------------
+# The two-level layer (JAX ``parallel/collectives.py:700-945``): on a world
+# laid out as D hosts of I ranks (``topology.hier_groups``), a collective
+# over the world runs as one phase over the NVLink group (the ranks of
+# this rank's host) and one over the IB group (its peers at the same place
+# on the other hosts), so that the slow fabric carries fewer or larger
+# messages. World rank ``r`` is ``(d, l) = divmod(r, I)``. Each call is
+# counted once, under the JAX package's name, with the bytes this rank
+# received in each phase charged to that phase's fabric.
+
+
+def _hier(groups):
+    """``groups`` (``(ib, nvlink, D, I)``) or the world's; raises where
+    the world is not laid out hosts × ranks."""
+    g = groups if groups is not None else _topo.hier_groups()
+    if g is None:
+        raise ValueError("the two-level collectives need a world laid out "
+                         "as hosts x ranks (topology.world_shape); this "
+                         "one is not")
+    return g
+
+
+def _row_bytes(t: torch.Tensor, axis: int) -> int:
+    """Bytes of one slice of ``t`` along ``axis``."""
+    return t.element_size() * int(np.prod(
+        [v for k, v in enumerate(t.shape) if k != axis], dtype=np.int64))
+
+
+def _hier_rs(t, sizes, axis, groups):
+    """:func:`hier_reduce_scatter`'s transfer and count."""
+    ib, nv, D, I = groups
+    l = rank() % I
+    pieces = torch.split(t, list(sizes), dim=axis)
+    # NVLink-major order: place l' gathers the pieces of (·, l')
+    t = torch.cat([pieces[dd * I + ll] for ll in range(I)
+                   for dd in range(D)], dim=axis)
+    s1 = [sum(int(sizes[dd * I + ll]) for dd in range(D)) for ll in range(I)]
+    s2 = [int(sizes[dd * I + l]) for dd in range(D)]
+    row = _row_bytes(t, axis)
+    shares = [(row * padded_shard_size(s1) * (I - 1), "nvlink"),
+              (row * padded_shard_size(s2) * (D - 1), "ib")]
+    seq = _count_shares("hier_psum_scatter", shares)
+    with _trace.span("collective.hier_psum_scatter", cat="collective",
+                     seq=seq, bytes=sum(nb for nb, _ in shares)):
+        t = _reduce_scatter(t, s1, axis, nv, None)
+        return _reduce_scatter(t.contiguous(), s2, axis, ib, None)
+
+
+def _hier_ag(t, sizes, axis, groups):
+    """:func:`hier_all_gather`'s transfer and count."""
+    ib, nv, D, I = groups
+    d = rank() // I
+    s1 = [int(sizes[d * I + ll]) for ll in range(I)]
+    s2 = [sum(int(sizes[dd * I + ll]) for ll in range(I)) for dd in range(D)]
+    row = _row_bytes(t, axis)
+    shares = [(row * padded_shard_size(s1) * (I - 1), "nvlink"),
+              (row * padded_shard_size(s2) * (D - 1), "ib")]
+    seq = _count_shares("hier_all_gather", shares)
+    with _trace.span("collective.hier_all_gather", cat="collective",
+                     seq=seq, bytes=sum(nb for nb, _ in shares)):
+        t = _all_gather(t, s1, axis, nv, None)
+        return _all_gather(t, s2, axis, ib, None)
+
+
+class _HierReduceScatter(torch.autograd.Function):
+    """:func:`hier_reduce_scatter` with :func:`hier_all_gather` as its
+    backward."""
+
+    @staticmethod
+    def forward(ctx, t, sizes, axis, groups):
+        ctx.args = (sizes, axis, groups)
+        return _hier_rs(t, sizes, axis, groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_HierAllGather.apply(g.contiguous(), *ctx.args), None, None,
+                None)
+
+
+class _HierAllGather(torch.autograd.Function):
+    """:func:`hier_all_gather` with :func:`hier_reduce_scatter` as its
+    backward."""
+
+    @staticmethod
+    def forward(ctx, t, sizes, axis, groups):
+        ctx.args = (sizes, axis, groups)
+        return _hier_ag(t, sizes, axis, groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_HierReduceScatter.apply(g.contiguous(), *ctx.args), None,
+                None, None)
+
+
+def hier_reduce_scatter(t: torch.Tensor, sizes: Sequence[int], axis: int = 0,
+                        groups=None) -> torch.Tensor:
+    """:func:`reduce_scatter` over the world in two levels (JAX
+    ``hier_psum_scatter``, ``:886-916``): world rank ``q`` keeps
+    ``sizes[q]`` entries of the sum along ``axis``. The pieces are put in
+    NVLink-major order locally (JAX ``_hier_reorder``), reduce-scattered
+    over the NVLink group (this rank keeps the partial of the pieces of
+    every host's rank at its own place), then over the IB group on those
+    partials, already ``1/I`` of the size: IB carries ``I`` times fewer
+    bytes than the flat ring would push through it. The same sum in
+    another order. Counted as one call of ``hier_psum_scatter``; under
+    grad mode its backward is :func:`hier_all_gather`. ``groups`` is
+    ``topology.hier_groups()`` by default; without a group ``t``."""
+    if not initialized():
+        return t
+    groups = _hier(groups)
+    sizes = tuple(int(v) for v in sizes)
+    if _needs_grad(t):
+        return _HierReduceScatter.apply(t, sizes, axis, groups)
+    return _hier_rs(t, sizes, axis, groups)
+
+
+def hier_all_gather(t: torch.Tensor, sizes: Sequence[int], axis: int = 0,
+                    groups=None) -> torch.Tensor:
+    """:func:`all_gather` over the world in two levels (JAX
+    ``hier_all_gather``, ``:919-945``): the shards of this rank's host are
+    gathered over the NVLink group, then the hosts' superblocks over the
+    IB group (``I`` times fewer, larger IB messages). Bit for bit the flat
+    gather. Counted as one call of ``hier_all_gather``; under grad mode
+    its backward is :func:`hier_reduce_scatter`."""
+    if not initialized():
+        return t
+    groups = _hier(groups)
+    sizes = tuple(int(v) for v in sizes)
+    if _needs_grad(t):
+        return _HierAllGather.apply(t, sizes, axis, groups)
+    return _hier_ag(t, sizes, axis, groups)
+
+
+class _TwoLevelA2A:
+    """The two phases of a pencil transpose over the world (module
+    section comment), phase 1 posted at construction. Rank ``r`` is
+    ``(a, c)`` in the phase-1 and phase-2 coordinates (``(l, d)`` NVLink
+    first, ``(d, l)`` IB first). Phase 1 sends to its group's rank
+    ``a'`` every piece bound for ``(a', ·)``, joined along ``send_ax``;
+    phase 2 forwards to its group's rank ``c'`` the slices bound for
+    ``(a, c')`` of every piece phase 1 brought, joined along
+    ``recv_ax``. :meth:`wait` runs phase 2 and returns what the flat
+    all-to-all gives, the pieces from every rank joined along
+    ``recv_ax`` in rank order; :attr:`shares` the bytes of each phase by
+    fabric."""
+
+    def __init__(self, b, send_ax, recv_ax, send_sizes, recv_sizes, groups,
+                 nvlink_first: bool):
+        ib, nv, D, I = groups
+        d, l = divmod(rank(), I)
+        if nvlink_first:
+            self.g1, self.g2, A, C, a, c = nv, ib, I, D, l, d
+
+            def idx(aa, cc):
+                return cc * I + aa
+        else:
+            self.g1, self.g2, A, C, a, c = ib, nv, D, I, d, l
+
+            def idx(aa, cc):
+                return aa * I + cc
+        self.fab = ("nvlink", "ib") if nvlink_first else ("ib", "nvlink")
+        self.idx, self.A, self.C, self.c = idx, A, C, c
+        self.send_ax, self.recv_ax = send_ax, recv_ax
+        self.send_sizes = [int(v) for v in send_sizes]
+        self.recv_sizes = [int(v) for v in recv_sizes]
+        pieces = torch.split(b, self.send_sizes, dim=send_ax)
+        sends = [torch.cat([pieces[idx(aa, cc)] for cc in range(C)],
+                           dim=send_ax) for aa in range(A)]
+        self.seg = [self.send_sizes[idx(a, cc)] for cc in range(C)]
+        shapes = []
+        for aa in range(A):
+            shp = list(b.shape)
+            shp[send_ax] = sum(self.seg)
+            shp[recv_ax] = self.recv_sizes[idx(aa, c)]
+            shapes.append(tuple(shp))
+        self._p1 = _PostedA2A(sends, shapes, self.g1)
+        self.shares = []
+
+    def wait(self) -> torch.Tensor:
+        A, C, idx = self.A, self.C, self.idx
+        got = self._p1.wait()
+        self.shares.append((self._p1.nbytes, self.fab[0]))
+        cut = [torch.split(t, self.seg, dim=self.send_ax) for t in got]
+        sends = [torch.cat([cut[aa][cc] for aa in range(A)],
+                           dim=self.recv_ax) for cc in range(C)]
+        shapes = []
+        for cc in range(C):
+            shp = list(got[0].shape)
+            shp[self.send_ax] = self.seg[self.c]
+            shp[self.recv_ax] = sum(self.recv_sizes[idx(aa, cc)]
+                                    for aa in range(A))
+            shapes.append(tuple(shp))
+        p2 = _PostedA2A(sends, shapes, self.g2)
+        got = p2.wait()
+        self.shares.append((p2.nbytes, self.fab[1]))
+        blocks = {}
+        for cc, t in enumerate(got):
+            parts = torch.split(t, [self.recv_sizes[idx(aa, cc)]
+                                    for aa in range(A)], dim=self.recv_ax)
+            for aa, p in enumerate(parts):
+                blocks[idx(aa, cc)] = p
+        return torch.cat([blocks[q] for q in range(A * C)], dim=self.recv_ax)
+
+
+def _hier_transpose(name, b, send_ax, recv_ax, send_sizes, recv_sizes,
+                    groups, forward) -> torch.Tensor:
+    """One counted two-level transpose (:func:`hier_pencil_transpose`)."""
+    with _trace.span(f"collective.{name}", cat="collective",
+                     shape=tuple(b.shape), send_ax=send_ax, recv_ax=recv_ax,
+                     forward=forward):
+        p = _TwoLevelA2A(b, send_ax, recv_ax, send_sizes, recv_sizes,
+                         groups, forward)
+        out = p.wait()
+    _count_shares(name, p.shares)
+    return out
+
+
+class _HierTranspose(torch.autograd.Function):
+    """:func:`hier_pencil_transpose` whose backward is the transpose of
+    the cotangent with the axes, sizes and phase order swapped, counted
+    as ``hier_pencil_transpose_adjoint``."""
+
+    @staticmethod
+    def forward(ctx, b, send_ax, recv_ax, send_sizes, recv_sizes, groups,
+                forward):
+        ctx.args = (send_ax, recv_ax, send_sizes, recv_sizes, groups,
+                    forward)
+        return _hier_transpose("hier_pencil_transpose", b, send_ax, recv_ax,
+                               send_sizes, recv_sizes, groups, forward)
+
+    @staticmethod
+    def backward(ctx, g):
+        send_ax, recv_ax, send_sizes, recv_sizes, groups, forward = ctx.args
+        back = _hier_transpose("hier_pencil_transpose_adjoint",
+                               g.contiguous(), recv_ax, send_ax, recv_sizes,
+                               send_sizes, groups, not forward)
+        return back, None, None, None, None, None, None
+
+
+def hier_pencil_transpose(b: torch.Tensor, send_ax: int, recv_ax: int,
+                          send_sizes: Sequence[int],
+                          recv_sizes: Sequence[int], forward: bool = True,
+                          groups=None) -> torch.Tensor:
+    """The pencil transpose over the world in two levels (JAX
+    ``hier_pencil_transpose``, ``:729-776``): ``b``'s ``send_ax`` is cut
+    into ``send_sizes`` pieces, one for each world rank, and the pieces
+    from every rank (``recv_sizes[q]`` long along ``recv_ax``) are
+    joined along ``recv_ax``, bit for bit the flat transpose's (the FFT's
+    ``_pencil_transpose``). ``forward`` runs an ``all_to_all`` over the
+    NVLink group, then one over the IB group; ``forward=False`` (the
+    transpose back) the IB phase first. The pieces keep their exact,
+    possibly ragged, sizes: phase 1 sends to each NVLink peer ``l'`` (IB
+    peer ``d'``) every piece bound for its place (its host), phase 2
+    forwards each piece to its owner, and the receive shapes come from
+    the same size tables. Each rank's IB bytes fall from ``(n - I)/n`` of
+    its block (the flat all-to-all's share bound off its host) to ``(D -
+    1)/D``. Counted as one call of ``hier_pencil_transpose`` with both
+    phases' bytes by fabric; under grad mode its backward is the
+    transpose back (``hier_pencil_transpose_adjoint``)."""
+    if not initialized():
+        return b
+    groups = _hier(groups)
+    send_sizes = tuple(int(v) for v in send_sizes)
+    recv_sizes = tuple(int(v) for v in recv_sizes)
+    if _needs_grad(b):
+        return _HierTranspose.apply(b, send_ax, recv_ax, send_sizes,
+                                    recv_sizes, groups, bool(forward))
+    return _hier_transpose("hier_pencil_transpose", b, send_ax, recv_ax,
+                           send_sizes, recv_sizes, groups, bool(forward))

@@ -39,7 +39,9 @@ The answers feed the per-fabric byte split of the collectives
 (``.bytes_nvlink``/``.bytes_ib`` beside ``.bytes``; the world's layout
 for it is computed by :func:`refresh` at ``init`` and at each
 :func:`~.mesh.make_mesh_hybrid`, not at every count), the planner's
-per-fabric split (``parallel/reshard.py``), the cost model's IB term,
+per-fabric split (``parallel/reshard.py``), the split of the neighbour
+exchanges' ghost bytes pair by pair (:func:`peer_fabric`), the two-level
+schedules' sub-groups (:func:`hier_groups`), the cost model's IB term,
 and :func:`topology_key`, the plan-cache key segment that keeps a plan
 measured on one layout from being replayed on another. A flat world
 (every rank on one host, or one rank per host) gives an empty key, so
@@ -56,7 +58,7 @@ import numpy as np
 __all__ = ["fabric_override", "axis_fabric", "mesh_fabrics", "is_hybrid",
            "hybrid_axes", "topology_key", "collective_fabric", "slice_map",
            "slice_run", "perm_crossings", "group_fabric", "world_key",
-           "world_shape",
+           "world_shape", "hier_groups", "peer_fabric",
            "FABRIC_GBPS", "FABRIC_ENV"]
 
 FABRIC_ENV = "PYLOPS_MPI_TPU_TORCH_FABRIC"
@@ -104,6 +106,10 @@ def refresh() -> None:
     global _WORLD_SHAPE
     _GROUP_FABRIC.clear()
     _WORLD_SHAPE = world_shape()
+    # the two-level schedules' sub-groups: dist.new_group is collective
+    # over the world, so they are made here, where every rank calls, and
+    # never first by an operator that only some ranks build
+    hier_groups()
 
 
 def fabric_override() -> Optional[Tuple[int, int]]:
@@ -239,6 +245,37 @@ def world_shape() -> Optional[Tuple[int, int]]:
     if hosts != [order[r // i] for r in range(n)]:
         return None
     return d, i
+
+
+def hier_groups() -> Optional[Tuple[object, object, int, int]]:
+    """``(ib_group, nvlink_group, D, I)`` on a world laid out as ``D``
+    hosts of ``I`` ranks (:func:`world_shape`; then ``D > 1`` and
+    ``I > 1``), else ``None``. The NVLink group is the ranks of this
+    rank's host (its group rank the rank's place ``l`` on the host), the
+    IB group this rank's peers at the same place on the other hosts (its
+    group rank the host ``d``): the ``c`` and ``r`` groups of
+    :func:`~.mesh.make_grid_2d` ``((D, I))``, made once through
+    ``collectives.mask_group`` and cached. :func:`refresh` makes them on
+    every rank when the layout is set; a later call finds them in the
+    cache."""
+    from .mesh import initialized, make_grid_2d
+    shp = world_shape()
+    if shp is None or not initialized():
+        return None
+    g = make_grid_2d(shp)
+    return g.r, g.c, shp[0], shp[1]
+
+
+def peer_fabric(peer: int) -> Optional[str]:
+    """The fabric between this rank and world rank ``peer``: ``None``
+    unless the world is laid out hosts × ranks (as of the last
+    :func:`refresh`), else ``"nvlink"`` when both are on one host and
+    ``"ib"`` when they are not (the JAX package's per-pair split of the
+    neighbour exchanges, ``parallel/collectives.py:310-336``)."""
+    from .mesh import initialized, rank
+    if _WORLD_SHAPE is None or not initialized():
+        return None
+    return "nvlink" if _slice_of(peer) == _slice_of(rank()) else "ib"
 
 
 def world_key() -> str:

@@ -24,8 +24,13 @@ candidates, enumerations, defaults and cost functions), so that
   change what runs, and are listed. A family left with one candidate has
   nothing to measure. On the CPU the lists stay the JAX package's, for
   the parity tests.
-- The port has no TPU and no hybrid (multi-slice) mesh: the JAX seeds'
-  branches for them are not carried over.
+- The port has no TPU: the JAX seeds' branches for it are not carried
+  over. On a world laid out hosts × ranks (a context whose
+  ``extra["topology"]`` is ``ib{D}xnvlink{I}``, JAX ``dcn{D}xici{I}``)
+  the SUMMA and FFT seeds split their bytes by fabric, and their
+  candidates are expanded along ``hierarchical`` (``on``, ``off``;
+  :func:`_expand_hier`), ``auto``'s resolution (on there) ranked first;
+  every other context keeps its candidate lists verbatim.
 - **Peaks.** On the card (``platform="cuda"``) the seeds read
   :mod:`..diagnostics.costmodel`'s tables for the card (FP32 outside
   the tensor cores, device memory, NVLink); on the CPU the JAX
@@ -117,8 +122,31 @@ def _peaks(context: Dict) -> Dict:
         chip = context.get("chip") or ""
         return {"flops": costmodel.peak_flops(chip, "f32"),
                 "hbm_gbps": costmodel.peak_hbm_gbps(chip),
-                "ici_gbps": costmodel.peak_nvlink_gbps(chip)}
-    return {"flops": None, "hbm_gbps": 30.0 / nd, "ici_gbps": 30.0 / nd}
+                "ici_gbps": costmodel.peak_nvlink_gbps(chip),
+                "dcn_gbps": costmodel.peak_dcn_gbps(chip)}
+    # the CPU: the second fabric needs only the JAX package's ~9x ratio
+    return {"flops": None, "hbm_gbps": 30.0 / nd, "ici_gbps": 30.0 / nd,
+            "dcn_gbps": 30.0 / nd / 9.0}
+
+
+def _fabric_of(context: Dict) -> Optional[Tuple[int, int]]:
+    """``(hosts, ranks_per_host)`` from the context's
+    ``extra["topology"]`` (``ib{D}xnvlink{I}``, set by ``plan.get_plan``
+    on a world laid out hosts × ranks; JAX ``:119-131``), else ``None``,
+    where every seed reads as on one host."""
+    t = str(context.get("extra", {}).get("topology") or "")
+    if t.startswith("ib") and "xnvlink" in t:
+        try:
+            d, i = t[2:].split("xnvlink")
+            return int(d), int(i)
+        except ValueError:
+            return None
+    return None
+
+
+def _t_dcn(context: Dict, dcn_bytes: float) -> float:
+    bw = _peaks(context).get("dcn_gbps")
+    return dcn_bytes / (bw * 1e9) if (bw and dcn_bytes) else 0.0
 
 
 def _dispatch_s(context: Dict) -> float:
@@ -174,14 +202,22 @@ def _cost_matrixmult(context: Dict, params: Dict) -> Optional[float]:
     from ..diagnostics.costmodel import summa_comm_volume_split
     split = summa_comm_volume_split(N, K, M, (pr, pc))
     sp = split.get(params.get("schedule", "gather"), split["gather"])
-    ici_b = (sp["r"] + sp["c"]) * it
+    fab = _fabric_of(context)
+    if fab is None:
+        ici_b, dcn_b = (sp["r"] + sp["c"]) * it, 0.0
+    elif params.get("hierarchical") == "off":
+        # with the two-level schedules off every byte may cross hosts
+        # (costmodel._summa_fabric_split's blind charge)
+        ici_b, dcn_b = 0.0, (sp["r"] + sp["c"]) * it
+    else:
+        ici_b, dcn_b = sp["c"] * it, sp["r"] * it
     pk = _peaks(context)
     flops = 2.0 * N * K * M / P
     hbm = (N * K + K * M + N * M) * it / P
     t_comp = flops / pk["flops"] if pk.get("flops") else 0.0
     t_hbm = hbm / (pk["hbm_gbps"] * 1e9) if pk.get("hbm_gbps") else 0.0
     return _overlap_seed(context, params, ici_b, steps=pc - 1,
-                         base_s=max(t_comp, t_hbm))
+                         base_s=max(t_comp, t_hbm)) + _t_dcn(context, dcn_b)
 
 
 def _cost_fft(context: Dict, params: Dict) -> Optional[float]:
@@ -193,7 +229,9 @@ def _cost_fft(context: Dict, params: Dict) -> Optional[float]:
     n_total = float(np.prod([int(s) for s in shape]))
     from ..diagnostics.costmodel import pencil_transpose_cost
     c = pencil_transpose_cost(tuple(int(s) for s in shape), P,
-                              itemsize=it)
+                              itemsize=it, fabric_shape=_fabric_of(context),
+                              hierarchical=params.get("hierarchical")
+                              != "off")
     pk = _peaks(context)
     flops = 5.0 * n_total * math.log2(max(2.0, n_total)) / P
     t_comp = flops / pk["flops"] if pk.get("flops") else 0.0
@@ -204,7 +242,7 @@ def _cost_fft(context: Dict, params: Dict) -> Optional[float]:
     K = int(params.get("comm_chunks", 1))
     # nothing hides behind the per-chunk transforms; each chunk adds one
     # all-to-all dispatch pair per transpose
-    base = max(t_comp, t_hbm)
+    base = max(t_comp, t_hbm) + _t_dcn(context, c.dcn_bytes)
     if params.get("overlap") != "on" or K <= 1:
         return base + t_ici
     return base + t_ici + 2 * (K - 1) * _dispatch_s(context)
@@ -258,12 +296,30 @@ def _one_tile(context: Dict) -> bool:
     return int(np.prod([max(1, int(g)) for g in grid])) == 1
 
 
+def _hier_auto(context: Dict) -> Optional[str]:
+    """``hierarchical=auto``'s resolution where the context spans hosts:
+    ``"on"`` (auto is on exactly on a world laid out hosts × ranks,
+    ``utils.deps.hierarchical_enabled``), else ``None``."""
+    return "on" if _fabric_of(context) else None
+
+
+def _expand_hier(cands: List[Dict], context: Dict) -> List[Dict]:
+    """The candidates expanded along ``hierarchical`` (``on``, ``off``),
+    only where the context carries a hosts × ranks topology (JAX
+    ``:290-303``): a flat world has nothing to stage, so its lists, keys
+    and budgets stay as they were."""
+    if not _fabric_of(context):
+        return cands
+    return [dict(p, hierarchical=h) for p in cands for h in ("on", "off")]
+
+
 def _enum_matrixmult(context: Dict) -> List[Dict]:
     if context.get("platform") == "cuda" and _one_tile(context):
         # one tile: every schedule runs the same GEMM
         return [_default_matrixmult(context)]
-    return [{"schedule": s, "overlap": o}
-            for s in ("gather", "stat_a") for o in ("off", "on")]
+    return _expand_hier([{"schedule": s, "overlap": o}
+                         for s in ("gather", "stat_a")
+                         for o in ("off", "on")], context)
 
 
 def _enum_fft(context: Dict) -> List[Dict]:
@@ -277,7 +333,8 @@ def _enum_fft(context: Dict) -> List[Dict]:
         if k > 1 and k not in seen:
             seen.add(k)
             ladder.append({"overlap": "on", "comm_chunks": int(k)})
-    return [{"overlap": "off", "comm_chunks": 1}] + ladder
+    return _expand_hier([{"overlap": "off", "comm_chunks": 1}] + ladder,
+                        context)
 
 
 def _enum_blockdiag(context: Dict) -> List[Dict]:
@@ -343,16 +400,22 @@ def default_params(space: TuningSpace, context: Optional[Dict] = None) \
     pick, not a fixed value); otherwise first in declaration order, with
     ``overlap=auto`` resolved as the constructors resolve it (on for a
     card under an NCCL group of several ranks: the first candidate that
-    carries it; JAX ``:360-380``)."""
+    carries it; JAX ``:360-380``), and where the context spans hosts
+    ``hierarchical=auto`` resolved too."""
     context = context or {}
     if space.default_fn is not None:
         return dict(space.default_fn(context))
     cands = candidates(space, context)
+    want = {}
     if "overlap" in cands[0] and space.op in _COLLECTIVE_OVERLAP \
             and _auto_on(context):
-        for c in cands:
-            if c.get("overlap") == "on":
-                return dict(c)
+        want["overlap"] = "on"
+    hier = _hier_auto(context)
+    if hier is not None and "hierarchical" in cands[0]:
+        want["hierarchical"] = hier
+    for c in cands:
+        if all(c.get(k) == v for k, v in want.items()):
+            return dict(c)
     return dict(cands[0])
 
 
@@ -362,7 +425,9 @@ def rank(space: TuningSpace, context: Dict) -> List[Dict]:
     resolves on (a card under an NCCL group of several ranks), the
     candidates with the default's ``overlap`` and ``comm_chunks`` come
     first: the seed prices no hidden transfer, so on its costs alone it
-    would rank off first against the constructors' default."""
+    would rank off first against the constructors' default. Where the
+    context spans hosts, the candidates with ``hierarchical=auto``'s
+    resolution come first likewise."""
     cands = candidates(space, context)
     if space.cost is None:
         return cands
@@ -370,6 +435,9 @@ def rank(space: TuningSpace, context: Dict) -> List[Dict]:
     if space.op in _COLLECTIVE_OVERLAP and _auto_on(context):
         d = default_params(space, context)
         keep = {k: d[k] for k in ("overlap", "comm_chunks") if k in d}
+    hier = _hier_auto(context)
+    if hier is not None and any("hierarchical" in p for p in cands):
+        keep["hierarchical"] = hier
     scored = []
     for i, p in enumerate(cands):
         try:
@@ -390,9 +458,13 @@ def _default_matrixmult(context: Dict) -> Dict:
     from ..diagnostics.costmodel import summa_comm_volume
     vols = summa_comm_volume(int(shape[0]), int(shape[1]),
                              int(shape[2]), grid)
-    return {"schedule": ("stat_a" if vols["stat_a"] < vols["gather"]
-                         else "gather"),
-            "overlap": "on" if _auto_on(context) else "off"}
+    out = {"schedule": ("stat_a" if vols["stat_a"] < vols["gather"]
+                        else "gather"),
+           "overlap": "on" if _auto_on(context) else "off"}
+    hier = _hier_auto(context)
+    if hier is not None:
+        out["hierarchical"] = hier
+    return out
 
 
 register_space(TuningSpace(

@@ -22,7 +22,9 @@ import torch
 __all__ = ["KNOBS", "SERVICE_KNOBS", "RESILIENCE_KNOBS", "COLLECTIVE_KNOBS",
            "spill_mode", "apply_environment", "overlap_mode",
            "overlap_auto", "overlap_enabled", "overlap_env_pinned", "comm_chunks_default",
-           "comm_chunks_env_pinned",
+           "comm_chunks_env_pinned", "hierarchical_mode",
+           "hierarchical_enabled", "hierarchical_env_pinned",
+           "hierarchical_active",
            "precond_default", "mg_levels_default", "ca_mode", "ca_s_default",
            "refine_enabled", "reduce_stall_steps", "batch_default"]
 
@@ -165,6 +167,10 @@ COLLECTIVE_KNOBS = [
      "for CUDA tensors under an NCCL group of more than one rank)"),
     ("PYLOPS_MPI_TPU_TORCH_COMM_CHUNKS", "int >= 1", "4", "ops/fft.py",
      "chunks of each streamed pencil transpose when overlap is on"),
+    ("PYLOPS_MPI_TPU_TORCH_HIERARCHICAL", "auto|on|off", "auto",
+     "parallel/collectives.py (ops/*.py)",
+     "two-level (NVLink, then IB) schedules on a world laid out hosts x "
+     "ranks (auto: on exactly there)"),
 ]
 
 
@@ -338,6 +344,74 @@ def overlap_env_pinned() -> bool:
     user's pin, which beats the tuner's plan as an explicit ``overlap=``
     does (``auto`` or unset leaves the plan free; JAX ``:555-560``)."""
     return overlap_mode() in ("on", "off")
+
+
+_warned_hier = False
+
+
+def hierarchical_mode() -> str:
+    """``PYLOPS_MPI_TPU_TORCH_HIERARCHICAL`` resolved to
+    ``auto``/``on``/``off`` (JAX ``utils/deps.py:591-607``; an unknown
+    value warns once and counts as ``auto``)."""
+    global _warned_hier
+    m = os.environ.get("PYLOPS_MPI_TPU_TORCH_HIERARCHICAL",
+                       "auto").strip().lower()
+    if m in ("", "none", "default"):
+        m = "auto"
+    if m not in ("auto", "on", "off"):
+        if not _warned_hier:
+            warnings.warn(f"PYLOPS_MPI_TPU_TORCH_HIERARCHICAL={m!r} is not "
+                          "one of ['auto', 'on', 'off']; using 'auto'",
+                          stacklevel=2)
+            _warned_hier = True
+        m = "auto"
+    return m
+
+
+def hierarchical_enabled(user=None) -> bool:
+    """The two-level tri-state as a bool (JAX ``:610-637``). ``user`` is
+    an operator's ``hierarchical=`` (``True``/``False``/``"on"``/
+    ``"off"``/``"auto"``; ``None`` defers to the environment; anything
+    else raises). ``auto`` is on exactly where the world is laid out
+    as hosts × ranks (``parallel.topology.world_shape``: the gathered
+    host names, or ``PYLOPS_MPI_TPU_TORCH_FABRIC`` where it declares
+    them), where the JAX package reads a TPU backend or its own fabric
+    variable. A true ``on`` is intent only: a schedule engages where
+    :func:`hierarchical_active` says so."""
+    if isinstance(user, bool):
+        return user
+    if user is None:
+        mode = hierarchical_mode()
+    else:
+        mode = str(user).strip().lower()
+        if mode not in ("auto", "on", "off"):
+            raise ValueError(f"hierarchical={user!r}: expected 'auto', "
+                             "'on', 'off', True or False")
+    if mode == "on":
+        return True
+    if mode == "off":
+        return False
+    from ..parallel import topology
+    return topology.world_shape() is not None
+
+
+def hierarchical_env_pinned() -> bool:
+    """``PYLOPS_MPI_TPU_TORCH_HIERARCHICAL`` is explicitly ``on`` or
+    ``off``: it beats the tuner's plan as an explicit keyword does (JAX
+    ``:640-645``)."""
+    return hierarchical_mode() in ("on", "off")
+
+
+def hierarchical_active(user=None) -> bool:
+    """What an operator's ``hierarchical=`` resolves to on this world:
+    :func:`hierarchical_enabled` and a world laid out as ``D`` hosts of
+    ``I`` ranks with ``D > 1`` and ``I > 1``
+    (``parallel.topology.world_shape``). Anywhere else, a world of one
+    and every flat world included, false: every schedule stays the flat
+    one, bit for bit. A ``user`` that is not a setting raises
+    everywhere."""
+    from ..parallel import topology
+    return hierarchical_enabled(user) and topology.world_shape() is not None
 
 
 def comm_chunks_default() -> int:

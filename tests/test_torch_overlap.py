@@ -598,7 +598,8 @@ def test_knob_resolution_matches_jax(monkeypatch):
     monkeypatch.delenv("PYLOPS_MPI_TPU_TORCH_OVERLAP", raising=False)
     assert td.overlap_enabled(None, "cuda") is False
     assert [k[0] for k in td.COLLECTIVE_KNOBS] == [
-        "PYLOPS_MPI_TPU_TORCH_OVERLAP", "PYLOPS_MPI_TPU_TORCH_COMM_CHUNKS"]
+        "PYLOPS_MPI_TPU_TORCH_OVERLAP", "PYLOPS_MPI_TPU_TORCH_COMM_CHUNKS",
+        "PYLOPS_MPI_TPU_TORCH_HIERARCHICAL"]
 
 
 def test_world_of_one_overlap_is_bulk():
