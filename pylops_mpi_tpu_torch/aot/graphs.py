@@ -60,7 +60,9 @@ The deltas are read process-wide: what another thread counts during a
 capture is added back at once but also counted at every replay (the
 serving daemon solves on its one dispatcher thread). Spans opened
 inside a segment are recorded at capture only, as the JAX package
-records ``op_span`` once at trace time.
+records ``op_span`` once at trace time; the ``solver.segment`` and
+``solver.check`` spans around them (:func:`run_iterations`) are opened
+at every segment, replayed or not.
 
 **Eligibility** is decided before any capture: the carry on CUDA, and no
 gloo group (gloo stages CUDA tensors through the host, which a graph
@@ -384,6 +386,7 @@ class Loop:
                  record=None):
         from ..diagnostics import telemetry
         self.solver = solver
+        self.per_segment = per_segment
         self.state = state
         self.consts = consts
         self._spec = record if (record is not None
@@ -593,26 +596,46 @@ def _reserved(device) -> int:
     return torch.cuda.memory_reserved(device) if device.type == "cuda" else 0
 
 
+def _check(loop: Loop, live: Callable, it: int) -> bool:
+    """The host check ``live(state)`` under a ``solver.check`` span: the
+    host waits there for the device's last segment."""
+    with _trace.span("solver.check", cat="solver", solver=loop.solver,
+                     it=it):
+        return bool(live(loop.state))
+
+
+def _segment(loop: Loop, it: int, iters: int, full: bool = True) -> None:
+    """``iters`` iterations from ``it`` under a ``solver.segment`` span,
+    tagged with how they ran: a full segment through :meth:`Loop.segment`,
+    else eagerly."""
+    with _trace.span("solver.segment", cat="solver", solver=loop.solver,
+                     it=it, iters=iters) as sp:
+        if full:
+            loop.segment()
+        else:
+            loop.eager(iters)
+        sp.tag(graph="replayed" if full and loop._entry is not None
+               else "eager")
+
+
 def run_iterations(loop: Loop, live: Callable, niter: int, start: int = 0):
     """Iterations ``[start, niter)`` of the loop's step, with the
     host check ``live(state)`` before every iteration ``it > start``
     that is a multiple of :data:`SEGMENT` (the eager loops' order).
     Full aligned segments go through :meth:`Loop.segment`; the odd first
-    one and the tail run eagerly. Returns :meth:`Loop.result`."""
+    one and the tail run eagerly, each under a ``solver.segment`` span.
+    Returns :meth:`Loop.result`."""
     loop._capturable = -(-start // SEGMENT) * SEGMENT + SEGMENT <= niter
     try:
         it = start
         while it < niter:
             end = min(niter, (it // SEGMENT + 1) * SEGMENT)
-            if it > start and not bool(live(loop.state)):
-                loop._stopped = True
-                break
             if it > start:
+                if not _check(loop, live, it):
+                    loop._stopped = True
+                    break
                 loop.fold(it)
-            if end - it == SEGMENT:
-                loop.segment()
-            else:
-                loop.eager(end - it)
+            _segment(loop, it, end - it, full=end - it == SEGMENT)
             it = end
         return loop.result()
     finally:
@@ -624,8 +647,10 @@ def run_while(loop: Loop, live: Callable):
     s-step engine's outer steps). Returns :meth:`Loop.result`."""
     loop._capturable = loop._stopped = True
     try:
-        while bool(live(loop.state)):
-            loop.segment()
+        it = 0
+        while _check(loop, live, it):
+            _segment(loop, it, loop.per_segment)
+            it += loop.per_segment
         return loop.result()
     finally:
         loop._release()

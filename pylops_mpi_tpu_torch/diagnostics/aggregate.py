@@ -2,7 +2,9 @@
 
 PyTorch counterpart of ``pylops_mpi_tpu/diagnostics/aggregate.py``. Each
 rank dumps its own Chrome-trace JSONL (``PYLOPS_MPI_TPU_TORCH_TRACE_FILE``
-or :func:`~.trace.dump`) with timestamps from its own process start.
+or :func:`~.trace.dump`) with timestamps on its host's wall clock (the
+profiler's; :mod:`.trace`), which hosts keep only roughly in step, and
+the alignment below assumes no more of them than a clock per rank.
 This module merges them:
 
 1. **Clock alignment.** Every rank enters the same collectives in the

@@ -15,9 +15,11 @@ PyTorch counterpart of ``pylops_mpi_tpu/diagnostics/profiler.py:60-293``:
    every outcome and never lets a stage's exception escape (the
    dispatcher turns a failed record into failed tickets).
 3. :func:`profile_capture`, a ``torch.profiler`` capture of a region
-   written as a Chrome trace into the ``logdir`` its caller names. The
-   JAX package's ``PYLOPS_MPI_TPU_PROFILE_DIR`` arms the regions its
-   solvers open; the port's solvers open none, so it has no such knob.
+   written as a Chrome trace into the ``logdir`` its caller names; it
+   holds the program's spans (:mod:`.trace`) as ``record_function``
+   ranges. The JAX package's ``PYLOPS_MPI_TPU_PROFILE_DIR`` arms the
+   regions its solvers open; the port's solvers open none, so it has no
+   such knob.
 
 The module imports only the standard library at load.
 """

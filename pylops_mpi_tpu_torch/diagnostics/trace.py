@@ -3,24 +3,48 @@
 PyTorch counterpart of ``pylops_mpi_tpu/diagnostics/trace.py:71-459``.
 A context-manager API with nested spans, monotonic timestamps and a
 thread-safe bounded buffer. Every operator apply opens an
-:func:`op_span`, every fused solve a ``solver.<name>`` span; the serving
-layer opens a span around every packed solve and prewarm, and records
-instant events for batches, drains and recoveries; the collectives and
-the graph bank record events of their own.
+:func:`op_span` (``matvec``, ``rmatvec`` and ``normal_matvec``), every
+fused solve a ``solver.<name>`` span, and inside it the loop opens
+``solver.setup``, ``solver.segment`` (one captured or eager run of
+iterations), ``solver.check`` (the host's read of the loop condition)
+and ``solver.readback`` (the iteration count and histories read back);
+the serving layer opens a span around every packed solve and prewarm,
+and records instant events for batches, drains and recoveries; the
+collectives and the graph bank record events of their own.
 
 Gating, ``PYLOPS_MPI_TPU_TORCH_TRACE``:
 
 - ``off`` (default): every entry point returns a shared no-op after one
-  environment lookup.
+  environment lookup and one read of PyTorch's profiler flag.
 - ``spans`` and ``full``: spans and events are recorded (the port has no
   in-loop telemetry, so ``full`` records what ``spans`` does).
 
-Timestamps are the host's clock (``perf_counter_ns`` from process
-start). PyTorch launches CUDA work asynchronously, so a span around
-device work measures the host's part unless the code inside waits for
-the device (the serving pool's span ends after the host copy of x,
-which does). The JAX package tags spans opened under a ``jit`` trace
+**The device trace.** While a ``torch.profiler`` session records,
+:func:`span` and :func:`op_span` also hold a
+``torch.profiler.record_function`` range of the span's name open for
+the span's lifetime, whatever the mode says, as PyTorch's own operators
+appear. The profiler puts every kernel under the ranges open at its
+launch, so device time and idle gaps can be put down to the program's
+spans (``profile_capture`` included). The profiler's flag is read
+through ``sys.modules``: this module imports only the standard library.
+
+**The clock.** Timestamps are wall-clock microseconds (the Unix epoch),
+the clock of the profiler's Chrome trace (``ts`` plus its
+``baseTimeNanoseconds``), so spans, profiler ranges and kernels line up
+with no fitting. They run on ``perf_counter_ns``, placed on the wall
+clock by one ``(perf_counter_ns, time_ns)`` pair read at import, so a
+step of the system clock cannot reorder them. :func:`dump` states the
+clock in a ``ph="M"`` event named ``clock``. PyTorch launches CUDA work
+asynchronously, so a span's own duration is the host's part unless the
+code inside waits for the device (the serving pool's span ends after
+the host copy of x, which does); the profiler's kernels give the
+device's. The JAX package tags spans opened under a ``jit`` trace
 (``_jax_tracing``); the port traces nothing, so it has no counterpart.
+
+**Solves.** A ``solver.<name>`` span opened outside any other solver
+span takes the next per-process ``solve`` number, and every span opened
+inside it carries that number in its ``args``, so one solve's spans
+share an identifier.
 
 Events are Chrome trace-event dicts (``ph`` ``X``/``i``/``C``), dumped
 one a line by :func:`dump` (or as one JSON array with
@@ -34,8 +58,10 @@ holds the newest ``PYLOPS_MPI_TPU_TORCH_TRACE_BUFFER`` events (default
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
+import sys
 import threading
 import time
 from collections import deque
@@ -83,15 +109,47 @@ def _buffer_size() -> int:
 # Completed events, the oldest dropped on overflow.
 _LOCK = threading.Lock()
 _BUF: deque = deque(maxlen=_buffer_size())
-_EPOCH_NS = time.perf_counter_ns()
+# the monotonic counter's reading at import and the wall clock's at the
+# same moment: spans run on the first, placed on the second
+_PERF0_NS = time.perf_counter_ns()
+_WALL0_NS = time.time_ns()
+CLOCK = "unix_wall_us"
 _tls = threading.local()  # per-thread stack of open spans
 _atexit_registered = False
 # every open span across threads (id → span), for the ph="B" flush
 _OPEN: Dict[int, "_Span"] = {}
+# the next solve number (a solver.<name> span outside any other)
+_SOLVES = itertools.count(1)
+_PROFILER = "torch.autograd.profiler"
+
+
+def _now_ns() -> int:
+    return time.perf_counter_ns() - _PERF0_NS + _WALL0_NS
 
 
 def _now_us() -> float:
-    return (time.perf_counter_ns() - _EPOCH_NS) / 1e3
+    return _now_ns() / 1e3
+
+
+def _profiler():
+    """PyTorch's autograd profiler module while a ``torch.profiler``
+    session records, else ``None``; its own flag, read without importing
+    torch."""
+    prof = sys.modules.get(_PROFILER)
+    if prof is not None and getattr(prof, "_is_profiler_enabled", False):
+        return prof
+    return None
+
+
+def _enter_range(name: str):
+    """A ``record_function`` range of ``name`` entered when a profiler
+    session records, else ``None``."""
+    prof = _profiler()
+    if prof is None:
+        return None
+    rf = prof.record_function(name)
+    rf.__enter__()
+    return rf
 
 
 def _jsonable(v):
@@ -176,20 +234,45 @@ class _NoopSpan:
 _NOOP = _NoopSpan()
 
 
-class _Span:
-    """One open span; records a ``ph="X"`` event at exit with its depth
-    and its parent's name, from which :func:`span_tree` rebuilds the
-    nesting."""
+class _Range(_NoopSpan):
+    """The span of ``TRACE=off`` while a profiler session records: its
+    ``record_function`` range alone."""
 
-    __slots__ = ("name", "args", "t0", "_depth", "_parent", "_tid")
+    __slots__ = ("name", "_rf")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._rf = None
+
+    def __enter__(self):
+        self._rf = _enter_range(self.name)
+        return self
+
+    def __exit__(self, *exc):
+        if self._rf is not None:
+            self._rf.__exit__(None, None, None)
+            self._rf = None
+        return False
+
+
+class _Span:
+    """One open span; records a ``ph="X"`` event at exit with its depth,
+    its parent's name and its solve's number, from which
+    :func:`span_tree` rebuilds the nesting."""
+
+    __slots__ = ("name", "args", "t0", "_t0_ns", "_depth", "_parent",
+                 "_tid", "_solve", "_rf")
 
     def __init__(self, name: str, args: Dict):
         self.name = name
         self.args = args
         self.t0 = 0.0
+        self._t0_ns = 0
         self._depth = 0
         self._parent = None
         self._tid = 0
+        self._solve = None
+        self._rf = None
 
     def tag(self, **tags) -> "_Span":
         """Attach tags learned inside the span to its event."""
@@ -202,37 +285,52 @@ class _Span:
             stack = _tls.stack = []
         self._depth = len(stack)
         self._parent = stack[-1].name if stack else None
+        self._solve = stack[-1]._solve if stack else None
+        if self._solve is None and self.name.startswith("solver."):
+            self._solve = next(_SOLVES)
         stack.append(self)
-        self.t0 = _now_us()
+        self._rf = _enter_range(self.name)
+        self._t0_ns = _now_ns()
+        self.t0 = self._t0_ns / 1e3
         self._tid = threading.get_ident()
         with _LOCK:
             _OPEN[id(self)] = self
             _ensure_flush_handlers()
         return self
 
+    def _args(self) -> Dict:
+        args = dict(self.args)
+        args["depth"] = self._depth
+        if self._parent is not None:
+            args["parent"] = self._parent
+        if self._solve is not None:
+            args["solve"] = self._solve
+        return args
+
     def __exit__(self, *exc):
-        t1 = _now_us()
+        t1_ns = _now_ns()
+        if self._rf is not None:
+            self._rf.__exit__(None, None, None)
+            self._rf = None
         stack = getattr(_tls, "stack", ())
         if stack and stack[-1] is self:
             stack.pop()
         with _LOCK:
             _OPEN.pop(id(self), None)
-        args = dict(self.args)
-        args["depth"] = self._depth
-        if self._parent is not None:
-            args["parent"] = self._parent
+        args = self._args()
         _record({"name": self.name, "ph": "X", "ts": round(self.t0, 3),
-                 "dur": round(t1 - self.t0, 3), "pid": os.getpid(),
-                 "tid": threading.get_ident(),
+                 "dur": round((t1_ns - self._t0_ns) / 1e3, 3),
+                 "pid": os.getpid(), "tid": threading.get_ident(),
                  "cat": args.pop("cat", "span"), "args": args})
         return False
 
 
 def span(name: str, cat: str = "span", **tags):
-    """A traced span (context manager); a no-op when tracing is off.
-    ``tags`` become the event's ``args``."""
+    """A traced span (context manager); with tracing off, a profiler
+    range while a ``torch.profiler`` session records, else the shared
+    no-op. ``tags`` become the event's ``args``."""
     if trace_mode() == "off":
-        return _NOOP
+        return _NOOP if _profiler() is None else _Range(name)
     args = {k: _jsonable(v) for k, v in tags.items()}
     args["cat"] = cat
     return _Span(name, args)
@@ -245,9 +343,11 @@ def op_span(op, which: str):
     ``schedule``, ``grid`` and ``compute_dtype`` where it has them. The
     JAX package's ``mesh_axes`` has no counterpart: the port's operators
     hold no mesh, the process group stands in for it. With tracing off
-    it returns the shared no-op after one mode lookup."""
+    it is what :func:`span` gives then: a profiler range while a session
+    records, else the shared no-op."""
     if trace_mode() == "off":
-        return _NOOP
+        return _NOOP if _profiler() is None else _Range(
+            f"{type(op).__name__}.{which}")
     tags = {"op": type(op).__name__, "shape": getattr(op, "shape", None),
             "dtype": getattr(op, "dtype", None)}
     for extra in ("overlap", "schedule", "grid", "compute_dtype"):
@@ -295,11 +395,8 @@ def open_span_events() -> List[Dict]:
         spans = list(_OPEN.values())
     out = []
     for s in spans:
-        args = dict(s.args)
+        args = s._args()
         args["open"] = True
-        args["depth"] = s._depth
-        if s._parent is not None:
-            args["parent"] = s._parent
         out.append({"name": s.name, "ph": "B", "ts": round(s.t0, 3),
                     "pid": os.getpid(), "tid": s._tid,
                     "cat": args.pop("cat", "span"), "args": args})
@@ -307,11 +404,18 @@ def open_span_events() -> List[Dict]:
     return out
 
 
+def _clock_event() -> Dict:
+    """The ``ph="M"`` event that names the timestamps' clock."""
+    return {"name": "clock", "ph": "M", "pid": os.getpid(), "tid": 0,
+            "args": {"clock": CLOCK, "unit": "us"}}
+
+
 def dump(path: str, fmt: str = "jsonl") -> int:
-    """Write the buffered events, and the open spans as ``ph="B"``
-    events, to ``path``: one object a line (``jsonl``) or one JSON
-    array (``chrome``). Returns the number of events written."""
-    events = get_events() + open_span_events()
+    """Write the clock's ``ph="M"`` event, the buffered events and the
+    open spans as ``ph="B"`` events to ``path``: one object a line
+    (``jsonl``) or one JSON array (``chrome``). Returns the number of
+    events written."""
+    events = [_clock_event()] + get_events() + open_span_events()
     if fmt == "chrome":
         with open(path, "w") as f:
             json.dump(events, f)

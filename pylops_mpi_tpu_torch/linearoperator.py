@@ -161,11 +161,17 @@ class MPILinearOperator:
     # ------------------------------------------------- normal-equations
     # ``(u, q) = (Opᴴ Op x, Op x)`` — the CGLS hot pair. The default is
     # two sweeps; operators that produce both in one memory pass
-    # (MPIBlockDiag's normal-product kernel) override it and set
-    # ``has_fused_normal``.
+    # (MPIBlockDiag's normal-product kernel) override ``_normal_matvec``
+    # and set ``has_fused_normal``.
     has_fused_normal = False
 
     def normal_matvec(self, x: DistributedArray):
+        """``(OpᴴOp x, Op x)``; traced like :meth:`matvec` (the default
+        two sweeps nest their own ``matvec`` and ``rmatvec`` spans)."""
+        with _trace.op_span(self, "normal_matvec"):
+            return self._normal_matvec(x)
+
+    def _normal_matvec(self, x: DistributedArray):
         q = self.matvec(x)
         return self.rmatvec(q), q
 

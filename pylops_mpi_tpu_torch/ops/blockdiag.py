@@ -247,14 +247,14 @@ class MPIBlockDiag(MPILinearOperator):
         return normal_kernels.supported(
             A.dtype, normal_kernels._X_DTYPE.get(A.dtype), A.shape[2])
 
-    def normal_matvec(self, x: DistributedArray):
+    def _normal_matvec(self, x: DistributedArray):
         """``(u, q) = (OpᴴOp x, Op x)`` with one read of the block stack
         when ``has_fused_normal`` holds and ``x`` is a real vector of the
         kernel's dtype; the two-sweep product otherwise."""
         if (not self.has_fused_normal or x.ndim != 1
                 or not normal_kernels.supported(self._batched.dtype, x.dtype,
                                                 self._batched.shape[2])):
-            return super().normal_matvec(x)
+            return super()._normal_matvec(x)
         nblk, m, n = self._batched.shape
         U, Q = normal_kernels.normal_matvec(
             self._batched, self._local_input(x, True).reshape(nblk, n))

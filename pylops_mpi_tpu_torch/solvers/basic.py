@@ -491,16 +491,18 @@ def _cg_step(Op, M, tol: float, guards: bool, stall_n: int, niter: int,
 
 def _cg_setup(Op, y: Vector, x: Vector, niter: int, M, guards: bool):
     """The fused CG loop's first carry, its constants ``(floors,)`` and
-    the stall window (shared with :mod:`.segmented`)."""
-    r = y - Op.matvec(x)
-    z = _precond_apply(M, r, x.dtype)
-    kold = _rdot(r, z)
-    cost = _history(torch.sqrt(kold), niter)
-    guard, stall_n = _guard_start(kold, guards)
-    state = (x, r, z, kold, torch.zeros((), dtype=torch.int64,
-                                        device=kold.device),
-             _counter(kold.device), cost) + guard
-    return state, (_mp_floor(kold),), stall_n
+    the stall window (shared with :mod:`.segmented`), under a
+    ``solver.setup`` span."""
+    with _trace.span("solver.setup", cat="solver", solver="cg"):
+        r = y - Op.matvec(x)
+        z = _precond_apply(M, r, x.dtype)
+        kold = _rdot(r, z)
+        cost = _history(torch.sqrt(kold), niter)
+        guard, stall_n = _guard_start(kold, guards)
+        state = (x, r, z, kold, torch.zeros((), dtype=torch.int64,
+                                            device=kold.device),
+                 _counter(kold.device), cost) + guard
+        return state, (_mp_floor(kold),), stall_n
 
 
 def _cg_loop(Op, M, y, state, consts, niter: int, tol: float, guards: bool,
@@ -529,9 +531,11 @@ def _run_cg(Op, y: Vector, x: Vector, niter: int, tol: float, M,
                     fault)
     x, _, _, kold, iiter, _, cost, status, _, _ = graphs.run_iterations(
         loop, lambda st: _live(st[3], tol, st[7]), niter)
-    iiter = int(iiter)
-    code = _resolve_status(status, kold, tol) if guards else None
-    return x, iiter, cost[:iiter + 1], code
+    with _trace.span("solver.readback", cat="solver", solver="cg"):
+        iiter = int(iiter)
+        code = _resolve_status(status, kold, tol) if guards else None
+        cost = cost[:iiter + 1]
+    return x, iiter, cost, code
 
 
 def _cgls_step(Op, M, damp: float, tol: float, normal: bool, guards: bool,
@@ -604,23 +608,25 @@ def _cgls_step(Op, M, damp: float, tol: float, normal: bool, guards: bool,
 def _cgls_setup(Op, y: Vector, x: Vector, niter: int, damp: float,
                 normal: bool, M, guards: bool):
     """The fused CGLS loop's first carry, its constants ``(floors,)``
-    and the stall window (shared with :mod:`.segmented`)."""
+    and the stall window (shared with :mod:`.segmented`), under a
+    ``solver.setup`` span."""
     damp2 = damp ** 2
-    s = y - Op.matvec(x)
-    rq = Op.rmatvec(s) - x * damp  # the reference's un-squared setup damp
-    z = _precond_apply(M, rq, x.dtype)
-    # the recurrence tracks the true gradient Opᴴs − damp²x (normal), or
-    # carries q = Op c (classic)
-    carry = rq + x * (damp - damp2) if normal else Op.matvec(z)
-    kold = _rdot(rq, z)
-    sn = s.norm()
-    cost = _history(sn, niter)
-    cost1 = _history(_damped_norm(sn, damp2, x), niter)
-    guard, stall_n = _guard_start(kold, guards)
-    state = (x, s, z, carry, kold,
-             torch.zeros((), dtype=torch.int64, device=kold.device),
-             _counter(kold.device), cost, cost1) + guard
-    return state, (_mp_floor(kold),), stall_n
+    with _trace.span("solver.setup", cat="solver", solver="cgls"):
+        s = y - Op.matvec(x)
+        rq = Op.rmatvec(s) - x * damp  # the reference's un-squared damp
+        z = _precond_apply(M, rq, x.dtype)
+        # the recurrence tracks the true gradient Opᴴs − damp²x (normal),
+        # or carries q = Op c (classic)
+        carry = rq + x * (damp - damp2) if normal else Op.matvec(z)
+        kold = _rdot(rq, z)
+        sn = s.norm()
+        cost = _history(sn, niter)
+        cost1 = _history(_damped_norm(sn, damp2, x), niter)
+        guard, stall_n = _guard_start(kold, guards)
+        state = (x, s, z, carry, kold,
+                 torch.zeros((), dtype=torch.int64, device=kold.device),
+                 _counter(kold.device), cost, cost1) + guard
+        return state, (_mp_floor(kold),), stall_n
 
 
 def _cgls_loop(Op, M, y, state, consts, niter: int, damp: float, tol: float,
@@ -649,9 +655,11 @@ def _run_cgls(Op, y: Vector, x: Vector, niter: int, damp: float, tol: float,
     x, _, _, _, kold, iiter, _, cost, cost1, status, _, _ = \
         graphs.run_iterations(loop, lambda st: _live(st[4], tol, st[9]),
                               niter)
-    iiter = int(iiter)
-    code = _resolve_status(status, kold, tol) if guards else None
-    return x, iiter, cost[:iiter + 1], cost1[:iiter + 1], kold, code
+    with _trace.span("solver.readback", cat="solver", solver="cgls"):
+        iiter = int(iiter)
+        code = _resolve_status(status, kold, tol) if guards else None
+        cost, cost1 = cost[:iiter + 1], cost1[:iiter + 1]
+    return x, iiter, cost, cost1, kold, code
 
 
 def _fault_key(guards: bool, fault) -> dict:

@@ -96,7 +96,8 @@ def test_trace_off_records_nothing_and_open_spans_dump(monkeypatch,
                 pass
             n = tr.dump(str(path))
         lines = [json.loads(line) for line in open(path)]
-        assert n == len(lines) == 2
+        # the port's dump opens with the event that names its clock
+        assert n == len(lines) == 2 + (tr is ttrace)
         outs.append([_strip(t) for t in tr.span_tree(lines)])
         with pytest.raises(ValueError, match="fmt"):
             tr.dump(str(path), fmt="xml")
@@ -295,6 +296,9 @@ def test_profile_capture(tmp_path):
 
 
 # ------------------------------------------ operator, solver, collectives
+LOOP_SPANS = {"solver.setup", "solver.segment", "solver.check",
+              "solver.readback"}
+
 def _solver_workload(pkg, conv, tr):
     """``cgls`` (5 iterations), ``ista`` (5) and one ``matvec`` on one
     4-block ``MPIBlockDiag``: the operator and solver spans of both
@@ -343,12 +347,17 @@ def test_operator_and_solver_spans_match_jax(monkeypatch):
         out.append(_solver_workload(pkg, conv, tr))
     j, t = out
     # names and tags, not counts: the JAX package opens op_span once at
-    # trace time under jit, the port at every apply
-    assert set(t) == set(j) == {
+    # trace time under jit, the port at every apply. The port's loops
+    # add spans of their own, and every span under a solve carries its
+    # number, which the JAX package has no counterpart of
+    assert set(t) - LOOP_SPANS == set(j) == {
         "MPIBlockDiag.matvec", "MPIBlockDiag.rmatvec",
         "_AdjointLinearOperator.matvec", "_ProductLinearOperator.matvec",
         "solver.cgls", "solver.ista"}
-    assert t == j
+    assert set(t) & LOOP_SPANS == LOOP_SPANS
+    assert "solve" in t["solver.cgls"][1]
+    assert {n: (c, keys - {"solve"}, o) for n, (c, keys, o) in t.items()
+            if n not in LOOP_SPANS} == j
 
 
 class _NoTransfer:
@@ -395,3 +404,178 @@ def test_collectives_count_into_the_registry(monkeypatch, tmp_path):
                                   "hm", "hp", "seq"}
     assert ev[0]["args"]["grid"] == [2, 1] and co.counts[
         "cart_halo_extend"] == 1
+
+
+# ---------------------------------------------- the spans in the device trace
+def _normal_system(n_blocks=4, m=6):
+    import numpy as np
+    import pylops_mpi_tpu_torch as pmtt
+    rng = np.random.default_rng(5)
+    blocks = [rng.standard_normal((m, m)) + 3 * np.eye(m)
+              for _ in range(n_blocks)]
+    op = pmtt.convert.blockdiag_from_numpy(blocks, device="cpu")
+    y = pmtt.DistributedArray.to_dist(rng.standard_normal(n_blocks * m),
+                                      device="cpu")
+    return op, y
+
+
+def _profiled(fn, path):
+    """``fn()`` under a CPU ``torch.profiler`` session; its result and
+    the exported Chrome trace."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = fn()
+    prof.export_chrome_trace(str(path))
+    return out, json.loads(path.read_text())
+
+
+def _ranges(doc):
+    return [e for e in doc["traceEvents"]
+            if e.get("cat") == "user_annotation" and e.get("ph") == "X"]
+
+
+def _inside(inner, outer):
+    return (outer["ts"] <= inner["ts"]
+            and inner["ts"] + inner["dur"] <= outer["ts"] + outer["dur"])
+
+
+def test_profiler_holds_the_solve_spans_with_tracing_off(tmp_path):
+    """With the mode unset, a profiled ``cgls(normal=True)`` holds the
+    loop's ranges and the fused product's, nested as the loop opens
+    them."""
+    import pylops_mpi_tpu_torch as pmtt
+    assert ttrace.trace_mode() == "off"
+    op, y = _normal_system()
+    _, doc = _profiled(lambda: pmtt.cgls(op, y, niter=20, tol=0.0,
+                                         normal=True), tmp_path / "t.json")
+    by = {}
+    for e in _ranges(doc):
+        by.setdefault(e["name"], []).append(e)
+    assert {"solver.cgls", "solver.setup", "solver.segment", "solver.check",
+            "solver.readback", "MPIBlockDiag.normal_matvec"} <= set(by)
+    (root,) = by["solver.cgls"]
+    assert len(by["MPIBlockDiag.normal_matvec"]) == 20
+    # 20 iterations: segments at 0 and 8, an eager tail at 16, a check
+    # before each but the first
+    assert len(by["solver.segment"]) == 3 and len(by["solver.check"]) == 2
+    for name in ("solver.setup", "solver.segment", "solver.check",
+                 "solver.readback"):
+        assert all(_inside(e, root) for e in by[name]), name
+    assert all(any(_inside(e, seg) for seg in by["solver.segment"])
+               for e in by["MPIBlockDiag.normal_matvec"])
+    (setup,) = by["solver.setup"]
+    assert all(_inside(e, setup) for e in by["MPIBlockDiag.matvec"]
+               + by["MPIBlockDiag.rmatvec"])
+    # no loop span overlaps another
+    loop = sorted(by["solver.setup"] + by["solver.segment"]
+                  + by["solver.check"] + by["solver.readback"],
+                  key=lambda e: e["ts"])
+    assert all(a["ts"] + a["dur"] <= b["ts"] for a, b in zip(loop, loop[1:]))
+    assert ttrace.get_events() == []  # the buffer stays gated by the mode
+
+
+def test_no_profiler_no_range(monkeypatch):
+    """Tracing off and no profiler: both entry points give the shared
+    no-op and no ``record_function`` is entered; under a profiler the
+    same solve enters one a span."""
+    import torch.autograd.profiler as ap
+    import pylops_mpi_tpu_torch as pmtt
+    entered = []
+    real = ap.record_function
+
+    class Counting(real):
+        def __enter__(self):
+            entered.append(self.name)
+            return super().__enter__()
+
+    monkeypatch.setattr(ap, "record_function", Counting)
+    assert ttrace.span("x") is ttrace._NOOP
+    assert ttrace.op_span(object(), "matvec") is ttrace._NOOP
+    op, y = _normal_system()
+    pmtt.cgls(op, y, niter=10, tol=0.0, normal=True)
+    assert entered == []
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]):
+        assert ttrace.span("x") is not ttrace._NOOP
+        pmtt.cgls(op, y, niter=10, tol=0.0, normal=True)
+    assert entered.count("MPIBlockDiag.normal_matvec") == 10
+    assert entered.count("solver.cgls") == 1
+
+
+def test_jsonl_spans_on_the_profiler_clock(monkeypatch, tmp_path):
+    """A span's JSONL start and its profiler range's start, the trace's
+    base added, agree within 1 ms; the dump names the clock."""
+    import pylops_mpi_tpu_torch as pmtt
+    monkeypatch.setenv("PYLOPS_MPI_TPU_TORCH_TRACE", "spans")
+    op, y = _normal_system()
+    _, doc = _profiled(lambda: pmtt.cgls(op, y, niter=20, tol=0.0,
+                                         normal=True), tmp_path / "t.json")
+    base_us = doc["baseTimeNanoseconds"] / 1e3
+    prof = {}
+    for e in _ranges(doc):
+        prof.setdefault(e["name"], []).append(float(e["ts"]) + base_us)
+    spans = {}
+    for e in ttrace.get_events():
+        spans.setdefault(e["name"], []).append(e["ts"])
+    for name in ("solver.cgls", "solver.setup", "solver.segment",
+                 "solver.check", "solver.readback",
+                 "MPIBlockDiag.normal_matvec"):
+        assert len(spans[name]) == len(prof[name]), name
+        for a, b in zip(sorted(spans[name]), sorted(prof[name])):
+            assert abs(a - b) < 1e3, (name, a, b)
+    n = ttrace.dump(str(tmp_path / "t.jsonl"))
+    first = json.loads(open(tmp_path / "t.jsonl").readline())
+    assert n == len(ttrace.get_events()) + 1
+    assert first["ph"] == "M" and first["args"]["clock"] == ttrace.CLOCK
+    assert abs(spans["solver.cgls"][0] - time.time_ns() / 1e3) < 60e6
+
+
+@pytest.mark.parametrize("normal", [True, False])
+def test_solves_bitwise_with_profiler_and_tracing(monkeypatch, tmp_path,
+                                                  normal):
+    """``x``, ``iiter`` and the cost history are bitwise the same with the
+    profiler on or off and the mode ``off`` or ``spans``."""
+    import torch
+    import pylops_mpi_tpu_torch as pmtt
+    op, y = _normal_system()
+    outs = []
+    for mode in ("off", "spans"):
+        monkeypatch.setenv("PYLOPS_MPI_TPU_TORCH_TRACE", mode)
+        for prof in (False, True):
+            def solve():
+                return pmtt.cgls(op, y, niter=19, tol=0.0, damp=1e-3,
+                                 normal=normal)
+            out = (_profiled(solve, tmp_path / "t.json")[0] if prof
+                   else solve())
+            outs.append((out[0].array.clone(), out[2], out[5].clone()))
+    x0, it0, c0 = outs[0]
+    assert it0 == 19
+    for x, it, c in outs[1:]:
+        assert torch.equal(x, x0) and it == it0 and torch.equal(c, c0)
+
+
+def test_spans_of_one_solve_share_its_number(monkeypatch):
+    """Every JSONL span under a ``solver.<name>`` root carries the root's
+    per-process ``solve`` number; two solves have two numbers, and a span
+    outside any solve has none."""
+    import pylops_mpi_tpu_torch as pmtt
+    monkeypatch.setenv("PYLOPS_MPI_TPU_TORCH_TRACE", "spans")
+    op, y = _normal_system()
+    pmtt.cgls(op, y, niter=10, tol=0.0, normal=True)
+    pmtt.cgls(op, y, niter=10, tol=0.0)
+    op.matvec(y)
+    roots = [n for n in ttrace.span_tree() if n["name"] == "solver.cgls"]
+    assert len(roots) == 2
+
+    def numbers(node):
+        out = [node["args"].get("solve")]
+        for c in node["children"]:
+            out += numbers(c)
+        return out
+    ids = [set(numbers(r)) for r in roots]
+    assert all(len(i) == 1 and None not in i for i in ids)
+    assert ids[0] != ids[1]
+    assert all(len(numbers(r)) > 5 for r in roots)
+    last = ttrace.get_events()[-1]
+    assert last["name"] == "MPIBlockDiag.matvec"
+    assert "solve" not in last["args"]
